@@ -1,0 +1,93 @@
+"""Exact fused upsample+conv ops (terrain_tpu/ops/fused.py).
+
+1. upsample2x_nearest_conv: repeat-upscale x2 followed by an odd-k 'same'
+   conv is ONE low-resolution conv with 4x output channels (the per-phase
+   kernels, built in fp32 from the grouping matrix G) and a depth-to-space.
+   For output q = 2i+phi, tap k' reads the repeated input at
+   i + floor((phi+k')/2), so summing taps grouped by that offset is exact.
+2. deconv2x2: the k=2 s=2 transposed conv writes non-overlapping 2x2
+   blocks -- a matmul with 4x output channels and a depth-to-space.
+3. bilinear2x_conv3x3: bilinear x2 then 3x3 'same' conv; in the kernel's
+   regime it is the fused bilinear_conv kernel (ops/kernels), elsewhere the
+   plain composite.
+"""
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from terrain_tpu_torch.ops.conv import conv2d
+from terrain_tpu_torch.ops.kernels import bilinear_conv as _bc
+from terrain_tpu_torch.ops.resize import upsample_bilinear_2x
+
+
+@lru_cache(maxsize=None)
+def _phase_grouping(k):
+    """G[phi, k_idx, d_idx] = 1 iff floor((phi + k')/2) == d, k' = k_idx - p.
+    Returns (G, n_taps) with a common d range across both phases."""
+    if k % 2 != 1:
+        raise ValueError("phase decomposition requires an odd kernel size")
+    p = (k - 1) // 2
+    dmin = -((p + 1) // 2)
+    dmax = (1 + p) // 2
+    n_taps = dmax - dmin + 1
+    G = np.zeros((2, k, n_taps), np.float32)
+    for phi in range(2):
+        for ki in range(k):
+            G[phi, ki, (phi + ki - p) // 2 - dmin] = 1.0
+    return G, n_taps
+
+
+def _depth_to_space2(y, cout):
+    """(N,H,W,(2,2,cout)) -> (N,2H,2W,cout)."""
+    n, h, w = y.shape[0], y.shape[1], y.shape[2]
+    y = y.reshape(n, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(n, 2 * h, 2 * w, cout)
+
+
+def upsample2x_nearest_conv(x, w, b=None, *, compute_dtype=None):
+    """Exactly conv2d(upsample_nearest_2x(x), w, 'same', stride 1).
+
+    x (N,H,W,cin); w (cout,cin,k,k), k odd.  Output (N,2H,2W,cout); the
+    bias is added after the depth-to-space."""
+    cd = compute_dtype or x.dtype
+    cout, cin, k, _ = w.shape
+    G, n_taps = _phase_grouping(k)
+    g = torch.tensor(G, device=w.device)
+    # K[(p,q,o), i, a, b] = sum_{h,w} w[o,i,h,w] G[p,h,a] G[q,w,b]
+    K = torch.einsum("oihw,pha,qwb->pqoiab", w.float(), g, g)
+    K = K.reshape(4 * cout, cin, n_taps, n_taps).to(cd)
+    y = _depth_to_space2(conv2d(x, K, stride=1, padding="same",
+                                compute_dtype=cd), cout)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def deconv2x2(x, w, b=None, *, compute_dtype=None):
+    """Exactly conv2d_transpose(x, w, stride=2) for k=2.  w is (I,O,2,2),
+    spatially flipped (ops/conv.py)."""
+    cd = compute_dtype or x.dtype
+    cin, cout = w.shape[0], w.shape[1]
+    wm = w.permute(0, 2, 3, 1).reshape(cin, 4 * cout).to(cd)
+    y = _depth_to_space2(torch.matmul(x.to(cd), wm), cout)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def bilinear2x_conv3x3(x, w, b=None, *, compute_dtype=None):
+    """Bilinear x2 upsample then 3x3 'same' conv (the U-Net decoder's
+    bilinear stage).  w (cout,cin,3,3).  In the bilinear_conv regime this
+    is the fused kernel (all arithmetic in fp32, output in the compute
+    dtype); off regime the unfused composite runs."""
+    cd = compute_dtype or x.dtype
+    cout, cin = w.shape[0], w.shape[1]
+    if _bc.supported(tuple(x.shape), (3, 3, cin, cout)):
+        bb = b if b is not None else torch.zeros(cout, device=x.device)
+        return _bc.bilinear_conv(
+            x.to(cd).contiguous(), w.to(cd).permute(2, 3, 1, 0).contiguous(),
+            bb.float().contiguous())
+    return conv2d(upsample_bilinear_2x(x), w, b, stride=1, padding="same",
+                  compute_dtype=cd)
