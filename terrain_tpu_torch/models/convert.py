@@ -10,8 +10,15 @@ nn.ModuleList), and each layer module converts its own leaves
   * deconv HWIO -> spatially flipped (I, O, kh, kw) for F.conv_transpose2d;
   * dense (din, dout) -> (dout, din);
   * BN gamma/beta/mean/inv_std unchanged.
+
+A gradient or an optimizer-state tree of terrain_tpu has the shape of
+`params`, so `params_from_jax` / `params_to_jax` carry such a tree into the
+port's layouts (one tensor per `module.parameters()` entry) and back.
 """
 
+import copy
+
+import torch
 from torch import nn
 
 
@@ -75,3 +82,21 @@ def _dump(mod):
             state[k] = t
     return params, state
 
+
+def params_from_jax(module, tree):
+    """A terrain_tpu tree shaped like the module's `params` (weights,
+    gradients, rmsprop `accu`) as a list of tensors in the port's layouts,
+    in `module.parameters()` order."""
+    tmp = copy.deepcopy(module).cpu()
+    load_jax(tmp, tree, to_jax(tmp)[1])
+    return [p.detach() for p in tmp.parameters()]
+
+
+def params_to_jax(module, tensors):
+    """The inverse: a list of tensors in `module.parameters()` order as a
+    terrain_tpu tree shaped like `params`."""
+    tmp = copy.deepcopy(module).cpu()
+    with torch.no_grad():
+        for p, t in zip(tmp.parameters(), tensors, strict=True):
+            p.copy_(t)
+    return to_jax(tmp)[0]

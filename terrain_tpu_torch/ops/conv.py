@@ -8,12 +8,18 @@ does the flip); dense (dout, din).
 Padding is explicit and symmetric, (k-1)//2 for 'same', as Lasagne pads
 even for strided convs -- never F.conv2d's string 'same', which differs
 from it for stride 2.  Plain convolutions go to `F.conv2d` on a
-channels-last NCHW view of the NHWC tensor; thin-cout 3x3 s1 convs in the
-conv_thin regime go to the conv_thin kernel (ops/kernels/conv_thin.py).
+channels-last NCHW view of the NHWC tensor.  Two regimes go to hand-written
+kernels instead, tried in terrain_tpu's order (ops/conv.py:98-102): the
+one-channel 5x5 s1 stem conv (ops/kernels/conv_stem.py, with the LeakyReLU
+fused through `conv2d_leaky`), then thin-cout 3x3 s1 convs
+(ops/kernels/conv_thin.py).  The dispatch is a pure shape rule.
 """
 
+import torch
 import torch.nn.functional as F
 
+from terrain_tpu_torch.ops.activations import leaky_relu
+from terrain_tpu_torch.ops.kernels import conv_stem as _cs
 from terrain_tpu_torch.ops.kernels import conv_thin as _ct
 
 
@@ -29,12 +35,27 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def _try_stem(x, w, b, s, padding, cd, slope=None):
+    """The stem kernel in its regime (bias and activation included), else
+    None.  x and w go in the compute dtype, the bias in fp32, unrounded."""
+    cout, cin, kh, kw = w.shape
+    if not _cs.supported(tuple(x.shape), (kh, kw, cin, cout), s, padding):
+        return None
+    bb = b.float() if b is not None else torch.zeros(cout, device=x.device)
+    return _cs.conv_stem(x.to(cd).contiguous(),
+                         w.to(cd).permute(2, 3, 1, 0).contiguous(),
+                         bb.contiguous(), slope)
+
+
 def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None):
     """2D cross-correlation, NHWC x OIHW -> NHWC; padding 'same'
     (symmetric (k-1)//2) or 'valid'."""
     cout, cin, kh, kw = w.shape
     s = _to_pair(stride)
     cd = compute_dtype or x.dtype
+    out = _try_stem(x, w, b, s, padding, cd)
+    if out is not None:
+        return out
     if _ct.supported(tuple(x.shape), (kh, kw, cin, cout), s, padding):
         out = _ct.conv_thin(x.to(cd).contiguous(),
                             w.to(cd).permute(2, 3, 1, 0).contiguous())
@@ -50,6 +71,19 @@ def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None):
     if b is not None:
         out = out + b.to(out.dtype)
     return out
+
+
+def conv2d_leaky(x, w, b=None, *, slope=0.2, stride=1, padding="same",
+                 compute_dtype=None):
+    """conv2d followed by LeakyReLU(slope): in the stem regime one kernel
+    with the activation as its epilogue (terrain_tpu ops/conv.py:124-145),
+    else leaky_relu(conv2d(...))."""
+    out = _try_stem(x, w, b, _to_pair(stride), padding,
+                    compute_dtype or x.dtype, slope=slope)
+    if out is not None:
+        return out
+    return leaky_relu(conv2d(x, w, b, stride=stride, padding=padding,
+                             compute_dtype=compute_dtype), slope)
 
 
 def conv2d_transpose(x, w, b=None, *, stride=2, compute_dtype=None):

@@ -24,7 +24,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("conv_thin", "bilinear_conv")
+SOURCES = ("conv_thin", "bilinear_conv", "conv_stem")
 
 _lock = threading.Lock()
 
@@ -123,3 +123,43 @@ class CudaKernel:
             msg = self._err(rc).decode(errors="replace")
             raise RuntimeError(f"{self.entry} launch failed: {msg} ({rc})")
         self.launches += 1
+
+
+class OpCounter:
+    """Counts the calls of an op that is no kernel of its own (a backward
+    pass made of PyTorch ops), for the same purpose as
+    `CudaKernel.launches`."""
+
+    def __init__(self):
+        self.calls = 0
+
+
+def all_on_cpu(name, *tensors):
+    """True when every tensor lies on the CPU (the caller then runs its plain
+    version).  Otherwise all must lie on one CUDA device and be contiguous,
+    or this raises: there is no fallback for a tensor off the CPU."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{name}: tensors on {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: every tensor must be contiguous")
+    return False
+
+
+def stream_of(t):
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def partial_blocks(t, per_sm=2):
+    """Number of blocks of a two-pass reduction kernel: a fixed multiple of
+    the card's SM count, so the partial sums and their order are the same
+    from run to run."""
+    import torch
+
+    return per_sm * torch.cuda.get_device_properties(
+        t.device).multi_processor_count

@@ -34,8 +34,10 @@ def batch_norm(x, gamma, beta, mean, inv_std, *, train, eps=EPS, alpha=ALPHA):
 
 class BatchNorm(nn.Module):
     """Lasagne BatchNormLayer over the last (channel) axis.  The running
-    statistics are buffers; this slice only reads them (serving), so
-    `forward` leaves them unchanged in either mode."""
+    statistics are buffers.  `forward` writes them (in place, outside
+    autograd) only when asked to with `update_stats=True` in train mode: a
+    train step runs a discriminator up to three times, and only one of
+    those passes may leave its statistics behind (train/step.py)."""
 
     def __init__(self, num_features):
         super().__init__()
@@ -44,9 +46,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("inv_std", torch.ones(num_features))
 
-    def forward(self, x, train=False):
-        y, _ = batch_norm(x, self.gamma, self.beta, self.mean, self.inv_std,
-                          train=train)
+    def forward(self, x, train=False, update_stats=False):
+        y, (mean, inv_std) = batch_norm(
+            x, self.gamma, self.beta, self.mean, self.inv_std, train=train)
+        if train and update_stats:
+            with torch.no_grad():
+                self.mean.copy_(mean)
+                self.inv_std.copy_(inv_std)
         return y
 
     def load_jax(self, params, state):

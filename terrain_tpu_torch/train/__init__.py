@@ -1,1 +1,1 @@
-"""Training-side modules of the port; this slice has only checkpoints."""
+"""Training: checkpoints, losses, optimizers and the four-network step."""

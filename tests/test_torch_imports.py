@@ -1,8 +1,11 @@
 """The port stands alone: no module of terrain_tpu_torch and no line of
-chip_smoke.py imports jax, jaxlib or terrain_tpu."""
+chip_smoke.py imports jax, jaxlib or terrain_tpu, and importing the whole
+package builds no kernel and touches no CUDA device."""
 
 import ast
+import importlib
 import pathlib
+import sys
 
 import pytest
 
@@ -38,5 +41,34 @@ def test_no_jax_or_terrain_tpu_imports(path):
 def test_the_file_list_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("chip_smoke.py", "terrain_tpu_torch/serve/server.py",
-                 "terrain_tpu_torch/ops/kernels/bilinear_conv.py"):
+                 "terrain_tpu_torch/ops/kernels/bilinear_conv.py",
+                 "terrain_tpu_torch/ops/kernels/conv_stem.py",
+                 "terrain_tpu_torch/ops/kernels/conv_thin.py",
+                 "terrain_tpu_torch/ops/pool.py",
+                 "terrain_tpu_torch/train/losses.py",
+                 "terrain_tpu_torch/train/optim.py",
+                 "terrain_tpu_torch/train/step.py",
+                 "terrain_tpu_torch/experiments.py"):
         assert must in names
+
+
+def test_importing_every_module_builds_nothing_and_touches_no_device():
+    import torch
+
+    from terrain_tpu_torch.ops.kernels import _build
+
+    def built():
+        d = pathlib.Path(_build.BUILD_DIR)
+        return sorted(p.name for p in d.iterdir()) if d.exists() else []
+
+    before = built()
+    for path in FILES[:-1]:
+        rel = path.relative_to(ROOT).with_suffix("")
+        name = ".".join(rel.parts)
+        if name.endswith(".__main__"):
+            continue  # an entry point: it parses sys.argv when imported
+        name = name.removesuffix(".__init__")
+        importlib.import_module(name)
+    assert built() == before
+    assert not torch.cuda.is_initialized()
+    assert "triton" not in sys.modules
