@@ -2,22 +2,24 @@
 """Drive terrain_tpu_torch's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
-    python3 chip_smoke.py kernels train   # some phases only, no result lines
+    python3 chip_smoke.py kernels trainer   # some phases only, no result lines
 
 Phases (any failure exits non-zero and prints no result line):
   1. card: its name and power limit (nvidia-smi), torch/CUDA versions, and
      the nvcc build of every kernel from csrc/ (timed, one nvcc per source,
      all started together);
-  2. kernels: each of the seven CUDA kernels against its plain PyTorch
+  2. kernels: each of the eleven CUDA kernels against its plain PyTorch
      version on the card, in fp32 and bf16, at the main paths' shapes and
-     small ragged ones; max-abs error against a stated tolerance, and times
-     (CUDA events, median of 30 launches after warm-up) of the kernel, the
-     plain version and one PyTorch library call for the same function,
-     beside the least time the card could take.  Then the three
-     differentiable ops (conv_thin, conv_stem, bilinear_conv) on CUDA
-     tensors against autograd of their plain versions: the gradients must
-     exist and agree; and the bilinear_conv backward (PyTorch ops, as it is
-     XLA code in the JAX package) timed as an op;
+     small ones; max-abs error against a stated tolerance (the pool moves
+     values and is held exactly, deliberate ties included; a dW kernel
+     without atomics must give the same bits twice), and times (CUDA
+     events, median of 30 launches after warm-up) of the kernel, the plain
+     version and one PyTorch library call for the same function, beside the
+     least time the card could take.  Then the five differentiable ops
+     (conv_thin, conv_stem, bilinear_conv, pool2, conv_s2) on CUDA tensors
+     against autograd of their plain versions: the gradients must exist and
+     agree; and the bilinear_conv backward (PyTorch ops, as it is XLA code
+     in the JAX package) timed as an op;
   3. serve: test1_nobn_bilin_both's generators at full width (512px,
      latent 1000) with seeded random weights -- the repository holds no
      trained checkpoint, so this is the server's --no-weights mode --
@@ -31,14 +33,25 @@ Phases (any failure exits non-zero and prints no result line):
   4. train: the flagship four-network train step built through
      experiments.build_train at full width (512px, latent 1000, batch 4,
      seeded weights and a seeded synthetic batch), in fp32 and with bf16
-     compute over fp32 parameters: a warm-up step, then timed steps with
-     the launch counters set to 0 just before and read just after (per
-     step: conv_stem fwd 2, dW 1, dX 1; conv_thin fwd, dX, dW 1 each;
-     bilinear_conv 2 and its backward 2), finite losses, every parameter of
-     all four networks changed, step time, images/s, peak memory, and a
-     profiled step by kernel; then one step of the 256px configuration on
-     the card (kernels) and on the CPU (plain versions) from the same
-     weights and batch: losses, gradients and updated weights.
+     compute over fp32 parameters, with the two opt-in kernel switches
+     (TERRAIN_POOL_VJP=pallas, TERRAIN_PALLAS_CONVS2=1) off and on: a
+     warm-up step, then timed steps with the launch counters set to 0 just
+     before and read just after (per step: conv_stem fwd 2, dW 1, dX 1;
+     conv_thin fwd, dX, dW 1 each; bilinear_conv 2 and its backward 2; with
+     the switches on pool2 fwd 12 and bwd 12, conv_s2 fwd 3 and dW 2, with
+     them off 0), finite losses, every parameter of all four networks
+     changed, step time, images/s, peak memory, and a profiled step by
+     kernel; then one step of the 256px configuration, switches on, on the
+     card (kernels) and on the CPU (plain versions) from the same weights
+     and batch: losses, gradients and updated weights;
+  5. trainer: `python -m terrain_tpu_torch test1_nobn_bilin_both train`
+     through cli.main at full width on 240 synthetic pairs held on the card
+     as uint8, gathered, normalized and augmented inside the step, both
+     switches on: one epoch with a checkpoint, then the same command
+     resuming it for a second epoch; results.txt (header, two rows of
+     finite losses), the dumps, both checkpoints (every parameter moved),
+     the launch counts of an epoch, epoch time, images/s, the data path's
+     share of a step, peak memory; then smoke_synthetic train + gen.
 The last lines are the `kernels` JSON, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -88,7 +101,32 @@ TRAIN_STEPS = 3
 TRAIN_LAUNCHES = {"conv_stem_fwd": 2, "conv_stem_dw": 1, "conv_stem_dx": 1,
                   "conv_thin": 1, "conv_thin_dx": 1, "conv_thin_dw": 1,
                   "bilinear_conv": 2, "bilinear_conv_backward": 2}
-PHASES = {"kernels", "serve", "train", "conditioning"}
+# the two opt-in ops, switched on as in terrain_tpu: six of the DCGAN
+# discriminator's seven pools in its two passes, forward and backward; the
+# U-Net's and PatchGAN's first convs (PatchGAN twice), dW+db where the
+# parameters are live
+SWITCHES = {"TERRAIN_POOL_VJP": "pallas", "TERRAIN_PALLAS_CONVS2": "1"}
+SWITCHED_LAUNCHES = {"pool2_fwd": 12, "pool2_bwd": 12, "conv_s2_fwd": 3,
+                     "conv_s2_dw": 2}
+# an eval step runs the forwards only; a dump of [A, G(A)] pairs runs the
+# U-Net alone
+EVAL_LAUNCHES = {"pool2_fwd": 12, "pool2_bwd": 0, "conv_s2_fwd": 3,
+                 "conv_s2_dw": 0}
+TRAINER_N = 240          # the shipped set's size: 250 MB of uint8 on the card
+PHASES = {"kernels", "serve", "train", "trainer", "conditioning"}
+
+
+def set_switches(on):
+    for k, v in SWITCHES.items():
+        if on:
+            os.environ[k] = v
+        else:
+            os.environ.pop(k, None)
+
+
+def expected_launches(on):
+    return {**TRAIN_LAUNCHES,
+            **{k: v if on else 0 for k, v in SWITCHED_LAUNCHES.items()}}
 
 
 def fail(msg):
@@ -137,8 +175,10 @@ def kernel_cases(torch):
     from torch.nn import grad as ng
 
     from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
+    from terrain_tpu_torch.ops.kernels import conv_s2 as c2
     from terrain_tpu_torch.ops.kernels import conv_stem as cs
     from terrain_tpu_torch.ops.kernels import conv_thin as ct
+    from terrain_tpu_torch.ops.kernels import pool2 as p2
 
     def es(dt):
         return torch.finfo(dt).bits // 8
@@ -260,6 +300,81 @@ def kernel_cases(torch):
             nbytes=lambda dt: es(dt) * (n * h * w * (c + 4 * f) + 9 * c * f)
             + 4 * f)
 
+    def pool_x(dt, g, n, h, w, c, ties):
+        x = _rand(torch, g, (n, h, w, c), dt)
+        # ties: a handful of levels, so most windows hold their maximum twice
+        return torch.round(x * 2) / 2 if ties else x
+
+    def pool_fwd(n, h, w, c, ties=False):
+        def make(dt, g):
+            return (pool_x(dt, g, n, h, w, c, ties),)
+
+        return dict(
+            name="pool2_fwd", shape=(n, h, w, c, "ties" if ties else "random"),
+            make=make, kern=p2.pool2_fwd, plain=p2.pool2_fwd_plain, exact=True,
+            lib=lambda x: F.max_pool2d(nchw(x), 2),
+            flops=3.0 * n * (h // 2) * (w // 2) * c,
+            nbytes=lambda dt: es(dt) * n * h * w * c * 5 // 4)
+
+    def pool_bwd(n, h, w, c, ties=False):
+        def make(dt, g):
+            return (pool_x(dt, g, n, h, w, c, ties),
+                    _rand(torch, g, (n, h // 2, w // 2, c), dt))
+
+        def lib_make(x, gg):
+            # autograd through the library pool: its backward alone
+            xr = x.clone().requires_grad_()
+            y = F.max_pool2d(nchw(xr), 2)
+            return lambda: torch.autograd.grad(y, xr, nchw(gg),
+                                               retain_graph=True)
+
+        return dict(
+            name="pool2_bwd", shape=(n, h, w, c, "ties" if ties else "random"),
+            make=make, kern=p2.pool2_bwd, plain=p2.pool2_bwd_plain, exact=True,
+            lib_make=lib_make, flops=5.0 * n * (h // 2) * (w // 2) * c,
+            nbytes=lambda dt: es(dt) * n * h * w * c * 9 // 4)
+
+    def s2_args(dt, g, n, h, w, c, f, slope):
+        x = _rand(torch, g, (n, h, w, c), dt)
+        wt = _rand(torch, g, (3, 3, c, f), dt, (9 * c) ** -0.5)
+        b = _rand(torch, g, (f,), torch.float32, 0.1)
+        y = c2.conv_s2_fwd_plain(x, wt, b, slope)
+        return x, wt, b, y, _rand(torch, g, (n, h // 2, w // 2, f), dt)
+
+    def s2_fwd(n, h, w, c, f, slope):
+        def make(dt, g):
+            return s2_args(dt, g, n, h, w, c, f, slope)[:3]
+
+        return dict(
+            name="conv_s2_fwd", shape=(n, h, w, c, f, slope), make=make,
+            kern=lambda x, wt, b: c2.conv_s2_fwd(x, wt, b, slope),
+            plain=lambda x, wt, b: c2.conv_s2_fwd_plain(x, wt, b, slope),
+            # the conv alone; the activation would be a second call
+            lib=lambda x, wt, b: F.conv2d(nchw(x), oihw(wt), b.to(x.dtype),
+                                          stride=2, padding=1),
+            flops=2.0 * n * (h // 2) * (w // 2) * 9 * c * f,
+            nbytes=lambda dt: es(dt) * (n * h * w * c + n * h * w // 4 * f
+                                        + 9 * c * f) + 4 * f)
+
+    def s2_dw(n, h, w, c, f, slope):
+        k = 2 if slope is not None else 1
+
+        def make(dt, g):
+            x, _, _, y, gg = s2_args(dt, g, n, h, w, c, f, slope)
+            return (x, gg, y)
+
+        return dict(
+            name="conv_s2_dw", shape=(n, h, w, c, f, slope), make=make,
+            kern=lambda x, gg, y: c2.conv_s2_dw(x, gg, y, slope),
+            plain=lambda x, gg, y: c2.conv_s2_dw_plain(x, gg, y, slope),
+            f32_out=True, twice=True,
+            # dW alone, on the unmasked cotangent
+            lib=lambda x, gg, y: ng.conv2d_weight(
+                nchw(x), (f, c, 3, 3), nchw(gg), stride=2, padding=1),
+            flops=2.0 * n * (h // 2) * (w // 2) * (9 * c + 1) * f,
+            nbytes=lambda dt: es(dt) * (n * h * w * c + k * n * h * w // 4 * f)
+            + 4 * (9 * c + 1) * f)
+
     return [bil(4, 64, 64, 512, 128), bil(4, 128, 128, 256, 64),
             bil(2, 21, 27, 24, 16),
             thin(4, 256, 256, 64, 4), thin(3, 37, 45, 24, 3),
@@ -270,7 +385,15 @@ def kernel_cases(torch):
             stem_dw(8, 512, 512, 64, 0.2), stem_dw(2, 37, 45, 8, 0.2),
             stem_dw(1, 21, 70, 64, None),
             stem_dx(4, 512, 512, 64, 0.2), stem_dx(2, 37, 45, 8, 0.2),
-            stem_dx(1, 21, 70, 64, None)]
+            stem_dx(1, 21, 70, 64, None),
+            pool_fwd(8, 512, 512, 64), pool_fwd(4, 16, 16, 256),
+            pool_fwd(2, 16, 32, 8, ties=True),
+            pool_bwd(8, 512, 512, 64), pool_bwd(4, 16, 16, 256),
+            pool_bwd(2, 64, 64, 64, ties=True),
+            s2_fwd(4, 512, 512, 1, 64, None), s2_fwd(8, 512, 512, 4, 64, 0.01),
+            s2_fwd(1, 64, 256, 2, 8, 0.2),
+            s2_dw(4, 512, 512, 1, 64, None), s2_dw(8, 512, 512, 4, 64, 0.01),
+            s2_dw(1, 64, 256, 2, 8, 0.2)]
 
 
 def _as_tuple(v):
@@ -287,8 +410,17 @@ def check_kernels(torch):
                               (torch.bfloat16, BF16_PEAK, BF16_TOL)):
             if case.get("f32_out"):
                 tol = F32_TOL  # fp32 sums of the same rounded inputs
+            if case.get("exact"):
+                tol = 0.0      # a selection: the same bits, ties included
             args = case["make"](dt, g)
             refs = _as_tuple(case["plain"](*args))
+            # A wrapper writes into torch.empty, which may hand back a freed
+            # block that still holds the plain version's values: fill the
+            # free blocks of that size with NaN, so a kernel that wrote
+            # nothing cannot pass.
+            poison = [torch.full_like(r, float("nan"))
+                      for r in refs for _ in range(3)]
+            del poison
             outs = _as_tuple(case["kern"](*args))
             torch.cuda.synchronize()
             err = lim = 0.0
@@ -302,11 +434,16 @@ def check_kernels(torch):
                     fail(f"{name} {shape} {dt}: error {e} > {bound}")
                 if e >= err:
                     err, lim = e, bound
+            if case.get("twice"):  # no atomics: the same bits every run
+                again = _as_tuple(case["kern"](*args))
+                if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+                    fail(f"{name} {shape} {dt}: two runs differ")
+            lib = (case["lib_make"](*args) if "lib_make" in case
+                   else lambda: case["lib"](*args))
             ms = time_ms(lambda: case["kern"](*args))
             plain_ms = time_ms(lambda: case["plain"](*args),
                                reps=10 if big else 30)
-            lib_ms = time_ms(lambda: case["lib"](*args),
-                             reps=10 if big else 30)
+            lib_ms = time_ms(lib, reps=10 if big else 30)
             t_ops = case["flops"] / peak * 1e3
             t_bytes = case["nbytes"](dt) / HBM_BW * 1e3
             row = dict(shape=shape, dtype=str(dt).split(".")[-1],
@@ -318,7 +455,7 @@ def check_kernels(torch):
                   f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
                   f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
             results.setdefault(name, []).append(row)
-            del args, refs, outs
+            del args, refs, outs, lib
     return results
 
 
@@ -331,8 +468,10 @@ def check_autograd(torch):
     import torch.nn.functional as F
 
     from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
+    from terrain_tpu_torch.ops.kernels import conv_s2 as c2
     from terrain_tpu_torch.ops.kernels import conv_stem as cs
     from terrain_tpu_torch.ops.kernels import conv_thin as ct
+    from terrain_tpu_torch.ops.kernels import pool2 as p2
 
     g = torch.Generator(device="cuda").manual_seed(99)
 
@@ -359,7 +498,40 @@ def check_autograd(torch):
         print(f"autograd {label} {str(dt).split('.')[-1]}: largest relative "
               f"gradient error {worst:.3e} (tol {tol})", flush=True)
 
+    def pool_grad(dt, n, h, w, c):
+        """Pool2Fn: the gradient is a selection, so it is held exactly to
+        the plain backward (autograd of the plain forward would split a
+        tie); inputs on a few levels, so ties are everywhere."""
+        x = (torch.round(_rand(torch, g, (n, h, w, c), dt) * 2) / 2) \
+            .requires_grad_()
+        y = p2.max_pool2(x)
+        if y.grad_fn is None:
+            fail(f"pool2 {(n, h, w, c)}: the output has no grad_fn")
+        cot = _rand(torch, g, tuple(y.shape), dt)
+        (got,) = torch.autograd.grad(y, x, cot)
+        want = p2.pool2_bwd_plain(x.detach(), cot)
+        if got.dtype != dt or not torch.equal(got, want):
+            fail(f"pool2 {(n, h, w, c)} {dt}: gradient differs from the "
+                 f"plain backward")
+        xl = x.detach().clone().requires_grad_()
+        (lib,) = torch.autograd.grad(
+            F.max_pool2d(xl.permute(0, 3, 1, 2), 2), xl,
+            cot.permute(0, 3, 1, 2))
+        print(f"autograd pool2 {(n, h, w, c)} {str(dt).split('.')[-1]}: "
+              f"gradient equals the plain backward on tied inputs; equals "
+              f"autograd of F.max_pool2d: {torch.equal(got, lib)}", flush=True)
+
     for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for shape in ((2, 256, 256, 64), (2, 16, 16, 256)):
+            pool_grad(dt, *shape)
+        for n, h, w, c, f, slope in ((2, 256, 256, 4, 64, 0.01),
+                                     (2, 64, 256, 1, 8, None)):
+            compare(f"conv_s2 {(n, h, w, c, f, slope)}", dt,
+                    lambda x, wt, b: c2.conv_s2(x, wt, b, slope),
+                    lambda x, wt, b: c2.conv_s2_fwd_plain(x, wt, b, slope),
+                    leaves(dt, ((n, h, w, c), 1.0, "x"),
+                           ((3, 3, c, f), (9 * c) ** -0.5, "w"),
+                           ((f,), 0.1, "b")), tol)
         for n, h, w, c, f in ((4, 256, 256, 64, 4), (2, 19, 23, 24, 1)):
             compare(f"conv_thin {(n, h, w, c, f)}", dt, ct.conv_thin,
                     ct.conv_thin_plain,
@@ -616,28 +788,40 @@ def agreement(torch, pipe):
 # ------------------------------------------------------------------ phase 5
 def _counters():
     from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
+    from terrain_tpu_torch.ops.kernels import conv_s2 as c2
     from terrain_tpu_torch.ops.kernels import conv_stem as cs
     from terrain_tpu_torch.ops.kernels import conv_thin as ct
+    from terrain_tpu_torch.ops.kernels import pool2 as p2
 
     return {"bilinear_conv": bc.KERNEL, "conv_thin": ct.KERNEL,
             "conv_thin_dx": ct.KERNEL_DX, "conv_thin_dw": ct.KERNEL_DW,
             "conv_stem_fwd": cs.KERNEL_FWD, "conv_stem_dw": cs.KERNEL_DW,
-            "conv_stem_dx": cs.KERNEL_DX}
+            "conv_stem_dx": cs.KERNEL_DX,
+            "pool2_fwd": p2.KERNEL_FWD, "pool2_bwd": p2.KERNEL_BWD,
+            "conv_s2_fwd": c2.KERNEL_FWD, "conv_s2_dw": c2.KERNEL_DW}
+
+
+def _op_counters():
+    """Counters that are no kernel launches: the bilinear_conv backward (an
+    op of PyTorch calls) and the NHWC copies the two new ops had to make."""
+    from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
+    from terrain_tpu_torch.ops.kernels import conv_s2 as c2
+    from terrain_tpu_torch.ops.kernels import pool2 as p2
+
+    return {"bilinear_conv_backward": bc.BACKWARD,
+            "pool2_copies": p2.COPIES, "conv_s2_copies": c2.COPIES}
 
 
 def _reset_counters():
-    from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
-
     for k in _counters().values():
         k.launches = 0
-    bc.BACKWARD.calls = 0
+    for c in _op_counters().values():
+        c.calls = 0
 
 
 def _read_counters():
-    from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
-
     out = {name: k.launches for name, k in _counters().items()}
-    out["bilinear_conv_backward"] = bc.BACKWARD.calls
+    out.update({name: c.calls for name, c in _op_counters().items()})
     return out
 
 
@@ -653,16 +837,22 @@ def _train_batch(torch, n, size, latent, seed):
 
 def train_slice(torch, card):
     """The flagship four-network train step at full width, batch 4, in
-    fp32 and with bf16 compute over fp32 parameters: one warm-up step, then
-    TRAIN_STEPS timed steps with the launch counters set to 0 just before
-    and read just after.  Returns the fp32 run's counts."""
+    fp32 and with bf16 compute over fp32 parameters, with the two opt-in
+    kernel switches off and on: one warm-up step, then TRAIN_STEPS timed
+    steps with the launch counters set to 0 just before and read just
+    after.  Returns the fp32 runs' counts, switches off and on, added."""
     import math
 
     from terrain_tpu_torch.experiments import build_train
     from terrain_tpu_torch.models import param_count
 
-    counts = None
-    for label, cd in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    counts = {}
+    for label, cd, on in (("fp32", torch.float32, False),
+                          ("fp32", torch.float32, True),
+                          ("bf16", torch.bfloat16, False),
+                          ("bf16", torch.bfloat16, True)):
+        set_switches(on)
+        label = f"{label} switches {'on' if on else 'off'}"
         t0 = time.perf_counter()
         ts = build_train(EXPERIMENT, "cuda", seed=0, compute_dtype=cd)
         batch = _train_batch(torch, TRAIN_BATCH, ts.in_shp, ts.latent_dim, 7)
@@ -699,7 +889,7 @@ def train_slice(torch, card):
               flush=True)
         if not all(math.isfinite(v) for v in lv.values()):
             fail(f"train {label}: a loss is not finite")
-        for name, per_step in TRAIN_LAUNCHES.items():
+        for name, per_step in expected_launches(on).items():
             if got[name] != per_step * TRAIN_STEPS:
                 fail(f"train {label}: {name} launched {got[name]} times in "
                      f"{TRAIN_STEPS} steps, expected {per_step} per step")
@@ -711,19 +901,22 @@ def train_slice(torch, card):
                      f"change")
         profile_once(torch, lambda: ts.train_step(
             ts.opt_states, batch, None, ts.lr), f"train step {label}", top=12)
-        if counts is None:
-            counts = got
+        if cd == torch.float32:
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
         del ts, before, batch
         torch.cuda.empty_cache()
+    set_switches(False)
     return counts
 
 
 def train_agreement(torch):
-    """One train step of the 256px configuration (all three kernels'
-    regimes engage) with the same weights and batch on the card (kernels)
-    and on the CPU (plain versions), fp32."""
+    """One train step of the 256px configuration (every kernel's regime
+    engages, the two opt-in ops switched on) with the same weights and batch
+    on the card (kernels) and on the CPU (plain versions), fp32."""
     from terrain_tpu_torch.experiments import build_train
 
+    set_switches(True)
     card = build_train(AGREE_EXPERIMENT, "cuda", seed=3,
                        compute_dtype=torch.float32)
     cpu = build_train(AGREE_EXPERIMENT, "cpu", seed=4,
@@ -736,7 +929,9 @@ def train_agreement(torch):
     lg = card.train_step(card.opt_states, batch, None, card.lr)
     torch.cuda.synchronize()
     got = _read_counters()
-    for name, per_step in TRAIN_LAUNCHES.items():
+    # at 256px five of the discriminator's six pools lie in pool2's regime
+    want = {**expected_launches(True), "pool2_fwd": 10, "pool2_bwd": 10}
+    for name, per_step in want.items():
         if got[name] != per_step:
             fail(f"agreement: {name} launched {got[name]} times, expected "
                  f"{per_step}")
@@ -744,6 +939,7 @@ def train_agreement(torch):
     lc = cpu.train_step(cpu.opt_states, tuple(t.cpu() for t in batch), None,
                         cpu.lr)
     cpu_s = time.perf_counter() - t0
+    set_switches(False)
     worst = 0.0
     for k in lc:
         a, b = float(lg[k]), float(lc[k])
@@ -854,6 +1050,165 @@ def conditioning(torch):
               f"entry {worst:.3e} at {where}", flush=True)
 
 
+# ------------------------------------------------------------------ phase 6
+def trainer_slice(torch, card):
+    """This slice's path at full width, through the entry point a user
+    calls: `python -m terrain_tpu_torch test1_nobn_bilin_both train` on a
+    synthetic set of the shipped set's size held on the card as uint8
+    (TERRAIN_SYNTHETIC=1 TERRAIN_FAST=1 TERRAIN_N=240), both kernel switches
+    on, augmentation in the step, one epoch with a checkpoint; then the same
+    command resumes it (TERRAIN_RESUME=auto) for a second epoch.  Returns
+    the launch counts of the two runs, added."""
+    import math
+    import shutil
+    import tempfile
+
+    from terrain_tpu_torch import cli
+    from terrain_tpu_torch.experiments import _get_data, build_gan
+    from terrain_tpu_torch.train import checkpoint
+    from terrain_tpu_torch.train.losses import TRAIN_KEYS
+
+    root = tempfile.mkdtemp(prefix="trainer_")
+    env = {"TERRAIN_SYNTHETIC": "1", "TERRAIN_FAST": "1",
+           "TERRAIN_N": str(TRAINER_N), "TERRAIN_SAVE_EVERY": "1",
+           "TERRAIN_OUT": os.path.join(root, "out"),
+           "TERRAIN_MODELS": os.path.join(root, "models")}
+    saved = {k: os.environ.get(k) for k in
+             (*env, "TERRAIN_EPOCHS", "TERRAIN_RESUME")}
+    os.environ.update(env)
+    set_switches(True)
+    n_train, n_eval = TRAINER_N // TRAIN_BATCH, (TRAINER_N // 10) // TRAIN_BATCH
+    out = os.path.join(root, "out", EXPERIMENT)
+    models = os.path.join(root, "models", EXPERIMENT)
+    counts = {}
+    try:
+        for epochs, resume in ((1, None), (2, "auto")):
+            os.environ["TERRAIN_EPOCHS"] = str(epochs)
+            if resume:
+                os.environ["TERRAIN_RESUME"] = resume
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counters()
+            t0 = time.perf_counter()
+            if cli.main([EXPERIMENT, "train"]) != 0:
+                fail("trainer: the CLI returned an error")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _read_counters()
+            peak = torch.cuda.max_memory_allocated()
+            print(f"trainer [{card}]: `{EXPERIMENT} train` to epoch {epochs}"
+                  f"{' (resumed)' if resume else ''}: {wall:.1f} s in all "
+                  f"(data, epoch, dumps, checkpoint), peak memory "
+                  f"{peak / 2**20:.1f} MiB, launches {got}", flush=True)
+            # one epoch each: every train step 12/12/3/2, every eval step
+            # the forwards, and 4 + 1 + 1 U-Net forwards in the dumps
+            want = {k: n_train * v + n_eval * EVAL_LAUNCHES[k]
+                    for k, v in SWITCHED_LAUNCHES.items()}
+            want["conv_s2_fwd"] += 6
+            for k, v in want.items():
+                if got[k] != v:
+                    fail(f"trainer: {k} launched {got[k]} times in the "
+                         f"epoch, expected {v}")
+            for k, v in TRAIN_LAUNCHES.items():
+                if got[k] < n_train * v:
+                    fail(f"trainer: {k} launched {got[k]} times")
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+        with open(os.path.join(out, "results.txt")) as f:
+            lines = f.read().splitlines()
+        header = lines[0].split(",")
+        if header != (["epoch"] + [f"train_{k}" for k in TRAIN_KEYS]
+                      + [f"valid_{k}" for k in TRAIN_KEYS]
+                      + ["lr", "time", "mode"]) or len(lines) != 3:
+            fail(f"trainer: results.txt has {len(lines)} lines, header "
+                 f"{header}")
+        rows = [dict(zip(header, ln.split(","))) for ln in lines[1:]]
+        for i, row in enumerate(rows):
+            vals = [float(row[c]) for c in header[1:11]]
+            if row["epoch"] != str(i + 1) or not all(map(math.isfinite, vals)):
+                fail(f"trainer: bad results row {row}")
+            t = float(row["time"])
+            print(f"trainer [{card}]: epoch {i + 1}: {t:.3f} s for "
+                  f"{n_train} train + {n_eval} eval steps of batch "
+                  f"{TRAIN_BATCH} ({TRAINER_N / t:.2f} images/s over the "
+                  f"epoch, eval included); train losses "
+                  f"{ {k: float(row['train_' + k]) for k in TRAIN_KEYS} }",
+                  flush=True)
+        for name in ("out_1.png", "out_2.png", "dump_train/3.b.png",
+                     "dump_valid/0.a.png", "dump_a/19.png",
+                     "arch_p2p_gen.txt"):
+            if not os.path.exists(os.path.join(out, name)):
+                fail(f"trainer: no {name} among the dumps")
+        # both checkpoints load, and every parameter of every network moved
+        gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False)
+        fresh = {n: [p.detach().clone() for p in net.parameters()]
+                 for n, net in gan.nets.items()}
+        for e in (1, 2):
+            path = os.path.join(models, f"{e}.model")
+            trees, extra = checkpoint.load_model(path)
+            if sorted(trees) != sorted(gan.nets) or extra["step"] <= 0:
+                fail(f"trainer: {path} is incomplete")
+            gan.load_model(path, exact=True)
+            for n, net in gan.nets.items():
+                same = sum(torch.equal(p, q) for p, q in
+                           zip(net.parameters(), fresh[n]))
+                if same:
+                    fail(f"trainer: {same} parameters of {n} are unchanged "
+                         f"in {e}.model")
+        # the data path's share of a step: prepare (gather + normalize +
+        # augment of one batch from the 250 MB set) by CUDA events, beside
+        # the epoch's time per train step
+        t0 = time.perf_counter()
+        ds, _ = _get_data(gan.in_shp, device="cuda")
+        torch.cuda.synchronize()
+        t_data = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gan.save_model(os.path.join(models, "again.model"))
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(models, "again.model"))
+        print(f"trainer: outside the epoch: making the {TRAINER_N}+"
+              f"{TRAINER_N // 10} synthetic pairs and putting them on the "
+              f"card {t_data:.1f} s; writing a checkpoint {t_save:.1f} s "
+              f"({size / 2**20:.0f} MiB, weights and rmsprop state through "
+              f"gzip level 1)", flush=True)
+        prepare = ds.make_prepare(augment=True)
+        idx = torch.arange(TRAIN_BATCH, device="cuda", dtype=torch.int32) * 7
+        z = torch.rand(TRAIN_BATCH, gan.latent_dim, device="cuda")
+        prep_ms = time_ms(lambda: prepare((z, idx), gan._next_rngs()))
+        bare_ms = time_ms(lambda: ds.gather_normalize(idx))
+        step_ms = float(rows[1]["time"]) * 1e3 / (n_train + n_eval)
+        print(f"trainer [{card}]: prepare (gather + normalize + shear "
+              f"augment, batch {TRAIN_BATCH}) {prep_ms:.3f} ms of device "
+              f"time, gather + normalize alone {bare_ms:.3f} ms; epoch 2 "
+              f"took {step_ms:.3f} ms per step: prepare share "
+              f"{prep_ms / step_ms:.4f}; dataset on the card "
+              f"{(ds.x.numel() + ds.y.numel()) / 2**20:.1f} MiB", flush=True)
+        del gan, ds, fresh
+        torch.cuda.empty_cache()
+        # a generation mode, cheaply: train the small configuration, then
+        # `gen` from its checkpoint
+        for k in ("TERRAIN_N", "TERRAIN_EPOCHS", "TERRAIN_RESUME",
+                  "TERRAIN_FAST", "TERRAIN_SAVE_EVERY"):
+            os.environ.pop(k, None)
+        t0 = time.perf_counter()
+        for mode in ("train", "gen"):
+            if cli.main(["smoke_synthetic", mode]) != 0:
+                fail(f"trainer: smoke_synthetic {mode} returned an error")
+        gen = os.path.join(root, "out", "smoke_synthetic", "gen")
+        if len(os.listdir(gen)) != 8:
+            fail("trainer: smoke_synthetic gen wrote no 8 samples")
+        print(f"trainer: smoke_synthetic train + gen on the card in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        set_switches(False)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def main():
     import torch
 
@@ -892,7 +1247,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
-    rows, serve_launches, train_launches = {}, {}, {}
+    rows, serve_launches, train_launches, trainer_launches = {}, {}, {}, {}
     if want("kernels"):
         rows = check_kernels(torch)
         check_autograd(torch)
@@ -913,6 +1268,10 @@ def main():
         train_agreement(torch)
         print(f"phase train done at {time.perf_counter() - t_start:.0f} s",
               flush=True)
+    if want("trainer"):
+        trainer_launches = trainer_slice(torch, card)
+        print(f"phase trainer done at {time.perf_counter() - t_start:.0f} s",
+              flush=True)
     if only:
         print(f"phases {sorted(only)} passed; run without arguments for the "
               f"result lines")
@@ -928,18 +1287,26 @@ def main():
         "conv_stem_fwd": ("conv_stem.cu", "conv_stem.py:260"),
         "conv_stem_dw": ("conv_stem.cu", "conv_stem.py:299"),
         "conv_stem_dx": ("conv_stem.cu", "conv_stem.py:325"),
+        "conv_s2_fwd": ("conv_s2.cu", "conv_s2.py:176"),
+        "conv_s2_dw": ("conv_s2.cu", "conv_s2.py:217"),
+        "pool2_fwd": ("pool2.cu", "pool2.py:106"),
+        "pool2_bwd": ("pool2.cu", "pool2.py:125"),
     }
     kernels = []
     for name, (src, rep) in meta.items():
         main_row = rows[name][0]  # main path shape, fp32
         n_serve = serve_launches.get(name, 0)
         n_train = train_launches[name]
-        if n_train == 0 or (name in serve_launches and n_serve == 0):
+        n_trainer = trainer_launches[name]
+        if (n_train == 0 or n_trainer == 0
+                or (name in serve_launches and n_serve == 0)):
             fail(f"{name} was not launched on its main path")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + src,
-            "replaces": pallas + rep, "launches": n_serve + n_train,
+            "replaces": pallas + rep,
+            "launches": n_serve + n_train + n_trainer,
             "launches_serve": n_serve, "launches_train": n_train,
+            "launches_trainer": n_trainer,
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]
                                if r["dtype"] == "float32"),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

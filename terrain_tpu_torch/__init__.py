@@ -13,5 +13,6 @@ Conventions:
   * entry points run on `cuda` unless the caller passes device="cpu"; with
     no card and no such request they raise (terrain_tpu_torch.device);
   * the fp32 path needs TF32 off (`device.strict_fp32()`), which the entry
-    points (server CLI, chip_smoke.py) set -- importing sets nothing.
+    points (training CLI, server CLI, chip_smoke.py) set -- importing sets
+    nothing.
 """

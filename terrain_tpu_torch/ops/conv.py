@@ -8,17 +8,25 @@ does the flip); dense (dout, din).
 Padding is explicit and symmetric, (k-1)//2 for 'same', as Lasagne pads
 even for strided convs -- never F.conv2d's string 'same', which differs
 from it for stride 2.  Plain convolutions go to `F.conv2d` on a
-channels-last NCHW view of the NHWC tensor.  Two regimes go to hand-written
-kernels instead, tried in terrain_tpu's order (ops/conv.py:98-102): the
-one-channel 5x5 s1 stem conv (ops/kernels/conv_stem.py, with the LeakyReLU
-fused through `conv2d_leaky`), then thin-cout 3x3 s1 convs
-(ops/kernels/conv_thin.py).  The dispatch is a pure shape rule.
+channels-last NCHW view of the NHWC tensor.  Three regimes go to
+hand-written kernels instead, tried in terrain_tpu's order
+(ops/conv.py:98-102): the one-channel 5x5 s1 stem conv
+(ops/kernels/conv_stem.py, with the LeakyReLU fused through `conv2d_leaky`),
+then small-cin 3x3 s2 first-layer convs (ops/kernels/conv_s2.py, LeakyReLU
+fused likewise), then thin-cout 3x3 s1 convs (ops/kernels/conv_thin.py).
+Stem and thin are pure shape rules.  conv_s2 is opt-in by terrain_tpu's own
+switch, TERRAIN_PALLAS_CONVS2=1, read at call time: off (the default) the
+library conv runs; on, a CUDA tensor in the regime launches the kernel or
+raises, a CPU tensor runs its plain version.
 """
+
+import os
 
 import torch
 import torch.nn.functional as F
 
 from terrain_tpu_torch.ops.activations import leaky_relu
+from terrain_tpu_torch.ops.kernels import conv_s2 as _c2
 from terrain_tpu_torch.ops.kernels import conv_stem as _cs
 from terrain_tpu_torch.ops.kernels import conv_thin as _ct
 
@@ -47,6 +55,19 @@ def _try_stem(x, w, b, s, padding, cd, slope=None):
                          bb.contiguous(), slope)
 
 
+def _try_s2(x, w, b, s, padding, cd, slope=None):
+    """The conv_s2 kernel when switched on and in its regime (bias and
+    activation included), else None."""
+    if os.environ.get("TERRAIN_PALLAS_CONVS2", "0") != "1":
+        return None
+    cout, cin, kh, kw = w.shape
+    if not _c2.supported(tuple(x.shape), (kh, kw, cin, cout), s, padding):
+        return None
+    bb = b.float() if b is not None else torch.zeros(cout, device=x.device)
+    return _c2.conv_s2(x.to(cd), w.to(cd).permute(2, 3, 1, 0).contiguous(),
+                       bb.contiguous(), slope)
+
+
 def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None):
     """2D cross-correlation, NHWC x OIHW -> NHWC; padding 'same'
     (symmetric (k-1)//2) or 'valid'."""
@@ -54,6 +75,8 @@ def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None):
     s = _to_pair(stride)
     cd = compute_dtype or x.dtype
     out = _try_stem(x, w, b, s, padding, cd)
+    if out is None:
+        out = _try_s2(x, w, b, s, padding, cd)
     if out is not None:
         return out
     if _ct.supported(tuple(x.shape), (kh, kw, cin, cout), s, padding):
@@ -75,11 +98,13 @@ def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None):
 
 def conv2d_leaky(x, w, b=None, *, slope=0.2, stride=1, padding="same",
                  compute_dtype=None):
-    """conv2d followed by LeakyReLU(slope): in the stem regime one kernel
-    with the activation as its epilogue (terrain_tpu ops/conv.py:124-145),
-    else leaky_relu(conv2d(...))."""
-    out = _try_stem(x, w, b, _to_pair(stride), padding,
-                    compute_dtype or x.dtype, slope=slope)
+    """conv2d followed by LeakyReLU(slope): in the stem regime, and in
+    conv_s2's when that is switched on, one kernel with the activation as its
+    epilogue (terrain_tpu ops/conv.py:124-145), else leaky_relu(conv2d(...))."""
+    s, cd = _to_pair(stride), compute_dtype or x.dtype
+    out = _try_stem(x, w, b, s, padding, cd, slope=slope)
+    if out is None:
+        out = _try_s2(x, w, b, s, padding, cd, slope=slope)
     if out is not None:
         return out
     return leaky_relu(conv2d(x, w, b, stride=stride, padding=padding,

@@ -24,7 +24,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("conv_thin", "bilinear_conv", "conv_stem")
+SOURCES = ("conv_thin", "bilinear_conv", "conv_stem", "conv_s2", "pool2")
 
 _lock = threading.Lock()
 
@@ -147,6 +147,16 @@ def all_on_cpu(name, *tensors):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: every tensor must be contiguous")
     return False
+
+
+def nhwc_contiguous(t, counter):
+    """t, or a contiguous copy of it, counted on `counter`: a copy of a
+    large activation can cost more than the kernel it feeds, so a run
+    reports how many an op made."""
+    if t.is_contiguous():
+        return t
+    counter.calls += 1
+    return t.contiguous()
 
 
 def stream_of(t):

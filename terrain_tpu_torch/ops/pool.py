@@ -3,9 +3,14 @@ DCGAN discriminator uses them: 2x2 max or average pooling between stages
 and one average pool over the remaining extent.  No implicit padding
 (windows that do not fit are dropped, XLA's VALID).
 
-Only terrain_tpu's default max-pool formulation is ported (XLA's
-reduce_window, whose gradient is select-and-scatter); its other
-TERRAIN_POOL_VJP modes are measured-loss references and an opt-in kernel.
+TERRAIN_POOL_VJP, read at call time as in terrain_tpu, selects the 2x2 s2
+max pool's formulation: unset or 'sas' is the library pool (terrain_tpu's
+default is XLA's reduce_window, whose gradient is select-and-scatter);
+'pallas' sends shapes in the regime of ops/kernels/pool2.py to the
+hand-written forward and backward kernels (a CUDA tensor launches them or
+raises; a CPU tensor runs their plain versions; shapes off the regime take
+the library pool).  'lanes' and 'dense', terrain_tpu's measured-loss
+formulations, are not ported and raise.
 
 Ties.  select-and-scatter sends a window's cotangent to one element, the
 first maximum in row-major order.  `F.max_pool2d` does the same: its
@@ -15,7 +20,11 @@ the cotangent at that recorded index.  tests/test_torch_train.py pins this
 on deliberate ties.
 """
 
+import os
+
 import torch.nn.functional as F
+
+from terrain_tpu_torch.ops.kernels import pool2 as _p2
 
 
 def _pair(v):
@@ -24,6 +33,13 @@ def _pair(v):
 
 def max_pool2d(x, size=2, stride=None):
     """Max pool, x (N,H,W,C)."""
+    mode = os.environ.get("TERRAIN_POOL_VJP", "sas")
+    if mode in ("lanes", "dense"):
+        raise NotImplementedError(
+            f"TERRAIN_POOL_VJP={mode} is not ported; use sas or pallas")
+    if (mode == "pallas" and size == 2 and (stride or size) == 2
+            and x.is_floating_point() and _p2.supported(tuple(x.shape))):
+        return _p2.max_pool2(x)
     y = F.max_pool2d(x.permute(0, 3, 1, 2), _pair(size),
                      _pair(stride or size))
     return y.permute(0, 2, 3, 1)

@@ -101,7 +101,7 @@ class TwoStagePipeline:
     def load_model(self, path, mode="both"):
         """Restore the generator(s) of the stage(s) `mode` selects from a
         terrain_tpu/v1 checkpoint; discriminators are not part of serving."""
-        trees = checkpoint.load_trees(path, mode)
+        trees, _ = checkpoint.load_model(path, mode)
         gens = {n: t for n, t in trees.items() if n in self.NETS}
         return self.load_jax({n: t[0] for n, t in gens.items()},
                              {n: t[1] for n, t in gens.items()})

@@ -2,7 +2,9 @@
 
 Builds the named experiment's generators on the card, loads a
 terrain_tpu/v1 checkpoint (default: the latest `<epoch>.model` in the
-experiment's model dir), turns TF32 off and serves them.  Options:
+experiment's model dir, or epoch N with TERRAIN_PICK=N, resolved as the
+training CLI's gen/interp modes resolve it), turns TF32 off and serves them.
+Options:
 
   --device D      cuda (default; raises without a card) or cpu
   --host H        bind address (default 127.0.0.1)
@@ -15,15 +17,7 @@ experiment's model dir), turns TF32 off and serves them.  Options:
 """
 
 import argparse
-import glob
 import os
-
-
-def _latest_checkpoint(model_dir):
-    models = glob.glob(os.path.join(model_dir, "*.model"))
-    if not models:
-        raise FileNotFoundError(f"no checkpoints under {model_dir}")
-    return max(models, key=lambda p: int(os.path.basename(p).split(".")[0]))
 
 
 def main(argv=None):
@@ -45,13 +39,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from terrain_tpu_torch.device import strict_fp32
-    from terrain_tpu_torch.experiments import build_model
+    from terrain_tpu_torch.experiments import _resolve_model, build_model
     from terrain_tpu_torch.serve import TerrainServer
 
     strict_fp32()
     model, name = build_model(args.experiment, args.device)
     if not args.no_weights:
-        path = args.checkpoint or _latest_checkpoint(os.path.join(
+        path = args.checkpoint or _resolve_model(os.path.join(
             os.environ.get("TERRAIN_MODELS", "models"), name))
         print(f"loading weights: {path}")
         model.load_model(path)

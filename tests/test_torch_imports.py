@@ -48,7 +48,20 @@ def test_the_file_list_covers_the_package():
                  "terrain_tpu_torch/train/losses.py",
                  "terrain_tpu_torch/train/optim.py",
                  "terrain_tpu_torch/train/step.py",
-                 "terrain_tpu_torch/experiments.py"):
+                 "terrain_tpu_torch/experiments.py",
+                 "terrain_tpu_torch/ops/kernels/pool2.py",
+                 "terrain_tpu_torch/ops/kernels/conv_s2.py",
+                 "terrain_tpu_torch/data/hdf5.py",
+                 "terrain_tpu_torch/data/synthetic.py",
+                 "terrain_tpu_torch/data/augment.py",
+                 "terrain_tpu_torch/data/device_cache.py",
+                 "terrain_tpu_torch/utils/async_writer.py",
+                 "terrain_tpu_torch/utils/images.py",
+                 "terrain_tpu_torch/train/schedule.py",
+                 "terrain_tpu_torch/train/checkpoint.py",
+                 "terrain_tpu_torch/train/trainer.py",
+                 "terrain_tpu_torch/cli.py",
+                 "terrain_tpu_torch/__main__.py"):
         assert must in names
 
 

@@ -1,0 +1,291 @@
+"""terrain_tpu_torch's pool2 and conv_s2 ops against terrain_tpu's Pallas
+kernels run in interpret mode (as tests/test_pallas.py runs them) on the
+CPU.  The CUDA kernels themselves run only on the card: chip_smoke.py holds
+them against the plain versions tested here.
+
+Inputs come from numpy with a seed and go to both packages.  pool2 moves
+values and never computes one, so it is held exactly, in fp32 and bf16,
+deliberate ties included.  conv_s2: fp32 1e-4 (rtol and atol; weight
+gradients sum over every pixel and get atol 1e-3, as in tests/test_pallas.py);
+bf16 2e-2 of the reference's largest entry (both sides round an fp32 sum to
+bf16)."""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from terrain_tpu.ops.pallas import conv_s2 as jc2
+from terrain_tpu.ops.pallas import pool2 as jp2
+from terrain_tpu_torch import ops
+from terrain_tpu_torch.ops.kernels import conv_s2 as c2
+from terrain_tpu_torch.ops.kernels import pool2 as p2
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+TOL_W = dict(rtol=1e-4, atol=1e-3)
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _tnp(t):
+    return t.detach().float().numpy()
+
+
+def _to_torch(a, dtype):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(TDT[dtype])
+
+
+# ----------------------------------------------------------------- pool2
+def _pool_inputs(rng, shape, dtype, ties):
+    n, h, w, c = shape
+    x = rng.randn(*shape).astype(np.float32)
+    if ties:
+        # few distinct values: most windows hold a tie of some kind
+        x = np.round(x * 1.5) / 2.0
+    cot = rng.randn(n, h // 2, w // 2, c).astype(np.float32)
+    # round through the working type once, so both packages see equal bits
+    x = _f32(jnp.asarray(x).astype(JDT[dtype]))
+    cot = _f32(jnp.asarray(cot).astype(JDT[dtype]))
+    return x, cot
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 16, 16, 8), (2, 8, 48, 16)])
+def test_pool2_matches_pallas_exactly(shape, dtype, ties, rng, monkeypatch):
+    assert p2.supported(shape)
+    monkeypatch.setattr(jp2, "_INTERPRET", True)
+    x, cot = _pool_inputs(rng, shape, dtype, ties)
+    jx, jcot = (jnp.asarray(a).astype(JDT[dtype]) for a in (x, cot))
+    want = jp2.max_pool2_pallas(jx)
+    want_dx = jax.grad(lambda a: jnp.sum(
+        (jp2.max_pool2_pallas(a) * jcot).astype(jnp.float32)))(jx)
+    tx = _to_torch(x, dtype).requires_grad_()
+    got = p2.max_pool2(tx)
+    assert got.dtype == TDT[dtype] and got.grad_fn is not None
+    np.testing.assert_array_equal(_tnp(got), _f32(want))
+    (dx,) = torch.autograd.grad(got, tx, _to_torch(cot, dtype))
+    assert dx.dtype == TDT[dtype]
+    np.testing.assert_array_equal(_tnp(dx), _f32(want_dx))
+    # the primitives alone give the same
+    np.testing.assert_array_equal(
+        _tnp(p2.pool2_bwd(tx.detach(), _to_torch(cot, dtype))), _f32(want_dx))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool2_whole_window_ties_go_to_the_first_element(dtype):
+    x = torch.ones(1, 8, 16, 8, dtype=TDT[dtype], requires_grad=True)
+    (g,) = torch.autograd.grad(p2.max_pool2(x).float().sum(), x)
+    g = g.float().numpy()
+    np.testing.assert_array_equal(g[0, 0::2, 0::2], 1.0)
+    assert g.sum() == 4 * 8 * 8
+    # row tie with the maximum in the odd column of both rows: the even row
+    # wins, and in it the odd column
+    w = torch.tensor([[0.0, 2.0], [1.0, 2.0]]).reshape(1, 2, 2, 1)
+    w = w.repeat(1, 4, 8, 8).to(TDT[dtype])
+    dx = p2.pool2_bwd(w, torch.ones(1, 4, 8, 8, dtype=TDT[dtype]))
+    np.testing.assert_array_equal(dx.float().numpy()[0, :2, :2, 0],
+                                  [[0.0, 1.0], [0.0, 0.0]])
+
+
+def test_pool2_matches_the_library_pool_without_nan(rng):
+    import torch.nn.functional as F
+
+    x = torch.from_numpy(rng.randn(2, 8, 16, 8).astype(np.float32))
+    x = (x * 2).round() / 2  # ties
+    x.requires_grad_()
+    cot = torch.from_numpy(rng.randn(2, 4, 8, 8).astype(np.float32))
+    lib = F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    np.testing.assert_array_equal(p2.max_pool2(x).detach().numpy(),
+                                  lib.detach().numpy())
+    np.testing.assert_array_equal(
+        torch.autograd.grad(p2.max_pool2(x), x, cot)[0].numpy(),
+        torch.autograd.grad(lib, x, cot)[0].numpy())
+    # a NaN goes through the forward
+    y = x.detach().clone()
+    y[0, 0, 0, 0] = float("nan")
+    assert torch.isnan(p2.pool2_fwd(y)[0, 0, 0, 0])
+
+
+_POOL_GRID = [(n, h, w, c) for n, h, w, c in itertools.product(
+    (1, 4), (4, 8, 14, 15, 16, 512), (8, 16, 24, 30, 512),
+    (4, 8, 64, 256, 512, 520))]
+
+
+def test_pool2_supported_equals_the_jax_guard():
+    for shape in _POOL_GRID + [(4, 16, 16), (8, 512, 512, 64),
+                               (4, 8, 8, 256), (4, 4096, 512, 512)]:
+        assert p2.supported(shape) == jp2.supported(shape, backend="tpu"), \
+            shape
+    assert p2.supported((8, 512, 512, 64)) and not p2.supported((4, 8, 8, 256))
+
+
+def test_max_pool2d_dispatch_follows_the_switch(rng, monkeypatch):
+    x = torch.from_numpy(rng.randn(1, 16, 16, 8).astype(np.float32))
+    monkeypatch.delenv("TERRAIN_POOL_VJP", raising=False)
+    before = p2.PLAIN.calls
+    ref = ops.max_pool2d(x, 2)
+    assert p2.PLAIN.calls == before            # off: the library pool
+    monkeypatch.setenv("TERRAIN_POOL_VJP", "pallas")
+    got = ops.max_pool2d(x.clone().requires_grad_(), 2)
+    assert p2.PLAIN.calls == before + 1        # on: the op's Function
+    assert type(got.grad_fn).__name__ == "Pool2FnBackward"
+    np.testing.assert_array_equal(got.detach().numpy(), ref.numpy())
+    # off the regime (w/2 not a multiple of 8) and other windows: library
+    for t, size in ((torch.rand(1, 16, 8, 8), 2), (torch.rand(1, 16, 16, 8), 4)):
+        ops.max_pool2d(t, size)
+    assert p2.PLAIN.calls == before + 1
+    for mode in ("lanes", "dense"):
+        monkeypatch.setenv("TERRAIN_POOL_VJP", mode)
+        with pytest.raises(NotImplementedError):
+            ops.max_pool2d(x, 2)
+
+
+# --------------------------------------------------------------- conv_s2
+def _s2_inputs(rng, shape, f):
+    n, h, w, cin = shape
+    x = rng.randn(*shape).astype(np.float32)
+    wt = (rng.randn(3, 3, cin, f) * 0.2).astype(np.float32)
+    b = rng.randn(f).astype(np.float32)
+    cot = rng.randn(n, h // 2, w // 2, f).astype(np.float32)
+    return x, wt, b, cot
+
+
+def _jax_s2_grads(x, wt, b, cot, slope, dt):
+    jx, jw, jcot = (jnp.asarray(a).astype(dt) for a in (x, wt, cot))
+    jb = jnp.asarray(b)
+    y = jc2.conv_s2(jx, jw, jb, slope)
+    # terrain_tpu returns db in x's dtype; take the gradients one by one in
+    # fp32 through a loss that casts, as a train step's loss does
+    gx, gw = jax.grad(lambda xx, ww: jnp.sum(
+        (jc2.conv_s2(xx, ww, jb, slope) * jcot).astype(jnp.float32)),
+        argnums=(0, 1))(jx, jw)
+    return y, gx, gw
+
+
+@pytest.mark.parametrize("slope", [None, 0.01], ids=["linear", "leaky"])
+@pytest.mark.parametrize("cin", [1, 2, 4])
+def test_conv_s2_matches_pallas_fp32(cin, slope, rng, monkeypatch):
+    monkeypatch.setattr(jc2, "_INTERPRET", True)
+    x, wt, b, cot = _s2_inputs(rng, (2, 16, 32, cin), 8)
+    want, gx, gw = _jax_s2_grads(x, wt, b, cot, slope, jnp.float32)
+    # db from the XLA conv: terrain_tpu's own bwd rule casts db to x.dtype
+    gb = jax.grad(lambda bb: jnp.sum(_leaky(jc2._xla_conv(
+        jnp.asarray(x), jnp.asarray(wt), bb), slope) * cot))(jnp.asarray(b))
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, wt, b))
+    got = c2.conv_s2(tx, tw, tb, slope)
+    assert got.dtype == torch.float32
+    assert type(got.grad_fn).__name__ == "ConvS2FnBackward"
+    np.testing.assert_allclose(_tnp(got), _f32(want), **TOL)
+    dx, dw, db = torch.autograd.grad(got, (tx, tw, tb), torch.from_numpy(cot))
+    np.testing.assert_allclose(_tnp(dx), _f32(gx), **TOL)
+    np.testing.assert_allclose(_tnp(dw), _f32(gw), **TOL_W)
+    np.testing.assert_allclose(_tnp(db), _f32(gb), **TOL_W)
+    # the dW primitive takes the RAW cotangent and the saved output
+    dw2, db2 = c2.conv_s2_dw(tx.detach(), torch.from_numpy(cot),
+                             got.detach(), slope)
+    assert dw2.dtype == db2.dtype == torch.float32
+    np.testing.assert_array_equal(dw2.numpy(), dw.numpy())
+    np.testing.assert_array_equal(db2.numpy(), db.numpy())
+
+
+def _leaky(y, slope):
+    return y if slope is None else jnp.maximum(y, slope * y)
+
+
+@pytest.mark.parametrize("slope", [None, 0.01], ids=["linear", "leaky"])
+@pytest.mark.parametrize("cin", [1, 4])
+def test_conv_s2_matches_pallas_bf16(cin, slope, rng, monkeypatch):
+    monkeypatch.setattr(jc2, "_INTERPRET", True)
+    x, wt, b, cot = _s2_inputs(rng, (1, 16, 32, cin), 8)
+    want, gx, gw = _jax_s2_grads(x, wt, b, cot, slope, jnp.bfloat16)
+    bf = torch.bfloat16
+    tx, tw = (torch.from_numpy(a).to(bf).requires_grad_() for a in (x, wt))
+    tb = torch.from_numpy(b).requires_grad_()
+    got = c2.conv_s2(tx, tw, tb, slope)
+    assert got.dtype == bf
+    dx, dw, db = torch.autograd.grad(got, (tx, tw, tb),
+                                     torch.from_numpy(cot).to(bf))
+    assert dx.dtype == bf and dw.dtype == bf and db.dtype == torch.float32
+    for a, ref in ((got, want), (dx, gx), (dw, gw)):
+        ref = _f32(ref)
+        np.testing.assert_allclose(_tnp(a), ref, rtol=0,
+                                   atol=2e-2 * np.abs(ref).max())
+
+
+def test_conv_s2_pads_one_on_both_sides(rng):
+    """Output row y taps rows 2y-1..2y+1 (Lasagne 'same'), not the
+    low/high split of a framework's string 'same' at stride 2."""
+    import torch.nn.functional as F
+
+    x, wt, b, _ = _s2_inputs(rng, (1, 8, 16, 2), 8)
+    got = c2.conv_s2_fwd(*(torch.from_numpy(a) for a in (x, wt, b)))
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    want = F.conv2d(torch.from_numpy(xp).permute(0, 3, 1, 2),
+                    torch.from_numpy(wt).permute(3, 2, 0, 1),
+                    torch.from_numpy(b), stride=2).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_conv_s2_skips_gradients_nobody_needs(rng):
+    x, wt, b, cot = _s2_inputs(rng, (1, 16, 32, 4), 8)
+    tx, tw, tb = (torch.from_numpy(a) for a in (x, wt, b))
+    calls = c2.PLAIN.calls
+    y = c2.conv_s2(tx.clone().requires_grad_(), tw, tb, 0.01)  # dX only
+    y.backward(torch.from_numpy(cot))
+    assert c2.PLAIN.calls == calls + 1          # forward; dX is no primitive
+    y = c2.conv_s2(tx, tw.clone().requires_grad_(), tb, 0.01)  # dW only
+    y.backward(torch.from_numpy(cot))
+    assert c2.PLAIN.calls == calls + 3          # forward and dW+db
+
+
+_S2_GRID = [((n, h, w, c), (k, k, ci, f), s, p)
+            for n, h, w, c, k, ci, f, s, p in itertools.product(
+                (4,), (32, 64, 72, 80, 512), (128, 256, 260, 512), (1, 2, 3, 4),
+                (3, 5), (1, 4), (8, 12, 64, 512, 520), ((2, 2), (1, 1)),
+                ("same", "valid"))]
+
+
+def test_conv_s2_supported_equals_the_jax_guard():
+    n_true = 0
+    for xs, ws, s, p in _S2_GRID:
+        want = jc2.supported(xs, ws, s, p, backend="tpu")
+        assert c2.supported(xs, ws, s, p) == want, (xs, ws, s, p)
+        n_true += want
+    assert n_true > 0
+    assert c2.supported((4, 512, 512, 1), (3, 3, 1, 64), (2, 2), "same")
+    assert c2.supported((8, 512, 512, 4), (3, 3, 4, 64), (2, 2), "same")
+    assert not c2.supported((4, 256, 256, 64), (3, 3, 64, 128), (2, 2), "same")
+
+
+@pytest.mark.parametrize("leaky", [False, True], ids=["conv2d", "conv2d_leaky"])
+def test_conv2d_dispatch_follows_the_switch(leaky, rng, monkeypatch):
+    x, wt, b, _ = _s2_inputs(rng, (1, 64, 256, 1), 8)
+    tx = torch.from_numpy(x)
+    tw = torch.from_numpy(np.ascontiguousarray(wt.transpose(3, 2, 0, 1)))
+    tb = torch.from_numpy(b)
+
+    def run(t):
+        if leaky:
+            return ops.conv2d_leaky(t, tw, tb, slope=0.01, stride=2)
+        return ops.conv2d(t, tw, tb, stride=2)
+
+    monkeypatch.delenv("TERRAIN_PALLAS_CONVS2", raising=False)
+    before = c2.PLAIN.calls
+    ref = run(tx)
+    assert c2.PLAIN.calls == before             # off: the library conv
+    monkeypatch.setenv("TERRAIN_PALLAS_CONVS2", "1")
+    got = run(tx.clone().requires_grad_())
+    assert c2.PLAIN.calls == before + 1         # on: the op's Function
+    assert type(got.grad_fn).__name__ == "ConvS2FnBackward"
+    np.testing.assert_allclose(got.detach().numpy(), ref.numpy(), **TOL)
+    # off the regime (narrow image): the library conv, switch or not
+    run(tx[:, :, :64])
+    assert c2.PLAIN.calls == before + 1
