@@ -2,24 +2,25 @@
 """Drive terrain_tpu_torch's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
-    python3 chip_smoke.py kernels trainer   # some phases only, no result lines
+    python3 chip_smoke.py kernels quality   # some phases only, no result lines
 
 Phases (any failure exits non-zero and prints no result line):
   1. card: its name and power limit (nvidia-smi), torch/CUDA versions, and
      the nvcc build of every kernel from csrc/ (timed, one nvcc per source,
      all started together);
-  2. kernels: each of the eleven CUDA kernels against its plain PyTorch
-     version on the card, in fp32 and bf16, at the main paths' shapes and
-     small ones; max-abs error against a stated tolerance (the pool moves
-     values and is held exactly, deliberate ties included; a dW kernel
-     without atomics must give the same bits twice), and times (CUDA
-     events, median of 30 launches after warm-up) of the kernel, the plain
-     version and one PyTorch library call for the same function, beside the
-     least time the card could take.  Then the five differentiable ops
-     (conv_thin, conv_stem, bilinear_conv, pool2, conv_s2) on CUDA tensors
-     against autograd of their plain versions: the gradients must exist and
-     agree; and the bilinear_conv backward (PyTorch ops, as it is XLA code
-     in the JAX package) timed as an op;
+  2. kernels: each of the twelve CUDA kernels against its plain PyTorch
+     version on the card, in fp32 and bf16 (bilinear: fp32, its only type),
+     at the main paths' shapes and small or ragged ones; max-abs error
+     against a stated tolerance (the pool moves values and is held exactly,
+     deliberate ties included; a dW kernel without atomics must give the
+     same bits twice), and times (CUDA events, median of 30 launches after
+     warm-up) of the kernel, the plain version and one PyTorch library call
+     for the same function, beside the least time the card could take.
+     Then the six differentiable ops (conv_thin, conv_stem, bilinear_conv,
+     pool2, conv_s2, bilinear) on CUDA tensors against autograd of their
+     plain versions: the gradients must exist and agree; and the
+     bilinear_conv and bilinear backwards (PyTorch ops, as they are XLA code
+     in the JAX package) timed as ops;
   3. serve: test1_nobn_bilin_both's generators at full width (512px,
      latent 1000) with seeded random weights -- the repository holds no
      trained checkpoint, so this is the server's --no-weights mode --
@@ -29,21 +30,25 @@ Phases (any failure exits non-zero and prints no result line):
      TerrainClient; the launch counters, reset just before, must show
      bilinear_conv twice and conv_thin once per two-stage dispatch; then
      one fixed z (N=1, det, fp32) through the samplers on the card and
-     through the same weights on the CPU (plain versions);
+     through the same weights on the CPU (plain versions), by default and
+     with the unfused decoder (TERRAIN_PALLAS=1 TERRAIN_PALLAS_DECODER=0:
+     one bilinear launch);
   4. train: the flagship four-network train step built through
      experiments.build_train at full width (512px, latent 1000, batch 4,
      seeded weights and a seeded synthetic batch), in fp32 and with bf16
      compute over fp32 parameters, with the two opt-in kernel switches
-     (TERRAIN_POOL_VJP=pallas, TERRAIN_PALLAS_CONVS2=1) off and on: a
-     warm-up step, then timed steps with the launch counters set to 0 just
-     before and read just after (per step: conv_stem fwd 2, dW 1, dX 1;
-     conv_thin fwd, dX, dW 1 each; bilinear_conv 2 and its backward 2; with
-     the switches on pool2 fwd 12 and bwd 12, conv_s2 fwd 3 and dW 2, with
-     them off 0), finite losses, every parameter of all four networks
-     changed, step time, images/s, peak memory, and a profiled step by
-     kernel; then one step of the 256px configuration, switches on, on the
-     card (kernels) and on the CPU (plain versions) from the same weights
-     and batch: losses, gradients and updated weights;
+     (TERRAIN_POOL_VJP=pallas, TERRAIN_PALLAS_CONVS2=1) off and on, and in
+     fp32 with the unfused decoder: a warm-up step, then timed steps with
+     the launch counters set to 0 just before and read just after (per
+     step: conv_stem fwd 2, dW 1, dX 1; conv_thin fwd, dX, dW 1 each;
+     bilinear_conv 2 and its backward 2; with the switches on pool2 fwd 12
+     and bwd 12, conv_s2 fwd 3 and dW 2, with them off 0; with the unfused
+     decoder bilinear 1 and its backward 1, bilinear_conv 0), finite losses,
+     every parameter of all four networks changed, step time, images/s,
+     peak memory, and a profiled step by kernel; then one step of the 256px
+     configuration, switches on, on the card (kernels) and on the CPU
+     (plain versions) from the same weights and batch: losses, gradients
+     and updated weights;
   5. trainer: `python -m terrain_tpu_torch test1_nobn_bilin_both train`
      through cli.main at full width on 240 synthetic pairs held on the card
      as uint8, gathered, normalized and augmented inside the step, both
@@ -51,7 +56,13 @@ Phases (any failure exits non-zero and prints no result line):
      resuming it for a second epoch; results.txt (header, two rows of
      finite losses), the dumps, both checkpoints (every parameter moved),
      the launch counts of an epoch, epoch time, images/s, the data path's
-     share of a step, peak memory; then smoke_synthetic train + gen.
+     share of a step, peak memory; then smoke_synthetic train + gen;
+  6. quality: the same command with the unfused decoder, TERRAIN_SWD=1 and
+     TERRAIN_PROFILE on host iterators behind the prefetcher (40 synthetic
+     pairs, two epochs, a checkpoint each), then `gen`: swd.txt with
+     terrain_tpu's columns and finite values, gen's checkpoint picked from
+     it, the trace file, the launch counts, epoch and SWD times, and the SWD
+     pyramid and terrain W1 of the same images on the card against the CPU.
 The last lines are the `kernels` JSON, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -70,6 +81,7 @@ F32_PEAK = 67e12     # H100 SXM fp32 CUDA cores, FLOP/s
 BF16_PEAK = 989e12   # H100 SXM dense bf16 tensor cores, FLOP/s
 HBM_BW = 3.35e12     # H100 SXM HBM3, bytes/s
 F32_TOL = 1e-4       # x max|ref|: fp32 sums in another order
+BILINEAR_TOL = 1e-6  # x max|ref|: the same fp32 operations in the same order
 BF16_TOL = 2e-2      # x max|ref|: both round an fp32 sum to bf16 (2^-8
                      # relative); a differing last bit is one ulp
 AGREE_TOL = 1e-3     # card vs CPU, full width: fp32 through ~20 layers,
@@ -108,25 +120,42 @@ TRAIN_LAUNCHES = {"conv_stem_fwd": 2, "conv_stem_dw": 1, "conv_stem_dx": 1,
 SWITCHES = {"TERRAIN_POOL_VJP": "pallas", "TERRAIN_PALLAS_CONVS2": "1"}
 SWITCHED_LAUNCHES = {"pool2_fwd": 12, "pool2_bwd": 12, "conv_s2_fwd": 3,
                      "conv_s2_dw": 2}
+# the unfused decoder: terrain_tpu's switches that send the U-Net's last
+# bilinear stage, (N,128,128,256) fp32, through the bilinear kernel and its
+# transpose instead of bilinear_conv (the (N,64,64,512) stage is below the
+# kernel's regime and goes to the library resize)
+UNFUSED = {"TERRAIN_PALLAS": "1", "TERRAIN_PALLAS_DECODER": "0"}
+UNFUSED_LAUNCHES = {"bilinear": 1, "bilinear_backward": 1,
+                    "bilinear_conv": 0, "bilinear_conv_backward": 0}
 # an eval step runs the forwards only; a dump of [A, G(A)] pairs runs the
 # U-Net alone
 EVAL_LAUNCHES = {"pool2_fwd": 12, "pool2_bwd": 0, "conv_s2_fwd": 3,
                  "conv_s2_dw": 0}
 TRAINER_N = 240          # the shipped set's size: 250 MB of uint8 on the card
-PHASES = {"kernels", "serve", "train", "trainer", "conditioning"}
+# the quality path's train set: depth cut to 10 steps an epoch (the widths
+# are the flagship's); the valid set is its floor of 4 pairs, one step
+QUALITY_N = 40
+# epoch 1 warms up (cuDNN's choices for new shapes), epoch 2 is traced
+# (TERRAIN_PROFILE), epoch 3 is the clean one
+QUALITY_EPOCHS = 3
+SWD_N = 16               # images per SWD evaluation (the trainer's n)
+SWD_TOL = 1e-4           # relative, card vs CPU: fp32 sums in another order
+PHASES = {"kernels", "serve", "train", "trainer", "quality", "conditioning"}
 
 
-def set_switches(on):
-    for k, v in SWITCHES.items():
+def set_switches(on, switches=SWITCHES):
+    for k, v in switches.items():
         if on:
             os.environ[k] = v
         else:
             os.environ.pop(k, None)
 
 
-def expected_launches(on):
+def expected_launches(on, unfused=False):
     return {**TRAIN_LAUNCHES,
-            **{k: v if on else 0 for k, v in SWITCHED_LAUNCHES.items()}}
+            **{k: v if on else 0 for k, v in SWITCHED_LAUNCHES.items()},
+            **(UNFUSED_LAUNCHES if unfused
+               else {"bilinear": 0, "bilinear_backward": 0})}
 
 
 def fail(msg):
@@ -174,6 +203,7 @@ def kernel_cases(torch):
     import torch.nn.functional as F
     from torch.nn import grad as ng
 
+    from terrain_tpu_torch.ops.kernels import bilinear as bl
     from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
     from terrain_tpu_torch.ops.kernels import conv_s2 as c2
     from terrain_tpu_torch.ops.kernels import conv_stem as cs
@@ -375,7 +405,28 @@ def kernel_cases(torch):
             nbytes=lambda dt: es(dt) * (n * h * w * c + k * n * h * w // 4 * f)
             + 4 * (9 * c + 1) * f)
 
-    return [bil(4, 64, 64, 512, 128), bil(4, 128, 128, 256, 64),
+    def up2(n, h, w, c):
+        def make(dt, g):
+            return (_rand(torch, g, (n, h, w, c), dt),)
+
+        def lib(x):
+            return F.interpolate(nchw(x), scale_factor=2, mode="bilinear",
+                                 align_corners=False)
+
+        return dict(
+            name="bilinear", shape=(n, h, w, c), make=make,
+            kern=bl.bilinear_2x_fwd, plain=bl.bilinear_2x_plain, lib=lib,
+            # fp32 only, as terrain_tpu's guard; the same products and sums
+            # in the same order as the plain version, each rounded alone
+            dtypes=(torch.float32,), tol=BILINEAR_TOL,
+            # three flops per interpolated value: the row pass makes 2H*W,
+            # the column pass 4H*W values per channel
+            flops=3.0 * n * (2 * h * w + 4 * h * w) * c,
+            nbytes=lambda dt: es(dt) * n * h * w * c * 5)
+
+    return [up2(4, 128, 128, 256), up2(8, 128, 128, 256),
+            up2(2, 136, 200, 128),
+            bil(4, 64, 64, 512, 128), bil(4, 128, 128, 256, 64),
             bil(2, 21, 27, 24, 16),
             thin(4, 256, 256, 64, 4), thin(3, 37, 45, 24, 3),
             thin_dx(4, 256, 256, 64, 4), thin_dx(3, 37, 45, 24, 1),
@@ -408,6 +459,9 @@ def check_kernels(torch):
         big = case["flops"] > 1e9
         for dt, peak, tol in ((torch.float32, F32_PEAK, F32_TOL),
                               (torch.bfloat16, BF16_PEAK, BF16_TOL)):
+            if dt not in case.get("dtypes", (dt,)):
+                continue
+            tol = case.get("tol", tol)
             if case.get("f32_out"):
                 tol = F32_TOL  # fp32 sums of the same rounded inputs
             if case.get("exact"):
@@ -460,13 +514,15 @@ def check_kernels(torch):
 
 
 def check_autograd(torch):
-    """The three differentiable ops on CUDA tensors against autograd of
+    """The six differentiable ops on CUDA tensors against autograd of
     their plain versions: gradients must exist (a wrapper that launches
     through ctypes into a fresh tensor returns one without a grad_fn, and
-    training would stop there without any error) and agree.  Also
-    the bilinear_conv backward as an op, timed at the flagship shapes."""
+    training would stop there without any error) and agree.  Also the
+    bilinear_conv and bilinear backwards as ops (PyTorch code, as they are
+    XLA code in the JAX package), timed at the flagship shapes."""
     import torch.nn.functional as F
 
+    from terrain_tpu_torch.ops.kernels import bilinear as bl
     from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
     from terrain_tpu_torch.ops.kernels import conv_s2 as c2
     from terrain_tpu_torch.ops.kernels import conv_stem as cs
@@ -521,6 +577,35 @@ def check_autograd(torch):
               f"gradient equals the plain backward on tied inputs; equals "
               f"autograd of F.max_pool2d: {torch.equal(got, lib)}", flush=True)
 
+    for shape in ((4, 128, 128, 256), (2, 136, 200, 128)):
+        # Bilinear2xFn: fp32 only, as its regime; the transpose against
+        # autograd of the plain forward, and against itself (no atomics)
+        (x,) = leaves(torch.float32, (shape, 1.0, "x"))
+        compare(f"bilinear {shape}", torch.float32, bl.bilinear_2x,
+                bl.bilinear_2x_plain, [x], F32_TOL)
+        n, h, w, c = shape
+        cot = _rand(torch, g, (n, 2 * h, 2 * w, c), torch.float32)
+        dx = bl.bilinear_2x_bwd(cot, torch.float32)
+        if not torch.equal(dx, bl.bilinear_2x_bwd(cot, torch.float32)):
+            fail(f"bilinear {shape}: two backward passes differ")
+        if shape[1] != 128:
+            continue
+        xl = x.detach().clone().requires_grad_()
+        yl = F.interpolate(xl.permute(0, 3, 1, 2), scale_factor=2,
+                           mode="bilinear", align_corners=False)
+        yp = bl.bilinear_2x_plain(x)
+        ms = time_ms(lambda: bl.bilinear_2x_bwd(cot, torch.float32))
+        plain_ms = time_ms(lambda: torch.autograd.grad(
+            yp, x, cot, retain_graph=True))
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            yl, xl, cot.permute(0, 3, 1, 2), retain_graph=True))
+        bound = 4 * n * h * w * c * 5 / HBM_BW * 1e3
+        print(f"op bilinear backward {shape} float32: ms {ms:.4f} (the "
+              f"transpose, PyTorch ops as in the JAX package) plain_ms "
+              f"{plain_ms:.4f} library_ms {lib_ms:.4f} (autograd of the "
+              f"plain and of the library forward) bound_ms {bound:.4f} "
+              f"(bytes)", flush=True)
+        del yl, yp, xl
     for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         for shape in ((2, 256, 256, 64), (2, 16, 16, 256)):
             pool_grad(dt, *shape)
@@ -763,9 +848,14 @@ def profile_once(torch, fn, label, top=10):
 
 # ------------------------------------------------------------------ phase 4
 def agreement(torch, pipe):
+    """One fixed z (N=1, det, fp32) through the served samplers on the card
+    and through the same weights on the CPU (plain versions): by default,
+    and with the unfused decoder (UNFUSED), where the card's U-Net runs the
+    bilinear kernel once and the CPU its plain version."""
     import numpy as np
 
     from terrain_tpu_torch.experiments import build_model
+    from terrain_tpu_torch.ops.kernels import bilinear as bl
 
     cpu, _ = build_model(EXPERIMENT, "cpu", seed=1,
                          compute_dtype=torch.float32)
@@ -773,20 +863,35 @@ def agreement(torch, pipe):
     cpu.p2p_gen.load_state_dict(pipe.p2p_gen.state_dict())
     z = np.random.RandomState(2024).rand(1, pipe.latent_dim) \
         .astype(np.float32)
-    a_g, b_g = pipe.two_stage_det(torch.from_numpy(z).cuda())
-    a_c, b_c = cpu.two_stage_det(torch.from_numpy(z))
-    errs = [(x.cpu() - y).abs().max().item() for x, y in
-            ((a_g, a_c), (b_g, b_c))]
-    print(f"agreement card vs CPU (N=1, det, fp32): heightmap max_abs_err "
-          f"{errs[0]:.3e}, texture {errs[1]:.3e} (tol {AGREE_TOL}); "
-          f"heightmap range [{a_c.min():.4f}, {a_c.max():.4f}], texture "
-          f"[{b_c.min():.4f}, {b_c.max():.4f}]", flush=True)
-    if not max(errs) <= AGREE_TOL:
-        fail("card and CPU outputs disagree")
+    try:
+        for unfused in (False, True):
+            set_switches(unfused, UNFUSED)
+            _reset_counters()
+            bl.PLAIN.calls = 0
+            a_g, b_g = pipe.two_stage_det(torch.from_numpy(z).cuda())
+            a_c, b_c = cpu.two_stage_det(torch.from_numpy(z))
+            got = (_read_counters()["bilinear"], bl.PLAIN.calls)
+            errs = [(x.cpu() - y).abs().max().item() for x, y in
+                    ((a_g, a_c), (b_g, b_c))]
+            label = "unfused decoder" if unfused else "default"
+            print(f"agreement card vs CPU (N=1, det, fp32, {label}): "
+                  f"heightmap max_abs_err {errs[0]:.3e}, texture "
+                  f"{errs[1]:.3e} (tol {AGREE_TOL}); bilinear launches on "
+                  f"the card and plain calls on the CPU {got}; heightmap "
+                  f"range [{a_c.min():.4f}, {a_c.max():.4f}], texture "
+                  f"[{b_c.min():.4f}, {b_c.max():.4f}]", flush=True)
+            if not max(errs) <= AGREE_TOL:
+                fail(f"card and CPU outputs disagree ({label})")
+            if got != ((1, 1) if unfused else (0, 0)):
+                fail(f"agreement ({label}): bilinear launches and plain "
+                     f"calls {got}")
+    finally:
+        set_switches(False, UNFUSED)
 
 
 # ------------------------------------------------------------------ phase 5
 def _counters():
+    from terrain_tpu_torch.ops.kernels import bilinear as bl
     from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
     from terrain_tpu_torch.ops.kernels import conv_s2 as c2
     from terrain_tpu_torch.ops.kernels import conv_stem as cs
@@ -798,18 +903,23 @@ def _counters():
             "conv_stem_fwd": cs.KERNEL_FWD, "conv_stem_dw": cs.KERNEL_DW,
             "conv_stem_dx": cs.KERNEL_DX,
             "pool2_fwd": p2.KERNEL_FWD, "pool2_bwd": p2.KERNEL_BWD,
-            "conv_s2_fwd": c2.KERNEL_FWD, "conv_s2_dw": c2.KERNEL_DW}
+            "conv_s2_fwd": c2.KERNEL_FWD, "conv_s2_dw": c2.KERNEL_DW,
+            "bilinear": bl.KERNEL}
 
 
 def _op_counters():
-    """Counters that are no kernel launches: the bilinear_conv backward (an
-    op of PyTorch calls) and the NHWC copies the two new ops had to make."""
+    """Counters that are no kernel launches: the bilinear_conv and bilinear
+    backwards (ops of PyTorch calls) and the NHWC copies the ops with a copy
+    counter had to make."""
+    from terrain_tpu_torch.ops.kernels import bilinear as bl
     from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
     from terrain_tpu_torch.ops.kernels import conv_s2 as c2
     from terrain_tpu_torch.ops.kernels import pool2 as p2
 
     return {"bilinear_conv_backward": bc.BACKWARD,
-            "pool2_copies": p2.COPIES, "conv_s2_copies": c2.COPIES}
+            "bilinear_backward": bl.BACKWARD,
+            "pool2_copies": p2.COPIES, "conv_s2_copies": c2.COPIES,
+            "bilinear_copies": bl.COPIES}
 
 
 def _reset_counters():
@@ -838,21 +948,26 @@ def _train_batch(torch, n, size, latent, seed):
 def train_slice(torch, card):
     """The flagship four-network train step at full width, batch 4, in
     fp32 and with bf16 compute over fp32 parameters, with the two opt-in
-    kernel switches off and on: one warm-up step, then TRAIN_STEPS timed
-    steps with the launch counters set to 0 just before and read just
-    after.  Returns the fp32 runs' counts, switches off and on, added."""
+    kernel switches off and on, and in fp32 with the unfused decoder
+    (UNFUSED): one warm-up step, then TRAIN_STEPS timed steps with the
+    launch counters set to 0 just before and read just after.  Returns the
+    fp32 runs' counts added, and the step ms of each configuration."""
     import math
 
     from terrain_tpu_torch.experiments import build_train
     from terrain_tpu_torch.models import param_count
 
-    counts = {}
-    for label, cd, on in (("fp32", torch.float32, False),
-                          ("fp32", torch.float32, True),
-                          ("bf16", torch.bfloat16, False),
-                          ("bf16", torch.bfloat16, True)):
+    counts, step_ms = {}, {}
+    for label, cd, on, unfused in (
+            ("fp32", torch.float32, False, False),
+            ("fp32", torch.float32, False, True),
+            ("fp32", torch.float32, True, False),
+            ("bf16", torch.bfloat16, False, False),
+            ("bf16", torch.bfloat16, True, False)):
         set_switches(on)
-        label = f"{label} switches {'on' if on else 'off'}"
+        set_switches(unfused, UNFUSED)
+        label = (f"{label} switches {'on' if on else 'off'}"
+                 + (" unfused decoder" if unfused else ""))
         t0 = time.perf_counter()
         ts = build_train(EXPERIMENT, "cuda", seed=0, compute_dtype=cd)
         batch = _train_batch(torch, TRAIN_BATCH, ts.in_shp, ts.latent_dim, 7)
@@ -879,6 +994,7 @@ def train_slice(torch, card):
         got = _read_counters()
         peak = torch.cuda.max_memory_allocated()
         ms = statistics.median(s.elapsed_time(e) for s, e in evs)
+        step_ms[label] = ms
         lv = {k: float(v) for k, v in losses.items()}
         print(f"train {label} [{card}]: batch {TRAIN_BATCH}, {ts.in_shp}px: "
               f"step {ms:.3f} ms (CUDA events, median of {TRAIN_STEPS}), "
@@ -889,7 +1005,7 @@ def train_slice(torch, card):
               flush=True)
         if not all(math.isfinite(v) for v in lv.values()):
             fail(f"train {label}: a loss is not finite")
-        for name, per_step in expected_launches(on).items():
+        for name, per_step in expected_launches(on, unfused).items():
             if got[name] != per_step * TRAIN_STEPS:
                 fail(f"train {label}: {name} launched {got[name]} times in "
                      f"{TRAIN_STEPS} steps, expected {per_step} per step")
@@ -907,7 +1023,8 @@ def train_slice(torch, card):
         del ts, before, batch
         torch.cuda.empty_cache()
     set_switches(False)
-    return counts
+    set_switches(False, UNFUSED)
+    return counts, step_ms
 
 
 def train_agreement(torch):
@@ -1058,7 +1175,7 @@ def trainer_slice(torch, card):
     (TERRAIN_SYNTHETIC=1 TERRAIN_FAST=1 TERRAIN_N=240), both kernel switches
     on, augmentation in the step, one epoch with a checkpoint; then the same
     command resumes it (TERRAIN_RESUME=auto) for a second epoch.  Returns
-    the launch counts of the two runs, added."""
+    the launch counts of the two runs, added, and the first epoch's time."""
     import math
     import shutil
     import tempfile
@@ -1206,6 +1323,224 @@ def trainer_slice(torch, card):
             else:
                 os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
+    return counts, float(rows[0]["time"])
+
+
+# ------------------------------------------------------------------ phase 7
+def quality_slice(torch, card, trainer_epoch_s, bare_ms):
+    """The trainer's quality path at full width, through the entry point:
+    `python -m terrain_tpu_torch test1_nobn_bilin_both train` with the
+    unfused decoder (UNFUSED), TERRAIN_SWD=1 and TERRAIN_PROFILE, on host
+    iterators over synthetic pairs (TERRAIN_FAST unset) behind the
+    prefetcher, QUALITY_EPOCHS epochs with a checkpoint each; then `gen`,
+    which picks its checkpoint from the run's swd.txt.  Checks swd.txt
+    (terrain_tpu's columns, finite values), the pick, the trace, the launch
+    counts, and SWD and terrain W1 of the same images on the card against
+    the CPU.  Returns the launch counts of train and gen, added."""
+    import contextlib
+    import io
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from terrain_tpu_torch import cli
+    from terrain_tpu_torch.data.prefetch import Prefetcher
+    from terrain_tpu_torch.data.synthetic import make_pairs
+    from terrain_tpu_torch.eval import swd_pyramid, terrain_stats
+    from terrain_tpu_torch.train.trainer import TwoStageGAN
+
+    root = tempfile.mkdtemp(prefix="quality_")
+    trace_dir = os.path.join(root, "trace")
+    env = {"TERRAIN_SYNTHETIC": "1", "TERRAIN_N": str(QUALITY_N),
+           "TERRAIN_EPOCHS": str(QUALITY_EPOCHS), "TERRAIN_SAVE_EVERY": "1",
+           "TERRAIN_SWD": "1", "TERRAIN_PROFILE": trace_dir,
+           "TERRAIN_OUT": os.path.join(root, "out"),
+           "TERRAIN_MODELS": os.path.join(root, "models"), **UNFUSED}
+    unset = ("TERRAIN_FAST", "TERRAIN_RESUME", "TERRAIN_PICK",
+             "TERRAIN_PREFETCH", "TERRAIN_TERRAIN_METRICS")
+    saved = {k: os.environ.get(k) for k in (*env, *unset)}
+    for k in unset:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    out = os.path.join(root, "out", EXPERIMENT)
+    n_train = QUALITY_N // TRAIN_BATCH
+    n_eval = max(QUALITY_N // 10, 4) // TRAIN_BATCH
+    # measurement hooks, on the classes and for this phase only: the time
+    # and peak memory of each epoch's passes, dumps and SWD evaluation, and
+    # the batches the prefetcher copied
+    seg = {"run_epoch": [], "dump_epoch": [], "log_swd": []}
+    copied = [0]
+    saved_methods = {name: getattr(TwoStageGAN, "_" + name) for name in seg}
+    to_device = Prefetcher._to_device
+
+    def timed(name):
+        method = saved_methods[name]
+
+        def run(self, *a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = method(self, *a, **k)
+            torch.cuda.synchronize()
+            seg[name].append((round(time.perf_counter() - t0, 3),
+                              round(torch.cuda.max_memory_allocated()
+                                    / 2**20, 1)))
+            return out
+        return run
+
+    def counted_to_device(self, item):
+        copied[0] += 1
+        return to_device(self, item)
+
+    for name in seg:
+        setattr(TwoStageGAN, "_" + name, timed(name))
+    Prefetcher._to_device = counted_to_device
+    counts = {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        t0 = time.perf_counter()
+        if cli.main([EXPERIMENT, "train"]) != 0:
+            fail("quality: the CLI returned an error")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read_counters()
+        print(f"quality [{card}]: `{EXPERIMENT} train` with "
+              f"{' '.join(f'{k}={v}' for k, v in UNFUSED.items())} "
+              f"TERRAIN_SWD=1 TERRAIN_PROFILE, {QUALITY_N} synthetic pairs on "
+              f"host iterators, {QUALITY_EPOCHS} epochs: {wall:.1f} s in all "
+              f"(data, epochs, dumps, SWD, trace, checkpoints); batches "
+              f"through the prefetcher {copied[0]}; launches {got}",
+              flush=True)
+        print(f"quality [{card}]: (s, peak MiB) of each train and valid "
+              f"pass {seg['run_epoch']}, each epoch's dumps "
+              f"{seg['dump_epoch']}, each SWD evaluation {seg['log_swd']}",
+              flush=True)
+        # per epoch: a forward per train and eval step, 4 + 1 + 1 U-Net
+        # forwards in the dumps and one (of SWD_N images) in the SWD
+        # evaluation; a backward per train step; no fused decoder
+        want = {"bilinear": QUALITY_EPOCHS * (n_train + n_eval + 7),
+                "bilinear_backward": QUALITY_EPOCHS * n_train,
+                "bilinear_conv": 0, "bilinear_conv_backward": 0,
+                "pool2_fwd": 0, "conv_s2_fwd": 0}
+        for k, v in want.items():
+            if got[k] != v:
+                fail(f"quality: {k} launched {got[k]} times, expected {v}")
+        for k, v in TRAIN_LAUNCHES.items():
+            if v and k not in want and got[k] < QUALITY_EPOCHS * n_train * v:
+                fail(f"quality: {k} launched {got[k]} times")
+        if copied[0] < QUALITY_EPOCHS * (n_train + n_eval):
+            fail(f"quality: the prefetcher copied {copied[0]} batches")
+        counts = dict(got)
+        with open(os.path.join(out, "results.txt")) as f:
+            rows = [ln.split(",") for ln in f.read().splitlines()[1:]]
+        times = [float(r[-2]) for r in rows]
+        per_step = [t * 1e3 / (n_train + n_eval) for t in times]
+        dev_steps = TRAINER_N // TRAIN_BATCH + (TRAINER_N // 10) // TRAIN_BATCH
+        print(f"quality [{card}]: epoch `time` {times} s, {per_step} ms per "
+              f"step of batch {TRAIN_BATCH} (eval included; epoch 1 warms "
+              f"up, epoch 2 is traced); the bare step of this configuration "
+              f"{bare_ms:.3f} ms; the device-resident trainer phase's first "
+              f"epoch {trainer_epoch_s:.3f} s, "
+              f"{trainer_epoch_s * 1e3 / dev_steps:.3f} ms per step (fused "
+              f"decoder, opt-in switches on)", flush=True)
+        # swd.txt: terrain_tpu's columns for train_mode both, in its order
+        with open(os.path.join(out, "swd.txt")) as f:
+            lines = f.read().splitlines()
+        header = lines[0].split(",")
+        cols = ([f"swd_level{i}" for i in range(4)] + ["swd_mean",
+                "elev_w1", "slope_w1"]
+                + [f"p2p_swd_level{i}" for i in range(4)] + ["p2p_swd_mean"])
+        if header != ["epoch"] + cols or len(lines) != QUALITY_EPOCHS + 1:
+            fail(f"quality: swd.txt header {header}, {len(lines)} lines")
+        swd_rows = [dict(zip(header, ln.split(","))) for ln in lines[1:]]
+        for i, row in enumerate(swd_rows):
+            vals = [float(row[c]) for c in cols]
+            if row["epoch"] != str(i + 1) or not all(map(math.isfinite,
+                                                         vals)):
+                fail(f"quality: bad swd.txt row {row}")
+        print(f"quality: swd.txt {lines}", flush=True)
+        traces = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+        sizes = [os.path.getsize(os.path.join(trace_dir, t)) for t in traces]
+        if len(traces) != 1 or not sizes[0]:
+            fail(f"quality: TERRAIN_PROFILE wrote {traces} {sizes}")
+        with open(os.path.join(trace_dir, traces[0])) as f:
+            n_kern = f.read().count('"cat": "kernel"')
+        print(f"quality: trace {traces[0]}, {sizes[0] / 2**20:.1f} MiB, "
+              f"{n_kern} device kernel events", flush=True)
+        # gen: picks the epoch of the least swd_mean from swd.txt
+        best = min(swd_rows, key=lambda r: float(r["swd_mean"]))["epoch"]
+        _reset_counters()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([EXPERIMENT, "gen"])
+        gen_s = time.perf_counter() - t0
+        said = buf.getvalue()
+        print(said, end="", flush=True)
+        gen_counts = _read_counters()
+        n_png = len(os.listdir(os.path.join(out, "gen")))
+        if rc != 0 or f"best @e{best} " not in said \
+                or f"checkpoint {best}.model" not in said or n_png != 100:
+            fail(f"quality: gen did not pick epoch {best} from swd.txt or "
+                 f"wrote {n_png} samples")
+        print(f"quality [{card}]: gen picked {best}.model from swd.txt and "
+              f"wrote {n_png} samples in {gen_s:.1f} s; launches "
+              f"{gen_counts} (gen samples the DCGAN generator only)",
+              flush=True)
+        for k, v in gen_counts.items():
+            counts[k] = counts.get(k, 0) + v
+        # SWD and terrain W1 of the same images on the card and on the CPU
+        # (the draws come from one host generator, so they are the same)
+        real = make_pairs(SWD_N, 512, seed=1)[0].astype(np.float32) / 255.0
+        fake = make_pairs(SWD_N, 512, seed=2)[0].astype(np.float32) / 255.0
+        res = {}
+        for dev in ("cuda", "cpu"):
+            r, f_ = (torch.from_numpy(a).to(dev) for a in (real, fake))
+            t0 = time.perf_counter()
+            res[dev] = {**swd_pyramid(r, f_, seed=0, n_levels=3),
+                        **terrain_stats(r, f_, seed=0)}
+            res[dev + "_s"] = time.perf_counter() - t0
+        worst = max(abs(res["cuda"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in res["cpu"].items())
+        print(f"quality: SWD pyramid + terrain W1 of {SWD_N} 512px "
+              f"heightmaps, card vs CPU: largest relative difference "
+              f"{worst:.3e} (tol {SWD_TOL}); card {res['cuda_s']:.3f} s, "
+              f"CPU {res['cpu_s']:.3f} s; values {res['cuda']}", flush=True)
+        if not worst <= SWD_TOL:
+            fail("quality: SWD on the card and on the CPU disagree")
+        # the SWD evaluation's peak memory: its U-Net forward on SWD_N
+        # images, with the decoder fused (the default) and unfused
+        from terrain_tpu_torch.experiments import build_model
+
+        pipe, _ = build_model(EXPERIMENT, "cuda", seed=0)
+        x = torch.from_numpy(real).cuda()
+        peaks = {}
+        for n in (TRAIN_BATCH, SWD_N):
+            for label, on in (("fused", False), ("unfused", True)):
+                set_switches(on, UNFUSED)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                pipe.atob_det(x[:n])
+                torch.cuda.synchronize()
+                peaks[f"{label} decoder, batch {n}"] = round(
+                    (torch.cuda.max_memory_allocated() - base) / 2**20, 1)
+        print(f"quality [{card}]: peak MiB above the resident weights of the "
+              f"U-Net G det forward at 512px {peaks}", flush=True)
+        del pipe, x
+    finally:
+        for name, method in saved_methods.items():
+            setattr(TwoStageGAN, "_" + name, method)
+        Prefetcher._to_device = to_device
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
     return counts
 
 
@@ -1248,6 +1583,7 @@ def main():
                 print(f"ptxas {name}: {line.strip()}")
 
     rows, serve_launches, train_launches, trainer_launches = {}, {}, {}, {}
+    quality_launches, trainer_epoch_s, step_ms = {}, float("nan"), {}
     if want("kernels"):
         rows = check_kernels(torch)
         check_autograd(torch)
@@ -1264,13 +1600,19 @@ def main():
     if "conditioning" in only:
         conditioning(torch)
     if want("train"):
-        train_launches = train_slice(torch, card)
+        train_launches, step_ms = train_slice(torch, card)
         train_agreement(torch)
         print(f"phase train done at {time.perf_counter() - t_start:.0f} s",
               flush=True)
     if want("trainer"):
-        trainer_launches = trainer_slice(torch, card)
+        trainer_launches, trainer_epoch_s = trainer_slice(torch, card)
         print(f"phase trainer done at {time.perf_counter() - t_start:.0f} s",
+              flush=True)
+    if want("quality"):
+        quality_launches = quality_slice(
+            torch, card, trainer_epoch_s,
+            step_ms.get("fp32 switches off unfused decoder", float("nan")))
+        print(f"phase quality done at {time.perf_counter() - t_start:.0f} s",
               flush=True)
     if only:
         print(f"phases {sorted(only)} passed; run without arguments for the "
@@ -1291,22 +1633,33 @@ def main():
         "conv_s2_dw": ("conv_s2.cu", "conv_s2.py:217"),
         "pool2_fwd": ("pool2.cu", "pool2.py:106"),
         "pool2_bwd": ("pool2.cu", "pool2.py:125"),
+        "bilinear": ("bilinear.cu", "bilinear.py:99"),
     }
+    # the paths each kernel lies on: it must have run on every one of them
+    # (bilinear only with the unfused decoder: the train phase's UNFUSED
+    # step and the quality phase; the opt-in pool2 and conv_s2 in the train
+    # and trainer phases; bilinear_conv not in the quality phase, whose
+    # decoder is unfused)
+    paths = {name: ["train", "trainer", "quality"] for name in meta}
+    paths["bilinear"] = ["train", "quality"]
+    for name in ("pool2_fwd", "pool2_bwd", "conv_s2_fwd", "conv_s2_dw",
+                 "bilinear_conv"):
+        paths[name].remove("quality")
+    for name in serve_launches:
+        paths[name].append("serve")
+    launches = {"serve": serve_launches, "train": train_launches,
+                "trainer": trainer_launches, "quality": quality_launches}
     kernels = []
     for name, (src, rep) in meta.items():
         main_row = rows[name][0]  # main path shape, fp32
-        n_serve = serve_launches.get(name, 0)
-        n_train = train_launches[name]
-        n_trainer = trainer_launches[name]
-        if (n_train == 0 or n_trainer == 0
-                or (name in serve_launches and n_serve == 0)):
-            fail(f"{name} was not launched on its main path")
+        per = {p: launches[p].get(name, 0) for p in launches}
+        if any(per[p] == 0 for p in paths[name]):
+            fail(f"{name} was not launched on its main paths: {per}")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": pallas + rep,
-            "launches": n_serve + n_train + n_trainer,
-            "launches_serve": n_serve, "launches_train": n_train,
-            "launches_trainer": n_trainer,
+            "launches": sum(per.values()),
+            **{f"launches_{p}": n for p, n in per.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]
                                if r["dtype"] == "float32"),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

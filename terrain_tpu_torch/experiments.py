@@ -24,9 +24,21 @@ Environment, as in terrain_tpu:
                      (e.g. "linear"), replacing the reference's rectify
   TERRAIN_LR_MULTS   per-network lr multipliers, "net=f,net=f"
   TERRAIN_CHECK_NANS "1" -> stop on a non-finite epoch loss
-Kernel switches (both off by default, as in terrain_tpu):
-  TERRAIN_POOL_VJP=pallas    2x2 max pools run ops/kernels/pool2
+  TERRAIN_SWD        "1" -> per-epoch SWD pyramid and terrain W1 -> swd.txt
+                     (TERRAIN_TERRAIN_METRICS=0 leaves the W1 columns out)
+  TERRAIN_PREFETCH   "0" -> read host iterators in the step loop
+  TERRAIN_PROFILE    a directory: a Chrome trace of the second epoch
+Kernel switches, read at call time, with terrain_tpu's defaults:
+  TERRAIN_POOL_VJP=pallas    2x2 max pools run ops/kernels/pool2 (off)
   TERRAIN_PALLAS_CONVS2=1    small-cin 3x3 s2 convs run ops/kernels/conv_s2
+                             (off)
+  TERRAIN_PALLAS=1           bilinear x2 in regime runs ops/kernels/bilinear
+                             (off)
+  TERRAIN_RESIZE=dense       bilinear x2 in the separable form (default xla:
+                             the library resize)
+  TERRAIN_PALLAS_DECODER=0   the U-Net's bilinear stages unfused (on)
+  TERRAIN_PALLAS_STEM=0, TERRAIN_PALLAS_THIN=0   one conv kernel off (on)
+  TERRAIN_PALLAS_CONV=0      every conv kernel off, the decoder's included
 TERRAIN_RASTER (on-the-fly raster crops) is not ported yet and raises.
 """
 

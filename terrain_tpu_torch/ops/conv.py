@@ -14,10 +14,13 @@ hand-written kernels instead, tried in terrain_tpu's order
 (ops/kernels/conv_stem.py, with the LeakyReLU fused through `conv2d_leaky`),
 then small-cin 3x3 s2 first-layer convs (ops/kernels/conv_s2.py, LeakyReLU
 fused likewise), then thin-cout 3x3 s1 convs (ops/kernels/conv_thin.py).
-Stem and thin are pure shape rules.  conv_s2 is opt-in by terrain_tpu's own
-switch, TERRAIN_PALLAS_CONVS2=1, read at call time: off (the default) the
-library conv runs; on, a CUDA tensor in the regime launches the kernel or
-raises, a CPU tensor runs its plain version.
+Stem and thin are on by default and conv_s2 is opt-in, by terrain_tpu's own
+switches, read at call time (ops/conv.py:25-29,46-49,65-69):
+TERRAIN_PALLAS_STEM=0 and TERRAIN_PALLAS_THIN=0 turn one kernel off,
+TERRAIN_PALLAS_CONVS2=1 turns conv_s2 on, and the master switch
+TERRAIN_PALLAS_CONV=0 turns every conv kernel off (the fused decoder's too,
+ops/fused.py).  Off, the library conv runs; on, a CUDA tensor in the regime
+launches the kernel or raises, a CPU tensor runs its plain version.
 """
 
 import os
@@ -43,10 +46,20 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def conv_kernel_on(switch):
+    """A default-on conv kernel's switch: off when `switch`=0 or the master
+    switch TERRAIN_PALLAS_CONV=0 is set."""
+    return (os.environ.get("TERRAIN_PALLAS_CONV", "1") != "0"
+            and os.environ.get(switch, "1") != "0")
+
+
 def _try_stem(x, w, b, s, padding, cd, slope=None):
-    """The stem kernel in its regime (bias and activation included), else
-    None.  x and w go in the compute dtype, the bias in fp32, unrounded."""
+    """The stem kernel, unless switched off, in its regime (bias and
+    activation included), else None.  x and w go in the compute dtype, the
+    bias in fp32, unrounded."""
     cout, cin, kh, kw = w.shape
+    if not conv_kernel_on("TERRAIN_PALLAS_STEM"):
+        return None
     if not _cs.supported(tuple(x.shape), (kh, kw, cin, cout), s, padding):
         return None
     bb = b.float() if b is not None else torch.zeros(cout, device=x.device)
@@ -58,7 +71,8 @@ def _try_stem(x, w, b, s, padding, cd, slope=None):
 def _try_s2(x, w, b, s, padding, cd, slope=None):
     """The conv_s2 kernel when switched on and in its regime (bias and
     activation included), else None."""
-    if os.environ.get("TERRAIN_PALLAS_CONVS2", "0") != "1":
+    if (os.environ.get("TERRAIN_PALLAS_CONVS2", "0") != "1"
+            or os.environ.get("TERRAIN_PALLAS_CONV", "1") == "0"):
         return None
     cout, cin, kh, kw = w.shape
     if not _c2.supported(tuple(x.shape), (kh, kw, cin, cout), s, padding):
@@ -79,7 +93,8 @@ def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None):
         out = _try_s2(x, w, b, s, padding, cd)
     if out is not None:
         return out
-    if _ct.supported(tuple(x.shape), (kh, kw, cin, cout), s, padding):
+    if conv_kernel_on("TERRAIN_PALLAS_THIN") and _ct.supported(
+            tuple(x.shape), (kh, kw, cin, cout), s, padding):
         out = _ct.conv_thin(x.to(cd).contiguous(),
                             w.to(cd).permute(2, 3, 1, 0).contiguous())
     else:

@@ -8,8 +8,8 @@
 2. deconv2x2: the k=2 s=2 transposed conv writes non-overlapping 2x2
    blocks -- a matmul with 4x output channels and a depth-to-space.
 3. bilinear2x_conv3x3: bilinear x2 then 3x3 'same' conv; in the kernel's
-   regime it is the fused bilinear_conv kernel (ops/kernels), elsewhere the
-   plain composite.
+   regime it is the fused bilinear_conv kernel (ops/kernels), elsewhere, or
+   with TERRAIN_PALLAS_DECODER=0 or TERRAIN_PALLAS_CONV=0, the composite.
 """
 
 from functools import lru_cache
@@ -17,7 +17,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from terrain_tpu_torch.ops.conv import conv2d
+from terrain_tpu_torch.ops.conv import conv2d, conv_kernel_on
 from terrain_tpu_torch.ops.kernels import bilinear_conv as _bc
 from terrain_tpu_torch.ops.resize import upsample_bilinear_2x
 
@@ -79,12 +79,15 @@ def deconv2x2(x, w, b=None, *, compute_dtype=None):
 
 def bilinear2x_conv3x3(x, w, b=None, *, compute_dtype=None):
     """Bilinear x2 upsample then 3x3 'same' conv (the U-Net decoder's
-    bilinear stage).  w (cout,cin,3,3).  In the bilinear_conv regime this
-    is the fused kernel (all arithmetic in fp32, output in the compute
-    dtype); off regime the unfused composite runs."""
+    bilinear stage).  w (cout,cin,3,3).  In the bilinear_conv regime, unless
+    switched off, this is the fused kernel (all arithmetic in fp32, output
+    in the compute dtype); otherwise the unfused composite runs, whose
+    upsample is ops/resize.upsample_bilinear_2x."""
     cd = compute_dtype or x.dtype
     cout, cin = w.shape[0], w.shape[1]
-    if _bc.supported(tuple(x.shape), (3, 3, cin, cout)):
+    # terrain_tpu's TERRAIN_PALLAS_DECODER switch (ops/fused.py:168-182)
+    if conv_kernel_on("TERRAIN_PALLAS_DECODER") and _bc.supported(
+            tuple(x.shape), (3, 3, cin, cout)):
         bb = b if b is not None else torch.zeros(cout, device=x.device)
         return _bc.bilinear_conv(
             x.to(cd).contiguous(), w.to(cd).permute(2, 3, 1, 0).contiguous(),

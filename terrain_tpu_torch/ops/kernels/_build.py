@@ -24,7 +24,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("conv_thin", "bilinear_conv", "conv_stem", "conv_s2", "pool2")
+SOURCES = ("conv_thin", "bilinear_conv", "conv_stem", "conv_s2", "pool2",
+           "bilinear")
 
 _lock = threading.Lock()
 

@@ -12,7 +12,12 @@ reduce_on_plateau)`, `save_model`/`load_model(mode, exact)`,
 `train` accepts host iterators (Hdf5Iterator) or DeviceDatasets (uint8 data
 on the device; per step the host ships one index vector and the latent
 batch), and the paired augmentation runs on the device inside the step
-(`da=True`).
+(`da=True`).  Host iterators are read ahead on a worker thread and copied
+to the device behind the step (data/prefetch.py; TERRAIN_PREFETCH=0 reads
+them in the step loop).  TERRAIN_SWD=1 appends the sample-quality metrics
+of every epoch to <out_dir>/swd.txt (eval/), which `gen`, `interp` and the
+server read to pick a checkpoint; TERRAIN_PROFILE=<dir> traces the second
+epoch (utils/profiling.py).
 
 Random streams.  The prior Z comes from `sampler` (default `np.random.rand`,
 the global numpy stream) and the epoch order from
@@ -25,9 +30,8 @@ Checkpoints are terrain_tpu/v1 files whose `extra` payload (optimizer
 states as terrain_tpu trees, lr, step counter, both numpy RNG states, the
 plateau state) lets either package resume the other's run exactly.
 
-Not ported yet, and refused rather than ignored: a mesh, TERRAIN_SWD=1,
-TERRAIN_PROFILE, TERRAIN_AOT, TERRAIN_CHECK_NANS=2.  Host iterators are read
-synchronously (terrain_tpu's background prefetcher is not ported).
+Not ported yet, and refused rather than ignored: a mesh, TERRAIN_AOT,
+TERRAIN_CHECK_NANS=2.
 """
 
 import glob
@@ -39,6 +43,7 @@ import torch
 
 from terrain_tpu_torch.data import (
     DeviceDataset, augment_pair, epoch_index_schedule)
+from terrain_tpu_torch.data.prefetch import Prefetcher
 from terrain_tpu_torch.device import resolve_device
 from terrain_tpu_torch.models import convert, param_count
 from terrain_tpu_torch.sample import TwoStagePipeline
@@ -51,6 +56,7 @@ from terrain_tpu_torch.train.step import (
 from terrain_tpu_torch.utils.async_writer import AsyncWriter
 from terrain_tpu_torch.utils.images import (
     convert_to_rgb, save_png_u8, to_u8, write_image_grid)
+from terrain_tpu_torch.utils.profiling import trace
 
 
 def _floatX(x):
@@ -272,10 +278,6 @@ class TwoStageGAN:
         periodic checkpoints.  `resume`: falsy -> fresh results.txt; a path
         -> append and restore that checkpoint exactly; "auto" -> the newest
         checkpoint under model_dir, if any."""
-        if os.environ.get("TERRAIN_SWD") == "1":
-            _not_ported("TERRAIN_SWD=1 (per-epoch SWD tracking)", "eval")
-        if os.environ.get("TERRAIN_PROFILE"):
-            _not_ported("TERRAIN_PROFILE", "utils")
         header = (["epoch"]
                   + [f"train_{k}" for k in TRAIN_KEYS]
                   + [f"valid_{k}" for k in TRAIN_KEYS]
@@ -290,6 +292,9 @@ class TwoStageGAN:
         self._plateau = cb = (ReduceLROnPlateau(verbose=self.verbose)
                               if reduce_on_plateau else None)
         check_nans = os.environ.get("TERRAIN_CHECK_NANS") == "1"
+        profile_dir = os.environ.get("TERRAIN_PROFILE")
+        # per-epoch sample quality (SWD pyramid, terrain W1) -> swd.txt
+        track_swd = os.environ.get("TERRAIN_SWD") == "1"
         # 1 = dumps every epoch; larger values thin the host-side PNG work
         art_every = int(os.environ.get("TERRAIN_ARTIFACT_EVERY", "1"))
         # per-epoch previews box-averaged by this factor; gen/interp modes
@@ -297,7 +302,19 @@ class TwoStageGAN:
         art_scale = int(os.environ.get("TERRAIN_ARTIFACT_SCALE", "1"))
         f = open(os.path.join(out_dir, "results.txt"),
                  "w" if not resume else "a")
+        own_prefetchers = []
         try:
+            if os.environ.get("TERRAIN_PREFETCH", "1") != "0":
+                # host batch work (h5 slices, normalization, the copy to the
+                # device) overlaps the step; device-resident sets need none
+                def wrap(itr):
+                    if isinstance(itr, (DeviceDataset, Prefetcher)):
+                        return itr
+                    p = Prefetcher(itr, size=2, device=self.device)
+                    own_prefetchers.append(p)
+                    return p
+
+                it_train, it_val = wrap(it_train), wrap(it_val)
             if not resume:
                 f.write(",".join(header) + "\n")
                 cap = os.environ.get("TERRAIN_EVAL_STEPS")
@@ -322,8 +339,14 @@ class TwoStageGAN:
             for e in range(start_epoch, num_epochs):
                 t0 = time()
                 out = [str(e + 1)]
-                train_losses = self._run_epoch(
-                    it_train, batch_size, train=True, quick_run=quick_run)
+                if profile_dir and e == start_epoch + 1:
+                    with trace(profile_dir, self.device):  # the second epoch
+                        train_losses = self._run_epoch(
+                            it_train, batch_size, train=True,
+                            quick_run=quick_run)
+                else:
+                    train_losses = self._run_epoch(
+                        it_train, batch_size, train=True, quick_run=quick_run)
                 if check_nans:
                     bad = [k for k, v in train_losses.items()
                            if not np.isfinite(v)]
@@ -347,9 +370,13 @@ class TwoStageGAN:
                 if (e + 1) % art_every == 0:
                     self._dump_epoch(it_train, it_val, out_dir, e + 1,
                                      batch_size, art_scale)
+                    if track_swd:
+                        self._log_swd(it_val, out_dir, e + 1, batch_size)
                 save(e + 1)
         finally:
             try:
+                for p in own_prefetchers:
+                    p.close()
                 self.flush_artifacts()
             finally:
                 f.close()
@@ -371,6 +398,50 @@ class TwoStageGAN:
                              out_dir=os.path.join(out_dir, "dump_a"),
                              deterministic=False, flush=False,
                              preview_scale=scale)
+
+    def _log_swd(self, it_val, out_dir, epoch, batch_size, n=16):
+        """Append sample-quality metrics to <out_dir>/swd.txt
+        (terrain_tpu/train/trainer.py:612-664), by train_mode: stage 1
+        (`swd_*`, then `elev_w1`/`slope_w1` unless TERRAIN_TERRAIN_METRICS=0)
+        real heightmaps against G(z), stage 2 (`p2p_swd_*`) real textures
+        against G_p2p(real A).  n images, on the device throughout; an
+        existing file keeps its header's columns."""
+        from terrain_tpu_torch.eval import swd_pyramid, terrain_stats
+
+        if isinstance(it_val, DeviceDataset):
+            # one gather of all n rows; more rows than exist would never
+            # make a batch (ragged tails drop)
+            pairs = list(self._batches_from(it_val, min(n, it_val.N), 1))
+        else:
+            pairs = list(self._batches_from(it_val, batch_size,
+                                            max(n // batch_size, 1)))
+        real_a = torch.cat([p[0] for p in pairs])[:n]
+        real_b = torch.cat([p[1] for p in pairs])[:n]
+        levels = max(1, min(3, int(np.log2(self.in_shp)) - 3))
+        # seed 0 every epoch: the same patches and projections, so the
+        # trend is comparable across epochs
+        out = {}
+        if self.train_mode in ("both", "dcgan"):
+            z = _floatX(self.sampler(real_a.shape[0], self.latent_dim))
+            fake_a = self._z_fn(z, deterministic=True)
+            out.update(swd_pyramid(real_a, fake_a, seed=0, n_levels=levels))
+            if os.environ.get("TERRAIN_TERRAIN_METRICS", "1") != "0":
+                out.update(terrain_stats(real_a, fake_a, seed=0))
+        if self.train_mode in ("both", "p2p"):
+            fake_b = self._gen_fn(real_a, deterministic=True)
+            out.update({f"p2p_{k}": v for k, v in swd_pyramid(
+                real_b, fake_b, seed=0, n_levels=levels).items()})
+        path = os.path.join(out_dir, "swd.txt")
+        if os.path.exists(path):
+            with open(path) as g:
+                cols = g.readline().strip().split(",")[1:]
+        else:
+            cols = list(out)  # stage-1 swd_*, terrain W1, then p2p_swd_*
+            with open(path, "w") as g:
+                g.write("epoch," + ",".join(cols) + "\n")
+        with open(path, "a") as g:
+            g.write(f"{epoch}," + ",".join(
+                repr(out.get(k, float("nan"))) for k in cols) + "\n")
 
     # -------------------------------------------------------------- batches
     def _batches_from(self, itr, batch_size, n):

@@ -1,1 +1,2 @@
-"""Host-side utilities: image post-processing and the artifact writer."""
+"""Host-side utilities: image post-processing, the artifact writer, and
+tracing and step timing."""

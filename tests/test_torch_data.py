@@ -20,6 +20,7 @@ from terrain_tpu.data import hdf5 as jh5
 from terrain_tpu.data import synthetic as jsyn
 from terrain_tpu_torch import experiments
 from terrain_tpu_torch.data import DeviceDataset, augment, hdf5, synthetic
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 AUG_TOL = dict(rtol=0, atol=1e-5)
 

@@ -28,6 +28,7 @@ from terrain_tpu_torch import ops
 from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
 from terrain_tpu_torch.ops.kernels import conv_stem as cs
 from terrain_tpu_torch.ops.kernels import conv_thin as ct
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 TOL_W = dict(rtol=1e-4, atol=1e-3)

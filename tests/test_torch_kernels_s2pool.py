@@ -23,6 +23,7 @@ from terrain_tpu.ops.pallas import pool2 as jp2
 from terrain_tpu_torch import ops
 from terrain_tpu_torch.ops.kernels import conv_s2 as c2
 from terrain_tpu_torch.ops.kernels import pool2 as p2
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 TOL_W = dict(rtol=1e-4, atol=1e-3)

@@ -23,6 +23,7 @@ from terrain_tpu_torch.experiments import build_model
 from terrain_tpu_torch.models import convert, dcgan, param_count, unet
 from terrain_tpu_torch.sample import TwoStagePipeline
 from terrain_tpu_torch.train import checkpoint
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=0, atol=2e-4)
 LATENT, SIZE = 32, 64

@@ -14,6 +14,7 @@ from terrain_tpu.ops import fused as jfused
 from terrain_tpu.ops import norm as jnorm
 from terrain_tpu.ops import resize as jresize
 from terrain_tpu_torch.ops import activations, conv, fused, norm, resize
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CONV_TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -22,6 +22,7 @@ from terrain_tpu_torch.serve.png import decode_png, encode_png
 from terrain_tpu_torch.serve.protocol import (
     decode_array, decode_array_png, decode_payload, encode_array,
     encode_array_png)
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE, LATENT = 64, 32
 Q16, Q8 = 0.5 / 65535 + 1e-7, 0.5 / 127.5 + 1e-7

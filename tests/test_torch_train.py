@@ -27,6 +27,7 @@ from terrain_tpu.train import step as jstep
 from terrain_tpu_torch import experiments
 from terrain_tpu_torch.models import convert, dcgan, param_count, unet
 from terrain_tpu_torch.train import losses, optim, step
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 IN_SHP, LATENT, BS, LR = 16, 8, 2, 1e-3
 KW = dict(alpha=100.0, lsgan=True, reconstruction="l1")
