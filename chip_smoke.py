@@ -15,7 +15,11 @@ Phases (any failure exits non-zero and prints no result line):
      deliberate ties included; a dW kernel without atomics must give the
      same bits twice), and times (CUDA events, median of 30 launches after
      warm-up) of the kernel, the plain version and one PyTorch library call
-     for the same function, beside the least time the card could take.
+     for the same function (where that call does less -- a gradient
+     without the leaky select, dW without db -- also library_same_ms, the
+     select, the call and the db sum), beside the least time the card could
+     take (bilinear_conv in fp32: its three TF32 tensor-core passes, with
+     the fp32 CUDA cores' figure printed beside it).
      Then the six differentiable ops (conv_thin, conv_stem, bilinear_conv,
      pool2, conv_s2, bilinear) on CUDA tensors against autograd of their
      plain versions: the gradients must exist and agree; and the
@@ -79,6 +83,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENT = "test1_nobn_bilin_both"
 F32_PEAK = 67e12     # H100 SXM fp32 CUDA cores, FLOP/s
 BF16_PEAK = 989e12   # H100 SXM dense bf16 tensor cores, FLOP/s
+TF32_PEAK = 495e12   # H100 SXM dense TF32 tensor cores, FLOP/s
 HBM_BW = 3.35e12     # H100 SXM HBM3, bytes/s
 F32_TOL = 1e-4       # x max|ref|: fp32 sums in another order
 BILINEAR_TOL = 1e-6  # x max|ref|: the same fp32 operations in the same order
@@ -171,6 +176,24 @@ def card_line():
     return out[0].strip()
 
 
+def bound_ms(flops, nbytes, fp32, tf32_passes=0):
+    """The least time the card could take for a kernel's work: its bytes
+    (each input read once, each output written once) at HBM_BW, or its
+    operations at the peak of their type, whichever is longer.  bf16 work
+    goes at the bf16 tensor cores' peak; fp32 work at the CUDA cores', or,
+    for a kernel whose fp32-accurate products take `tf32_passes` passes on
+    the TF32 tensor cores (bilinear_conv's 3xTF32 split), that many passes
+    at their peak.  Returns (ms, "operations" or "bytes")."""
+    if not fp32:
+        t_ops = flops / BF16_PEAK * 1e3
+    elif tf32_passes:
+        t_ops = tf32_passes * flops / TF32_PEAK * 1e3
+    else:
+        t_ops = flops / F32_PEAK * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def time_ms(fn, reps=30, warm=3):
     """Median of per-launch CUDA-event times, after warm-up."""
     import torch
@@ -199,7 +222,12 @@ def kernel_cases(torch):
     args, the kernel's wrapper, its plain version, one library call for the
     same function, the operations and (per dtype) the bytes of the work.
     The first case of each kernel is the main path's shape.  `f32_out`
-    marks outputs that are fp32 whatever the input type (dW, db)."""
+    marks outputs that are fp32 whatever the input type (dW, db).  Where the
+    library call computes less than the kernel (a gradient without the
+    leaky select, dW without db), `lib_same` is a library route that
+    computes the same function: the select, the library gradient and the
+    db sum.  `tf32_passes` is the number of TF32 tensor-core passes the
+    kernel's fp32 products take (see bound_ms)."""
     import torch.nn.functional as F
     from torch.nn import grad as ng
 
@@ -252,10 +280,14 @@ def kernel_cases(torch):
         return dict(
             name="conv_thin_dw", shape=(n, h, w, c, f), make=make,
             kern=ct.conv_thin_dw, plain=ct.conv_thin_dw_plain, f32_out=True,
+            twice=True,
             lib=lambda x, gg: ng.conv2d_weight(nchw(x), (f, c, 3, 3),
                                                nchw(gg), padding=1),
             flops=2.0 * n * h * w * 9 * c * f,
             nbytes=lambda dt: es(dt) * n * h * w * (c + f) + 4 * 9 * c * f)
+
+    def masked(gg, y, slope):
+        return gg if slope is None else torch.where(y >= 0, gg, slope * gg)
 
     def stem_args(dt, g, n, h, w, f, slope):
         x = _rand(torch, g, (n, h, w, 1), dt)
@@ -285,11 +317,17 @@ def kernel_cases(torch):
             x, _, _, y, gg = stem_args(dt, g, n, h, w, f, slope)
             return (x, gg, y)
 
+        def lib_same(x, gg, y):
+            gm = masked(gg, y, slope)
+            return (ng.conv2d_weight(nchw(x), (f, 1, 5, 5), nchw(gm),
+                                     padding=2),
+                    gm.sum((0, 1, 2), dtype=torch.float32))
+
         return dict(
             name="conv_stem_dw", shape=(n, h, w, f, slope), make=make,
             kern=lambda x, gg, y: cs.conv_stem_dw(x, gg, y, slope),
             plain=lambda x, gg, y: cs.conv_stem_dw_plain(x, gg, y, slope),
-            f32_out=True,
+            f32_out=True, twice=True, lib_same=lib_same,
             # dW alone, on the unmasked cotangent
             lib=lambda x, gg, y: ng.conv2d_weight(nchw(x), (f, 1, 5, 5),
                                                   nchw(gg), padding=2),
@@ -303,10 +341,16 @@ def kernel_cases(torch):
             _, wt, _, y, gg = stem_args(dt, g, n, h, w, f, slope)
             return (gg, wt, y)
 
+        def lib_same(gg, wt, y):
+            return ng.conv2d_input((n, 1, h, w), oihw(wt),
+                                   nchw(masked(gg, y, slope)), padding=2)
+
         return dict(
             name="conv_stem_dx", shape=(n, h, w, f, slope), make=make,
             kern=lambda gg, wt, y: cs.conv_stem_dx(gg, wt, y, slope),
             plain=lambda gg, wt, y: cs.conv_stem_dx_plain(gg, wt, y, slope),
+            lib_same=lib_same,
+            # dX on the unmasked cotangent
             lib=lambda gg, wt, y: ng.conv2d_input((n, 1, h, w), oihw(wt),
                                                   nchw(gg), padding=2),
             flops=2.0 * n * h * w * 25 * f,
@@ -323,12 +367,15 @@ def kernel_cases(torch):
                                align_corners=False)
             return F.conv2d(up, oihw(wt), b.to(x.dtype), padding=1)
 
+        flops = 2.0 * n * 4 * h * w * 9 * c * f
+
+        def nbytes(dt):
+            return es(dt) * (n * h * w * (c + 4 * f) + 9 * c * f) + 4 * f
+
         return dict(
             name="bilinear_conv", shape=(n, h, w, c, f), make=make,
             kern=bc.bilinear_conv_fwd, plain=bc.bilinear_conv_plain, lib=lib,
-            flops=2.0 * n * 4 * h * w * 9 * c * f,
-            nbytes=lambda dt: es(dt) * (n * h * w * (c + 4 * f) + 9 * c * f)
-            + 4 * f)
+            flops=flops, nbytes=nbytes, twice=True, tf32_passes=3)
 
     def pool_x(dt, g, n, h, w, c, ties):
         x = _rand(torch, g, (n, h, w, c), dt)
@@ -393,11 +440,17 @@ def kernel_cases(torch):
             x, _, _, y, gg = s2_args(dt, g, n, h, w, c, f, slope)
             return (x, gg, y)
 
+        def lib_same(x, gg, y):
+            gm = masked(gg, y, slope)
+            return (ng.conv2d_weight(nchw(x), (f, c, 3, 3), nchw(gm),
+                                     stride=2, padding=1),
+                    gm.sum((0, 1, 2), dtype=torch.float32))
+
         return dict(
             name="conv_s2_dw", shape=(n, h, w, c, f, slope), make=make,
             kern=lambda x, gg, y: c2.conv_s2_dw(x, gg, y, slope),
             plain=lambda x, gg, y: c2.conv_s2_dw_plain(x, gg, y, slope),
-            f32_out=True, twice=True,
+            f32_out=True, twice=True, lib_same=lib_same,
             # dW alone, on the unmasked cotangent
             lib=lambda x, gg, y: ng.conv2d_weight(
                 nchw(x), (f, c, 3, 3), nchw(gg), stride=2, padding=1),
@@ -427,6 +480,9 @@ def kernel_cases(torch):
     return [up2(4, 128, 128, 256), up2(8, 128, 128, 256),
             up2(2, 136, 200, 128),
             bil(4, 64, 64, 512, 128), bil(4, 128, 128, 256, 64),
+            # the served buckets 1 and 8
+            bil(1, 64, 64, 512, 128), bil(1, 128, 128, 256, 64),
+            bil(8, 64, 64, 512, 128), bil(8, 128, 128, 256, 64),
             bil(2, 21, 27, 24, 16),
             thin(4, 256, 256, 64, 4), thin(3, 37, 45, 24, 3),
             thin_dx(4, 256, 256, 64, 4), thin_dx(3, 37, 45, 24, 1),
@@ -457,8 +513,7 @@ def check_kernels(torch):
     for case in kernel_cases(torch):
         name, shape = case["name"], case["shape"]
         big = case["flops"] > 1e9
-        for dt, peak, tol in ((torch.float32, F32_PEAK, F32_TOL),
-                              (torch.bfloat16, BF16_PEAK, BF16_TOL)):
+        for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             if dt not in case.get("dtypes", (dt,)):
                 continue
             tol = case.get("tol", tol)
@@ -498,16 +553,27 @@ def check_kernels(torch):
             plain_ms = time_ms(lambda: case["plain"](*args),
                                reps=10 if big else 30)
             lib_ms = time_ms(lib, reps=10 if big else 30)
-            t_ops = case["flops"] / peak * 1e3
-            t_bytes = case["nbytes"](dt) / HBM_BW * 1e3
+            fp32 = dt == torch.float32
+            bound, by = bound_ms(case["flops"], case["nbytes"](dt), fp32,
+                                 case.get("tf32_passes", 0))
             row = dict(shape=shape, dtype=str(dt).split(".")[-1],
                        max_abs_err=err, tol=lim, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes")
+                       library_ms=lib_ms, bound_ms=bound, bound_by=by)
+            extra = ""
+            if "lib_same" in case:
+                row["library_same_ms"] = time_ms(
+                    lambda: case["lib_same"](*args), reps=10 if big else 30)
+                extra += (f" library_same_ms {row['library_same_ms']:.4f} "
+                          f"(the same function through library calls)")
+            if fp32 and "tf32_passes" in case:  # the CUDA cores', as before
+                row["cuda_core_bound_ms"] = bound_ms(
+                    case["flops"], case["nbytes"](dt), True)[0]
+                extra += (f" cuda_core_bound_ms "
+                          f"{row['cuda_core_bound_ms']:.4f}")
             print(f"kernel {name} {shape} {row['dtype']}: max_abs_err "
                   f"{err:.3e} (tol {lim:.3e}) ms {ms:.4f} plain_ms "
                   f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
-                  f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+                  f"{bound:.4f} ({by}){extra}", flush=True)
             results.setdefault(name, []).append(row)
             del args, refs, outs, lib
     return results
@@ -1578,9 +1644,12 @@ def main():
     print(f"build: {', '.join(report)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, (path, log) in report.items():
+        entry = ""  # the (mangled) kernel the next lines are about
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {name} {entry[:72]}: {line.strip()}")
 
     rows, serve_launches, train_launches, trainer_launches = {}, {}, {}, {}
     quality_launches, trainer_epoch_s, step_ms = {}, float("nan"), {}
@@ -1665,7 +1734,8 @@ def main():
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"]})
+            "library_ms": main_row["library_ms"],
+            "library_same_ms": main_row.get("library_same_ms")})
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

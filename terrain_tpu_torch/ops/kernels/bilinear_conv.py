@@ -4,7 +4,8 @@ differentiable.
 Port of terrain_tpu/ops/pallas/bilinear_conv.py.  On the flagship it runs
 the U-Net decoder stages (N,64,64,512)->(N,128,128,128) and
 (N,128,128,256)->(N,256,256,64).  The forward CUDA kernel is
-csrc/bilinear_conv.cu; `bilinear_conv_plain` is its plain PyTorch version
+csrc/bilinear_conv.cu (TF32 tensor cores, products split 3xTF32 for fp32
+accuracy); `bilinear_conv_plain` is its plain PyTorch version
 (the fp32 composite, terrain_tpu's `_xla_composite`), used for CPU tensors
 and as the card-side reference.
 
@@ -74,10 +75,14 @@ def bilinear_conv_fwd(x, w, b):
             or b.dtype != torch.float32:
         raise TypeError(
             f"bilinear_conv: x {x.dtype}, w {w.dtype}, b {b.dtype}")
+    # the kernel takes channels in k8 steps and copies 16-byte pieces
     if x.ndim != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[3]) \
-            or w.shape[3] % 8 != 0 or tuple(b.shape) != (w.shape[3],):
+            or x.shape[3] % 8 != 0 or w.shape[3] % 8 != 0 \
+            or tuple(b.shape) != (w.shape[3],) \
+            or x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError(f"bilinear_conv: x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}, b {tuple(b.shape)}")
+                         f"w {tuple(w.shape)}, b {tuple(b.shape)} (C and F "
+                         f"must be multiples of 8, x and w 16-byte aligned)")
     n, h, wd, c = x.shape
     f = w.shape[3]
     y = torch.empty((n, 2 * h, 2 * wd, f), dtype=x.dtype, device=x.device)

@@ -132,7 +132,10 @@ def conv_stem_dw(x, g, y=None, slope=None):
     if all_on_cpu("conv_stem_dw", *ts):
         return conv_stem_dw_plain(x, g, y, slope)
     n, h, wd, f = _check("conv_stem_dw", x=x, g=g, y=y if mask else None)
-    nb = partial_blocks(x)
+    if any(t.data_ptr() % 16 for t in ts[1:]):
+        raise ValueError("conv_stem_dw: g and y must be 16-byte aligned")
+    # one persistent block per SM, streaming its share of the tiles
+    nb = partial_blocks(x, per_sm=1)
     part = torch.empty((nb, (K * K + 1) * f), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((K * K + 1, f), dtype=torch.float32, device=x.device)

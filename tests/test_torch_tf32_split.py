@@ -1,0 +1,172 @@
+"""The numerical design of csrc/bilinear_conv.cu, emulated on the CPU, and
+the bound chip_smoke.py reckons for it.
+
+The kernel multiplies the upsampled tile u and the weights w on the TF32
+tensor cores.  One TF32 pass rounds both factors to 11 significant bits, so
+the kernel splits each fp32 factor into two TF32 parts, v = v_hi + v_lo,
+each rounded to nearest with ties away from zero as cvt.rna.tf32.f32 does,
+and sums u_lo*w_hi + u_hi*w_lo + u_hi*w_hi (3xTF32); bf16 weights are exact
+in TF32, so bf16 inputs take u_lo*w + u_hi*w.  Here the same split runs in
+PyTorch (products of TF32 parts are exact in fp32, sums in fp32) at the full
+channel widths of both flagship decoder stages, and is held to an fp64
+reference within 1e-4 x max|ref|, the kernel's fp32 tolerance on the card.
+Other cases show why the kernel splits and needs every product: a single
+TF32 pass misses the tolerance, in fp32 and in bf16, and so does the split
+without either cross term.
+
+The tensor cores' own accumulation (alignment to the largest addend, with
+truncation) is not emulated: on the card it adds ~3e-5 x max|ref| at K =
+9*512 (PERF.md), inside the same tolerance.  The CUDA kernel itself runs
+only on the card, where chip_smoke.py holds it against its plain version and
+terrain_tpu_torch/tools/bilinear_conv_variants.py builds the same variants
+there.
+"""
+
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+TOL = 1e-4  # x max|ref|: chip_smoke.py's F32_TOL
+
+
+def tf32_rna(v):
+    """Round fp32 to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, by bit masking: add half a unit of the 13 bits that go,
+    then clear them (the sign bit rides along, so this acts on the
+    magnitude)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(v):
+    hi = tf32_rna(v)
+    return hi, tf32_rna(v - hi)
+
+
+def im2col_upsampled(x):
+    """x (N,H,W,C) -> the conv's K x pixels matrix of the bilinear x2 tile,
+    K ordered (c, dy, dx), in x's float type."""
+    up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                       mode="bilinear", align_corners=False)
+    return F.unfold(up, 3, padding=1)[0]          # (C*9, 4HW)
+
+
+def weight_rows(w):
+    """w (3,3,C,F) HWIO -> (F, C*9), K ordered as im2col_upsampled."""
+    return w.permute(3, 2, 0, 1).reshape(w.shape[3], -1)
+
+
+def emulate(x, w, terms):
+    """The kernel's sum: u from x in fp32, the named TF32 products summed in
+    fp32, the small terms first.  terms: a subset of "lh" (u_lo*w_hi), "hl"
+    (u_hi*w_lo) and "hh" (u_hi*w_hi); the kernel takes all three in fp32
+    and "lh", "hh" in bf16, whose w_lo is zero."""
+    u_hi, u_lo = split(im2col_upsampled(x.float()))
+    w_hi, w_lo = split(weight_rows(w.float()))
+    parts = {"lh": (w_hi, u_lo), "hl": (w_lo, u_hi), "hh": (w_hi, u_hi)}
+    out = torch.zeros(w.shape[3], u_hi.shape[1], dtype=torch.float32)
+    for t in terms:
+        a, b = parts[t]
+        out += a @ b
+    return out
+
+
+@pytest.mark.parametrize("dtype,shape,terms,agrees", [
+    ("float32", (1, 8, 8, 512, 128), ("lh", "hl", "hh"), True),
+    ("float32", (1, 16, 16, 256, 64), ("lh", "hl", "hh"), True),
+    ("bfloat16", (1, 8, 8, 512, 128), ("lh", "hh"), True),
+    ("bfloat16", (1, 16, 16, 256, 64), ("lh", "hh"), True),
+    # why the kernel splits: one TF32 pass is ~2-3x over the tolerance
+    ("float32", (1, 8, 8, 512, 128), ("hh",), False),
+    # and why it needs every product: either cross term alone misses it
+    ("float32", (1, 8, 8, 512, 128), ("hl", "hh"), False),
+    ("float32", (1, 16, 16, 256, 64), ("lh", "hh"), False),
+    # bf16 too: u is interpolated in fp32, so one pass (u_hi*w) misses it
+    ("bfloat16", (1, 8, 8, 512, 128), ("hh",), False),
+    ("bfloat16", (1, 16, 16, 256, 64), ("hh",), False),
+], ids=["f32-3xTF32-64x512", "f32-3xTF32-128x256", "bf16-2xTF32-64x512",
+        "bf16-2xTF32-128x256", "f32-one-TF32-pass", "f32-without-ulo-whi",
+        "f32-without-uhi-wlo", "bf16-one-TF32-pass-64x512",
+        "bf16-one-TF32-pass-128x256"])
+def test_tf32_split_is_fp32_accurate(dtype, shape, terms, agrees):
+    n, h, w, c, f = shape
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32))
+    wt = torch.from_numpy(
+        (rng.randn(3, 3, c, f) * (9 * c) ** -0.5).astype(np.float32))
+    if dtype == "bfloat16":  # the kernel's inputs, rounded as the caller's
+        x, wt = x.bfloat16(), wt.bfloat16()
+        # a bf16 weight is exact in TF32: its lo part is zero
+        assert torch.equal(tf32_rna(wt.float()), wt.float())
+    got = emulate(x, wt, terms)
+    ref = weight_rows(wt.double()) @ im2col_upsampled(x.double())
+    err = (got.double() - ref).abs().max().item()
+    lim = TOL * ref.abs().max().item()
+    assert (err <= lim) == agrees, (err / ref.abs().max().item(), TOL)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10   # TF32's unit at 1.0
+    v = torch.tensor([one + ulp * 0.49, one + ulp * 0.5, one + ulp * 0.51,
+                      -(one + ulp * 0.5), one + ulp * 1.5, 3.0e-3],
+                     dtype=torch.float32)
+    want = torch.tensor([one, one + ulp, one + ulp, -(one + ulp),
+                         one + 2 * ulp], dtype=torch.float32)
+    got = tf32_rna(v)
+    assert torch.equal(got[:5], want)
+    # the result has at most 11 significant bits; hi + lo is v exactly
+    assert (got.view(torch.int32) & 0x1fff == 0).all()
+    hi, lo = split(v)
+    assert torch.equal(hi + lo, v)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bilinear_conv_bound_counts_the_tf32_passes():
+    """fp32: three TF32 passes at 495 TFLOP/s (the CUDA cores' 67 TFLOP/s
+    figure stays available); bf16: the bf16 tensor cores' 989 TFLOP/s."""
+    cs = _chip_smoke()
+    flops = 2.0 * 4 * 4 * 64 * 64 * 9 * 512 * 128   # (4,64²,512)->128
+    ms, by = cs.bound_ms(flops, 1e6, True, tf32_passes=3)
+    assert by == "operations"
+    assert ms == pytest.approx(3 * flops / 495e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(0.46857, rel=1e-4)
+    assert cs.bound_ms(flops, 1e6, False)[0] == \
+        pytest.approx(flops / 989e12 * 1e3, rel=1e-12)
+    assert cs.bound_ms(flops, 1e6, True)[0] == \
+        pytest.approx(flops / 67e12 * 1e3, rel=1e-12)
+    # bytes bound it when they take longer
+    ms, by = cs.bound_ms(1.0, 3.35e12, True, tf32_passes=3)
+    assert by == "bytes" and ms == pytest.approx(1e3)
+
+
+def test_bilinear_conv_variants_edit_the_kernel_source():
+    """Each numerical variant that tools/bilinear_conv_variants.py builds on
+    the card is one edit of the kernel's source, and each edit still finds
+    its target, so the tool measures what its names say."""
+    from terrain_tpu_torch.tools import bilinear_conv_variants as bv
+
+    shipped = bv.edited_source([])
+    for name, edits in bv.VARIANTS.items():
+        text = bv.edited_source(edits)
+        assert (text == shipped) == (name == "shipped"), name
+    two = bv.edited_source(bv.VARIANTS["two_acc"])
+    assert two.count("mma_tf32(acc2[i][j]") == 2
+    assert two.count("mma_tf32(acc[i][j]") == 1
+    for name in ("drop_lo_hi", "drop_hi_lo"):
+        assert bv.edited_source(bv.VARIANTS[name]).count(
+            "mma_tf32(acc[i][j]") == 2
