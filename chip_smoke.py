@@ -13,7 +13,8 @@ Phases (any failure exits non-zero and prints no result line):
      at the main paths' shapes and small or ragged ones; max-abs error
      against a stated tolerance (the pool moves values and is held exactly,
      deliberate ties included; a dW kernel without atomics must give the
-     same bits twice), and times (CUDA events, median of 30 launches after
+     same bits twice, and so must the stem's forward and dX), and times
+     (CUDA events, median of 30 launches after
      warm-up) of the kernel, the plain version and one PyTorch library call
      for the same function (where that call does less -- a gradient
      without the leaky select, dW without db -- also library_same_ms, the
@@ -22,9 +23,10 @@ Phases (any failure exits non-zero and prints no result line):
      the fp32 CUDA cores' figure printed beside it).
      Then the six differentiable ops (conv_thin, conv_stem, bilinear_conv,
      pool2, conv_s2, bilinear) on CUDA tensors against autograd of their
-     plain versions: the gradients must exist and agree; and the
+     plain versions: the gradients must exist and agree (bilinear_conv's
+     under each TERRAIN_BC_BWD value: conv6, dense, xla32); and the
      bilinear_conv and bilinear backwards (PyTorch ops, as they are XLA code
-     in the JAX package) timed as ops;
+     in the JAX package) timed as ops, bilinear_conv's by each of the three;
   3. serve: test1_nobn_bilin_both's generators at full width (512px,
      latent 1000) with seeded random weights -- the repository holds no
      trained checkpoint, so this is the server's --no-weights mode --
@@ -42,7 +44,8 @@ Phases (any failure exits non-zero and prints no result line):
      seeded weights and a seeded synthetic batch), in fp32 and with bf16
      compute over fp32 parameters, with the two opt-in kernel switches
      (TERRAIN_POOL_VJP=pallas, TERRAIN_PALLAS_CONVS2=1) off and on, and in
-     fp32 with the unfused decoder: a warm-up step, then timed steps with
+     fp32 with the unfused decoder, and in fp32 and bf16 with
+     TERRAIN_BC_BWD=dense and =xla32: a warm-up step, then timed steps with
      the launch counters set to 0 just before and read just after (per
      step: conv_stem fwd 2, dW 1, dX 1; conv_thin fwd, dX, dW 1 each;
      bilinear_conv 2 and its backward 2; with the switches on pool2 fwd 12
@@ -145,6 +148,8 @@ QUALITY_N = 40
 QUALITY_EPOCHS = 3
 SWD_N = 16               # images per SWD evaluation (the trainer's n)
 SWD_TOL = 1e-4           # relative, card vs CPU: fp32 sums in another order
+# TERRAIN_BC_BWD, the bilinear_conv backward's route (conv6 is the default)
+BC_BWD_MODES = ("conv6", "dense", "xla32")
 PHASES = {"kernels", "serve", "train", "trainer", "quality", "conditioning"}
 
 
@@ -304,6 +309,7 @@ def kernel_cases(torch):
             name="conv_stem_fwd", shape=(n, h, w, f, slope), make=make,
             kern=lambda x, wt, b: cs.conv_stem_fwd(x, wt, b, slope),
             plain=lambda x, wt, b: cs.conv_stem_fwd_plain(x, wt, b, slope),
+            twice=True,
             # the conv alone; the activation would be a second call
             lib=lambda x, wt, b: F.conv2d(nchw(x), oihw(wt), b.to(x.dtype),
                                           padding=2),
@@ -349,7 +355,7 @@ def kernel_cases(torch):
             name="conv_stem_dx", shape=(n, h, w, f, slope), make=make,
             kern=lambda gg, wt, y: cs.conv_stem_dx(gg, wt, y, slope),
             plain=lambda gg, wt, y: cs.conv_stem_dx_plain(gg, wt, y, slope),
-            lib_same=lib_same,
+            lib_same=lib_same, twice=True,
             # dX on the unmasked cotangent
             lib=lambda gg, wt, y: ng.conv2d_input((n, 1, h, w), oihw(wt),
                                                   nchw(gg), padding=2),
@@ -487,12 +493,17 @@ def kernel_cases(torch):
             thin(4, 256, 256, 64, 4), thin(3, 37, 45, 24, 3),
             thin_dx(4, 256, 256, 64, 4), thin_dx(3, 37, 45, 24, 1),
             thin_dw(4, 256, 256, 64, 4), thin_dw(3, 37, 45, 24, 1),
+            # the stem's forward and dX: the main shapes, then ragged ones
+            # (W no multiple of the forward's tile or of dX's strip, H
+            # cutting the blocks' shares of rows mid-strip) at F 8 to 512
             stem_fwd(8, 512, 512, 64, 0.2), stem_fwd(4, 512, 512, 64, 0.2),
-            stem_fwd(2, 37, 45, 8, None),
+            stem_fwd(2, 37, 45, 8, None), stem_fwd(3, 133, 250, 64, 0.2),
+            stem_fwd(1, 21, 70, 512, 0.2),
             stem_dw(8, 512, 512, 64, 0.2), stem_dw(2, 37, 45, 8, 0.2),
             stem_dw(1, 21, 70, 64, None),
             stem_dx(4, 512, 512, 64, 0.2), stem_dx(2, 37, 45, 8, 0.2),
-            stem_dx(1, 21, 70, 64, None),
+            stem_dx(1, 21, 70, 64, None), stem_dx(3, 133, 250, 64, 0.2),
+            stem_dx(1, 21, 70, 512, 0.2),
             pool_fwd(8, 512, 512, 64), pool_fwd(4, 16, 16, 256),
             pool_fwd(2, 16, 32, 8, ties=True),
             pool_bwd(8, 512, 512, 64), pool_bwd(4, 16, 16, 256),
@@ -700,34 +711,43 @@ def check_autograd(torch):
             args = leaves(dt, ((n, h, w, c), 1.0, "x"),
                           ((3, 3, c, f), (9 * c) ** -0.5, "w"),
                           ((f,), 0.1, "b"))
-            # bf16: dx_conv6 rounds the combined 6x6 kernel and the
-            # cotangent to bf16 where the plain composite stays in fp32
-            compare(f"bilinear_conv {(n, h, w, c, f)}", dt, bc.bilinear_conv,
-                    bc.bilinear_conv_plain, args,
-                    tol if dt == torch.float32 else 2 * tol)
+            # under each TERRAIN_BC_BWD value; bf16: conv6 rounds the
+            # combined 6x6 kernel and the cotangent to bf16, dense its whole
+            # composite, where the plain composite stays in fp32
+            for mode in BC_BWD_MODES:
+                os.environ["TERRAIN_BC_BWD"] = mode
+                compare(f"bilinear_conv {(n, h, w, c, f)} {mode}", dt,
+                        bc.bilinear_conv, bc.bilinear_conv_plain, args,
+                        tol if dt == torch.float32 or mode == "xla32"
+                        else 2 * tol)
+            os.environ.pop("TERRAIN_BC_BWD")
             if h < 64:
                 continue
             x, wt, b = (a.detach() for a in args)
             cot = _rand(torch, g, (n, 2 * h, 2 * w, f), dt)
-
-            def bwd_op():
-                return bc.dx_conv6(cot, wt), bc.dw_db(x, cot, wt.shape)
-
+            bwd_ops = {
+                "conv6": lambda: (bc.dx_conv6(cot, wt), bc.composite_grads(
+                    x, wt, cot, dt, (False, True, True))),
+                "dense": lambda: bc.composite_grads(x, wt, cot, dt),
+                "xla32": lambda: bc.composite_grads(x, wt, cot,
+                                                    torch.float32)}
             yp = bc.bilinear_conv_plain(*args)
             up = F.interpolate(args[0].permute(0, 3, 1, 2), scale_factor=2,
                                mode="bilinear", align_corners=False)
             yl = F.conv2d(up, args[1].permute(3, 2, 0, 1),
                           args[2].to(dt), padding=1).permute(0, 2, 3, 1)
-            ms = time_ms(bwd_op, reps=10)
+            ms = {m: time_ms(op, reps=10) for m, op in bwd_ops.items()}
             plain_ms = time_ms(lambda: torch.autograd.grad(
                 yp, args, cot, retain_graph=True), reps=10)
             lib_ms = time_ms(lambda: torch.autograd.grad(
                 yl, args, cot, retain_graph=True), reps=10)
             print(f"op bilinear_conv backward {(n, h, w, c, f)} "
-                  f"{str(dt).split('.')[-1]}: ms {ms:.4f} (dx_conv6 + dW/db, "
-                  f"PyTorch ops as in the JAX package) plain_ms "
-                  f"{plain_ms:.4f} library_ms {lib_ms:.4f} (autograd of the "
-                  f"plain and of the library forward)", flush=True)
+                  f"{str(dt).split('.')[-1]}: ms conv6 {ms['conv6']:.4f} "
+                  f"dense {ms['dense']:.4f} xla32 {ms['xla32']:.4f} "
+                  f"(TERRAIN_BC_BWD's three routes, PyTorch ops as in the "
+                  f"JAX package) plain_ms {plain_ms:.4f} library_ms "
+                  f"{lib_ms:.4f} (autograd of the plain and of the library "
+                  f"forward)", flush=True)
             del yp, yl, up
 
 
@@ -1024,16 +1044,22 @@ def train_slice(torch, card):
     from terrain_tpu_torch.models import param_count
 
     counts, step_ms = {}, {}
-    for label, cd, on, unfused in (
-            ("fp32", torch.float32, False, False),
-            ("fp32", torch.float32, False, True),
-            ("fp32", torch.float32, True, False),
-            ("bf16", torch.bfloat16, False, False),
-            ("bf16", torch.bfloat16, True, False)):
+    for label, cd, on, unfused, bc_bwd in (
+            ("fp32", torch.float32, False, False, None),
+            ("fp32", torch.float32, False, True, None),
+            ("fp32", torch.float32, True, False, None),
+            ("bf16", torch.bfloat16, False, False, None),
+            ("bf16", torch.bfloat16, True, False, None),
+            *((lb, cd, False, False, m)
+              for lb, cd in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16))
+              for m in BC_BWD_MODES[1:])):
         set_switches(on)
         set_switches(unfused, UNFUSED)
+        set_switches(bc_bwd is not None, {"TERRAIN_BC_BWD": bc_bwd})
         label = (f"{label} switches {'on' if on else 'off'}"
-                 + (" unfused decoder" if unfused else ""))
+                 + (" unfused decoder" if unfused else "")
+                 + (f" TERRAIN_BC_BWD={bc_bwd}" if bc_bwd else ""))
         t0 = time.perf_counter()
         ts = build_train(EXPERIMENT, "cuda", seed=0, compute_dtype=cd)
         batch = _train_batch(torch, TRAIN_BATCH, ts.in_shp, ts.latent_dim, 7)
@@ -1090,6 +1116,7 @@ def train_slice(torch, card):
         torch.cuda.empty_cache()
     set_switches(False)
     set_switches(False, UNFUSED)
+    os.environ.pop("TERRAIN_BC_BWD", None)
     return counts, step_ms
 
 

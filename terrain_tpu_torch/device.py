@@ -4,6 +4,8 @@ Entry points run on the card unless the caller asks for the CPU; they never
 quietly go on on the CPU when no card is present.
 """
 
+import os
+
 import torch
 
 
@@ -17,6 +19,18 @@ def resolve_device(device=None):
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def platform_device():
+    """The entry points' default device: TERRAIN_PLATFORM=cpu is the caller
+    asking for the CPU (terrain_tpu/cli.py:28-34 sets JAX's platform from
+    it); unset, the card.  Any other value raises: this package runs on a
+    CUDA card or the CPU."""
+    platform = os.environ.get("TERRAIN_PLATFORM", "")
+    if platform not in ("", "cpu"):
+        raise ValueError(f"TERRAIN_PLATFORM={platform!r}: the port runs on "
+                         f"the card (unset) or the CPU ('cpu')")
+    return platform or "cuda"
 
 
 def strict_fp32():

@@ -270,10 +270,12 @@ def _get_data(in_shp, is_a_grayscale=True, is_b_grayscale=False, device=None):
     """Train and valid inputs from the environment: synthetic or h5, as
     host iterators or (TERRAIN_FAST=1) on the device."""
     env = os.environ.get
-    if env("TERRAIN_RASTER"):
-        raise NotImplementedError(
-            "TERRAIN_RASTER (on-the-fly raster crops) is not ported yet: it "
-            "comes with data/crops.py (ROADMAP.md queue A)")
+    for name, default in (("TERRAIN_RASTER", ""), ("TERRAIN_EPOCH_CROPS",
+                                                    "240")):
+        if env(name, default) != default:
+            raise NotImplementedError(
+                f"{name} (on-the-fly raster crops) is not ported yet: it "
+                f"comes with data/crops.py (ROADMAP.md queue A)")
     fast = env("TERRAIN_FAST") == "1"
     bs = int(env("TERRAIN_BS", "4"))
     kw = dict(is_a_grayscale=is_a_grayscale, is_b_grayscale=is_b_grayscale)

@@ -6,6 +6,13 @@ and PatchGAN use lasagne's `leaky_rectify` default of 0.01.
 
 import torch
 
+# terrain_tpu switches this module has no use for, each with the reason
+NO_OP_SWITCHES = {
+    "TERRAIN_LEAKY_MUL": "an exact reformulation of the LeakyReLU's "
+                         "gradient (a saved 1-or-slope scale) for XLA; "
+                         "autograd of torch.where gives the same values",
+}
+
 
 def linear(x):
     return x

@@ -19,8 +19,9 @@ switches, read at call time (ops/conv.py:25-29,46-49,65-69):
 TERRAIN_PALLAS_STEM=0 and TERRAIN_PALLAS_THIN=0 turn one kernel off,
 TERRAIN_PALLAS_CONVS2=1 turns conv_s2 on, and the master switch
 TERRAIN_PALLAS_CONV=0 turns every conv kernel off (the fused decoder's too,
-ops/fused.py).  Off, the library conv runs; on, a CUDA tensor in the regime
-launches the kernel or raises, a CPU tensor runs its plain version.
+ops/fused.py), and TERRAIN_STEM_ACT=0 keeps the LeakyReLU out of the
+kernels' epilogues.  Off, the library conv runs; on, a CUDA tensor in the
+regime launches the kernel or raises, a CPU tensor runs its plain version.
 """
 
 import os
@@ -115,13 +116,16 @@ def conv2d_leaky(x, w, b=None, *, slope=0.2, stride=1, padding="same",
                  compute_dtype=None):
     """conv2d followed by LeakyReLU(slope): in the stem regime, and in
     conv_s2's when that is switched on, one kernel with the activation as its
-    epilogue (terrain_tpu ops/conv.py:124-145), else leaky_relu(conv2d(...))."""
-    s, cd = _to_pair(stride), compute_dtype or x.dtype
-    out = _try_stem(x, w, b, s, padding, cd, slope=slope)
-    if out is None:
-        out = _try_s2(x, w, b, s, padding, cd, slope=slope)
-    if out is not None:
-        return out
+    epilogue (terrain_tpu ops/conv.py:124-145), else leaky_relu(conv2d(...)).
+    TERRAIN_STEM_ACT=0 opts out of the fusion, as in terrain_tpu: the
+    kernels then run without the epilogue and the activation after them."""
+    if os.environ.get("TERRAIN_STEM_ACT", "1") != "0":
+        s, cd = _to_pair(stride), compute_dtype or x.dtype
+        out = _try_stem(x, w, b, s, padding, cd, slope=slope)
+        if out is None:
+            out = _try_s2(x, w, b, s, padding, cd, slope=slope)
+        if out is not None:
+            return out
     return leaky_relu(conv2d(x, w, b, stride=stride, padding=padding,
                              compute_dtype=compute_dtype), slope)
 

@@ -21,6 +21,16 @@ from terrain_tpu_torch.ops.conv import conv2d, conv_kernel_on
 from terrain_tpu_torch.ops.kernels import bilinear_conv as _bc
 from terrain_tpu_torch.ops.resize import upsample_bilinear_2x
 
+# terrain_tpu switches this module has no use for, each with the reason
+NO_OP_SWITCHES = {
+    "TERRAIN_NEAREST_BWD": "an exact reformulation of upsample2x_nearest_"
+                           "conv's dX as one stride-2 conv, an XLA A/B knob; "
+                           "autograd's conv gradient gives the same values",
+    "TERRAIN_DECONV_BWD": "an exact reformulation of deconv2x2's dX as a "
+                          "stride-2 2x2 conv, an XLA A/B knob; autograd's "
+                          "matmul gradient gives the same values",
+}
+
 
 @lru_cache(maxsize=None)
 def _phase_grouping(k):

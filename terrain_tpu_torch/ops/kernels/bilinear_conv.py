@@ -10,18 +10,30 @@ accuracy); `bilinear_conv_plain` is its plain PyTorch version
 and as the card-side reference.
 
 The backward is not a kernel in terrain_tpu either (`_bwd`,
-bilinear_conv.py:312-332, is XLA code), so here it is PyTorch code:
-`dx_conv6` is `_dx_conv6` as written -- one stride-2 6x6 conv of the
-cotangent with the combined kernel, with no 2x-resolution intermediate,
-plus four border strips for the upsample's edge clamp -- and dW, db are the
-gradient of conv3x3(bilinear_2x(x)) in x.dtype.  `BilinearConvFn` ties the
-two together; `BACKWARD.calls` counts its backward passes.
+bilinear_conv.py:312-332, is XLA code), so here it is PyTorch code, chosen
+as terrain_tpu chooses it, by TERRAIN_BC_BWD read at each backward pass:
+  * conv6 (default): dX from `dx_conv6`, `_dx_conv6` as written -- one
+    stride-2 6x6 conv of the cotangent with the combined kernel, with no
+    2x-resolution intermediate, plus four border strips for the upsample's
+    edge clamp -- and dW, db of the composite, all in x.dtype;
+  * xla32: dX, dW, db of the composite in fp32 (`_xla_composite`), for
+    the cotangent in fp32, whatever the compute dtype;
+  * anything else (terrain_tpu's "dense"): the composite's gradients in
+    x.dtype, its upsample too (`_dense_composite`).
+The composite is conv3x3(bilinear_2x(x)) + b; its gradients are the
+library's conv gradients and autograd through the upsample alone
+(`composite_grads`), so no forward conv runs.  Results are cast to the
+dtypes of x, w and b, and the forward is the kernel under every value.
+`BilinearConvFn` ties them together; `BACKWARD.calls` counts its backward
+passes.
 """
 
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F
+from torch.nn import grad as ng
 
 from terrain_tpu_torch.ops.kernels._build import (
     CudaKernel, OpCounter, all_on_cpu, stream_of)
@@ -170,40 +182,59 @@ def dx_conv6(g, w):
     return dx.permute(0, 2, 3, 1).contiguous()
 
 
-def dw_db(x, g, w_shape):
-    """dW (3,3,C,F) and db (F,) of conv3x3(bilinear_2x(x)) + b for the
-    cotangent g, computed in x.dtype as terrain_tpu's `_dense_composite`
-    vjp does."""
-    up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
-                       mode="bilinear", align_corners=False)
-    c, f = w_shape[2], w_shape[3]
-    gn = g.permute(0, 3, 1, 2)
-    dw = torch.nn.grad.conv2d_weight(up, (f, c, 3, 3), gn, padding=1)
-    return dw.permute(2, 3, 1, 0), g.sum(dim=(0, 1, 2), dtype=torch.float32)
+def composite_grads(x, w, g, dtype, need=(True, True, True)):
+    """dX (N,H,W,C), dW (3,3,C,F) and db (F,) of conv3x3(bilinear_2x(x)) + b
+    for the cotangent g (N,2H,2W,F), computed in `dtype` (terrain_tpu's
+    `_dense_composite` vjp in x.dtype, `_xla_composite`'s in fp32); each is
+    None unless `need` asks for it.  db sums in fp32."""
+    from terrain_tpu_torch.ops.resize import upsample_bilinear_2x_lowp
+
+    need_x, need_w, need_b = need
+    db = g.sum(dim=(0, 1, 2), dtype=torch.float32) if need_b else None
+    if not (need_x or need_w):
+        return None, None, db
+    gn = g.to(dtype).permute(0, 3, 1, 2)
+    xd = x.detach().to(dtype).requires_grad_(need_x)
+    with torch.enable_grad():
+        up = upsample_bilinear_2x_lowp(xd).permute(0, 3, 1, 2)
+    wn = w.to(dtype).permute(3, 2, 0, 1)  # (F,C,3,3)
+    dx = dw = None
+    if need_w:
+        dw = ng.conv2d_weight(up.detach(), tuple(wn.shape), gn, padding=1)
+        dw = dw.permute(2, 3, 1, 0)
+    if need_x:
+        t = ng.conv2d_input(tuple(up.shape), wn, gn, padding=1)
+        (dx,) = torch.autograd.grad(up, xd, t)
+    return dx, dw, db
 
 
 class BilinearConvFn(torch.autograd.Function):
-    """bilinear_conv with terrain_tpu's `conv6` backward: g cast to
-    x.dtype, results cast to the dtypes of x, w, b; a gradient nobody
-    asked for is not computed."""
+    """bilinear_conv with terrain_tpu's backward under TERRAIN_BC_BWD
+    (conv6, xla32 or dense): results cast to the dtypes of x, w, b; a
+    gradient nobody asked for is not computed."""
 
     @staticmethod
     def forward(ctx, x, w, b):
         ctx.save_for_backward(x, w)
+        ctx.b_dtype = b.dtype
         return bilinear_conv_fwd(x, w, b)
 
     @staticmethod
     def backward(ctx, g):
         BACKWARD.calls += 1
         x, w = ctx.saved_tensors
-        gc = g.to(x.dtype)
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = dx_conv6(gc, w).to(x.dtype)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dw, db = dw_db(x, gc, w.shape)
-            dw = dw.to(w.dtype)
-        return dx, dw, db
+        need = ctx.needs_input_grad
+        mode = os.environ.get("TERRAIN_BC_BWD", "conv6")
+        if mode == "conv6":
+            gc = g.to(x.dtype)
+            _, dw, db = composite_grads(x, w, gc, x.dtype,
+                                        (False, need[1], need[2]))
+            dx = dx_conv6(gc, w) if need[0] else None
+        else:
+            dt = torch.float32 if mode == "xla32" else x.dtype
+            dx, dw, db = composite_grads(x, w, g, dt, need)
+        return tuple(None if v is None else v.to(want) for v, want in
+                     zip((dx, dw, db), (x.dtype, w.dtype, ctx.b_dtype)))
 
 
 def bilinear_conv(x, w, b):

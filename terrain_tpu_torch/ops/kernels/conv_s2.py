@@ -43,6 +43,12 @@ KERNEL_FWD = CudaKernel("conv_s2", "conv_s2_fwd_launch",
                         [_P] * 4 + [_I] * 6 + [_F, _I, _P])
 KERNEL_DW = CudaKernel("conv_s2", "conv_s2_dw_launch",
                        [_P] * 5 + [_I] * 7 + [_F, _I, _P])
+
+# terrain_tpu switches this module has no use for, each with the reason
+NO_OP_SWITCHES = {
+    "TERRAIN_ACT_BWD": "the leaky select always runs inside the dW kernel, "
+                       "in fp32 (terrain_tpu's =1 formulation)",
+}
 # calls of the plain versions (CPU tensors), and tensors the op had to copy
 # into NHWC-contiguous memory before a launch
 PLAIN = OpCounter()

@@ -39,6 +39,18 @@ KERNEL_DW = CudaKernel("conv_stem", "conv_stem_dw_launch",
 KERNEL_DX = CudaKernel("conv_stem", "conv_stem_dx_launch",
                        [_P] * 4 + [_I] * 5 + [_F, _I, _P])
 
+# terrain_tpu switches this module has no use for, each with the reason
+NO_OP_SWITCHES = {
+    "TERRAIN_ACT_BWD": "the leaky select always runs inside the dW and dX "
+                       "kernels, in fp32 (terrain_tpu's =1 formulation; "
+                       "its default rounds slope*g to the compute dtype "
+                       "first, which differs in bf16 by that one rounding)",
+    "TERRAIN_STEM_PLANES": "the dtype of the TPU kernels' shifted plane "
+                           "stack in HBM; these kernels read x itself",
+    "TERRAIN_STEM_TH": "the TPU kernels' row-band tile height; these "
+                       "kernels' tiles are fixed by F",
+}
+
 
 def supported(x_shape, w_shape, stride, padding):
     """Shape rule of the kernels' regime: terrain_tpu's guard
@@ -153,6 +165,8 @@ def conv_stem_dx(g, w, y=None, slope=None):
     if all_on_cpu("conv_stem_dx", *ts):
         return conv_stem_dx_plain(g, w, y, slope)
     n, h, wd, f = _check("conv_stem_dx", w=w, g=g, y=y if mask else None)
+    if any(t.data_ptr() % 16 for t in ts[:1] + ts[2:]):
+        raise ValueError("conv_stem_dx: g and y must be 16-byte aligned")
     dx = torch.empty((n, h, wd, 1), dtype=g.dtype, device=g.device)
     KERNEL_DX.launch(g.data_ptr(), y.data_ptr() if mask else None,
                      w.data_ptr(), dx.data_ptr(), n, h, wd, f, int(mask),

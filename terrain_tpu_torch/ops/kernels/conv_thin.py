@@ -33,6 +33,12 @@ KERNEL_DX = CudaKernel("conv_thin", "conv_thin_dx_launch",
 KERNEL_DW = CudaKernel("conv_thin", "conv_thin_dw_launch",
                        [_P] * 4 + [_I] * 7 + [_P])
 
+# terrain_tpu switches this module has no use for, each with the reason
+NO_OP_SWITCHES = {
+    "TERRAIN_THIN_TH": "the TPU kernel's row-band tile height; these "
+                       "kernels' tiles are their own",
+}
+
 
 def supported(x_shape, w_shape, stride, padding):
     """Shape rule of the kernel's regime: terrain_tpu's guard

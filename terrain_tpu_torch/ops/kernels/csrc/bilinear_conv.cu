@@ -88,31 +88,6 @@ constexpr size_t smem_bytes() {
          sizeof(T) * (RAWW + RAWS);
 }
 
-__device__ __forceinline__ float tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return __uint_as_float(r);
-}
-
-// Four 8x8 b16 matrices = for 32-bit data four 8-row x 4-column blocks; lane
-// l gives the row address of block l/8 and receives, of each block i, row
-// l/4, column l%4 in r[i].
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const float* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x8, row) * b (8x8, col) in TF32 with fp32 accumulation
-__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }

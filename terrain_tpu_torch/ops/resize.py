@@ -11,6 +11,9 @@ exact forms, chosen as terrain_tpu chooses, by switches read at call time:
     shifted views and an interleave per axis;
   * otherwise `F.interpolate(scale_factor=2, mode="bilinear",
     align_corners=False)`, the counterpart of `jax.image.resize`.
+`upsample_bilinear_2x_lowp` interpolates in the input's own dtype, as
+terrain_tpu's counterpart (resize.py:92-99), for the backward composites
+of ops/kernels/bilinear_conv.py.
 """
 
 import os
@@ -36,3 +39,10 @@ def upsample_bilinear_2x(x):
     up = F.interpolate(xc, scale_factor=2, mode="bilinear",
                        align_corners=False)
     return up.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def upsample_bilinear_2x_lowp(x):
+    """Bilinear x2 as `upsample_bilinear_2x`, computed in x.dtype."""
+    up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                       mode="bilinear", align_corners=False)
+    return up.permute(0, 2, 3, 1)

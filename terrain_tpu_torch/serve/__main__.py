@@ -6,7 +6,8 @@ experiment's model dir, or epoch N with TERRAIN_PICK=N, resolved as the
 training CLI's gen/interp modes resolve it), turns TF32 off and serves them.
 Options:
 
-  --device D      cuda (default; raises without a card) or cpu
+  --device D      cuda (default; raises without a card) or cpu (the
+                  default under TERRAIN_PLATFORM=cpu)
   --host H        bind address (default 127.0.0.1)
   --port P        port (default 7642; 0 = ephemeral)
   --max-batch N   device batch ceiling / bucket cap (default 8)
@@ -21,6 +22,7 @@ import os
 
 
 def main(argv=None):
+    from terrain_tpu_torch.device import platform_device
     from terrain_tpu_torch.experiments import EXPERIMENTS
 
     ap = argparse.ArgumentParser(
@@ -28,7 +30,8 @@ def main(argv=None):
         description="Serve a two-stage terrain GAN over TCP on the card.")
     ap.add_argument("experiment", choices=EXPERIMENTS)
     ap.add_argument("checkpoint", nargs="?", default=None)
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--device", default=platform_device(),
+                    choices=("cuda", "cpu"))
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=7642)
     ap.add_argument("--max-batch", type=int, default=8)

@@ -30,8 +30,8 @@ Checkpoints are terrain_tpu/v1 files whose `extra` payload (optimizer
 states as terrain_tpu trees, lr, step counter, both numpy RNG states, the
 plateau state) lets either package resume the other's run exactly.
 
-Not ported yet, and refused rather than ignored: a mesh, TERRAIN_AOT,
-TERRAIN_CHECK_NANS=2.
+Not ported yet, and refused rather than ignored: a mesh, TERRAIN_AOT and
+its TERRAIN_AOT_KEY, TERRAIN_CHECK_NANS=2.
 """
 
 import glob
@@ -94,6 +94,9 @@ class TwoStageGAN:
             _not_ported("training on a mesh", "parallel")
         if os.environ.get("TERRAIN_AOT"):
             _not_ported("TERRAIN_AOT", "utils")
+        if os.environ.get("TERRAIN_AOT_KEY", "shapes") != "shapes":
+            _not_ported("TERRAIN_AOT_KEY (the key of TERRAIN_AOT's cache)",
+                        "utils")
         if os.environ.get("TERRAIN_CHECK_NANS") == "2":
             _not_ported("TERRAIN_CHECK_NANS=2 (use 1)", "utils")
         self.device = resolve_device(device)

@@ -144,22 +144,52 @@ def test_dx_conv6_matches_jax(h2, w2, rng):
         bc.dx_conv6(_t(g[:, :2]), _t(w))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", [None, "conv6", "dense", "xla32"])
 @pytest.mark.parametrize("shape,f", [((1, 8, 8, 8), 8), ((2, 8, 24, 8), 16)])
-def test_bilinear_conv_backward_matches_pallas_grads(shape, f, rng,
-                                                     monkeypatch):
+def test_bilinear_conv_backward_matches_pallas_grads(shape, f, mode, dtype,
+                                                     rng, monkeypatch):
+    """Under each TERRAIN_BC_BWD value (unset is conv6), set for both
+    packages.  bf16 inputs (x, w and the cotangent; b stays fp32): dX and
+    dW are held to 2e-2 of their largest entry, as the card holds bf16
+    kernels, since both sides round bf16 intermediates in different places;
+    db, which the port sums in fp32, to the fp32 sum of the same cotangent,
+    since XLA on the CPU transposes the bias broadcast into a bf16 sum (9%
+    off on an entry of the small case, where jnp.sum is not)."""
     monkeypatch.setattr(jbc, "_INTERPRET", True)
+    if mode is None:
+        monkeypatch.delenv("TERRAIN_BC_BWD", raising=False)
+    else:
+        monkeypatch.setenv("TERRAIN_BC_BWD", mode)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     x = rng.randn(*shape).astype(np.float32)
     w = (rng.randn(3, 3, shape[-1], f) * 0.1).astype(np.float32)
     b = rng.randn(f).astype(np.float32)
     cot = rng.randn(shape[0], 2 * shape[1], 2 * shape[2], f).astype(
         np.float32)
+    # the bf16 values, exactly, on both sides
+    x, w, cot = (np.asarray(jnp.asarray(a).astype(jdt).astype(jnp.float32))
+                 for a in (x, w, cot))
     want = jax.grad(
-        lambda *a: jnp.sum(jbc.bilinear2x_conv3x3_pallas(*a) * cot),
-        argnums=(0, 1, 2))(*map(jnp.asarray, (x, w, b)))
-    args = (_t(x, True), _t(w, True), _t(b, True))
-    got = torch.autograd.grad(bc.BilinearConvFn.apply(*args), args, _t(cot))
+        lambda *a: jnp.sum(jbc.bilinear2x_conv3x3_pallas(*a).astype(
+            jnp.float32) * cot),
+        argnums=(0, 1, 2))(jnp.asarray(x, jdt), jnp.asarray(w, jdt),
+                           jnp.asarray(b))
+    args = (_t(x).to(tdt).requires_grad_(), _t(w).to(tdt).requires_grad_(),
+            _t(b, True))
+    got = torch.autograd.grad(bc.BilinearConvFn.apply(*args), args,
+                              _t(cot).to(tdt))
     for a, q, tol in zip(got, want, (TOL, TOL_W, TOL_W)):
-        _close(a, q, **tol)
+        assert a.dtype == {"bfloat16": torch.bfloat16}.get(
+            str(q.dtype), torch.float32)
+        if dtype == "float32":
+            _close(a, q, **tol)
+            continue
+        q = np.asarray(q.astype(jnp.float32))
+        if q.shape == b.shape:
+            q = cot.sum(axis=(0, 1, 2), dtype=np.float64)
+        _close(a.float(), q, rtol=0, atol=2e-2 * np.abs(q).max())
 
 
 # ------------------------------------------- the autograd.Functions on CPU
@@ -274,10 +304,21 @@ def _grads_match(torch_fn, jax_fn, arrays, rng, tol=TOL_W):
     return got, want, tol
 
 
-def test_conv2d_leaky_in_the_stem_regime_matches_jax_grads(rng):
+@pytest.mark.parametrize("stem_act", [None, "0"])
+def test_conv2d_leaky_in_the_stem_regime_matches_jax_grads(stem_act, rng,
+                                                           monkeypatch):
     """conv2d_leaky at a stem-regime shape: the port takes conv_stem's
-    plain version with the fused activation, terrain_tpu (off the TPU) the
-    XLA conv and leaky_relu."""
+    plain version with the fused activation (with TERRAIN_STEM_ACT=0, set
+    for both packages, without it, and the activation after), terrain_tpu
+    (off the TPU) the XLA conv and leaky_relu."""
+    if stem_act is None:
+        monkeypatch.delenv("TERRAIN_STEM_ACT", raising=False)
+    else:
+        monkeypatch.setenv("TERRAIN_STEM_ACT", stem_act)
+    slopes = []
+    real = cs.conv_stem
+    monkeypatch.setattr(cs, "conv_stem", lambda *a: slopes.append(a[3])
+                        or real(*a))
     x = rng.randn(1, 256, 256, 1).astype(np.float32)
     w = (rng.randn(5, 5, 1, 8) * 0.1).astype(np.float32)
     b = rng.randn(8).astype(np.float32)
@@ -290,6 +331,7 @@ def test_conv2d_leaky_in_the_stem_regime_matches_jax_grads(rng):
     jx, jw, jb = jax.grad(
         lambda *a: jnp.sum(jconv.conv2d_leaky(*a, slope=0.2) * cot),
         argnums=(0, 1, 2))(*map(jnp.asarray, (x, w, b)))
+    assert slopes == [0.2 if stem_act is None else None]
     _close(y, jy, **TOL)
     _close(gx, jx, **TOL)
     # the parameter gradients sum 65536 pixels: atol 5e-3 on values ~100

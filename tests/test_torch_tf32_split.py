@@ -1,5 +1,6 @@
-"""The numerical design of csrc/bilinear_conv.cu, emulated on the CPU, and
-the bound chip_smoke.py reckons for it.
+"""The numerical design of csrc/bilinear_conv.cu and of the stem's forward
+(csrc/conv_stem.cu), emulated on the CPU, and the bound chip_smoke.py
+reckons for them.
 
 The kernel multiplies the upsampled tile u and the weights w on the TF32
 tensor cores.  One TF32 pass rounds both factors to 11 significant bits, so
@@ -112,6 +113,45 @@ def test_tf32_split_is_fp32_accurate(dtype, shape, terms, agrees):
     assert (err <= lim) == agrees, (err / ref.abs().max().item(), TOL)
 
 
+def stem_patches(x):
+    """x (N,H,W,1) -> the stem conv's (N, 25 taps, pixels) patches."""
+    return F.unfold(x.permute(0, 3, 1, 2), 5, padding=2)
+
+
+@pytest.mark.parametrize("dtype,terms,agrees", [
+    ("float32", ("lh", "hl", "hh"), True),
+    # bf16 x and w are exact in TF32: one pass is exact
+    ("bfloat16", ("hh",), True),
+    ("float32", ("hh",), False),
+    ("float32", ("hl", "hh"), False),
+    ("float32", ("lh", "hh"), False),
+], ids=["f32-3xTF32", "bf16-one-pass", "f32-one-TF32-pass",
+        "f32-without-xlo-whi", "f32-without-xhi-wlo"])
+def test_stem_forward_tf32_split_is_fp32_accurate(dtype, terms, agrees):
+    """csrc/conv_stem.cu's forward takes the same split at K = 25 (the 5x5
+    patches of one channel against w (25, F)), on the chip_smoke inputs'
+    scales: the split lies ~2e-7 x max|ref| from fp64, one pass ~3e-4 and
+    either cross term dropped ~2e-4, against the 1e-4 tolerance."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(2, 48, 64, 1).astype(np.float32))
+    w = torch.from_numpy((rng.randn(5, 5, 1, 64) * 0.2).astype(np.float32))
+    if dtype == "bfloat16":
+        x, w = x.bfloat16().float(), w.bfloat16().float()
+        assert torch.equal(tf32_rna(x), x) and torch.equal(tf32_rna(w), w)
+    x_hi, x_lo = split(stem_patches(x))
+    w_hi, w_lo = split(w.reshape(25, 64))
+    parts = {"lh": (x_lo, w_hi), "hl": (x_hi, w_lo), "hh": (x_hi, w_hi)}
+    got = torch.zeros(2, x.shape[1] * x.shape[2], 64)
+    for t in terms:
+        a, b = parts[t]
+        got += torch.einsum("nkp,kf->npf", a, b)
+    ref = torch.einsum("nkp,kf->npf", stem_patches(x.double()),
+                       w.reshape(25, 64).double())
+    err = (got.double() - ref).abs().max().item()
+    lim = TOL * ref.abs().max().item()
+    assert (err <= lim) == agrees, (err / ref.abs().max().item(), TOL)
+
+
 def test_tf32_rna_rounds_to_nearest_ties_away():
     one = 1.0
     ulp = 2.0 ** -10   # TF32's unit at 1.0
@@ -170,3 +210,14 @@ def test_bilinear_conv_variants_edit_the_kernel_source():
     for name in ("drop_lo_hi", "drop_hi_lo"):
         assert bv.edited_source(bv.VARIANTS[name]).count(
             "mma_tf32(acc[i][j]") == 2
+
+
+def test_conv_stem_variants_edit_the_kernel_source():
+    """Each part that tools/conv_stem_variants.py leaves out on the card is
+    an edit of the shipped source that still finds its target."""
+    from terrain_tpu_torch.tools import conv_stem_variants as sv
+
+    shipped = sv.edited_source([])
+    for name, edits in sv.VARIANTS.items():
+        assert (sv.edited_source(edits) == shipped) == (name == "shipped"), \
+            name
