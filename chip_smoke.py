@@ -13,9 +13,11 @@ Phases (any failure exits non-zero and prints no result line):
      at the main paths' shapes and small or ragged ones; max-abs error
      against a stated tolerance (the pool moves values and is held exactly,
      deliberate ties included; a dW kernel without atomics must give the
-     same bits twice, and so must the stem's forward and dX), and times
-     (CUDA events, median of 30 launches after
-     warm-up) of the kernel, the plain version and one PyTorch library call
+     same bits twice, and so must the stem's forward and dX and conv_thin's
+     forward), and times (CUDA events, median of 30 launches after
+     warm-up, each alone: the wrapper's host cost included; and
+     stream_ms, the device time of 20 launches queued behind a spin
+     kernel) of the kernel, the plain version and one PyTorch library call
      for the same function (where that call does less -- a gradient
      without the leaky select, dW without db -- also library_same_ms, the
      select, the call and the db sum), beside the least time the card could
@@ -217,6 +219,28 @@ def time_ms(fn, reps=30, warm=3):
     return statistics.median(times)
 
 
+def stream_ms(fn, launches=20, reps=5):
+    """Median device time of one launch among `launches` queued back to back
+    behind a spin kernel, so the host's launch cost is off the clock."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000)  # ~2 ms: the host queues meanwhile
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(launches):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / launches)
+    return statistics.median(times)
+
+
 # ------------------------------------------------------------------ phase 2
 def _rand(torch, g, shape, dt, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dt)
@@ -259,7 +283,7 @@ def kernel_cases(torch):
 
         return dict(
             name="conv_thin", shape=(n, h, w, c, f), make=make,
-            kern=ct.conv_thin_fwd, plain=ct.conv_thin_plain,
+            kern=ct.conv_thin_fwd, plain=ct.conv_thin_plain, twice=True,
             lib=lambda x, wt: F.conv2d(nchw(x), oihw(wt), padding=1),
             flops=2.0 * n * h * w * 9 * c * f,
             nbytes=lambda dt: es(dt) * (n * h * w * (c + f) + 9 * c * f))
@@ -490,9 +514,17 @@ def kernel_cases(torch):
             bil(1, 64, 64, 512, 128), bil(1, 128, 128, 256, 64),
             bil(8, 64, 64, 512, 128), bil(8, 128, 128, 256, 64),
             bil(2, 21, 27, 24, 16),
-            thin(4, 256, 256, 64, 4), thin(3, 37, 45, 24, 3),
+            # conv_thin's forward and dW (row streams): the main shape,
+            # batch 8 (the served bucket), then W no multiple of the
+            # 64-column strip (200, 130) and below one strip (45), C = 8
+            # and 24, F = 1, 3 and 8
+            thin(4, 256, 256, 64, 4), thin(8, 256, 256, 64, 4),
+            thin(2, 64, 200, 8, 4), thin(3, 37, 45, 24, 3),
+            thin(1, 48, 130, 64, 8),
             thin_dx(4, 256, 256, 64, 4), thin_dx(3, 37, 45, 24, 1),
-            thin_dw(4, 256, 256, 64, 4), thin_dw(3, 37, 45, 24, 1),
+            thin_dw(4, 256, 256, 64, 4), thin_dw(8, 256, 256, 64, 4),
+            thin_dw(2, 64, 200, 8, 4), thin_dw(3, 37, 45, 24, 1),
+            thin_dw(1, 48, 130, 64, 8),
             # the stem's forward and dX: the main shapes, then ragged ones
             # (W no multiple of the forward's tile or of dX's strip, H
             # cutting the blocks' shares of rows mid-strip) at F 8 to 512
@@ -561,6 +593,7 @@ def check_kernels(torch):
             lib = (case["lib_make"](*args) if "lib_make" in case
                    else lambda: case["lib"](*args))
             ms = time_ms(lambda: case["kern"](*args))
+            dev_ms = stream_ms(lambda: case["kern"](*args))
             plain_ms = time_ms(lambda: case["plain"](*args),
                                reps=10 if big else 30)
             lib_ms = time_ms(lib, reps=10 if big else 30)
@@ -568,7 +601,8 @@ def check_kernels(torch):
             bound, by = bound_ms(case["flops"], case["nbytes"](dt), fp32,
                                  case.get("tf32_passes", 0))
             row = dict(shape=shape, dtype=str(dt).split(".")[-1],
-                       max_abs_err=err, tol=lim, ms=ms, plain_ms=plain_ms,
+                       max_abs_err=err, tol=lim, ms=ms, stream_ms=dev_ms,
+                       plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=by)
             extra = ""
             if "lib_same" in case:
@@ -582,7 +616,8 @@ def check_kernels(torch):
                 extra += (f" cuda_core_bound_ms "
                           f"{row['cuda_core_bound_ms']:.4f}")
             print(f"kernel {name} {shape} {row['dtype']}: max_abs_err "
-                  f"{err:.3e} (tol {lim:.3e}) ms {ms:.4f} plain_ms "
+                  f"{err:.3e} (tol {lim:.3e}) ms {ms:.4f} stream_ms "
+                  f"{dev_ms:.4f} plain_ms "
                   f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
                   f"{bound:.4f} ({by}){extra}", flush=True)
             results.setdefault(name, []).append(row)
@@ -1758,7 +1793,8 @@ def main():
             **{f"launches_{p}": n for p, n in per.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]
                                if r["dtype"] == "float32"),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "ms": main_row["ms"], "stream_ms": main_row["stream_ms"],
+            "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],

@@ -13,6 +13,7 @@ Each C entry point launches on the stream it is given and returns
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -139,15 +140,16 @@ def all_on_cpu(name, *tensors):
     """True when every tensor lies on the CPU (the caller then runs its plain
     version).  Otherwise all must lie on one CUDA device and be contiguous,
     or this raises: there is no fallback for a tensor off the CPU."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return True
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(
-            f"{name}: tensors on {[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: every tensor must be contiguous")
-    return False
+    if not any(t.is_cuda for t in tensors):
+        if all(t.device.type == "cpu" for t in tensors):
+            return True
+    else:  # is_cuda and get_device() cost less than building devices
+        dev = tensors[0].get_device()
+        if all(t.is_cuda and t.get_device() == dev for t in tensors):
+            if not all(t.is_contiguous() for t in tensors):
+                raise ValueError(f"{name}: every tensor must be contiguous")
+            return False
+    raise ValueError(f"{name}: tensors on {[str(t.device) for t in tensors]}")
 
 
 def nhwc_contiguous(t, counter):
@@ -161,16 +163,23 @@ def nhwc_contiguous(t, counter):
 
 
 def stream_of(t):
+    """The raw handle of t's device's current stream: the call PyTorch's
+    own generated code makes, which skips building a `torch.cuda.Stream`
+    object at every launch as `current_stream` does."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def partial_blocks(t, per_sm=2):
     """Number of blocks of a two-pass reduction kernel: a fixed multiple of
     the card's SM count, so the partial sums and their order are the same
     from run to run."""
-    import torch
-
-    return per_sm * torch.cuda.get_device_properties(
-        t.device).multi_processor_count
+    return per_sm * _sm_count(t.get_device())

@@ -23,6 +23,7 @@ from terrain_tpu_torch.ops.kernels._build import (
 
 K = 3
 TH = 16  # the JAX guard's band height (h % TH == 0)
+SW = 64  # output columns of a strip of the row stream (csrc/conv_thin.cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -55,6 +56,28 @@ def supported(x_shape, w_shape, stride, padding):
             and 8 <= c <= 64 and c % 8 == 0 and 1 <= f <= 8
             and h % TH == 0 and h >= 64
             and w % 128 == 0 and 128 <= w <= 1024)
+
+
+def walk(n, h, w, blocks):
+    """The row stream's walk, as csrc/conv_thin.cu's `walk` lays it out:
+    output rows in (image, strip, row) order, `strips` column strips of SW
+    outputs an image, an equal `share` of them for each of `grid` <=
+    `blocks` blocks (the last share may be shorter, later ones empty).
+    Returns (strips, grid, share)."""
+    strips = -(-w // SW)
+    rows = n * strips * h
+    grid = min(rows, blocks)
+    return strips, grid, -(-rows // grid)
+
+
+def check_stream(name, x):
+    """The row stream copies x's rows in whole 16-byte pieces: C must be a
+    multiple of 8 (a pixel is then 16 or 32 bytes) and x 16-byte aligned.
+    Raises ValueError otherwise."""
+    if x.shape[-1] % 8 or x.data_ptr() % 16:
+        raise ValueError(f"{name}: x {tuple(x.shape)} at offset "
+                         f"{x.data_ptr() % 16} mod 16 (C must be a multiple "
+                         f"of 8, x 16-byte aligned)")
 
 
 def _nchw(t):
@@ -108,6 +131,7 @@ def conv_thin_fwd(x, w):
     _check("conv_thin", x, w.shape, w.shape[2], w.shape[3])
     if w.dtype != x.dtype:
         raise TypeError(f"conv_thin: x {x.dtype}, w {w.dtype}")
+    check_stream("conv_thin", x)
     n, h, wd, c = x.shape
     f = w.shape[3]
     y = torch.empty((n, h, wd, f), dtype=x.dtype, device=x.device)
@@ -137,15 +161,18 @@ def conv_thin_dw(x, g):
         return conv_thin_dw_plain(x, g)
     c, f = x.shape[-1], g.shape[-1]
     _check("conv_thin_dw", x, (K, K, c, f), c, f, b=g)
+    check_stream("conv_thin_dw", x)
     n, h, wd, _ = x.shape
     nb = partial_blocks(x)
-    part = torch.empty((nb, K * K * c * f), dtype=torch.float32,
+    # the block partials and, in the last row, dW, one allocation a call
+    # (the returned view keeps the partials' buffer alive with it)
+    part = torch.empty((nb + 1, K * K * c * f), dtype=torch.float32,
                        device=x.device)
-    dw = torch.empty((K, K, c, f), dtype=torch.float32, device=x.device)
-    KERNEL_DW.launch(x.data_ptr(), g.data_ptr(), part.data_ptr(),
-                     dw.data_ptr(), nb, n, h, wd, c, f, _DTYPES[x.dtype],
-                     stream_of(x))
-    return dw
+    ptr = part.data_ptr()
+    KERNEL_DW.launch(x.data_ptr(), g.data_ptr(), ptr,
+                     ptr + 4 * nb * K * K * c * f, nb, n, h, wd, c, f,
+                     _DTYPES[x.dtype], stream_of(x))
+    return part[nb].view(K, K, c, f)
 
 
 class ConvThinFn(torch.autograd.Function):

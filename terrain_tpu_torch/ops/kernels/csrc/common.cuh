@@ -5,6 +5,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 // dtype codes passed by the Python wrappers
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -46,12 +49,37 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-// Asynchronous 16-byte copies from device memory into shared memory
-// (cp.async, bypassing L1).  Both addresses must be 16-byte aligned.  With
-// valid == false the 16 bytes are zero-filled and nothing is read.
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// Four consecutive values at a shared-memory address (smem_u32) as fp32,
+// 16 (fp32) or 8 (bf16) bytes aligned.  Loading through a 32-bit shared
+// address keeps the compiler from rebuilding a generic pointer's shared
+// window (S2R SR_CgaCtaId and ~10 instructions) at every predicated load.
+template <typename T>
+__device__ __forceinline__ void lds4(uint32_t a, float v[4]);
+template <>
+__device__ __forceinline__ void lds4<float>(uint32_t a, float v[4]) {
+  asm volatile("ld.shared.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "r"(a));
+}
+template <>
+__device__ __forceinline__ void lds4<__nv_bfloat16>(uint32_t a, float v[4]) {
+  uint32_t lo, hi;
+  asm volatile("ld.shared.v2.u32 {%0,%1}, [%2];\n"
+               : "=r"(lo), "=r"(hi)
+               : "r"(a));
+  v[0] = __uint_as_float(lo << 16);
+  v[1] = __uint_as_float(lo & 0xffff0000u);
+  v[2] = __uint_as_float(hi << 16);
+  v[3] = __uint_as_float(hi & 0xffff0000u);
+}
+
+// Asynchronous 16-byte copies from device memory into shared memory
+// (cp.async, bypassing L1).  Both addresses must be 16-byte aligned.  With
+// valid == false the 16 bytes are zero-filled and nothing is read.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid = true) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -150,17 +178,83 @@ __device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Second pass of a reduction across blocks: out[i] = sum_p part[p][i], the
-// partials summed in block order, so the result does not change from run
-// to run (no atomics).
-static __global__ void sum_partials_kernel(const float* __restrict__ part,
-                                           float* __restrict__ out,
-                                           int nparts, int len) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= len) return;
+// Second pass of a reduction across blocks: out[i] = sum_p part[p][i] in a
+// fixed order, so the result does not change from run to run (no atomics).
+// Block b takes the 32 outputs b*32.. (one a lane, coalesced) and warp w
+// the w-th eighth of the partials in block order; the eighths are then
+// added in order.  Launch through sum_partials().
+static __global__ void __launch_bounds__(256)
+    sum_partials_kernel(const float* __restrict__ part,
+                        float* __restrict__ out, int nparts, int len) {
+  __shared__ float seg[8][32];
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * 32 + lane;
+  const int per = (nparts + 7) / 8;
+  const int p1 = min(nparts, (w + 1) * per);
   float s = 0.f;
-  for (int p = 0; p < nparts; ++p) s += part[(size_t)p * len + i];
-  out[i] = s;
+  if (i < len) {
+#pragma unroll 4
+    for (int p = w * per; p < p1; ++p) s += part[(size_t)p * len + i];
+  }
+  seg[w][lane] = s;
+  __syncthreads();
+  if (w != 0 || i >= len) return;
+  float t = seg[0][lane];
+#pragma unroll
+  for (int k = 1; k < 8; ++k) t += seg[k][lane];
+  out[i] = t;
+}
+
+static inline cudaError_t sum_partials(const float* part, float* out,
+                                       int nparts, int len,
+                                       cudaStream_t s) {
+  sum_partials_kernel<<<(len + 31) / 32, 256, 0, s>>>(part, out, nparts,
+                                                      len);
+  return cudaGetLastError();
+}
+
+// Once per kernel, device and shared-memory size: the device's SM count and
+// the blocks an SM holds; and the kernel's shared-memory allowance, raised
+// when a launch needs more than any before.  A launch then makes no other
+// runtime calls before the kernel's own.
+static cudaError_t prepare(const void* kern, size_t smem, int threads,
+                           int* sms, int* per_sm) {
+  struct Entry {
+    const void* kern;
+    size_t smem;
+    int dev, sms, per_sm;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> seen;
+  static std::vector<Entry> allowed;  // smem: the allowance set
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& x : seen)
+    if (x.kern == kern && x.smem == smem && x.dev == dev) {
+      *sms = x.sms;
+      *per_sm = x.per_sm;
+      return cudaSuccess;
+    }
+  size_t most = 0;
+  for (const Entry& x : allowed)
+    if (x.kern == kern && x.dev == dev && x.smem > most) most = x.smem;
+  if (smem > most) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    allowed.push_back({kern, smem, dev, 0, 0});
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads,
+                                                      smem);
+  if (e != cudaSuccess) return e;
+  seen.push_back({kern, smem, dev, *sms, *per_sm});
+  return cudaSuccess;
 }
 
 // Every library exports <source>_error_string for its wrapper's messages.

@@ -320,9 +320,8 @@ cudaError_t dw_tc(const void* x, const void* g, const void* y, void* part,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int len = (KK * CIN + 1) * f;
-  sum_partials_kernel<<<(len + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), nblocks, len);
-  return cudaGetLastError();
+  return sum_partials(static_cast<const float*>(part),
+                      static_cast<float*>(out), nblocks, len, s);
 }
 
 template <typename T>

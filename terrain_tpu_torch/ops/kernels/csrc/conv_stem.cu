@@ -81,9 +81,7 @@
 //        uniform (broadcast) and a float4 of weights feeds 8 FMAs.  One
 //        __syncthreads a row.  (On the tensor cores, as the forward, the
 //        tap values measured slower: PERF.md.)
-#include <mutex>
 #include <type_traits>
-#include <vector>
 
 #include "common.cuh"
 
@@ -728,49 +726,6 @@ cudaError_t set_smem(K_ kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// Once per kernel, device and shared-memory size: the device's SM count and
-// the blocks an SM holds; and the kernel's shared-memory allowance, raised
-// when a launch needs more than any before.  A launch then makes no other
-// runtime calls before the kernel's own.
-cudaError_t prepare(const void* kern, size_t smem, int threads, int* sms,
-                    int* per_sm) {
-  struct Entry {
-    const void* kern;
-    size_t smem;
-    int dev, sms, per_sm;
-  };
-  static std::mutex mu;
-  static std::vector<Entry> seen;
-  static std::vector<Entry> allowed;  // smem: the allowance set
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Entry& x : seen)
-    if (x.kern == kern && x.smem == smem && x.dev == dev) {
-      *sms = x.sms;
-      *per_sm = x.per_sm;
-      return cudaSuccess;
-    }
-  size_t most = 0;
-  for (const Entry& x : allowed)
-    if (x.kern == kern && x.dev == dev && x.smem > most) most = x.smem;
-  if (smem > most) {
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return e;
-    allowed.push_back({kern, smem, dev, 0, 0});
-  }
-  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads,
-                                                      smem);
-  if (e != cudaSuccess) return e;
-  seen.push_back({kern, smem, dev, *sms, *per_sm});
-  return cudaSuccess;
-}
-
 template <typename T>
 cudaError_t fwd_t(const void* x, const void* w, const void* b, void* y, int n,
                   int h, int wd, int f, int leaky, float slope,
@@ -813,10 +768,8 @@ cudaError_t dw_t(const void* x, const void* g, const void* y, void* part,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int len = (KK + 1) * f;
-  sum_partials_kernel<<<(len + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), nblocks,
-      len);
-  return cudaGetLastError();
+  return sum_partials(static_cast<const float*>(part),
+                      static_cast<float*>(out), nblocks, len, s);
 }
 
 template <typename T>

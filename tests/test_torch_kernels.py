@@ -104,4 +104,38 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
     with pytest.raises(ValueError):
         bc.bilinear_conv(x, torch.empty((3, 3, 8, 8), device="meta"),
                          torch.empty((8,), device="meta"))
+    # the row stream's guards: C a multiple of 8, x 16-byte aligned
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ct.check_stream("conv_thin", torch.empty((1, 64, 128, 12),
+                                                 device="meta"))
+    flat = torch.empty(4 + 64 * 128 * 8, device="meta")
+    with pytest.raises(ValueError, match="offset 4 mod 16"):
+        ct.check_stream("conv_thin", flat[1:-3].view(1, 64, 128, 8))
+    ct.check_stream("conv_thin", flat[4:].view(1, 64, 128, 8))
+    for xs in (torch.empty((1, 64, 128, 12), device="meta"),
+               flat[1:-3].view(1, 64, 128, 8)):
+        with pytest.raises(ValueError):
+            ct.conv_thin(xs, torch.empty((3, 3, xs.shape[3], 4),
+                                         device="meta"))
     assert ct.KERNEL.launches == 0 and bc.KERNEL.launches == 0
+
+
+@pytest.mark.parametrize("n,h,w,blocks", [
+    (4, 256, 256, 264), (4, 256, 256, 132),   # main shape, 2 / 1 an SM
+    (8, 256, 256, 264),                       # the served bucket 8
+    (2, 64, 200, 264), (3, 37, 45, 264),      # W ragged, below one strip
+    (1, 48, 130, 132), (1, 3, 7, 264)])       # more blocks than rows
+def test_row_stream_walk_covers_every_output_once(n, h, w, blocks):
+    strips, grid, share = ct.walk(n, h, w, blocks)
+    assert grid <= blocks and grid * share >= n * strips * h
+    seen = np.zeros((n, strips, h), np.int64)
+    for b in range(grid):  # block b's share, as the kernels' RowCursor
+        for lin in range(b * share, min((b + 1) * share, n * strips * h)):
+            ns, r = divmod(lin, h)
+            seen[ns // strips, ns % strips, r] += 1
+    assert (seen == 1).all()
+    # the strips' output columns tile [0, w) once
+    cols = np.zeros(strips * ct.SW, np.int64)
+    for s in range(strips):
+        cols[s * ct.SW:(s + 1) * ct.SW] += 1
+    assert (cols[:w] == 1).all() and strips * ct.SW - w < ct.SW
