@@ -18,10 +18,11 @@ Phases (any failure exits non-zero and prints no result line):
      warm-up, each alone: the wrapper's host cost included; and
      stream_ms, the device time of 20 launches queued behind a spin
      kernel) of the kernel, the plain version and one PyTorch library call
-     for the same function (where that call does less -- a gradient
-     without the leaky select, dW without db -- also library_same_ms, the
-     select, the call and the db sum), beside the least time the card could
-     take (bilinear_conv in fp32: its three TF32 tensor-core passes, with
+     for the same function (where that call does less -- a forward
+     without its activation, a gradient without the leaky select, dW
+     without db -- also library_same_ms: the call with the activation, or
+     the select, the call and the db sum), beside the least time the card
+     could take (bilinear_conv in fp32: its three TF32 tensor-core passes, with
      the fp32 CUDA cores' figure printed beside it).
      Then the six differentiable ops (conv_thin, conv_stem, bilinear_conv,
      pool2, conv_s2, bilinear) on CUDA tensors against autograd of their
@@ -252,11 +253,12 @@ def kernel_cases(torch):
     same function, the operations and (per dtype) the bytes of the work.
     The first case of each kernel is the main path's shape.  `f32_out`
     marks outputs that are fp32 whatever the input type (dW, db).  Where the
-    library call computes less than the kernel (a gradient without the
-    leaky select, dW without db), `lib_same` is a library route that
-    computes the same function: the select, the library gradient and the
-    db sum.  `tf32_passes` is the number of TF32 tensor-core passes the
-    kernel's fp32 products take (see bound_ms)."""
+    library call computes less than the kernel (a forward without its
+    activation, a gradient without the leaky select, dW without db),
+    `lib_same` is a library route that computes the same function: the
+    activation, or the select, the library gradient and the db sum.
+    `tf32_passes` is the number of TF32 tensor-core passes the kernel's
+    fp32 products take (see bound_ms)."""
     import torch.nn.functional as F
     from torch.nn import grad as ng
 
@@ -295,7 +297,7 @@ def kernel_cases(torch):
 
         return dict(
             name="conv_thin_dx", shape=(n, h, w, c, f), make=make,
-            kern=ct.conv_thin_dx, plain=ct.conv_thin_dx_plain,
+            kern=ct.conv_thin_dx, plain=ct.conv_thin_dx_plain, twice=True,
             lib=lambda gg, wt: ng.conv2d_input((n, c, h, w), oihw(wt),
                                                nchw(gg), padding=1),
             flops=2.0 * n * h * w * 9 * c * f,
@@ -318,6 +320,9 @@ def kernel_cases(torch):
     def masked(gg, y, slope):
         return gg if slope is None else torch.where(y >= 0, gg, slope * gg)
 
+    def leaky(v, slope):  # the activation as one more library call
+        return v if slope is None else F.leaky_relu(v, slope)
+
     def stem_args(dt, g, n, h, w, f, slope):
         x = _rand(torch, g, (n, h, w, 1), dt)
         wt = _rand(torch, g, (5, 5, 1, f), dt, 0.2)
@@ -334,9 +339,11 @@ def kernel_cases(torch):
             kern=lambda x, wt, b: cs.conv_stem_fwd(x, wt, b, slope),
             plain=lambda x, wt, b: cs.conv_stem_fwd_plain(x, wt, b, slope),
             twice=True,
-            # the conv alone; the activation would be a second call
+            # the conv alone; lib_same adds the activation as a second call
             lib=lambda x, wt, b: F.conv2d(nchw(x), oihw(wt), b.to(x.dtype),
                                           padding=2),
+            lib_same=lambda x, wt, b: leaky(
+                F.conv2d(nchw(x), oihw(wt), b.to(x.dtype), padding=2), slope),
             flops=2.0 * n * h * w * 25 * f,
             nbytes=lambda dt: es(dt) * (n * h * w * (1 + f) + 25 * f) + 4 * f)
 
@@ -456,9 +463,12 @@ def kernel_cases(torch):
             name="conv_s2_fwd", shape=(n, h, w, c, f, slope), make=make,
             kern=lambda x, wt, b: c2.conv_s2_fwd(x, wt, b, slope),
             plain=lambda x, wt, b: c2.conv_s2_fwd_plain(x, wt, b, slope),
-            # the conv alone; the activation would be a second call
+            # the conv alone; lib_same adds the activation as a second call
             lib=lambda x, wt, b: F.conv2d(nchw(x), oihw(wt), b.to(x.dtype),
                                           stride=2, padding=1),
+            lib_same=lambda x, wt, b: leaky(
+                F.conv2d(nchw(x), oihw(wt), b.to(x.dtype), stride=2,
+                         padding=1), slope),
             flops=2.0 * n * (h // 2) * (w // 2) * 9 * c * f,
             nbytes=lambda dt: es(dt) * (n * h * w * c + n * h * w // 4 * f
                                         + 9 * c * f) + 4 * f)
@@ -521,7 +531,12 @@ def kernel_cases(torch):
             thin(4, 256, 256, 64, 4), thin(8, 256, 256, 64, 4),
             thin(2, 64, 200, 8, 4), thin(3, 37, 45, 24, 3),
             thin(1, 48, 130, 64, 8),
-            thin_dx(4, 256, 256, 64, 4), thin_dx(3, 37, 45, 24, 1),
+            # dX (a row stream too): the main shape, the forward's ragged
+            # ones, and F = 3 and 1, whose bf16 g rows are no whole 16-byte
+            # pieces
+            thin_dx(4, 256, 256, 64, 4), thin_dx(2, 64, 200, 8, 4),
+            thin_dx(1, 48, 130, 64, 8), thin_dx(3, 37, 45, 24, 3),
+            thin_dx(3, 37, 45, 24, 1),
             thin_dw(4, 256, 256, 64, 4), thin_dw(8, 256, 256, 64, 4),
             thin_dw(2, 64, 200, 8, 4), thin_dw(3, 37, 45, 24, 1),
             thin_dw(1, 48, 130, 64, 8),
@@ -542,8 +557,13 @@ def kernel_cases(torch):
             pool_bwd(2, 64, 64, 64, ties=True),
             s2_fwd(4, 512, 512, 1, 64, None), s2_fwd(8, 512, 512, 4, 64, 0.01),
             s2_fwd(1, 64, 256, 2, 8, 0.2),
+            # dW+db (a bulk-copy stream): the main shapes, W/2 = 100 (a
+            # short last tile a row), F = 128 (32-pixel tiles), fewer tiles
+            # than blocks, F = 512 at cin 4 (the block's sums overlap the
+            # ring's barriers in shared memory)
             s2_dw(4, 512, 512, 1, 64, None), s2_dw(8, 512, 512, 4, 64, 0.01),
-            s2_dw(1, 64, 256, 2, 8, 0.2)]
+            s2_dw(2, 64, 200, 4, 64, 0.2), s2_dw(2, 128, 256, 2, 128, 0.2),
+            s2_dw(1, 64, 256, 2, 8, 0.2), s2_dw(1, 16, 48, 4, 512, None)]
 
 
 def _as_tuple(v):

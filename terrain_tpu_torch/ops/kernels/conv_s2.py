@@ -36,6 +36,7 @@ from terrain_tpu_torch.ops.kernels._build import (
     stream_of)
 
 K = 3
+DW_PER_SM = 1  # dW+db: one persistent block an SM (csrc/conv_s2.cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -153,6 +154,14 @@ def conv_s2_fwd(x, w, b, slope=None):
     return y
 
 
+def check_dw_aligned(ts):
+    """dW+db copies g and y tiles by 1-D bulk copies: both must be 16-byte
+    aligned.  Raises ValueError otherwise."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("conv_s2_dw: g and y must be 16-byte aligned, not "
+                         f"at offsets {[t.data_ptr() % 16 for t in ts]}")
+
+
 def conv_s2_dw(x, g, y=None, slope=None):
     """dW+db primitive: fp32 (3,3,cin,F) and (F,).  g is the raw cotangent;
     y is the saved output, needed with a slope."""
@@ -162,8 +171,9 @@ def conv_s2_dw(x, g, y=None, slope=None):
         PLAIN.calls += 1
         return conv_s2_dw_plain(x, g, y, slope)
     n, h, wd, cin, f = _check("conv_s2_dw", x, g=g, y=y if mask else None)
+    check_dw_aligned(ts[1:])
     rows = K * K * cin + 1
-    nb = partial_blocks(x, per_sm=4)
+    nb = partial_blocks(x, per_sm=DW_PER_SM)
     part = torch.empty((nb, rows * f), dtype=torch.float32, device=x.device)
     out = torch.empty((rows, f), dtype=torch.float32, device=x.device)
     KERNEL_DW.launch(x.data_ptr(), g.data_ptr(),

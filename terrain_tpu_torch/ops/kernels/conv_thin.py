@@ -80,6 +80,16 @@ def check_stream(name, x):
                          f"of 8, x 16-byte aligned)")
 
 
+def check_dx(w):
+    """dX's lanes write 4 of a pixel's C channels each: C = w.shape[2]
+    must be a multiple of 8, as for the forward's stream and in the regime
+    (`supported`).  g is read by plain loads and needs no alignment.
+    Raises ValueError otherwise."""
+    if w.shape[2] % 8:
+        raise ValueError(f"conv_thin_dx: C = {w.shape[2]} (w "
+                         f"{tuple(w.shape)}) must be a multiple of 8")
+
+
 def _nchw(t):
     return t.float().permute(0, 3, 1, 2)
 
@@ -149,6 +159,7 @@ def conv_thin_dx(g, w):
         raise TypeError(f"conv_thin_dx: g {g.dtype}, w {w.dtype}")
     n, h, wd, f = g.shape
     c = w.shape[2]
+    check_dx(w)
     dx = torch.empty((n, h, wd, c), dtype=g.dtype, device=g.device)
     KERNEL_DX.launch(g.data_ptr(), w.data_ptr(), dx.data_ptr(), n, h, wd, c,
                      f, _DTYPES[g.dtype], stream_of(g))

@@ -77,6 +77,21 @@ __device__ __forceinline__ void lds4<__nv_bfloat16>(uint32_t a, float v[4]) {
   v[3] = __uint_as_float(hi & 0xffff0000u);
 }
 
+// A read-only load the compiler keeps where it is written: data loaded
+// tiles ahead of its use (a plain load of read-only data may be moved down
+// to the use; in a trial build of the stem's dW on the card that was
+// slower).  bf16 comes back as fp32.
+__device__ __forceinline__ float load_early(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float load_early(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
+  return __uint_as_float(static_cast<unsigned>(v) << 16);
+}
+
 // Asynchronous 16-byte copies from device memory into shared memory
 // (cp.async, bypassing L1).  Both addresses must be 16-byte aligned.  With
 // valid == false the 16 bytes are zero-filled and nothing is read.
@@ -104,6 +119,11 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
                    smem_u32(bar)),
                "r"(count)
+               : "memory");
+}
+// before a barrier's memory is used for anything else (no phase pending)
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
                : "memory");
 }
 __device__ __forceinline__ void mbar_init_fence() {

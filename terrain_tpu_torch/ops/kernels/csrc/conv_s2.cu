@@ -21,29 +21,46 @@
 // What bounds them on the card: bytes.  At the U-Net's first conv
 // (4,512,512,1) -> 64 the forward reads 4 MB and writes 67 MB; at PatchGAN's
 // (8,512,512,4) -> 64 it reads 34 MB and writes 134 MB; dW reads g and, with a
-// slope, the saved y.  The arithmetic (9*cin FMAs per output value) is far
-// below the fp32 peak.
+// slope, the saved y.  The arithmetic (9*cin FMAs per output value) is below
+// the fp32 peak's time (0.04 ms of FMAs for dW's 0.09 ms of bytes at cin 4).
 //
 // Design: the TPU kernel's plane stack (column-subsampled copies of x made
 // outside the kernel), its 8-aligned halo DMA and its one-dot-per-row loop
-// exist for Mosaic's lane rules and the MXU.  Here a block stages the
-// (2*TH+1) x (2*TW+1) x cin halo tile of x once into shared memory, one plane
-// per channel, the stride-2 taps are plain shared-memory reads, and the F
-// axis stays on neighbouring threads, 4 values (16 bytes) a thread, so every
-// store of y and every load of g/y is a run of whole 128-byte lines.
-//   fwd: the 9*cin x F weights sit in shared memory; a thread owns 8 pixels
-//        of an output row x 4 features in registers, so one weight load feeds
-//        32 FMAs.
-//   dW:  blocks run in any order (the TPU grid accumulated in sequence), so a
-//        fixed number of blocks each walk a share of the tiles.  A thread owns
-//        4 features of ONE input channel: 9 taps x 4 features in registers
-//        (36, where all channels together would need 144 and spill), over all
-//        its pixels.  The block reduces over its threads in shared memory in a
-//        fixed order and writes one partial; sum_partials_kernel adds the
-//        partials in block order: no atomics, the same bits every run.  The
-//        leaky select reads the saved output here, so the masked cotangent
-//        never goes through device memory.  F wider than 64 is split over
-//        gridDim.y, 64 features a block.
+// exist for Mosaic's lane rules and the MXU.  Here the F axis stays on
+// neighbouring threads, so every store of y and every read of g and y is a
+// run of whole 128-byte lines.
+//   fwd: a block stages the (2*TH+1) x (2*TW+1) x cin halo tile of x once
+//        into shared memory, one plane per channel, so the stride-2 taps are
+//        plain shared-memory reads; the 9*cin x F weights sit in shared
+//        memory; a thread owns 8 pixels of an output row x 4 features in
+//        registers, so one weight load feeds 32 FMAs.
+//   dW:  a stream, as the stem's dW (conv_stem.cu): at PatchGAN's shape it
+//        reads 302 MB (g and y, 134 MB each, and x) for 2.5 GFLOP, so the
+//        design keeps bytes in flight.  One persistent block an SM walks the
+//        tiles b, b + gridDim.x, ... (a tile: up to 64 output pixels of one
+//        output row x all F, 16 KB of g and 16 KB of y at F = 64 in fp32,
+//        one contiguous NHWC run each; F > 64 takes fewer pixels, so no
+//        feature split); one thread brings each tile into a ring of 4
+//        stages with two 1-D bulk copies (the TMA unit, one mbarrier a
+//        stage) 3 tiles ahead, and the tile's 3 input rows x 129 columns x
+//        cin come 3 tiles ahead through registers into a double buffer, at
+//        a fixed row stride (a divide by a constant; with the runtime
+//        stride's divides the kernel measured 13% slower).  A thread owns
+//        NF features (2 at cin 4, else 4) of a run of consecutive pixels
+//        and keeps 9 taps x cin x NF sums and NF db sums in registers over
+//        all its tiles (72 at most); it reads each g and y value once.  (The
+//        halo-tile kernel before it gave a thread 4 features of one
+//        channel, so the cin threads of a feature quad loaded the same g
+//        and y, synchronously, and it staged x between two barriers: its
+//        loads alone took 1.8x the byte bound.)  The warps of a tile span
+//        one or two pixels, so the stride-2 x reads are broadcasts and need
+//        no de-interleaved planes.  The leaky select reads the saved output,
+//        so the masked cotangent never goes through device memory.  The
+//        block's lanes are added in lane order in shared memory, each block
+//        writes one partial, and sum_partials_kernel adds them in block
+//        order: no atomics, the same bits every run.  512 threads a block,
+//        or the pixel loop unrolled by two, measured no faster
+//        (tools/thin_s2_variants.py, PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -56,7 +73,6 @@ constexpr int TH = 8;             // output tile height
 constexpr int XW = 2 * TW + 1;    // x halo tile width
 constexpr int XH = 2 * TH + 1;
 constexpr int PX = 8;             // output pixels of one row per thread (fwd)
-constexpr int FC = 64;            // features per block of the dW kernel
 
 // Halo tile of x for the output tile at (oh0, ow0): planes sx[ci][XH][XW],
 // padded rows 2*oh0-1 .. 2*oh0+2*TH-1, zero outside the image.
@@ -171,101 +187,245 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ------------------------------------------------------------------ dW + db
+constexpr int DW_NT = 256;        // threads of a block
+constexpr int DW_STAGES = 4;      // ring of tiles in shared memory
+constexpr int DW_ELEMS = 4096;    // elements of g (and of y) a stage
+constexpr int DW_TPMAX = 64;      // most output pixels a tile
+constexpr int DW_XW = 2 * DW_TPMAX + 1;  // most x columns a tile row
+
+// output pixels of a tile: a stage holds DW_ELEMS values of g
+__host__ __device__ inline int dw_tile_px(int f) {
+  return f * DW_TPMAX <= DW_ELEMS ? DW_TPMAX : DW_ELEMS / f;
+}
+// features a thread: its 9 * CIN * NF sums (72 at most) stay in registers
+template <int CIN>
+__host__ __device__ constexpr int dw_nf() { return CIN == 4 ? 2 : 4; }
+static_assert(512 / dw_nf<4>() <= DW_NT && 512 / dw_nf<1>() <= DW_NT,
+              "a block holds the threads of one pixel at F = 512");
+
+template <typename T, int CIN>
+size_t dw_smem_bytes(bool mask, int f) {
+  const size_t stream = (mask ? 2 : 1) * DW_STAGES * DW_ELEMS * sizeof(T) +
+                        2 * 3 * DW_XW * CIN * sizeof(float) +
+                        DW_STAGES * sizeof(uint64_t);
+  const size_t red = (KK * CIN + 1) * (size_t)f * sizeof(float);
+  return stream > red ? stream : red;
+}
+
+// N consecutive fp32 values at a shared-memory address (smem_u32)
+template <int N>
+__device__ __forceinline__ void lds_f(uint32_t a, float* v) {
+  if constexpr (N == 4) {
+    lds4<float>(a, v);
+  } else if constexpr (N == 2) {
+    asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];\n"
+                 : "=f"(v[0]), "=f"(v[1])
+                 : "r"(a));
+  } else {
+    asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v[0]) : "r"(a));
+  }
+}
+// N (2 or 4) consecutive values of type T at a shared-memory address as fp32
+template <typename T, int N>
+__device__ __forceinline__ void lds_t(uint32_t a, float* v) {
+  if constexpr (N == 4) {
+    lds4<T>(a, v);
+  } else if constexpr (sizeof(T) == 4) {
+    lds_f<2>(a, v);
+  } else {
+    uint32_t r;
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(r) : "r"(a));
+    v[0] = __uint_as_float(r << 16);
+    v[1] = __uint_as_float(r & 0xffff0000u);
+  }
+}
+// A tile: up to TP output pixels of one output row x all F (g, and y with
+// the mask: one contiguous NHWC run each).  Block b takes the tiles
+// b, b + gridDim.x, ... in that order.  Thread (lane, fq): features
+// fq*NF.. of the lane's run of consecutive pixels of every tile; 9 taps x
+// CIN channels x NF features and NF db sums in registers over all of them.
 template <typename T, int CIN, bool MASK>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(DW_NT)
     s2_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
                  const T* __restrict__ y, float* __restrict__ part, int H,
-                 int W, int F, float slope, int tiles_x, int tiles_y,
-                 int ntiles) {
-  extern __shared__ __align__(16) float smem[];
-  float* sx = smem;                     // [CIN][XH][XW]
-  float* sred = smem + CIN * XH * XW;   // [9*CIN + 1][fc]
+                 int W, int F, float slope, int tiles_w, int ntiles) {
+  constexpr int NF = dw_nf<CIN>();
+  constexpr int XPT = (3 * DW_XW * CIN + DW_NT - 1) / DW_NT;  // x a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sg = reinterpret_cast<T*>(smem_raw);          // [DW_STAGES][DW_ELEMS]
+  T* sy = sg + DW_STAGES * DW_ELEMS;               // the same, for y (MASK)
+  float* sx = reinterpret_cast<float*>(sy + (MASK ? DW_STAGES * DW_ELEMS : 0));
+                                                   // [2][3][DW_XW][CIN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sx + 2 * 3 * DW_XW * CIN);
+  float* sred = reinterpret_cast<float*>(smem_raw);  // [9*CIN+1][F], at the end
   const int HO = H / 2, WO = W / 2;
   const int tid = threadIdx.x;
-  const int f0 = blockIdx.y * FC;               // this block's features
-  const int fc = min(FC, F - f0);
-  const int FQ = fc / 4;
-  const int ncomb = FQ * CIN;                   // (feature quad, channel)
-  const int combo = tid % ncomb;
-  const int fq = combo % FQ;
-  const int ci = combo / FQ;
-  const int lane = tid / ncomb;                 // share of the tile's pixels
-  const int nl = NT / ncomb;
-  const bool active = lane < nl;
-  float acc[KK][4];
-  float dbv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int t = 0; t < KK; ++t)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[t][k] = 0.f;
+  const int TPP = F / NF;          // threads a pixel
+  const int NL = DW_NT / TPP;      // lanes: runs of pixels of a tile
+  const int lane = tid / TPP;
+  const int f0 = (tid - lane * TPP) * NF;
+  const bool active = lane < NL;
+  const int TP = dw_tile_px(F);
+  const int xw = 2 * TP + 1;       // x columns of a tile row (of DW_XW)
+  const int per = (TP + NL - 1) / NL;
+  const int p0 = lane * per;       // the lane's pixels p0 .. p0+per-1
+  const int nmine = (int)blockIdx.x < ntiles
+                        ? (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                        : 0;
 
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int n = tile / (tiles_x * tiles_y);
-    const int rem = tile - n * tiles_x * tiles_y;
-    const int oh0 = (rem / tiles_x) * TH;
-    const int ow0 = (rem % tiles_x) * TW;
-    __syncthreads();
-    stage_x<T, CIN>(sx, x + (size_t)n * H * W * CIN, oh0, ow0, H, W, tid);
-    __syncthreads();
-    if (!active) continue;
-    for (int p = lane; p < TH * TW; p += nl) {
-      const int r = p / TW;
-      const int c = p - r * TW;
-      const int oh = oh0 + r;
-      const int ow = ow0 + c;
-      if (oh >= HO || ow >= WO) continue;
-      const size_t off = (((size_t)n * HO + oh) * WO + ow) * F + f0 + fq * 4;
-      float gm[4];
-      load4(g + off, gm);
-      if (MASK) {
-        float yv[4];
-        load4(y + off, yv);
+  auto locate = [&](int k, int& n, int& oy, int& ox0) {
+    const int t = blockIdx.x + k * gridDim.x;
+    const int r = t / tiles_w;
+    ox0 = (t - r * tiles_w) * TP;
+    oy = r % HO;
+    n = r / HO;
+  };
+  // thread 0 copies tile k into stage k % DW_STAGES
+  auto issue = [&](int k) {
+    if (tid != 0 || k >= nmine) return;
+    int n, oy, ox0;
+    locate(k, n, oy, ox0);
+    const int np = min(TP, WO - ox0);
+    const size_t off = (((size_t)n * HO + oy) * WO + ox0) * F;
+    const uint32_t bytes = np * F * sizeof(T);  // dW tile
+    uint64_t* bar = full + k % DW_STAGES;
+    fence_proxy_async();  // after the block's reads of this stage
+    mbar_expect_tx(bar, (MASK ? 2 : 1) * bytes);
+    if (bytes == 0) return;
+    bulk_copy(sg + (k % DW_STAGES) * DW_ELEMS, g + off, bytes, bar);
+    if (MASK) bulk_copy(sy + (k % DW_STAGES) * DW_ELEMS, y + off, bytes, bar);
+  };
+  // x rows 2oy-1 .. 2oy+1, columns 2ox0-1 .. 2ox0+2TP-1 of tile k (zeros
+  // outside the image), one contiguous NHWC run a row, into registers and
+  // from there into sx[k % 2]
+  auto load_x = [&](int k, float (&xr)[XPT]) {
+    if (k >= nmine) return;
+    int n, oy, ox0;
+    locate(k, n, oy, ox0);
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (!(yv[k] >= 0.f)) gm[k] *= slope;
+    for (int j = 0; j < XPT; ++j) {
+      const int i = tid + j * DW_NT;
+      const int r = i / (DW_XW * CIN);  // rows DW_XW columns apart
+      const int e = i - r * DW_XW * CIN;
+      const int gh = 2 * oy - 1 + r;
+      const int gw = 2 * ox0 - 1 + e / CIN;
+      const bool xrow = r < 3 && e < xw * CIN && gh >= 0 && gh < H &&
+                        gw >= 0 && gw < W;
+      xr[j] = xrow ? load_early(x + ((size_t)(n * H + gh) * W + 2 * ox0 - 1) *
+                                        CIN + e)
+                   : 0.f;
+    }
+  };
+  auto store_x = [&](int k, const float (&xr)[XPT]) {
+    if (k >= nmine) return;
+    float* d = sx + (k & 1) * 3 * DW_XW * CIN;
+#pragma unroll
+    for (int j = 0; j < XPT; ++j) {
+      const int i = tid + j * DW_NT;
+      if (i < 3 * DW_XW * CIN) d[i] = xr[j];
+    }
+  };
+
+  float acc[KK][CIN][NF];
+  float dbv[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    dbv[f] = 0.f;
+#pragma unroll
+    for (int t = 0; t < KK; ++t)
+#pragma unroll
+      for (int c = 0; c < CIN; ++c) acc[t][c][f] = 0.f;
+  }
+
+  auto compute = [&](int k) {
+    if (!active) return;
+    int n, oy, ox0;
+    locate(k, n, oy, ox0);
+    const int np = min(min(TP, WO - ox0) - p0, per);  // this lane's pixels
+    const uint32_t ga =
+        smem_u32(sg + (k % DW_STAGES) * DW_ELEMS + p0 * F + f0);
+    const uint32_t ya =
+        smem_u32(sy + (k % DW_STAGES) * DW_ELEMS + p0 * F + f0);
+    const uint32_t xsa = smem_u32(sx + (k & 1) * 3 * DW_XW * CIN) +
+                        2 * p0 * CIN * (int)sizeof(float);
+    for (int p = 0; p < np; ++p) {
+      float gm[NF];
+      lds_t<T, NF>(ga + p * F * (int)sizeof(T), gm);
+      if (MASK) {
+        float yv[NF];
+        lds_t<T, NF>(ya + p * F * (int)sizeof(T), yv);
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+          if (!(yv[f] >= 0.f)) gm[f] *= slope;
       }
 #pragma unroll
-      for (int k = 0; k < 4; ++k) dbv[k] += gm[k];
-      const float* base = sx + (ci * XH + 2 * r) * XW + 2 * c;
+      for (int f = 0; f < NF; ++f) dbv[f] += gm[f];
 #pragma unroll
-      for (int dy = 0; dy < K; ++dy)
+      for (int dy = 0; dy < K; ++dy)  // dW taps
 #pragma unroll
         for (int dx = 0; dx < K; ++dx) {
-          const float xv = base[dy * XW + dx];
+          float xv[CIN];
+          lds_f<CIN>(xsa + ((dy * DW_XW + 2 * p + dx) * CIN) * 4, xv);
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
-            acc[dy * K + dx][k] = fmaf(xv, gm[k], acc[dy * K + dx][k]);
+          for (int c = 0; c < CIN; ++c)
+#pragma unroll
+            for (int f = 0; f < NF; ++f)
+              acc[dy * K + dx][c][f] =
+                  fmaf(xv[c], gm[f], acc[dy * K + dx][c][f]);
         }
     }
+  };
+
+  // one tile: its x rows come from registers loaded two tiles earlier
+  auto step = [&](int k, float (&xr)[XPT]) {
+    mbar_wait(full + k % DW_STAGES, (k / DW_STAGES) & 1);
+    // tile k and its x rows are in; every thread is done with tile k-1,
+    // whose stage and x buffer are refilled next
+    __syncthreads();
+    issue(k + DW_STAGES - 1);
+    store_x(k + 1, xr);
+    load_x(k + 3, xr);
+    compute(k);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) mbar_init(full + s, 1);
+    mbar_init_fence();
   }
-  // the block's threads that share (fq, ci), added in lane order
-  for (int rnd = 0; rnd < nl; ++rnd) {
+  __syncthreads();
+  float xa[XPT], xb[XPT];
+  for (int s = 0; s < DW_STAGES - 1; ++s) issue(s);
+  load_x(0, xa);
+  store_x(0, xa);
+  load_x(1, xa);
+  load_x(2, xb);
+  for (int k = 0; k < nmine; k += 2) {  // two register sets, in turn
+    step(k, xa);
+    if (k + 1 < nmine) step(k + 1, xb);
+  }
+  // every thread has waited on its last tile (the step's barrier), so no
+  // phase is pending: the barriers go before sred may write over them
+  if (tid == 0)
+    for (int s = 0; s < DW_STAGES; ++s) mbar_inval(full + s);
+  // the block's lanes added in lane order
+  for (int rnd = 0; rnd < NL; ++rnd) {
     __syncthreads();
     if (active && lane == rnd) {
 #pragma unroll
-      for (int t = 0; t < KK; ++t)
+      for (int t = 0; t <= KK; ++t)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int i = (t * CIN + ci) * fc + fq * 4 + k;
-          sred[i] = (rnd == 0 ? 0.f : sred[i]) + acc[t][k];
-        }
-      if (ci == 0) {
+        for (int c = 0; c < (t < KK ? CIN : 1); ++c)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int i = KK * CIN * fc + fq * 4 + k;
-          sred[i] = (rnd == 0 ? 0.f : sred[i]) + dbv[k];
-        }
-      }
+          for (int f = 0; f < NF; ++f) {
+            const int i = (t * CIN + c) * F + f0 + f;
+            const float v = t < KK ? acc[t < KK ? t : 0][c][f] : dbv[f];
+            sred[i] = (rnd == 0 ? 0.f : sred[i]) + v;
+          }
     }
   }
   __syncthreads();
-  const int rows = KK * CIN + 1;
-  float* mine = part + (size_t)blockIdx.x * rows * F;
-  for (int i = tid; i < rows * fc; i += NT) {
-    const int row = i / fc;
-    const int col = i - row * fc;
-    mine[(size_t)row * F + f0 + col] = sred[i];
-  }
+  const int len = (KK * CIN + 1) * F;
+  for (int i = tid; i < len; i += DW_NT)
+    part[(size_t)blockIdx.x * len + i] = sred[i];
 }
 
 // ----------------------------------------------------------------- launches
@@ -306,17 +466,19 @@ template <typename T, int CIN>
 cudaError_t dw_tc(const void* x, const void* g, const void* y, void* part,
                   void* out, int nblocks, int n, int h, int wd, int f, int mask,
                   float slope, cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * (CIN * XH * XW + (KK * CIN + 1) * (size_t)FC);
-  const int tx = (wd / 2 + TW - 1) / TW, ty = (h / 2 + TH - 1) / TH;
+  const size_t smem = dw_smem_bytes<T, CIN>(mask, f);
+  const int tiles_w = (wd / 2 + dw_tile_px(f) - 1) / dw_tile_px(f);
+  const long long ntiles = (long long)n * (h / 2) * tiles_w;
+  if (ntiles > 0x7fffffff) return cudaErrorInvalidValue;
   auto kern = mask ? s2_dw_kernel<T, CIN, true> : s2_dw_kernel<T, CIN, false>;
-  cudaError_t e = set_smem(kern, smem);
+  int sms = 0, per_sm = 0;
+  cudaError_t e = prepare(reinterpret_cast<const void*>(kern), smem, DW_NT,
+                          &sms, &per_sm);
   if (e != cudaSuccess) return e;
-  dim3 grid(nblocks, (f + FC - 1) / FC);
-  kern<<<grid, NT, smem, s>>>(
+  kern<<<nblocks, DW_NT, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<const T*>(y), static_cast<float*>(part), h, wd, f, slope, tx,
-      ty, n * tx * ty);
+      static_cast<const T*>(y), static_cast<float*>(part), h, wd, f, slope,
+      tiles_w, (int)ntiles);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int len = (KK * CIN + 1) * f;
@@ -363,13 +525,17 @@ extern "C" int conv_s2_fwd_launch(const void* x, const void* w, const void* b,
 }
 
 // x (n,h,wd,cin), g and y (n,h/2,wd/2,f) in `dtype` (y is read only when
-// mask != 0); part: fp32 scratch of nblocks*(9*cin+1)*f; out: fp32
+// mask != 0), g and y 16-byte aligned (their tiles are bulk copies); part:
+// fp32 scratch of nblocks*(9*cin+1)*f (one block an SM is the design); out:
+// fp32
 // (9*cin+1, f), rows 0..9*cin-1 dW as (3,3,cin,f), the last row db.
 extern "C" int conv_s2_dw_launch(const void* x, const void* g, const void* y,
                                  void* part, void* out, int nblocks, int n,
                                  int h, int wd, int cin, int f, int mask,
                                  float slope, int dtype, void* stream) {
-  if (bad_shape(n, h, wd, f) || nblocks <= 0) return cudaErrorInvalidValue;
+  if (bad_shape(n, h, wd, f) || nblocks <= 0 ||
+      (reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(y)) % 16)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return dw_t<float>(x, g, y, part, out, nblocks, n, h, wd, cin, f, mask,

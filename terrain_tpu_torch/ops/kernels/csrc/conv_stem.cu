@@ -109,20 +109,6 @@ constexpr size_t dw_smem_bytes() {
          2 * K * DW_XW * sizeof(float) + DW_STAGES * sizeof(uint64_t);
 }
 
-// A load the compiler keeps where it is written: the x rows are loaded
-// tiles ahead of their use, and a plain load of read-only data may be moved
-// down to it (in a trial build on the card that was slower).
-__device__ __forceinline__ float load_early(const float* p) {
-  float v;
-  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ float load_early(const __nv_bfloat16* p) {
-  unsigned short v;
-  asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=h"(v) : "l"(p));
-  return __uint_as_float(static_cast<unsigned>(v) << 16);
-}
-
 template <typename T, bool MASK>
 __global__ void __launch_bounds__(NT)
     stem_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,

@@ -17,22 +17,23 @@
 // 3.35 TB/s) for 1.2 GFLOP (about 18 us on the fp32 CUDA cores; the 4
 // live output channels leave no room for tensor-core tiles).
 //
-// The forward and dW are row streams (the TPU kernel's W-on-lanes
-// transposes and (1,7) edge padding have no counterpart here).  The image
-// is cut into column strips of SW = 64 outputs; persistent blocks each walk
-// an equal share of the (image, strip, row) order down the strips, so an
-// input row is read once except where a share starts a strip (two halo
-// rows) and at the strips' halo columns: 1.10-1.16x the bytes of x.  A
-// strip row with its halo (66 pixels x C, one contiguous NHWC run) comes
-// into a ring of shared-memory stages by one 1-D bulk copy (the TMA unit)
-// issued by one thread 3 rows (fp32; bf16 7) ahead, completing on the
-// stage's mbarrier; columns and rows off the image are not copied, and the
-// readers take zeros there.  With C % 8 == 0 every pixel is a multiple of
-// 16 bytes, so every copy is aligned.  One __syncthreads a step.  Reads go
-// through 32-bit shared addresses (lds4), so the compiler keeps no generic
-// pointer to rebuild at each masked load.  NHWC puts a pixel's channels in
-// consecutive banks, so lanes go over channels: 16 lanes x 4 channels (one
-// conflict-free 16-byte load) a pixel.
+// All three are row streams (the TPU kernel's W-on-lanes transposes and
+// (1,7) edge padding have no counterpart here).  The image is cut into
+// column strips of SW = 64 outputs; persistent blocks each walk an equal
+// share of the (image, strip, row) order down the strips, so an input row
+// is read once except where a share starts a strip (two halo rows) and at
+// the strips' halo columns: 1.10-1.16x the bytes of x (of g, for dX).  In
+// the forward and dW a strip row with its halo (66 pixels x C, one
+// contiguous NHWC run) comes into a ring of shared-memory stages by one 1-D
+// bulk copy (the TMA unit) issued by one thread 3 rows (fp32; bf16 7)
+// ahead, completing on the stage's mbarrier; columns and rows off the image
+// are not copied, and the readers take zeros there.  With C % 8 == 0 every
+// pixel is a multiple of 16 bytes, so every copy is aligned.  One
+// __syncthreads a step.  Reads go through 32-bit shared addresses (lds4),
+// so the compiler keeps no generic pointer to rebuild at each masked load.
+// NHWC puts a pixel's channels in consecutive banks, so lanes go over
+// channels: 16 lanes x 4 channels (one conflict-free 16-byte access) a
+// pixel.
 //   fwd: a thread takes a run of 8 pixels (4 at F > 4) of one output row
 //        over its 4 channels: the run's window of 10 x values a kernel row
 //        in registers, the weights as fp32 [9][F][C] in shared memory, 32
@@ -40,6 +41,22 @@
 //        reduce-scatter (4 shuffle steps, 30 shuffles), each lane keeping
 //        two sums, which it writes.  Two rows a step (F <= 4), two blocks
 //        an SM.  Fixed orders: the same bits every run.
+//   dX:  the forward with the roles swapped: the same walk, runs and row
+//        groups, the lanes over the OUTPUT channels, so a half-warp writes
+//        one pixel's C channels as one contiguous run (256 bytes at C = 64
+//        in fp32) and every sector it touches is full; the contraction over
+//        F stays inside the lane (no shuffles).  g's strip rows (66 pixels
+//        x F; a bf16 row at F = 4, or any at F = 1, is no whole number of
+//        16-byte pieces) come by plain loads a step ahead into a ring of
+//        2R+2 fp32 stages, broadcast to the 16 lanes; the weights are the
+//        forward's table read at the rotated tap.  Two blocks an SM (128
+//        registers).  The halo-tile kernel it replaces (one pixel a thread,
+//        halo tiles, 8 channels of 16-byte stores 256 bytes apart) spent
+//        as long on its half-filled stores alone as on its products alone.
+//        Staging the output row in shared memory and writing it by one
+//        bulk store measured no better than the lanes' own stores (4%
+//        faster in fp32, 6% slower in bf16; tools/thin_s2_variants.py,
+//        PERF.md), so the lanes store.
 //   dW:  three groups of threads, one a kernel row dy; a thread takes a
 //        run of 16 pixels of one output row over its 4 channels and keeps
 //        3 taps x 4 channels x F sums in registers over its block's whole
@@ -50,111 +67,13 @@
 //        in shared memory, each block writes one partial, and
 //        sum_partials_kernel adds them in a fixed order (no atomics: the
 //        same bits every run).  Two blocks an SM.
-//   dX (the tile kernel of the first port): stages the thin cotangent's
-//        (TH+2) x (TW+2) halo tile channel-major and gives each thread one
-//        pixel, 8 of the C outputs at a time, with the weights transposed
-//        in shared memory so that 8 outputs are two 16-byte broadcast
-//        loads.
 // Launch attributes (shared-memory allowance, SM count, blocks an SM) are
 // set once per kernel and size (prepare, common.cuh).
 #include "common.cuh"
 
 namespace {
 
-constexpr int TW = 32;  // output columns per block
-constexpr int TH = 8;   // output rows per block
-constexpr int HWC = TW + 2;
-constexpr int HHR = TH + 2;
-constexpr int PLANE = (HHR * HWC) | 1;  // odd: conflict-free channel stores
-constexpr int NTHREADS = TW * TH;
-
-// Stage the (TH+2)x(TW+2) halo tile of an (H,W,C) image channel-major,
-// zeros outside the image.
-template <typename T>
-__device__ __forceinline__ void stage_tile(float* sx, const T* xn, int h0,
-                                           int w0, int H, int W, int C,
-                                           int tid) {
-  const int tile = HHR * HWC * C;
-  for (int i = tid; i < tile; i += NTHREADS) {
-    const int c = i % C;
-    const int p = i / C;
-    const int r = p / HWC;
-    const int col = p - r * HWC;
-    const int gh = h0 - 1 + r;
-    const int gw = w0 - 1 + col;
-    float v = 0.f;
-    if (gh >= 0 && gh < H && gw >= 0 && gw < W)
-      v = to_f(xn[((size_t)gh * W + gw) * C + c]);
-    sx[c * PLANE + r * HWC + col] = v;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-    conv_thin_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
-                        T* __restrict__ dxo, int H, int W, int C, int F) {
-  extern __shared__ __align__(16) float smem[];
-  const int Cp = (C + 7) & ~7;
-  float* swt = smem;                 // [9][F][Cp]: w[2-a,2-b,i,o] at (a,b,o,i)
-  float* sg = smem + 9 * F * Cp;     // [F][PLANE] cotangent tile with halo
-  const int n = blockIdx.z;
-  const int h0 = blockIdx.y * TH;
-  const int w0 = blockIdx.x * TW;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 9 * F * Cp; i += NTHREADS) {
-    const int c = i % Cp;
-    const int o = (i / Cp) % F;
-    const int tap = i / (Cp * F);
-    const int a = tap / 3, b = tap - a * 3;
-    float v = 0.f;
-    if (c < C) v = to_f(w[(((2 - a) * 3 + (2 - b)) * C + c) * F + o]);
-    swt[i] = v;
-  }
-  stage_tile(sg, g + (size_t)n * H * W * F, h0, w0, H, W, F, tid);
-  __syncthreads();
-
-  const int tx = tid % TW;
-  const int ty = tid / TW;
-  const int gh = h0 + ty;
-  const int gw = w0 + tx;
-  if (gh >= H || gw >= W) return;
-  T* op = dxo + (((size_t)n * H + gh) * W + gw) * C;
-  const bool vec = (C & 3) == 0;
-  for (int c0 = 0; c0 < Cp; c0 += 8) {
-    float acc[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-        for (int o = 0; o < F; ++o) {
-          const float gv = sg[o * PLANE + (ty + a) * HWC + tx + b];
-          const float4* wp = reinterpret_cast<const float4*>(
-              swt + ((a * 3 + b) * F + o) * Cp + c0);
-          const float4 wa = wp[0];
-          const float4 wb = wp[1];
-          acc[0] = fmaf(gv, wa.x, acc[0]);
-          acc[1] = fmaf(gv, wa.y, acc[1]);
-          acc[2] = fmaf(gv, wa.z, acc[2]);
-          acc[3] = fmaf(gv, wa.w, acc[3]);
-          acc[4] = fmaf(gv, wb.x, acc[4]);
-          acc[5] = fmaf(gv, wb.y, acc[5]);
-          acc[6] = fmaf(gv, wb.z, acc[6]);
-          acc[7] = fmaf(gv, wb.w, acc[7]);
-        }
-    if (vec) {
-      if (c0 < C) store4(op + c0, acc);
-      if (c0 + 4 < C) store4(op + c0 + 4, acc + 4);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        if (c0 + k < C) op[c0 + k] = from_f<T>(acc[k]);
-    }
-  }
-}
-
-// ------------------------------------------------ the row stream (fwd, dW)
+// ------------------------------------------------ the row streams
 constexpr int SW = 64;          // output columns of a strip
 constexpr int SWP = SW + 2;     // pixels of a strip row, halo included
 constexpr int QL = 16;          // lanes over a pixel's channels, 4 each
@@ -449,21 +368,180 @@ cudaError_t fwd_t(const void* x, const void* w, void* y, int n, int h,
   return cudaGetLastError();
 }
 
+// dX: the forward's walk, runs and row groups with the channel roles
+// swapped.  Lane q owns the output channels 4q..4q+3 (lanes past C/4 idle);
+// the contraction over g's F channels stays inside the lane.  g's strip
+// rows (SWP pixels x F, as fp32 padded to DX_FP floats a pixel) come through
+// plain loads a step ahead into a ring of 2R+2 stages, so one __syncthreads
+// a step separates the stages written from the stages read.  The weights,
+// rotated by 180 degrees through the tap index, are load_weights' [9][F][C]
+// table.
+
+template <int F>
+__host__ __device__ constexpr int dx_fp() { return F <= 4 ? 4 : 8; }
+template <int F>
+__host__ __device__ constexpr int dx_stages() { return 2 * fwd_rows<F>() + 2; }
+
+template <typename T, int F>
+size_t dx_smem_bytes(int c) {
+  return sizeof(float) * (9 * F * c + dx_stages<F>() * SWP * dx_fp<F>());
+}
+
+template <typename T, int F>
+__global__ void __launch_bounds__(fwd_threads<F>())
+    thin_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
+                   T* __restrict__ dx, int H, int W, int C, int strips,
+                   long long rows, int share) {
+  constexpr int P = run_px<F>();
+  constexpr int NT = fwd_threads<F>();
+  constexpr int R = fwd_rows<F>();
+  constexpr int GT = NT / R;  // threads of a row group
+  constexpr int FP = dx_fp<F>();
+  constexpr int S = dx_stages<F>();
+  constexpr int GV = SWP * F;                 // g values of a slot
+  constexpr int GPT = (R * GV + NT - 1) / NT;  // of a step, a thread's
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sw = reinterpret_cast<float*>(smem_raw);     // [9][F][C]
+  float* sg = sw + 9 * F * C;                      // [S][SWP][FP]
+  const int tid = threadIdx.x;
+  const long long a = (long long)blockIdx.x * share;
+  if (a >= rows) return;
+  const long long e = min(a + share, rows);
+  RowCursor cur, gc;  // the slots to compute, the slots to load
+  cur.init(a, e, H, strips);
+  gc = cur;
+  // g of the step's R slots from gc on, fp32, into registers (zeros off
+  // the image and past the share); then into stages k.. % S
+  float gr[GPT];
+  auto load_g = [&]() {
+    // per slot of the step: the row's offset in g and whether it is read
+    long long base[R];
+    int cb[R];
+    bool ok[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const int gh = gc.r0 - 1 + gc.j;
+      ok[u] = !gc.done() && gh >= 0 && gh < H;
+      cb[u] = gc.cb;
+      base[u] = (((long long)gc.n * H + gh) * W + gc.cb) * F;
+      gc.next();
+    }
+#pragma unroll
+    for (int v = 0; v < GPT; ++v) {
+      const int i = tid + v * NT;
+      const int u = min(i / GV, R - 1);  // the step's slot
+      const int px = (i - u * GV) / F;
+      const int col = cb[u] + px;
+      const bool grow = i < R * GV && ok[u] && col >= 0 && col < W;
+      gr[v] = grow ? to_f(g[base[u] + i - u * GV]) : 0.f;
+    }
+  };
+  auto store_g = [&](int k) {
+#pragma unroll
+    for (int v = 0; v < GPT; ++v) {
+      const int i = tid + v * NT;
+      const int u = i / GV;
+      const int px = (i - u * GV) / F;
+      if (u < R)
+        sg[(((k + u) % S) * SWP + px) * FP + i - u * GV - px * F] = gr[v];
+    }
+  };
+  load_weights<NT>(sw, w, C, F, tid);
+  load_g();
+
+  const int gr_ = tid / GT;
+  const int q = tid & 15;
+  const int run = (tid % GT) >> 4;
+  const bool active = 4 * q < C;
+  const uint32_t swa = smem_u32(sw) + 16 * q;
+  for (int k = 0; !cur.done(); k += R) {
+    // the stages written here were last read a step ago (2R+2 stages)
+    store_g(k);
+    __syncthreads();
+    load_g();
+    RowCursor c = cur;  // this thread's slot: k + gr_
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (i < gr_) c.next();
+      cur.next();
+    }
+    const int r = c.r0 + c.j - 2;    // output row, from slots k+gr_-2..
+    const int col0 = c.cb + 1 + run * P;  // image column of pixel 0
+    const bool row = !c.done() && c.j >= 2 && col0 < W;
+    float acc[P][4];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      acc[p][0] = acc[p][1] = acc[p][2] = acc[p][3] = 0.f;
+    if (row && active) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {  // dX taps
+        const int gh = r - 1 + dy;
+        if (gh < 0 || gh >= H) continue;
+        const uint32_t ga =
+            smem_u32(sg) + (((k + gr_ - 2 + dy) % S) * SWP + run * P) * FP * 4;
+        float gv[P + 2][FP];
+#pragma unroll
+        for (int t = 0; t < P + 2; ++t) {
+          lds4<float>(ga + t * FP * 4, gv[t]);
+          if (FP == 8) lds4<float>(ga + (t * FP + 4) * 4, gv[t] + 4);
+        }
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int o = 0; o < F; ++o) {
+            // w[2-dy, 2-dx, 4q.., o]: tap 8 - (dy*3+dx) of the table
+            float wv[4];
+            lds4<float>(swa + ((8 - dy * 3 - dx) * F + o) * C * 4, wv);
+#pragma unroll
+            for (int p = 0; p < P; ++p)
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc)
+                acc[p][cc] = fmaf(gv[p + dx][o], wv[cc], acc[p][cc]);
+          }
+      }
+    }
+    if (row && active) {  // dX row out
+      T* out = dx + (((size_t)c.n * H + r) * W + col0) * C + 4 * q;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        if (col0 + p < W) store4(out + p * C, acc[p]);
+    }
+  }
+}
+
+template <typename T, int F>
+cudaError_t dx_t(const void* g, const void* w, void* dx, int n, int h,
+                 int wd, int c, cudaStream_t s) {
+  const size_t smem = dx_smem_bytes<T, F>(c);
+  auto kern = thin_dx_kernel<T, F>;
+  int sms = 0, per_sm = 0;
+  cudaError_t e = prepare(reinterpret_cast<const void*>(kern), smem,
+                          fwd_threads<F>(), &sms, &per_sm);
+  if (e != cudaSuccess) return e;
+  // persistent blocks, as many as fit
+  Walk wk;
+  e = walk(n, h, wd, (long long)sms * (per_sm > 0 ? per_sm : 1), &wk);
+  if (e != cudaSuccess) return e;
+  kern<<<wk.grid, fwd_threads<F>(), smem, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(w), static_cast<T*>(dx),
+      h, wd, c, wk.strips, wk.rows, wk.share);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_dx(const void* g, const void* w, void* dx, int n, int h,
                       int wd, int c, int f, cudaStream_t s) {
-  const int cp = (c + 7) & ~7;
-  const size_t smem = sizeof(float) * ((size_t)9 * f * cp + (size_t)f * PLANE);
-  auto kern = conv_thin_dx_kernel<T>;
-  int sms = 0, per_sm = 0;
-  cudaError_t e = prepare(reinterpret_cast<const void*>(kern), smem,
-                          NTHREADS, &sms, &per_sm);
-  if (e != cudaSuccess) return e;
-  dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, n);
-  kern<<<grid, NTHREADS, smem, s>>>(static_cast<const T*>(g),
-                                    static_cast<const T*>(w),
-                                    static_cast<T*>(dx), h, wd, c, f);
-  return cudaGetLastError();
+  switch (f) {
+    case 1: return dx_t<T, 1>(g, w, dx, n, h, wd, c, s);
+    case 2: return dx_t<T, 2>(g, w, dx, n, h, wd, c, s);
+    case 3: return dx_t<T, 3>(g, w, dx, n, h, wd, c, s);
+    case 4: return dx_t<T, 4>(g, w, dx, n, h, wd, c, s);
+    case 5: return dx_t<T, 5>(g, w, dx, n, h, wd, c, s);
+    case 6: return dx_t<T, 6>(g, w, dx, n, h, wd, c, s);
+    case 7: return dx_t<T, 7>(g, w, dx, n, h, wd, c, s);
+    case 8: return dx_t<T, 8>(g, w, dx, n, h, wd, c, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // dW: three groups of threads, one a kernel row dy; in a group half-warp
@@ -695,12 +773,13 @@ extern "C" int conv_thin_launch(const void* x, const void* w, void* y, int n,
   return cudaErrorInvalidValue;
 }
 
-// g (n,h,wd,f) and dx (n,h,wd,c) in `dtype`, w (3,3,c,f) in `dtype`.
+// g (n,h,wd,f) and dx (n,h,wd,c) in `dtype`, w (3,3,c,f) in `dtype`; c a
+// multiple of 8 and dx 16-byte aligned.
 extern "C" int conv_thin_dx_launch(const void* g, const void* w, void* dx,
                                    int n, int h, int wd, int c, int f,
                                    int dtype, void* stream) {
-  if (n <= 0 || n > 65535 || h <= 0 || wd <= 0 || c <= 0 || c > 64 ||
-      f <= 0 || f > 8)
+  if (n <= 0 || h <= 0 || wd <= 0 || c <= 0 || c > 64 || c % 8 != 0 ||
+      f <= 0 || f > 8 || reinterpret_cast<uintptr_t>(dx) % 16)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return launch_dx<float>(g, w, dx, n, h, wd, c, f, s);

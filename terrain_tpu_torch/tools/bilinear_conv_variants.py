@@ -20,17 +20,15 @@ build directory is not touched.
 
 import ctypes
 import json
-import os
-import re
 import shutil
 import statistics
-import subprocess
 import tempfile
 
-from terrain_tpu_torch.ops.kernels import _build
+from terrain_tpu_torch.tools.variants import bind, build_all, edited_source
 
 F32_TOL = 1e-4
 SHAPES = ((4, 64, 64, 512, 128), (4, 128, 128, 256, 64))
+_PTXAS = r"bilinear_conv_kernelI(f|13__nv_bfloat16)"
 _SMALL_FIRST = "for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], al, bh[j]);"
 _CROSS = "for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah, bl[j]);"
 VARIANTS = {
@@ -48,54 +46,6 @@ VARIANTS = {
     "drop_lo_hi": [(_SMALL_FIRST, "for (int j = 0; j < 4; ++j) {}")],
     "drop_hi_lo": [(_CROSS, "for (int j = 0; j < 4; ++j) {}")],
 }
-
-
-def edited_source(edits):
-    with open(os.path.join(_build.CSRC, "bilinear_conv.cu")) as f:
-        text = f.read()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise RuntimeError(f"edit target found {text.count(old)} times, "
-                               f"not once: {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def build_all(tmp):
-    """One nvcc per variant, all started together -> {name: (lib, ptxas)}."""
-    shutil.copy(os.path.join(_build.CSRC, "common.cuh"), tmp)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        src = os.path.join(tmp, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(edited_source(edits))
-        so = os.path.join(tmp, f"{name}.so")
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    built = {}
-    for name, (p, so) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{out}")
-        built[name] = (so, ptxas_summary(out))
-    return built
-
-
-def ptxas_summary(log):
-    """{'float' or 'bf16': 'N registers, S bytes spilled'} of the kernel."""
-    out, entry = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = ("bf16" if "bfloat16" in line else "float"
-                     if "bilinear_conv_kernel" in line else None)
-        elif entry and "spill stores" in line:
-            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
-            out[entry] = f"{spill} bytes spilled"
-        elif entry and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            out[entry] = f"{regs} registers, {out.get(entry, '?')}"
-    return out
 
 
 def time_ms(torch, fn, reps=30, warm=3):
@@ -125,14 +75,14 @@ def main():
     strict_fp32()
     tmp = tempfile.mkdtemp(prefix="bilinear_conv_variants.")
     try:
-        built = build_all(tmp)
+        built = build_all(tmp, {
+            name: edited_source("bilinear_conv", edits)
+            for name, edits in VARIANTS.items()}, _PTXAS)
         fns = {}
         for name, (so, regs) in built.items():
-            fn = ctypes.CDLL(so).bilinear_conv_launch
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            fns[name] = fn
+            fns[name] = bind(so, "bilinear_conv_launch",
+                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                             + [ctypes.c_void_p])
             print(f"ptxas {name}: {regs}", flush=True)
         rows = []
         g = torch.Generator(device="cuda").manual_seed(1234)

@@ -26,19 +26,16 @@ and ptxas's registers and spills.  The edited copies live in a temporary
 directory; the kernels' build directory is not touched.
 """
 
-import ctypes
-import os
-import re
 import shutil
-import statistics
-import subprocess
 import tempfile
 
-from terrain_tpu_torch.ops.kernels import _build
+from terrain_tpu_torch.tools.variants import (bind, build_all, edited_source,
+                                              times_ms)
 
 FWD_SHAPES = ((8, 512, 512, 64), (4, 512, 512, 64))
 DX_SHAPES = ((4, 512, 512, 64),)
 SLOPE = 0.2
+_PTXAS = r"stem_(fwd|dx)_kernelI(f|13__nv_bfloat16)Lb(\d)(?:ELb(\d))?"
 _TAPS = ("if (lane < swp) {\n#pragma unroll 2", "if (false) {\n#pragma unroll 2")
 _CONVERT = ("for (; p < swp;) {", "for (; p < 0;) {")
 _GATHER = ("if (c.j < 4 || ct >= sw) return;", "return;")
@@ -58,76 +55,6 @@ VARIANTS = {
 }
 
 
-def edited_source(edits):
-    with open(os.path.join(_build.CSRC, "conv_stem.cu")) as f:
-        text = f.read()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise RuntimeError(f"edit target found {text.count(old)} times, "
-                               f"not once: {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def ptxas_summary(log):
-    """{kernel: 'N registers, S bytes spilled'} of the fwd and dX kernels."""
-    out, entry = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"stem_(fwd|dx)_kernelI(f|13__nv_bfloat16)Lb(\d)"
-                          r"(?:ELb(\d))?", line)
-            entry = (f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'}"
-                     f" {m.group(3)}{m.group(4) or ''}") if m else None
-        elif entry and "spill stores" in line:
-            out[entry] = re.search(r"(\d+) bytes spill stores",
-                                   line).group(1) + " bytes spilled"
-        elif entry and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            out[entry] = f"{regs} registers, {out.get(entry, '?')}"
-    return out
-
-
-def build_all(tmp):
-    """One nvcc per variant, all started together -> {name: (lib, ptxas)}."""
-    shutil.copy(os.path.join(_build.CSRC, "common.cuh"), tmp)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        src = os.path.join(tmp, f"{name}.cu")
-        with open(src, "w") as f:
-            f.write(edited_source(edits))
-        so = os.path.join(tmp, f"{name}.so")
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    built = {}
-    for name, (p, so) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{out}")
-        built[name] = (so, ptxas_summary(out))
-    return built
-
-
-def times_ms(torch, fn, reps=10, burst=20):
-    """(single, stream): one launch per event pair after a synchronize, and
-    `burst` launches back to back per pair, per launch; medians."""
-    for _ in range(3):
-        fn()
-    single, stream = [], []
-    for _ in range(reps):
-        for count, out in ((1, single), (burst, stream)):
-            torch.cuda.synchronize()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            for _ in range(count):
-                fn()
-            e.record()
-            e.synchronize()
-            out.append(s.elapsed_time(e) / count)
-    return statistics.median(single), statistics.median(stream)
-
-
 def main():
     import torch
 
@@ -139,18 +66,13 @@ def main():
     strict_fp32()
     tmp = tempfile.mkdtemp(prefix="conv_stem_variants.")
     try:
-        built = build_all(tmp)
+        built = build_all(tmp, {name: edited_source("conv_stem", edits)
+                                for name, edits in VARIANTS.items()}, _PTXAS)
         fwd, dx = {}, {}
         for name, (so, regs) in built.items():
-            lib = ctypes.CDLL(so)
-            for table, entry, args in ((fwd, "conv_stem_fwd_launch",
-                                        cs.KERNEL_FWD.argtypes),
-                                       (dx, "conv_stem_dx_launch",
-                                        cs.KERNEL_DX.argtypes)):
-                fn = getattr(lib, entry)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-                table[name] = fn
+            fwd[name] = bind(so, "conv_stem_fwd_launch",
+                             cs.KERNEL_FWD.argtypes)
+            dx[name] = bind(so, "conv_stem_dx_launch", cs.KERNEL_DX.argtypes)
             print(f"ptxas {name}: {regs}", flush=True)
         g = torch.Generator(device="cuda").manual_seed(1234)
         stream = torch.cuda.current_stream().cuda_stream

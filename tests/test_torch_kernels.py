@@ -17,6 +17,7 @@ from terrain_tpu.ops.pallas import bilinear_conv as jbc
 from terrain_tpu.ops.pallas import conv_thin as jct
 from terrain_tpu_torch.ops import conv, fused
 from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
+from terrain_tpu_torch.ops.kernels import conv_s2 as c2
 from terrain_tpu_torch.ops.kernels import conv_thin as ct
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -117,15 +118,29 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
         with pytest.raises(ValueError):
             ct.conv_thin(xs, torch.empty((3, 3, xs.shape[3], 4),
                                          device="meta"))
+    # dX's guard: C a multiple of 8 (its rows are written in whole 16-byte
+    # pieces); g needs no alignment (plain loads)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ct.check_dx(torch.empty((3, 3, 12, 4), device="meta"))
+    ct.check_dx(torch.empty((3, 3, 24, 3), device="meta"))
+    # conv_s2 dW+db's guard: g and y 16-byte aligned (bulk-copied tiles)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        c2.check_dw_aligned((flat[4:].view(1, 64, 128, 8),
+                             flat[1:-3].view(1, 64, 128, 8)))
     assert ct.KERNEL.launches == 0 and bc.KERNEL.launches == 0
+    assert ct.KERNEL_DX.launches == 0 and c2.KERNEL_DW.launches == 0
 
 
 @pytest.mark.parametrize("n,h,w,blocks", [
     (4, 256, 256, 264), (4, 256, 256, 132),   # main shape, 2 / 1 an SM
+    (4, 256, 256, 396),                       # 3 an SM
     (8, 256, 256, 264),                       # the served bucket 8
     (2, 64, 200, 264), (3, 37, 45, 264),      # W ragged, below one strip
-    (1, 48, 130, 132), (1, 3, 7, 264)])       # more blocks than rows
+    (1, 48, 130, 132), (1, 3, 7, 264),        # more blocks than rows
+    (1, 48, 130, 264), (2, 64, 200, 396)])    # dX's ragged cases
 def test_row_stream_walk_covers_every_output_once(n, h, w, blocks):
+    """The walk of the forward, dX and dW (csrc/conv_thin.cu `walk` and
+    `RowCursor`)."""
     strips, grid, share = ct.walk(n, h, w, blocks)
     assert grid <= blocks and grid * share >= n * strips * h
     seen = np.zeros((n, strips, h), np.int64)

@@ -11,6 +11,8 @@ bf16 2e-2 of the reference's largest entry (both sides round an fp32 sum to
 bf16)."""
 
 import itertools
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -264,6 +266,62 @@ def test_conv_s2_supported_equals_the_jax_guard():
     assert c2.supported((4, 512, 512, 1), (3, 3, 1, 64), (2, 2), "same")
     assert c2.supported((8, 512, 512, 4), (3, 3, 4, 64), (2, 2), "same")
     assert not c2.supported((4, 256, 256, 64), (3, 3, 64, 128), (2, 2), "same")
+
+
+def _dw_tiles(n, h, w, f):
+    """dW+db's tiles as csrc/conv_s2.cu lays them out (`dw_tile_px` and the
+    launcher's `tiles_w`), with DW_TPMAX and DW_ELEMS read from that source:
+    (tp, tiles_w, ntiles, elems), tile t being output row t // tiles_w
+    (image-major over the n * h/2 rows), pixels (t % tiles_w) * tp .. of it,
+    up to tp of them; block b takes the tiles b, b + gridDim.x, ..."""
+    src = (pathlib.Path(c2.__file__).parent / "csrc" / "conv_s2.cu").read_text()
+    tpmax, elems = (int(re.search(rf"constexpr int {name} = (\d+);",
+                                  src).group(1))
+                    for name in ("DW_TPMAX", "DW_ELEMS"))
+    for line in ("return f * DW_TPMAX <= DW_ELEMS ? DW_TPMAX : DW_ELEMS / f;",
+                 "tiles_w = (wd / 2 + dw_tile_px(f) - 1) / dw_tile_px(f);",
+                 "const int t = blockIdx.x + k * gridDim.x;"):
+        assert line in src, line
+    tp = tpmax if f * tpmax <= elems else elems // f
+    tiles_w = -(-(w // 2) // tp)
+    return tp, tiles_w, n * (h // 2) * tiles_w, elems
+
+
+@pytest.mark.parametrize("n,h,w,f,blocks", [
+    (8, 512, 512, 64, 132), (4, 512, 512, 64, 132),  # the main path's two
+    (2, 64, 200, 64, 132),    # W/2 = 100: a short last tile a row
+    (2, 64, 256, 128, 132),   # F = 128: 32-pixel tiles
+    (1, 64, 256, 8, 132),     # 64 tiles, fewer than blocks
+    (1, 8, 24, 512, 5)])      # F = 512: 8-pixel tiles, a ragged share
+def test_conv_s2_dw_tile_walk_covers_every_output_once(n, h, w, f, blocks):
+    """dW+db's walk (csrc/conv_s2.cu s2_dw_kernel: block b takes the tiles
+    b, b + blocks, ...): every output pixel of every image in exactly one
+    tile of exactly one block, each tile a whole number of 16-byte pieces
+    of g within a stage's DW_ELEMS values."""
+    tp, tiles_w, ntiles, elems = _dw_tiles(n, h, w, f)
+    ho, wo = h // 2, w // 2
+    seen = np.zeros((n, ho, wo), np.int64)
+    for b in range(blocks):
+        for t in range(b, ntiles, blocks):
+            r, c = divmod(t, tiles_w)
+            ox0 = c * tp
+            assert 0 <= ox0 < wo
+            npx = min(tp, wo - ox0)
+            assert npx * f <= elems and npx * f * 2 % 16 == 0
+            seen[r // ho, r % ho, ox0:ox0 + npx] += 1
+    assert (seen == 1).all()
+
+
+def test_conv_s2_dw_raises_on_unaligned_g_or_y():
+    """The bulk copies of dW+db's tiles need g and y 16-byte aligned."""
+    flat = torch.empty(4 + 2 * 8 * 64, device="meta")
+    good = flat[4:].view(1, 2, 8, 64)
+    bad = flat[1:-3].view(1, 2, 8, 64)
+    c2.check_dw_aligned((good, good))
+    for ts in ((bad, good), (good, bad), (bad,)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            c2.check_dw_aligned(ts)
+    assert c2.KERNEL_DW.launches == 0
 
 
 @pytest.mark.parametrize("leaky", [False, True], ids=["conv2d", "conv2d_leaky"])

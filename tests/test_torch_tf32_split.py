@@ -199,25 +199,68 @@ def test_bilinear_conv_variants_edit_the_kernel_source():
     the card is one edit of the kernel's source, and each edit still finds
     its target, so the tool measures what its names say."""
     from terrain_tpu_torch.tools import bilinear_conv_variants as bv
+    from terrain_tpu_torch.tools.variants import edited_source
 
-    shipped = bv.edited_source([])
+    def edited(edits):
+        return edited_source("bilinear_conv", edits)
+
+    shipped = edited([])
     for name, edits in bv.VARIANTS.items():
-        text = bv.edited_source(edits)
-        assert (text == shipped) == (name == "shipped"), name
-    two = bv.edited_source(bv.VARIANTS["two_acc"])
+        assert (edited(edits) == shipped) == (name == "shipped"), name
+    two = edited(bv.VARIANTS["two_acc"])
     assert two.count("mma_tf32(acc2[i][j]") == 2
     assert two.count("mma_tf32(acc[i][j]") == 1
     for name in ("drop_lo_hi", "drop_hi_lo"):
-        assert bv.edited_source(bv.VARIANTS[name]).count(
-            "mma_tf32(acc[i][j]") == 2
+        assert edited(bv.VARIANTS[name]).count("mma_tf32(acc[i][j]") == 2
 
 
 def test_conv_stem_variants_edit_the_kernel_source():
     """Each part that tools/conv_stem_variants.py leaves out on the card is
     an edit of the shipped source that still finds its target."""
     from terrain_tpu_torch.tools import conv_stem_variants as sv
+    from terrain_tpu_torch.tools.variants import edited_source
 
-    shipped = sv.edited_source([])
+    shipped = edited_source("conv_stem", [])
     for name, edits in sv.VARIANTS.items():
-        assert (sv.edited_source(edits) == shipped) == (name == "shipped"), \
-            name
+        assert (edited_source("conv_stem", edits) == shipped) == (
+            name == "shipped"), name
+
+
+def test_thin_s2_variants_edit_the_kernel_sources():
+    """Each variant that tools/thin_s2_variants.py builds on the card is an
+    edit of the shipped conv_thin.cu or conv_s2.cu that still finds its
+    targets."""
+    from terrain_tpu_torch.tools import thin_s2_variants as tv
+    from terrain_tpu_torch.tools.variants import edited_source
+
+    built = 0
+    for name in ("conv_thin", "conv_s2"):
+        shipped = edited_source(name, [])
+        for var, (which, edits) in tv.VARIANTS.items():
+            if which in ("both", name):
+                built += 1
+                assert (edited_source(name, edits) == shipped) == (
+                    var == "shipped"), var
+    assert built == len(tv.VARIANTS) + 1  # "shipped" of both sources
+    bulk = edited_source("conv_thin", tv.VARIANTS["dx_bulk_store"][1])
+    assert bulk.count("bulk_store(") == 2 and bulk.count("bulk_wait_read<") == 2
+
+
+def test_variants_ptxas_summary_reads_registers_spills_and_frames():
+    """The by-parts tools' ptxas reader: registers, spills and stack frame
+    of each kernel whose mangled name matches, named by the groups."""
+    from terrain_tpu_torch.tools import thin_s2_variants as tv
+    from terrain_tpu_torch.tools.variants import ptxas_summary
+
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114thin_dx_kernelIfLi4EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114thin_dx_kernelIfLi4EEEvPKT_
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z9unrelatedv' for 'sm_90a'
+ptxas info    : Function properties for _Z9unrelatedv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 8 registers
+"""
+    assert ptxas_summary(log, tv._PTXAS) == {
+        "thin_dx_kernel fLi4": "96 registers, 4 bytes spilled, 8 bytes of "
+                               "stack frame"}
