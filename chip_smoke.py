@@ -72,7 +72,32 @@ Phases (any failure exits non-zero and prints no result line):
      pairs, two epochs, a checkpoint each), then `gen`: swd.txt with
      terrain_tpu's columns and finite values, gen's checkpoint picked from
      it, the trace file, the launch counts, epoch and SWD times, and the SWD
-     pyramid and terrain W1 of the same images on the card against the CPU.
+     pyramid and terrain W1 of the same images on the card against the CPU;
+  7. raster: a synthetic raster pair at the NASA rasters' size (21600 x
+     10800; a heightmap ~30% ocean, an RGB texture) written as PNGs whose
+     rows cycle through the five filter types, decoded by the port's codec
+     (seconds and MB/s; the pair must come back byte-equal, in under 60 s),
+     the crop iterator's first batch against plain slicing of the decoded
+     pair, its crops/s and rejection share, then two epochs of
+     `TERRAIN_RASTER=hm.png,tex.png TERRAIN_EPOCH_CROPS=48 python -m
+     terrain_tpu_torch test1_nobn_bilin_both train` at 512px: finite
+     losses, the flagship kernels' launch counts, epoch time and the share
+     of a step of the host batch and of the augmentation;
+  8. scan: TERRAIN_SCAN as one CUDA graph: the flagship step (augmentation
+     on) from one saved state, 4 eager steps twice against one replay of a
+     4-step graph, in fp32 (with deterministic algorithms: switches off and
+     on, and at half the lr, captured anew) and bf16 (by default, switches
+     off and on): losses, every parameter, the BN statistics and the
+     rmsprop state must be bit-equal where the two eager runs are, and
+     elsewhere lie within twice as far from eager as eager lies from
+     itself, and the hand-written kernels of a profiled replay at 4x their
+     per-step counts; per step at TERRAIN_SCAN=16, by default, eager and
+     graph in turns, with profiled device time and busy share (bf16: the
+     graph's step within 1.25x its device time); then the trainer on 240
+     pairs on the card, two epochs at TERRAIN_SCAN=16 (fp32 through the
+     CLI) and one eager from the same seed, fp32 (deterministic
+     algorithms) and bf16: epoch times, and epoch 1's results.txt loss
+     columns equal to eager's.
 The last lines are the `kernels` JSON, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -153,7 +178,39 @@ SWD_N = 16               # images per SWD evaluation (the trainer's n)
 SWD_TOL = 1e-4           # relative, card vs CPU: fp32 sums in another order
 # TERRAIN_BC_BWD, the bilinear_conv backward's route (conv6 is the default)
 BC_BWD_MODES = ("conv6", "dense", "xla32")
-PHASES = {"kernels", "serve", "train", "trainer", "quality", "conditioning"}
+# the raster phase: a synthetic pair at the NASA rasters' size (21600 x
+# 10800, SURVEY.md:76), one epoch of TERRAIN_EPOCH_CROPS crops from it
+RASTER_H, RASTER_W = 10800, 21600
+RASTER_CROPS = 48
+RASTER_DECODE_S = 60.0   # limit: seconds to decode the pair on the host
+# the scan phase: eager steps against one CUDA graph of SCAN_K steps from
+# one saved state, on SCAN_N pairs held on the card; timing at
+# TERRAIN_SCAN=16 (terrain_tpu's TPU launch script); the trainer on
+# TRAINER_N pairs at TERRAIN_SCAN=16 (chunks of 15)
+SCAN_K = 4
+SCAN_TIME_K = 16
+SCAN_N = 16
+SCAN_BUSY_LIMIT = 1.25   # bf16: graph step ms / its profiled device ms
+# where two eager runs differ (cuDNN's default algorithms are not
+# run-to-run deterministic): graph vs the nearer eager run over eager vs
+# eager, per category; two draws of one noise, 0.08-1.61 on an H100 in
+# fp32 by default
+SCAN_SPREAD = 2.0
+# each hand-written kernel's symbol, as the profiler names it
+KERNEL_SYMBOLS = {"bilinear_conv": "bilinear_conv_kernel",
+                  "conv_thin": "thin_fwd_kernel",
+                  "conv_thin_dx": "thin_dx_kernel",
+                  "conv_thin_dw": "thin_dw_kernel",
+                  "conv_stem_fwd": "stem_fwd_kernel",
+                  "conv_stem_dw": "stem_dw_kernel",
+                  "conv_stem_dx": "stem_dx_kernel",
+                  "pool2_fwd": "pool2_fwd_kernel",
+                  "pool2_bwd": "pool2_bwd_kernel",
+                  "conv_s2_fwd": "s2_fwd_kernel",
+                  "conv_s2_dw": "s2_dw_kernel",
+                  "bilinear": "bilinear_2x_kernel"}
+PHASES = {"kernels", "serve", "train", "trainer", "quality", "raster", "scan",
+          "conditioning"}
 
 
 def set_switches(on, switches=SWITCHES):
@@ -957,9 +1014,9 @@ def device_breakdown(torch, pipe, card):
                  "bucket 8 two-stage det")
 
 
-def profile_once(torch, fn, label, top=10):
-    """One profiled call: device kernel time by name and the device's busy
-    share of the call's wall time.  Returns (wall ms, busy ms)."""
+def profiled(torch, fn):
+    """One profiled call: (wall ms, [(device ms, count, kernel name)]) of
+    its device-side events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -978,6 +1035,13 @@ def profile_once(torch, fn, label, top=10):
                       getattr(ev, "self_cuda_time_total", 0)) / 1e3
         if dev > 0:
             rows.append((dev, ev.count, ev.key))
+    return wall, rows
+
+
+def profile_once(torch, fn, label, top=10):
+    """One profiled call: device kernel time by name and the device's busy
+    share of the call's wall time.  Returns (wall ms, busy ms)."""
+    wall, rows = profiled(torch, fn)
     busy = sum(r[0] for r in rows)
     print(f"profile {label}: wall {wall:.3f} ms, device kernels {busy:.3f} "
           f"ms (busy share {busy / wall:.3f}), {sum(r[1] for r in rows)} "
@@ -1692,6 +1756,549 @@ def quality_slice(torch, card, trainer_epoch_s, bare_ms):
     return counts
 
 
+# ------------------------------------------------------------------ phase 8
+def _synthetic_raster(np, seed=0):
+    """A raster pair at the NASA rasters' size: a heightmap of a few
+    separable waves, made at a quarter of the size and repeated 4x4, about
+    30% of it ocean (zeros) in large regions, and an RGB texture coloured
+    from it; both carry 2 bits of noise at full size from a random tile
+    wider than zlib's window, so neither compresses to nothing."""
+    rnd = np.random.RandomState(seed)
+    h, w = RASTER_H // 4, RASTER_W // 4
+    y = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    x = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    f = np.zeros((h, w), np.float32)
+    for _ in range(4):
+        fy, fx, py, px = rnd.uniform(1, 9, 4)
+        f += np.sin(fy * 6.2832 * y + py) * np.cos(fx * 6.2832 * x + px)
+    f -= np.quantile(f, 0.3)
+    land = f > 0
+    small = np.where(land, f * np.float32(240.0) / f.max() + 1, 0)
+    small = small.astype(np.uint8)
+    colour = np.stack([small // 2 + 60, small // 3 + 80,
+                       np.where(land, 70, 160).astype(np.uint8)], -1)
+
+    def full(a):
+        return np.repeat(np.repeat(a, 4, 0), 4, 1)
+
+    noise = rnd.randint(0, 4, size=(512, 16384)).astype(np.uint8)
+    noise = np.tile(noise, (RASTER_H // 512 + 1, RASTER_W // 16384 + 1))
+    noise = noise[:RASTER_H, :RASTER_W]
+    hm = full(small)
+    hm += noise * full(land)
+    tex = full(colour)
+    tex += noise[..., None]
+    return hm, tex
+
+
+def _plain_crops(np, hm, tex, bs, crop, seed, threshold=0.9):
+    """RasterCropIterator's first batch by plain slicing: offsets drawn
+    max(need * 2, 4) at a time, rows before columns, a crop kept while its
+    heightmap is at most `threshold` zeros."""
+    rnd = np.random.RandomState(seed)
+    got, need = [], bs
+    while need > 0:
+        n = max(need * 2, 4)
+        ys = rnd.randint(0, hm.shape[0] - crop + 1, size=n)
+        xs = rnd.randint(0, hm.shape[1] - crop + 1, size=n)
+        keep = [(y, x) for y, x in zip(ys, xs)
+                if (hm[y:y + crop, x:x + crop] == 0).mean() <= threshold]
+        got += keep[:need]
+        need -= len(keep[:need])
+    return (np.stack([hm[y:y + crop, x:x + crop, None] for y, x in got]),
+            np.stack([tex[y:y + crop, x:x + crop] for y, x in got]))
+
+
+def raster_slice(torch, card):
+    """The raster input path at the NASA rasters' size: a synthetic pair
+    (_synthetic_raster) written as PNGs whose rows cycle through the five
+    filter types, decoded by the port's codec (timed; the pair must come
+    back byte-equal), the crop iterator's first batch against plain
+    slicing, its crops/s and rejection share, then two epochs of
+    `TERRAIN_RASTER=hm.png,tex.png TERRAIN_EPOCH_CROPS=48 python -m
+    terrain_tpu_torch test1_nobn_bilin_both train` through cli.main with the
+    counters set to 0 just before and read just after.  Returns them."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from terrain_tpu_torch import cli
+    from terrain_tpu_torch.data import RasterCropIterator, augment_pair
+    from terrain_tpu_torch.serve.png import decode_png, encode_png
+    from terrain_tpu_torch.train.losses import TRAIN_KEYS
+
+    root = tempfile.mkdtemp(prefix="raster_")
+    saved = {k: os.environ.get(k) for k in (
+        "TERRAIN_RASTER", "TERRAIN_EPOCH_CROPS", "TERRAIN_EPOCHS",
+        "TERRAIN_OUT", "TERRAIN_MODELS", "TERRAIN_SYNTHETIC", "TERRAIN_FAST",
+        "TERRAIN_N", "TERRAIN_RESUME", "TERRAIN_SAVE_EVERY",
+        "TERRAIN_ARTIFACT_EVERY")}
+    try:
+        t0 = time.perf_counter()
+        hm, tex = _synthetic_raster(np)
+        t_make = time.perf_counter() - t0
+        paths, sizes = [], []
+        t0 = time.perf_counter()
+        for name, img in (("hm.png", hm), ("tex.png", tex)):
+            data = encode_png(img, level=1,
+                              filters=np.arange(RASTER_H) % 5)
+            paths.append(os.path.join(root, name))
+            sizes.append(len(data))
+            with open(paths[-1], "wb") as f:
+                f.write(data)
+            del data
+        t_write = time.perf_counter() - t0
+        print(f"raster: made a {RASTER_W}x{RASTER_H} pair (heightmap "
+              f"{(hm == 0).mean():.3f} ocean) in {t_make:.1f} s, wrote it as "
+              f"PNGs with filter types 0-4 by row (zlib level 1, "
+              f"{sizes[0] / 1e6:.1f} + {sizes[1] / 1e6:.1f} MB) in "
+              f"{t_write:.1f} s", flush=True)
+        decoded, t_dec = [], 0.0
+        for path, img in zip(paths, (hm, tex)):
+            t0 = time.perf_counter()
+            with open(path, "rb") as f:
+                out = decode_png(f.read())
+            dt = time.perf_counter() - t0
+            t_dec += dt
+            print(f"raster [{card}]: decoded {os.path.basename(path)} "
+                  f"{out.shape} in {dt:.2f} s ({img.nbytes / dt / 1e6:.1f} "
+                  f"MB/s of pixels)", flush=True)
+            if not np.array_equal(out.reshape(img.shape), img):
+                fail(f"raster: {path} decoded to other bytes")
+            decoded.append(out)
+        if t_dec > RASTER_DECODE_S:
+            fail(f"raster: decoding the pair took {t_dec:.1f} s > "
+                 f"{RASTER_DECODE_S} s")
+        dhm, dtex = decoded[0][..., 0], decoded[1][..., :3]
+        del decoded
+        it = RasterCropIterator(dhm, dtex, TRAIN_BATCH, crop=512,
+                                epoch_size=RASTER_CROPS, seed=0)
+        x, y = it.next_uint8()
+        px, py = _plain_crops(np, dhm, dtex, TRAIN_BATCH, 512, 0)
+        if not (np.array_equal(x, px) and np.array_equal(y, py)):
+            fail("raster: the iterator's first batch is not the plain "
+                 "slices of the decoded pair")
+        t0 = time.perf_counter()
+        n_batches = RASTER_CROPS // TRAIN_BATCH
+        for _ in range(n_batches):
+            next(it)  # crop, ocean filter, normalize
+        t_batch = (time.perf_counter() - t0) / n_batches
+        accepted = (n_batches + 1) * TRAIN_BATCH
+        print(f"raster: the first batch equals plain slicing of the decoded "
+              f"pair; {TRAIN_BATCH / t_batch:.1f} crops/s "
+              f"accepted (a host batch of {TRAIN_BATCH}: crop, filter, "
+              f"normalize {t_batch * 1e3:.1f} ms), rejection share "
+              f"{1 - accepted / it.drawn:.3f} ({it.drawn} offsets drawn; "
+              f"a try draws twice what it needs and keeps the first "
+              f"non-ocean ones)",
+              flush=True)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        xa = torch.from_numpy(x).cuda().float() / 255.0
+        ya = torch.from_numpy(y).cuda().float() / 127.5 - 1.0
+        aug_ms = time_ms(lambda: augment_pair(g, xa, ya))
+        del dhm, dtex, hm, tex, it
+        os.environ.update({
+            "TERRAIN_RASTER": ",".join(paths),
+            "TERRAIN_EPOCH_CROPS": str(RASTER_CROPS), "TERRAIN_EPOCHS": "2",
+            "TERRAIN_OUT": os.path.join(root, "out"),
+            "TERRAIN_MODELS": os.path.join(root, "models"),
+            "TERRAIN_SAVE_EVERY": "10", "TERRAIN_ARTIFACT_EVERY": "1000"})
+        for k in ("TERRAIN_SYNTHETIC", "TERRAIN_FAST", "TERRAIN_N",
+                  "TERRAIN_RESUME"):
+            os.environ.pop(k, None)
+        set_switches(False)
+        _reset_counters()
+        t0 = time.perf_counter()
+        if cli.main([EXPERIMENT, "train"]) != 0:
+            fail("raster: the CLI returned an error")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _read_counters()
+        with open(os.path.join(root, "out", EXPERIMENT, "results.txt")) as f:
+            header, *rows = [ln.split(",") for ln in f.read().splitlines()]
+        rows = [dict(zip(header, r)) for r in rows]
+        for row in rows:
+            vals = [float(row[f"{s}_{k}"]) for s in ("train", "valid")
+                    for k in TRAIN_KEYS]
+            if not all(map(math.isfinite, vals)):
+                fail(f"raster: a loss is not finite: {row}")
+        if len(rows) != 2:
+            fail(f"raster: results.txt has {len(rows)} epochs")
+        n_train = RASTER_CROPS // TRAIN_BATCH
+        n_eval = max(RASTER_CROPS // 10, TRAIN_BATCH) // TRAIN_BATCH
+        for k, v in TRAIN_LAUNCHES.items():
+            if got[k] < 2 * n_train * v:
+                fail(f"raster: {k} launched {got[k]} times in 2 x {n_train} "
+                     f"train steps")
+        epochs = [float(r["time"]) for r in rows]
+        row = rows[1]
+        step_ms = epochs[1] * 1e3 / (n_train + n_eval)
+        print(f"raster [{card}]: `TERRAIN_RASTER=hm.png,tex.png "
+              f"TERRAIN_EPOCH_CROPS={RASTER_CROPS} {EXPERIMENT} train`: "
+              f"{wall:.1f} s in all (decoding the pair again included), "
+              f"epochs {epochs[0]:.3f} / {epochs[1]:.3f} s for {n_train} "
+              f"train + {n_eval} eval steps (epoch 2: {step_ms:.3f} ms a "
+              f"step); a host batch "
+              f"{t_batch * 1e3:.1f} ms = {t_batch * 1e3 / step_ms:.3f} of a "
+              f"step (on the prefetcher's thread), the augmentation on the "
+              f"card {aug_ms:.3f} ms = {aug_ms / step_ms:.4f}; losses "
+              f"{ {k: float(row['train_' + k]) for k in TRAIN_KEYS} }; "
+              f"launches {got}", flush=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    return got
+
+
+# ------------------------------------------------------------------ phase 9
+def _scan_setup(torch, np, cd):
+    """The flagship trainer's networks, optimizer and train step (with
+    the paired augmentation, so the graph draws from its generators) over
+    SCAN_N synthetic pairs on the card."""
+    from terrain_tpu_torch.data import DeviceDataset
+    from terrain_tpu_torch.data.synthetic import make_pairs
+    from terrain_tpu_torch.experiments import build_gan
+
+    gan, _ = build_gan(EXPERIMENT, "cuda", compute_dtype=cd, verbose=False)
+    ds = DeviceDataset(*make_pairs(SCAN_N, gan.in_shp, seed=0),
+                       device="cuda")
+    tr, _ = gan._build_steps(ds.make_prepare(augment=True))
+    return gan, ds, tr
+
+
+def _deterministic(torch, on):
+    """PyTorch's deterministic algorithms (warn_only: an op without one
+    warns) and cuDNN's.  The flagship's fp32 step differs from run to run
+    without them (the U-Net's and PatchGAN's gradients), its bf16 step
+    does not."""
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.backends.cudnn.deterministic = on
+
+
+def _chunk(torch, np, gan, ds, k, seed):
+    rnd = np.random.RandomState(seed)
+    Z = torch.from_numpy(rnd.rand(k, TRAIN_BATCH, gan.latent_dim).astype(
+        np.float32)).cuda()
+    idx = torch.from_numpy(rnd.randint(0, ds.N, (k, TRAIN_BATCH)).astype(
+        np.int32)).cuda()
+    return [ds.batch_args(Z[t], idx[t]) for t in range(k)]
+
+
+def _held(e1, e2, g):
+    """Per category (losses, parameters, BN statistics, rmsprop state): the
+    graph run against two eager runs.  A tensor on which the eager runs
+    are bit-equal must be bit-equal in the graph.  Where they differ, the
+    graph and the nearer eager run are two draws of the same
+    run-to-run noise, so over the category the graph may lie up to
+    SCAN_SPREAD times as far from the nearer eager run as the eager runs
+    lie from each other.  Returns {category: (eager vs eager max abs,
+    graph vs eager max abs, tensors bit-equal eager/eager, of those
+    bit-equal in the graph, tensors)} and the failures."""
+    out, bad = {}, []
+    for cat in e1:
+        ee_max = ge_max = 0.0
+        same = same_g = 0
+        for i, (a, b, c) in enumerate(zip(e1[cat], e2[cat], g[cat])):
+            if not a.numel():
+                continue
+            ee = float((a - b).abs().max())
+            ge = min(float((c - a).abs().max()), float((c - b).abs().max()))
+            ee_max, ge_max = max(ee_max, ee), max(ge_max, ge)
+            same += ee == 0.0
+            same_g += ee == 0.0 and ge == 0.0
+            if ee == 0.0 and ge != 0.0:
+                bad.append(f"{cat}[{i}]: eager bit-equal, graph off by "
+                           f"{ge:.3e}")
+        if ge_max > SCAN_SPREAD * ee_max:
+            bad.append(f"{cat}: graph {ge_max:.3e} > {SCAN_SPREAD} x eager "
+                       f"{ee_max:.3e}")
+        out[cat] = (ee_max, ge_max, same, same_g, len(e1[cat]))
+    return out, bad
+
+
+def scan_equivalence(torch, np, card):
+    """Eager steps against one CUDA graph of SCAN_K steps, from one saved
+    state (networks, BN statistics, rmsprop state, generator seeds), in
+    fp32 (with deterministic algorithms) and bf16 (by default), with the
+    opt-in switches off and on: k eager steps twice, then two replays;
+    then, fp32 switches off, the same at half the lr (the graph captured
+    anew).  Returns the bf16 and fp32 setups for timing."""
+    from terrain_tpu_torch.train.losses import TRAIN_KEYS
+    from terrain_tpu_torch.train.step import build_scan_step
+
+    kept = {}
+    for label, cd in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gan, ds, tr = _scan_setup(torch, np, cd)
+        cats = {"params": [p for n in gan.nets.values()
+                           for p in n.parameters()],
+                "bn_stats": [b for n in gan.nets.values()
+                             for b in n.buffers()],
+                "rmsprop": [t for st in gan.opt_states.values()
+                            for v in st.values() if isinstance(v, list)
+                            for t in v]}
+        every = [t for ts in cats.values() for t in ts]
+        saved = [t.detach().clone() for t in every]
+        counter = gan._step_counter
+        batches = _chunk(torch, np, gan, ds, SCAN_K, 5)
+
+        def start():
+            with torch.no_grad():
+                for t, v in zip(every, saved):
+                    t.copy_(v)
+            gan._step_counter = counter
+            return [gan._next_rngs(t) for t in range(SCAN_K)]
+
+        def result(losses):
+            return {"losses": [losses[k].float().clone() for k in TRAIN_KEYS],
+                    **{c: [t.detach().float().clone() for t in ts]
+                       for c, ts in cats.items()}}
+
+        def eager(lr):
+            rngs = start()
+            outs = [tr(gan.opt_states, b, r, lr)
+                    for b, r in zip(batches, rngs)]
+            return result({k: torch.stack([o[k] for o in outs])
+                           for k in TRAIN_KEYS})
+
+        # fp32 eager is bit-equal to itself only with deterministic
+        # algorithms; bf16 eager is by default
+        det = label == "fp32"
+        runs = [(False, 1.0), (True, 1.0)] + ([(False, 0.5)] if det else [])
+        _deterministic(torch, det)
+        for on, lr_scale in runs:
+            set_switches(on)
+            lr = gan.lr * lr_scale
+            scan = build_scan_step(tr)
+            e1, e2 = eager(lr), eager(lr)
+            t0 = time.perf_counter()
+            g = result(scan(gan.opt_states, batches, start(), lr))
+            t_cap = time.perf_counter() - t0
+            g2 = result(scan(gan.opt_states, batches, start(), lr))
+            held, bad = _held(e1, e2, g)
+            _, bad2 = _held(e1, e2, g2)  # a second replay of the graph
+            owners = [n for n, net in gan.nets.items()
+                      for _ in net.parameters()]
+            loose = sorted({o for o, a, b in zip(owners, e1["params"],
+                                                 e2["params"])
+                            if not torch.equal(a, b)})
+            what = (f"{label} switches {'on' if on else 'off'}"
+                    + (", deterministic algorithms" if det else "")
+                    + (f", lr x{lr_scale}" if lr_scale != 1.0 else ""))
+            print(f"scan [{card}] {what}: {SCAN_K} eager steps twice vs one "
+                  f"graph of {SCAN_K} (warm-up + capture + replay "
+                  f"{t_cap:.1f} s): " + "; ".join(
+                      f"{c} eager/eager {ee:.3e} graph/eager {ge:.3e}, "
+                      f"bit-equal {sg}/{s} of {n}"
+                      for c, (ee, ge, s, sg, n) in held.items())
+                  + f"; eager differs from itself in {loose or 'none'}",
+                  flush=True)
+            if bad or bad2:
+                fail(f"scan {what}: the graph differs from eager more than "
+                     f"eager from itself: {(bad + bad2)[:5]}")
+            if lr_scale == 1.0:  # the hand-written kernels in a replay
+                _, prof = profiled(torch, lambda: scan(
+                    gan.opt_states, batches, start(), lr))
+                counts = {name: sum(c for _, c, key in prof if sym in key)
+                          for name, sym in KERNEL_SYMBOLS.items()}
+                print(f"scan {what}: hand-written kernels in one profiled "
+                      f"replay of {SCAN_K} steps {counts}", flush=True)
+                for name, n in expected_launches(on).items():
+                    if name in KERNEL_SYMBOLS and counts[name] != SCAN_K * n:
+                        fail(f"scan {what}: {name} ran {counts[name]} times "
+                             f"in the replay, expected {SCAN_K} x {n}")
+            del scan, e1, e2, g, g2
+        _deterministic(torch, False)
+        set_switches(False)
+        with torch.no_grad():
+            for t, v in zip(every, saved):
+                t.copy_(v)
+        del saved, every, cats
+        torch.cuda.empty_cache()
+        kept[label] = (gan, ds, tr)
+    return kept
+
+
+def scan_timing(torch, np, card, kept):
+    """Per step at TERRAIN_SCAN=16, switches off, eager and graph in turns
+    (eager, graph, graph, eager: host clock around a synchronized chunk),
+    and the profiled device time and busy share of each.  (The profiler
+    may drop some of a 16-step replay's ~53,000 kernel events: the kernel
+    counts are held on the 4-step replays of scan_equivalence.)"""
+    from terrain_tpu_torch.train.step import build_scan_step
+
+    k = SCAN_TIME_K
+    for label, (gan, ds, tr) in kept.items():
+        batches = _chunk(torch, np, gan, ds, k, 6)
+        scan = build_scan_step(tr)
+
+        def eager():
+            rngs = [gan._next_rngs(t) for t in range(k)]
+            for b, r in zip(batches, rngs):
+                tr(gan.opt_states, b, r, gan.lr)
+
+        def graph():
+            scan(gan.opt_states, batches,
+                 [gan._next_rngs(t) for t in range(k)], gan.lr)
+
+        graph()  # warm-up and capture
+        eager()
+        per = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (eager if mode == "eager" else graph)()
+            torch.cuda.synchronize()
+            per[mode].append((time.perf_counter() - t0) * 1e3 / k)
+        prof = {m: profiled(torch, f) for m, f in (("eager", eager),
+                                                    ("graph", graph))}
+        busy = {m: sum(r[0] for r in rows) / k
+                for m, (_, rows) in prof.items()}
+        share = {m: busy[m] * k / wall for m, (wall, _) in prof.items()}
+        print(f"scan [{card}] {label} switches off, TERRAIN_SCAN={k}: per "
+              f"step eager {per['eager'][0]:.3f}, graph "
+              f"{per['graph'][0]:.3f}, graph {per['graph'][1]:.3f}, eager "
+              f"{per['eager'][1]:.3f} ms (host clock, in turns); profiled "
+              f"device time a step eager {busy['eager']:.3f} ms (busy share "
+              f"{share['eager']:.3f}), graph {busy['graph']:.3f} ms (busy "
+              f"share {share['graph']:.3f}); "
+              f"{sum(r[1] for r in prof['eager'][1]) / k:.0f} kernels a step "
+              f"eager, {sum(r[1] for r in prof['graph'][1]) / k:.0f} in the "
+              f"replay", flush=True)
+        counts = {name: sum(c for _, c, key in prof["graph"][1] if sym in key)
+                  for name, sym in KERNEL_SYMBOLS.items()}
+        print(f"scan {label}: hand-written kernels among the profiler's "
+              f"events of one replay of {k} steps {counts}", flush=True)
+        graph_ms = statistics.mean(per["graph"])
+        if label == "bf16" and graph_ms > SCAN_BUSY_LIMIT * busy["graph"]:
+            fail(f"scan bf16: the graph's step {graph_ms:.3f} ms is more "
+                 f"than {SCAN_BUSY_LIMIT} x its device time "
+                 f"{busy['graph']:.3f} ms")
+        del scan, batches
+    kept.clear()
+    torch.cuda.empty_cache()
+
+
+def scan_trainer(torch, np, card):
+    """The trainer on TRAINER_N pairs held on the card at TERRAIN_SCAN=16
+    (chunks of 15 train and 6 eval steps), dumps off: first `python -m
+    terrain_tpu_torch test1_nobn_bilin_both train` in fp32 (with
+    deterministic algorithms, as every fp32 epoch here) through cli.main,
+    two epochs, with the counters set to 0 just before and read just
+    after (its dW and dX kernels show one warm-up step and one capture of
+    15, not the 120 steps: the graph outlives the epoch); then, on the same
+    pairs made once, an eager epoch from the same seed against it, and in
+    bf16 two TERRAIN_SCAN=16 epochs against an eager one.  Eager is
+    bit-equal to itself in both settings (scan_equivalence), so epoch 1's
+    loss columns must be equal.  Returns the counts."""
+    import math
+    import shutil
+    import tempfile
+
+    from terrain_tpu_torch import cli
+    from terrain_tpu_torch.experiments import _get_data, build_gan
+    from terrain_tpu_torch.train.losses import TRAIN_KEYS
+
+    root = tempfile.mkdtemp(prefix="scan_")
+    env = {"TERRAIN_SYNTHETIC": "1", "TERRAIN_FAST": "1",
+           "TERRAIN_N": str(TRAINER_N), "TERRAIN_EPOCHS": "2",
+           "TERRAIN_SAVE_EVERY": "10", "TERRAIN_ARTIFACT_EVERY": "1000",
+           "TERRAIN_OUT": os.path.join(root, "cli"),
+           "TERRAIN_MODELS": os.path.join(root, "cli_models"),
+           "TERRAIN_SCAN": str(SCAN_TIME_K)}
+    saved = {k: os.environ.get(k) for k in (
+        *env, "TERRAIN_DTYPE", "TERRAIN_RESUME")}
+    os.environ.update(env)
+    for k in ("TERRAIN_RESUME", "TERRAIN_DTYPE"):
+        os.environ.pop(k, None)
+    set_switches(False)
+    n_train = TRAINER_N // TRAIN_BATCH
+    n_eval = (TRAINER_N // 10) // TRAIN_BATCH
+    cols = [f"{s}_{k}" for s in ("train", "valid") for k in TRAIN_KEYS]
+
+    def read(out_dir):
+        with open(os.path.join(out_dir, "results.txt")) as f:
+            header, *rows = [ln.split(",") for ln in f.read().splitlines()]
+        rows = [dict(zip(header, r)) for r in rows]
+        for row in rows:
+            if not all(math.isfinite(float(row[c])) for c in cols):
+                fail(f"scan trainer: a loss is not finite: {row}")
+        return rows
+
+    try:
+        _deterministic(torch, True)  # fp32 (see _deterministic)
+        np.random.seed(0)  # the prior sampler's stream
+        _reset_counters()
+        if cli.main([EXPERIMENT, "train"]) != 0:
+            fail("scan trainer: the CLI returned an error")
+        counts = _read_counters()
+        first = read(os.path.join(root, "cli", EXPERIMENT))
+        print(f"scan trainer: launches of the fp32 TERRAIN_SCAN="
+              f"{SCAN_TIME_K} run through the CLI, 2 epochs (eager "
+              f"warm-ups and captures; replays add none) {counts}",
+              flush=True)
+        for k in ("conv_stem_dw", "conv_stem_dx", "conv_thin_dx",
+                  "conv_thin_dw"):
+            if counts[k] != 16 * TRAIN_LAUNCHES[k]:
+                fail(f"scan trainer: {k} launched {counts[k]} times, "
+                     f"expected 16 (a warm-up step and a capture of 15)")
+        data = _get_data(512, device="cuda")
+        for label, cd in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            _deterministic(torch, label == "fp32")
+            rows = {"graph": first} if label == "fp32" else {}
+            for run in ("graph", "eager"):
+                if run in rows:
+                    continue
+                os.environ["TERRAIN_SCAN"] = ("1" if run == "eager"
+                                              else str(SCAN_TIME_K))
+                gan, _ = build_gan(EXPERIMENT, "cuda", compute_dtype=cd,
+                                   verbose=False)
+                out = os.path.join(root, f"{label} {run}")
+                np.random.seed(0)
+                gan.train(*data, TRAIN_BATCH, 2 if run == "graph" else 1,
+                          out, save_every=10)
+                rows[run] = read(out)
+                del gan
+            graph, eager = rows["graph"], rows["eager"][0]
+            off = [c for c in cols if graph[0][c] != eager[c]]
+            print(f"scan trainer [{card}] {label}: `{EXPERIMENT} train` on "
+                  f"{TRAINER_N} pairs on the card, {n_train} train + "
+                  f"{n_eval} eval steps an epoch: at TERRAIN_SCAN="
+                  f"{SCAN_TIME_K} (chunks of 15 and 6) epoch 1 "
+                  f"{float(graph[0]['time']):.3f} s (capture included), "
+                  f"epoch 2 {float(graph[1]['time']):.3f} s; eager "
+                  f"{float(eager['time']):.3f} s; epoch 1's loss columns "
+                  f"equal to eager's: {len(cols) - len(off)} of {len(cols)}",
+                  flush=True)
+            if off:
+                fail(f"scan trainer {label}: columns {off} of the graph's "
+                     f"epoch differ from eager's: {graph[0]} vs {eager}")
+        del data
+    finally:
+        _deterministic(torch, False)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def scan_slice(torch, card):
+    import numpy as np
+
+    kept = scan_equivalence(torch, np, card)
+    scan_timing(torch, np, card, kept)
+    return scan_trainer(torch, np, card)
+
+
 def main():
     import torch
 
@@ -1735,6 +2342,7 @@ def main():
 
     rows, serve_launches, train_launches, trainer_launches = {}, {}, {}, {}
     quality_launches, trainer_epoch_s, step_ms = {}, float("nan"), {}
+    raster_launches, scan_launches = {}, {}
     if want("kernels"):
         rows = check_kernels(torch)
         check_autograd(torch)
@@ -1764,6 +2372,14 @@ def main():
             torch, card, trainer_epoch_s,
             step_ms.get("fp32 switches off unfused decoder", float("nan")))
         print(f"phase quality done at {time.perf_counter() - t_start:.0f} s",
+              flush=True)
+    if want("raster"):
+        raster_launches = raster_slice(torch, card)
+        print(f"phase raster done at {time.perf_counter() - t_start:.0f} s",
+              flush=True)
+    if want("scan"):
+        scan_launches = scan_slice(torch, card)
+        print(f"phase scan done at {time.perf_counter() - t_start:.0f} s",
               flush=True)
     if only:
         print(f"phases {sorted(only)} passed; run without arguments for the "
@@ -1798,8 +2414,13 @@ def main():
         paths[name].remove("quality")
     for name in serve_launches:
         paths[name].append("serve")
+    # the raster epoch and the TERRAIN_SCAN epoch run the default path
+    for name in TRAIN_LAUNCHES:
+        if name in paths:
+            paths[name] += ["raster", "scan"]
     launches = {"serve": serve_launches, "train": train_launches,
-                "trainer": trainer_launches, "quality": quality_launches}
+                "trainer": trainer_launches, "quality": quality_launches,
+                "raster": raster_launches, "scan": scan_launches}
     kernels = []
     for name, (src, rep) in meta.items():
         main_row = rows[name][0]  # main path shape, fp32

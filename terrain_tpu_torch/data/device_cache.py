@@ -54,7 +54,10 @@ class DeviceDataset:
     def make_prepare(self, augment=True):
         """Returns prepare(batch, rngs) -> (Z, X, Y) for batch = (Z, idx).
         With `augment`, the pair is transformed with draws from
-        rngs["augment"], a `torch.Generator`."""
+        rngs["augment"], a `torch.Generator`.  Inside a CUDA graph of steps
+        (train/step.py) Z and idx are views of the graph's static buffers;
+        prepare neither copies from nor waits on the host, which a capture
+        would refuse."""
 
         def prepare(batch, rngs):
             Z, idx = batch

@@ -12,6 +12,12 @@ Environment, as in terrain_tpu:
   TERRAIN_BS         batch size (default 4)
   TERRAIN_QUICK      "1" -> one minibatch per loop
   TERRAIN_FAST       "1" -> the dataset lives on the device (DeviceDataset)
+  TERRAIN_RASTER     "heightmap.png,texture.png" -> random crops cut on the
+                     fly from one raster pair (data/crops.py); before the
+                     synthetic and h5 sources, TERRAIN_FAST ignored.  PNG
+                     only: a JPEG or other format raises
+  TERRAIN_EPOCH_CROPS  crops per train epoch of TERRAIN_RASTER (default
+                     240; the valid pass takes a tenth, at least a batch)
   TERRAIN_DTYPE=bf16 bf16 compute over fp32 parameters
   TERRAIN_OUT / TERRAIN_MODELS   artifact roots (default output/, models/)
   TERRAIN_SAVE_EVERY checkpoint cadence in epochs (default 10)
@@ -39,7 +45,6 @@ Kernel switches, read at call time, with terrain_tpu's defaults:
   TERRAIN_PALLAS_DECODER=0   the U-Net's bilinear stages unfused (on)
   TERRAIN_PALLAS_STEM=0, TERRAIN_PALLAS_THIN=0   one conv kernel off (on)
   TERRAIN_PALLAS_CONV=0      every conv kernel off, the decoder's included
-TERRAIN_RASTER (on-the-fly raster crops) is not ported yet and raises.
 """
 
 import dataclasses
@@ -49,7 +54,8 @@ from typing import Any, Callable
 
 import torch
 
-from terrain_tpu_torch.data import DeviceDataset, Hdf5Iterator
+from terrain_tpu_torch.data import (
+    DeviceDataset, Hdf5Iterator, RasterCropIterator)
 from terrain_tpu_torch.device import compute_dtype_from_env, resolve_device
 from terrain_tpu_torch.models import dcgan, unet
 from terrain_tpu_torch.sample import TwoStagePipeline
@@ -266,19 +272,68 @@ def get_device_datasets(dataset, is_a_grayscale, is_b_grayscale, device=None):
                               is_b_grayscale, device=device))
 
 
+# raster formats the port does not decode, by file extension and by magic
+_NOT_PNG_EXT = {".jpg": "JPEG", ".jpeg": "JPEG", ".tif": "TIFF",
+                ".tiff": "TIFF", ".gif": "GIF", ".bmp": "BMP",
+                ".webp": "WebP"}
+_MAGIC = ((b"\x89PNG\r\n\x1a\n", "PNG"), (b"\xff\xd8\xff", "JPEG"),
+          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"GIF8", "GIF"),
+          (b"BM", "BMP"), (b"RIFF", "WebP"))
+
+
+def _refuse_unless_png(path, fmt):
+    if fmt != "PNG":
+        raise NotImplementedError(
+            f"TERRAIN_RASTER: {path} is {fmt}, not PNG; the port decodes PNG "
+            f"rasters only, with its own codec (it depends on no image "
+            f"library): convert the file to PNG")
+
+
+def read_raster_pair(value):
+    """TERRAIN_RASTER="heightmap.png,texture.png" -> (heightmap (H, W),
+    texture (H, W, 3)), decoded by the port's PNG codec (serve/png.py): the
+    heightmap's first channel and the texture's first three, as terrain_tpu
+    takes them.  A file named or starting as another format raises
+    NotImplementedError, by name before any file is opened, by its first
+    bytes before either is decoded."""
+    from terrain_tpu_torch.serve.png import decode_png
+
+    paths = value.split(",")
+    if len(paths) != 2:
+        raise ValueError(f"TERRAIN_RASTER={value!r}: expected "
+                         f'"heightmap.png,texture.png"')
+    for path in paths:
+        _refuse_unless_png(path, _NOT_PNG_EXT.get(
+            os.path.splitext(path)[1].lower(), "PNG"))
+    for path in paths:
+        with open(path, "rb") as f:
+            head = f.read(8)
+        _refuse_unless_png(path, next((name for magic, name in _MAGIC
+                                       if head.startswith(magic)),
+                                      "of an unknown format"))
+    imgs = []
+    for path in paths:
+        with open(path, "rb") as f:
+            imgs.append(decode_png(f.read()))
+    return imgs[0][..., 0], imgs[1][..., :3]
+
+
 def _get_data(in_shp, is_a_grayscale=True, is_b_grayscale=False, device=None):
-    """Train and valid inputs from the environment: synthetic or h5, as
-    host iterators or (TERRAIN_FAST=1) on the device."""
+    """Train and valid inputs from the environment: random crops of a raster
+    pair (host iterators), or synthetic or h5 pairs, as host iterators or
+    (TERRAIN_FAST=1) on the device."""
     env = os.environ.get
-    for name, default in (("TERRAIN_RASTER", ""), ("TERRAIN_EPOCH_CROPS",
-                                                    "240")):
-        if env(name, default) != default:
-            raise NotImplementedError(
-                f"{name} (on-the-fly raster crops) is not ported yet: it "
-                f"comes with data/crops.py (ROADMAP.md queue A)")
     fast = env("TERRAIN_FAST") == "1"
     bs = int(env("TERRAIN_BS", "4"))
     kw = dict(is_a_grayscale=is_a_grayscale, is_b_grayscale=is_b_grayscale)
+    raster = env("TERRAIN_RASTER")
+    if raster:  # terrain_tpu/experiments.py:104-124
+        hm, tex = read_raster_pair(raster)
+        n = int(env("TERRAIN_EPOCH_CROPS", "240"))
+        return (RasterCropIterator(hm, tex, bs, crop=in_shp, epoch_size=n,
+                                   seed=0, **kw),
+                RasterCropIterator(hm, tex, bs, crop=in_shp,
+                                   epoch_size=max(n // 10, bs), seed=1, **kw))
     if env("TERRAIN_SYNTHETIC") == "1":
         from terrain_tpu_torch.data.synthetic import make_pairs
 

@@ -49,6 +49,14 @@ def _phase_grouping(k):
     return G, n_taps
 
 
+@lru_cache(maxsize=None)
+def _grouping_on(k, device):
+    """G of `_phase_grouping` as a tensor on `device`, made once: a copy
+    from the host inside a train step would wait for the device, which a
+    CUDA graph capture refuses."""
+    return torch.from_numpy(_phase_grouping(k)[0]).to(device)
+
+
 def _depth_to_space2(y, cout):
     """(N,H,W,(2,2,cout)) -> (N,2H,2W,cout)."""
     n, h, w = y.shape[0], y.shape[1], y.shape[2]
@@ -63,8 +71,8 @@ def upsample2x_nearest_conv(x, w, b=None, *, compute_dtype=None):
     bias is added after the depth-to-space."""
     cd = compute_dtype or x.dtype
     cout, cin, k, _ = w.shape
-    G, n_taps = _phase_grouping(k)
-    g = torch.tensor(G, device=w.device)
+    n_taps = _phase_grouping(k)[1]
+    g = _grouping_on(k, w.device)
     # K[(p,q,o), i, a, b] = sum_{h,w} w[o,i,h,w] G[p,h,a] G[q,w,b]
     K = torch.einsum("oihw,pha,qwb->pqoiab", w.float(), g, g)
     K = K.reshape(4 * cout, cin, n_taps, n_taps).to(cd)

@@ -9,7 +9,15 @@ build happens at first use, or for all kernels at once (one nvcc process
 per source, started together) through `build()`.  A failed build raises.
 
 Each C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `CudaKernel.launch` raises if that is not 0.
+`cudaGetLastError()`; `CudaKernel.launch` raises if that is not 0.  The
+stream is the device's current one (`stream_of`): inside a CUDA graph
+capture (train/step.py) that is the capturing stream, so the kernels are
+recorded into the graph with PyTorch's own launches.  A kernel is built,
+bound and given its launch attributes on its first launch, which must not
+fall inside a capture: the graph's warm-up step makes it.
+
+`build_host` compiles the port's host C++ (a plain C interface, such as
+serve/csrc/png_unfilter.cpp) the same way, with the host compiler.
 """
 
 import ctypes
@@ -29,6 +37,9 @@ SOURCES = ("conv_thin", "bilinear_conv", "conv_stem", "conv_s2", "pool2",
            "bilinear")
 
 _lock = threading.Lock()
+
+
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 
 def nvcc_path():
@@ -85,16 +96,54 @@ def build(names=SOURCES):
     report = {}
     for name in names:
         log = f"{lib_path(name)}.log"
-        text = open(log).read() if os.path.exists(log) else ""
+        text = ""
+        if os.path.exists(log):
+            with open(log) as f:
+                text = f.read()
         report[name] = (lib_path(name), text)
     return report
+
+
+def host_compiler():
+    """The host C++ compiler: g++, the one nvcc drives, else c++."""
+    for name in ("g++", "c++"):
+        path = shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler (g++ or c++) on PATH: the "
+                       "port's host C++ is built from source at first use")
+
+
+def build_host(src):
+    """Compile one host C++ source with a plain C interface into BUILD_DIR,
+    named by a hash of the source and flags, unless that library exists.
+    Returns its path; raises with the compiler's output if it fails."""
+    with open(src, "rb") as f:
+        text = f.read()
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode() + text)
+    name = os.path.splitext(os.path.basename(src))[0]
+    path = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    p = subprocess.run([host_compiler(), *HOST_FLAGS, "-o", tmp, src],
+                       capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"host C++ build of {src} failed (rc "
+                           f"{p.returncode}):\n{p.stdout}{p.stderr}")
+    os.replace(tmp, path)
+    return path
 
 
 class CudaKernel:
     """One C entry point of one csrc/<source>.cu library.
 
-    `launches` counts successful launches made through `launch`; a run
-    sets it to 0 and reads it to show the path went through the kernel."""
+    `launches` counts successful calls of `launch`: eager launches, and
+    each launch recorded into a CUDA graph once, at its capture.  A
+    graph's replays run the recorded launches without calling `launch`,
+    so they add nothing; a run sets the count to 0 and reads it to show
+    the path went through the kernel."""
 
     def __init__(self, source, entry, argtypes):
         self.source = source
@@ -105,6 +154,11 @@ class CudaKernel:
         self._err = None
 
     def _bind(self):
+        if self._fn is None and _capturing():
+            raise RuntimeError(
+                f"{self.entry}: first launch inside a CUDA graph capture; "
+                f"the kernel is built and bound by a warm-up launch before "
+                f"the capture")
         with _lock:
             if self._fn is None:
                 build((self.source,))
@@ -125,6 +179,13 @@ class CudaKernel:
             msg = self._err(rc).decode(errors="replace")
             raise RuntimeError(f"{self.entry} launch failed: {msg} ({rc})")
         self.launches += 1
+
+
+def _capturing():
+    import torch
+
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
 
 
 class OpCounter:

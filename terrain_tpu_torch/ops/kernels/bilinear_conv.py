@@ -29,6 +29,7 @@ passes.
 """
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -103,17 +104,20 @@ def bilinear_conv_fwd(x, w, b):
     return y
 
 
-def _tap_matrix():
+@functools.lru_cache(maxsize=None)
+def _tap_matrix(device):
     """M[a,u] with Kc[a,b] = sum_{u,v} M[a,u] M[b,v] w[u,v]: per axis, the
     bilinear-x2 adjoint (4 taps [1/4,3/4,3/4,1/4], stride 2) composed with
-    the 3x3 conv adjoint (terrain_tpu `_tap_matrix_bilinear`)."""
+    the 3x3 conv adjoint (terrain_tpu `_tap_matrix_bilinear`).  Made once
+    on each device: a copy from the host inside a train step would wait for
+    the device, which a CUDA graph capture refuses."""
     k1 = (0.25, 0.75, 0.75, 0.25)
     m = torch.zeros(6, 3)
     for a in range(6):
         for u in range(3):
             if 0 <= a - 2 + u < 4:
                 m[a, u] = k1[a - 2 + u]
-    return m
+    return m.to(device)
 
 
 def _down4(v, axis):
@@ -147,7 +151,7 @@ def dx_conv6(g, w):
         raise ValueError(f"dx_conv6 needs cotangent H,W >= 4: {tuple(g.shape)}")
     ho, wo = h2 // 2, w2 // 2
     cd = g.dtype
-    m = _tap_matrix().to(g.device)
+    m = _tap_matrix(g.device)
     w32 = w.float()
     kc = torch.einsum("au,bv,uvio->ioab", m, m, w32).to(cd)  # (C,F,6,6)
     gn = g.permute(0, 3, 1, 2)  # NCHW view

@@ -1,13 +1,21 @@
-"""A small PNG codec on numpy and zlib, for the server's png payloads.
+"""A small PNG codec on numpy and zlib, for the server's png payloads and
+the trainer's raster pairs (TERRAIN_RASTER).
 
 The port depends on no image library.  `encode_png` writes 8- or 16-bit
-gray or RGB images with the "Up" filter on every row (smooth terrain
-compresses well under it, and it is vectorized both ways).  `decode_png`
-reads any non-interlaced 8/16-bit gray, gray+alpha, RGB or RGBA PNG; rows
-with the Average or Paeth filter are undone by a per-pixel loop, which is
-slow but only needed for PNGs other encoders wrote.
+gray, gray+alpha, RGB or RGBA images, with the "Up" filter on every row by
+default (smooth terrain compresses well under it) or any per-row choice of
+the five filter types; filtering reads only the unfiltered image, so numpy
+vectorizes it.  `decode_png` reads any non-interlaced 8/16-bit image of
+those colour types.  Undoing the Average and Paeth filters is sequential
+along a row, so it runs in host C++ (csrc/png_unfilter.cpp, built at
+first use with the host compiler; without one decoding raises).
+`unfilter_reference` is the same work one byte at a time in Python, the
+plain version the tests hold the C++ against.
 """
 
+import ctypes
+import functools
+import os
 import struct
 import zlib
 
@@ -16,6 +24,9 @@ import numpy as np
 _SIG = b"\x89PNG\r\n\x1a\n"
 _COLOR = {1: 0, 2: 4, 3: 2, 4: 6}      # channels -> PNG colour type
 _CHANNELS = {v: k for k, v in _COLOR.items()}
+_UNFILTER_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "csrc", "png_unfilter.cpp")
+_FILTER_ROWS = 256  # rows filtered at once by the encoder (bounds memory)
 
 
 def _chunk(tag, data):
@@ -23,13 +34,64 @@ def _chunk(tag, data):
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def encode_png(img, level=3):
-    """img (H, W), (H, W, 1) or (H, W, 3) of uint8 or uint16 -> PNG bytes."""
+def _shift_left(a, bpp):
+    """a's bytes one pixel to the right: the left neighbour of each byte
+    (0 before the first pixel)."""
+    out = np.zeros_like(a)
+    out[:, bpp:] = a[:, :-bpp]
+    return out
+
+
+def _predict(ftype, cur, up, bpp):
+    """The PNG predictor of filter type `ftype` for rows `cur` (uint8) under
+    rows `up`."""
+    if ftype == 0:
+        return 0
+    if ftype == 1:
+        return _shift_left(cur, bpp)
+    if ftype == 2:
+        return up
+    left = _shift_left(cur, bpp)
+    if ftype == 3:  # floor((left + up) / 2), in uint8
+        return (left >> 1) + (up >> 1) + (left & up & 1)
+    a, b = left.astype(np.int16), up.astype(np.int16)
+    c = _shift_left(up, bpp).astype(np.int16)
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a,
+                    np.where(pb <= pc, b, c)).astype(np.uint8)
+
+
+def _filter_rows(rows, bpp, ftypes):
+    """rows (h, stride) uint8, the unfiltered image; ftypes (h,) filter
+    types 0-4 -> (h, 1 + stride) uint8 rows, each led by its type.  Every
+    predictor reads unfiltered bytes only, so the rows of one type are
+    filtered together, _FILTER_ROWS at a time."""
+    h, stride = rows.shape
+    ftypes = np.asarray(ftypes, np.uint8).reshape(h)
+    if (ftypes > 4).any():
+        raise ValueError("PNG filter types are 0-4")
+    out = np.empty((h, stride + 1), np.uint8)
+    out[:, 0] = ftypes
+    for ftype in range(5):
+        idx = np.nonzero(ftypes == ftype)[0]
+        for i in range(0, idx.size, _FILTER_ROWS):
+            r = idx[i:i + _FILTER_ROWS]
+            cur = rows[r]
+            up = rows[r - 1]
+            up[r == 0] = 0
+            out[r, 1:] = cur - _predict(ftype, cur, up, bpp)
+    return out
+
+
+def encode_png(img, level=3, filters=2):
+    """img (H, W) or (H, W, 1|2|3|4) of uint8 or uint16 -> PNG bytes.
+    `filters`: one filter type for every row (default 2, Up) or one per
+    row."""
     a = np.asarray(img)
     if a.ndim == 2:
         a = a[:, :, None]
-    if a.ndim != 3 or a.shape[-1] not in (1, 3):
-        raise ValueError(f"expected (H, W, 1|3), got shape {a.shape}")
+    if a.ndim != 3 or a.shape[-1] not in _COLOR:
+        raise ValueError(f"expected (H, W, 1|2|3|4), got shape {a.shape}")
     if a.dtype == np.uint8:
         depth = 8
     elif a.dtype == np.uint16:
@@ -41,9 +103,8 @@ def encode_png(img, level=3):
     h, w, c = a.shape
     raw = np.ascontiguousarray(a.astype(">u2") if depth == 16 else a)
     rows = raw.view(np.uint8).reshape(h, w * c * (depth // 8))
-    up = rows.copy()
-    up[1:] -= rows[:-1]                  # filter 2 (Up), modulo 256
-    data = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+    data = _filter_rows(rows, c * depth // 8,
+                        np.broadcast_to(np.asarray(filters, np.uint8), (h,)))
     ihdr = struct.pack(">IIBBBBB", w, h, depth, _COLOR[c], 0, 0, 0)
     return (_SIG + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(data.tobytes(), int(level)))
@@ -58,57 +119,84 @@ def _paeth(a, b, c):
     return b if pb <= pc else c
 
 
-def _unfilter_row(ftype, row, prev, bpp):
-    if ftype == 0:
-        return row
-    if ftype == 1:   # Sub: running sum along the row, per byte of a pixel
-        return np.cumsum(row.reshape(-1, bpp), axis=0,
-                         dtype=np.uint8).reshape(-1)
-    if ftype == 2:   # Up
-        return row + prev
-    out = row.astype(np.int32)
-    p = prev.astype(np.int32)
-    for i in range(out.size):
-        left = out[i - bpp] if i >= bpp else 0
-        if ftype == 3:
-            out[i] = (out[i] + (left + p[i]) // 2) & 0xFF
-        elif ftype == 4:
-            ul = p[i - bpp] if i >= bpp else 0
-            out[i] = (out[i] + _paeth(left, p[i], ul)) & 0xFF
-        else:
-            raise ValueError(f"bad PNG filter type {ftype}")
-    return out.astype(np.uint8)
+def unfilter_reference(raw, h, stride, bpp):
+    """The plain version of the C++ unfilter: raw (h * (1 + stride),)
+    uint8 -> (h, stride) uint8, one byte at a time.  For tests only."""
+    raw = np.asarray(raw, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    for r in range(h):
+        ftype = int(raw[r, 0])
+        if ftype > 4:
+            raise ValueError(f"bad PNG filter type {ftype} in row {r}")
+        prev = [int(v) for v in out[r - 1]] if r else [0] * stride
+        row = [int(v) for v in raw[r, 1:]]
+        for i in range(stride):
+            left = row[i - bpp] if i >= bpp else 0
+            ul = prev[i - bpp] if i >= bpp else 0
+            pred = (0, left, prev[i], (left + prev[i]) // 2,
+                    _paeth(left, prev[i], ul))[ftype]
+            row[i] = (row[i] + pred) & 0xFF
+        out[r] = row
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _unfilter_fn():
+    from terrain_tpu_torch.ops.kernels import _build
+
+    fn = ctypes.CDLL(_build.build_host(_UNFILTER_SRC)).png_unfilter
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+def unfilter(raw, h, stride, bpp):
+    """raw (h * (1 + stride),) uint8, the inflated image data -> (h, stride)
+    uint8 rows with every filter undone (csrc/png_unfilter.cpp)."""
+    raw = np.ascontiguousarray(raw, np.uint8).reshape(-1)
+    if raw.size != h * (stride + 1) or bpp < 1:
+        raise ValueError(f"PNG data holds {raw.size} bytes, expected "
+                         f"{h} rows of 1 + {stride}")
+    out = np.empty((h, stride), np.uint8)
+    bad = _unfilter_fn()(raw.ctypes.data, h, stride, bpp, out.ctypes.data)
+    if bad:
+        r = bad - 1
+        raise ValueError(f"bad PNG filter type {raw[r * (stride + 1)]} in "
+                         f"row {r}")
+    return out
+
+
+def read_header(buf):
+    """(width, height, bit depth, colour type, interlace) of PNG bytes."""
+    if buf[:8] != _SIG:
+        raise ValueError("not a PNG")
+    (n,) = struct.unpack(">I", buf[8:12])
+    if buf[12:16] != b"IHDR" or n != 13:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB",
+                                                        buf[16:29])
+    return w, h, depth, ctype, interlace
 
 
 def decode_png(buf):
     """PNG bytes -> (H, W, C) uint8 or uint16 array."""
-    if buf[:8] != _SIG:
-        raise ValueError("not a PNG")
-    pos, idat, hdr = 8, [], None
-    while pos < len(buf):
-        (n,) = struct.unpack(">I", buf[pos:pos + 4])
-        tag, data = buf[pos + 4:pos + 8], buf[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", data)
-        elif tag == b"IDAT":
-            idat.append(data)
-        elif tag == b"IEND":
-            break
-    if hdr is None:
-        raise ValueError("PNG without IHDR")
-    w, h, depth, ctype, _, _, interlace = hdr
+    w, h, depth, ctype, interlace = read_header(buf)
     if depth not in (8, 16) or ctype not in _CHANNELS or interlace:
         raise ValueError(f"unsupported PNG: depth {depth}, colour type "
                          f"{ctype}, interlace {interlace}")
+    pos, idat = 8, []
+    while pos < len(buf):
+        (n,) = struct.unpack(">I", buf[pos:pos + 4])
+        tag = buf[pos + 4:pos + 8]
+        if tag == b"IDAT":
+            idat.append(buf[pos + 8:pos + 8 + n])
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
     c = _CHANNELS[ctype]
     bpp = c * depth // 8
-    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw.reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for r in range(h):
-        prev = out[r] = _unfilter_row(int(raw[r, 0]), raw[r, 1:], prev, bpp)
+    out = unfilter(raw, h, w * bpp, bpp)
     img = out.view(">u2").astype(np.uint16) if depth == 16 else out
     return img.reshape(h, w, c)

@@ -10,7 +10,10 @@ Neither is the `torch.optim` class of the same name: `torch.optim.RMSprop`
 adds eps outside the root and defaults alpha to 0.99; `torch.optim.Adam`
 corrects m and v separately, which puts eps elsewhere.  The learning rate
 is an argument of every `update`, so a scheduler can change it between
-steps.
+steps.  A CUDA graph of steps (train/step.py) records `lr` as the constant
+of the fused update it was captured with, and is captured anew when lr
+changes; adam's step count `t` lives on the host, where a replay would
+freeze it, so that path refuses adam.
 
 Unlike the JAX package's pure functions, `update` changes the parameters
 and the state IN PLACE, under `torch.no_grad()`, with the fused

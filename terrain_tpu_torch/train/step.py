@@ -27,14 +27,17 @@ The modules write them only in the pass that is given `update_stats=True`.
 
 The step changes the modules' parameters and buffers and the optimizer
 states in place.
+
+`build_scan_step` and `build_scan_eval` run k steps as one chunk
+(TERRAIN_SCAN): a plain loop on CPU tensors, one captured CUDA graph on
+the card (`CapturedSteps`).
 """
 
 import torch
 from torch.func import functional_call
 
 from terrain_tpu_torch.ops.norm import BatchNorm
-from terrain_tpu_torch.train.losses import (
-    TRAIN_KEYS, adv_loss, reconstruction_loss)
+from terrain_tpu_torch.train.losses import adv_loss, reconstruction_loss
 
 NET_NAMES = ("dcgan_gen", "dcgan_disc", "p2p_gen", "p2p_disc")
 
@@ -160,21 +163,159 @@ def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
                              opt_states[n], lr * lr_mults.get(n, 1.0))
         return losses
 
+    # what a CUDA graph of this step needs to know (build_scan_step)
+    train_step.nets, train_step.optimizer = nets, optimizer
     return train_step
 
 
+def step_state(nets, opt_states):
+    """Every tensor a train step updates in place: the networks' parameters
+    and buffers (the BN statistics) and the optimizer states' tensors."""
+    out = [t for net in nets.values()
+           for t in (*net.parameters(), *net.buffers())]
+    for st in opt_states.values():
+        for v in st.values():
+            if isinstance(v, list):
+                out.extend(v)
+    return out
+
+
+def check_capturable(optimizer):
+    """A CUDA graph replays the host values it was captured with.  rmsprop
+    reads nothing from the host but lr, which is part of the graph's key
+    (a changed lr re-captures).  adam's bias correction reads a host step
+    count that the replays would freeze, so it is refused."""
+    if optimizer.name == "adam":
+        raise NotImplementedError(
+            "train steps as a CUDA graph (TERRAIN_SCAN > 1 on the card) take "
+            "rmsprop only: adam's bias correction reads a host step count "
+            "that every replay would repeat; run adam with TERRAIN_SCAN=1")
+
+
+def _on_cpu(batches):
+    return batches[0][0].device.type == "cpu"
+
+
+def _stack_losses(out):
+    return {k: torch.stack([o[k] for o in out]) for k in out[0]}
+
+
+def _generators(rngs):
+    """The distinct generators of a chunk's slots, in order."""
+    gens = {id(g): g for r in rngs for g in (r or {}).values()}
+    return list(gens.values())
+
+
+def _layout(batches):
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in batches[0])
+
+
+class CapturedSteps:
+    """k calls of `step(batch, rngs)`, one per slot, captured once into one
+    CUDA graph and replayed at every call.
+
+    The graph reads its inputs from static buffers, one per input with a
+    leading k axis (the latent batches (k, bs, latent) and the dataset
+    indices (k, bs) of the trainer's chunk), which each call fills.  Its
+    random draws come from the generators in `rngs`, registered with the
+    graph: a replay draws from each generator's seed and offset at that
+    moment, so the caller re-seeds them before each call as before an
+    eager step.  Capture follows one warm-up step on the side stream the
+    capture uses: it builds every kernel and sets its launch attributes
+    (no build, attribute call or device query may first run inside a
+    capture) and readies the libraries' handles for that stream.  The
+    warm-up step's updates of `state` and its draws are undone before the
+    capture.  A failed capture or replay raises."""
+
+    def __init__(self, step, batches, rngs, state=()):
+        self.k = len(batches)
+        self.static = [torch.stack([b[i] for b in batches])
+                       for i in range(len(batches[0]))]
+        slots = [tuple(s[t] for s in self.static) for t in range(self.k)]
+        dev = self.static[0].device
+        saved = [t.detach().clone() for t in state]
+        gens = _generators(rngs)
+        drawn = [g.get_state() for g in gens]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))  # inputs, saved
+        with torch.cuda.stream(side):
+            step(slots[0], rngs[0])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with torch.no_grad():
+            for t, v in zip(state, saved):
+                t.copy_(v)
+        for g, v in zip(gens, drawn):
+            g.set_state(v)
+        del saved
+        self.graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            self.graph.register_generator_state(g)
+        with torch.cuda.graph(self.graph, stream=side):
+            self.out = _stack_losses([step(slots[t], rngs[t])
+                                      for t in range(self.k)])
+
+    def __call__(self, batches):
+        for i, s in enumerate(self.static):
+            torch.stack([b[i] for b in batches], out=s)
+        self.graph.replay()
+        return {k: v.clone() for k, v in self.out.items()}
+
+
+def _replay(slot, key, step, batches, rngs, state=()):
+    """The graph in `slot` for `key`, captured anew (the stale one dropped
+    first) when the key changed, called on `batches`."""
+    if slot.get("key") != key:
+        slot.clear()
+        slot["graph"] = CapturedSteps(step, batches, rngs, state)
+        slot["key"] = key
+    return slot["graph"](batches)
+
+
 def build_scan_step(train_step):
-    """k sequential train steps as a plain loop (the JAX package scans them
-    into one compiled program to amortize its dispatch; eager PyTorch has
-    no such program).  `batches` and `rngs` are sequences, one entry per
-    step; the losses come back as a dict of (k,) tensors."""
+    """k sequential train steps as one chunk (terrain_tpu's lax.scan of k
+    steps, terrain_tpu/train/step.py:208-242): scan_step(opt_states,
+    batches, rngs, lr) with `batches` and `rngs` sequences of one entry per
+    step; the losses come back as a dict of (k,) tensors.
+
+    On CPU tensors the steps run as a plain loop.  On CUDA tensors the k
+    steps are one CUDA graph (`CapturedSteps`), captured at the first call
+    and replayed at every later one; it is captured anew when lr, the
+    batches' shapes, the generators or the addresses of the state it
+    updates (a reloaded optimizer state) change.  lr is a constant of the
+    graph, so the update is the eager step's own fused rmsprop kernel, and
+    an lr change (ReduceLROnPlateau) takes effect at the next chunk."""
+    slot = {}
 
     def scan_step(opt_states, batches, rngs, lr):
-        out = [train_step(opt_states, b, r, lr)
-               for b, r in zip(batches, rngs)]
-        return {k: torch.stack([o[k] for o in out]) for k in TRAIN_KEYS}
+        if _on_cpu(batches):
+            return _stack_losses([train_step(opt_states, b, r, lr)
+                                  for b, r in zip(batches, rngs)])
+        check_capturable(train_step.optimizer)
+        state = step_state(train_step.nets, opt_states)
+        key = (float(lr), _layout(batches),
+               tuple(map(id, _generators(rngs))),
+               tuple(t.data_ptr() for t in state))
+        return _replay(slot, key,
+                       lambda b, r: train_step(opt_states, b, r, lr),
+                       batches, rngs, state)
 
     return scan_step
+
+
+def build_scan_eval(eval_step):
+    """The eval pass's chunk (terrain_tpu/train/step.py:245-257):
+    scan_eval(batches, rngs) -> dict of (k,) losses; a loop on CPU
+    tensors, one CUDA graph on the card, as `build_scan_step`."""
+    slot = {}
+
+    def scan_eval(batches, rngs):
+        if _on_cpu(batches):
+            return _stack_losses([eval_step(b, r)
+                                  for b, r in zip(batches, rngs)])
+        key = (_layout(batches), tuple(map(id, _generators(rngs))))
+        return _replay(slot, key, eval_step, batches, rngs)
+
+    return scan_eval
 
 
 def build_eval_step(nets, *, alpha=100.0, lsgan=False, reconstruction="l1",

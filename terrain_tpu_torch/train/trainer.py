@@ -19,12 +19,21 @@ of every epoch to <out_dir>/swd.txt (eval/), which `gen`, `interp` and the
 server read to pick a checkpoint; TERRAIN_PROFILE=<dir> traces the second
 epoch (utils/profiling.py).
 
+TERRAIN_SCAN=k runs the epoch over a DeviceDataset in chunks of k steps,
+train and eval alike, as terrain_tpu does: on the card each chunk is one
+replay of a CUDA graph of its k steps (train/step.py), captured once and
+cached per (train or eval, k, dataset, TERRAIN_* switches); on the CPU a
+plain loop.  Either way the numbers are the per-step path's.
+
 Random streams.  The prior Z comes from `sampler` (default `np.random.rand`,
 the global numpy stream) and the epoch order from
 `np.random.RandomState(seed)`: both streams are the JAX package's own, so
 the two trainers see the same Z and the same batches.  Augmentation and
-dropout draw from `torch.Generator`s seeded from (seed, step counter), so
-the counter alone restores them; their numbers are not JAX's.
+dropout draw from `torch.Generator`s re-seeded at every step from (seed,
+step counter), so the counter alone restores them; their numbers are not
+JAX's.  The generators are persistent, five for each step slot of a chunk,
+because a CUDA graph draws from the generator objects it was captured
+with.
 
 Checkpoints are terrain_tpu/v1 files whose `extra` payload (optimizer
 states as terrain_tpu trees, lr, step counter, both numpy RNG states, the
@@ -52,7 +61,8 @@ from terrain_tpu_torch.train.losses import TRAIN_KEYS
 from terrain_tpu_torch.train.optim import get_optimizer
 from terrain_tpu_torch.train.schedule import ReduceLROnPlateau
 from terrain_tpu_torch.train.step import (
-    ACTIVE, NET_NAMES, build_eval_step, build_scan_step, build_train_step)
+    ACTIVE, NET_NAMES, build_eval_step, build_scan_eval, build_scan_step,
+    build_train_step)
 from terrain_tpu_torch.utils.async_writer import AsyncWriter
 from terrain_tpu_torch.utils.images import (
     convert_to_rgb, save_png_u8, to_u8, write_image_grid)
@@ -67,6 +77,11 @@ def _not_ported(what, slice_name):
     raise NotImplementedError(
         f"{what} is not ported yet: it comes with the {slice_name} slice "
         f"(ROADMAP.md queue A)")
+
+
+# the random streams of a step: 0 the paired augmentation, then each
+# network's dropout
+_STREAMS = ("augment",) + NET_NAMES
 
 
 def _rgb(a8):
@@ -137,6 +152,9 @@ class TwoStageGAN:
         self.lr = float(self.optimizer.default_lr)
         self._init_opt_states()
         self._step_counter = 0
+        self._rng_slots = []     # _next_rngs' generators, one dict a slot
+        self._sample_rng = None  # _next_generator's
+        self._chunks = {}        # _chunk_fn's cache
         self._sched_rnd = np.random.RandomState(self.seed)
         self._plateau = None
         self._writer = None
@@ -180,29 +198,37 @@ class TwoStageGAN:
             writer.close()
 
     # ------------------------------------------------------------------ rng
-    def _generator(self, stream):
-        return torch.Generator(device=self.device).manual_seed(
-            ((self.seed * 1_000_003 + self._step_counter) << 3) + stream)
+    def _seed(self, stream):
+        return ((self.seed * 1_000_003 + self._step_counter) << 3) + stream
 
-    def _next_rngs(self):
-        """The step's generators, from (seed, step counter): "augment" for
-        the paired transform and one per network for its dropout."""
+    def _next_rngs(self, slot=0):
+        """The step's generators, re-seeded from (seed, step counter):
+        "augment" for the paired transform and one per network for its
+        dropout.  Each step slot of a chunk keeps its own five generators,
+        the same objects at every call (a CUDA graph draws from those it
+        was captured with); re-seeding one draws what a new generator with
+        the same seed draws."""
         self._step_counter += 1
-        rngs = {n: self._generator(i + 1) for i, n in enumerate(NET_NAMES)}
-        rngs["augment"] = self._generator(0)
+        while len(self._rng_slots) <= slot:
+            self._rng_slots.append({n: torch.Generator(device=self.device)
+                                    for n in _STREAMS})
+        rngs = self._rng_slots[slot]
+        for i, n in enumerate(_STREAMS):
+            rngs[n].manual_seed(self._seed(i))
         return rngs
 
     def _next_generator(self):
         """One generator for a stochastic sampler call."""
         self._step_counter += 1
-        return self._generator(0)
+        if self._sample_rng is None:
+            self._sample_rng = torch.Generator(device=self.device)
+        return self._sample_rng.manual_seed(self._seed(0))
 
     @staticmethod
     def _scan_k(n_steps):
-        """TERRAIN_SCAN as a chunk size that divides the epoch's step count.
-        terrain_tpu scans k steps into one compiled program; here the chunk
-        is a plain loop over the same steps (train/step.build_scan_step), so
-        the numbers do not depend on k."""
+        """TERRAIN_SCAN as a chunk size that divides the epoch's step count
+        (terrain_tpu/train/trainer.py's rule).  The numbers do not depend on
+        k: a chunk runs the same steps, as one CUDA graph on the card."""
         want = int(os.environ.get("TERRAIN_SCAN", "1") or "1")
         if want <= 1 or n_steps <= 1:
             return 1
@@ -210,6 +236,29 @@ class TwoStageGAN:
         while n_steps % k:
             k -= 1
         return k
+
+    def _chunk_fn(self, itr, train, k):
+        """run(batches, rngs) -> dict of (k,) losses for k steps over the
+        DeviceDataset `itr`: the step itself at k = 1, else the chunk of
+        train/step.py (one CUDA graph on the card), cached per (train or
+        eval, k, dataset, TERRAIN_* switches) so the graph outlives the
+        epoch.  lr and the optimizer states are read at each call."""
+        switches = tuple(sorted((n, v) for n, v in os.environ.items()
+                                if n.startswith("TERRAIN_")))
+        key = (train, k, itr, switches)
+        fn = self._chunks.get(key)
+        if fn is None:
+            tr_step, ev_step = self._build_steps(
+                itr.make_prepare(augment=self.da))
+            if train:
+                scan = (build_scan_step(tr_step) if k > 1 else
+                        lambda o, b, r, lr: tr_step(o, b[0], r[0], lr))
+                fn = lambda b, r: scan(self.opt_states, b, r, self.lr)
+            else:
+                fn = (build_scan_eval(ev_step) if k > 1 else
+                      lambda b, r: ev_step(b[0], r[0]))
+            self._chunks[key] = fn
+        return fn
 
     @staticmethod
     def _host_prepare(batch, rngs):
@@ -237,20 +286,17 @@ class TwoStageGAN:
             steps = sched[:cap] if cap else sched
             if quick_run:
                 steps = steps[:1]
-            tr_step, ev_step = self._build_steps(
-                itr.make_prepare(augment=self.da))
-            k = self._scan_k(len(steps)) if train else 1
-            tr_scan = build_scan_step(tr_step)
+            k = self._scan_k(len(steps))
+            run = self._chunk_fn(itr, train, k)
             for c in range(0, len(steps), k):
-                batches = [itr.batch_args(self._sample_z(batch_size),
-                                          self._put(idx))
-                           for idx in steps[c:c + k]]
-                rngs = [self._next_rngs() for _ in batches]
-                if train:
-                    recs.append(tr_scan(self.opt_states, batches, rngs,
-                                        self.lr))  # dict of (k,) tensors
-                else:
-                    recs.append(ev_step(batches[0], rngs[0]))
+                # one copy of the chunk's k latent batches (drawn as the
+                # per-step path draws them) and one of its k index vectors
+                Z = self._put(np.stack([_floatX(self.sampler(
+                    batch_size, self.latent_dim)) for _ in range(k)]))
+                idx = self._put(np.stack(steps[c:c + k]))
+                recs.append(run([itr.batch_args(Z[t], idx[t])
+                                 for t in range(k)],
+                                [self._next_rngs(t) for t in range(k)]))
         else:
             n_steps = itr.N // batch_size
             if cap:

@@ -1,0 +1,267 @@
+"""terrain_tpu_torch's raster input path (TERRAIN_RASTER, TERRAIN_EPOCH_CROPS)
+against terrain_tpu's on the CPU: the crop iterator cuts the same crops
+from the same seed, byte for byte (both draw their offsets from
+`np.random.RandomState`); the three host helpers give the JAX package's
+native library's bytes; the port's PNG decoder undoes every filter type as
+its per-byte plain version does and reads other encoders' files;
+`_get_data` gives terrain_tpu's first batches from the same PNG pair; a
+file that is not a PNG is refused; and smoke_synthetic trains from a
+raster through the CLI.  Rasters are a few hundred pixels a side.
+"""
+
+import math
+import os
+import zlib
+
+import numpy as np
+import pytest
+
+from terrain_tpu.data import native as jnative
+from terrain_tpu.data.crops import RasterCropIterator as JRasterCropIterator
+from terrain_tpu_torch import cli, experiments
+from terrain_tpu_torch.data import RasterCropIterator, native
+from terrain_tpu_torch.serve import png
+from terrain_tpu_torch.train.losses import TRAIN_KEYS
+from tiny_cfg import csv_rows
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+
+@pytest.fixture(autouse=True)
+def _restore_environ():
+    saved = dict(os.environ)
+    yield
+    os.environ.clear()
+    os.environ.update(saved)
+
+
+def _half_ocean(rng, size=600, dtype=np.uint8, hi=255):
+    """tests/test_native_crops.py's raster: the left half ocean (zeros),
+    the right half land, and a random texture."""
+    hm = np.zeros((size, size), dtype)
+    hm[:, size // 2:] = rng.randint(1, hi, size=(size, size // 2))
+    tex = rng.randint(0, 255, size=(size, size, 3)).astype(np.uint8)
+    return hm, tex
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("dtype,hi", [(np.uint8, 255), (np.uint16, 65535)])
+def test_crops_equal_terrain_tpus(rng, seed, dtype, hi):
+    """Byte-equal crops and equal normalized batches for the same seed,
+    through the ocean filter; a uint16 heightmap wraps modulo 256 in both
+    (zeros mod 256 then count as ocean too)."""
+    hm, tex = _half_ocean(rng, dtype=dtype, hi=hi)
+    kw = dict(bs=4, crop=128, epoch_size=8, seed=seed)
+    mine, ref = RasterCropIterator(hm, tex, **kw), JRasterCropIterator(
+        hm, tex, **kw)
+    for _ in range(3):
+        (x, y), (jx, jy) = mine.next_uint8(), ref.next_uint8()
+        assert x.dtype == np.uint8 and x.shape == (4, 128, 128, 1)
+        np.testing.assert_array_equal(x, jx)
+        np.testing.assert_array_equal(y, jy)
+        assert (native.zero_fraction(x) <= 0.9).all()
+    (x, y), (jx, jy) = next(mine), next(ref)
+    assert x.dtype == np.float32 and y.shape == (4, 128, 128, 3)
+    np.testing.assert_array_equal(x, jx)
+    np.testing.assert_array_equal(y, jy)
+    assert mine.N == ref.N == 8
+
+
+def test_all_ocean_raises_and_bad_rasters_are_refused():
+    hm = np.zeros((300, 300), np.uint8)
+    tex = np.zeros((300, 300, 3), np.uint8)
+    it = RasterCropIterator(hm, tex, bs=2, crop=64, epoch_size=4,
+                            max_tries=3)
+    with pytest.raises(RuntimeError, match="non-ocean"):
+        next(it)
+    assert it.drawn == 3 * 4  # max(need * 2, 4) offsets a try
+    with pytest.raises(ValueError, match="differ"):
+        RasterCropIterator(hm, tex[:200], bs=2, crop=64)
+    with pytest.raises(ValueError, match="window"):
+        RasterCropIterator(hm, tex, bs=2, crop=512)
+
+
+def test_host_helpers_equal_terrain_tpus(rng):
+    raster = rng.randint(0, 255, size=(300, 400, 3)).astype(np.uint8)
+    ys = rng.randint(0, 300 - 64 + 1, 8)
+    xs = rng.randint(0, 400 - 64 + 1, 8)
+    got = native.crop_batch_u8(raster, ys, xs, 64)
+    np.testing.assert_array_equal(got, jnative.crop_batch_u8(raster, ys, xs,
+                                                             64))
+    np.testing.assert_array_equal(
+        native.crop_batch_u8(raster[..., 0], ys, xs, 64), got[..., :1])
+    x = rng.randint(0, 256, size=(3, 16, 16, 3)).astype(np.uint8)
+    x[0, :4] = 0
+    for gray in (True, False):
+        a, b = native.normalize_u8_f32(x, gray), jnative.normalize_u8_f32(
+            x, gray)
+        assert a.dtype == b.dtype == np.float32
+        assert a.tobytes() == b.tobytes()
+    # every byte value, both formulas
+    every = np.arange(256, dtype=np.uint8)
+    for gray in (True, False):
+        assert (native.normalize_u8_f32(every, gray).tobytes()
+                == jnative.normalize_u8_f32(every, gray).tobytes())
+    masks = (rng.rand(5, 7, 9, 1) > rng.rand(5, 1, 1, 1)).astype(np.uint8)
+    a, b = native.zero_fraction(masks), jnative.zero_fraction(masks)
+    assert a.dtype == np.float32 and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("y,x", [(300 - 63, 0), (0, 400 - 63), (-1, 0),
+                                 (0, -1)])
+def test_a_window_off_the_raster_raises(y, x):
+    raster = np.zeros((300, 400, 1), np.uint8)
+    with pytest.raises(ValueError, match="leaves"):
+        native.crop_batch_u8(raster, np.array([y]), np.array([x]), 64)
+    with pytest.raises(AssertionError):  # terrain_tpu refuses it too
+        jnative.crop_batch_u8(raster, np.array([y]), np.array([x]), 64)
+
+
+def _filtered(img, filters):
+    """(PNG bytes, inflated data, stride, bpp) of img written with the given
+    per-row filter types."""
+    data = png.encode_png(img, level=1, filters=filters)
+    w, h, depth, _, _ = png.read_header(data)
+    bpp = img.shape[-1] * depth // 8
+    n = int.from_bytes(data[33:37], "big")
+    assert data[37:41] == b"IDAT"
+    raw = np.frombuffer(zlib.decompress(data[41:41 + n]), np.uint8)
+    return data, raw, w * bpp, bpp
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_decoder_undoes_every_filter_as_the_plain_version(rng, channels,
+                                                          dtype):
+    """Filter types 0-4, each on every row and all five mixed, at 8 and 16
+    bits, gray, gray+alpha, RGB, RGBA: the C++ unfilter equals the per-byte
+    plain version, and decoding gives the image back."""
+    img = rng.randint(0, np.iinfo(dtype).max + 1,
+                      size=(9, 13, channels)).astype(dtype)
+    for filters in (0, 1, 2, 3, 4, np.arange(9) % 5):
+        data, raw, stride, bpp = _filtered(img, filters)
+        rows = raw.reshape(9, stride + 1)
+        np.testing.assert_array_equal(rows[:, 0],
+                                      np.broadcast_to(filters, (9,)))
+        np.testing.assert_array_equal(
+            png.unfilter(raw, 9, stride, bpp),
+            png.unfilter_reference(raw, 9, stride, bpp))
+        back = png.decode_png(data)
+        assert back.dtype == dtype
+        np.testing.assert_array_equal(back, img)
+    bad = raw.copy()
+    bad[3 * (stride + 1)] = 5
+    with pytest.raises(ValueError, match="filter type 5 in row 3"):
+        png.unfilter(bad, 9, stride, bpp)
+    with pytest.raises(ValueError, match="expected"):
+        png.unfilter(raw[:-1], 9, stride, bpp)
+
+
+@pytest.mark.parametrize("mode,shape,dtype", [
+    ("L", (37, 53), np.uint8), ("LA", (37, 53, 2), np.uint8),
+    ("RGB", (37, 53, 3), np.uint8), ("RGBA", (37, 53, 4), np.uint8),
+    ("I;16", (37, 53), np.uint16)])
+def test_decoder_reads_pngs_pil_wrote(rng, mode, shape, dtype):
+    """PIL picks its own filter for each row; the decoder reads its files."""
+    Image = pytest.importorskip("PIL.Image")
+    import io
+
+    y, x = np.mgrid[0:shape[0], 0:shape[1]]
+    smooth = (np.sin(y / 5.0) * np.cos(x / 7.0) + 1) * 0.5  # mixes filters
+    img = smooth.reshape(smooth.shape + (1,) * (len(shape) - 2))
+    img = img + 0.2 * rng.rand(*shape)
+    img = (img / img.max() * np.iinfo(dtype).max).astype(dtype)
+    buf = io.BytesIO()
+    pil = Image.fromarray(img)
+    assert pil.mode == mode
+    pil.save(buf, format="PNG")
+    got = png.decode_png(buf.getvalue())
+    np.testing.assert_array_equal(got.reshape(shape), img)
+
+
+def _write_pair(tmp_path, rng, size=(160, 200), hm_dtype=np.uint8):
+    h, w = size
+    hm = np.zeros((h, w), hm_dtype)
+    hm[:, w // 3:] = rng.randint(1, np.iinfo(hm_dtype).max,
+                                 size=(h, w - w // 3))
+    tex = rng.randint(0, 256, size=(h, w, 4)).astype(np.uint8)  # RGBA
+    rows = np.arange(h) % 5
+    hp, tp = tmp_path / "hm.png", tmp_path / "tex.png"
+    hp.write_bytes(png.encode_png(hm, level=1, filters=rows))
+    tp.write_bytes(png.encode_png(tex, level=1, filters=rows))
+    return f"{hp},{tp}", hm, tex
+
+
+@pytest.mark.parametrize("hm_dtype", [np.uint8, np.uint16])
+def test_get_data_gives_terrain_tpus_first_batches(tmp_path, rng, hm_dtype,
+                                                   monkeypatch):
+    pytest.importorskip("imageio")
+    from terrain_tpu import experiments as jexp
+
+    value, hm, tex = _write_pair(tmp_path, rng, hm_dtype=hm_dtype)
+    got_hm, got_tex = experiments.read_raster_pair(value)
+    np.testing.assert_array_equal(got_hm, hm)
+    np.testing.assert_array_equal(got_tex, tex[..., :3])
+    for k, v in {"TERRAIN_RASTER": value, "TERRAIN_BS": "2",
+                 "TERRAIN_EPOCH_CROPS": "30", "TERRAIN_FAST": "1",
+                 "TERRAIN_SYNTHETIC": "1"}.items():
+        monkeypatch.setenv(k, v)
+    mine = experiments._get_data(64, device="cpu")
+    ref = jexp._get_data(64)
+    for it, jit, n in zip(mine, ref, (30, 3)):
+        assert isinstance(it, RasterCropIterator)  # TERRAIN_FAST ignored
+        assert it.N == jit.N == n
+        for _ in range(2):
+            for a, b in zip(next(it), next(jit)):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name,head,fmt", [
+    ("b.jpg", None, "JPEG"),                      # by extension, unread
+    ("b.png", b"\xff\xd8\xff\xe0\x00\x10JFIF", "JPEG"),  # by its bytes
+    ("b.tif", None, "TIFF"),
+    ("b.raster", b"GIF89a", "GIF"),
+])
+def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, head,
+                                               fmt, monkeypatch):
+    value, _, _ = _write_pair(tmp_path, rng)
+    other = tmp_path / name
+    if head is not None:
+        other.write_bytes(head + bytes(64))
+    decoded = []
+    monkeypatch.setattr(png, "decode_png",
+                        lambda b: decoded.append(1) or None)
+    with pytest.raises(NotImplementedError, match=f"is {fmt}, not PNG"):
+        experiments.read_raster_pair(f"{value.split(',')[0]},{other}")
+    assert decoded == []  # neither file was decoded
+    with pytest.raises(ValueError, match="heightmap.png,texture.png"):
+        experiments.read_raster_pair(value.split(",")[0])
+
+
+def test_smoke_synthetic_trains_from_a_raster(tmp_path, rng, monkeypatch):
+    value, _, _ = _write_pair(tmp_path, rng)
+    for k, v in {"TERRAIN_RASTER": value, "TERRAIN_EPOCH_CROPS": "8",
+                 "TERRAIN_EPOCHS": "1", "TERRAIN_QUICK": "1",
+                 "TERRAIN_OUT": str(tmp_path / "out"),
+                 "TERRAIN_MODELS": str(tmp_path / "models")}.items():
+        monkeypatch.setenv(k, v)
+    assert cli.main(["smoke_synthetic", "train", "--device", "cpu"]) == 0
+    (row,) = csv_rows(str(tmp_path / "out" / "smoke_synthetic"
+                          / "results.txt"))
+    for s in ("train", "valid"):
+        for k in TRAIN_KEYS:
+            assert math.isfinite(float(row[f"{s}_{k}"])), (s, k)
+
+
+def test_decoding_without_a_host_compiler_raises(tmp_path, rng, monkeypatch):
+    """No quiet per-byte path: without the C++ unfilter decoding raises."""
+    from terrain_tpu_torch.ops.kernels import _build
+
+    data = png.encode_png(rng.randint(0, 256, (5, 6, 3)).astype(np.uint8))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "empty"))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    png._unfilter_fn.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="no host C\\+\\+ compiler"):
+            png.decode_png(data)
+    finally:
+        png._unfilter_fn.cache_clear()

@@ -195,8 +195,7 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
 @pytest.mark.parametrize("env,match", [
     ({"TERRAIN_AOT": "/x"}, "TERRAIN_AOT"),
     ({"TERRAIN_CHECK_NANS": "2"}, "TERRAIN_CHECK_NANS"),
-    ({"TERRAIN_RASTER": "a.png,b.jpg"}, "TERRAIN_RASTER"),
-    ({"TERRAIN_EPOCH_CROPS": "480"}, "TERRAIN_EPOCH_CROPS"),
+    ({"TERRAIN_RASTER": "a.png,b.jpg"}, "TERRAIN_RASTER: b.jpg is JPEG"),
     ({"TERRAIN_AOT_KEY": "jaxpr"}, "TERRAIN_AOT_KEY"),
 ])
 def test_unported_switches_raise(env, match, monkeypatch, tmp_path):
