@@ -2,7 +2,10 @@
 with mode in {train, interp, gen}, terrain_tpu's two-argument interface
 (terrain_tpu/cli.py).  Runs on the card unless `--device cpu` is given (or
 TERRAIN_PLATFORM=cpu, terrain_tpu's switch), and raises without one.
-Turns TF32 off, as the fp32 path needs."""
+Sets the fp32 path's numerics (device.strict_fp32).  Under torchrun
+(`torchrun --nproc_per_node=N -m terrain_tpu_torch <experiment> train`)
+it joins the process group (parallel.initialize: NCCL on the card, gloo on
+the CPU) and trains data-parallel; alone it runs one process."""
 
 import argparse
 import sys
@@ -24,8 +27,10 @@ def main(argv=None):
 
     from terrain_tpu_torch.device import strict_fp32
     from terrain_tpu_torch.experiments import run
+    from terrain_tpu_torch.parallel import initialize
 
     strict_fp32()
+    initialize(device=args.device)
     run(args.experiment, args.mode, args.device)
     return 0
 

@@ -147,16 +147,24 @@ def _rotate_flip_shear(imgs, theta, flip_h, flip_v):
     return x
 
 
-def augment_pair(generator, X, Y, *, rotation=True, flips=True):
+def augment_pair(generator, X, Y, *, rotation=True, flips=True, shard=None):
     """One random transform per (A, B) pair; A (N,H,W,Ca), B (N,H,W,Cb).
     theta ~ U(-2pi, 2pi) and the two flips (p = 0.5 each) are drawn from
-    `generator`, on its device.  Returns (X_aug, Y_aug)."""
+    `generator`, on its device.  Returns (X_aug, Y_aug).
+
+    `shard` = (index, count): X and Y are rows index*N .. (index+1)*N of a
+    global batch of count*N pairs (data parallelism); the draws are made
+    for the global batch, from generators seeded alike on every rank, and
+    this rank keeps its rows, so the transforms are those of one process
+    running the global batch."""
     n, ca = X.shape[0], X.shape[-1]
     dev = X.device
+    index, count = shard or (0, 1)
 
     def draw():
-        return torch.rand(n, generator=generator,
-                          device=generator.device).to(dev)
+        return torch.rand(n * count, generator=generator,
+                          device=generator.device)[index * n:
+                                                   (index + 1) * n].to(dev)
 
     if rotation:
         theta = draw() * (4 * math.pi) - 2 * math.pi

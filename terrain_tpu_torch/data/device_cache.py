@@ -51,19 +51,24 @@ class DeviceDataset:
         """The train-step batch tuple for this dataset's prepare function."""
         return (Z, idx)
 
-    def make_prepare(self, augment=True):
+    def make_prepare(self, augment=True, shard=None):
         """Returns prepare(batch, rngs) -> (Z, X, Y) for batch = (Z, idx).
         With `augment`, the pair is transformed with draws from
         rngs["augment"], a `torch.Generator`.  Inside a CUDA graph of steps
         (train/step.py) Z and idx are views of the graph's static buffers;
         prepare neither copies from nor waits on the host, which a capture
-        would refuse."""
+        would refuse.
+
+        Data parallelism: the dataset is replicated on every rank's device
+        and idx holds this rank's slice of the global batch's indices;
+        `shard` = (index, count) places it in the global batch for the
+        augmentation's draws (augment_pair)."""
 
         def prepare(batch, rngs):
             Z, idx = batch
             X, Y = self.gather_normalize(idx)
             if augment:
-                X, Y = augment_pair(rngs["augment"], X, Y)
+                X, Y = augment_pair(rngs["augment"], X, Y, shard=shard)
             return Z, X, Y
 
         return prepare

@@ -34,11 +34,16 @@ def platform_device():
 
 
 def strict_fp32():
-    """Turn TF32 off for fp32 matmuls and convolutions.  cuDNN's default
-    TF32 convolutions keep ~3 decimal digits, which would make the fp32
-    path disagree with the JAX package's numbers."""
+    """The JAX package's numerics on the card, for every entry point: TF32
+    off for fp32 matmuls and convolutions (cuDNN's default TF32
+    convolutions keep ~3 decimal digits, which would make the fp32 path
+    disagree with the JAX package's numbers), and cuDNN restricted to
+    deterministic algorithms (its default choices for some fp32 gradients
+    accumulate with atomics, so a step would give other bits from run to
+    run; XLA's give the same)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 def compute_dtype_from_env(environ):

@@ -34,6 +34,10 @@ Environment, as in terrain_tpu:
                      (TERRAIN_TERRAIN_METRICS=0 leaves the W1 columns out)
   TERRAIN_PREFETCH   "0" -> read host iterators in the step loop
   TERRAIN_PROFILE    a directory: a Chrome trace of the second epoch
+Under torchrun (more than one process; cli.main initializes the process
+group) `run` trains data-parallel over every rank (parallel.make_mesh())
+and each rank's host iterators yield its slice of every global batch
+(parallel.HostShardIterator), as terrain_tpu's experiments do.
 Kernel switches, read at call time, with terrain_tpu's defaults:
   TERRAIN_POOL_VJP=pallas    2x2 max pools run ops/kernels/pool2 (off)
   TERRAIN_PALLAS_CONVS2=1    small-cin 3x3 s2 convs run ops/kernels/conv_s2
@@ -58,6 +62,8 @@ from terrain_tpu_torch.data import (
     DeviceDataset, Hdf5Iterator, RasterCropIterator)
 from terrain_tpu_torch.device import compute_dtype_from_env, resolve_device
 from terrain_tpu_torch.models import dcgan, unet
+from terrain_tpu_torch.parallel import HostShardIterator, make_mesh
+from terrain_tpu_torch.parallel.distributed import process_count
 from terrain_tpu_torch.sample import TwoStagePipeline
 from terrain_tpu_torch.train import optim
 from terrain_tpu_torch.train.checkpoint import pick_best_epoch
@@ -191,11 +197,11 @@ def stability_overrides(environ):
 
 
 def build_gan(experiment, device=None, *, seed=0, compute_dtype=None,
-              verbose=True, da=True):
+              verbose=True, da=True, mesh=None):
     """(TwoStageGAN, artifact-dir name) for a registered experiment, with
     seeded weights on `device` (default: the card; raises without one).
     The generators get the weights `build_model` gives them for the same
-    seed."""
+    seed.  `mesh` (parallel.make_mesh) trains data-parallel."""
     cfg, name = _config(experiment)
     cd = compute_dtype or compute_dtype_from_env(os.environ)
     disc_kw, lr_mults = stability_overrides(os.environ)
@@ -212,7 +218,7 @@ def build_gan(experiment, device=None, *, seed=0, compute_dtype=None,
         is_a_grayscale=True, is_b_grayscale=False, lsgan=True,
         opt=_OPT[0], opt_args=_OPT[1], train_mode=cfg["train_mode"],
         compute_dtype=cd, verbose=verbose, seed=seed, da=da,
-        lr_mults=lr_mults, device=device)
+        lr_mults=lr_mults, device=device, mesh=mesh)
     return gan, name
 
 
@@ -318,10 +324,26 @@ def read_raster_pair(value):
     return imgs[0][..., 0], imgs[1][..., :3]
 
 
+def _shard_hosts(pair):
+    """More than one process: each takes a disjoint slice of every global
+    batch (host iterators only; a DeviceDataset is replicated, and the
+    trainer gathers each rank's rows), terrain_tpu/experiments.py:87-97."""
+    if process_count() <= 1:
+        return pair
+    return tuple(it if isinstance(it, DeviceDataset) else
+                 HostShardIterator(it) for it in pair)
+
+
 def _get_data(in_shp, is_a_grayscale=True, is_b_grayscale=False, device=None):
     """Train and valid inputs from the environment: random crops of a raster
     pair (host iterators), or synthetic or h5 pairs, as host iterators or
-    (TERRAIN_FAST=1) on the device."""
+    (TERRAIN_FAST=1) on the device; under more than one process, each
+    host iterator yields this process's rows (`_shard_hosts`)."""
+    return _shard_hosts(_sources(in_shp, is_a_grayscale, is_b_grayscale,
+                                 device))
+
+
+def _sources(in_shp, is_a_grayscale, is_b_grayscale, device):
     env = os.environ.get
     fast = env("TERRAIN_FAST") == "1"
     bs = int(env("TERRAIN_BS", "4"))
@@ -490,7 +512,8 @@ def run(experiment, mode, device=None):
     _config(experiment)
     for k, v in _ENV_DEFAULTS.get(experiment, {}).items():
         os.environ.setdefault(k, v)
-    model, name = build_gan(experiment, device)
+    mesh = make_mesh() if process_count() > 1 else None
+    model, name = build_gan(experiment, device, mesh=mesh)
     if experiment in _FINETUNE:
         _run_finetune(model, name, mode, _FINETUNE[experiment])
         return

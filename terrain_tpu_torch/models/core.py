@@ -81,13 +81,18 @@ class Dense(nn.Module):
         return {"w": _np(self.w.t()), "b": _np(self.b)}, None
 
 
-def dropout(x, rate, generator, train):
+def dropout(x, rate, generator, train, shard=None):
     """Inverted dropout (lasagne DropoutLayer, rescale=True); the mask is
-    drawn from `generator`, on x's device."""
+    drawn from `generator`, on x's device.  `shard` = (index, count): x
+    holds rows index*N .. (index+1)*N of a global batch of count*N, whose
+    mask is drawn and this rank's rows kept (data/augment.augment_pair)."""
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    index, count = shard or (0, 1)
+    n = x.shape[0]
+    mask = torch.rand((n * count,) + tuple(x.shape[1:]), generator=generator,
+                      device=x.device)[index * n:(index + 1) * n] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -50,6 +50,7 @@ class DCGANGenerator(nn.Module):
         self.num_repeats, self.dropout_p = num_repeats, dropout_p
         self.bilinear_upsample = bilinear_upsample
         self.compute_dtype = compute_dtype
+        self.data_shard = None  # (index, count) under data parallelism
         self.dense = Dense(latent_dim, nch * initial_size ** 2, g)
         self.bn_in = BatchNorm(nch * initial_size ** 2)
         stages, cin = [], nch
@@ -91,7 +92,8 @@ class DCGANGenerator(nn.Module):
                 pending_up = False
                 x = leaky_relu(rep["bn"](x, train, update_stats), 0.2)
                 if self.dropout_p > 0.0:
-                    x = dropout(x, self.dropout_p, generator, train)
+                    x = dropout(x, self.dropout_p, generator, train,
+                                self.data_shard)
             pending_up = True
         x = self._conv(x, self.conv_out, pending_up)
         return torch.sigmoid(x.float())

@@ -51,6 +51,7 @@ class UNetGenerator(nn.Module):
         self.dropout_p, self.num_repeats = float(dropout_p), num_repeats
         self.bilinear_upsample = bilinear_upsample
         self.compute_dtype = compute_dtype
+        self.data_shard = None  # (index, count) under data parallelism
         self.act = get_activation(act)
         mults = _enc_mults(n_down)
         in_ch = 1 if is_a_grayscale else 3
@@ -117,7 +118,8 @@ class UNetGenerator(nn.Module):
                                      stride=2, compute_dtype=cd)
             x = blk["bn"](x, train, us)
             if self.dropout_p > 0.0 and j < 3:
-                x = _drop(x, self.dropout_p, generator, train)
+                x = _drop(x, self.dropout_p, generator, train,
+                          self.data_shard)
             x = leaky_relu(torch.cat([x, skips[self.n_down - 1 - j]], -1),
                            0.01)
         x = conv2d_transpose(x, self.deconv_out.w, self.deconv_out.b,

@@ -12,8 +12,9 @@ corrects m and v separately, which puts eps elsewhere.  The learning rate
 is an argument of every `update`, so a scheduler can change it between
 steps.  A CUDA graph of steps (train/step.py) records `lr` as the constant
 of the fused update it was captured with, and is captured anew when lr
-changes; adam's step count `t` lives on the host, where a replay would
-freeze it, so that path refuses adam.
+changes.  adam's step count `t` is a device int32 scalar in its state, as
+in terrain_tpu (optim.py:48-65), and its bias correction a_t is computed
+from it on the device: a replay of the graph advances both.
 
 Unlike the JAX package's pure functions, `update` changes the parameters
 and the state IN PLACE, under `torch.no_grad()`, with the fused
@@ -53,21 +54,29 @@ def rmsprop(learning_rate=1.0, rho=0.9, epsilon=1e-6):
 
 def adam(learning_rate=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8):
     def init(params):
+        dev = params[0].device if params else None
         return {"m": [torch.zeros_like(p) for p in params],
-                "v": [torch.zeros_like(p) for p in params], "t": 0}
+                "v": [torch.zeros_like(p) for p in params],
+                "t": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
     def update(params, grads, state, lr):
-        state["t"] += 1
         t = state["t"]
-        a_t = float(lr) * (1.0 - beta2 ** t) ** 0.5 / (1.0 - beta1 ** t)
+        t.add_(1)
+        tf = t.float()
+        # fp32 on the device, as terrain_tpu computes it
+        a_t = (float(lr) * torch.sqrt(1.0 - torch.pow(beta2, tf))
+               / (1.0 - torch.pow(beta1, tf)))
         torch._foreach_mul_(state["m"], beta1)
         torch._foreach_add_(state["m"], grads, alpha=1.0 - beta1)
         torch._foreach_mul_(state["v"], beta2)
         torch._foreach_addcmul_(state["v"], grads, grads, value=1.0 - beta2)
         denom = torch._foreach_sqrt(state["v"])
         torch._foreach_add_(denom, epsilon)
-        torch._foreach_addcdiv_(params, state["m"], denom, value=-a_t)
+        # addcdiv takes its scale from the host only in some builds: the
+        # device a_t scales m first
+        step = torch._foreach_mul(state["m"], a_t)
+        torch._foreach_addcdiv_(params, step, denom, value=-1.0)
 
     return Optimizer("adam", learning_rate, init, update)
 

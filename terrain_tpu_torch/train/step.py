@@ -34,6 +34,7 @@ the card (`CapturedSteps`).
 """
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from terrain_tpu_torch.ops.norm import BatchNorm
@@ -135,9 +136,25 @@ def losses_and_grads(nets, Z, X, Y, rngs=None, *, active=NET_NAMES,
     return {k: v.detach() for k, v in losses.items()}, grads
 
 
+def mean_over(tensors, group):
+    """Each tensor replaced by its mean over the ranks of `group`: one
+    all-reduce of one flat buffer (the tensors share a dtype)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat /= dist.get_world_size(group)
+    return [v.view_as(t) for t, v in
+            zip(tensors, flat.split([t.numel() for t in tensors]))]
+
+
+def _mean_losses(losses, group):
+    keys = list(losses)
+    vals = mean_over([losses[k].float() for k in keys], group)
+    return dict(zip(keys, vals))
+
+
 def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
                      reconstruction="l1", train_mode="both", prepare=None,
-                     lr_mults=None):
+                     lr_mults=None, data_group=None):
     """Returns train_step(opt_states, batch, rngs, lr) -> losses.
 
     `batch` is whatever `prepare(batch, rngs)` maps to a (Z, X, Y) tuple on
@@ -146,7 +163,16 @@ def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
     (dict net name -> float) scales the runtime lr per network, a TTUR
     knob; the default reproduces the reference's one shared lr.  The
     parameters, the BN statistics and the optimizer states of the active
-    networks are updated in place."""
+    networks are updated in place.
+
+    With a `data_group` (data parallelism: this rank holds its slice of
+    the global batch, and the BatchNorms take their statistics over the
+    group), each network's gradients are all-reduced as their mean over
+    the group, one flat buffer per network, before the update, and the
+    losses are returned as their means.  Each rank's backward gives
+    d(sum of the ranks' losses)/d(its parameters) through its own rows (the
+    statistics' all-reduce sums the cotangents), so the mean over ranks is
+    the gradient of the global batch's mean loss, terrain_tpu's loss."""
     active = ACTIVE[train_mode]
     lr_mults = dict(lr_mults or {})
     unknown = set(lr_mults) - set(NET_NAMES)
@@ -158,6 +184,9 @@ def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
         losses, grads = losses_and_grads(
             nets, Z, X, Y, rngs, active=active, alpha=alpha, lsgan=lsgan,
             reconstruction=reconstruction)
+        if data_group is not None:
+            grads = {n: mean_over(grads[n], data_group) for n in active}
+            losses = _mean_losses(losses, data_group)
         for n in active:
             optimizer.update(list(nets[n].parameters()), grads[n],
                              opt_states[n], lr * lr_mults.get(n, 1.0))
@@ -177,19 +206,9 @@ def step_state(nets, opt_states):
         for v in st.values():
             if isinstance(v, list):
                 out.extend(v)
+            elif torch.is_tensor(v):  # adam's step count
+                out.append(v)
     return out
-
-
-def check_capturable(optimizer):
-    """A CUDA graph replays the host values it was captured with.  rmsprop
-    reads nothing from the host but lr, which is part of the graph's key
-    (a changed lr re-captures).  adam's bias correction reads a host step
-    count that the replays would freeze, so it is refused."""
-    if optimizer.name == "adam":
-        raise NotImplementedError(
-            "train steps as a CUDA graph (TERRAIN_SCAN > 1 on the card) take "
-            "rmsprop only: adam's bias correction reads a host step count "
-            "that every replay would repeat; run adam with TERRAIN_SCAN=1")
 
 
 def _on_cpu(batches):
@@ -282,15 +301,16 @@ def build_scan_step(train_step):
     and replayed at every later one; it is captured anew when lr, the
     batches' shapes, the generators or the addresses of the state it
     updates (a reloaded optimizer state) change.  lr is a constant of the
-    graph, so the update is the eager step's own fused rmsprop kernel, and
-    an lr change (ReduceLROnPlateau) takes effect at the next chunk."""
+    graph, so the update is the eager step's own fused kernels, and an lr
+    change (ReduceLROnPlateau) takes effect at the next chunk; adam's step
+    count and bias correction live on the device, so a replay advances
+    them."""
     slot = {}
 
     def scan_step(opt_states, batches, rngs, lr):
         if _on_cpu(batches):
             return _stack_losses([train_step(opt_states, b, r, lr)
                                   for b, r in zip(batches, rngs)])
-        check_capturable(train_step.optimizer)
         state = step_state(train_step.nets, opt_states)
         key = (float(lr), _layout(batches),
                tuple(map(id, _generators(rngs))),
@@ -319,16 +339,20 @@ def build_scan_eval(eval_step):
 
 
 def build_eval_step(nets, *, alpha=100.0, lsgan=False, reconstruction="l1",
-                    prepare=None):
+                    prepare=None, data_group=None):
     """Returns eval_step(batch, rngs) -> losses: train-mode forwards (batch
-    statistics, live dropout), no update of parameters or BN statistics."""
+    statistics, live dropout), no update of parameters or BN statistics.
+    With a `data_group`, the losses are their means over it."""
 
     @torch.no_grad()
     def eval_step(batch, rngs=None):
         Z, X, Y = prepare(batch, rngs) if prepare is not None else batch
-        return forward_losses(nets, Z, X, Y, rngs, alpha=alpha, lsgan=lsgan,
-                              reconstruction=reconstruction, train=True,
-                              update_stats=False)
+        losses = forward_losses(nets, Z, X, Y, rngs, alpha=alpha,
+                                lsgan=lsgan, reconstruction=reconstruction,
+                                train=True, update_stats=False)
+        if data_group is not None:
+            losses = _mean_losses(losses, data_group)
+        return losses
 
     return eval_step
 

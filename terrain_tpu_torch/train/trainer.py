@@ -39,8 +39,24 @@ Checkpoints are terrain_tpu/v1 files whose `extra` payload (optimizer
 states as terrain_tpu trees, lr, step counter, both numpy RNG states, the
 plateau state) lets either package resume the other's run exactly.
 
-Not ported yet, and refused rather than ignored: a mesh, TERRAIN_AOT and
-its TERRAIN_AOT_KEY, TERRAIN_CHECK_NANS=2.
+Data parallelism (`mesh=parallel.make_mesh()` over a process group, one
+rank a device; terrain_tpu's mesh on 'data').  Every rank holds every
+network; the data group's first rank's parameters, BN statistics and
+optimizer states are broadcast to the others at init and after
+`load_model`.  Each rank takes its rows of every global batch: a host
+iterator is wrapped in parallel.HostShardIterator (experiments.py), a
+DeviceDataset is replicated on every rank and each rank gathers its slice
+of the global index batch.  The prior Z is drawn per rank, its own rows
+(terrain_tpu trainer.py:379-385); the augmentation's and dropout's draws
+are made for the global batch on every rank from the same seeds, each rank
+keeping its rows, so a step equals one process's step on the global batch.
+The step all-reduces the BatchNorms' statistics, the gradients and the
+losses over the data group (train/step.py).  TERRAIN_SCAN is 1 then, as
+terrain_tpu's is with more than one process.  Every rank writes its
+results.txt, dumps and checkpoints, as every terrain_tpu process does.
+
+Not ported yet, and refused rather than ignored: a mesh with n_model > 1
+(ROADMAP A.5b), TERRAIN_AOT and its TERRAIN_AOT_KEY, TERRAIN_CHECK_NANS=2.
 """
 
 import glob
@@ -55,6 +71,8 @@ from terrain_tpu_torch.data import (
 from terrain_tpu_torch.data.prefetch import Prefetcher
 from terrain_tpu_torch.device import resolve_device
 from terrain_tpu_torch.models import convert, param_count
+from terrain_tpu_torch.ops.norm import BatchNorm
+from terrain_tpu_torch.parallel.mesh import A5B, place
 from terrain_tpu_torch.sample import TwoStagePipeline
 from terrain_tpu_torch.train import checkpoint as ckpt
 from terrain_tpu_torch.train.losses import TRAIN_KEYS
@@ -62,7 +80,7 @@ from terrain_tpu_torch.train.optim import get_optimizer
 from terrain_tpu_torch.train.schedule import ReduceLROnPlateau
 from terrain_tpu_torch.train.step import (
     ACTIVE, NET_NAMES, build_eval_step, build_scan_eval, build_scan_step,
-    build_train_step)
+    build_train_step, step_state)
 from terrain_tpu_torch.utils.async_writer import AsyncWriter
 from terrain_tpu_torch.utils.images import (
     convert_to_rgb, save_png_u8, to_u8, write_image_grid)
@@ -105,8 +123,13 @@ class TwoStageGAN:
                  lr_mults=None, device=None):
         if train_mode not in ACTIVE:
             raise ValueError(f"train_mode must be one of {sorted(ACTIVE)}")
-        if mesh is not None:
-            _not_ported("training on a mesh", "parallel")
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                f"a mesh with n_model = {mesh.shape['model']} {A5B}")
+        if mesh is not None and mesh.shape["data"] > 1 \
+                and mesh.data_group is None:
+            raise ValueError("a mesh with n_data > 1 needs a process group: "
+                             "call parallel.initialize() before make_mesh()")
         if os.environ.get("TERRAIN_AOT"):
             _not_ported("TERRAIN_AOT", "utils")
         if os.environ.get("TERRAIN_AOT_KEY", "shapes") != "shapes":
@@ -125,6 +148,12 @@ class TwoStageGAN:
         self.da = da
         self.seed = int(seed)
         self.compute_dtype = compute_dtype
+        self.mesh = mesh
+        # data parallelism: the data group, and this rank's (index, count)
+        # place in every global batch
+        self._group = mesh.data_group if mesh is not None else None
+        self._shard = ((mesh.data_index, mesh.shape["data"])
+                       if self._group is not None else None)
 
         # one init generator per network, seeded as experiments.build_model
         # seeds the two generators: equal seeds give equal weights
@@ -143,6 +172,11 @@ class TwoStageGAN:
         }
         for net in self.nets.values():
             net.to(self.device)
+            for m in net.modules():
+                if isinstance(m, BatchNorm):
+                    m.process_group = self._group
+            if hasattr(net, "data_shard"):
+                net.data_shard = self._shard
         if verbose:
             for name, net in self.nets.items():
                 print(f"{name}: {param_count(net):,} learnable params")
@@ -151,6 +185,7 @@ class TwoStageGAN:
         self.optimizer = get_optimizer(opt, opt_args)
         self.lr = float(self.optimizer.default_lr)
         self._init_opt_states()
+        self._place()
         self._step_counter = 0
         self._rng_slots = []     # _next_rngs' generators, one dict a slot
         self._sample_rng = None  # _next_generator's
@@ -177,10 +212,18 @@ class TwoStageGAN:
             n: self.optimizer.init(list(self.nets[n].parameters()))
             for n in ACTIVE[self.train_mode]}
 
+    def _place(self):
+        """Every rank of the data group takes its first rank's parameters,
+        BN statistics and optimizer states (terrain_tpu's
+        _place_on_mesh)."""
+        if self._group is not None:
+            place(step_state(self.nets, self.opt_states), self.mesh)
+
     def _build_steps(self, prepare):
         return (build_train_step(self.nets, self.optimizer, prepare=prepare,
-                                 **self._train_kw),
-                build_eval_step(self.nets, prepare=prepare, **self._step_kw))
+                                 data_group=self._group, **self._train_kw),
+                build_eval_step(self.nets, prepare=prepare,
+                                data_group=self._group, **self._step_kw))
 
     # ------------------------------------------------------------- artifacts
     def _submit(self, fn, *args):
@@ -227,8 +270,9 @@ class TwoStageGAN:
     @staticmethod
     def _scan_k(n_steps):
         """TERRAIN_SCAN as a chunk size that divides the epoch's step count
-        (terrain_tpu/train/trainer.py's rule).  The numbers do not depend on
-        k: a chunk runs the same steps, as one CUDA graph on the card."""
+        (terrain_tpu/train/trainer.py's rule; a data group runs k = 1, as
+        JAX does with more than one process).  The numbers do not depend on k: a chunk runs the same steps, as one
+        CUDA graph on the card."""
         want = int(os.environ.get("TERRAIN_SCAN", "1") or "1")
         if want <= 1 or n_steps <= 1:
             return 1
@@ -249,7 +293,7 @@ class TwoStageGAN:
         fn = self._chunks.get(key)
         if fn is None:
             tr_step, ev_step = self._build_steps(
-                itr.make_prepare(augment=self.da))
+                itr.make_prepare(augment=self.da, shard=self._shard))
             if train:
                 scan = (build_scan_step(tr_step) if k > 1 else
                         lambda o, b, r, lr: tr_step(o, b[0], r[0], lr))
@@ -260,18 +304,33 @@ class TwoStageGAN:
             self._chunks[key] = fn
         return fn
 
-    @staticmethod
-    def _host_prepare(batch, rngs):
+    def _host_prepare(self, batch, rngs):
         Z, X, Y = batch
-        X, Y = augment_pair(rngs["augment"], X, Y)
+        X, Y = augment_pair(rngs["augment"], X, Y, shard=self._shard)
         return Z, X, Y
 
     # ---------------------------------------------------------------- epochs
     def _put(self, x):
+        """A host array of this rank's rows onto its device."""
         return torch.as_tensor(x).to(self.device)
 
+    def _local(self, n):
+        """This rank's rows of a global batch of n: a slice (all of it
+        without data parallelism)."""
+        if self._shard is None:
+            return slice(0, n)
+        index, count = self._shard
+        if n % count:
+            raise ValueError(f"the global batch {n} does not divide over "
+                             f"{count} data-parallel ranks")
+        return slice(index * n // count, (index + 1) * n // count)
+
     def _sample_z(self, n):
-        return self._put(_floatX(self.sampler(n, self.latent_dim)))
+        """The prior for a global batch of n: each rank draws only its own
+        rows (terrain_tpu trainer.py:379-385)."""
+        rows = self._local(n)
+        return self._put(_floatX(self.sampler(rows.stop - rows.start,
+                                              self.latent_dim)))
 
     def _run_epoch(self, itr, batch_size, *, train, quick_run=False):
         """One pass over `itr` (host iterator or DeviceDataset); returns the
@@ -281,19 +340,23 @@ class TwoStageGAN:
         if not train:
             v = os.environ.get("TERRAIN_EVAL_STEPS")
             cap = int(v) if v else None
+        rows = self._local(batch_size)
         if isinstance(itr, DeviceDataset):
             sched = epoch_index_schedule(itr.N, batch_size, self._sched_rnd)
             steps = sched[:cap] if cap else sched
             if quick_run:
                 steps = steps[:1]
-            k = self._scan_k(len(steps))
+            # collectives are not captured into a graph yet (A.5b)
+            k = 1 if self._group is not None else self._scan_k(len(steps))
             run = self._chunk_fn(itr, train, k)
             for c in range(0, len(steps), k):
                 # one copy of the chunk's k latent batches (drawn as the
-                # per-step path draws them) and one of its k index vectors
+                # per-step path draws them, this rank's rows) and one of
+                # its k index vectors (this rank's slice)
                 Z = self._put(np.stack([_floatX(self.sampler(
-                    batch_size, self.latent_dim)) for _ in range(k)]))
-                idx = self._put(np.stack(steps[c:c + k]))
+                    rows.stop - rows.start, self.latent_dim))
+                    for _ in range(k)]))
+                idx = self._put(np.stack(steps[c:c + k])[:, rows])
                 recs.append(run([itr.batch_args(Z[t], idx[t])
                                  for t in range(k)],
                                 [self._next_rngs(t) for t in range(k)]))
@@ -304,8 +367,9 @@ class TwoStageGAN:
             if quick_run:
                 n_steps = min(n_steps, 1)
             for _ in range(n_steps):
-                X, Y = next(itr)
-                batch = (self._sample_z(X.shape[0]), self._put(X),
+                X, Y = next(itr)  # this rank's rows (HostShardIterator)
+                n_glob = X.shape[0] * (self._shard[1] if self._shard else 1)
+                batch = (self._sample_z(n_glob), self._put(X),
                          self._put(Y))
                 rngs = self._next_rngs()
                 if train:
@@ -560,14 +624,19 @@ class TwoStageGAN:
 
     # ---------------------------------------------------------- checkpoints
     def _opt_state_to_jax(self, net):
+        """terrain_tpu's optimizer state tree: rmsprop's accu, or adam's m,
+        v and its step count t, an int32 scalar."""
         return {k: (convert.params_to_jax(self.nets[net], v)
-                    if isinstance(v, list) else np.asarray(v, np.int32))
+                    if isinstance(v, list)
+                    else np.asarray(v.cpu().numpy(), np.int32))
                 for k, v in self.opt_states[net].items()}
 
     def _opt_state_from_jax(self, net, saved):
         return {k: ([t.to(self.device).contiguous() for t in
                      convert.params_from_jax(self.nets[net], v)]
-                    if isinstance(v, (dict, list)) else int(v))
+                    if isinstance(v, (dict, list)) else
+                    torch.tensor(int(v), dtype=torch.int32,
+                                 device=self.device))
                 for k, v in saved.items()}
 
     def save_model(self, filename):
@@ -616,6 +685,7 @@ class TwoStageGAN:
             if extra.get("plateau") and self._plateau is not None:
                 for k, v in extra["plateau"].items():
                     setattr(self._plateau, k, v)
+        self._place()
 
     # -------------------------------------------------------------- sampling
     def _z_fn(self, z, deterministic):

@@ -69,7 +69,11 @@ def test_the_file_list_covers_the_package():
                  "terrain_tpu_torch/eval/swd.py",
                  "terrain_tpu_torch/eval/terrain.py",
                  "terrain_tpu_torch/data/prefetch.py",
-                 "terrain_tpu_torch/utils/profiling.py"):
+                 "terrain_tpu_torch/utils/profiling.py",
+                 "terrain_tpu_torch/parallel/__init__.py",
+                 "terrain_tpu_torch/parallel/mesh.py",
+                 "terrain_tpu_torch/parallel/distributed.py",
+                 "terrain_tpu_torch/entry.py"):
         assert must in names
 
 

@@ -156,3 +156,44 @@ def test_bilinear2x_conv3x3_composite(rng):
                                      jnp.asarray(b))
     got = fused.bilinear2x_conv3x3(_t(x), _oihw(w), _t(b))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **CONV_TOL)
+
+
+# the deterministic formulations of the upsamples against the library ops
+# they replace: a ragged shape, and 1- and 2-pixel extents where every
+# bilinear tap is edge-clamped
+@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (3, 1, 2, 4), (1, 2, 1, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deterministic_upsamples_match_the_library_ops(shape, dtype, rng):
+    import torch.nn.functional as F
+
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.randn(shape[0], 2 * shape[1], 2 * shape[2],
+                                   shape[3]).astype(np.float32)).to(dtype)
+
+    def library(v, kind):
+        if kind == "nearest":
+            return v.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        vf = v.float() if kind == "bilinear" else v
+        up = F.interpolate(vf.permute(0, 3, 1, 2), scale_factor=2,
+                           mode="bilinear", align_corners=False)
+        return up.permute(0, 2, 3, 1).to(v.dtype)
+
+    ops = {"nearest": resize.upsample_nearest_2x,
+           "bilinear": resize.upsample_bilinear_2x,
+           "lowp": resize.upsample_bilinear_2x_lowp}
+    for kind, op in ops.items():
+        got, want = [], []
+        for fn, out in ((op, got), (lambda v: library(v, kind), want)):
+            xv = x.clone().requires_grad_(True)
+            y = fn(xv)
+            (dx,) = torch.autograd.grad(y, xv, g)
+            out += [y.detach().float(), dx.float()]
+        assert got[0].dtype == want[0].dtype
+        assert torch.equal(got[0], want[0]), kind  # the same forward
+        # the adjoint sums up to 16 taps (4 for the nearest) in another
+        # order, in fp32; in bf16 the library's nearest backward rounds
+        # after each add: one bf16 rounding of the largest entry (2^-7)
+        rel = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+        np.testing.assert_allclose(
+            got[1].numpy(), want[1].numpy(), rtol=0,
+            atol=rel * float(want[1].abs().max()), err_msg=kind)

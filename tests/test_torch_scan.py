@@ -4,8 +4,10 @@ generator with the same seed draws, in augmentation and dropout, so the
 trainer's numbers are those of its old per-step generators); the eval pass
 chunked as the train pass is; the graph path's cache, held with a stand-in
 for the CUDA graph that bakes lr as a capture does (an lr change between
-chunks takes effect at the next chunk, adam is refused); and the port's
-chunked epoch against terrain_tpu's scanned epoch (terrain_tpu's
+chunks takes effect at the next chunk; adam's device step count advances
+in a chunk as in eager steps and round-trips through terrain_tpu's
+checkpoint format); and the port's chunked epoch, rmsprop and adam,
+against terrain_tpu's scanned epoch (terrain_tpu's
 tests/test_scan_step.py), from the same weights, data and prior draws,
 augmentation off (its draws come from other generators in the two
 packages), at terrain_tpu's tiny 16px test model.
@@ -213,39 +215,96 @@ def test_an_lr_change_takes_effect_at_the_next_chunk(monkeypatch):
 
 
 def test_adam_is_refused_by_the_graph_path(monkeypatch):
-    with pytest.raises(NotImplementedError, match="adam"):
-        step.check_capturable(optim.adam())
-    step.check_capturable(optim.rmsprop())
-    ds, chunks = _chunks(1, n=1)
-    gan = _smoke_gan()
+    """The name is kept from when the graph path took rmsprop only, adam's
+    step count then living on the host.  Now `t` is a device int32 tensor
+    among the state the graph updates, so a chunked adam epoch through the
+    graph path's cache (`_Baked` in place of the capture) equals eager
+    adam: losses, weights and step counts."""
+    ds, chunks = _chunks(1, n=2)
+    runs = {}
+    for mode in ("steps", "graph"):
+        gan = _smoke_gan(seed=2)
+        gan.optimizer = optim.adam()
+        gan._init_opt_states()
+        tr, _ = gan._build_steps(ds.make_prepare(augment=False))
+        if mode == "steps":
+            losses = [tr(gan.opt_states, b, None, 1e-4)
+                      for chunk in chunks for b in chunk]
+        else:
+            _Baked.made = []
+            monkeypatch.setattr(step, "CapturedSteps", _Baked)
+            monkeypatch.setattr(step, "_on_cpu", lambda b: False)
+            scan = step.build_scan_step(tr)
+            losses = []
+            for chunk in chunks:
+                out = scan(gan.opt_states, chunk, [None, None], 1e-4)
+                losses += [{k: v[t] for k, v in out.items()}
+                           for t in range(2)]
+            assert len(_Baked.made) == 1  # captured once, replayed
+            held = {id(t) for t in _Baked.made[0].state}
+            assert all(id(st["t"]) in held for st in gan.opt_states.values())
+            monkeypatch.undo()
+        runs[mode] = (losses, [p.detach().clone() for net in gan.nets.values()
+                               for p in net.parameters()],
+                      {n: st["t"] for n, st in gan.opt_states.items()})
+    for a, b in zip(runs["steps"][0], runs["graph"][0]):
+        assert {k: float(v) for k, v in a.items()} == {
+            k: float(v) for k, v in b.items()}
+    assert all(torch.equal(a, b) for a, b in zip(runs["steps"][1],
+                                                 runs["graph"][1]))
+    for t in (*runs["steps"][2].values(), *runs["graph"][2].values()):
+        assert t.dtype == torch.int32 and t.shape == () and int(t) == 4
+
+
+def test_adams_step_count_round_trips_through_a_jax_checkpoint(tmp_path):
+    """adam's device `t` is written as terrain_tpu's int32 scalar, which
+    terrain_tpu reads back, and a terrain_tpu-written `t` resumes in the
+    port as a device int32 tensor that the next step advances."""
+    from terrain_tpu.train import checkpoint as jckpt
+
+    ds, chunks = _chunks(2, n=1)
+    gan = _smoke_gan(seed=2)
     gan.optimizer = optim.adam()
     gan._init_opt_states()
     tr, _ = gan._build_steps(ds.make_prepare(augment=False))
-    scan = step.build_scan_step(tr)
-    out = scan(gan.opt_states, chunks[0], [None, None], 1e-4)  # CPU: a loop
-    assert out["p2p_recon"].shape == (2,)
-    made = []
-    monkeypatch.setattr(step, "CapturedSteps", lambda *a: made.append(a))
-    monkeypatch.setattr(step, "_on_cpu", lambda b: False)
-    with pytest.raises(NotImplementedError, match="rmsprop only"):
-        scan(gan.opt_states, chunks[0], [None, None], 1e-4)
-    assert made == []  # refused before any capture
+    for b in chunks[0]:
+        tr(gan.opt_states, b, None, 1e-4)
+    path = str(tmp_path / "2.model")
+    gan.save_model(path)
+    params, states, extra = jckpt.load_model(path, {}, {})
+    for n in step.NET_NAMES:
+        t = extra["opt_states"][n]["t"]
+        assert t.dtype == np.int32 and t.shape == () and int(t) == 2
+        extra["opt_states"][n]["t"] = np.int32(7)
+    jpath = str(tmp_path / "7.model")
+    jckpt.save_model(jpath, params, states, extra=extra)
+    back = _smoke_gan(seed=5)
+    back.optimizer = optim.adam()
+    back.load_model(jpath, exact=True)
+    for n in step.NET_NAMES:
+        t = back.opt_states[n]["t"]
+        assert t.dtype == torch.int32 and int(t) == 7
+        for a, b in zip(back.opt_states[n]["m"], gan.opt_states[n]["m"]):
+            assert torch.equal(a, b)
+    tr, _ = back._build_steps(ds.make_prepare(augment=False))
+    tr(back.opt_states, chunks[0][0], None, 1e-4)
+    assert all(int(st["t"]) == 8 for st in back.opt_states.values())
 
 
-def _jax_gan():
+def _jax_gan(**kw):
     return JTwoStageGAN(
         gen_fn_dcgan=jdcgan.default_generator,
         disc_fn_dcgan=jdcgan.default_discriminator,
         gen_fn_p2p=jp2p.g_unet, disc_fn_p2p=jp2p.discriminator, seed=3,
-        **NETS)
+        **{**NETS, **kw})
 
 
-def _torch_gan(weights):
+def _torch_gan(weights, **kw):
     gan = TwoStageGAN(
         gen_fn_dcgan=dcgan.default_generator,
         disc_fn_dcgan=dcgan.default_discriminator,
         gen_fn_p2p=unet.g_unet, disc_fn_p2p=unet.discriminator, seed=3,
-        device="cpu", **NETS)
+        device="cpu", **{**NETS, **kw})
     for n, (p, s) in weights.items():
         convert.load_jax(gan.nets[n], p, s)
     return gan
@@ -264,8 +323,12 @@ def test_chunked_epochs_match_terrain_tpus_scanned_epochs(monkeypatch,
                                                           tmp_path):
     """Two epochs of 2 train and 2 eval steps each at TERRAIN_SCAN=2: both
     passes run as one chunk in each package."""
+    _held_to_scanned_jax(monkeypatch, tmp_path)
+
+
+def _held_to_scanned_jax(monkeypatch, tmp_path, **kw):
     monkeypatch.setenv("TERRAIN_SCAN", "2")
-    jgan = _jax_gan()
+    jgan = _jax_gan(**kw)
     weights = {n: (jax.tree.map(np.asarray, jgan.params[n]),
                    jax.tree.map(np.asarray, jgan.states[n]))
                for n in jgan.nets}
@@ -273,7 +336,7 @@ def test_chunked_epochs_match_terrain_tpus_scanned_epochs(monkeypatch,
     rows = {}
     for scan in ("2", "1"):
         monkeypatch.setenv("TERRAIN_SCAN", scan)
-        rows[scan] = _epoch(_torch_gan(weights), DeviceDataset,
+        rows[scan] = _epoch(_torch_gan(weights, **kw), DeviceDataset,
                             tmp_path / f"torch{scan}", device="cpu")
     for got, want in zip(rows["2"], jrows):
         for col in LOSS_COLS:
@@ -281,6 +344,14 @@ def test_chunked_epochs_match_terrain_tpus_scanned_epochs(monkeypatch,
                                                     rel=LOSS_TOL), col
     for a, b in zip(rows["2"], rows["1"]):
         assert [a[c] for c in LOSS_COLS] == [b[c] for c in LOSS_COLS]
+
+
+def test_chunked_adam_epochs_match_terrain_tpus_scanned_epochs(monkeypatch,
+                                                               tmp_path):
+    """The same with adam, whose step count terrain_tpu's scan carries in
+    its optimizer state and the port's chunk on the device."""
+    _held_to_scanned_jax(monkeypatch, tmp_path, opt="adam",
+                         opt_args={"learning_rate": 1e-4})
 
 
 def test_a_kernel_is_not_built_inside_a_capture(monkeypatch):

@@ -209,10 +209,15 @@ def test_unported_switches_raise(env, match, monkeypatch, tmp_path):
 
 
 def test_mesh_raises_and_nans_stop_the_run(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # a data-parallel mesh trains (tests/test_torch_parallel.py); one with
+    # a 'model' axis is the next slice and raises
+    from terrain_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(NotImplementedError, match="A.5b"):
         experiments.TwoStageGAN(
             None, None, None, None, None, None, None, None, 64, 32, True,
-            False, mesh=object(), device="cpu")
+            False, mesh=make_mesh(n_data=1, n_model=2, ranks=range(2)),
+            device="cpu")
     gan, _ = experiments.build_gan("smoke_synthetic", "cpu", verbose=False)
     with torch.no_grad():
         next(gan.nets["p2p_gen"].parameters()).fill_(float("nan"))
