@@ -6,9 +6,10 @@ entry():             the flagship's two-stage forward (test1_nobn_bilin_both:
                      arguments, on the card.
 dryrun_multichip(n): n gloo ranks on the CPU, spawned, each running the
                      full four-network train step on tiny shapes over a
-                     data-parallel mesh of n ranks (the counterpart of
-                     terrain_tpu's virtual CPU mesh).  n_model > 1 is
-                     ROADMAP A.5b and raises.
+                     ('data', 'model') mesh of n ranks (the counterpart of
+                     terrain_tpu's virtual CPU mesh): n_model 2 when n is
+                     even and >= 4, as terrain_tpu's, with conv weights of
+                     16 or more outputs sharded over 'model'.
 
     python -m terrain_tpu_torch.entry [n]     # dryrun_multichip(n), n = 2
 """
@@ -67,13 +68,17 @@ def _tiny_gan(mesh):
         in_shp=IN_SHP, latent_dim=LATENT, is_a_grayscale=True,
         is_b_grayscale=False, lsgan=True, opt="rmsprop",
         opt_args={"learning_rate": 1e-4}, train_mode="both", verbose=False,
-        mesh=mesh, device="cpu")
+        mesh=mesh, device="cpu",
+        # terrain_tpu's dryrun width: the convs of 16 or more outputs shard
+        tp_min_features=16)
 
 
-def _dryrun_rank(rank, world, rendezvous):
+def _dryrun_rank(rank, world, n_model, rendezvous):
     """One rank of dryrun_multichip: one step of the global batch
-    2 * world over the device-resident data path (the dataset on every
-    rank, each gathering its rows)."""
+    2 * n_data over the device-resident data path (the dataset on every
+    rank, each gathering its rows), with weights of 16 or more output
+    features sharded over 'model' (terrain_tpu's dryrun width), of which
+    at least one must be a conv's."""
     import torch.distributed as dist
 
     from terrain_tpu_torch.data import DeviceDataset
@@ -83,8 +88,15 @@ def _dryrun_rank(rank, world, rendezvous):
     torch.set_num_threads(1)
     initialize(f"file://{rendezvous}", world, rank, backend="gloo")
     try:
-        gan = _tiny_gan(make_mesh())
-        bs = 2 * world
+        mesh = make_mesh(n_model=n_model)
+        gan = _tiny_gan(mesh)
+        convs = [m for net in gan.nets.values() for m in net.modules()
+                 if hasattr(m, "shard") and m.shard is not None
+                 and m.w.dim() == 4]
+        if n_model > 1 and not convs:
+            raise AssertionError("dryrun must shard at least one conv "
+                                 "weight on 'model'")
+        bs = 2 * mesh.shape["data"]
         ds = DeviceDataset(*make_pairs(2 * bs, IN_SHP, seed=0), device="cpu")
         step, _ = gan._build_steps(ds.make_prepare(augment=gan.da,
                                                    shard=gan._shard))
@@ -99,18 +111,21 @@ def _dryrun_rank(rank, world, rendezvous):
         dist.destroy_process_group()
 
 
-def dryrun_multichip(n_devices, n_model=1):
-    """One full four-network train step on tiny shapes over a mesh of
-    n_devices gloo ranks on the CPU, each its own spawned process; raises
-    if a rank fails or a loss is not finite."""
-    from terrain_tpu_torch.parallel.mesh import A5B
-
-    if n_model > 1:
-        raise NotImplementedError(f"dryrun_multichip with n_model = "
-                                  f"{n_model} {A5B}")
+def dryrun_multichip(n_devices, n_model=None):
+    """One full four-network train step on tiny shapes over an (n_devices
+    / n_model, n_model) mesh of n_devices gloo ranks on the CPU, each its
+    own spawned process; n_model None is terrain_tpu's choice, 2 when
+    n_devices is even and >= 4, else 1.  Raises if a rank fails, a loss
+    is not finite, or a mesh on 'model' shards no conv."""
+    if n_model is None:
+        n_model = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+    if n_devices % n_model:
+        raise ValueError(f"{n_devices} ranks do not divide by n_model = "
+                         f"{n_model}")
     with tempfile.TemporaryDirectory() as tmp:
         torch.multiprocessing.spawn(
-            _dryrun_rank, args=(n_devices, os.path.join(tmp, "rendezvous")),
+            _dryrun_rank, args=(n_devices, n_model,
+                                os.path.join(tmp, "rendezvous")),
             nprocs=n_devices, join=True)
 
 

@@ -201,7 +201,9 @@ def build_gan(experiment, device=None, *, seed=0, compute_dtype=None,
     """(TwoStageGAN, artifact-dir name) for a registered experiment, with
     seeded weights on `device` (default: the card; raises without one).
     The generators get the weights `build_model` gives them for the same
-    seed.  `mesh` (parallel.make_mesh) trains data-parallel."""
+    seed.  `mesh` (parallel.make_mesh) trains over its ranks: data-parallel
+    on 'data', tensor-parallel on 'model' (TwoStageGAN's default
+    tp_min_features)."""
     cfg, name = _config(experiment)
     cd = compute_dtype or compute_dtype_from_env(os.environ)
     disc_kw, lr_mults = stability_overrides(os.environ)

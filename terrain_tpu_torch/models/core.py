@@ -6,6 +6,15 @@ and `to_jax()` gives it back, so models/convert.py can walk a whole model
 key path for key path.  Initialization draws from an explicit
 `torch.Generator` in the same layer order as the JAX `init`; the numbers
 differ from JAX's (threefry vs Philox), the distribution does not.
+
+Tensor parallelism (parallel/tp.py): `Conv`, `Deconv` and `Dense` are
+called as `layer(op, x, **kw)`, which is `op(x, w, b, **kw)` for a whole
+layer.  A layer sharded on 'model' (`shard` set by parallel/tp.shard_module)
+holds only its rank's contiguous slice of the output features, on
+`OUT_AXIS` of its weight, and its bias whole; its call gathers the
+features over the model group.  `load_jax` takes that slice of the full
+terrain_tpu array, and `to_jax` gathers the full one (a collective: every
+rank of the model group calls it), so the trees stay full.
 """
 
 import math
@@ -15,6 +24,7 @@ import torch
 from torch import nn
 
 from terrain_tpu_torch.ops.norm import _copy, _np
+from terrain_tpu_torch.parallel import tp
 
 
 def glorot_uniform(shape, fan_in, fan_out, generator, gain=1.0):
@@ -23,7 +33,41 @@ def glorot_uniform(shape, fan_in, fan_out, generator, gain=1.0):
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * a
 
 
-class Conv(nn.Module):
+class _Layer(nn.Module):
+    """A weight whose output features lie on OUT_AXIS (the last axis of
+    its terrain_tpu layout, which is the weight's axes in JAX_AXES order),
+    a bias, and its place on the model group (`shard`: None for the whole
+    weight)."""
+
+    OUT_AXIS = 0
+    shard = None
+
+    def forward(self, op, x, **kw):
+        return tp.call(op, x, self.w, self.b, self.shard, **kw)
+
+    def jax_shape(self):
+        """The full weight's shape in terrain_tpu's layout."""
+        shape = list(self.w.shape)
+        if self.shard is not None:
+            shape[self.OUT_AXIS] *= self.shard.count
+        return tuple(shape[a] for a in self.JAX_AXES)
+
+    def _mine(self, w):
+        """This rank's slice of a full weight in the port's layout."""
+        w = torch.as_tensor(np.ascontiguousarray(w))
+        if self.shard is None:
+            return w
+        return tp.slice_axis(w, self.OUT_AXIS, self.shard)
+
+    def _full(self):
+        """The full weight, gathered over the model group when sharded."""
+        w = self.w.detach()
+        if self.shard is None:
+            return w
+        return tp.gather_axis(w, self.OUT_AXIS, self.shard)
+
+
+class Conv(_Layer):
     """Conv weights (cout, cin, k, k) + bias; Glorot fans use the receptive
     field, as lasagne.  JAX layout: HWIO."""
 
@@ -33,18 +77,23 @@ class Conv(nn.Module):
             (cout, cin, k, k), cin * k * k, cout * k * k, generator))
         self.b = nn.Parameter(torch.zeros(cout))
 
+    JAX_AXES = (2, 3, 1, 0)
+
     def load_jax(self, params, state):
-        _copy(self.w, np.transpose(params["w"], (3, 2, 0, 1)))
+        _copy(self.w, self._mine(np.transpose(params["w"], (3, 2, 0, 1))))
         _copy(self.b, params["b"])
 
     def to_jax(self):
-        return {"w": _np(self.w.permute(2, 3, 1, 0)), "b": _np(self.b)}, None
+        return ({"w": _np(self._full().permute(2, 3, 1, 0)),
+                 "b": _np(self.b)}, None)
 
 
-class Deconv(nn.Module):
+class Deconv(_Layer):
     """Transposed-conv weights (cin, cout, k, k), spatially flipped, so
     `F.conv_transpose2d` equals terrain_tpu's `lax.conv_transpose` with the
     HWIO kernel (unflipped they differ by 4.5-5.2 max-abs)."""
+
+    OUT_AXIS = 1
 
     def __init__(self, k, cin, cout, generator):
         super().__init__()
@@ -54,17 +103,19 @@ class Deconv(nn.Module):
         self.w = nn.Parameter(w.flip(0, 1).permute(2, 3, 0, 1).contiguous())
         self.b = nn.Parameter(torch.zeros(cout))
 
+    JAX_AXES = (2, 3, 0, 1)
+
     def load_jax(self, params, state):
         w = np.flip(np.asarray(params["w"]), (0, 1)).transpose(2, 3, 0, 1)
-        _copy(self.w, np.ascontiguousarray(w))
+        _copy(self.w, self._mine(w))
         _copy(self.b, params["b"])
 
     def to_jax(self):
-        w = self.w.permute(2, 3, 0, 1).flip(0, 1)
+        w = self._full().permute(2, 3, 0, 1).flip(0, 1)
         return {"w": _np(w), "b": _np(self.b)}, None
 
 
-class Dense(nn.Module):
+class Dense(_Layer):
     """Dense weights (dout, din) for `F.linear`; JAX layout (din, dout)."""
 
     def __init__(self, din, dout, generator):
@@ -73,12 +124,14 @@ class Dense(nn.Module):
             glorot_uniform((din, dout), din, dout, generator).t().contiguous())
         self.b = nn.Parameter(torch.zeros(dout))
 
+    JAX_AXES = (1, 0)
+
     def load_jax(self, params, state):
-        _copy(self.w, np.ascontiguousarray(np.asarray(params["w"]).T))
+        _copy(self.w, self._mine(np.asarray(params["w"]).T))
         _copy(self.b, params["b"])
 
     def to_jax(self):
-        return {"w": _np(self.w.t()), "b": _np(self.b)}, None
+        return {"w": _np(self._full().t()), "b": _np(self.b)}, None
 
 
 def dropout(x, rate, generator, train, shard=None):

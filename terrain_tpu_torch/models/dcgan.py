@@ -68,12 +68,10 @@ class DCGANGenerator(nn.Module):
         cd = self.compute_dtype
         if pending_up:
             if not self.bilinear_upsample and self.h % 2 == 1:
-                return upsample2x_nearest_conv(x, conv.w, conv.b,
-                                               compute_dtype=cd)
+                return conv(upsample2x_nearest_conv, x, compute_dtype=cd)
             x = (upsample_bilinear_2x(x) if self.bilinear_upsample
                  else upsample_nearest_2x(x))
-        return conv2d(x, conv.w, conv.b, stride=1, padding="same",
-                      compute_dtype=cd)
+        return conv(conv2d, x, stride=1, padding="same", compute_dtype=cd)
 
     def forward(self, z, train=False, generator=None, update_stats=False):
         """z (N, latent_dim) -> (N, final, final, out_ch) fp32 in [0,1].
@@ -81,7 +79,7 @@ class DCGANGenerator(nn.Module):
         `generator`; the running statistics are written only with
         update_stats=True (a train step)."""
         cd = self.compute_dtype or torch.float32
-        x = dense(z.to(cd), self.dense.w, self.dense.b, compute_dtype=cd)
+        x = self.dense(dense, z.to(cd), compute_dtype=cd)
         x = self.bn_in(x, train, update_stats)
         s0 = self.initial_size
         x = x.reshape(x.shape[0], s0, s0, self.nch)
@@ -150,16 +148,16 @@ class DCGANDiscriminator(nn.Module):
             for rep in stage:
                 c = rep["conv"]
                 if self.bn:
-                    x = conv2d(x, c.w, c.b, stride=1, padding="same",
-                               compute_dtype=cd)
+                    x = c(conv2d, x, stride=1, padding="same",
+                          compute_dtype=cd)
                     x = leaky_relu(rep["bn"](x, train, update_stats), 0.2)
                 else:
-                    x = conv2d_leaky(x, c.w, c.b, slope=0.2, stride=1,
-                                     padding="same", compute_dtype=cd)
+                    x = c(conv2d_leaky, x, slope=0.2, stride=1,
+                          padding="same", compute_dtype=cd)
             x = max_pool2d(x, 2) if self.pool_mode == "max" \
                 else avg_pool2d(x, 2)
-        x = conv2d(x, self.conv_out.w, self.conv_out.b, stride=1,
-                   padding="same", compute_dtype=cd)
+        x = self.conv_out(conv2d, x, stride=1, padding="same",
+                          compute_dtype=cd)
         x = avg_pool2d(self.conv_out_act(x), self.reduction)
         return self.act(x.reshape(x.shape[0], 1).float())
 

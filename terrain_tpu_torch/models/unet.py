@@ -93,37 +93,35 @@ class UNetGenerator(nn.Module):
         x = x.to(cd)
         skips = []
         for blk in self.enc:
-            x = conv2d(x, blk["conv"].w, blk["conv"].b, stride=2,
-                       padding="same", compute_dtype=cd)
+            x = blk["conv"](conv2d, x, stride=2, padding="same",
+                            compute_dtype=cd)
             x = blk["bn"](x, train, us)
             skips.append(x)  # skip = BN output, pre-activation
             x = leaky_relu(x, 0.01)
             for rep in blk["repeats"]:
-                x = conv2d(x, rep["conv"].w, rep["conv"].b, stride=1,
-                           padding="same", compute_dtype=cd)
+                x = rep["conv"](conv2d, x, stride=1, padding="same",
+                                compute_dtype=cd)
                 x = leaky_relu(rep["bn"](x, train, us), 0.01)
         bt = self.bottleneck
-        x = conv2d(x, bt["conv"].w, bt["conv"].b, stride=1, padding="valid",
-                   compute_dtype=cd)
+        x = bt["conv"](conv2d, x, stride=1, padding="valid",
+                       compute_dtype=cd)
         x = leaky_relu(bt["bn"](x, train, us), 0.01)
         for j, blk in enumerate(self.dec):
             if j == 0:
-                x = conv2d_transpose(x, blk["deconv"].w, blk["deconv"].b,
-                                     stride=1, compute_dtype=cd)
+                x = blk["deconv"](conv2d_transpose, x, stride=1,
+                                  compute_dtype=cd)
             elif self.bilinear_upsample:
-                x = bilinear2x_conv3x3(x, blk["conv"].w, blk["conv"].b,
-                                       compute_dtype=cd)
+                x = blk["conv"](bilinear2x_conv3x3, x, compute_dtype=cd)
             else:
-                x = conv2d_transpose(x, blk["deconv"].w, blk["deconv"].b,
-                                     stride=2, compute_dtype=cd)
+                x = blk["deconv"](conv2d_transpose, x, stride=2,
+                                  compute_dtype=cd)
             x = blk["bn"](x, train, us)
             if self.dropout_p > 0.0 and j < 3:
                 x = _drop(x, self.dropout_p, generator, train,
                           self.data_shard)
             x = leaky_relu(torch.cat([x, skips[self.n_down - 1 - j]], -1),
                            0.01)
-        x = conv2d_transpose(x, self.deconv_out.w, self.deconv_out.b,
-                             stride=2, compute_dtype=cd)
+        x = self.deconv_out(conv2d_transpose, x, stride=2, compute_dtype=cd)
         return self.act(x.float())
 
 
@@ -184,15 +182,14 @@ class PatchGAN(nn.Module):
         x = torch.cat([a.to(cd), b.to(cd)], -1)
         for reps in self.blocks:
             for r, rep in enumerate(reps):
-                c = rep["conv"]
-                x = conv2d_leaky(x, c.w, c.b, slope=0.01,
-                                 stride=2 if r == 0 else 1, padding="same",
-                                 compute_dtype=cd)
+                x = rep["conv"](conv2d_leaky, x, slope=0.01,
+                                stride=2 if r == 0 else 1, padding="same",
+                                compute_dtype=cd)
                 if "bn" in rep:
                     x = rep["bn"](x, train, update_stats)
         # the final conv keeps the reference wrapper's default stride 2
-        x = conv2d(x, self.conv_out.w, self.conv_out.b, stride=2,
-                   padding="same", compute_dtype=cd)
+        x = self.conv_out(conv2d, x, stride=2, padding="same",
+                          compute_dtype=cd)
         return self.act(x.float())
 
 
@@ -228,8 +225,8 @@ class FakeGenerator(nn.Module):
 
     def forward(self, x, train=False, generator=None, update_stats=False):
         cd = self.compute_dtype or torch.float32
-        x = conv2d(x.to(cd), self.conv.w, self.conv.b, stride=1,
-                   padding="same", compute_dtype=cd)
+        x = self.conv(conv2d, x.to(cd), stride=1, padding="same",
+                      compute_dtype=cd)
         return self.act(x.float())
 
 
@@ -248,8 +245,7 @@ class FakeDiscriminator(nn.Module):
     def forward(self, a, b, train=False, generator=None, update_stats=False):
         cd = self.compute_dtype or torch.float32
         x = torch.cat([a.to(cd), b.to(cd)], -1)
-        x = conv2d(x, self.conv.w, self.conv.b, stride=2, padding="same",
-                   compute_dtype=cd)
+        x = self.conv(conv2d, x, stride=2, padding="same", compute_dtype=cd)
         return x.float()
 
 

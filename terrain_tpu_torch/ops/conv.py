@@ -22,6 +22,16 @@ TERRAIN_PALLAS_CONV=0 turns every conv kernel off (the fused decoder's too,
 ops/fused.py), and TERRAIN_STEM_ACT=0 keeps the LeakyReLU out of the
 kernels' epilogues.  Off, the library conv runs; on, a CUDA tensor in the
 regime launches the kernel or raises, a CPU tensor runs its plain version.
+
+One library regime has a weight gradient of its own: the 5x5 stride-1
+'same' convs with cin >= 64 in fp32 (the DCGAN discriminator's hidden
+layers) run `Conv5x5`, whose forward and dX are cuDNN's and whose dW is
+`conv5x5_dw`, tap-shifted matrix products (one a kernel row) over fixed
+blocks of the N*H*W rows, summed in a fixed order.  cuDNN's own fp32 dW
+of these convs (its Winograd, at 64-256²) is 8e-3 to 4e-2 off fp64
+relative to its largest entry on an H100, its deterministic and default
+algorithms alike, where the JAX package's fp32 is within a few 1e-6.
+The same code runs on the CPU.
 """
 
 import os
@@ -83,6 +93,78 @@ def _try_s2(x, w, b, s, padding, cd, slope=None):
                        bb.contiguous(), slope)
 
 
+# conv5x5_dw: rows of N*H*W summed by one product, at most
+DW_BLOCK = 4096
+
+
+def _conv5x5_regime(x, w, s, padding, cd):
+    cout, cin, kh, kw = w.shape
+    return (cd == torch.float32 and (kh, kw) == (5, 5) and s == (1, 1)
+            and padding == "same" and cin >= 64)
+
+
+def conv5x5_dw(x, g, block=DW_BLOCK):
+    """dW (cout, cin, 5, 5) of the 5x5 stride-1 'same' conv of x
+    (N, cin, H, W) under the cotangent g (N, cout, H, W), both any layout,
+    in fp32.
+
+    x is padded to (H+4, W+4) and each image flattened to L = (H+4)(W+4)
+    rows of cin; g is put at the top left of the same grid, zeros around
+    it.  Tap (i, j) then pairs g's row q with x's row q + i(W+4) + j of
+    the same image, so the five taps of kernel row i are one product of
+    g's rows with x's five row ranges shifted by i(W+4) + 0..4, copied side
+    by side (5 cin columns).  Each image takes a whole number of blocks of
+    equal length, at most `block` rows (zeros at its end); every block is
+    one product (cuBLAS, or the CPU's matmul), whose partial sums are
+    added over the blocks in one fixed-order sum."""
+    n, cin, h, w = x.shape
+    cout = g.shape[1]
+    q = w + 4
+    L = (h + 4) * q
+    rows = -(-L // -(-L // block) // 64) * 64  # blocks of equal length
+    per = -(-L // rows) * rows                  # an image's rows
+    reach = 4 * q + 4                           # the largest tap offset
+    xb = x.new_zeros((n * per + reach, cin), dtype=torch.float32)
+    xb[:n * per].view(n, per, cin)[:, :L].view(n, h + 4, q, cin)[
+        :, 2:h + 2, 2:w + 2] = x.permute(0, 2, 3, 1)
+    gb = g.new_zeros((n * per, cout), dtype=torch.float32)
+    gb.view(n, per, cout)[:, :L].view(n, h + 4, q, cout)[:, :h, :w] = \
+        g.permute(0, 2, 3, 1)
+    gs = gb.view(-1, rows, cout)
+    nb = gs.shape[0]
+    parts = x.new_empty((5, nb, 5 * cin, cout), dtype=torch.float32)
+    for i in range(5):
+        xs = torch.stack([xb[i * q + j:i * q + j + n * per]
+                          for j in range(5)], 1)
+        torch.bmm(xs.view(nb, rows, 5 * cin).transpose(1, 2), gs,
+                  out=parts[i])
+    return parts.sum(1).view(5, 5, cin, cout).permute(3, 2, 0, 1) \
+        .contiguous()
+
+
+class Conv5x5(torch.autograd.Function):
+    """F.conv2d of a 5x5 stride-1 'same' fp32 conv, x (N, cin, H, W), w
+    (cout, cin, 5, 5), no bias: the forward and dX are cuDNN's (the
+    library's on the CPU), dW is `conv5x5_dw`."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return F.conv2d(x, w, padding=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.ops.aten.convolution_backward(
+                g, x, w, None, (1, 1), (2, 2), (1, 1), False, (0, 0), 1,
+                (True, False, False))[0]
+        if ctx.needs_input_grad[1]:
+            dw = conv5x5_dw(x, g)
+        return dx, dw
+
+
 def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None):
     """2D cross-correlation, NHWC x OIHW -> NHWC; padding 'same'
     (symmetric (k-1)//2) or 'valid'."""
@@ -105,8 +187,11 @@ def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None):
             pad = (0, 0)
         else:
             raise ValueError(f"padding must be 'same' or 'valid': {padding!r}")
-        out = _nhwc(F.conv2d(_nchw(x.to(cd)), w.to(cd), stride=s,
-                             padding=pad))
+        if _conv5x5_regime(x, w, s, padding, cd):
+            out = _nhwc(Conv5x5.apply(_nchw(x.to(cd)), w.to(cd)))
+        else:
+            out = _nhwc(F.conv2d(_nchw(x.to(cd)), w.to(cd), stride=s,
+                                 padding=pad))
     if b is not None:
         out = out + b.to(out.dtype)
     return out

@@ -1,5 +1,6 @@
 """Parallelism layer: the ('data', 'model') grid of ranks, its shardings,
-process-group init (terrain_tpu/parallel)."""
+process-group init (terrain_tpu/parallel); parallel/tp.py holds the
+collectives of tensor parallelism on 'model'."""
 
 from terrain_tpu_torch.parallel.distributed import (
     HostShardIterator,

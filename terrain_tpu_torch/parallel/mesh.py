@@ -11,9 +11,13 @@ group per data column and per model row.  The single-process path is the
     (ops/norm.py), so they are global-batch statistics, as JAX's mean over
     a sharded axis is a psum; the gradients and the losses are all-reduced
     as means (train/step.py).
-  * 'model' -- channel or row dimension (TP, spatial): not ported yet
-    (ROADMAP A.5b).  `tp_shardings` keeps JAX's selection rule; placing a
-    tensor sharded on 'model' raises.
+  * 'model' -- channel dimension (TP): the wide weights `tp_shardings`
+    selects (JAX's rule) are split on their output features over the model
+    group, one contiguous slice a rank; `place` keeps this rank's slice and
+    `gather` puts the whole tensor back; parallel/tp.py holds the
+    collectives around a sharded layer.  Image rows over 'model' (spatial
+    parallelism, `spatial_batch_sharding`) are not ported yet and raise
+    (ROADMAP A.5b).
 
 Every collective is an all_reduce or a broadcast: gloo supports only
 those two on CUDA tensors, and the card's check runs two gloo ranks on one
@@ -24,9 +28,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from terrain_tpu_torch.parallel.tp import Shard, gather_axis, slice_axis
+
 AXES = ("data", "model")
-A5B = ("is not ported yet: tensor and spatial parallelism on 'model' are "
-       "ROADMAP A.5b")
+A5B = ("is not ported yet: spatial parallelism (image rows over 'model') "
+       "is ROADMAP A.5b")
 
 
 class Mesh:
@@ -35,21 +41,27 @@ class Mesh:
     model index), `model_group` that of its model row (made only when
     n_model > 1); both None without a process group (a mesh laid out for
     inspection only) or outside the mesh.  `data_index` is this rank's
-    row, the slice of each global batch it holds."""
+    row, the slice of each global batch it holds; `model_index` its
+    column, the slice of each sharded weight it holds."""
 
     def __init__(self, ranks, data_group=None, model_group=None,
-                 data_index=0):
+                 data_index=0, model_index=0):
         self.ranks = ranks
         self.shape = dict(zip(AXES, ranks.shape))
         self.data_group = data_group
         self.model_group = model_group
         self.data_index = data_index
+        self.model_index = model_index
 
     @property
     def data_root(self):
         """The global rank that broadcasts to this rank's data group."""
-        col = int(np.argwhere(self.ranks == dist.get_rank())[0][1])
-        return int(self.ranks[0, col])
+        return int(self.ranks[0, self.model_index])
+
+    @property
+    def model_root(self):
+        """The global rank that broadcasts to this rank's model group."""
+        return int(self.ranks[self.data_index, 0])
 
     def __repr__(self):
         return f"Mesh({self.shape})"
@@ -82,17 +94,18 @@ def make_mesh(n_data=None, n_model=1, ranks=None):
         return Mesh(arr)
     me = dist.get_rank()
     data_group = model_group = None
-    data_index = 0
+    data_index = model_index = 0
     for j in range(n_model):
         g = _group(arr[:, j])
         if me in arr[:, j]:
             data_group = g
             data_index = int(np.argwhere(arr[:, j] == me)[0][0])
+            model_index = j
     for i in range(n_data if n_model > 1 else 0):
         g = _group(arr[i, :])
         if me in arr[i, :]:
             model_group = g
-    return Mesh(arr, data_group, model_group, data_index)
+    return Mesh(arr, data_group, model_group, data_index, model_index)
 
 
 class Sharding:
@@ -118,7 +131,7 @@ def batch_sharding(mesh):
 
 def spatial_batch_sharding(mesh):
     """Shard batch over 'data' and image rows (H) over 'model', spatial
-    parallelism; `place` refuses it (ROADMAP A.5b)."""
+    parallelism; `place` and `gather` refuse it (ROADMAP A.5b)."""
     return Sharding(mesh, ("data", "model"))
 
 
@@ -177,21 +190,73 @@ def _broadcast(tensors, group, src):
                 t.copy_(v.view_as(t))
 
 
+def model_axis(sharding):
+    """The tensor axis a Sharding splits over 'model', None if none; a
+    spatial sharding (batch on 'data', rows on 'model') raises."""
+    if "model" not in sharding.spec:
+        return None
+    if "data" in sharding.spec:
+        raise NotImplementedError(f"a sharding of image rows over 'model' "
+                                  f"{A5B}")
+    return sharding.spec.index("model")
+
+
+def _shard(mesh):
+    return Shard(mesh.model_index, mesh.shape["model"], mesh.model_group)
+
+
 def place(tree, shardings_or_mesh):
-    """Make every tensor of `tree` what the data group's first rank holds:
-    one broadcast over the data group per dtype, in place (the counterpart
-    of device_put onto replicated shardings).  Shardings that split a
-    tensor over 'model' raise (ROADMAP A.5b).  Without a process group,
-    the tree is returned as it is."""
+    """Make every tensor of `tree` what its data group's first rank holds
+    (the counterpart of device_put): one broadcast over the data group per
+    dtype, in place.  With a Mesh every tensor is replicated (and a slice
+    a rank already holds stays its slice: a data group shares one model
+    index).  With shardings (a tree like `tree` of Shardings), the tensors
+    are the full ones: each is broadcast over the model group from its
+    first rank as well, and a tensor split on 'model' is replaced by this
+    rank's contiguous slice of its split axis.  Returns the tree.  Without
+    a process group nothing is broadcast."""
     if isinstance(shardings_or_mesh, Mesh):
-        mesh = shardings_or_mesh
+        mesh, axes = shardings_or_mesh, None
     else:
         shards = _leaves(shardings_or_mesh)
-        if any("model" in s.spec for s in shards):
-            raise NotImplementedError(f"placing a tensor sharded on 'model' "
-                                      f"{A5B}")
+        axes = [model_axis(s) for s in shards]
         mesh = shards[0].mesh if shards else None
     tensors = [t for t in _leaves(tree) if torch.is_tensor(t)]
-    if mesh is not None and mesh.data_group is not None and tensors:
+    if mesh is None or not tensors:
+        return tree
+    if mesh.data_group is not None:
         _broadcast(tensors, mesh.data_group, mesh.data_root)
-    return tree
+    if axes is None:
+        return tree
+    if mesh.model_group is not None:
+        _broadcast(tensors, mesh.model_group, mesh.model_root)
+    it = iter(axes)
+    shard = _shard(mesh)
+
+    def keep(t):
+        a = next(it)
+        return t if a is None else slice_axis(t, a, shard).contiguous()
+
+    return _tree_map(keep, tree)
+
+
+def gather(tree, shardings):
+    """The inverse of `place` with shardings: each tensor split on 'model'
+    gathered whole over the model group (a collective: every rank of the
+    group calls it), the others as they are."""
+    shards = _leaves(shardings)
+    axes = iter([model_axis(s) for s in shards])
+    if not shards:
+        return tree
+    mesh = shards[0].mesh
+
+    def whole(t):
+        a = next(axes)
+        if a is None or mesh.shape["model"] == 1:
+            return t
+        if mesh.model_group is None:
+            raise ValueError("gathering over 'model' needs the mesh's "
+                             "process group")
+        return gather_axis(t, a, _shard(mesh))
+
+    return _tree_map(whole, tree)

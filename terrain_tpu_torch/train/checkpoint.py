@@ -7,6 +7,10 @@ arrays in JAX layouts.  This module reads and writes it with numpy only,
 so each package loads the other's `<epoch>.model`; models/convert.py
 carries the trees into the port's modules.
 
+The trees hold full arrays: under tensor parallelism the trainer gathers
+each sharded weight (and its optimizer state) before it writes, on every
+rank, and takes its slices again when it loads (models/core.py).
+
 The optional "extra" entry carries what an exact resume needs beyond the
 weights (optimizer states as terrain_tpu trees of numpy arrays, lr, step
 counter, RNG states, plateau state); the trainer fills and reads it.

@@ -16,6 +16,10 @@ changes.  adam's step count `t` is a device int32 scalar in its state, as
 in terrain_tpu (optim.py:48-65), and its bias correction a_t is computed
 from it on the device: a replay of the graph advances both.
 
+A state tensor has its parameter's shape: under tensor parallelism that
+of the rank's slice (terrain_tpu shards it as its parameter); adam's `t`
+is replicated.
+
 Unlike the JAX package's pure functions, `update` changes the parameters
 and the state IN PLACE, under `torch.no_grad()`, with the fused
 `torch._foreach_*` ops: a step then makes no second copy of the weights.

@@ -172,7 +172,14 @@ def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
     losses are returned as their means.  Each rank's backward gives
     d(sum of the ranks' losses)/d(its parameters) through its own rows (the
     statistics' all-reduce sums the cotangents), so the mean over ranks is
-    the gradient of the global batch's mean loss, terrain_tpu's loss."""
+    the gradient of the global batch's mean loss, terrain_tpu's loss.
+
+    Tensor parallelism needs nothing more here.  A sharded layer's input
+    passes parallel/tp.enter_sharded, whose backward sums the model
+    group's partial dX, and everything after its gather is computed alike
+    on every rank of the group, so a replicated parameter's gradient is
+    the same on each of them and a sharded weight's is its own slice's.
+    The data group (one model index) then averages like with like."""
     active = ACTIVE[train_mode]
     lr_mults = dict(lr_mults or {})
     unknown = set(lr_mults) - set(NET_NAMES)

@@ -55,8 +55,22 @@ losses over the data group (train/step.py).  TERRAIN_SCAN is 1 then, as
 terrain_tpu's is with more than one process.  Every rank writes its
 results.txt, dumps and checkpoints, as every terrain_tpu process does.
 
-Not ported yet, and refused rather than ignored: a mesh with n_model > 1
-(ROADMAP A.5b), TERRAIN_AOT and its TERRAIN_AOT_KEY, TERRAIN_CHECK_NANS=2.
+Tensor parallelism (a mesh with n_model > 1, terrain_tpu's 'model' axis):
+each network's wide weights, those whose output features number at least
+`tp_min_features` and divide over the model group (terrain_tpu's
+tp_shardings rule), hold one contiguous slice a rank, and each such
+layer gathers its features in its call (parallel/tp.py); everything else
+is replicated.  The optimizer states take the slices' shapes.  The ranks
+of a model group hold the same rows of every batch (the data index), so
+they draw the same prior, augmentation and dropout.  A checkpoint holds
+the full arrays, gathered by every rank (each writes its file), and
+loading one takes each rank's slices again, so a checkpoint moves between
+meshes, one process and terrain_tpu.  Host iterators are sharded by the
+data index (HostShardIterator's process_index=mesh.data_index,
+process_count=n_data).
+
+Not ported yet, and refused rather than ignored: TERRAIN_AOT and its
+TERRAIN_AOT_KEY, TERRAIN_CHECK_NANS=2.
 """
 
 import glob
@@ -72,7 +86,8 @@ from terrain_tpu_torch.data.prefetch import Prefetcher
 from terrain_tpu_torch.device import resolve_device
 from terrain_tpu_torch.models import convert, param_count
 from terrain_tpu_torch.ops.norm import BatchNorm
-from terrain_tpu_torch.parallel.mesh import A5B, place
+from terrain_tpu_torch.parallel.mesh import place
+from terrain_tpu_torch.parallel.tp import shard_module
 from terrain_tpu_torch.sample import TwoStagePipeline
 from terrain_tpu_torch.train import checkpoint as ckpt
 from terrain_tpu_torch.train.losses import TRAIN_KEYS
@@ -120,16 +135,13 @@ class TwoStageGAN:
                  alpha=100, opt="adam", opt_args=None, train_mode="both",
                  reconstruction="l1", sampler=np.random.rand, lsgan=False,
                  verbose=True, seed=0, compute_dtype=None, da=True, mesh=None,
-                 lr_mults=None, device=None):
+                 lr_mults=None, tp_min_features=256, device=None):
         if train_mode not in ACTIVE:
             raise ValueError(f"train_mode must be one of {sorted(ACTIVE)}")
-        if mesh is not None and mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                f"a mesh with n_model = {mesh.shape['model']} {A5B}")
-        if mesh is not None and mesh.shape["data"] > 1 \
+        if mesh is not None and mesh.ranks.size > 1 \
                 and mesh.data_group is None:
-            raise ValueError("a mesh with n_data > 1 needs a process group: "
-                             "call parallel.initialize() before make_mesh()")
+            raise ValueError(f"a {mesh.shape} mesh needs a process group: "
+                             f"call parallel.initialize() before make_mesh()")
         if os.environ.get("TERRAIN_AOT"):
             _not_ported("TERRAIN_AOT", "utils")
         if os.environ.get("TERRAIN_AOT_KEY", "shapes") != "shapes":
@@ -149,6 +161,9 @@ class TwoStageGAN:
         self.seed = int(seed)
         self.compute_dtype = compute_dtype
         self.mesh = mesh
+        # the least output features of a weight sharded on 'model'; small
+        # test and dryrun configurations lower it to shard real convs
+        self.tp_min_features = tp_min_features
         # data parallelism: the data group, and this rank's (index, count)
         # place in every global batch
         self._group = mesh.data_group if mesh is not None else None
@@ -185,7 +200,8 @@ class TwoStageGAN:
         self.optimizer = get_optimizer(opt, opt_args)
         self.lr = float(self.optimizer.default_lr)
         self._init_opt_states()
-        self._place()
+        self.sharded = {n: [] for n in self.nets}  # layer names, by net
+        self._place_on_mesh()
         self._step_counter = 0
         self._rng_slots = []     # _next_rngs' generators, one dict a slot
         self._sample_rng = None  # _next_generator's
@@ -212,8 +228,27 @@ class TwoStageGAN:
             n: self.optimizer.init(list(self.nets[n].parameters()))
             for n in ACTIVE[self.train_mode]}
 
+    def _place_on_mesh(self):
+        """terrain_tpu's _place_on_mesh (trainer.py:777-793): each
+        network's wide weights sharded over 'model' at tp_min_features (a
+        sharded layer stays so), their optimizer states cut to the slices,
+        then every tensor placed over the data group."""
+        if self.mesh is None:
+            return
+        saved = ({n: self._opt_state_to_jax(n) for n in self.opt_states}
+                 if self.mesh.shape["model"] > 1 else {})
+        new = {n: shard_module(net, self.mesh, self.tp_min_features)
+               for n, net in self.nets.items()}
+        if any(new.values()):
+            for n, names in new.items():
+                self.sharded[n] += names
+            self.opt_states = {n: self._opt_state_from_jax(n, saved[n])
+                               for n in saved}
+        self._place()
+
     def _place(self):
-        """Every rank of the data group takes its first rank's parameters,
+        """Every rank of the data group takes its first rank's parameters
+        (slices of the sharded ones: a data group shares one model index),
         BN statistics and optimizer states (terrain_tpu's
         _place_on_mesh)."""
         if self._group is not None:

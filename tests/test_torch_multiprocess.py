@@ -21,6 +21,7 @@ tests/torch_mp_worker.py's `run_rank`.
   * `python -m terrain_tpu_torch smoke_synthetic train` (cli.main) in each
     rank: equal loss rows and checkpoints on both ranks;
   * entry.dryrun_multichip(2).
+tests/test_torch_tp.py runs tensor parallelism on 'model'.
 """
 
 import os
@@ -201,6 +202,9 @@ def test_the_cli_trains_data_parallel_under_a_process_group(ranks):
 
 
 def test_dryrun_multichip_entrypoint():
+    """Two ranks: terrain_tpu's rule takes n_model = 1 (2 at an even count
+    of 4 or more, tests/test_torch_tp.py); a count that n_model does not
+    divide raises."""
     entry.dryrun_multichip(WORLD)
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        entry.dryrun_multichip(4, n_model=2)
+    with pytest.raises(ValueError, match="divide"):
+        entry.dryrun_multichip(3, n_model=2)

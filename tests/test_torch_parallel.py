@@ -6,8 +6,9 @@ exports, and what a process group of one rank gives: the synced BatchNorm
 against terrain_tpu's batch_norm (rtol 1e-5, atol 1e-6: fp32 sums in
 another order), and a trainer on a world-1 mesh against one without a mesh
 (the same fp32 rounding) and against itself (bit-equal), and its
-checkpoint saved and resumed.  What needs a mesh on 'model' raises,
-naming ROADMAP A.5b.
+checkpoint saved and resumed.  A sharding of image rows over 'model'
+raises, naming ROADMAP A.5b; one of output features places its slice
+(tests/test_torch_tp.py runs tensor parallelism across processes).
 """
 
 import contextlib
@@ -28,6 +29,7 @@ from terrain_tpu_torch.parallel import (
     HostShardIterator, host_batch_slice, initialize, make_mesh, place,
     replicated, spatial_batch_sharding, tp_shardings)
 from terrain_tpu_torch.parallel.distributed import _TORCHRUN_ENV
+from terrain_tpu_torch.parallel.mesh import Mesh, Sharding, gather
 from terrain_tpu_torch.train.step import step_state
 from terrain_tpu_torch.train.trainer import TwoStageGAN
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -127,11 +129,25 @@ def test_top_level_exports():
 
 
 def test_model_axis_raises_naming_a5b(no_cluster):
+    """Image rows over 'model' (spatial parallelism) still raise, naming
+    A.5b; output features over 'model' (tensor parallelism) place: each
+    model index keeps its contiguous slice of the split axis."""
     mesh = make_mesh(n_data=1, n_model=2, ranks=range(2))
     with pytest.raises(NotImplementedError, match="A.5b"):
-        TwoStageGAN(**w.nets_kw(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A.5b"):
         place({"x": torch.zeros(2)}, {"x": spatial_batch_sharding(mesh)})
+    with pytest.raises(NotImplementedError, match="A.5b"):
+        gather({"x": torch.zeros(2)}, {"x": spatial_batch_sharding(mesh)})
+    full = torch.arange(48.0).reshape(4, 3, 2, 2)
+    for index in (0, 1):
+        laid_out = Mesh(mesh.ranks, model_index=index)
+        got = place({"w": full.clone(), "b": full[:, 0, 0, 0].clone()},
+                    {"w": Sharding(laid_out, ("model", None, None, None)),
+                     "b": replicated(laid_out)})
+        assert got["w"].equal(full[2 * index:2 * index + 2])
+        assert got["w"].is_contiguous() and got["b"].equal(full[:, 0, 0, 0])
+    # a trainer on 'model' needs the ranks' process group
+    with pytest.raises(ValueError, match="process group"):
+        TwoStageGAN(**w.nets_kw(), mesh=mesh)
     with pytest.raises(ValueError, match="process group"):
         TwoStageGAN(**w.nets_kw(), mesh=make_mesh(ranks=range(2)))
 

@@ -209,11 +209,11 @@ def test_unported_switches_raise(env, match, monkeypatch, tmp_path):
 
 
 def test_mesh_raises_and_nans_stop_the_run(monkeypatch, tmp_path):
-    # a data-parallel mesh trains (tests/test_torch_parallel.py); one with
-    # a 'model' axis is the next slice and raises
+    # a mesh trains over its ranks' process group (tests/test_torch_tp.py);
+    # one laid out without it raises
     from terrain_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="A.5b"):
+    with pytest.raises(ValueError, match="process group"):
         experiments.TwoStageGAN(
             None, None, None, None, None, None, None, None, 64, 32, True,
             False, mesh=make_mesh(n_data=1, n_model=2, ranks=range(2)),

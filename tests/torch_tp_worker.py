@@ -1,0 +1,171 @@
+"""One gloo rank of tests/test_torch_tp.py, spawned with
+torch.multiprocessing (4 ranks): it imports torch and terrain_tpu_torch
+only.
+
+`run_rank(rank, world, rendezvous, out_dir)` joins the process group
+through a file:// rendezvous, lays out a 1x2 mesh on ranks 0 and 1 and a
+2x2 mesh on all four, and writes out_dir/rank<r>.pkl with:
+  * "ops" (ranks 0, 1): each sharded layer call of OPS (the local op on
+    this rank's half of the output features between enter_sharded and
+    gather_features, then the bias) on seeded inputs: its output and the
+    gradients of x, of this rank's weight slice and of the bias under a
+    seeded cotangent; and `place` / `gather` of a seeded tensor;
+  * "tp" (ranks 0, 1): the tiny nets (tests/test_parallel.py's) at
+    tp_min_features 8 on the 1x2 mesh: the names of the sharded layers,
+    one train step on GLOBAL_BATCH without augmentation (losses and the
+    gathered parameters, as terrain_tpu trees), a checkpoint written
+    after it (out_dir/tp<r>.model), a second step, the second step again
+    from a trainer that resumed the checkpoint exactly, and the two
+    samplers' deterministic outputs on seeded inputs; a one-process
+    checkpoint (out_dir/one.model, written by rank 0) loaded on the mesh
+    and saved again (out_dir/back<r>.model);
+  * every rank trains 2 epochs of the tiny nets at tp_min_features 8 on
+    the 2x2 mesh over N_PAIRS pairs held on the device, with the paired
+    augmentation, into out_dir/grid<r>/results.txt.
+"""
+
+import os
+import pickle
+
+import numpy as np
+import torch
+
+import torch_mp_worker as w
+
+# sharded calls: (name, op name, x shape, full weight shape, op kwargs)
+OPS = (
+    ("conv2d", "conv2d", (2, 6, 6, 3), (8, 3, 3, 3),
+     dict(stride=1, padding="same")),
+    ("conv2d_leaky s2", "conv2d_leaky", (2, 6, 6, 3), (8, 3, 3, 3),
+     dict(slope=0.2, stride=2, padding="same")),
+    ("conv5x5 cin 64", "conv2d", (2, 6, 6, 64), (8, 64, 5, 5),
+     dict(stride=1, padding="same")),
+    ("upsample2x_nearest_conv", "upsample2x_nearest_conv", (2, 4, 4, 3),
+     (8, 3, 5, 5), {}),
+    ("deconv2x2", "conv2d_transpose", (2, 4, 4, 3), (3, 8, 2, 2),
+     dict(stride=2)),
+    ("deconv k2 s1", "conv2d_transpose", (2, 1, 1, 3), (3, 8, 2, 2),
+     dict(stride=1)),
+    ("bilinear2x_conv3x3", "bilinear2x_conv3x3", (2, 4, 4, 3),
+     (8, 3, 3, 3), {}),
+    ("dense", "dense", (3, 5), (8, 5), {}),
+)
+
+
+def op_inputs(name):
+    """Seeded (x, full weight, bias, cotangent) of an OPS entry, and the
+    weight's output-feature axis."""
+    from terrain_tpu_torch.ops import conv, fused
+
+    _, op, xs, ws, kw = next(o for o in OPS if o[0] == name)
+    r = np.random.RandomState(len(name))
+    x = torch.from_numpy(r.randn(*xs).astype(np.float32))
+    wt = torch.from_numpy((r.randn(*ws) * 0.3).astype(np.float32))
+    axis = 1 if op == "conv2d_transpose" else 0
+    b = torch.from_numpy(r.randn(ws[axis]).astype(np.float32))
+    fn = getattr(conv, op, None) or getattr(fused, op)
+    y = fn(x, wt, b, **kw)
+    cot = torch.from_numpy(r.randn(*y.shape).astype(np.float32))
+    return fn, x, wt, b, cot, axis, kw
+
+
+def _ops(mesh):
+    from terrain_tpu_torch.parallel import tp
+    from terrain_tpu_torch.parallel.mesh import Sharding, gather, place
+
+    shard = tp.Shard(mesh.model_index, 2, mesh.model_group)
+    out = {}
+    for name, *_ in OPS:
+        fn, x, wt, b, cot, axis, kw = op_inputs(name)
+        x.requires_grad_()
+        ws = tp.slice_axis(wt, axis, shard).contiguous().requires_grad_()
+        b.requires_grad_()
+        y = tp.call(fn, x, ws, b, shard, **kw)
+        grads = torch.autograd.grad(y, (x, ws, b), cot)
+        out[name] = [t.detach().numpy() for t in (y, *grads)]
+    full = torch.arange(48, dtype=torch.float32).reshape(2, 3, 8)
+    sh = {"a": Sharding(mesh, (None, None, "model")), "b": Sharding(mesh)}
+    mine = place({"a": full.clone(), "b": full[0].clone()}, sh)
+    back = gather(mine, sh)
+    out["place"] = {k: v.numpy() for k, v in mine.items()}
+    out["gather"] = {k: v.numpy() for k, v in back.items()}
+    return out
+
+
+def second_batch():
+    r = np.random.RandomState(7)
+    return (r.rand(w.GLOBAL_BATCH, w.LAT).astype(np.float32),
+            r.rand(w.GLOBAL_BATCH, w.IN, w.IN, 1).astype(np.float32),
+            (r.rand(w.GLOBAL_BATCH, w.IN, w.IN, 3) * 2 - 1).astype(
+                np.float32))
+
+
+def sampler_inputs():
+    r = np.random.RandomState(11)
+    return (torch.from_numpy(r.rand(2, w.LAT).astype(np.float32)),
+            torch.from_numpy(r.rand(2, w.IN, w.IN, 1).astype(np.float32)))
+
+
+def _samples(gan):
+    z, a = sampler_inputs()
+    return (gan.pipeline.z_det(z).numpy(), gan.pipeline.atob_det(a).numpy())
+
+
+def _tp(mesh, rank, out_dir):
+    import torch.distributed as dist
+
+    from terrain_tpu_torch.models import convert
+    from terrain_tpu_torch.train.trainer import TwoStageGAN
+
+    kw = dict(w.nets_kw(), da=False, tp_min_features=8)
+    gan = TwoStageGAN(**kw, mesh=mesh)
+    out = {"sharded": gan.sharded,
+           "step1": w.one_step(gan, w.global_batch())}
+    path = os.path.join(out_dir, f"tp{rank}.model")
+    gan.save_model(path)
+    out["step2"] = w.one_step(gan, second_batch())
+    out["samples"] = _samples(gan)
+    resumed = TwoStageGAN(**kw, mesh=mesh)
+    resumed.load_model(path, exact=True)
+    out["step2_resumed"] = w.one_step(resumed, second_batch())
+    one = os.path.join(out_dir, "one.model")
+    if rank == 0:
+        TwoStageGAN(**dict(kw, seed=5)).save_model(one)
+    dist.barrier(group=mesh.model_group)
+    back = TwoStageGAN(**kw, mesh=mesh)
+    back.load_model(one, exact=True)
+    back.save_model(os.path.join(out_dir, f"back{rank}.model"))
+    out["slices"] = {n: [tuple(p.shape) for p in net.parameters()]
+                     for n, net in back.nets.items()}
+    out["full"] = {n: convert.to_jax(net)[0] for n, net in back.nets.items()}
+    return out
+
+
+def run_rank(rank, world, rendezvous, out_dir):
+    import torch.distributed as dist
+
+    from terrain_tpu_torch.parallel import initialize, make_mesh
+    from terrain_tpu_torch.train.trainer import TwoStageGAN
+    from tiny_cfg import det_sampler
+
+    torch.set_num_threads(1)
+    os.environ["TERRAIN_ARTIFACT_EVERY"] = "999"  # no image dumps
+    initialize(f"file://{rendezvous}", world, rank, backend="gloo")
+    try:
+        pair = make_mesh(n_data=1, n_model=2, ranks=[0, 1])
+        grid = make_mesh(n_data=2, n_model=2)
+        out = {}
+        if rank < 2:
+            out["ops"] = _ops(pair)
+            out["tp"] = _tp(pair, rank, out_dir)
+        gan = TwoStageGAN(**w.tiny_kw(det_sampler(grid.data_index),
+                                      da=True), mesh=grid, tp_min_features=8)
+        out["grid_sharded"] = gan.sharded
+        ds = w.device_pairs()
+        gan.train(ds, ds, batch_size=w.GLOBAL_BATCH, num_epochs=2,
+                  out_dir=os.path.join(out_dir, f"grid{rank}"),
+                  save_every=999)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
