@@ -129,9 +129,28 @@ Phases (any failure exits non-zero and prints no result line):
      holds the mesh's parameters whole and loads back sharded, and every
      kernel launched on each rank (a step with the opt-in switches on and
      one with the unfused decoder).
+ 12. spatial: spatial parallelism, the pix2pix step of
+     test1_nobn_finetunep2p_bilin at full width (512px, batch 4, nf 64,
+     fp32) through experiments.build_train(..., mesh=) on a 1 x 2 mesh of
+     two gloo ranks sharing the card, each image's rows in slabs over
+     'model' down to 8-row slabs: each seed's step, and one with
+     TERRAIN_PALLAS_CONVS2=1 and one with the unfused decoder (losses,
+     the pix2pix gradients), against one process to twice the error of a
+     one-process twin that runs each slab layer on each slab and adds the
+     slabs' partial sums in the ranks' order, the twin itself held to
+     fixed limits; six planted faults (halo rows zeroed, a halo shifted
+     by one row, BatchNorm over the data group only, a slab dW not summed
+     over 'model', a whole-row dW summed over it, the stride-2 crop one
+     row off, the last also in the twin) each shown to fail; each rank's
+     launches: bilinear_conv at both decoder stages, conv_s2's forward
+     and dW+db with the switch, bilinear with the unfused decoder, as
+     often as in one process under the same switches, and a bf16 step.
+     (The `kernels` phase holds the three kernels at the slabs' heights.)
 On request only: `tp4` (the `tp` phase on four cards: a 1 x 4 mesh of
 NCCL ranks, a card each, and rank 0's one-process step timed beside
-the mesh's), `conditioning` (what fp32 rounding does to the 256px
+the mesh's), `spatial4` (the `spatial` phase on four cards: a 1 x 4
+mesh of NCCL ranks, the 64² decoder stage a 16-row slab),
+`conditioning` (what fp32 rounding does to the 256px
 step: CPU fp32 vs fp64, card vs CPU, kernels vs plain versions) and
 `determinism` (two fp32 steps from one state in each of DET_SETTINGS, the
 warnings of deterministic algorithms, what the repairs cost in fp32 and
@@ -268,7 +287,6 @@ PAR_W1_GRAD_TOL = {"fp32": {"dcgan_gen": 2e-2, "dcgan_disc": 2e-5,
                             "p2p_gen": 5e-2, "p2p_disc": 1e-4}}
 PAR_FAULTS = ("BN statistics local", "gradients summed",
               "gradients 1% large", "half the batch twice")
-PAR_TIMEOUT_S = 300      # a collective's wait before it fails
 # each hand-written kernel's symbol, as the profiler names it
 KERNEL_SYMBOLS = {"bilinear_conv": "bilinear_conv_kernel",
                   "conv_thin": "thin_fwd_kernel",
@@ -291,7 +309,8 @@ KERNEL_SYMBOLS = {"bilinear_conv": "bilinear_conv_kernel",
 ACC_ROUTE_TOL = 1e-4
 ACC_TOL = 5e-5
 PHASES = {"kernels", "serve", "train", "trainer", "quality", "raster", "scan",
-          "parallel", "accuracy", "tp", "conditioning", "determinism", "tp4"}
+          "parallel", "accuracy", "tp", "spatial", "conditioning",
+          "determinism", "tp4", "spatial4"}
 
 
 def set_switches(on, switches=SWITCHES):
@@ -396,7 +415,9 @@ def kernel_cases(torch):
     `lib_same` is a library route that computes the same function: the
     activation, or the select, the library gradient and the db sum.
     `tf32_passes` is the number of TF32 tensor-core passes the kernel's
-    fp32 products take (see bound_ms)."""
+    fp32 products take (see bound_ms).  `slab` marks the heights that the
+    spatial phase gives a kernel (a slab of rows with its halo): checked
+    and not timed."""
     import torch.nn.functional as F
     from torch.nn import grad as ng
 
@@ -701,7 +722,26 @@ def kernel_cases(torch):
             # ring's barriers in shared memory)
             s2_dw(4, 512, 512, 1, 64, None), s2_dw(8, 512, 512, 4, 64, 0.01),
             s2_dw(2, 64, 200, 4, 64, 0.2), s2_dw(2, 128, 256, 2, 128, 0.2),
-            s2_dw(1, 64, 256, 2, 8, 0.2), s2_dw(1, 16, 48, 4, 512, None)]
+            s2_dw(1, 64, 256, 2, 8, 0.2), s2_dw(1, 16, 48, 4, 512, None),
+            # the spatial phase's slabs with their halos (parallel/
+            # spatial.py): conv_s2 on a 256-row slab below the first, its
+            # halo row and a zero row above (HO = 129, no multiple of the
+            # 8-row tile), and on 1 x 4's 128-row slabs (HO = 65), the
+            # U-Net's and PatchGAN's first convs; bilinear_conv and
+            # bilinear on 1 x 2's edge slabs (32 + 1 and 64 + 1 rows) and
+            # 1 x 4's inner ones (16 + 2 and 32 + 2)
+            *[dict(c, slab=True) for c in (
+                s2_fwd(4, 258, 512, 1, 64, None),
+                s2_fwd(8, 258, 512, 4, 64, 0.01),
+                s2_fwd(4, 130, 512, 1, 64, None),
+                s2_fwd(8, 130, 512, 4, 64, 0.01),
+                s2_dw(4, 258, 512, 1, 64, None),
+                s2_dw(8, 258, 512, 4, 64, 0.01),
+                s2_dw(4, 130, 512, 1, 64, None),
+                s2_dw(8, 130, 512, 4, 64, 0.01),
+                bil(4, 33, 64, 512, 128), bil(4, 65, 128, 256, 64),
+                bil(4, 18, 64, 512, 128), bil(4, 34, 128, 256, 64),
+                up2(4, 65, 128, 256), up2(4, 34, 128, 256))]]
 
 
 def _as_tuple(v):
@@ -748,6 +788,15 @@ def check_kernels(torch):
                 again = _as_tuple(case["kern"](*args))
                 if not all(torch.equal(a, b) for a, b in zip(outs, again)):
                     fail(f"{name} {shape} {dt}: two runs differ")
+            if case.get("slab"):
+                print(f"kernel {name} {shape} {str(dt).split('.')[-1]} "
+                      f"(a slab of the spatial phase): max_abs_err "
+                      f"{err:.3e} (tol {lim:.3e}), not timed", flush=True)
+                results.setdefault(name, []).append(dict(
+                    shape=shape, dtype=str(dt).split(".")[-1],
+                    max_abs_err=err, tol=lim))
+                del args, refs, outs
+                continue
             lib = (case["lib_make"](*args) if "lib_make" in case
                    else lambda: case["lib"](*args))
             ms = time_ms(lambda: case["kern"](*args))
@@ -2590,9 +2639,10 @@ def parallel_world1(torch, card, root):
     from terrain_tpu_torch.data.synthetic import make_pairs
     from terrain_tpu_torch.experiments import build_gan
     from terrain_tpu_torch.parallel import initialize, make_mesh
+    from terrain_tpu_torch.parallel.distributed import COLLECTIVE_TIMEOUT_S
 
     initialize(f"file://{root}/nccl", 1, 0, backend="nccl",
-               timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+               timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     counts, bad, twins, rows = {}, [], {}, {}
     try:
         mesh = make_mesh()
@@ -2715,7 +2765,19 @@ def _par_time(torch, card, label, gans, batch):
           f"mesh step {calls}", flush=True)
 
 
-def _par_rank(rank, world, root, env):
+def _spawned(work, rank, world, root, backend, *args):
+    """work(rank, world, root, *args) in a spawned rank, in a process
+    group of `backend` joined through a file in root
+    (parallel.distributed.run_rank: the group ended once work has
+    returned)."""
+    sys.path.insert(0, HERE)
+    from terrain_tpu_torch.parallel.distributed import run_rank
+
+    run_rank(f"file://{root}/{work.__name__}", world, rank, work, rank,
+             world, root, *args, backend=backend)
+
+
+def _par_work(rank, world, root, env):
     """One gloo rank on the card, spawned by parallel_gloo, on its rows of
     each global batch of TRAIN_BATCH: the flagship step in fp32 on each
     seed of PAR_SEEDS, and with the switches on and with the unfused
@@ -2726,22 +2788,16 @@ def _par_rank(rank, world, root, env):
     rank's sound data-parallel runs alone (not the faults, not rank 0's
     one-process steps).  Writes root/rank<r>.json; raises on any
     failure."""
-    import datetime
-
-    sys.path.insert(0, HERE)
     os.environ.update(env)
     import torch
-    import torch.distributed as dist
 
     from terrain_tpu_torch.data import DeviceDataset
     from terrain_tpu_torch.data.synthetic import make_pairs
     from terrain_tpu_torch.device import strict_fp32
     from terrain_tpu_torch.experiments import build_gan
-    from terrain_tpu_torch.parallel import initialize, make_mesh
+    from terrain_tpu_torch.parallel import make_mesh
 
     strict_fp32()
-    initialize(f"file://{root}/gloo", world, rank, backend="gloo",
-               timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
     out = {"counts": {}, "step_ms": [], "err": {}, "faults": {}, "rows": {},
            "epoch_s": []}
 
@@ -2753,58 +2809,59 @@ def _par_rank(rank, world, root, env):
             out["counts"][k] = out["counts"].get(k, 0) + v
         return r
 
-    try:
-        mesh = make_mesh()
-        for label, switches in (("fp32", {}), ("fp32 switches on", SWITCHES),
-                                ("fp32 unfused decoder", UNFUSED)):
-            set_switches(True, switches)
-            gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False, mesh=mesh)
-            back = _snapshot(gan)
-            if rank == 0:
-                one, _ = build_gan(EXPERIMENT, "cuda", verbose=False)
-                back_one = _snapshot(one)
-            rows = gan._local(TRAIN_BATCH)
-            for seed in PAR_SEEDS[:1] if switches else PAR_SEEDS:
-                batch = _train_batch(torch, TRAIN_BATCH, gan.in_shp,
-                                     gan.latent_dim, seed)
-                back()
-                t0 = time.perf_counter()
-                got = counted(lambda: _par_step(
-                    torch, gan, tuple(t[rows] for t in batch)))
-                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
-                if rank == 0:
-                    back_one()
-                    ref = _par_step(torch, one, batch)
-                    out["err"][f"{label}, seed {seed}"] = _errors(got, ref)
-                if switches or seed != PAR_SEEDS[0]:
-                    continue
-                for fault in PAR_FAULTS:
-                    back()
-                    faulty = _faulty_step(torch, gan, fault, batch, rows)
-                    if rank == 0:
-                        out["faults"][fault] = _errors(faulty, ref)
-            del gan, back, batch, got
-            if rank == 0:
-                del one, back_one, ref
-            set_switches(False, switches)
-            torch.cuda.empty_cache()
-        for seed in PAR_SEEDS:
-            ds = DeviceDataset(*make_pairs(PAR_N, 512, seed=seed),
-                               device="cuda")
-            gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False, mesh=mesh)
-            gan.sampler = _tiled_sampler(rank, seed)
-            d = os.path.join(root, f"rank{rank}_{seed}")
+    mesh = make_mesh()
+    for label, switches in (("fp32", {}), ("fp32 switches on", SWITCHES),
+                            ("fp32 unfused decoder", UNFUSED)):
+        set_switches(True, switches)
+        gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False, mesh=mesh)
+        back = _snapshot(gan)
+        if rank == 0:
+            one, _ = build_gan(EXPERIMENT, "cuda", verbose=False)
+            back_one = _snapshot(one)
+        rows = gan._local(TRAIN_BATCH)
+        for seed in PAR_SEEDS[:1] if switches else PAR_SEEDS:
+            batch = _train_batch(torch, TRAIN_BATCH, gan.in_shp,
+                                 gan.latent_dim, seed)
+            back()
             t0 = time.perf_counter()
-            counted(lambda: gan.train(ds, ds, TRAIN_BATCH, 1, d,
-                                      save_every=10))
-            out["epoch_s"].append(time.perf_counter() - t0)
-            out["rows"][seed] = _results_row(d)
-            del gan, ds
-            torch.cuda.empty_cache()
-        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
-    finally:
-        dist.destroy_process_group()
+            got = counted(lambda: _par_step(
+                torch, gan, tuple(t[rows] for t in batch)))
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            if rank == 0:
+                back_one()
+                ref = _par_step(torch, one, batch)
+                out["err"][f"{label}, seed {seed}"] = _errors(got, ref)
+            if switches or seed != PAR_SEEDS[0]:
+                continue
+            for fault in PAR_FAULTS:
+                back()
+                faulty = _faulty_step(torch, gan, fault, batch, rows)
+                if rank == 0:
+                    out["faults"][fault] = _errors(faulty, ref)
+        del gan, back, batch, got
+        if rank == 0:
+            del one, back_one, ref
+        set_switches(False, switches)
+        torch.cuda.empty_cache()
+    for seed in PAR_SEEDS:
+        ds = DeviceDataset(*make_pairs(PAR_N, 512, seed=seed),
+                           device="cuda")
+        gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False, mesh=mesh)
+        gan.sampler = _tiled_sampler(rank, seed)
+        d = os.path.join(root, f"rank{rank}_{seed}")
+        t0 = time.perf_counter()
+        counted(lambda: gan.train(ds, ds, TRAIN_BATCH, 1, d,
+                                  save_every=10))
+        out["epoch_s"].append(time.perf_counter() - t0)
+        out["rows"][seed] = _results_row(d)
+        del gan, ds
+        torch.cuda.empty_cache()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _par_rank(rank, world, root, env):
+    _spawned(_par_work, rank, world, root, "gloo", env)
 
 
 def parallel_gloo(torch, card, root, twins, one_rows):
@@ -3050,7 +3107,7 @@ def _tp_fault(torch, gan, fault):
         fail(f"tp: unknown fault {fault}")
 
 
-def _tp_rank(rank, world, root, env, backend):
+def _tp_work(rank, world, root, env):
     """One rank of a 1 x world mesh, spawned by tp_slice: gloo ranks
     sharing the card, or NCCL ranks a card each: the flagship's fp32 step
     on each seed of PAR_SEEDS, each of TP_FAULTS on the first, a
@@ -3060,22 +3117,16 @@ def _tp_rank(rank, world, root, env, backend):
     twin (_tp_twin) and compares.  The launch counters are read around
     this rank's sound mesh steps alone.  Writes root/tp<r>.json; raises
     on any failure."""
-    import datetime
-
-    sys.path.insert(0, HERE)
     os.environ.update(env)
     import numpy as np
     import torch
-    import torch.distributed as dist
 
     from terrain_tpu_torch.device import strict_fp32
     from terrain_tpu_torch.experiments import build_gan
     from terrain_tpu_torch.ops.norm import BatchNorm
-    from terrain_tpu_torch.parallel import initialize, make_mesh
+    from terrain_tpu_torch.parallel import make_mesh
 
     strict_fp32()
-    initialize(f"file://{root}/tp", world, rank, backend=backend,
-               timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
     out = {"counts": {}, "step_ms": [], "one_ms": [], "err": {}, "twin": {},
            "faults": {}, "losses_finite": True}
 
@@ -3097,62 +3148,63 @@ def _tp_rank(rank, world, root, env, backend):
                 for n, net in gan.nets.items()}
         return gan, init, _snapshot(gan)
 
-    try:
-        mesh = make_mesh(n_data=1, n_model=world)
-        gan, init, back = built(mesh)
-        out["sharded"] = {n: len(v) for n, v in gan.sharded.items()}
+    mesh = make_mesh(n_data=1, n_model=world)
+    gan, init, back = built(mesh)
+    out["sharded"] = {n: len(v) for n, v in gan.sharded.items()}
+    if rank == 0:
+        one, one_init, back_one = built()
+        # the mesh's BatchNorm sums (over a data group of one rank)
+        twin, twin_init, back_twin = built(bn_group=mesh.data_group)
+    for seed in PAR_SEEDS:
+        batch = _train_batch(torch, TRAIN_BATCH, gan.in_shp,
+                             gan.latent_dim, seed)
+        back()
+        t0 = time.perf_counter()
+        got = counted(lambda: _tp_step(torch, gan, batch, init))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         if rank == 0:
-            one, one_init, back_one = built()
-            # the mesh's BatchNorm sums (over a data group of one rank)
-            twin, twin_init, back_twin = built(bn_group=mesh.data_group)
-        for seed in PAR_SEEDS:
-            batch = _train_batch(torch, TRAIN_BATCH, gan.in_shp,
-                                 gan.latent_dim, seed)
-            back()
+            back_one()
             t0 = time.perf_counter()
-            got = counted(lambda: _tp_step(torch, gan, batch, init))
-            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
-            if rank == 0:
-                back_one()
-                t0 = time.perf_counter()
-                ref = _tp_step(torch, one, batch, one_init)
-                torch.cuda.synchronize()
-                out["one_ms"].append((time.perf_counter() - t0) * 1e3)
-                back_twin()
-                with _tp_twin(torch, twin, world):
-                    tw = _tp_step(torch, twin, batch, twin_init)
-                out["err"][seed] = _tp_errors(got, ref)
-                out["twin"][seed] = _tp_errors(tw, ref)
-            if seed == PAR_SEEDS[-1]:
-                # (its reload replaces the optimizer states the snapshot
-                # restores: the last seed's step)
-                out["ckpt_full"], out["ckpt_loads_back"] = _tp_checkpoint(
-                    torch, gan, os.path.join(root, f"tp{rank}.model"))
-            if seed != PAR_SEEDS[0]:
-                continue
-            for fault in TP_FAULTS:
-                back()
-                with _tp_fault(torch, gan, fault):
-                    faulty = _tp_step(torch, gan, batch, init)
-                if rank == 0:
-                    out["faults"][fault] = _tp_errors(faulty, ref)
-        del batch, got
-        if rank == 0:
-            del one, twin, back_one, back_twin, ref, tw
-        torch.cuda.empty_cache()
-        for switches in (SWITCHES, UNFUSED):
-            set_switches(True, switches)
+            ref = _tp_step(torch, one, batch, one_init)
+            torch.cuda.synchronize()
+            out["one_ms"].append((time.perf_counter() - t0) * 1e3)
+            back_twin()
+            with _tp_twin(torch, twin, world):
+                tw = _tp_step(torch, twin, batch, twin_init)
+            out["err"][seed] = _tp_errors(got, ref)
+            out["twin"][seed] = _tp_errors(tw, ref)
+        if seed == PAR_SEEDS[-1]:
+            # (its reload replaces the optimizer states the snapshot
+            # restores: the last seed's step)
+            out["ckpt_full"], out["ckpt_loads_back"] = _tp_checkpoint(
+                torch, gan, os.path.join(root, f"tp{rank}.model"))
+        if seed != PAR_SEEDS[0]:
+            continue
+        for fault in TP_FAULTS:
             back()
-            batch = _train_batch(torch, TRAIN_BATCH, gan.in_shp,
-                                 gan.latent_dim, PAR_SEEDS[0])
-            losses = counted(lambda: _par_step(torch, gan, batch))[0]
-            out["losses_finite"] &= all(np.isfinite(v)
-                                        for v in losses.values())
-            set_switches(False, switches)
-        with open(os.path.join(root, f"tp{rank}.json"), "w") as f:
-            json.dump(out, f)
-    finally:
-        dist.destroy_process_group()
+            with _tp_fault(torch, gan, fault):
+                faulty = _tp_step(torch, gan, batch, init)
+            if rank == 0:
+                out["faults"][fault] = _tp_errors(faulty, ref)
+    del batch, got
+    if rank == 0:
+        del one, twin, back_one, back_twin, ref, tw
+    torch.cuda.empty_cache()
+    for switches in (SWITCHES, UNFUSED):
+        set_switches(True, switches)
+        back()
+        batch = _train_batch(torch, TRAIN_BATCH, gan.in_shp,
+                             gan.latent_dim, PAR_SEEDS[0])
+        losses = counted(lambda: _par_step(torch, gan, batch))[0]
+        out["losses_finite"] &= all(np.isfinite(v)
+                                    for v in losses.values())
+        set_switches(False, switches)
+    with open(os.path.join(root, f"tp{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _tp_rank(rank, world, root, env, backend):
+    _spawned(_tp_work, rank, world, root, backend, env)
 
 
 def _tp_checkpoint(torch, gan, path):
@@ -3261,6 +3313,484 @@ def tp_slice(torch, card, world=TP_WORLD, backend="gloo"):
     for c in counts:
         for k, v in c.items():
             total[k] = total.get(k, 0) + v
+    return total
+
+
+# -------------------------------------------------------------- spatial
+# Spatial parallelism: the pix2pix step of SP_EXPERIMENT at full width
+# (512px, batch TRAIN_BATCH, nf 64), fp32, its two image-to-image networks
+# holding each image's rows in slabs over a 1 x SP_WORLD mesh of gloo
+# ranks sharing the card (NCCL refuses two ranks on one device), built by
+# experiments.build_train(..., mesh=): slabs while the rows a rank holds
+# are at least parallel/spatial.MIN_ROWS (8), the deeper layers on whole
+# rows.  Such a step computes one process's function with some sums in
+# another order: a slab layer's dW and db as the ranks' parts added, a
+# slab BatchNorm's statistics and the losses likewise.  Its twin in one
+# process changes those alone: each slab layer called once per slab
+# through parallel/spatial.on_slab (its halo cut from the whole tensor,
+# the kernel route the ranks take), autograd adding the slabs' dW; each
+# slab BatchNorm's sums and the losses over a slab added slab by slab in
+# the ranks' order.  The ranks are held to PAR_TWIN x the twin's error
+# against one process on the same seed (never less than PAR_TOL), the
+# losses and the pix2pix networks' gradients; each of SP_FAULTS must fail
+# that.  The twin runs the slab code the ranks run (the crops, the
+# stride-2 phase, the kernels at the slabs' heights), so it is held
+# itself to fixed limits against one process (SP_TWIN_TOL), and the
+# planted fault in that shared code (SP_SHARED_FAULT) must fail them in
+# the twin.  The seeds' steps run at the default switches, then one with
+# TERRAIN_PALLAS_CONVS2=1 (conv_s2 fwd and dW+db on the slabs) and one
+# with the unfused decoder (bilinear), each compared alike.  The biases
+# are seeded nonzero.  Each rank counts its own launches around its sound
+# steps: each slab kernel as often as one process launches it under the
+# same switches, and a bf16 step.
+SP_EXPERIMENT = "test1_nobn_finetunep2p_bilin"
+SP_WORLD = 2
+SP_SHARED_FAULT = "stride-2 crop one row off"
+SP_FAULTS = ("halo rows zeroed", "halo shifted by one row",
+             "BatchNorm over the data group only",
+             "slab dW not summed over 'model'",
+             "whole-row dW summed over 'model'", SP_SHARED_FAULT)
+# the twin against one process: the losses, and PatchGAN's gradients, to
+# PAR_TOL (its gradients read 1.6e-6 on seed 0); the U-Net's gradients
+# pass back through BatchNorms over a few values (down to 1 x 1), so a
+# new summation order moves them: 1.1e-3 to 5.7e-3 on seeds 0-2 (NVIDIA
+# H100 80GB HBM3, 700 W), held to 2e-2
+SP_TWIN_TOL = {"grad p2p_gen": 2e-2, "grad p2p_disc": PAR_TOL}
+CONVS2 = {"TERRAIN_PALLAS_CONVS2": "1"}
+SP_SWITCHED = (("conv_s2", CONVS2), ("unfused", UNFUSED))
+# each slab kernel's launches in one step on every rank, and in one
+# process: the U-Net's two fused decoder stages; the U-Net's first conv
+# (dW+db: live parameters) and PatchGAN's in its two passes (dW+db in the
+# discriminator's); the unfused decoder's last stage
+SP_LAUNCHES = {"default": {"bilinear_conv": 2},
+               "conv_s2": {"conv_s2_fwd": 3, "conv_s2_dw": 2,
+                           "bilinear_conv": 2},
+               "unfused": {"bilinear": 1, "bilinear_conv": 0},
+               "bf16": {"bilinear_conv": 2}}
+SP_KERNELS = ("bilinear_conv", "conv_s2_fwd", "conv_s2_dw", "bilinear")
+
+
+def _recorder(setup):
+    """The gradients setup's step gives its optimizer, by network, kept
+    at each update: the frozen optimizer that the step holds gets its
+    update wrapped in place.  Returns the dict they go to."""
+    rec, opt = {}, setup.optimizer
+    real = opt.update
+    names = list(setup.opt_states)
+
+    def update(params, grads, state, lr):
+        rec[names[len(rec) % len(names)]] = [g.detach().clone()
+                                             for g in grads]
+        real(params, grads, state, lr)
+
+    object.__setattr__(opt, "update", update)
+    return rec
+
+
+def _setup_snapshot(setup):
+    """A function that puts setup's networks and optimizer states back."""
+    import torch
+
+    from terrain_tpu_torch.train.step import step_state
+
+    state = step_state(setup.nets, setup.opt_states)
+    saved = [t.detach().clone() for t in state]
+
+    def restore():
+        with torch.no_grad():
+            for t, v in zip(state, saved):
+                t.copy_(v)
+
+    return restore
+
+
+def _sp_step(torch, setup, rec, batch):
+    """One step of setup on the batch: (losses, {network: gradients})."""
+    rec.clear()
+    losses = setup.train_step(setup.opt_states, batch, {}, setup.lr)
+    return ({k: float(v) for k, v in losses.items()}, dict(rec))
+
+
+def _sp_twin_limits(err):
+    return {k: SP_TWIN_TOL.get(k, PAR_TOL) for k in err}
+
+
+@contextlib.contextmanager
+def _sp_twin(torch, nets, n):
+    """One process's pix2pix networks (no row shard) computing as the n
+    ranks of a 1 x n mesh do: each layer the rule puts on slabs called
+    once per slab through parallel/spatial.on_slab, its halo cut from the
+    whole tensor (the route of the whole image); each slab BatchNorm on
+    each slab with its own copy of the statistics, their sums and the
+    sums of their cotangents added slab by slab in rank order (as
+    parallel/distributed.ordered_sum adds the ranks'); each loss over a
+    slab added likewise."""
+    from terrain_tpu_torch.ops.norm import ALPHA, EPS, BatchNorm
+    from terrain_tpu_torch.parallel import spatial
+    from terrain_tpu_torch.train import losses as losses_mod
+
+    rule = spatial.RowShard(0, n, None)
+
+    class Slab(spatial.RowShard):
+        __slots__ = ("whole",)
+
+        def __init__(self, i, whole):
+            super().__init__(i, n, None)
+            self.whole = whole
+
+        def halo(self, x, top, bottom):
+            r = x.shape[1]
+            lo = self.index * r - (0 if self.first else top)
+            hi = (self.index + 1) * r + (0 if self.last else bottom)
+            return self.whole.narrow(1, lo, hi - lo).contiguous()
+
+    class SlabSums(torch.autograd.Function):
+        """The slabs' partial sums added in rank order, a copy for each
+        slab; the backward adds the copies' cotangents the same way."""
+
+        @staticmethod
+        def forward(ctx, *parts):
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            return tuple(total.clone() for _ in parts)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            total = gs[0]
+            for g in gs[1:]:
+                total = total + g
+            return tuple(total for _ in gs)
+
+    def slabs(x):
+        return [c.contiguous() for c in x.chunk(n, 1)]
+
+    def layer_forward(layer):
+        def forward(op, x, **kw):
+            return torch.cat([spatial.on_slab(op, c, layer.w, layer.b,
+                                              Slab(i, x), layer.io_rows, **kw)
+                              for i, c in enumerate(slabs(x))], 1)
+        return forward
+
+    def bn_forward(bn):
+        def forward(x, train=False, update_stats=False):
+            if not train:
+                return BatchNorm.forward(bn, x, train, update_stats)
+            axes = (0, 1, 2)
+            xs = slabs(x)
+            count = x.numel() // x.shape[-1]
+            means = [s / count for s in SlabSums.apply(
+                *[c.float().sum(dim=axes) for c in xs])]
+            ds = [c.float() - m for c, m in zip(xs, means)]
+            vs = [s / count for s in SlabSums.apply(
+                *[(d * d).sum(dim=axes) for d in ds])]
+            ys = []
+            for c, m, v in zip(xs, means, vs):
+                binv = torch.rsqrt(v + EPS)
+                scale = (binv * bn.gamma).to(x.dtype)
+                shift = (bn.beta - m * binv * bn.gamma).to(x.dtype)
+                ys.append(c * scale + shift)
+            if update_stats:
+                with torch.no_grad():
+                    binv = torch.rsqrt(vs[0] + EPS)
+                    bn.mean.copy_((1.0 - ALPHA) * bn.mean + ALPHA * means[0])
+                    bn.inv_std.copy_((1.0 - ALPHA) * bn.inv_std
+                                     + ALPHA * binv)
+            return torch.cat(ys, 1)
+        return forward
+
+    def mean(v, rows):
+        if v.ndim == 4 and rule.slab(v.shape[1]):
+            parts = [c.sum() for c in slabs(v)]
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            return total / v.numel()
+        return torch.mean(v)
+
+    patched = []
+    for net in nets:
+        for m in net.modules():
+            io = getattr(m, "io_rows", None)
+            if io is None or not rule.slab(min(io)):
+                continue
+            m.forward = (bn_forward(m) if isinstance(m, BatchNorm)
+                         else layer_forward(m))
+            patched.append(m)
+    real_mean = losses_mod._mean
+    losses_mod._mean = mean
+    try:
+        yield
+    finally:
+        losses_mod._mean = real_mean
+        for m in patched:
+            del m.forward
+
+
+@contextlib.contextmanager
+def _sp_fault(torch, nets, fault):
+    """One of SP_FAULTS planted in the spatial path of `nets`."""
+    import torch.nn.functional as F
+
+    from terrain_tpu_torch.parallel import spatial
+
+    real_halo = spatial.halo_exchange
+    real_same = spatial.RowShard.same_conv
+
+    def zeroed(x, top, bottom, rows):
+        ext = real_halo(x, top, bottom, rows)
+        t = 0 if rows.first else top
+        b = ext.shape[1] - t - x.shape[1]
+        return torch.cat([torch.zeros_like(ext[:, :t]),
+                          ext.narrow(1, t, x.shape[1]),
+                          torch.zeros_like(ext[:, ext.shape[1] - b:])], 1)
+
+    def shifted(x, top, bottom, rows):
+        # each halo row one row further from the slab than it belongs
+        ext = real_halo(x, top + 1, bottom + 1, rows)
+        t = 0 if rows.first else top + 1
+        r = x.shape[1]
+        parts = [ext[:, :t - 1]] if t else []
+        parts.append(ext.narrow(1, t, r))
+        if ext.shape[1] > t + r:
+            parts.append(ext[:, t + r + 1:])
+        return torch.cat(parts, 1)
+
+    def crop_off(self, fn, x, k, s):
+        # below the first slab, the stride-2 output's row that reads the
+        # zero row kept and its last row dropped
+        if s != 2 or self.first:
+            return real_same(self, fn, x, k, s)
+        ext = F.pad(self.halo(x, 1, 0), (0, 0, 0, 0, 1, 0))
+        return fn(ext).narrow(1, 0, x.shape[1] // 2)
+
+    slab_bns = [m for net in nets for m in net.modules()
+                if spatial.on_slabs(m) and hasattr(m, "process_group")]
+    groups = [m.process_group for m in slab_bns]
+
+    def local_bns(on):
+        for m, g in zip(slab_bns, groups):
+            m.process_group = None if on else g  # a 1 x n mesh's data group
+
+    def patch(owner, name, fn):
+        def put(on, real=getattr(owner, name)):
+            setattr(owner, name, fn if on else real)
+        return put
+
+    patches = {
+        "halo rows zeroed": patch(spatial, "halo_exchange", zeroed),
+        "halo shifted by one row": patch(spatial, "halo_exchange", shifted),
+        "BatchNorm over the data group only": local_bns,
+        "slab dW not summed over 'model'": patch(
+            spatial, "sum_slab_grads", lambda net, grads: list(grads)),
+        "whole-row dW summed over 'model'": patch(
+            spatial, "slab_parameters",
+            lambda net: [True] * len(list(net.parameters()))),
+        SP_SHARED_FAULT: patch(spatial.RowShard, "same_conv", crop_off),
+    }
+    if fault not in patches:
+        fail(f"spatial: unknown fault {fault}")
+    patches[fault](True)
+    try:
+        yield
+    finally:
+        patches[fault](False)
+
+
+def _sp_rank(rank, world, root, backend):
+    _spawned(_sp_work, rank, world, root, backend)
+
+
+def _sp_work(rank, world, root):
+    """One rank of a 1 x world mesh, spawned by spatial_slice (gloo ranks
+    sharing the card, or NCCL ranks a card each): the flagship pix2pix
+    step on each seed of PAR_SEEDS on the mesh, each of SP_FAULTS on the
+    first, then one step under each of SP_SWITCHED and one in bf16.  Rank
+    0 also takes each of those fp32 steps in one process (timed, its
+    launches counted) and as the twin (_sp_twin), the twin under
+    SP_SHARED_FAULT too, and compares.  Writes root/sp<r>.json."""
+    import numpy as np
+    import torch
+
+    from terrain_tpu_torch.device import strict_fp32
+    from terrain_tpu_torch.experiments import build_train
+    from terrain_tpu_torch.parallel import make_mesh
+    from terrain_tpu_torch.parallel.spatial import on_slabs
+
+    strict_fp32()
+    out = {"counts": {}, "one_counts": {}, "step_ms": [], "one_ms": [],
+           "err": {}, "twin": {}, "faults": {}, "finite": True}
+
+    def counted(label, fn, into="counts"):
+        _reset_counters()
+        r = fn()
+        torch.cuda.synchronize()
+        c = out[into].setdefault(label, {})
+        for k, v in _read_counters().items():
+            c[k] = c.get(k, 0) + v
+        return r
+
+    def built(mesh=None, cd=None):
+        setup = build_train(SP_EXPERIMENT, "cuda", mesh=mesh,
+                            compute_dtype=cd)
+        _seed_biases(torch, setup)
+        return setup, _recorder(setup), _setup_snapshot(setup)
+
+    mesh = make_mesh(n_data=1, n_model=world)
+    setup, rec, back = built(mesh)
+    out["slabs"] = {n: sum(on_slabs(m) for m in setup.nets[n].modules())
+                    for n in ("p2p_gen", "p2p_disc")}
+    if rank == 0:
+        one, rec_one, back_one = built()
+        twin, rec_twin, back_twin = built()
+        twin_nets = [twin.nets["p2p_gen"], twin.nets["p2p_disc"]]
+
+    def twin_step(batch):
+        back_twin()
+        with _sp_twin(torch, twin_nets, world):
+            return _sp_step(torch, twin, rec_twin, batch)
+
+    def compared(key, label, batch, timed=False):
+        """This rank's step on the mesh (its launches counted under
+        `label`); on rank 0 one process's and the twin's too, compared."""
+        back()
+        t0 = time.perf_counter()
+        got = counted(label, lambda: _sp_step(torch, setup, rec, batch))
+        if timed:
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["finite"] &= all(np.isfinite(v) for v in got[0].values())
+        if rank != 0:
+            return None
+        back_one()
+        t0 = time.perf_counter()
+        ref = counted(label, lambda: _sp_step(torch, one, rec_one, batch),
+                      "one_counts")
+        if timed:
+            out["one_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["err"][key] = _errors(got, ref)
+        out["twin"][key] = _errors(twin_step(batch), ref)
+        return ref
+
+    for seed in PAR_SEEDS:
+        batch = _train_batch(torch, TRAIN_BATCH, setup.in_shp,
+                             setup.latent_dim, seed)
+        ref = compared(f"seed {seed}", "default", batch, timed=True)
+        if seed != PAR_SEEDS[0]:
+            continue
+        for fault in SP_FAULTS:
+            back()
+            with _sp_fault(torch, setup.nets.values(), fault):
+                faulty = _sp_step(torch, setup, rec, batch)
+                if rank == 0 and fault == SP_SHARED_FAULT:
+                    out["shared_fault_twin"] = _errors(twin_step(batch), ref)
+            if rank == 0:
+                out["faults"][fault] = _errors(faulty, ref)
+    batch = _train_batch(torch, TRAIN_BATCH, setup.in_shp, setup.latent_dim,
+                         PAR_SEEDS[0])
+    for label, switches in SP_SWITCHED:
+        set_switches(True, switches)
+        compared(label, label, batch)
+        set_switches(False, switches)
+    del setup, rec, back, ref
+    if rank == 0:
+        del one, twin, twin_nets, back_one, back_twin
+    torch.cuda.empty_cache()
+    bf16, rec16, _ = built(mesh, torch.bfloat16)
+    losses = counted("bf16", lambda: _sp_step(torch, bf16, rec16, batch))[0]
+    out["finite"] &= all(np.isfinite(v) for v in losses.values())
+    with open(os.path.join(root, f"sp{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def spatial_slice(torch, card, world=SP_WORLD, backend="gloo"):
+    """Spatial parallelism on a 1 x world mesh: by default SP_WORLD gloo
+    ranks sharing the card (a correctness path: gloo stages every
+    collective through the host); `spatial4` asks for four NCCL ranks, a
+    card each.  Each step against one process to PAR_TWIN x the twin's
+    error, the twin to SP_TWIN_TOL, SP_FAULTS failing the first and
+    SP_SHARED_FAULT the second, and each slab kernel launched on each
+    rank as often as in one process (SP_LAUNCHES).  Every reading is
+    printed before a failure ends the run.  Returns the ranks' launch
+    counts, added."""
+    import shutil
+    import tempfile
+
+    if torch.cuda.device_count() < (world if backend == "nccl" else 1):
+        fail(f"spatial: {world} NCCL ranks need {world} cards, found "
+             f"{torch.cuda.device_count()}")
+    root = tempfile.mkdtemp(prefix="sp_")
+    t0 = time.perf_counter()
+    try:
+        torch.multiprocessing.spawn(_sp_rank, args=(world, root, backend),
+                                    nprocs=world, join=True)
+        res = []
+        for r in range(world):
+            with open(os.path.join(root, f"sp{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bad = []
+    for r, got in enumerate(res):
+        print(f"spatial [{card}] {backend} rank {r} of a 1 x {world} mesh "
+              f"(512px, batch {TRAIN_BATCH}, fp32): layers on slabs "
+              f"{got['slabs']}; steps (ms, host clock" + (
+                  ", a correctness path: gloo stages through the host"
+                  if backend == "gloo" else "") + ") "
+              + " ".join(f"{t:.1f}" for t in got["step_ms"])
+              + (" against one process on one card " + " ".join(
+                  f"{t:.1f}" for t in got["one_ms"]) if r == 0 else ""),
+              flush=True)
+        if not got["finite"]:
+            bad.append(f"rank {r}: a non-finite loss")
+    what = f"spatial [{card}] {backend} 1 x {world} mesh, fp32"
+    for key, err in res[0]["err"].items():
+        twin = res[0]["twin"][key]
+        bad += _show(f"{what}, {key}: the twin vs one process", twin,
+                     _sp_twin_limits(twin))
+        bad += _show(f"{what}, {key}: one step vs one process", err,
+                     _twin_limits(twin), twin)
+    lim = _twin_limits(res[0]["twin"][f"seed {PAR_SEEDS[0]}"])
+    for fault, err in res[0]["faults"].items():
+        caught = _over(err, lim)
+        print(f"spatial [{card}] the planted fault '{fault}' fails the "
+              f"comparison on {caught}", flush=True)
+        if not caught:
+            bad.append(f"the planted fault '{fault}' passes")
+    err = res[0]["shared_fault_twin"]
+    caught = _over(err, _sp_twin_limits(err))
+    print(f"spatial [{card}] the planted fault '{SP_SHARED_FAULT}' in the "
+          f"twin fails its comparison with one process on {caught}",
+          flush=True)
+    if not caught:
+        bad.append(f"the planted fault '{SP_SHARED_FAULT}' passes the twin")
+    steps = {"default": len(PAR_SEEDS), "conv_s2": 1, "unfused": 1,
+             "bf16": 1}
+    one = res[0]["one_counts"]
+    for r, got in enumerate(res):
+        for label, want in SP_LAUNCHES.items():
+            c = got["counts"][label]
+            print(f"spatial: rank {r}'s launches, {label} "
+                  f"({steps[label]} steps): {c}", flush=True)
+            for k, v in want.items():
+                if c.get(k, 0) != v * steps[label]:
+                    bad.append(f"rank {r} {label}: {k} launched "
+                               f"{c.get(k, 0)} times, not "
+                               f"{v * steps[label]}")
+        for label, c1 in one.items():  # one process's route, on every slab
+            for k in SP_KERNELS:
+                if got["counts"][label].get(k, 0) != c1.get(k, 0):
+                    bad.append(f"rank {r} {label}: {k} "
+                               f"{got['counts'][label]} against one "
+                               f"process's {c1}")
+    print(f"spatial [{card}]: the phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if bad:
+        fail(f"spatial: {bad}")
+    total = {}
+    for got in res:
+        for c in got["counts"].values():
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
     return total
 
 
@@ -3699,7 +4229,7 @@ def main():
     rows, serve_launches, train_launches, trainer_launches = {}, {}, {}, {}
     quality_launches, trainer_epoch_s, step_ms = {}, float("nan"), {}
     raster_launches, scan_launches, parallel_launches = {}, {}, {}
-    world1_launches, tp_launches = {}, {}
+    world1_launches, tp_launches, spatial_launches = {}, {}, {}
     if want("kernels"):
         # the plain versions and the library calls on cuDNN's default
         # algorithms, as they were measured before the port's step turned
@@ -3764,6 +4294,12 @@ def main():
               flush=True)
     if "tp4" in only:
         tp_slice(torch, card, world=4, backend="nccl")
+    if want("spatial"):
+        spatial_launches = spatial_slice(torch, card)
+        print(f"phase spatial done at {time.perf_counter() - t_start:.0f} s",
+              flush=True)
+    if "spatial4" in only:
+        spatial_slice(torch, card, world=4, backend="nccl")
     if only:
         print(f"phases {sorted(only)} passed; run without arguments for the "
               f"result lines")
@@ -3808,11 +4344,15 @@ def main():
             paths[name] += ["raster", "scan"]
     for name in meta:
         paths[name] += ["parallel", "parallel_world1", "tp"]
+    # the spatial phase's pix2pix steps on slabs: its four kernels
+    for name in SP_KERNELS:
+        paths[name].append("spatial")
     launches = {"serve": serve_launches, "train": train_launches,
                 "trainer": trainer_launches, "quality": quality_launches,
                 "raster": raster_launches, "scan": scan_launches,
                 "parallel": parallel_launches,
-                "parallel_world1": world1_launches, "tp": tp_launches}
+                "parallel_world1": world1_launches, "tp": tp_launches,
+                "spatial": spatial_launches}
     kernels = []
     for name, (src, rep) in meta.items():
         main_row = rows[name][0]  # main path shape, fp32

@@ -73,42 +73,45 @@ def _tiny_gan(mesh):
         tp_min_features=16)
 
 
-def _dryrun_rank(rank, world, n_model, rendezvous):
-    """One rank of dryrun_multichip: one step of the global batch
-    2 * n_data over the device-resident data path (the dataset on every
-    rank, each gathering its rows), with weights of 16 or more output
-    features sharded over 'model' (terrain_tpu's dryrun width), of which
-    at least one must be a conv's."""
-    import torch.distributed as dist
-
+def _dryrun_step(rank, n_model):
+    """One step of the global batch 2 * n_data over the device-resident
+    data path (the dataset on every rank, each gathering its rows), with
+    weights of 16 or more output features sharded over 'model'
+    (terrain_tpu's dryrun width), of which at least one must be a
+    conv's."""
     from terrain_tpu_torch.data import DeviceDataset
     from terrain_tpu_torch.data.synthetic import make_pairs
-    from terrain_tpu_torch.parallel import initialize, make_mesh
+    from terrain_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_model=n_model)
+    gan = _tiny_gan(mesh)
+    convs = [m for net in gan.nets.values() for m in net.modules()
+             if hasattr(m, "shard") and m.shard is not None
+             and m.w.dim() == 4]
+    if n_model > 1 and not convs:
+        raise AssertionError("dryrun must shard at least one conv "
+                             "weight on 'model'")
+    bs = 2 * mesh.shape["data"]
+    ds = DeviceDataset(*make_pairs(2 * bs, IN_SHP, seed=0), device="cpu")
+    step, _ = gan._build_steps(ds.make_prepare(augment=gan.da,
+                                               shard=gan._shard))
+    z = gan._sample_z(bs)
+    idx = torch.arange(bs)[gan._local(bs)]
+    losses = step(gan.opt_states, ds.batch_args(z, idx),
+                  gan._next_rngs(), gan.lr)
+    for k, v in losses.items():
+        if not torch.isfinite(v).all():
+            raise FloatingPointError(f"rank {rank}: loss {k} = {v}")
+
+
+def _dryrun_rank(rank, world, n_model, rendezvous):
+    """One rank of dryrun_multichip: `_dryrun_step` in a process group
+    (parallel.distributed.run_rank)."""
+    from terrain_tpu_torch.parallel.distributed import run_rank
 
     torch.set_num_threads(1)
-    initialize(f"file://{rendezvous}", world, rank, backend="gloo")
-    try:
-        mesh = make_mesh(n_model=n_model)
-        gan = _tiny_gan(mesh)
-        convs = [m for net in gan.nets.values() for m in net.modules()
-                 if hasattr(m, "shard") and m.shard is not None
-                 and m.w.dim() == 4]
-        if n_model > 1 and not convs:
-            raise AssertionError("dryrun must shard at least one conv "
-                                 "weight on 'model'")
-        bs = 2 * mesh.shape["data"]
-        ds = DeviceDataset(*make_pairs(2 * bs, IN_SHP, seed=0), device="cpu")
-        step, _ = gan._build_steps(ds.make_prepare(augment=gan.da,
-                                                   shard=gan._shard))
-        z = gan._sample_z(bs)
-        idx = torch.arange(bs)[gan._local(bs)]
-        losses = step(gan.opt_states, ds.batch_args(z, idx),
-                      gan._next_rngs(), gan.lr)
-        for k, v in losses.items():
-            if not torch.isfinite(v).all():
-                raise FloatingPointError(f"rank {rank}: loss {k} = {v}")
-    finally:
-        dist.destroy_process_group()
+    run_rank(f"file://{rendezvous}", world, rank, _dryrun_step, rank,
+             n_model)
 
 
 def dryrun_multichip(n_devices, n_model=None):

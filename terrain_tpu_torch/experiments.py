@@ -62,11 +62,15 @@ from terrain_tpu_torch.data import (
     DeviceDataset, Hdf5Iterator, RasterCropIterator)
 from terrain_tpu_torch.device import compute_dtype_from_env, resolve_device
 from terrain_tpu_torch.models import dcgan, unet
-from terrain_tpu_torch.parallel import HostShardIterator, make_mesh
+from terrain_tpu_torch.ops.norm import BatchNorm
+from terrain_tpu_torch.parallel import (
+    HostShardIterator, make_mesh, place, shard_rows)
 from terrain_tpu_torch.parallel.distributed import process_count
 from terrain_tpu_torch.sample import TwoStagePipeline
 from terrain_tpu_torch.train import optim
 from terrain_tpu_torch.train.checkpoint import pick_best_epoch
+from terrain_tpu_torch.train.step import (
+    build_eval_step, build_train_step, step_state)
 from terrain_tpu_torch.train.trainer import TwoStageGAN
 
 _TEST1_DCGAN = {"num_repeats": 0, "div": [2, 2, 4, 4, 8, 8, 8]}
@@ -243,18 +247,56 @@ class TrainSetup:
     device: torch.device
 
 
-def build_train(experiment, device=None, *, seed=0, compute_dtype=None):
+def build_train(experiment, device=None, *, seed=0, compute_dtype=None,
+                mesh=None):
     """The bare training pieces of a registered experiment, without data,
     augmentation or the epoch loop: the trainer's networks, optimizer and
-    host-batch steps."""
+    host-batch steps.
+
+    `mesh` (parallel.make_mesh over a process group; the pix2pix mode's
+    experiments only): spatial parallelism.  The pix2pix networks hold
+    their images in slabs of rows over the model group
+    (parallel.shard_rows), every BatchNorm takes the data group, the
+    state is placed over the mesh, and the steps take this rank's data
+    block of each global batch, whole images, of which they keep this
+    rank's rows: each returns one process's losses."""
     gan, name = build_gan(experiment, device, seed=seed,
                           compute_dtype=compute_dtype, verbose=False,
                           da=False)
+    train_step, eval_step = gan.train_step, gan.eval_step
+    if mesh is not None:
+        train_step, eval_step = _spatial_steps(gan, mesh)
     return TrainSetup(
         name=name, nets=gan.nets, optimizer=gan.optimizer,
-        opt_states=gan.opt_states, train_step=gan.train_step,
-        eval_step=gan.eval_step, lr=gan.lr, train_mode=gan.train_mode,
+        opt_states=gan.opt_states, train_step=train_step,
+        eval_step=eval_step, lr=gan.lr, train_mode=gan.train_mode,
         in_shp=gan.in_shp, latent_dim=gan.latent_dim, device=gan.device)
+
+
+def _spatial_steps(gan, mesh):
+    """gan's pix2pix networks row-sharded over `mesh` and its state placed
+    there; returns its (train step, eval step) over the mesh."""
+    if gan.train_mode != "p2p":
+        raise NotImplementedError(
+            "spatial parallelism takes the pix2pix mode's experiments: the "
+            "DCGAN networks under row sharding are not ported yet (ROADMAP "
+            "A.5b)")
+    data = mesh.data_group if mesh.shape["data"] > 1 else None
+    for net in gan.nets.values():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.process_group = data
+        if hasattr(net, "data_shard") and data is not None:
+            net.data_shard = (mesh.data_index, mesh.shape["data"])
+    for n in ("p2p_gen", "p2p_disc"):
+        shard_rows(gan.nets[n], mesh)
+    place(step_state(gan.nets, gan.opt_states), mesh)
+    step_kw = dict(alpha=gan._step_kw["alpha"], lsgan=gan._step_kw["lsgan"],
+                   reconstruction=gan._step_kw["reconstruction"],
+                   spatial_mesh=mesh)
+    return (build_train_step(gan.nets, gan.optimizer, train_mode="p2p",
+                             lr_mults=gan._train_kw["lr_mults"], **step_kw),
+            build_eval_step(gan.nets, **step_kw))
 
 
 # ------------------------------------------------------------------- data

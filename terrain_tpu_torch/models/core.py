@@ -15,6 +15,12 @@ holds only its rank's contiguous slice of the output features, on
 features over the model group.  `load_jax` takes that slice of the full
 terrain_tpu array, and `to_jax` gathers the full one (a collective: every
 rank of the model group calls it), so the trees stay full.
+
+Spatial parallelism (parallel/spatial.py): the image-to-image networks give
+each layer the whole heights of its input and output (`io_rows`); a layer
+of a network whose images are held in slabs of rows (`rows` set by
+parallel/spatial.shard_rows) calls its op on the slab or on whole rows as
+the rule has them (`spatial.call`).
 """
 
 import math
@@ -24,7 +30,7 @@ import torch
 from torch import nn
 
 from terrain_tpu_torch.ops.norm import _copy, _np
-from terrain_tpu_torch.parallel import tp
+from terrain_tpu_torch.parallel import spatial, tp
 
 
 def glorot_uniform(shape, fan_in, fan_out, generator, gain=1.0):
@@ -41,8 +47,13 @@ class _Layer(nn.Module):
 
     OUT_AXIS = 0
     shard = None
+    rows = None     # parallel/spatial.RowShard of a row-sharded network
+    io_rows = None  # (H in, H out): whole heights, set by the network
 
     def forward(self, op, x, **kw):
+        if self.rows is not None:
+            return spatial.call(op, x, self.w, self.b, self.rows,
+                                self.io_rows, **kw)
         return tp.call(op, x, self.w, self.b, self.shard, **kw)
 
     def jax_shape(self):
@@ -134,18 +145,22 @@ class Dense(_Layer):
         return {"w": _np(self._full().t()), "b": _np(self.b)}, None
 
 
-def dropout(x, rate, generator, train, shard=None):
+def dropout(x, rate, generator, train, shard=None, rows=None):
     """Inverted dropout (lasagne DropoutLayer, rescale=True); the mask is
     drawn from `generator`, on x's device.  `shard` = (index, count): x
     holds rows index*N .. (index+1)*N of a global batch of count*N, whose
-    mask is drawn and this rank's rows kept (data/augment.augment_pair)."""
+    mask is drawn and this rank's rows kept (data/augment.augment_pair).
+    `rows` = (index, count): x is slab `index` of `count` of each image's
+    rows; the whole images' mask is drawn and the slab's rows kept."""
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
     index, count = shard or (0, 1)
-    n = x.shape[0]
-    mask = torch.rand((n * count,) + tuple(x.shape[1:]), generator=generator,
-                      device=x.device)[index * n:(index + 1) * n] < keep
+    ri, rc = rows or (0, 1)
+    n, h = x.shape[0], x.shape[1]
+    mask = torch.rand((n * count, h * rc) + tuple(x.shape[2:]),
+                      generator=generator, device=x.device)
+    mask = mask[index * n:(index + 1) * n, ri * h:(ri + 1) * h] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

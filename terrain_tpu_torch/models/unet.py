@@ -15,6 +15,15 @@ PatchGAN over concat(A, B): per block in mul_factor (num_repeats+1) x
 [Conv k3 'same' (stride 2 on the first repeat) -> leaky 0.01 -> optional
 BN, *after* the activation as in the reference], then Conv k3 s2 -> 1 ->
 act.  `discriminator2` has BN on every block but the first.
+
+Spatial parallelism (parallel/spatial.shard_rows): both networks give each
+layer and BatchNorm the whole heights it works at (`io_rows`), so a
+network whose images are held in slabs of rows runs each on the slab or
+on whole rows by the one rule of parallel/spatial.py; the U-Net's skips
+then have the layout of the decoder tensors they join.  Such a network
+takes its input as slabs and returns its output as slabs when the
+output's height is held in slabs (`out_rows`, its whole height), else
+whole.
 """
 
 import math
@@ -48,6 +57,7 @@ class UNetGenerator(nn.Module):
             raise ValueError(f"in_shp {in_shp} must be a power of two >= 8")
         g = generator if generator is not None else torch.Generator()
         self.in_shp, self.n_down = in_shp, n_down
+        self.out_rows = in_shp
         self.dropout_p, self.num_repeats = float(dropout_p), num_repeats
         self.bilinear_upsample = bilinear_upsample
         self.compute_dtype = compute_dtype
@@ -82,6 +92,28 @@ class UNetGenerator(nn.Module):
             cin = cout + nf * mults[n_down - 1 - j]
         self.dec = nn.ModuleList(dec)
         self.deconv_out = Deconv(2, cin, out_ch, g)
+        self._set_heights()
+
+    rows = None  # parallel/spatial.RowShard when held in slabs of rows
+
+    def _set_heights(self):
+        """Each layer's and BatchNorm's whole (input, output) heights."""
+        h = self.in_shp
+        for blk in self.enc:
+            blk["conv"].io_rows = (h, h // 2)
+            h //= 2
+            blk["bn"].io_rows = (h, h)
+            for rep in blk["repeats"]:
+                rep["conv"].io_rows = rep["bn"].io_rows = (h, h)
+        self.bottleneck["conv"].io_rows = (h, h - 1)
+        h -= 1
+        self.bottleneck["bn"].io_rows = (h, h)
+        for blk in self.dec:
+            layer = blk["deconv"] if "deconv" in blk else blk["conv"]
+            layer.io_rows = (h, 2 * h)
+            h *= 2
+            blk["bn"].io_rows = (h, h)
+        self.deconv_out.io_rows = (h, 2 * h)
 
     def forward(self, x, train=False, generator=None, update_stats=False):
         """x (N, in_shp, in_shp, in_ch) -> (N, in_shp, in_shp, out_ch) fp32.
@@ -118,7 +150,8 @@ class UNetGenerator(nn.Module):
             x = blk["bn"](x, train, us)
             if self.dropout_p > 0.0 and j < 3:
                 x = _drop(x, self.dropout_p, generator, train,
-                          self.data_shard)
+                          self.data_shard, self.rows and self.rows.part(
+                              blk["bn"].io_rows[0]))
             x = leaky_relu(torch.cat([x, skips[self.n_down - 1 - j]], -1),
                            0.01)
         x = self.deconv_out(conv2d_transpose, x, stride=2, compute_dtype=cd)
@@ -163,18 +196,25 @@ class PatchGAN(nn.Module):
         self.act = get_activation(act)
         self.compute_dtype = compute_dtype
         cin = (1 if is_a_grayscale else 3) + (1 if is_b_grayscale else 3)
-        blocks = []
+        blocks, h = [], in_shp
         for idx, m in enumerate(tuple(mul_factor)):
             reps = []
-            for _ in range(num_repeats + 1):
+            for r in range(num_repeats + 1):
                 blk = {"conv": Conv(3, cin, nf * m, g)}
+                blk["conv"].io_rows = (h, h // 2 if r == 0 else h)
+                h = blk["conv"].io_rows[1]
                 if bn_rule(idx):
                     blk["bn"] = BatchNorm(nf * m)
+                    blk["bn"].io_rows = (h, h)
                 reps.append(nn.ModuleDict(blk))
                 cin = nf * m
             blocks.append(nn.ModuleList(reps))
         self.blocks = nn.ModuleList(blocks)
         self.conv_out = Conv(3, cin, 1, g)
+        self.conv_out.io_rows = (h, h // 2)
+        self.out_rows = h // 2
+
+    rows = None  # parallel/spatial.RowShard when held in slabs of rows
 
     def forward(self, a, b, train=False, generator=None, update_stats=False):
         """a (N,S,S,a_ch), b (N,S,S,b_ch) -> patch map (N,s,s,1) fp32."""

@@ -32,6 +32,13 @@ of these convs (its Winograd, at 64-256²) is 8e-3 to 4e-2 off fp64
 relative to its largest entry on an H100, its deterministic and default
 algorithms alike, where the JAX package's fp32 is within a few 1e-6.
 The same code runs on the CPU.
+
+On a slab of image rows (spatial parallelism, parallel/spatial.on_slab
+runs a 'same' conv on the slab with its halo of neighbours' rows) the
+route is the one the whole image takes: the kernels' regimes are read on
+the whole image's shape (`route_shape`), so a slab launches the kernel
+exactly where one process does.  The stem's and conv_thin's regimes on a
+slab (the DCGAN networks') are not ported yet and raise (ROADMAP A.5b).
 """
 
 import os
@@ -64,29 +71,39 @@ def conv_kernel_on(switch):
             and os.environ.get(switch, "1") != "0")
 
 
-def _try_stem(x, w, b, s, padding, cd, slope=None):
-    """The stem kernel, unless switched off, in its regime (bias and
-    activation included), else None.  x and w go in the compute dtype, the
-    bias in fp32, unrounded."""
+def _no_slab(name, x, shape):
+    if tuple(x.shape) != tuple(shape):
+        raise NotImplementedError(
+            f"the {name} kernel on a slab of image rows is not ported yet "
+            f"(ROADMAP A.5b): x {tuple(x.shape)} of {tuple(shape)}")
+
+
+def _try_stem(x, w, b, s, padding, cd, slope=None, shape=None):
+    """The stem kernel, unless switched off, in its regime (read on
+    `shape`, default x's; bias and activation included), else None.  x and
+    w go in the compute dtype, the bias in fp32, unrounded."""
     cout, cin, kh, kw = w.shape
     if not conv_kernel_on("TERRAIN_PALLAS_STEM"):
         return None
-    if not _cs.supported(tuple(x.shape), (kh, kw, cin, cout), s, padding):
+    shape = shape or tuple(x.shape)
+    if not _cs.supported(shape, (kh, kw, cin, cout), s, padding):
         return None
+    _no_slab("conv_stem", x, shape)
     bb = b.float() if b is not None else torch.zeros(cout, device=x.device)
     return _cs.conv_stem(x.to(cd).contiguous(),
                          w.to(cd).permute(2, 3, 1, 0).contiguous(),
                          bb.contiguous(), slope)
 
 
-def _try_s2(x, w, b, s, padding, cd, slope=None):
-    """The conv_s2 kernel when switched on and in its regime (bias and
-    activation included), else None."""
+def _try_s2(x, w, b, s, padding, cd, slope=None, shape=None):
+    """The conv_s2 kernel when switched on and in its regime (read on
+    `shape`, default x's; bias and activation included), else None."""
     if (os.environ.get("TERRAIN_PALLAS_CONVS2", "0") != "1"
             or os.environ.get("TERRAIN_PALLAS_CONV", "1") == "0"):
         return None
     cout, cin, kh, kw = w.shape
-    if not _c2.supported(tuple(x.shape), (kh, kw, cin, cout), s, padding):
+    if not _c2.supported(shape or tuple(x.shape), (kh, kw, cin, cout), s,
+                         padding):
         return None
     bb = b.float() if b is not None else torch.zeros(cout, device=x.device)
     return _c2.conv_s2(x.to(cd), w.to(cd).permute(2, 3, 1, 0).contiguous(),
@@ -165,19 +182,23 @@ class Conv5x5(torch.autograd.Function):
         return dx, dw
 
 
-def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None):
+def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None,
+           route_shape=None):
     """2D cross-correlation, NHWC x OIHW -> NHWC; padding 'same'
-    (symmetric (k-1)//2) or 'valid'."""
+    (symmetric (k-1)//2) or 'valid'.  `route_shape`: the shape whose
+    regime picks the route (default x's; a slab's whole image)."""
     cout, cin, kh, kw = w.shape
     s = _to_pair(stride)
     cd = compute_dtype or x.dtype
-    out = _try_stem(x, w, b, s, padding, cd)
+    shape = route_shape or tuple(x.shape)
+    out = _try_stem(x, w, b, s, padding, cd, shape=shape)
     if out is None:
-        out = _try_s2(x, w, b, s, padding, cd)
+        out = _try_s2(x, w, b, s, padding, cd, shape=shape)
     if out is not None:
         return out
     if conv_kernel_on("TERRAIN_PALLAS_THIN") and _ct.supported(
-            tuple(x.shape), (kh, kw, cin, cout), s, padding):
+            shape, (kh, kw, cin, cout), s, padding):
+        _no_slab("conv_thin", x, shape)
         out = _ct.conv_thin(x.to(cd).contiguous(),
                             w.to(cd).permute(2, 3, 1, 0).contiguous())
     else:
@@ -198,21 +219,25 @@ def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None):
 
 
 def conv2d_leaky(x, w, b=None, *, slope=0.2, stride=1, padding="same",
-                 compute_dtype=None):
+                 compute_dtype=None, route_shape=None):
     """conv2d followed by LeakyReLU(slope): in the stem regime, and in
     conv_s2's when that is switched on, one kernel with the activation as its
     epilogue (terrain_tpu ops/conv.py:124-145), else leaky_relu(conv2d(...)).
     TERRAIN_STEM_ACT=0 opts out of the fusion, as in terrain_tpu: the
-    kernels then run without the epilogue and the activation after them."""
+    kernels then run without the epilogue and the activation after them.
+    `route_shape` as conv2d's."""
     if os.environ.get("TERRAIN_STEM_ACT", "1") != "0":
         s, cd = _to_pair(stride), compute_dtype or x.dtype
-        out = _try_stem(x, w, b, s, padding, cd, slope=slope)
+        out = _try_stem(x, w, b, s, padding, cd, slope=slope,
+                        shape=route_shape)
         if out is None:
-            out = _try_s2(x, w, b, s, padding, cd, slope=slope)
+            out = _try_s2(x, w, b, s, padding, cd, slope=slope,
+                          shape=route_shape)
         if out is not None:
             return out
     return leaky_relu(conv2d(x, w, b, stride=stride, padding=padding,
-                             compute_dtype=compute_dtype), slope)
+                             compute_dtype=compute_dtype,
+                             route_shape=route_shape), slope)
 
 
 def conv2d_transpose(x, w, b=None, *, stride=2, compute_dtype=None):

@@ -10,6 +10,12 @@
 3. bilinear2x_conv3x3: bilinear x2 then 3x3 'same' conv; in the kernel's
    regime it is the fused bilinear_conv kernel (ops/kernels), elsewhere, or
    with TERRAIN_PALLAS_DECODER=0 or TERRAIN_PALLAS_CONV=0, the composite.
+   On a slab of image rows (parallel/spatial.on_slab: the slab with one
+   halo row on each side) the choice is made on the whole image's shape
+   (`route_shape`), so a slab takes the kernel exactly where one process
+   does (the kernel has no row-tile rule of its own: its tiles are
+   bounds-checked, so a slab of any height launches; chip_smoke.py holds
+   it at the slabs' heights).
 """
 
 from functools import lru_cache
@@ -95,20 +101,26 @@ def deconv2x2(x, w, b=None, *, compute_dtype=None):
     return y
 
 
-def bilinear2x_conv3x3(x, w, b=None, *, compute_dtype=None):
+def bilinear2x_conv3x3(x, w, b=None, *, compute_dtype=None,
+                       route_shape=None):
     """Bilinear x2 upsample then 3x3 'same' conv (the U-Net decoder's
     bilinear stage).  w (cout,cin,3,3).  In the bilinear_conv regime, unless
     switched off, this is the fused kernel (all arithmetic in fp32, output
     in the compute dtype); otherwise the unfused composite runs, whose
-    upsample is ops/resize.upsample_bilinear_2x."""
+    upsample is ops/resize.upsample_bilinear_2x.  `route_shape`: the
+    shape whose regime picks the route (default x's; a slab's whole
+    image)."""
     cd = compute_dtype or x.dtype
     cout, cin = w.shape[0], w.shape[1]
+    shape = route_shape or tuple(x.shape)
     # terrain_tpu's TERRAIN_PALLAS_DECODER switch (ops/fused.py:168-182)
     if conv_kernel_on("TERRAIN_PALLAS_DECODER") and _bc.supported(
-            tuple(x.shape), (3, 3, cin, cout)):
+            shape, (3, 3, cin, cout)):
         bb = b if b is not None else torch.zeros(cout, device=x.device)
         return _bc.bilinear_conv(
             x.to(cd).contiguous(), w.to(cd).permute(2, 3, 1, 0).contiguous(),
             bb.float().contiguous())
-    return conv2d(upsample_bilinear_2x(x), w, b, stride=1, padding="same",
-                  compute_dtype=cd)
+    n, h, wd, c = shape
+    return conv2d(upsample_bilinear_2x(x, route_shape=shape), w, b, stride=1,
+                  padding="same", compute_dtype=cd,
+                  route_shape=(n, 2 * h, 2 * wd, c))

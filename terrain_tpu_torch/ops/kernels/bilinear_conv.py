@@ -47,6 +47,7 @@ KERNEL = CudaKernel(
     "bilinear_conv", "bilinear_conv_launch",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 BACKWARD = OpCounter()  # backward passes of BilinearConvFn
+PLAIN = OpCounter()     # calls of the plain version (CPU tensors)
 
 
 def _pick_tile(dim, target):
@@ -83,6 +84,7 @@ def bilinear_conv_fwd(x, w, b):
     """Forward primitive (not differentiable on CUDA tensors: use
     `bilinear_conv`).  w in x.dtype, b fp32."""
     if all_on_cpu("bilinear_conv", x, w, b):
+        PLAIN.calls += 1
         return bilinear_conv_plain(x, w, b)
     if x.dtype not in _DTYPES or w.dtype != x.dtype \
             or b.dtype != torch.float32:
@@ -246,5 +248,6 @@ def bilinear_conv(x, w, b):
     kernel for CUDA tensors, the plain version (which autograd follows) for
     CPU tensors.  w in x.dtype, b fp32."""
     if all_on_cpu("bilinear_conv", x, w, b):
+        PLAIN.calls += 1
         return bilinear_conv_plain(x, w, b)
     return BilinearConvFn.apply(x, w, b)

@@ -14,34 +14,39 @@ mesh.py:10-14).  Two passes, as terrain_tpu's mean and var
 all-reduced sum of squared deviations from it the variance.  Each all-
 reduce is `all_reduce_sum`, whose backward all-reduces the cotangent, so
 every rank's gradient holds the other ranks' paths through the
-statistics.  Without a group nothing changes.
+statistics; both add the ranks' sums in rank order
+(parallel/distributed.ordered_sum), so the statistics are the same bits
+under any backend and ring.  Without a group nothing changes.
+
+Spatial parallelism (parallel/spatial.shard_rows) needs no code here:
+it gives a BatchNorm on slabs of image rows the group of the whole mesh,
+data x model (every row of every rank counted once), and one on whole
+rows, which every rank of a model group holds alike, the data group.
 """
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from terrain_tpu_torch.parallel.distributed import ordered_sum
+
 EPS = 1e-4  # lasagne BatchNormLayer default epsilon
 ALPHA = 1e-2  # lasagne BatchNormLayer default running-average alpha
 
 
 class AllReduceSum(torch.autograd.Function):
-    """The sum of x over the ranks of `group`; its backward is the sum of
-    the cotangents over the same ranks (each rank's loss reaches every
-    rank's x through the sum)."""
+    """The sum of x over the ranks of `group` (`ordered_sum`); its backward
+    is the sum of the cotangents over the same ranks (each rank's loss
+    reaches every rank's x through the sum)."""
 
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-        return y
+        return ordered_sum(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g, None
+        return ordered_sum(g, ctx.group), None
 
 
 def all_reduce_sum(x, group):

@@ -21,6 +21,11 @@ of ops/kernels/bilinear_conv.py, through the same function.
 
 `upsample_nearest_2x` repeats by broadcasting: the backward of a broadcast
 is a sum, where `repeat_interleave`'s is an index_add with atomics.
+
+On a slab of image rows (parallel/spatial.RowShard.upsampled: the slab
+with one halo row on each side, so the edge clamp applies at the image's
+edges alone) the form is chosen on the whole image's shape
+(`route_shape`), so the kernel runs where one process runs it.
 """
 
 import os
@@ -58,10 +63,12 @@ class Bilinear2xLib(torch.autograd.Function):
             ctx.dtype)
 
 
-def upsample_bilinear_2x(x):
-    """Bilinear x2 with half-pixel centres and edge clamp, in fp32."""
+def upsample_bilinear_2x(x, route_shape=None):
+    """Bilinear x2 with half-pixel centres and edge clamp, in fp32.
+    `route_shape`: the shape whose regime picks the form (default x's; a
+    slab's whole image)."""
     pallas = os.environ.get("TERRAIN_PALLAS") == "1"
-    if pallas and _bl.supported(tuple(x.shape), x.dtype):
+    if pallas and _bl.supported(route_shape or tuple(x.shape), x.dtype):
         return _bl.bilinear_2x(x)
     if not pallas and os.environ.get("TERRAIN_RESIZE", "xla") != "xla":
         return _bl.bilinear_2x_plain(x)

@@ -16,6 +16,8 @@ Per-process data loading:
     the BN statistics, the gradients and the losses over 'data'.
 """
 
+import datetime
+import gc
 import os
 
 import torch
@@ -25,6 +27,10 @@ from terrain_tpu_torch.device import platform_device
 
 # torchrun's environment; initialize() with no arguments needs all of it
 _TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+# a spawned rank's wait in one collective before it fails (`run_rank`): a
+# rank whose peer died stops, where torch.distributed's default would hold
+# it for 30 minutes
+COLLECTIVE_TIMEOUT_S = 300
 
 
 def process_index():
@@ -83,6 +89,57 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
         kw["timeout"] = timeout
     dist.init_process_group(backend, init_method=url, **kw)
     return dist.get_rank(), dist.get_world_size()
+
+
+def finish(barrier=True):
+    """This process's end of its process group.  Every Python object that
+    still holds one of the groups is collected first, the ranks meet at a
+    barrier (`barrier`: leave it out when this rank failed, since its peers
+    may wait in another collective), the groups are destroyed, and
+    collected again: no gloo worker thread outlives its group into the
+    interpreter's exit, where C++ objects are torn down in no set order.
+    A spawned rank calls it last, after the function that did its work has
+    returned, so that function's locals are gone."""
+    gc.collect()
+    if dist.is_initialized():
+        if barrier:
+            nccl = dist.get_backend() == "nccl"
+            dist.barrier(device_ids=[torch.cuda.current_device()] if nccl
+                         else None)
+        dist.destroy_process_group()
+    gc.collect()
+
+
+def run_rank(init_method, world, rank, work, *args, backend="gloo"):
+    """A spawned rank's life: join the process group (`init_method`, an
+    init URL such as "file://..." or "tcp://localhost:<port>", each
+    collective's wait bounded by COLLECTIVE_TIMEOUT_S), run work(*args),
+    and end the group with `finish` once work has returned, so its locals
+    (which hold the groups) are gone; a rank whose work raised skips the
+    barrier and raises."""
+    initialize(init_method, world, rank, backend=backend,
+               timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    try:
+        work(*args)
+    except BaseException:
+        finish(barrier=False)
+        raise
+    finish()
+
+
+def ordered_sum(x, group):
+    """The sum of x over the ranks of `group`, added in the group's rank
+    order: one all-reduce of a zero buffer with a slot a rank (each
+    element of it one value and zeros, exact in any order), then the
+    slots added left to right.  The same bits under any backend and ring,
+    and the order a one-process model of the ranks adds them in."""
+    buf = x.new_zeros((dist.get_world_size(group),) + tuple(x.shape))
+    buf[dist.get_rank(group)] = x
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    out = buf[0]
+    for part in buf[1:]:
+        out = out + part
+    return out
 
 
 def host_batch_slice(global_batch, *, process_index=None, process_count=None):

@@ -16,8 +16,12 @@ group per data column and per model row.  The single-process path is the
     group, one contiguous slice a rank; `place` keeps this rank's slice and
     `gather` puts the whole tensor back; parallel/tp.py holds the
     collectives around a sharded layer.  Image rows over 'model' (spatial
-    parallelism, `spatial_batch_sharding`) are not ported yet and raise
-    (ROADMAP A.5b).
+    parallelism, `spatial_batch_sharding`): `place` keeps this rank's rows
+    of its data block's images and `gather` puts whole images back;
+    parallel/spatial.py holds the halo exchanges and the layout rule of a
+    network whose images are held in slabs (`spatial.shard_rows`), and
+    the group of the whole mesh (`Mesh.group`) takes a slab BatchNorm's
+    statistics.
 
 Every collective is an all_reduce or a broadcast: gloo supports only
 those two on CUDA tensors, and the card's check runs two gloo ranks on one
@@ -31,25 +35,25 @@ import torch.distributed as dist
 from terrain_tpu_torch.parallel.tp import Shard, gather_axis, slice_axis
 
 AXES = ("data", "model")
-A5B = ("is not ported yet: spatial parallelism (image rows over 'model') "
-       "is ROADMAP A.5b")
 
 
 class Mesh:
     """`ranks`: (n_data, n_model) array of global ranks.  `data_group` is
     the process group of this rank's data column (the ranks that share its
     model index), `model_group` that of its model row (made only when
-    n_model > 1); both None without a process group (a mesh laid out for
-    inspection only) or outside the mesh.  `data_index` is this rank's
+    n_model > 1), `group` that of the whole mesh; all None without a
+    process group (a mesh laid out for inspection only) or outside the
+    mesh.  `data_index` is this rank's
     row, the slice of each global batch it holds; `model_index` its
     column, the slice of each sharded weight it holds."""
 
     def __init__(self, ranks, data_group=None, model_group=None,
-                 data_index=0, model_index=0):
+                 data_index=0, model_index=0, group=None):
         self.ranks = ranks
         self.shape = dict(zip(AXES, ranks.shape))
         self.data_group = data_group
         self.model_group = model_group
+        self.group = group
         self.data_index = data_index
         self.model_index = model_index
 
@@ -105,7 +109,9 @@ def make_mesh(n_data=None, n_model=1, ranks=None):
         g = _group(arr[i, :])
         if me in arr[i, :]:
             model_group = g
-    return Mesh(arr, data_group, model_group, data_index, model_index)
+    group = _group(arr.reshape(-1))
+    return Mesh(arr, data_group, model_group, data_index, model_index,
+                group if me in arr else None)
 
 
 class Sharding:
@@ -131,7 +137,7 @@ def batch_sharding(mesh):
 
 def spatial_batch_sharding(mesh):
     """Shard batch over 'data' and image rows (H) over 'model', spatial
-    parallelism; `place` and `gather` refuse it (ROADMAP A.5b)."""
+    parallelism (parallel/spatial.py)."""
     return Sharding(mesh, ("data", "model"))
 
 
@@ -190,18 +196,16 @@ def _broadcast(tensors, group, src):
                 t.copy_(v.view_as(t))
 
 
-def model_axis(sharding):
-    """The tensor axis a Sharding splits over 'model', None if none; a
-    spatial sharding (batch on 'data', rows on 'model') raises."""
-    if "model" not in sharding.spec:
-        return None
-    if "data" in sharding.spec:
-        raise NotImplementedError(f"a sharding of image rows over 'model' "
-                                  f"{A5B}")
-    return sharding.spec.index("model")
+def _split_axes(sharding):
+    """[(tensor axis, mesh axis)] of the axes a Sharding splits."""
+    return [(a, name) for a, name in enumerate(sharding.spec)
+            if name is not None]
 
 
-def _shard(mesh):
+def _shard(mesh, axis="model"):
+    """This rank's place on a mesh axis, as a tp.Shard of its group."""
+    if axis == "data":
+        return Shard(mesh.data_index, mesh.shape["data"], mesh.data_group)
     return Shard(mesh.model_index, mesh.shape["model"], mesh.model_group)
 
 
@@ -212,51 +216,56 @@ def place(tree, shardings_or_mesh):
     a rank already holds stays its slice: a data group shares one model
     index).  With shardings (a tree like `tree` of Shardings), the tensors
     are the full ones: each is broadcast over the model group from its
-    first rank as well, and a tensor split on 'model' is replaced by this
-    rank's contiguous slice of its split axis.  Returns the tree.  Without
-    a process group nothing is broadcast."""
+    first rank as well, and each axis a Sharding splits is replaced by
+    this rank's contiguous slice of it: output features over 'model'
+    (tp_shardings), or a batch of images under spatial_batch_sharding,
+    this rank's data block of the batch and its rows model_index * H /
+    n_model .. of each image.  Returns the tree.  Without a process group
+    nothing is broadcast."""
     if isinstance(shardings_or_mesh, Mesh):
-        mesh, axes = shardings_or_mesh, None
+        mesh, splits = shardings_or_mesh, None
     else:
         shards = _leaves(shardings_or_mesh)
-        axes = [model_axis(s) for s in shards]
+        splits = [_split_axes(s) for s in shards]
         mesh = shards[0].mesh if shards else None
     tensors = [t for t in _leaves(tree) if torch.is_tensor(t)]
     if mesh is None or not tensors:
         return tree
     if mesh.data_group is not None:
         _broadcast(tensors, mesh.data_group, mesh.data_root)
-    if axes is None:
+    if splits is None:
         return tree
     if mesh.model_group is not None:
         _broadcast(tensors, mesh.model_group, mesh.model_root)
-    it = iter(axes)
-    shard = _shard(mesh)
+    it = iter(splits)
 
     def keep(t):
-        a = next(it)
-        return t if a is None else slice_axis(t, a, shard).contiguous()
+        for a, name in next(it):
+            t = slice_axis(t, a, _shard(mesh, name))
+        return t.contiguous()
 
     return _tree_map(keep, tree)
 
 
 def gather(tree, shardings):
-    """The inverse of `place` with shardings: each tensor split on 'model'
-    gathered whole over the model group (a collective: every rank of the
-    group calls it), the others as they are."""
+    """The inverse of `place` with shardings: each split axis gathered
+    whole over its group (a collective: every rank of the group calls
+    it), the other tensors as they are."""
     shards = _leaves(shardings)
-    axes = iter([model_axis(s) for s in shards])
     if not shards:
         return tree
+    it = iter([_split_axes(s) for s in shards])
     mesh = shards[0].mesh
 
     def whole(t):
-        a = next(axes)
-        if a is None or mesh.shape["model"] == 1:
-            return t
-        if mesh.model_group is None:
-            raise ValueError("gathering over 'model' needs the mesh's "
-                             "process group")
-        return gather_axis(t, a, _shard(mesh))
+        for a, name in next(it):
+            if mesh.shape[name] == 1:
+                continue
+            shard = _shard(mesh, name)
+            if shard.group is None:
+                raise ValueError(f"gathering over {name!r} needs the mesh's "
+                                 f"process group")
+            t = gather_axis(t, a, shard)
+        return t
 
     return _tree_map(whole, tree)

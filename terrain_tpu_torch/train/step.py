@@ -31,6 +31,13 @@ states in place.
 `build_scan_step` and `build_scan_eval` run k steps as one chunk
 (TERRAIN_SCAN): a plain loop on CPU tensors, one captured CUDA graph on
 the card (`CapturedSteps`).
+
+Spatial parallelism (`spatial_mesh`, the pix2pix mode's two networks held
+in slabs of image rows over the mesh's model group, parallel/spatial.py):
+the batch is prepared whole (gathered and augmented as one process does),
+the DCGAN stage runs on whole images, alike on every rank of a model
+group, and the pix2pix stage on this rank's rows; its losses are partial
+sums made whole, so every rank returns one process's losses.
 """
 
 import torch
@@ -38,6 +45,7 @@ import torch.distributed as dist
 from torch.func import functional_call
 
 from terrain_tpu_torch.ops.norm import BatchNorm
+from terrain_tpu_torch.parallel import spatial
 from terrain_tpu_torch.train.losses import adv_loss, reconstruction_loss
 
 NET_NAMES = ("dcgan_gen", "dcgan_disc", "p2p_gen", "p2p_disc")
@@ -61,15 +69,14 @@ def _frozen(module, *args, **kwargs):
 
 
 def forward_losses(nets, Z, X, Y, rngs=None, *, alpha=100.0, lsgan=False,
-                   reconstruction="l1", train=True, update_stats=False):
+                   reconstruction="l1", train=True, update_stats=False,
+                   rows=None):
     """Shared forward of all four networks; returns the losses as a dict
     over TRAIN_KEYS.  `rngs` maps a network name to the `torch.Generator`
-    its dropout draws from (missing: no dropout)."""
+    its dropout draws from (missing: no dropout).  `rows`: the pix2pix
+    networks' row shard (parallel/spatial.RowShard); X and Y are whole
+    images and the pix2pix stage takes this rank's rows of them."""
     rngs = rngs or {}
-
-    def adv(pred, target):
-        return adv_loss(pred, target, lsgan=lsgan)
-
     n = X.shape[0]
     kw = dict(train=train)
     us = dict(update_stats=update_stats)
@@ -78,6 +85,13 @@ def forward_losses(nets, Z, X, Y, rngs=None, *, alpha=100.0, lsgan=False,
         """(generator-path loss, discriminator-path loss) of one stage;
         real and fake are tuples of the discriminator's inputs."""
         d = nets[name]
+        d_rows = getattr(d, "rows", None)
+        if d_rows is not None and not d_rows.slab(d.out_rows):
+            d_rows = None  # its patch map is held whole
+
+        def adv(pred, target):
+            return adv_loss(pred, target, lsgan=lsgan, rows=d_rows)
+
         dkw = dict(kw, generator=rngs.get(name))
         gpath = _frozen(d, *fake, **dkw)
         fake_sg = tuple(t.detach() for t in fake)
@@ -94,9 +108,11 @@ def forward_losses(nets, Z, X, Y, rngs=None, *, alpha=100.0, lsgan=False,
     a_fake = nets["dcgan_gen"](Z, generator=rngs.get("dcgan_gen"), **kw, **us)
     gen_dcgan, disc_dcgan = disc_losses("dcgan_disc", (X,), (a_fake,))
     # stage 2: pix2pix (A -> B)
+    if rows is not None:
+        X, Y = rows.take(X), rows.take(Y)
     b_fake = nets["p2p_gen"](X, generator=rngs.get("p2p_gen"), **kw, **us)
     gen_p2p, disc_p2p = disc_losses("p2p_disc", (X, Y), (X, b_fake))
-    recon = reconstruction_loss(b_fake, Y, kind=reconstruction)
+    recon = reconstruction_loss(b_fake, Y, kind=reconstruction, rows=rows)
     return {"dcgan_gen": gen_dcgan, "dcgan_disc": disc_dcgan,
             "p2p_gen": gen_p2p, "p2p_recon": recon, "p2p_disc": disc_p2p}
 
@@ -116,13 +132,15 @@ def _total(losses, active, alpha):
 
 def losses_and_grads(nets, Z, X, Y, rngs=None, *, active=NET_NAMES,
                      alpha=100.0, lsgan=False, reconstruction="l1",
-                     update_stats=True):
+                     update_stats=True, rows=None):
     """One train-mode forward and ONE backward over the partitioned total.
     Returns (losses, {net name: [gradient per parameter]}) for the active
-    networks; a parameter the total does not reach gets zeros."""
+    networks; a parameter the total does not reach gets zeros.  With
+    `rows` (forward_losses') each rank's gradients are those of its own
+    path: a slab layer's the part of its rows."""
     losses = forward_losses(nets, Z, X, Y, rngs, alpha=alpha, lsgan=lsgan,
                             reconstruction=reconstruction, train=True,
-                            update_stats=update_stats)
+                            update_stats=update_stats, rows=rows)
     params = {n: list(nets[n].parameters()) for n in active}
     flat = [p for n in active for p in params[n]]
     flat_g = torch.autograd.grad(_total(losses, active, alpha), flat,
@@ -152,9 +170,28 @@ def _mean_losses(losses, group):
     return dict(zip(keys, vals))
 
 
+def _spatial_rows(nets, train_mode, spatial_mesh, data_group):
+    """(the pix2pix networks' row shard, the data group) of a step over
+    `spatial_mesh`; (None, data_group) without one."""
+    if spatial_mesh is None:
+        return None, data_group
+    if train_mode != "p2p":
+        raise NotImplementedError(
+            f"spatial parallelism takes the pix2pix mode only: the DCGAN "
+            f"networks under row sharding are not ported yet (ROADMAP "
+            f"A.5b), not train_mode={train_mode!r}")
+    rows = getattr(nets["p2p_gen"], "rows", None)
+    if rows is None or getattr(nets["p2p_disc"], "rows", None) is None:
+        raise ValueError("a spatial step needs the pix2pix networks held "
+                         "in slabs: parallel.shard_rows(net, mesh) each")
+    if data_group is None and spatial_mesh.shape["data"] > 1:
+        data_group = spatial_mesh.data_group
+    return rows, data_group
+
+
 def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
                      reconstruction="l1", train_mode="both", prepare=None,
-                     lr_mults=None, data_group=None):
+                     lr_mults=None, data_group=None, spatial_mesh=None):
     """Returns train_step(opt_states, batch, rngs, lr) -> losses.
 
     `batch` is whatever `prepare(batch, rngs)` maps to a (Z, X, Y) tuple on
@@ -179,18 +216,30 @@ def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
     group's partial dX, and everything after its gather is computed alike
     on every rank of the group, so a replicated parameter's gradient is
     the same on each of them and a sharded weight's is its own slice's.
-    The data group (one model index) then averages like with like."""
+    The data group (one model index) then averages like with like.
+
+    Spatial parallelism (`spatial_mesh`, train_mode "p2p" only, the
+    pix2pix networks held in slabs by parallel.shard_rows): `batch` is
+    this rank's data block, as with a data group; `prepare` runs on its
+    whole images and each network takes its rows.  A slab layer's
+    gradients are summed over the model group, a whole-row layer's are
+    whole already (parallel/spatial.py); then the data group averages."""
     active = ACTIVE[train_mode]
     lr_mults = dict(lr_mults or {})
     unknown = set(lr_mults) - set(NET_NAMES)
     if unknown:
         raise ValueError(f"lr_mults for unknown networks: {sorted(unknown)}")
+    rows, data_group = _spatial_rows(nets, train_mode, spatial_mesh,
+                                     data_group)
 
     def train_step(opt_states, batch, rngs, lr):
         Z, X, Y = prepare(batch, rngs) if prepare is not None else batch
         losses, grads = losses_and_grads(
             nets, Z, X, Y, rngs, active=active, alpha=alpha, lsgan=lsgan,
-            reconstruction=reconstruction)
+            reconstruction=reconstruction, rows=rows)
+        if rows is not None:
+            grads = {n: spatial.sum_slab_grads(nets[n], grads[n])
+                     for n in active}
         if data_group is not None:
             grads = {n: mean_over(grads[n], data_group) for n in active}
             losses = _mean_losses(losses, data_group)
@@ -346,17 +395,19 @@ def build_scan_eval(eval_step):
 
 
 def build_eval_step(nets, *, alpha=100.0, lsgan=False, reconstruction="l1",
-                    prepare=None, data_group=None):
+                    prepare=None, data_group=None, spatial_mesh=None):
     """Returns eval_step(batch, rngs) -> losses: train-mode forwards (batch
     statistics, live dropout), no update of parameters or BN statistics.
-    With a `data_group`, the losses are their means over it."""
+    With a `data_group`, the losses are their means over it;
+    `spatial_mesh` as build_train_step's (the pix2pix mode's)."""
+    rows, data_group = _spatial_rows(nets, "p2p", spatial_mesh, data_group)
 
     @torch.no_grad()
     def eval_step(batch, rngs=None):
         Z, X, Y = prepare(batch, rngs) if prepare is not None else batch
         losses = forward_losses(nets, Z, X, Y, rngs, alpha=alpha,
                                 lsgan=lsgan, reconstruction=reconstruction,
-                                train=True, update_stats=False)
+                                train=True, update_stats=False, rows=rows)
         if data_group is not None:
             losses = _mean_losses(losses, data_group)
         return losses

@@ -74,6 +74,7 @@ def test_the_file_list_covers_the_package():
                  "terrain_tpu_torch/parallel/mesh.py",
                  "terrain_tpu_torch/parallel/distributed.py",
                  "terrain_tpu_torch/parallel/tp.py",
+                 "terrain_tpu_torch/parallel/spatial.py",
                  "terrain_tpu_torch/tools/conv5_dw.py",
                  "terrain_tpu_torch/entry.py"):
         assert must in names

@@ -25,13 +25,11 @@ tests/test_torch_tp.py runs tensor parallelism on 'model'.
 """
 
 import os
-import pickle
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from terrain_tpu.models import dcgan as jdcgan
 from terrain_tpu.models import p2p as jp2p
@@ -43,6 +41,7 @@ from terrain_tpu_torch.train.trainer import TwoStageGAN
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tiny_cfg import GlobalStream, csv_rows, det_sampler
 import torch_mp_worker as w
+import torch_spawn
 
 WORLD = 2
 STEP_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -51,16 +50,15 @@ ROW_TOL = dict(rtol=1e-5, atol=1e-6)
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """The two ranks' results and their directory."""
+    """The two ranks' saved results (tests/torch_spawn.py: a phase a rank
+    did not finish fails the tests that read it) and their directory."""
     out = tmp_path_factory.mktemp("dp")
-    torch.multiprocessing.spawn(
-        w.run_rank, args=(WORLD, str(out / "rendezvous"), str(out)),
-        nprocs=WORLD, join=True)
-    res = []
-    for r in range(WORLD):
-        with open(out / f"rank{r}.pkl", "rb") as f:
-            res.append(pickle.load(f))
-    return res, out
+    failure = torch_spawn.spawn(w.run_rank, WORLD, str(out))
+    return torch_spawn.Results(str(out), WORLD, failure), out
+
+
+def test_every_rank_ran_to_its_end(ranks):
+    assert ranks[0].failure is None
 
 
 def _close(got, want, tol):

@@ -7,8 +7,9 @@ against terrain_tpu's batch_norm (rtol 1e-5, atol 1e-6: fp32 sums in
 another order), and a trainer on a world-1 mesh against one without a mesh
 (the same fp32 rounding) and against itself (bit-equal), and its
 checkpoint saved and resumed.  A sharding of image rows over 'model'
-raises, naming ROADMAP A.5b; one of output features places its slice
-(tests/test_torch_tp.py runs tensor parallelism across processes).
+places each model index's rows of its data block, one of output features
+its slice (tests/test_torch_tp.py runs tensor parallelism across
+processes, tests/test_torch_spatial.py spatial parallelism).
 """
 
 import contextlib
@@ -121,22 +122,33 @@ def test_host_shard_iterator_disjoint_and_complete():
 
 
 def test_top_level_exports():
+    """terrain_tpu.parallel's nine names, and the spatial layer's four."""
     import terrain_tpu.parallel as jparallel
 
-    assert sorted(parallel.__all__) == sorted(jparallel.__all__)
-    assert len(parallel.__all__) == 9
+    spatial = {"shard_rows", "halo_exchange", "gather_rows", "scatter_rows"}
+    assert sorted(set(parallel.__all__) - spatial) == sorted(jparallel.__all__)
+    assert len(parallel.__all__) == 13
     assert all(callable(getattr(parallel, n)) for n in parallel.__all__)
 
 
-def test_model_axis_raises_naming_a5b(no_cluster):
-    """Image rows over 'model' (spatial parallelism) still raise, naming
-    A.5b; output features over 'model' (tensor parallelism) place: each
-    model index keeps its contiguous slice of the split axis."""
+def test_model_axis_places_rows_and_features(no_cluster):
+    """Image rows over 'model' (spatial parallelism) place: each (data,
+    model) index keeps its data block's rows of every image; output
+    features over 'model' (tensor parallelism) place: each model index
+    keeps its contiguous slice of the split axis."""
+    mesh = make_mesh(n_data=2, n_model=2, ranks=range(4))
+    batch = torch.arange(4 * 8 * 3.0).reshape(4, 8, 3, 1)
+    for d in (0, 1):
+        for m in (0, 1):
+            laid_out = Mesh(mesh.ranks, data_index=d, model_index=m)
+            got = place({"x": batch.clone()},
+                        {"x": spatial_batch_sharding(laid_out)})
+            assert got["x"].equal(batch[2 * d:2 * d + 2, 4 * m:4 * m + 4])
+            assert got["x"].is_contiguous()
+    # putting whole images back is a collective over the mesh's groups
+    with pytest.raises(ValueError, match="process group"):
+        gather({"x": batch[:2, :4]}, {"x": spatial_batch_sharding(mesh)})
     mesh = make_mesh(n_data=1, n_model=2, ranks=range(2))
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        place({"x": torch.zeros(2)}, {"x": spatial_batch_sharding(mesh)})
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        gather({"x": torch.zeros(2)}, {"x": spatial_batch_sharding(mesh)})
     full = torch.arange(48.0).reshape(4, 3, 2, 2)
     for index in (0, 1):
         laid_out = Mesh(mesh.ranks, model_index=index)

@@ -1,0 +1,324 @@
+"""terrain_tpu_torch's spatial parallelism (image rows over 'model',
+parallel/spatial.py) across real processes on the CPU: four gloo ranks,
+spawned once for the module (torch.multiprocessing), joined through a
+file:// rendezvous in the test's temporary directory; each runs
+tests/torch_spatial_worker.py's `run_rank` and writes its results phase by
+phase, so a rank that fails fails the tests of the phases it did not
+finish, and `test_every_rank_ran_to_its_end`.
+
+  * halo_exchange on 2 and 4 ranks against slicing the whole tensor,
+    forward and backward, and fp64 gradcheck of scatter -> halo -> gather;
+  * each slab op on 2 and 4 ranks against the whole op, forward and every
+    gradient (3x3 and 5x5 at stride 1, 3x3 at stride 2, upsample_bilinear_2x
+    in its three forms, bilinear2x_conv3x3's composite and its kernel's
+    route, the k2 s2 deconv), the kernel routes taken on the whole image's
+    regime; both BatchNorm kinds; the gather_rows / scatter_rows round
+    trip;
+  * place / gather under spatial_batch_sharding on a 2x2 mesh;
+  * the U-Net of tests/test_parallel.py:172 (32px, nf 4, train) and its
+    bilinear form on a 2x2 mesh against terrain_tpu's unsharded apply, at
+    JAX's own rtol 1e-4 / atol 1e-5;
+  * a tiny test1_nobn_finetunep2p_bilin pix2pix step on a 2x2 and a 1x4
+    mesh (experiments._spatial_steps) against terrain_tpu's step and the
+    port's one-process step: every loss and every gradient at rtol 2e-4 /
+    atol 2e-5, global batch 4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from terrain_tpu.models import p2p as jp2p
+from terrain_tpu.train import step as jstep
+from terrain_tpu_torch import experiments
+from terrain_tpu_torch.models import convert
+from terrain_tpu_torch.ops.kernels import bilinear as _bl
+from terrain_tpu_torch.ops.kernels import bilinear_conv as _bc
+from terrain_tpu_torch.ops.kernels import conv_s2 as _c2
+from terrain_tpu_torch.ops.norm import BatchNorm
+from terrain_tpu_torch.parallel.mesh import Mesh
+from terrain_tpu_torch.train.trainer import TwoStageGAN
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+import torch_spatial_worker as sw
+import torch_spawn
+
+WORLD = 4
+OP_TOL = dict(rtol=1e-6, atol=1e-6)
+UNET_TOL = dict(rtol=1e-4, atol=1e-5)
+STEP_TOL = dict(rtol=2e-4, atol=2e-5)
+MESHES = {"pair": (1, 2), "quad": (1, 4), "grid": (2, 2)}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """The results directory and the spawn's failure (None when every
+    rank ran to its end)."""
+    out = str(tmp_path_factory.mktemp("spatial"))
+    return out, torch_spawn.spawn(sw.run_rank, WORLD, out)
+
+
+def _phase(ranks, phase):
+    return torch_spawn.load(*ranks[:1], phase, range(WORLD), ranks[1])
+
+
+def _members(mesh):
+    """The ranks of a mesh by model index (its first data row)."""
+    return list(range(MESHES[mesh][1]))
+
+
+def test_every_rank_ran_to_its_end(ranks):
+    assert ranks[1] is None
+
+
+@pytest.mark.parametrize("mesh", ["pair", "quad"])
+@pytest.mark.parametrize("halo", sw.HALOS)
+def test_halo_exchange_is_a_slice_of_the_whole(ranks, mesh, halo):
+    res = _phase(ranks, "halo")
+    x, g = (t.numpy() for t in sw.halo_inputs())
+    top, bottom = halo
+    n = MESHES[mesh][1]
+    r = x.shape[1] // n
+    want_dx = np.zeros_like(x)
+    spans = []
+    for i in range(n):
+        lo, hi = max(0, i * r - top), min(x.shape[1], (i + 1) * r + bottom)
+        spans.append((lo, hi))
+        want_dx[:, lo:hi] += g[:, :hi - lo]
+    for i, (lo, hi) in enumerate(spans):
+        ext, dx = res[i][mesh][halo]
+        np.testing.assert_array_equal(ext, x[:, lo:hi])
+        np.testing.assert_allclose(dx, want_dx[:, i * r:(i + 1) * r],
+                                   rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("mesh", ["pair", "quad"])
+def test_halo_exchange_passes_gradcheck(ranks, mesh):
+    res = _phase(ranks, "halo")
+    assert all(res[i][mesh]["gradcheck"] for i in _members(mesh))
+
+
+def _whole_op(name):
+    fn, x, wt, b, cot, kw, env = sw.op_inputs(name)
+    ins = [t.clone().requires_grad_() for t in (x, wt, b) if t is not None]
+    wb = ins[1:] if wt is not None else [None, None]
+    y = sw.call_op(fn, ins[0], *wb, kw, env)
+    return [t.detach().numpy()
+            for t in (y, *torch.autograd.grad(y, ins, cot))]
+
+
+@pytest.mark.parametrize("mesh", ["pair", "quad"])
+@pytest.mark.parametrize("name", [o[0] for o in sw.OPS])
+def test_slab_op_matches_the_whole_op(ranks, mesh, name):
+    """Output and input gradient: each rank's rows of the whole op's;
+    weight and bias gradients: the ranks' parts summed."""
+    res = _phase(ranks, "ops")
+    want = _whole_op(name)
+    got = [res[i][mesh][name][0] for i in _members(mesh)]
+    for k in (0, 1):  # y, dx: the ranks' rows in order
+        np.testing.assert_allclose(np.concatenate([g[k] for g in got], 1),
+                                   want[k], err_msg=f"{name} {k}", **OP_TOL)
+    for k in range(2, len(want)):  # dW, db: partial over the ranks
+        np.testing.assert_allclose(sum(g[k] for g in got), want[k],
+                                   err_msg=f"{name} {k}", **OP_TOL)
+
+
+@pytest.mark.parametrize("mesh", ["pair", "quad"])
+def test_slab_ops_take_the_whole_images_kernel_route(ranks, mesh):
+    """In each kernel's regime by the whole image's shape (none of them by
+    the slab's), every rank ran the kernel's version (its plain version on
+    CPU tensors), and no rank outside the regime did."""
+    res = _phase(ranks, "ops")
+    routes = {"conv_s2 kernel route": ("conv_s2", _c2.supported(
+                  (1, 64, 256, 4), (3, 3, 4, 8), 2, "same")),
+              "bilinear kernel route": ("bilinear", _bl.supported(
+                  (1, 128, 128, 128))),
+              "bilinear_conv kernel route": ("bilinear_conv", _bc.supported(
+                  (1, 32, 32, 8), (3, 3, 8, 8)))}
+    for name, (kernel, whole) in routes.items():
+        assert whole, name
+        for i in _members(mesh):
+            assert res[i][mesh][name][1][kernel] >= 1, (name, i)
+    assert not _bc.supported((1, 32 // 4 + 2, 32, 8), (3, 3, 8, 8))
+    for name in ("conv3x3 s2", "upsample_bilinear_2x",
+                 "bilinear2x_conv3x3 composite"):
+        for i in _members(mesh):
+            assert not any(res[i][mesh][name][1].values()), name
+
+
+def _whole_bn():
+    x, g, gamma, beta = sw.bn_inputs()
+    bn = BatchNorm(3)
+    with torch.no_grad():
+        bn.gamma.copy_(gamma)
+        bn.beta.copy_(beta)
+    xs = x.clone().requires_grad_()
+    y = bn(xs, train=True, update_stats=True)
+    grads = torch.autograd.grad(y, (xs, bn.gamma, bn.beta), g)
+    return ([t.detach().numpy() for t in (y, *grads)],
+            (bn.mean.numpy(), bn.inv_std.numpy()))
+
+
+@pytest.mark.parametrize("kind", ["slab grid", "whole grid", "slab pair"])
+def test_batch_norm_takes_the_global_batchs_statistics(ranks, kind):
+    """On slabs over data x model (each row once), on whole rows over
+    'data': the global batch's output, input gradient and running
+    statistics on every rank; gamma's and beta's gradients the parts of
+    the ranks' rows (summed over the mesh; on whole rows summed over the
+    data group, alike over 'model')."""
+    res = _phase(ranks, "ops")
+    (y, dx, dg, db), stats = _whole_bn()
+    h = y.shape[1]
+    if kind == "slab pair":
+        got = [res[i]["bn_pair"] for i in (0, 1)]
+        place = [(slice(None), slice(i * h // 2, (i + 1) * h // 2))
+                 for i in (0, 1)]
+    else:
+        slab = kind == "slab grid"
+        got = [res[i]["bn_grid"][0 if slab else 1] for i in range(WORLD)]
+        place = [(slice(2 * (i // 2), 2 * (i // 2) + 2),
+                  slice((i % 2) * h // 2, (i % 2 + 1) * h // 2) if slab
+                  else slice(None)) for i in range(WORLD)]
+    for (outs, st), (bi, ri) in zip(got, place):
+        np.testing.assert_allclose(outs[0], y[bi, ri], **OP_TOL)
+        np.testing.assert_allclose(outs[1], dx[bi, ri], **OP_TOL)
+        for a, b in zip(st, stats):
+            np.testing.assert_allclose(a, b, **OP_TOL)
+    if kind == "whole grid":
+        for k in (2, 3):
+            np.testing.assert_array_equal(got[0][0][k], got[1][0][k])
+            np.testing.assert_allclose(got[0][0][k] + got[2][0][k],
+                                       (dg, db)[k - 2], **OP_TOL)
+    else:
+        for k in (2, 3):
+            np.testing.assert_allclose(sum(o[k] for o, _ in got),
+                                       (dg, db)[k - 2], **OP_TOL)
+
+
+def test_gather_rows_inverts_scatter_rows(ranks):
+    res = _phase(ranks, "ops")
+    r = np.random.RandomState(4)
+    x = r.randn(2, 8, 3, 2).astype(np.float32)
+    g = r.randn(2, 8, 3, 2).astype(np.float32)
+    for i in range(WORLD):
+        y, dx = res[i]["round_trip"]
+        np.testing.assert_array_equal(y, x)
+        np.testing.assert_array_equal(dx, g)
+
+
+def test_place_keeps_the_rows_and_gather_puts_whole_images_back(ranks):
+    res = _phase(ranks, "place")
+    full = sw.batch_inputs().numpy()
+    for i in range(WORLD):
+        d, m = divmod(i, 2)
+        mine, back = res[i]
+        np.testing.assert_array_equal(mine, full[2 * d:2 * d + 2,
+                                                 4 * m:4 * m + 4])
+        np.testing.assert_array_equal(back, full)
+
+
+# the layers on slabs of the 32px U-Net over 2 model ranks, by min_rows
+# (in_shp / 2 = 16 rows on slabs of 8 and deeper at min_rows 2: 8 and 4
+# rows on slabs of 4 and 2); "up" is dec's conv or deconv
+UNET_SLABS = {
+    8: {"enc.0.conv", "enc.0.bn", "dec.3.bn", "deconv_out"},
+    2: {"enc.0.conv", "enc.0.bn", "enc.1.conv", "enc.1.bn", "enc.2.conv",
+        "enc.2.bn", "dec.1.bn", "dec.2.up", "dec.2.bn", "dec.3.up",
+        "dec.3.bn", "deconv_out"},
+}
+
+
+@pytest.mark.parametrize("bilinear,min_rows", sw.UNET)
+def test_unet_on_a_2x2_mesh_matches_terrain_tpus_unsharded_apply(
+        ranks, bilinear, min_rows):
+    """tests/test_parallel.py's test_spatial_parallel_matches_unsharded
+    for the port: the same weights (models/convert) in terrain_tpu's
+    apply on the whole batch."""
+    res = _phase(ranks, "unet")
+    params, state = convert.to_jax(sw.unet(bilinear))
+    net = jp2p.g_unet(sw.IN, True, False, nf=4, bilinear_upsample=bilinear)
+    want = np.asarray(jax.jit(lambda p, s, x: net.apply(
+        p, s, x, train=True)[0])(params, state, sw.unet_input()))
+    for i in range(WORLD):
+        d, m = divmod(i, 2)
+        got, slabs = res[i][(bilinear, min_rows)]
+        up = "conv" if bilinear else "deconv"
+        assert set(slabs) == {n.replace("up", up)
+                              for n in UNET_SLABS[min_rows]}
+        np.testing.assert_allclose(got, want[2 * d:2 * d + 2,
+                                             16 * m:16 * m + 16], **UNET_TOL)
+
+
+def _jax_step_nets():
+    from terrain_tpu.models import dcgan as jdcgan
+
+    return {
+        "dcgan_gen": jdcgan.default_generator(
+            sw.LAT, True, nch=8, h=3, initial_size=4, final_size=sw.IN,
+            div=[2, 2, 2]),
+        "dcgan_disc": jdcgan.default_discriminator(
+            sw.IN, True, nch=sw.IN, h=3, div=[4, 2], bn=False,
+            nonlinearity="linear"),
+        "p2p_gen": jp2p.g_unet(sw.IN, True, False, nf=4, act="tanh",
+                               bilinear_upsample=True),
+        "p2p_disc": jp2p.discriminator(sw.IN, True, False, nf=4, bn=False,
+                                       act="linear",
+                                       mul_factor=[1, 2, 4, 8]),
+    }
+
+
+@pytest.fixture(scope="module")
+def references():
+    """terrain_tpu's losses and pix2pix gradients of one step of the
+    tiny configuration on the global batch, and the port's one-process
+    step's, each gradient list in the port's parameter order."""
+    gan = TwoStageGAN(**sw.step_kw())
+    trees = {n: convert.to_jax(net) for n, net in gan.nets.items()}
+    params = {n: t[0] for n, t in trees.items()}
+    states = {n: t[1] for n, t in trees.items()}
+    jnets = _jax_step_nets()
+    active = ("p2p_gen", "p2p_disc")
+    batch = tuple(map(jnp.asarray, sw.step_batch()))
+
+    def total(diff):
+        losses, _ = jstep.forward_losses(
+            jnets, {**params, **diff}, states, *batch, jax.random.PRNGKey(0),
+            alpha=100.0, lsgan=True, reconstruction="l1", train=True)
+        return jstep._total(losses, active, 100.0), losses
+
+    grads, losses = jax.jit(jax.grad(total, has_aux=True))(
+        {n: params[n] for n in active})
+    jax_ref = ({k: float(v) for k, v in losses.items()},
+               {n: [t.numpy() for t in convert.params_from_jax(
+                   gan.nets[n], jax.tree.map(np.asarray, grads[n]))]
+                for n in active})
+    rec = sw.recording(gan)
+    gan.train_step, _ = gan._build_steps(None)
+    one = sw.run_step(gan, gan.train_step, rec, sw.step_batch())
+    return {"terrain_tpu": jax_ref, "one process": one}
+
+
+@pytest.mark.parametrize("ref", ["terrain_tpu", "one process"])
+@pytest.mark.parametrize("mesh,min_rows", sw.STEP)
+def test_spatial_p2p_step_matches(ranks, references, ref, mesh, min_rows):
+    """Every rank returns the global batch's five losses and updates with
+    the whole gradients of the pix2pix networks."""
+    res = _phase(ranks, "step")
+    want_losses, want_grads = references[ref]
+    for i in range(WORLD):
+        losses, grads = res[i][(mesh, min_rows)]
+        assert set(grads) == {"p2p_gen", "p2p_disc"}
+        for k, v in want_losses.items():
+            np.testing.assert_allclose(losses[k], v, err_msg=k, **STEP_TOL)
+        for n, want in want_grads.items():
+            assert len(grads[n]) == len(want)
+            for j, (a, b) in enumerate(zip(grads[n], want)):
+                np.testing.assert_allclose(a, b, err_msg=f"{n} {j}",
+                                           **STEP_TOL)
+
+
+def test_build_train_takes_a_mesh_for_the_pix2pix_mode_only():
+    mesh = Mesh(np.arange(2).reshape(1, 2))
+    with pytest.raises(NotImplementedError, match="A.5b"):
+        experiments.build_train("smoke_synthetic", "cpu", mesh=mesh)

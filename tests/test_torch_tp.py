@@ -22,7 +22,6 @@ without a process group) are in tests/test_torch_parallel.py.
 """
 
 import os
-import pickle
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +39,7 @@ from test_torch_multiprocess import _jax_nets
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tiny_cfg import csv_rows, det_sampler
 import torch_mp_worker as w
+import torch_spawn
 import torch_tp_worker as tw
 
 WORLD = 4
@@ -50,16 +50,15 @@ ROW_TOL = dict(rtol=1e-5, atol=1e-6)
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """The four ranks' results and their directory."""
+    """The four ranks' saved results (tests/torch_spawn.py: a phase a rank
+    did not finish fails the tests that read it) and their directory."""
     out = tmp_path_factory.mktemp("tp")
-    torch.multiprocessing.spawn(
-        tw.run_rank, args=(WORLD, str(out / "rendezvous"), str(out)),
-        nprocs=WORLD, join=True)
-    res = []
-    for r in range(WORLD):
-        with open(out / f"rank{r}.pkl", "rb") as f:
-            res.append(pickle.load(f))
-    return res, out
+    failure = torch_spawn.spawn(tw.run_rank, WORLD, str(out))
+    return torch_spawn.Results(str(out), WORLD, failure), out
+
+
+def test_every_rank_ran_to_its_end(ranks):
+    assert ranks[0].failure is None
 
 
 def _equal_trees(a, b):

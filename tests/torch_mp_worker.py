@@ -2,7 +2,8 @@
 torch.multiprocessing: it imports torch and terrain_tpu_torch only.
 
 `run_rank(rank, world, rendezvous, out_dir)` joins the process group
-through a file:// rendezvous and writes out_dir/rank<r>.pkl with:
+through a file:// rendezvous (tests/torch_spawn.py) and saves, each as
+it ends:
   * "step_da", "step_jax": one data-parallel train step of the tiny nets
     (tests/test_parallel.py's) on this rank's rows of GLOBAL_BATCH, with
     the paired augmentation (its draws made for the global batch) and
@@ -18,7 +19,6 @@ train` (cli.main) into out_dir/m<r>.
 """
 
 import os
-import pickle
 
 import numpy as np
 import torch
@@ -93,50 +93,49 @@ def _bn(rank, world, group):
     return y.detach().numpy(), dx.numpy()
 
 
-def run_rank(rank, world, rendezvous, out_dir):
+def _work(rank, world, out_dir):
     import torch.distributed as dist
 
-    from terrain_tpu_torch.parallel import (HostShardIterator, initialize,
-                                            make_mesh)
+    from terrain_tpu_torch.parallel import HostShardIterator, make_mesh
     from terrain_tpu_torch.train.trainer import TwoStageGAN
+    from torch_spawn import save
 
-    torch.set_num_threads(1)
+    assert (dist.get_rank(), dist.get_world_size()) == (rank, world)
+    mesh = make_mesh()
+    rows = slice(rank * GLOBAL_BATCH // world,
+                 (rank + 1) * GLOBAL_BATCH // world)
+    for key, da in (("step_da", True), ("step_jax", False)):
+        gan = TwoStageGAN(**nets_kw(), da=da, mesh=mesh)
+        save(out_dir, key, rank, one_step(gan, global_batch(), rows))
+    save(out_dir, "bn", rank, _bn(rank, world, mesh.data_group))
+
+    from tiny_cfg import GlobalStream, det_sampler
+
+    gan = TwoStageGAN(**tiny_kw(det_sampler(rank)), mesh=mesh)
+    gan.train(HostShardIterator(GlobalStream()),
+              HostShardIterator(GlobalStream()), batch_size=GLOBAL_BATCH,
+              num_epochs=2, out_dir=os.path.join(out_dir, f"w{rank}"),
+              save_every=999)
+    gan = TwoStageGAN(**tiny_kw(det_sampler(rank), da=True), mesh=mesh)
+    ds = device_pairs()
+    gan.train(ds, ds, batch_size=GLOBAL_BATCH, num_epochs=2,
+              out_dir=os.path.join(out_dir, f"d{rank}"), save_every=999)
+
+    # the CLI under a process group: experiments.run builds the mesh
+    # and shards its host iterators
+    from terrain_tpu_torch import cli
+
+    os.environ.update(TERRAIN_OUT=os.path.join(out_dir, f"cli{rank}"),
+                      TERRAIN_MODELS=os.path.join(out_dir, f"m{rank}"))
+    assert cli.main(["smoke_synthetic", "train", "--device", "cpu"]) == 0
+
+
+def run_rank(rank, world, rendezvous, out_dir):
+    import torch_spawn
+
     os.environ["TERRAIN_ARTIFACT_EVERY"] = "999"  # no image dumps
-    assert initialize(f"file://{rendezvous}", world, rank,
-                      backend="gloo") == (rank, world)
-    try:
-        mesh = make_mesh()
-        out = {}
-        rows = slice(rank * GLOBAL_BATCH // world,
-                     (rank + 1) * GLOBAL_BATCH // world)
-        for key, da in (("step_da", True), ("step_jax", False)):
-            gan = TwoStageGAN(**nets_kw(), da=da, mesh=mesh)
-            out[key] = one_step(gan, global_batch(), rows)
-        out["bn"] = _bn(rank, world, mesh.data_group)
-        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(out, f)
-
-        from tiny_cfg import GlobalStream, det_sampler
-
-        gan = TwoStageGAN(**tiny_kw(det_sampler(rank)), mesh=mesh)
-        gan.train(HostShardIterator(GlobalStream()),
-                  HostShardIterator(GlobalStream()), batch_size=GLOBAL_BATCH,
-                  num_epochs=2, out_dir=os.path.join(out_dir, f"w{rank}"),
-                  save_every=999)
-        gan = TwoStageGAN(**tiny_kw(det_sampler(rank), da=True), mesh=mesh)
-        ds = device_pairs()
-        gan.train(ds, ds, batch_size=GLOBAL_BATCH, num_epochs=2,
-                  out_dir=os.path.join(out_dir, f"d{rank}"), save_every=999)
-
-        # the CLI under a process group: experiments.run builds the mesh
-        # and shards its host iterators
-        from terrain_tpu_torch import cli
-
-        os.environ.update(TERRAIN_OUT=os.path.join(out_dir, f"cli{rank}"),
-                          TERRAIN_MODELS=os.path.join(out_dir, f"m{rank}"))
-        assert cli.main(["smoke_synthetic", "train", "--device", "cpu"]) == 0
-    finally:
-        dist.destroy_process_group()
+    torch_spawn.run_rank(rank, world, rendezvous, _work, rank, world,
+                         out_dir)
 
 
 def tiny_kw(sampler, da=False):

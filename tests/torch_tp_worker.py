@@ -3,8 +3,9 @@ torch.multiprocessing (4 ranks): it imports torch and terrain_tpu_torch
 only.
 
 `run_rank(rank, world, rendezvous, out_dir)` joins the process group
-through a file:// rendezvous, lays out a 1x2 mesh on ranks 0 and 1 and a
-2x2 mesh on all four, and writes out_dir/rank<r>.pkl with:
+through a file:// rendezvous (tests/torch_spawn.py), lays out a 1x2 mesh
+on ranks 0 and 1 and a 2x2 mesh on all four, and saves as each phase
+ends:
   * "ops" (ranks 0, 1): each sharded layer call of OPS (the local op on
     this rank's half of the output features between enter_sharded and
     gather_features, then the bias) on seeded inputs: its output and the
@@ -19,18 +20,20 @@ through a file:// rendezvous, lays out a 1x2 mesh on ranks 0 and 1 and a
     samplers' deterministic outputs on seeded inputs; a one-process
     checkpoint (out_dir/one.model, written by rank 0) loaded on the mesh
     and saved again (out_dir/back<r>.model);
-  * every rank trains 2 epochs of the tiny nets at tp_min_features 8 on
-    the 2x2 mesh over N_PAIRS pairs held on the device, with the paired
-    augmentation, into out_dir/grid<r>/results.txt.
+  * "grid_sharded" (every rank): the sharded layers of the tiny nets at
+    tp_min_features 8 on the 2x2 mesh, which then train 2 epochs over
+    N_PAIRS pairs held on the device, with the paired augmentation, into
+    out_dir/grid<r>/results.txt.
 """
 
 import os
-import pickle
 
 import numpy as np
 import torch
 
 import torch_mp_worker as w
+import torch_spawn
+from torch_spawn import save
 
 # sharded calls: (name, op name, x shape, full weight shape, op kwargs)
 OPS = (
@@ -141,31 +144,24 @@ def _tp(mesh, rank, out_dir):
     return out
 
 
-def run_rank(rank, world, rendezvous, out_dir):
-    import torch.distributed as dist
-
-    from terrain_tpu_torch.parallel import initialize, make_mesh
+def _work(rank, out_dir):
+    from terrain_tpu_torch.parallel import make_mesh
     from terrain_tpu_torch.train.trainer import TwoStageGAN
     from tiny_cfg import det_sampler
 
-    torch.set_num_threads(1)
+    pair = make_mesh(n_data=1, n_model=2, ranks=[0, 1])
+    grid = make_mesh(n_data=2, n_model=2)
+    if rank < 2:
+        save(out_dir, "ops", rank, _ops(pair))
+        save(out_dir, "tp", rank, _tp(pair, rank, out_dir))
+    gan = TwoStageGAN(**w.tiny_kw(det_sampler(grid.data_index), da=True),
+                      mesh=grid, tp_min_features=8)
+    save(out_dir, "grid_sharded", rank, gan.sharded)
+    ds = w.device_pairs()
+    gan.train(ds, ds, batch_size=w.GLOBAL_BATCH, num_epochs=2,
+              out_dir=os.path.join(out_dir, f"grid{rank}"), save_every=999)
+
+
+def run_rank(rank, world, rendezvous, out_dir):
     os.environ["TERRAIN_ARTIFACT_EVERY"] = "999"  # no image dumps
-    initialize(f"file://{rendezvous}", world, rank, backend="gloo")
-    try:
-        pair = make_mesh(n_data=1, n_model=2, ranks=[0, 1])
-        grid = make_mesh(n_data=2, n_model=2)
-        out = {}
-        if rank < 2:
-            out["ops"] = _ops(pair)
-            out["tp"] = _tp(pair, rank, out_dir)
-        gan = TwoStageGAN(**w.tiny_kw(det_sampler(grid.data_index),
-                                      da=True), mesh=grid, tp_min_features=8)
-        out["grid_sharded"] = gan.sharded
-        ds = w.device_pairs()
-        gan.train(ds, ds, batch_size=w.GLOBAL_BATCH, num_epochs=2,
-                  out_dir=os.path.join(out_dir, f"grid{rank}"),
-                  save_every=999)
-        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(out, f)
-    finally:
-        dist.destroy_process_group()
+    torch_spawn.run_rank(rank, world, rendezvous, _work, rank, out_dir)
