@@ -93,7 +93,7 @@ Phases (any failure exits non-zero and prints no result line):
      profiled replay at 4x their per-step counts; per step at
      TERRAIN_SCAN=16, by default, eager and graph in turns, with profiled
      device time and busy share (bf16: the graph's step within 1.25x its
-     device time); then the trainer on 240 pairs on the card, two epochs
+     device time); then the trainer on 120 pairs on the card, two epochs
      at TERRAIN_SCAN=16 (fp32 through the CLI) and one eager from the same
      seed, fp32 and bf16: epoch times, and epoch 1's results.txt loss
      columns equal to eager's;
@@ -129,27 +129,31 @@ Phases (any failure exits non-zero and prints no result line):
      holds the mesh's parameters whole and loads back sharded, and every
      kernel launched on each rank (a step with the opt-in switches on and
      one with the unfused decoder).
- 12. spatial: spatial parallelism, the pix2pix step of
-     test1_nobn_finetunep2p_bilin at full width (512px, batch 4, nf 64,
-     fp32) through experiments.build_train(..., mesh=) on a 1 x 2 mesh of
-     two gloo ranks sharing the card, each image's rows in slabs over
-     'model' down to 8-row slabs: each seed's step, and one with
-     TERRAIN_PALLAS_CONVS2=1 and one with the unfused decoder (losses,
-     the pix2pix gradients), against one process to twice the error of a
+ 12. spatial: spatial parallelism, the four-network step of
+     test1_nobn_bilin_both at full width (512px, batch 4, fp32) through
+     experiments.build_train(..., mesh=) on a 1 x 2 mesh of two gloo
+     ranks sharing the card, each image's rows in slabs over 'model' down
+     to 8-row slabs in all four networks: each seed's step, and one with
+     both opt-in switches and one with the unfused decoder (losses, every
+     network's gradients), against one process to twice the error of a
      one-process twin that runs each slab layer on each slab and adds the
      slabs' partial sums in the ranks' order, the twin itself held to
-     fixed limits; six planted faults (halo rows zeroed, a halo shifted
+     fixed limits; ten planted faults (halo rows zeroed, a halo shifted
      by one row, BatchNorm over the data group only, a slab dW not summed
-     over 'model', a whole-row dW summed over it, the stride-2 crop one
-     row off, the last also in the twin) each shown to fail; each rank's
-     launches: bilinear_conv at both decoder stages, conv_s2's forward
-     and dW+db with the switch, bilinear with the unfused decoder, as
-     often as in one process under the same switches, and a bf16 step.
-     (The `kernels` phase holds the three kernels at the slabs' heights.)
+     over 'model', a whole-row dW summed over it, a 5x5 halo one row
+     short, the DCGAN discriminator's slab dW not summed, conv_thin's
+     halo rows zeroed, the stride-2 crop and the stem's crop one row off,
+     the last two also in the twin) each shown to fail; one seed of
+     test1_nobn_finetunep2p_bilin's pix2pix step compared alike; each
+     rank's launches of all twelve kernels (pool2 and conv_s2 with the
+     switches, bilinear with the unfused decoder) as often as in one
+     process under the same switches, and a bf16 step.  (The `kernels`
+     phase holds the kernels at the slabs' heights.)
 On request only: `tp4` (the `tp` phase on four cards: a 1 x 4 mesh of
 NCCL ranks, a card each, and rank 0's one-process step timed beside
 the mesh's), `spatial4` (the `spatial` phase on four cards: a 1 x 4
-mesh of NCCL ranks, the 64² decoder stage a 16-row slab),
+mesh of NCCL ranks, the 64² decoder stage a 16-row slab, the stem on
+130- and 132-row slabs with their halos),
 `conditioning` (what fp32 rounding does to the 256px
 step: CPU fp32 vs fp64, card vs CPU, kernels vs plain versions) and
 `determinism` (two fp32 steps from one state in each of DET_SETTINGS, the
@@ -248,10 +252,14 @@ RASTER_DECODE_S = 60.0   # limit: seconds to decode the pair on the host
 # the scan phase: eager steps against one CUDA graph of SCAN_K steps from
 # one saved state, on SCAN_N pairs held on the card; timing at
 # TERRAIN_SCAN=16 (terrain_tpu's TPU launch script); the trainer on
-# TRAINER_N pairs at TERRAIN_SCAN=16 (chunks of 15)
+# SCAN_TRAINER_N pairs at TERRAIN_SCAN=16 (30 train steps an epoch, chunks
+# of 15; the valid pass 3 steps, one chunk): half the trainer phase's
+# epoch, the depth cut to keep the whole script's time as the spatial
+# phase grew (PERF.md §6)
 SCAN_K = 4
 SCAN_TIME_K = 16
 SCAN_N = 16
+SCAN_TRAINER_N = 120
 SCAN_BUSY_LIMIT = 1.25   # bf16: graph step ms / its profiled device ms
 # the parallel phase.  A data-parallel step computes one process's
 # function with its sums in another order: the BatchNorms' statistics and
@@ -741,7 +749,36 @@ def kernel_cases(torch):
                 s2_dw(8, 130, 512, 4, 64, 0.01),
                 bil(4, 33, 64, 512, 128), bil(4, 65, 128, 256, 64),
                 bil(4, 18, 64, 512, 128), bil(4, 34, 128, 256, 64),
-                up2(4, 65, 128, 256), up2(4, 34, 128, 256))]]
+                up2(4, 65, 128, 256), up2(4, 34, 128, 256),
+                # the DCGAN pair's: the discriminator's stem on a
+                # 256-row slab with its 2-row halo (1 x 2, either rank),
+                # and 1 x 4's 128-row slabs, 130 rows at the edge ranks
+                # and 132 in the middle, forward (the concat batch of 8
+                # and the fake batch of 4), dW+db (8) and dX (4)
+                stem_fwd(8, 258, 512, 64, 0.2), stem_fwd(4, 258, 512, 64, 0.2),
+                stem_fwd(8, 130, 512, 64, 0.2), stem_fwd(8, 132, 512, 64, 0.2),
+                stem_fwd(4, 132, 512, 64, 0.2),
+                stem_dw(8, 258, 512, 64, 0.2), stem_dw(8, 130, 512, 64, 0.2),
+                stem_dw(8, 132, 512, 64, 0.2),
+                stem_dx(4, 258, 512, 64, 0.2), stem_dx(4, 130, 512, 64, 0.2),
+                stem_dx(4, 132, 512, 64, 0.2),
+                # the generator's output conv (conv_thin after the phase
+                # decomposition) on 1 x 2's 128-row slabs with one halo
+                # row (129), 1 x 4's edge (65) and middle (66) slabs: odd
+                # heights against the row pairs of its forward and dX
+                *[k(4, hh, 256, 64, 4) for hh in (129, 65, 66)
+                  for k in (thin, thin_dx, thin_dw)],
+                # the discriminator's max pools on slabs (no halo), with
+                # ties: 1 x 2's 256 ... 8 rows (the last pooled, then
+                # gathered) and 1 x 4's 128 ... 8
+                *[k(8, hh, ww, c, ties=True)
+                  for hh, ww, c in ((256, 512, 64), (128, 256, 128),
+                                    (64, 128, 128), (32, 64, 128),
+                                    (16, 32, 256), (8, 16, 256),
+                                    (128, 512, 64), (64, 256, 128),
+                                    (32, 128, 128), (16, 64, 128),
+                                    (8, 32, 256))
+                  for k in (pool_fwd, pool_bwd)])]]
 
 
 def _as_tuple(v):
@@ -2300,12 +2337,13 @@ def scan_timing(torch, np, card, kept):
 
 
 def scan_trainer(torch, np, card):
-    """The trainer on TRAINER_N pairs held on the card at TERRAIN_SCAN=16
-    (chunks of 15 train and 6 eval steps), dumps off: first `python -m
-    terrain_tpu_torch test1_nobn_bilin_both train` in fp32 through cli.main,
-    two epochs, with the counters set to 0 just before and read just
-    after (its dW and dX kernels show one warm-up step and one capture of
-    15, not the 120 steps: the graph outlives the epoch); then, on the same
+    """The trainer on SCAN_TRAINER_N pairs held on the card at
+    TERRAIN_SCAN=16 (chunks of 15 train steps and one of 3 eval steps),
+    dumps off: first `python -m terrain_tpu_torch test1_nobn_bilin_both
+    train` in fp32 through cli.main, two epochs, with the counters set to
+    0 just before and read just after (its dW and dX kernels show one
+    warm-up step and one capture of 15, not the 60 steps: the graph
+    outlives the epoch); then, on the same
     pairs made once, an eager epoch from the same seed against it, and in
     bf16 two TERRAIN_SCAN=16 epochs against an eager one.  Eager is
     bit-equal to itself in both settings (scan_equivalence), so epoch 1's
@@ -2320,7 +2358,7 @@ def scan_trainer(torch, np, card):
 
     root = tempfile.mkdtemp(prefix="scan_")
     env = {"TERRAIN_SYNTHETIC": "1", "TERRAIN_FAST": "1",
-           "TERRAIN_N": str(TRAINER_N), "TERRAIN_EPOCHS": "2",
+           "TERRAIN_N": str(SCAN_TRAINER_N), "TERRAIN_EPOCHS": "2",
            "TERRAIN_SAVE_EVERY": "10", "TERRAIN_ARTIFACT_EVERY": "1000",
            "TERRAIN_OUT": os.path.join(root, "cli"),
            "TERRAIN_MODELS": os.path.join(root, "cli_models"),
@@ -2331,8 +2369,8 @@ def scan_trainer(torch, np, card):
     for k in ("TERRAIN_RESUME", "TERRAIN_DTYPE"):
         os.environ.pop(k, None)
     set_switches(False)
-    n_train = TRAINER_N // TRAIN_BATCH
-    n_eval = (TRAINER_N // 10) // TRAIN_BATCH
+    n_train = SCAN_TRAINER_N // TRAIN_BATCH
+    n_eval = (SCAN_TRAINER_N // 10) // TRAIN_BATCH
     cols = [f"{s}_{k}" for s in ("train", "valid") for k in TRAIN_KEYS]
 
     def read(out_dir):
@@ -2379,9 +2417,9 @@ def scan_trainer(torch, np, card):
             graph, eager = rows["graph"], rows["eager"][0]
             off = [c for c in cols if graph[0][c] != eager[c]]
             print(f"scan trainer [{card}] {label}: `{EXPERIMENT} train` on "
-                  f"{TRAINER_N} pairs on the card, {n_train} train + "
+                  f"{SCAN_TRAINER_N} pairs on the card, {n_train} train + "
                   f"{n_eval} eval steps an epoch: at TERRAIN_SCAN="
-                  f"{SCAN_TIME_K} (chunks of 15 and 6) epoch 1 "
+                  f"{SCAN_TIME_K} (chunks of 15 and 3) epoch 1 "
                   f"{float(graph[0]['time']):.3f} s (capture included), "
                   f"epoch 2 {float(graph[1]['time']):.3f} s; eager "
                   f"{float(eager['time']):.3f} s; epoch 1's loss columns "
@@ -2403,11 +2441,18 @@ def scan_trainer(torch, np, card):
 
 
 def scan_slice(torch, card):
+    """The three parts in turn, each one's seconds printed."""
     import numpy as np
 
+    t0 = time.perf_counter()
     kept = scan_equivalence(torch, np, card)
+    t1 = time.perf_counter()
     scan_timing(torch, np, card, kept)
-    return scan_trainer(torch, np, card)
+    t2 = time.perf_counter()
+    counts = scan_trainer(torch, np, card)
+    print(f"scan: equivalence {t1 - t0:.1f} s, timing {t2 - t1:.1f} s, "
+          f"trainer {time.perf_counter() - t2:.1f} s", flush=True)
+    return counts
 
 
 # ----------------------------------------------------------------- phase 10
@@ -3317,57 +3362,86 @@ def tp_slice(torch, card, world=TP_WORLD, backend="gloo"):
 
 
 # -------------------------------------------------------------- spatial
-# Spatial parallelism: the pix2pix step of SP_EXPERIMENT at full width
-# (512px, batch TRAIN_BATCH, nf 64), fp32, its two image-to-image networks
-# holding each image's rows in slabs over a 1 x SP_WORLD mesh of gloo
-# ranks sharing the card (NCCL refuses two ranks on one device), built by
+# Spatial parallelism: the four-network step of SP_EXPERIMENT at full
+# width (512px, batch TRAIN_BATCH), fp32, every network holding each
+# image's rows in slabs over a 1 x SP_WORLD mesh of gloo ranks sharing the
+# card (NCCL refuses two ranks on one device), built by
 # experiments.build_train(..., mesh=): slabs while the rows a rank holds
 # are at least parallel/spatial.MIN_ROWS (8), the deeper layers on whole
 # rows.  Such a step computes one process's function with some sums in
-# another order: a slab layer's dW and db as the ranks' parts added, a
-# slab BatchNorm's statistics and the losses likewise.  Its twin in one
+# another order: a slab layer's dW and db as the ranks' parts added (the
+# DCGAN discriminator's Conv5x5 dW in fixed blocks of each slab), a slab
+# BatchNorm's statistics and the losses likewise.  Its twin in one
 # process changes those alone: each slab layer called once per slab
 # through parallel/spatial.on_slab (its halo cut from the whole tensor,
 # the kernel route the ranks take), autograd adding the slabs' dW; each
 # slab BatchNorm's sums and the losses over a slab added slab by slab in
-# the ranks' order.  The ranks are held to PAR_TWIN x the twin's error
-# against one process on the same seed (never less than PAR_TOL), the
-# losses and the pix2pix networks' gradients; each of SP_FAULTS must fail
-# that.  The twin runs the slab code the ranks run (the crops, the
-# stride-2 phase, the kernels at the slabs' heights), so it is held
-# itself to fixed limits against one process (SP_TWIN_TOL), and the
-# planted fault in that shared code (SP_SHARED_FAULT) must fail them in
-# the twin.  The seeds' steps run at the default switches, then one with
-# TERRAIN_PALLAS_CONVS2=1 (conv_s2 fwd and dW+db on the slabs) and one
-# with the unfused decoder (bilinear), each compared alike.  The biases
-# are seeded nonzero.  Each rank counts its own launches around its sound
-# steps: each slab kernel as often as one process launches it under the
-# same switches, and a bf16 step.
-SP_EXPERIMENT = "test1_nobn_finetunep2p_bilin"
+# the ranks' order; the pools, which sum nothing across rows, on whole
+# rows.  The ranks are held to PAR_TWIN x the twin's error against one
+# process on the same seed (never less than PAR_TOL), the losses and the
+# four networks' gradients; each of SP_FAULTS must fail that.  The twin
+# runs the slab code the ranks run (the crops, the stride-2 phase, the
+# kernels at the slabs' heights), so it is held itself to fixed limits
+# against one process (SP_TWIN_TOL), and the planted faults in that
+# shared code (SP_SHARED_FAULTS) must fail them in the twin.  The seeds'
+# steps run at the default switches, then one with both opt-in switches
+# (pool2 fwd and bwd on the discriminator's slabs, conv_s2 fwd and dW+db)
+# and one with the unfused decoder (bilinear), each compared alike; then
+# one seed of SP_P2P_EXPERIMENT's pix2pix step (its DCGAN pair forward
+# only, on slabs too).  The biases are seeded nonzero.  Each rank counts
+# its own launches around its sound steps: each kernel as often as one
+# process launches it under the same switches, and a bf16 step.
+SP_EXPERIMENT = "test1_nobn_bilin_both"
+SP_P2P_EXPERIMENT = "test1_nobn_finetunep2p_bilin"
 SP_WORLD = 2
-SP_SHARED_FAULT = "stride-2 crop one row off"
+SP_SHARED_FAULTS = ("stride-2 crop one row off", "stem crop one row off")
 SP_FAULTS = ("halo rows zeroed", "halo shifted by one row",
              "BatchNorm over the data group only",
              "slab dW not summed over 'model'",
-             "whole-row dW summed over 'model'", SP_SHARED_FAULT)
-# the twin against one process: the losses, and PatchGAN's gradients, to
-# PAR_TOL (its gradients read 1.6e-6 on seed 0); the U-Net's gradients
-# pass back through BatchNorms over a few values (down to 1 x 1), so a
-# new summation order moves them: 1.1e-3 to 5.7e-3 on seeds 0-2 (NVIDIA
-# H100 80GB HBM3, 700 W), held to 2e-2
-SP_TWIN_TOL = {"grad p2p_gen": 2e-2, "grad p2p_disc": PAR_TOL}
-CONVS2 = {"TERRAIN_PALLAS_CONVS2": "1"}
-SP_SWITCHED = (("conv_s2", CONVS2), ("unfused", UNFUSED))
-# each slab kernel's launches in one step on every rank, and in one
-# process: the U-Net's two fused decoder stages; the U-Net's first conv
-# (dW+db: live parameters) and PatchGAN's in its two passes (dW+db in the
-# discriminator's); the unfused decoder's last stage
-SP_LAUNCHES = {"default": {"bilinear_conv": 2},
-               "conv_s2": {"conv_s2_fwd": 3, "conv_s2_dw": 2,
-                           "bilinear_conv": 2},
-               "unfused": {"bilinear": 1, "bilinear_conv": 0},
-               "bf16": {"bilinear_conv": 2}}
-SP_KERNELS = ("bilinear_conv", "conv_s2_fwd", "conv_s2_dw", "bilinear")
+             "whole-row dW summed over 'model'",
+             "5x5 halo one row short",
+             "DCGAN discriminator's slab dW not summed over 'model'",
+             "conv_thin's halo rows zeroed") + SP_SHARED_FAULTS
+# the twin against one process: the losses and PatchGAN's gradients to
+# PAR_TOL (PatchGAN's read 1.6e-6 on seed 0); the generators' gradients
+# pass back through BatchNorms over a few values (the U-Net's down to
+# 1 x 1, the DCGAN generator's from 4 x 4), so a new summation order
+# moves them: the U-Net's 1.1e-3 to 5.7e-3 on seeds 0-2, held to 2e-2,
+# the DCGAN generator's 3.0e-3 to 4.8e-3, held to 1.7e-2; the DCGAN
+# discriminator's slab convs round otherwise than the whole image's, and
+# where a max pool's two largest values lie that close its gradient goes
+# to the other one: 6.5e-5 to 4.9e-4, held to 1.7e-3 (each limit about
+# 3.5x the largest reading; NVIDIA H100 80GB HBM3, 700 W)
+SP_TWIN_TOL = {"grad p2p_gen": 2e-2, "grad p2p_disc": PAR_TOL,
+               "grad dcgan_gen": 1.7e-2, "grad dcgan_disc": 1.7e-3}
+SP_SWITCHED = (("switches", SWITCHES), ("unfused", UNFUSED))
+# each kernel's launches in one step on every rank, and in one process:
+# the stem twice forward (the fake batch, generator path, and concat
+# [real, fake]), dX in the first and dW+db in the second; conv_thin as
+# the DCGAN generator's output conv; the U-Net's two fused decoder
+# stages; with the switches six of the discriminator's seven pools in its
+# two passes, the U-Net's first conv (dW+db: live parameters) and
+# PatchGAN's in its two passes (dW+db in the discriminator's); the
+# unfused decoder's last stage; the pix2pix mode runs the DCGAN pair
+# forward only
+_SP_DEFAULT = {"conv_stem_fwd": 2, "conv_stem_dw": 1, "conv_stem_dx": 1,
+               "conv_thin": 1, "conv_thin_dx": 1, "conv_thin_dw": 1,
+               "bilinear_conv": 2}
+SP_LAUNCHES = {"default": _SP_DEFAULT,
+               "switches": dict(_SP_DEFAULT, pool2_fwd=12, pool2_bwd=12,
+                                conv_s2_fwd=3, conv_s2_dw=2),
+               "unfused": dict(_SP_DEFAULT, bilinear=1, bilinear_conv=0),
+               "p2p": {"conv_stem_fwd": 2, "conv_stem_dw": 0,
+                       "conv_stem_dx": 0, "conv_thin": 1, "conv_thin_dx": 0,
+                       "conv_thin_dw": 0, "bilinear_conv": 2},
+               "bf16": _SP_DEFAULT}
+SP_STEPS = {"default": len(PAR_SEEDS), "switches": 1, "unfused": 1, "p2p": 1,
+            "bf16": 1}
+# every hand-written kernel runs on the slabs (pool2 and conv_s2 with the
+# switches, bilinear with the unfused decoder)
+SP_KERNELS = ("bilinear_conv", "conv_thin", "conv_thin_dx", "conv_thin_dw",
+              "conv_stem_fwd", "conv_stem_dw", "conv_stem_dx", "conv_s2_fwd",
+              "conv_s2_dw", "pool2_fwd", "pool2_bwd", "bilinear")
 
 
 def _recorder(setup):
@@ -3532,10 +3606,17 @@ def _sp_fault(torch, nets, fault):
     """One of SP_FAULTS planted in the spatial path of `nets`."""
     import torch.nn.functional as F
 
+    from terrain_tpu_torch.models.dcgan import (
+        DCGANDiscriminator, DCGANGenerator)
     from terrain_tpu_torch.parallel import spatial
 
+    nets = list(nets)
     real_halo = spatial.halo_exchange
     real_same = spatial.RowShard.same_conv
+    real_on_slab = spatial.on_slab
+    real_sum = spatial.sum_slab_grads
+    thin_w = next(n for n in nets if isinstance(n, DCGANGenerator)) \
+        .conv_out.w
 
     def zeroed(x, top, bottom, rows):
         ext = real_halo(x, top, bottom, rows)
@@ -3564,6 +3645,44 @@ def _sp_fault(torch, nets, fault):
         ext = F.pad(self.halo(x, 1, 0), (0, 0, 0, 0, 1, 0))
         return fn(ext).narrow(1, 0, x.shape[1] // 2)
 
+    def stem_crop_off(self, fn, x, k, s):
+        # below the first slab, the stem's output kept from one row above
+        # the slab
+        if k != 5 or x.shape[-1] != 1 or self.first:
+            return real_same(self, fn, x, k, s)
+        return fn(self.halo(x, 2, 2)).narrow(1, 1, x.shape[1])
+
+    def halo_short(self, fn, x, k, s):
+        # a 5x5 conv's halo with its outer row (the second from the slab)
+        # zeroed
+        if k != 5 or s != 1:
+            return real_same(self, fn, x, k, s)
+        r, top = x.shape[1], 0 if self.first else 2
+        ext = self.halo(x, 2, 2)
+        keep = torch.ones((1, ext.shape[1], 1, 1), dtype=ext.dtype,
+                          device=ext.device)
+        if top:
+            keep[:, 0] = 0
+        if ext.shape[1] > top + r:
+            keep[:, -1] = 0
+        return fn(ext * keep).narrow(1, top, r)
+
+    def thin_zeroed(op, x, w, b, rows, io_rows, **kw):
+        # the DCGAN generator's output conv (conv_thin) on its slab with
+        # the halo rows zeroed
+        if w is not thin_w:
+            return real_on_slab(op, x, w, b, rows, io_rows, **kw)
+
+        class Zeroed(type(rows)):
+            __slots__ = ()
+
+            def halo(self, x, top, bottom):
+                return zeroed(x, top, bottom, rows)
+
+        return real_on_slab(op, x, w, b,
+                            Zeroed(rows.index, rows.count, rows.group),
+                            io_rows, **kw)
+
     slab_bns = [m for net in nets for m in net.modules()
                 if spatial.on_slabs(m) and hasattr(m, "process_group")]
     groups = [m.process_group for m in slab_bns]
@@ -3586,7 +3705,18 @@ def _sp_fault(torch, nets, fault):
         "whole-row dW summed over 'model'": patch(
             spatial, "slab_parameters",
             lambda net: [True] * len(list(net.parameters()))),
-        SP_SHARED_FAULT: patch(spatial.RowShard, "same_conv", crop_off),
+        "5x5 halo one row short": patch(spatial.RowShard, "same_conv",
+                                        halo_short),
+        "DCGAN discriminator's slab dW not summed over 'model'": patch(
+            spatial, "sum_slab_grads",
+            lambda net, grads: list(grads)
+            if isinstance(net, DCGANDiscriminator) else real_sum(net, grads)),
+        "conv_thin's halo rows zeroed": patch(spatial, "on_slab",
+                                              thin_zeroed),
+        "stride-2 crop one row off": patch(spatial.RowShard, "same_conv",
+                                           crop_off),
+        "stem crop one row off": patch(spatial.RowShard, "same_conv",
+                                       stem_crop_off),
     }
     if fault not in patches:
         fail(f"spatial: unknown fault {fault}")
@@ -3603,12 +3733,13 @@ def _sp_rank(rank, world, root, backend):
 
 def _sp_work(rank, world, root):
     """One rank of a 1 x world mesh, spawned by spatial_slice (gloo ranks
-    sharing the card, or NCCL ranks a card each): the flagship pix2pix
-    step on each seed of PAR_SEEDS on the mesh, each of SP_FAULTS on the
-    first, then one step under each of SP_SWITCHED and one in bf16.  Rank
-    0 also takes each of those fp32 steps in one process (timed, its
-    launches counted) and as the twin (_sp_twin), the twin under
-    SP_SHARED_FAULT too, and compares.  Writes root/sp<r>.json."""
+    sharing the card, or NCCL ranks a card each): the flagship's step on
+    each seed of PAR_SEEDS on the mesh, each of SP_FAULTS on the first,
+    then one step under each of SP_SWITCHED, one of SP_P2P_EXPERIMENT's
+    pix2pix step and one in bf16.  Rank 0 also takes each of those fp32
+    steps in one process (timed, its launches counted) and as the twin
+    (_sp_twin), the twin under SP_SHARED_FAULTS too, and compares.
+    Writes root/sp<r>.json."""
     import numpy as np
     import torch
 
@@ -3619,7 +3750,8 @@ def _sp_work(rank, world, root):
 
     strict_fp32()
     out = {"counts": {}, "one_counts": {}, "step_ms": [], "one_ms": [],
-           "err": {}, "twin": {}, "faults": {}, "finite": True}
+           "err": {}, "twin": {}, "faults": {}, "shared_fault_twin": {},
+           "finite": True}
 
     def counted(label, fn, into="counts"):
         _reset_counters()
@@ -3630,72 +3762,85 @@ def _sp_work(rank, world, root):
             c[k] = c.get(k, 0) + v
         return r
 
-    def built(mesh=None, cd=None):
-        setup = build_train(SP_EXPERIMENT, "cuda", mesh=mesh,
-                            compute_dtype=cd)
+    def built(experiment, mesh=None, cd=None):
+        setup = build_train(experiment, "cuda", mesh=mesh, compute_dtype=cd)
         _seed_biases(torch, setup)
         return setup, _recorder(setup), _setup_snapshot(setup)
 
     mesh = make_mesh(n_data=1, n_model=world)
-    setup, rec, back = built(mesh)
-    out["slabs"] = {n: sum(on_slabs(m) for m in setup.nets[n].modules())
-                    for n in ("p2p_gen", "p2p_disc")}
-    if rank == 0:
-        one, rec_one, back_one = built()
-        twin, rec_twin, back_twin = built()
-        twin_nets = [twin.nets["p2p_gen"], twin.nets["p2p_disc"]]
 
-    def twin_step(batch):
-        back_twin()
-        with _sp_twin(torch, twin_nets, world):
-            return _sp_step(torch, twin, rec_twin, batch)
+    def stage(experiment):
+        """The step on the mesh, and on rank 0 one process's and the
+        twin's; returns (compared(key, label, batch, timed), twin_step,
+        setup)."""
+        setup, rec, back = built(experiment, mesh)
+        out["slabs"] = {n: sum(on_slabs(m) for m in net.modules())
+                        for n, net in setup.nets.items()}
+        if rank == 0:
+            one, rec_one, back_one = built(experiment)
+            twin, rec_twin, back_twin = built(experiment)
 
-    def compared(key, label, batch, timed=False):
-        """This rank's step on the mesh (its launches counted under
-        `label`); on rank 0 one process's and the twin's too, compared."""
-        back()
-        t0 = time.perf_counter()
-        got = counted(label, lambda: _sp_step(torch, setup, rec, batch))
-        if timed:
-            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
-        out["finite"] &= all(np.isfinite(v) for v in got[0].values())
-        if rank != 0:
-            return None
-        back_one()
-        t0 = time.perf_counter()
-        ref = counted(label, lambda: _sp_step(torch, one, rec_one, batch),
-                      "one_counts")
-        if timed:
-            out["one_ms"].append((time.perf_counter() - t0) * 1e3)
-        out["err"][key] = _errors(got, ref)
-        out["twin"][key] = _errors(twin_step(batch), ref)
-        return ref
+        def twin_step(batch):
+            back_twin()
+            with _sp_twin(torch, list(twin.nets.values()), world):
+                return _sp_step(torch, twin, rec_twin, batch)
 
+        def compared(key, label, batch, timed=False):
+            """This rank's step on the mesh (its launches counted under
+            `label`); on rank 0 one process's and the twin's too,
+            compared."""
+            back()
+            t0 = time.perf_counter()
+            got = counted(label, lambda: _sp_step(torch, setup, rec, batch))
+            if timed:
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["finite"] &= all(np.isfinite(v) for v in got[0].values())
+            if rank != 0:
+                return None
+            back_one()
+            t0 = time.perf_counter()
+            ref = counted(label,
+                          lambda: _sp_step(torch, one, rec_one, batch),
+                          "one_counts")
+            if timed:
+                out["one_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["err"][key] = _errors(got, ref)
+            out["twin"][key] = _errors(twin_step(batch), ref)
+            return ref
+
+        def faulty(fault, batch, ref):
+            back()
+            with _sp_fault(torch, setup.nets.values(), fault):
+                bad = _sp_step(torch, setup, rec, batch)
+                if rank == 0 and fault in SP_SHARED_FAULTS:
+                    out["shared_fault_twin"][fault] = _errors(
+                        twin_step(batch), ref)
+            if rank == 0:
+                out["faults"][fault] = _errors(bad, ref)
+
+        return setup, compared, faulty
+
+    setup, compared, faulty = stage(SP_EXPERIMENT)
     for seed in PAR_SEEDS:
         batch = _train_batch(torch, TRAIN_BATCH, setup.in_shp,
                              setup.latent_dim, seed)
         ref = compared(f"seed {seed}", "default", batch, timed=True)
-        if seed != PAR_SEEDS[0]:
-            continue
-        for fault in SP_FAULTS:
-            back()
-            with _sp_fault(torch, setup.nets.values(), fault):
-                faulty = _sp_step(torch, setup, rec, batch)
-                if rank == 0 and fault == SP_SHARED_FAULT:
-                    out["shared_fault_twin"] = _errors(twin_step(batch), ref)
-            if rank == 0:
-                out["faults"][fault] = _errors(faulty, ref)
+        if seed == PAR_SEEDS[0]:
+            for fault in SP_FAULTS:
+                faulty(fault, batch, ref)
     batch = _train_batch(torch, TRAIN_BATCH, setup.in_shp, setup.latent_dim,
                          PAR_SEEDS[0])
     for label, switches in SP_SWITCHED:
         set_switches(True, switches)
         compared(label, label, batch)
         set_switches(False, switches)
-    del setup, rec, back, ref
-    if rank == 0:
-        del one, twin, twin_nets, back_one, back_twin
+    del setup, compared, faulty, ref
     torch.cuda.empty_cache()
-    bf16, rec16, _ = built(mesh, torch.bfloat16)
+    setup, compared, _ = stage(SP_P2P_EXPERIMENT)
+    compared(f"p2p seed {PAR_SEEDS[0]}", "p2p", batch)
+    del setup, compared
+    torch.cuda.empty_cache()
+    bf16, rec16, _ = built(SP_EXPERIMENT, mesh, torch.bfloat16)
     losses = counted("bf16", lambda: _sp_step(torch, bf16, rec16, batch))[0]
     out["finite"] &= all(np.isfinite(v) for v in losses.values())
     with open(os.path.join(root, f"sp{rank}.json"), "w") as f:
@@ -3708,10 +3853,10 @@ def spatial_slice(torch, card, world=SP_WORLD, backend="gloo"):
     collective through the host); `spatial4` asks for four NCCL ranks, a
     card each.  Each step against one process to PAR_TWIN x the twin's
     error, the twin to SP_TWIN_TOL, SP_FAULTS failing the first and
-    SP_SHARED_FAULT the second, and each slab kernel launched on each
-    rank as often as in one process (SP_LAUNCHES).  Every reading is
-    printed before a failure ends the run.  Returns the ranks' launch
-    counts, added."""
+    SP_SHARED_FAULTS the second, and each kernel launched on each rank
+    as often as in one process (SP_LAUNCHES).  Every reading is printed
+    before a failure ends the run.  Returns the ranks' launch counts,
+    added."""
     import shutil
     import tempfile
 
@@ -3732,7 +3877,8 @@ def spatial_slice(torch, card, world=SP_WORLD, backend="gloo"):
     bad = []
     for r, got in enumerate(res):
         print(f"spatial [{card}] {backend} rank {r} of a 1 x {world} mesh "
-              f"(512px, batch {TRAIN_BATCH}, fp32): layers on slabs "
+              f"({SP_EXPERIMENT}, 512px, batch {TRAIN_BATCH}, fp32): "
+              f"layers and BatchNorms on slabs "
               f"{got['slabs']}; steps (ms, host clock" + (
                   ", a correctness path: gloo stages through the host"
                   if backend == "gloo" else "") + ") "
@@ -3756,26 +3902,24 @@ def spatial_slice(torch, card, world=SP_WORLD, backend="gloo"):
               f"comparison on {caught}", flush=True)
         if not caught:
             bad.append(f"the planted fault '{fault}' passes")
-    err = res[0]["shared_fault_twin"]
-    caught = _over(err, _sp_twin_limits(err))
-    print(f"spatial [{card}] the planted fault '{SP_SHARED_FAULT}' in the "
-          f"twin fails its comparison with one process on {caught}",
-          flush=True)
-    if not caught:
-        bad.append(f"the planted fault '{SP_SHARED_FAULT}' passes the twin")
-    steps = {"default": len(PAR_SEEDS), "conv_s2": 1, "unfused": 1,
-             "bf16": 1}
+    for fault, err in res[0]["shared_fault_twin"].items():
+        caught = _over(err, _sp_twin_limits(err))
+        print(f"spatial [{card}] the planted fault '{fault}' in the twin "
+              f"fails its comparison with one process on {caught}",
+              flush=True)
+        if not caught:
+            bad.append(f"the planted fault '{fault}' passes the twin")
     one = res[0]["one_counts"]
     for r, got in enumerate(res):
         for label, want in SP_LAUNCHES.items():
             c = got["counts"][label]
-            print(f"spatial: rank {r}'s launches, {label} "
-                  f"({steps[label]} steps): {c}", flush=True)
+            steps = SP_STEPS[label]
+            print(f"spatial: rank {r}'s launches, {label} ({steps} "
+                  f"steps): {c}", flush=True)
             for k, v in want.items():
-                if c.get(k, 0) != v * steps[label]:
+                if c.get(k, 0) != v * steps:
                     bad.append(f"rank {r} {label}: {k} launched "
-                               f"{c.get(k, 0)} times, not "
-                               f"{v * steps[label]}")
+                               f"{c.get(k, 0)} times, not {v * steps}")
         for label, c1 in one.items():  # one process's route, on every slab
             for k in SP_KERNELS:
                 if got["counts"][label].get(k, 0) != c1.get(k, 0):
@@ -4344,7 +4488,7 @@ def main():
             paths[name] += ["raster", "scan"]
     for name in meta:
         paths[name] += ["parallel", "parallel_world1", "tp"]
-    # the spatial phase's pix2pix steps on slabs: its four kernels
+    # the spatial phase's steps on slabs: every kernel
     for name in SP_KERNELS:
         paths[name].append("spatial")
     launches = {"serve": serve_launches, "train": train_launches,

@@ -253,13 +253,13 @@ def build_train(experiment, device=None, *, seed=0, compute_dtype=None,
     augmentation or the epoch loop: the trainer's networks, optimizer and
     host-batch steps.
 
-    `mesh` (parallel.make_mesh over a process group; the pix2pix mode's
-    experiments only): spatial parallelism.  The pix2pix networks hold
-    their images in slabs of rows over the model group
-    (parallel.shard_rows), every BatchNorm takes the data group, the
-    state is placed over the mesh, and the steps take this rank's data
-    block of each global batch, whole images, of which they keep this
-    rank's rows: each returns one process's losses."""
+    `mesh` (parallel.make_mesh over a process group; any registered
+    experiment): spatial parallelism.  The four networks hold their
+    images in slabs of rows over the model group (parallel.shard_rows),
+    every BatchNorm takes the data group, the state is placed over the
+    mesh, and the steps of the experiment's own train_mode take this
+    rank's data block of each global batch, whole images, of which they
+    keep this rank's rows: each returns one process's losses."""
     gan, name = build_gan(experiment, device, seed=seed,
                           compute_dtype=compute_dtype, verbose=False,
                           da=False)
@@ -274,13 +274,8 @@ def build_train(experiment, device=None, *, seed=0, compute_dtype=None,
 
 
 def _spatial_steps(gan, mesh):
-    """gan's pix2pix networks row-sharded over `mesh` and its state placed
+    """gan's four networks row-sharded over `mesh` and its state placed
     there; returns its (train step, eval step) over the mesh."""
-    if gan.train_mode != "p2p":
-        raise NotImplementedError(
-            "spatial parallelism takes the pix2pix mode's experiments: the "
-            "DCGAN networks under row sharding are not ported yet (ROADMAP "
-            "A.5b)")
     data = mesh.data_group if mesh.shape["data"] > 1 else None
     for net in gan.nets.values():
         for m in net.modules():
@@ -288,13 +283,14 @@ def _spatial_steps(gan, mesh):
                 m.process_group = data
         if hasattr(net, "data_shard") and data is not None:
             net.data_shard = (mesh.data_index, mesh.shape["data"])
-    for n in ("p2p_gen", "p2p_disc"):
-        shard_rows(gan.nets[n], mesh)
+    for net in gan.nets.values():
+        shard_rows(net, mesh)
     place(step_state(gan.nets, gan.opt_states), mesh)
     step_kw = dict(alpha=gan._step_kw["alpha"], lsgan=gan._step_kw["lsgan"],
                    reconstruction=gan._step_kw["reconstruction"],
                    spatial_mesh=mesh)
-    return (build_train_step(gan.nets, gan.optimizer, train_mode="p2p",
+    return (build_train_step(gan.nets, gan.optimizer,
+                             train_mode=gan.train_mode,
                              lr_mults=gan._train_kw["lr_mults"], **step_kw),
             build_eval_step(gan.nets, **step_kw))
 

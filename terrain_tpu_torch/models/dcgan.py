@@ -18,6 +18,21 @@ Discriminator:
        output nonlinearity.
 Without BN each conv + LeakyReLU is one `conv2d_leaky`, so that the first
 layer lands in the conv_stem kernel's regime with its fused activation.
+
+Spatial parallelism (parallel/spatial.shard_rows): both networks give
+each conv and BatchNorm the whole heights it works at (`io_rows`), as
+models/unet.py does, so a network held in slabs of rows runs each on the
+slab or on whole rows by the one rule of parallel/spatial.py.  The
+generator starts from a vector: its Dense layer and `bn_in` carry no
+rows, its small stages run on whole rows, the first stage whose output
+the rule holds in slabs scatters it (or the reshape, when the rule holds
+the first map in slabs), and its output is a slab (`out_rows`, the final
+height).  Only the fused path runs on slabs (a stage's nearest x2 and
+conv as one op, on the slab with a halo): the bilinear upsample or an
+even h under row sharding raises.  The discriminator takes its input as
+slabs, pools a slab between stages (`spatial.pool`, gathering where the
+rule ends slabs) and returns its (N, 1) output whole (`out_rows` 1,
+never a slab).
 """
 
 import torch
@@ -28,6 +43,7 @@ from terrain_tpu_torch.ops import (
     BatchNorm, avg_pool2d, conv2d, conv2d_leaky, dense, get_activation,
     leaky_relu, max_pool2d, upsample2x_nearest_conv, upsample_bilinear_2x,
     upsample_nearest_2x)
+from terrain_tpu_torch.parallel import spatial
 
 
 class DCGANGenerator(nn.Module):
@@ -45,6 +61,7 @@ class DCGANGenerator(nn.Module):
                              f"!= final_size {final_size}")
         g = generator if generator is not None else torch.Generator()
         self.latent_dim = latent_dim
+        self.out_rows = final_size
         self.out_ch = 1 if is_a_grayscale else 3
         self.nch, self.h, self.initial_size = nch, h, initial_size
         self.num_repeats, self.dropout_p = num_repeats, dropout_p
@@ -63,12 +80,33 @@ class DCGANGenerator(nn.Module):
             stages.append(nn.ModuleList(reps))
         self.stages = nn.ModuleList(stages)
         self.conv_out = Conv(h, cin, self.out_ch, g)
+        self._set_heights()
+
+    rows = None  # parallel/spatial.RowShard when held in slabs of rows
+
+    def _set_heights(self):
+        """Each conv's and BatchNorm's whole (input, output) heights: a
+        stage's first conv doubles them (after the upsample), the rest
+        keep them."""
+        h = self.initial_size
+        for si, stage in enumerate(self.stages):
+            for ri, rep in enumerate(stage):
+                up = si > 0 and ri == 0
+                rep["conv"].io_rows = (h, 2 * h if up else h)
+                h = rep["conv"].io_rows[1]
+                rep["bn"].io_rows = (h, h)
+        self.conv_out.io_rows = (h, 2 * h if len(self.stages) else h)
 
     def _conv(self, x, conv, pending_up):
         cd = self.compute_dtype
         if pending_up:
             if not self.bilinear_upsample and self.h % 2 == 1:
                 return conv(upsample2x_nearest_conv, x, compute_dtype=cd)
+            if self.rows is not None:
+                raise NotImplementedError(
+                    "a DCGAN generator off the fused nearest x2 + odd-h "
+                    "conv path (bilinear_upsample, or an even h) under row "
+                    "sharding is not ported (ROADMAP A.5b)")
             x = (upsample_bilinear_2x(x) if self.bilinear_upsample
                  else upsample_nearest_2x(x))
         return conv(conv2d, x, stride=1, padding="same", compute_dtype=cd)
@@ -83,6 +121,8 @@ class DCGANGenerator(nn.Module):
         x = self.bn_in(x, train, update_stats)
         s0 = self.initial_size
         x = x.reshape(x.shape[0], s0, s0, self.nch)
+        if self.rows is not None and self.rows.slab(s0):
+            x = spatial.scatter_rows(x, self.rows)
         pending_up = False
         for stage in self.stages:
             for rep in stage:
@@ -91,7 +131,8 @@ class DCGANGenerator(nn.Module):
                 x = leaky_relu(rep["bn"](x, train, update_stats), 0.2)
                 if self.dropout_p > 0.0:
                     x = dropout(x, self.dropout_p, generator, train,
-                                self.data_shard)
+                                self.data_shard, self.rows and self.rows.part(
+                                    rep["bn"].io_rows[0]))
             pending_up = True
         x = self._conv(x, self.conv_out, pending_up)
         return torch.sigmoid(x.float())
@@ -123,6 +164,8 @@ class DCGANDiscriminator(nn.Module):
                 f"equal the remaining extent in_shp//2^len(div)="
                 f"{final_spatial}")
         g = generator if generator is not None else torch.Generator()
+        self.in_shp = in_shp
+        self.out_rows = 1  # (N, 1): whole on every rank
         self.bn, self.pool_mode = bn, pool_mode
         self.act = get_activation(nonlinearity)
         self.conv_out_act = get_activation(conv_out_nonlinearity)
@@ -139,11 +182,23 @@ class DCGANDiscriminator(nn.Module):
             stages.append(nn.ModuleList(reps))
         self.stages = nn.ModuleList(stages)
         self.conv_out = Conv(h, cin, 1, g)
+        h = in_shp
+        for stage in self.stages:
+            for rep in stage:
+                for m in rep.values():
+                    m.io_rows = (h, h)
+            h //= 2
+        self.conv_out.io_rows = (h, h)
+
+    rows = None  # parallel/spatial.RowShard when held in slabs of rows
 
     def forward(self, x, train=False, generator=None, update_stats=False):
-        """x (N, in_shp, in_shp, in_ch) -> (N, 1) fp32."""
+        """x (N, in_shp, in_shp, in_ch) -> (N, 1) fp32; held in slabs of
+        rows, x is this rank's slab and the output is whole."""
         cd = self.compute_dtype or torch.float32
+        pool = max_pool2d if self.pool_mode == "max" else avg_pool2d
         x = x.to(cd)
+        h = self.in_shp
         for stage in self.stages:
             for rep in stage:
                 c = rep["conv"]
@@ -154,11 +209,12 @@ class DCGANDiscriminator(nn.Module):
                 else:
                     x = c(conv2d_leaky, x, slope=0.2, stride=1,
                           padding="same", compute_dtype=cd)
-            x = max_pool2d(x, 2) if self.pool_mode == "max" \
-                else avg_pool2d(x, 2)
+            x = spatial.pool(pool, x, self.rows, h, 2)
+            h //= 2
         x = self.conv_out(conv2d, x, stride=1, padding="same",
                           compute_dtype=cd)
-        x = avg_pool2d(self.conv_out_act(x), self.reduction)
+        x = spatial.pool(avg_pool2d, self.conv_out_act(x), self.rows, h,
+                         self.reduction)
         return self.act(x.reshape(x.shape[0], 1).float())
 
 

@@ -37,8 +37,12 @@ On a slab of image rows (spatial parallelism, parallel/spatial.on_slab
 runs a 'same' conv on the slab with its halo of neighbours' rows) the
 route is the one the whole image takes: the kernels' regimes are read on
 the whole image's shape (`route_shape`), so a slab launches the kernel
-exactly where one process does.  The stem's and conv_thin's regimes on a
-slab (the DCGAN networks') are not ported yet and raise (ROADMAP A.5b).
+exactly where one process does: the stem and conv_s2 on the
+discriminators' first layers, conv_thin on the DCGAN generator's output
+conv, whose kernels take any height (their tiles are bounds-checked;
+chip_smoke.py holds them at the slabs' heights), and `Conv5x5` on the
+DCGAN discriminator's hidden layers, whose dW then sums its fixed blocks
+over the slab with its halo.
 """
 
 import os
@@ -71,13 +75,6 @@ def conv_kernel_on(switch):
             and os.environ.get(switch, "1") != "0")
 
 
-def _no_slab(name, x, shape):
-    if tuple(x.shape) != tuple(shape):
-        raise NotImplementedError(
-            f"the {name} kernel on a slab of image rows is not ported yet "
-            f"(ROADMAP A.5b): x {tuple(x.shape)} of {tuple(shape)}")
-
-
 def _try_stem(x, w, b, s, padding, cd, slope=None, shape=None):
     """The stem kernel, unless switched off, in its regime (read on
     `shape`, default x's; bias and activation included), else None.  x and
@@ -85,10 +82,9 @@ def _try_stem(x, w, b, s, padding, cd, slope=None, shape=None):
     cout, cin, kh, kw = w.shape
     if not conv_kernel_on("TERRAIN_PALLAS_STEM"):
         return None
-    shape = shape or tuple(x.shape)
-    if not _cs.supported(shape, (kh, kw, cin, cout), s, padding):
+    if not _cs.supported(shape or tuple(x.shape), (kh, kw, cin, cout), s,
+                         padding):
         return None
-    _no_slab("conv_stem", x, shape)
     bb = b.float() if b is not None else torch.zeros(cout, device=x.device)
     return _cs.conv_stem(x.to(cd).contiguous(),
                          w.to(cd).permute(2, 3, 1, 0).contiguous(),
@@ -198,7 +194,6 @@ def conv2d(x, w, b=None, *, stride=1, padding="same", compute_dtype=None,
         return out
     if conv_kernel_on("TERRAIN_PALLAS_THIN") and _ct.supported(
             shape, (kh, kw, cin, cout), s, padding):
-        _no_slab("conv_thin", x, shape)
         out = _ct.conv_thin(x.to(cd).contiguous(),
                             w.to(cd).permute(2, 3, 1, 0).contiguous())
     else:

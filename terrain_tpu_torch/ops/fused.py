@@ -5,6 +5,10 @@
    kernels, built in fp32 from the grouping matrix G) and a depth-to-space.
    For output q = 2i+phi, tap k' reads the repeated input at
    i + floor((phi+k')/2), so summing taps grouped by that offset is exact.
+   On a slab of image rows (parallel/spatial.on_slab: the slab with one
+   low-resolution halo row on each side) the low-resolution conv is routed
+   on the whole image's shape (`route_shape`), so the DCGAN generator's
+   output conv takes the conv_thin kernel exactly where one process does.
 2. deconv2x2: the k=2 s=2 transposed conv writes non-overlapping 2x2
    blocks -- a matmul with 4x output channels and a depth-to-space.
 3. bilinear2x_conv3x3: bilinear x2 then 3x3 'same' conv; in the kernel's
@@ -70,11 +74,14 @@ def _depth_to_space2(y, cout):
     return y.reshape(n, 2 * h, 2 * w, cout)
 
 
-def upsample2x_nearest_conv(x, w, b=None, *, compute_dtype=None):
+def upsample2x_nearest_conv(x, w, b=None, *, compute_dtype=None,
+                            route_shape=None):
     """Exactly conv2d(upsample_nearest_2x(x), w, 'same', stride 1).
 
     x (N,H,W,cin); w (cout,cin,k,k), k odd.  Output (N,2H,2W,cout); the
-    bias is added after the depth-to-space."""
+    bias is added after the depth-to-space.  `route_shape`: the input
+    shape whose regime picks the low-resolution conv's route (default
+    x's; a slab's whole image)."""
     cd = compute_dtype or x.dtype
     cout, cin, k, _ = w.shape
     n_taps = _phase_grouping(k)[1]
@@ -83,7 +90,8 @@ def upsample2x_nearest_conv(x, w, b=None, *, compute_dtype=None):
     K = torch.einsum("oihw,pha,qwb->pqoiab", w.float(), g, g)
     K = K.reshape(4 * cout, cin, n_taps, n_taps).to(cd)
     y = _depth_to_space2(conv2d(x, K, stride=1, padding="same",
-                                compute_dtype=cd), cout)
+                                compute_dtype=cd, route_shape=route_shape),
+                         cout)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

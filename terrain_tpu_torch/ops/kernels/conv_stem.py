@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from terrain_tpu_torch.ops.kernels._build import (
-    CudaKernel, all_on_cpu, partial_blocks, stream_of)
+    CudaKernel, OpCounter, all_on_cpu, partial_blocks, stream_of)
 
 K = 5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,6 +38,7 @@ KERNEL_DW = CudaKernel("conv_stem", "conv_stem_dw_launch",
                        [_P] * 5 + [_I] * 6 + [_F, _I, _P])
 KERNEL_DX = CudaKernel("conv_stem", "conv_stem_dx_launch",
                        [_P] * 4 + [_I] * 5 + [_F, _I, _P])
+PLAIN = OpCounter()  # calls of the plain versions (CPU tensors)
 
 # terrain_tpu switches this module has no use for, each with the reason
 NO_OP_SWITCHES = {
@@ -125,6 +126,7 @@ def conv_stem_fwd(x, w, b, slope=None):
     """Forward primitive (not differentiable on CUDA tensors: use
     `conv_stem`)."""
     if all_on_cpu("conv_stem", x, w, b):
+        PLAIN.calls += 1
         return conv_stem_fwd_plain(x, w, b, slope)
     n, h, wd, f = _check("conv_stem", x=x, w=w)
     if b.dtype != torch.float32 or tuple(b.shape) != (f,):
@@ -142,6 +144,7 @@ def conv_stem_dw(x, g, y=None, slope=None):
     mask = slope is not None
     ts = (x, g, y) if mask else (x, g)
     if all_on_cpu("conv_stem_dw", *ts):
+        PLAIN.calls += 1
         return conv_stem_dw_plain(x, g, y, slope)
     n, h, wd, f = _check("conv_stem_dw", x=x, g=g, y=y if mask else None)
     if any(t.data_ptr() % 16 for t in ts[1:]):
@@ -163,6 +166,7 @@ def conv_stem_dx(g, w, y=None, slope=None):
     mask = slope is not None
     ts = (g, w, y) if mask else (g, w)
     if all_on_cpu("conv_stem_dx", *ts):
+        PLAIN.calls += 1
         return conv_stem_dx_plain(g, w, y, slope)
     n, h, wd, f = _check("conv_stem_dx", w=w, g=g, y=y if mask else None)
     if any(t.data_ptr() % 16 for t in ts[:1] + ts[2:]):
@@ -205,5 +209,6 @@ def conv_stem(x, w, b, slope=None):
     differentiable: the kernels for CUDA tensors, the plain version (which
     autograd follows) for CPU tensors.  w in x.dtype, b fp32."""
     if all_on_cpu("conv_stem", x, w, b):
+        PLAIN.calls += 1
         return conv_stem_fwd_plain(x, w, b, slope)
     return ConvStemFn.apply(x, w, b, slope)

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from terrain_tpu_torch.ops.kernels._build import (
-    CudaKernel, all_on_cpu, partial_blocks, stream_of)
+    CudaKernel, OpCounter, all_on_cpu, partial_blocks, stream_of)
 
 K = 3
 TH = 16  # the JAX guard's band height (h % TH == 0)
@@ -33,6 +33,7 @@ KERNEL_DX = CudaKernel("conv_thin", "conv_thin_dx_launch",
                        [_P] * 3 + [_I] * 6 + [_P])
 KERNEL_DW = CudaKernel("conv_thin", "conv_thin_dw_launch",
                        [_P] * 4 + [_I] * 7 + [_P])
+PLAIN = OpCounter()  # calls of the plain versions (CPU tensors)
 
 # terrain_tpu switches this module has no use for, each with the reason
 NO_OP_SWITCHES = {
@@ -137,6 +138,7 @@ def conv_thin_fwd(x, w):
     """Forward primitive (not differentiable on CUDA tensors: use
     `conv_thin`)."""
     if all_on_cpu("conv_thin", x, w):
+        PLAIN.calls += 1
         return conv_thin_plain(x, w)
     _check("conv_thin", x, w.shape, w.shape[2], w.shape[3])
     if w.dtype != x.dtype:
@@ -153,6 +155,7 @@ def conv_thin_fwd(x, w):
 def conv_thin_dx(g, w):
     """dX of conv_thin: g (N,H,W,F), w (3,3,C,F) in g.dtype -> (N,H,W,C)."""
     if all_on_cpu("conv_thin_dx", g, w):
+        PLAIN.calls += 1
         return conv_thin_dx_plain(g, w)
     _check("conv_thin_dx", g, w.shape, w.shape[3], w.shape[3])
     if w.dtype != g.dtype:
@@ -169,6 +172,7 @@ def conv_thin_dx(g, w):
 def conv_thin_dw(x, g):
     """dW of conv_thin: x (N,H,W,C), g (N,H,W,F) -> fp32 (3,3,C,F)."""
     if all_on_cpu("conv_thin_dw", x, g):
+        PLAIN.calls += 1
         return conv_thin_dw_plain(x, g)
     c, f = x.shape[-1], g.shape[-1]
     _check("conv_thin_dw", x, (K, K, c, f), c, f, b=g)
@@ -211,5 +215,6 @@ def conv_thin(x, w):
     for CUDA tensors, the plain version (which autograd follows) for CPU
     tensors."""
     if all_on_cpu("conv_thin", x, w):
+        PLAIN.calls += 1
         return conv_thin_plain(x, w)
     return ConvThinFn.apply(x, w)

@@ -22,13 +22,19 @@ ops/fused.py), so it takes the route, kernel or library, that the whole
 image would take, and runs it on the slab with a halo of neighbours' rows:
 a 'same' k x k conv at stride 1 reads (k-1)//2 rows on each side, the
 3x3 stride-2 conv one row above (Lasagne pads symmetrically, so output
-row y reads input rows 2y-1 .. 2y+1), the bilinear x2 and the fused
-bilinear x2 + 3x3 conv one row on each side.  The op runs on the slab
+row y reads input rows 2y-1 .. 2y+1), the bilinear x2, the fused
+bilinear x2 + 3x3 conv and the fused nearest x2 + k x k conv (the DCGAN
+generator's stages, k = 3 or 5) one low-resolution row on each side.
+The op runs on the slab
 with its halo as if that were the image and keeps the rows of the slab:
 rows next to a halo are exact, because the halo holds the true
 neighbours, and at the image's top and bottom the ranks there get no
 halo, so the op's own zero padding or edge clamp applies, as on the
-whole image.  The k2 s2 deconv needs no halo.
+whole image.  The k2 s2 deconv needs no halo, and neither does a pool
+whose windows lie inside the slabs (`pool`: the 2x2 pools of the DCGAN
+discriminator on slabs of an even number of rows); where the rule ends
+slabs after such a pool the pooled rows are gathered, half the bytes of
+gathering the input first.
 
 Gradients.  A whole tensor is the same on every rank of the model group,
 and so is its cotangent: everything after it is computed alike, with the
@@ -136,8 +142,10 @@ class RowShard:
 
     def upsampled(self, fn, x):
         """fn, a 2x upsample of rows (bilinear, alone or with a 3x3 'same'
-        conv after it), on this rank's slab x: run on the slab with one
-        halo row on each side, the slab's 2r output rows kept."""
+        conv after it, or nearest with a 3x3 or 5x5 'same' conv after it,
+        whose output row 2i + phase reads input rows i-1 .. i+1), on this
+        rank's slab x: run on the slab with one halo row on each side, the
+        slab's 2r output rows kept."""
         top = 0 if self.first else 1
         return fn(self.halo(x, 1, 1)).narrow(1, 2 * top, 2 * x.shape[1])
 
@@ -318,6 +326,22 @@ def on_slab(op, x, w, b, rows, io_rows, **kw):
     return rows.same_conv(fn, x, k, h_in // h_out)
 
 
+def pool(fn, x, rows, h, size):
+    """fn(x, size), a size x size pool of stride size (VALID), of x whose
+    whole height is h, under the rule: on whole rows when x is held whole;
+    on the slab when each slab holds whole windows (its rows a multiple of
+    size), the whole image's shape routing it (`route_shape`), and the
+    pooled rows gathered when the rule holds them whole; else (a window
+    across slabs, as the discriminator's last pool over the whole extent)
+    on the gathered rows.  Pooling has no weights and no halo."""
+    if rows is None or not rows.slab(h):
+        return fn(x, size)
+    if x.shape[1] % size:
+        return fn(gather_rows(x, rows), size)
+    y = fn(x, size, route_shape=rows.whole_shape(x))
+    return y if rows.slab(h // size) else gather_rows(y, rows)
+
+
 def on_slabs(module):
     """Whether a layer (or BatchNorm) with a row shard runs on slabs."""
     rows = getattr(module, "rows", None)
@@ -355,22 +379,25 @@ def shard_rows(module, mesh):
     of the whole mesh, one on whole rows the mesh's data group.  The
     caller feeds it slabs (`RowShard.take` or parallel.place with
     spatial_batch_sharding).  Returns the names of the modules that run
-    on slabs.  Only the image-to-image networks (models/unet.py) carry
-    row heights: another raises."""
+    on slabs.  The networks of models/unet.py and models/dcgan.py carry
+    row heights (`rows`): another raises.  A network's input must be held
+    in slabs (`in_shp` rows), the DCGAN generator's output (`out_rows`:
+    its input is a vector)."""
     if not hasattr(module, "rows"):
         raise NotImplementedError(
-            f"{type(module).__name__} under row sharding is not ported yet "
-            f"(ROADMAP A.5b): only the U-Net and PatchGAN carry row "
-            f"heights")
+            f"{type(module).__name__} under row sharding is not ported: "
+            f"only the U-Net, PatchGAN and the DCGAN generator and "
+            f"discriminator carry row heights")
     if mesh.shape["model"] == 1:
         return []
     if mesh.model_group is None:
         raise ValueError("a mesh with n_model > 1 needs a process group: "
                          "call parallel.initialize() before make_mesh()")
     rows = RowShard(mesh.model_index, mesh.shape["model"], mesh.model_group)
-    if not rows.slab(module.in_shp):
-        raise ValueError(f"{module.in_shp} rows over {rows.count} model "
-                         f"ranks are no slabs of {MIN_ROWS} or more")
+    h = getattr(module, "in_shp", None) or module.out_rows
+    if not rows.slab(h):
+        raise ValueError(f"{h} rows over {rows.count} model ranks are no "
+                         f"slabs of {MIN_ROWS} or more")
     data = mesh.data_group if mesh.shape["data"] > 1 else None
     module.rows = rows
     for m in module.modules():

@@ -32,12 +32,16 @@ states in place.
 (TERRAIN_SCAN): a plain loop on CPU tensors, one captured CUDA graph on
 the card (`CapturedSteps`).
 
-Spatial parallelism (`spatial_mesh`, the pix2pix mode's two networks held
-in slabs of image rows over the mesh's model group, parallel/spatial.py):
-the batch is prepared whole (gathered and augmented as one process does),
-the DCGAN stage runs on whole images, alike on every rank of a model
-group, and the pix2pix stage on this rank's rows; its losses are partial
-sums made whole, so every rank returns one process's losses.
+Spatial parallelism (`spatial_mesh`, the four networks held in slabs of
+image rows over the mesh's model group, parallel/spatial.py, in every
+`train_mode`): the batch is prepared whole (gathered and augmented as one
+process does) and every network takes this rank's rows of its images.
+The DCGAN generator returns a slab of its output, which the DCGAN
+discriminator takes beside this rank's rows of the real images and
+answers with whole (N, 1) scores; the pix2pix networks' losses over
+slabs are partial sums made whole.  So every rank returns one process's
+losses, and each active network's slab layers' gradients are summed over
+'model'.
 """
 
 import torch
@@ -73,9 +77,9 @@ def forward_losses(nets, Z, X, Y, rngs=None, *, alpha=100.0, lsgan=False,
                    rows=None):
     """Shared forward of all four networks; returns the losses as a dict
     over TRAIN_KEYS.  `rngs` maps a network name to the `torch.Generator`
-    its dropout draws from (missing: no dropout).  `rows`: the pix2pix
-    networks' row shard (parallel/spatial.RowShard); X and Y are whole
-    images and the pix2pix stage takes this rank's rows of them."""
+    its dropout draws from (missing: no dropout).  `rows`: the networks'
+    row shard (parallel/spatial.RowShard); X and Y are whole images and
+    both stages take this rank's rows of them."""
     rngs = rngs or {}
     n = X.shape[0]
     kw = dict(train=train)
@@ -104,12 +108,12 @@ def forward_losses(nets, Z, X, Y, rngs=None, *, alpha=100.0, lsgan=False,
             d_real, d_fake = both[:n], both[n:]
         return adv(gpath, 1.0), adv(d_real, 1.0) + adv(d_fake, 0.0)
 
+    if rows is not None:
+        X, Y = rows.take(X), rows.take(Y)
     # stage 1: DCGAN (z -> A)
     a_fake = nets["dcgan_gen"](Z, generator=rngs.get("dcgan_gen"), **kw, **us)
     gen_dcgan, disc_dcgan = disc_losses("dcgan_disc", (X,), (a_fake,))
     # stage 2: pix2pix (A -> B)
-    if rows is not None:
-        X, Y = rows.take(X), rows.take(Y)
     b_fake = nets["p2p_gen"](X, generator=rngs.get("p2p_gen"), **kw, **us)
     gen_p2p, disc_p2p = disc_losses("p2p_disc", (X, Y), (X, b_fake))
     recon = reconstruction_loss(b_fake, Y, kind=reconstruction, rows=rows)
@@ -170,20 +174,19 @@ def _mean_losses(losses, group):
     return dict(zip(keys, vals))
 
 
-def _spatial_rows(nets, train_mode, spatial_mesh, data_group):
-    """(the pix2pix networks' row shard, the data group) of a step over
-    `spatial_mesh`; (None, data_group) without one."""
+def _spatial_rows(nets, spatial_mesh, data_group):
+    """(the networks' row shard, the data group) of a step over
+    `spatial_mesh`; (None, data_group) without one.  Every mode runs all
+    four networks forward, so all four must be held in slabs."""
     if spatial_mesh is None:
         return None, data_group
-    if train_mode != "p2p":
-        raise NotImplementedError(
-            f"spatial parallelism takes the pix2pix mode only: the DCGAN "
-            f"networks under row sharding are not ported yet (ROADMAP "
-            f"A.5b), not train_mode={train_mode!r}")
-    rows = getattr(nets["p2p_gen"], "rows", None)
-    if rows is None or getattr(nets["p2p_disc"], "rows", None) is None:
-        raise ValueError("a spatial step needs the pix2pix networks held "
-                         "in slabs: parallel.shard_rows(net, mesh) each")
+    unsharded = [n for n in NET_NAMES if getattr(nets[n], "rows", None)
+                 is None]
+    if unsharded:
+        raise ValueError(f"a spatial step needs every network held in "
+                         f"slabs (parallel.shard_rows(net, mesh) each), "
+                         f"not {unsharded}")
+    rows = nets["dcgan_gen"].rows
     if data_group is None and spatial_mesh.shape["data"] > 1:
         data_group = spatial_mesh.data_group
     return rows, data_group
@@ -218,19 +221,18 @@ def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
     the same on each of them and a sharded weight's is its own slice's.
     The data group (one model index) then averages like with like.
 
-    Spatial parallelism (`spatial_mesh`, train_mode "p2p" only, the
-    pix2pix networks held in slabs by parallel.shard_rows): `batch` is
-    this rank's data block, as with a data group; `prepare` runs on its
-    whole images and each network takes its rows.  A slab layer's
-    gradients are summed over the model group, a whole-row layer's are
+    Spatial parallelism (`spatial_mesh`, the four networks held in slabs
+    by parallel.shard_rows, any train_mode): `batch` is this rank's data
+    block, as with a data group; `prepare` runs on its whole images and
+    each network takes its rows.  An active network's slab layers'
+    gradients are summed over the model group, its whole-row layers' are
     whole already (parallel/spatial.py); then the data group averages."""
     active = ACTIVE[train_mode]
     lr_mults = dict(lr_mults or {})
     unknown = set(lr_mults) - set(NET_NAMES)
     if unknown:
         raise ValueError(f"lr_mults for unknown networks: {sorted(unknown)}")
-    rows, data_group = _spatial_rows(nets, train_mode, spatial_mesh,
-                                     data_group)
+    rows, data_group = _spatial_rows(nets, spatial_mesh, data_group)
 
     def train_step(opt_states, batch, rngs, lr):
         Z, X, Y = prepare(batch, rngs) if prepare is not None else batch
@@ -399,8 +401,8 @@ def build_eval_step(nets, *, alpha=100.0, lsgan=False, reconstruction="l1",
     """Returns eval_step(batch, rngs) -> losses: train-mode forwards (batch
     statistics, live dropout), no update of parameters or BN statistics.
     With a `data_group`, the losses are their means over it;
-    `spatial_mesh` as build_train_step's (the pix2pix mode's)."""
-    rows, data_group = _spatial_rows(nets, "p2p", spatial_mesh, data_group)
+    `spatial_mesh` as build_train_step's."""
+    rows, data_group = _spatial_rows(nets, spatial_mesh, data_group)
 
     @torch.no_grad()
     def eval_step(batch, rngs=None):

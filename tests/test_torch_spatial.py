@@ -11,17 +11,27 @@ finish, and `test_every_rank_ran_to_its_end`.
   * each slab op on 2 and 4 ranks against the whole op, forward and every
     gradient (3x3 and 5x5 at stride 1, 3x3 at stride 2, upsample_bilinear_2x
     in its three forms, bilinear2x_conv3x3's composite and its kernel's
-    route, the k2 s2 deconv), the kernel routes taken on the whole image's
-    regime; both BatchNorm kinds; the gather_rows / scatter_rows round
-    trip;
+    route, the k2 s2 deconv; the DCGAN networks' Conv5x5, stem,
+    upsample2x_nearest_conv at k 5 and 3 and its conv_thin route, the max
+    pool with ties, the average pool, pool2's route, the pools where the
+    rule ends slabs and over a window across slabs), the kernel routes
+    taken on the whole image's regime; both BatchNorm kinds; the
+    gather_rows / scatter_rows round trip;
   * place / gather under spatial_batch_sharding on a 2x2 mesh;
   * the U-Net of tests/test_parallel.py:172 (32px, nf 4, train) and its
     bilinear form on a 2x2 mesh against terrain_tpu's unsharded apply, at
     JAX's own rtol 1e-4 / atol 1e-5;
-  * a tiny test1_nobn_finetunep2p_bilin pix2pix step on a 2x2 and a 1x4
+  * a tiny DCGAN generator (the fused path) and discriminator (Conv5x5)
+    on a 2x2 mesh against terrain_tpu's unsharded apply, output and every
+    gradient, at rtol 1e-4 / atol 1e-5;
+  * a tiny test1_nobn_finetunep2p_bilin pix2pix step, and the tiny
+    four-network step in the both and dcgan modes, on a 2x2 and a 1x4
     mesh (experiments._spatial_steps) against terrain_tpu's step and the
     port's one-process step: every loss and every gradient at rtol 2e-4 /
-    atol 2e-5, global batch 4.
+    atol 2e-5, global batch 4;
+  * experiments.build_train("smoke_synthetic", mesh=) on a 1x2 mesh: its
+    train and eval steps give one process's losses; a sharded DCGAN
+    generator off the fused path raises.
 """
 
 import jax
@@ -30,15 +40,20 @@ import numpy as np
 import pytest
 import torch
 
+from terrain_tpu.models import dcgan as jdcgan
 from terrain_tpu.models import p2p as jp2p
 from terrain_tpu.train import step as jstep
 from terrain_tpu_torch import experiments
-from terrain_tpu_torch.models import convert
+from terrain_tpu_torch.models import convert, dcgan
 from terrain_tpu_torch.ops.kernels import bilinear as _bl
 from terrain_tpu_torch.ops.kernels import bilinear_conv as _bc
 from terrain_tpu_torch.ops.kernels import conv_s2 as _c2
+from terrain_tpu_torch.ops.kernels import conv_stem as _cs
+from terrain_tpu_torch.ops.kernels import conv_thin as _ct
+from terrain_tpu_torch.ops.kernels import pool2 as _p2
 from terrain_tpu_torch.ops.norm import BatchNorm
-from terrain_tpu_torch.parallel.mesh import Mesh
+from terrain_tpu_torch.parallel.spatial import RowShard
+from terrain_tpu_torch.train.step import ACTIVE
 from terrain_tpu_torch.train.trainer import TwoStageGAN
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 import torch_spatial_worker as sw
@@ -111,12 +126,24 @@ def _whole_op(name):
 @pytest.mark.parametrize("mesh", ["pair", "quad"])
 @pytest.mark.parametrize("name", [o[0] for o in sw.OPS])
 def test_slab_op_matches_the_whole_op(ranks, mesh, name):
-    """Output and input gradient: each rank's rows of the whole op's;
-    weight and bias gradients: the ranks' parts summed."""
+    """Output and input gradient: each rank's rows of the whole op's (an
+    output the rule holds whole: the whole op's on every rank); weight
+    and bias gradients: the ranks' parts summed."""
     res = _phase(ranks, "ops")
     want = _whole_op(name)
     got = [res[i][mesh][name][0] for i in _members(mesh)]
+    _, op, xs, _, kw, _ = next(o for o in sw.OPS if o[0] == name)
+    if op in sw.POOLS:  # the output's layout is the rule's (MIN_ROWS 2)
+        with sw.min_rows(2):
+            whole = not RowShard(0, MESHES[mesh][1], None).slab(
+                xs[1] // kw["size"])
+        assert (got[0][0].shape == want[0].shape) == whole, name
     for k in (0, 1):  # y, dx: the ranks' rows in order
+        if k == 0 and got[0][0].shape == want[0].shape:
+            for g in got:
+                np.testing.assert_allclose(g[0], want[0], err_msg=name,
+                                           **OP_TOL)
+            continue
         np.testing.assert_allclose(np.concatenate([g[k] for g in got], 1),
                                    want[k], err_msg=f"{name} {k}", **OP_TOL)
     for k in range(2, len(want)):  # dW, db: partial over the ranks
@@ -135,14 +162,25 @@ def test_slab_ops_take_the_whole_images_kernel_route(ranks, mesh):
               "bilinear kernel route": ("bilinear", _bl.supported(
                   (1, 128, 128, 128))),
               "bilinear_conv kernel route": ("bilinear_conv", _bc.supported(
-                  (1, 32, 32, 8), (3, 3, 8, 8)))}
+                  (1, 32, 32, 8), (3, 3, 8, 8))),
+              "conv_stem kernel route": ("conv_stem", _cs.supported(
+                  (1, 256, 256, 1), (5, 5, 1, 8), 1, "same")),
+              "conv_thin kernel route": ("conv_thin", _ct.supported(
+                  (1, 64, 128, 8), (3, 3, 8, 4), 1, "same")),
+              "pool2 kernel route": ("pool2", _p2.supported((1, 8, 16, 8)))}
     for name, (kernel, whole) in routes.items():
         assert whole, name
         for i in _members(mesh):
             assert res[i][mesh][name][1][kernel] >= 1, (name, i)
     assert not _bc.supported((1, 32 // 4 + 2, 32, 8), (3, 3, 8, 8))
+    assert not _cs.supported((1, 256 // 2 + 2, 256, 1), (5, 5, 1, 8), 1,
+                             "same")
+    assert not _ct.supported((1, 64 // 2 + 1, 128, 8), (3, 3, 8, 4), 1,
+                             "same")
+    assert not _p2.supported((1, 8 // 2, 16, 8))
     for name in ("conv3x3 s2", "upsample_bilinear_2x",
-                 "bilinear2x_conv3x3 composite"):
+                 "bilinear2x_conv3x3 composite", "conv5x5 Conv5x5",
+                 "upsample2x_nearest_conv k5", "max_pool2d ties"):
         for i in _members(mesh):
             assert not any(res[i][mesh][name][1].values()), name
 
@@ -250,16 +288,83 @@ def test_unet_on_a_2x2_mesh_matches_terrain_tpus_unsharded_apply(
                                              16 * m:16 * m + 16], **UNET_TOL)
 
 
-def _jax_step_nets():
-    from terrain_tpu.models import dcgan as jdcgan
+def _jax_dcgan(net):
+    """terrain_tpu's DCGAN network of the worker's tiny pair."""
+    if isinstance(net, dcgan.DCGANGenerator):
+        return jdcgan.default_generator(sw.LAT, True, nch=32, h=5,
+                                        initial_size=4, final_size=sw.IN,
+                                        div=[1, 2, 4])
+    return jdcgan.default_discriminator(2 * sw.IN, True, nch=2 * sw.IN, h=5,
+                                        div=[1, 1, 1], bn=False,
+                                        pool_mode="avg",
+                                        nonlinearity="linear")
 
+
+@pytest.fixture(scope="module")
+def dcgan_references():
+    """terrain_tpu's output of the worker's tiny DCGAN pair on the whole
+    batch, train mode, and its gradients (each network's parameters' in
+    the port's order, and its input's) of a seeded cotangent's dot
+    product with the output, by network."""
+    out = {}
+    z, x, gy, gs = sw.dcgan_inputs()
+    for net, port, inp, cot in zip(("generator", "discriminator"),
+                                   sw.dcgan_nets(), (z, x), (gy, gs)):
+        params, state = convert.to_jax(port)
+        jnet = _jax_dcgan(port)
+
+        def f(p, v):
+            y = jnet.apply(p, state, v, train=True)[0]
+            return jnp.sum(y * cot), y
+
+        (gp, gx), y = jax.jit(jax.grad(f, argnums=(0, 1), has_aux=True))(
+            params, inp)
+        out[net] = (np.asarray(y), [t.numpy() for t in
+                                    convert.params_from_jax(
+                                        port, jax.tree.map(np.asarray, gp))],
+                    np.asarray(gx))
+    return out
+
+
+@pytest.mark.parametrize("net", ["generator", "discriminator"])
+@pytest.mark.parametrize("min_rows", sw.DCGAN)
+def test_dcgan_on_a_2x2_mesh_matches_terrain_tpus_unsharded_apply(
+        ranks, dcgan_references, net, min_rows):
+    """The worker's tiny DCGAN pair held in slabs on a 2x2 mesh against
+    the same weights (models/convert) in terrain_tpu's apply on the
+    whole batch, train mode: each rank's rows of its data block's
+    output, and the gradients of a seeded cotangent's dot product with
+    the whole output (the discriminator's input's: its rows)."""
+    res = _phase(ranks, "dcgan")
+    want_y, want_g, gx = dcgan_references[net]
+    for i in range(WORLD):
+        dd, m = divmod(i, 2)
+        got = res[i][min_rows]
+        if net == "generator":
+            y_i, grads = got[0], got[1]
+            np.testing.assert_allclose(
+                y_i, want_y[2 * dd:2 * dd + 2, 16 * m:16 * m + 16],
+                **UNET_TOL)
+        else:
+            y_i, dx, grads = got[2], got[3], got[4]
+            np.testing.assert_allclose(y_i, want_y[2 * dd:2 * dd + 2],
+                                       **UNET_TOL)
+            np.testing.assert_allclose(
+                dx, gx[2 * dd:2 * dd + 2, 32 * m:32 * m + 32], **UNET_TOL)
+        assert len(grads) == len(want_g)
+        for j, (a, b) in enumerate(zip(grads, want_g)):
+            np.testing.assert_allclose(a, b, err_msg=f"{net} {j}",
+                                       **UNET_TOL)
+
+
+def _jax_step_nets():
     return {
         "dcgan_gen": jdcgan.default_generator(
             sw.LAT, True, nch=8, h=3, initial_size=4, final_size=sw.IN,
             div=[2, 2, 2]),
         "dcgan_disc": jdcgan.default_discriminator(
             sw.IN, True, nch=sw.IN, h=3, div=[4, 2], bn=False,
-            nonlinearity="linear"),
+            nonlinearity="linear", conv_out_nonlinearity="linear"),
         "p2p_gen": jp2p.g_unet(sw.IN, True, False, nf=4, act="tanh",
                                bilinear_upsample=True),
         "p2p_disc": jp2p.discriminator(sw.IN, True, False, nf=4, bn=False,
@@ -270,15 +375,17 @@ def _jax_step_nets():
 
 @pytest.fixture(scope="module")
 def references():
-    """terrain_tpu's losses and pix2pix gradients of one step of the
-    tiny configuration on the global batch, and the port's one-process
-    step's, each gradient list in the port's parameter order."""
-    gan = TwoStageGAN(**sw.step_kw())
+    """terrain_tpu's losses and four networks' gradients of one step of
+    the tiny configuration on the global batch, and the port's
+    one-process step's in the both mode, each gradient list in the port's
+    parameter order.  The losses partition the gradients, so each mode's
+    networks take the both mode's."""
+    gan = TwoStageGAN(**sw.step_kw("both"))
     trees = {n: convert.to_jax(net) for n, net in gan.nets.items()}
     params = {n: t[0] for n, t in trees.items()}
     states = {n: t[1] for n, t in trees.items()}
     jnets = _jax_step_nets()
-    active = ("p2p_gen", "p2p_disc")
+    active = ACTIVE["both"]
     batch = tuple(map(jnp.asarray, sw.step_batch()))
 
     def total(diff):
@@ -299,26 +406,59 @@ def references():
     return {"terrain_tpu": jax_ref, "one process": one}
 
 
+def _check_step(got, want, mode):
+    """Every rank's losses and its active networks' gradients."""
+    want_losses, want_grads = want
+    for losses, grads in got:
+        assert set(grads) == set(ACTIVE[mode])
+        for k, v in want_losses.items():
+            np.testing.assert_allclose(losses[k], v, err_msg=k, **STEP_TOL)
+        for n in ACTIVE[mode]:
+            assert len(grads[n]) == len(want_grads[n])
+            for j, (a, b) in enumerate(zip(grads[n], want_grads[n])):
+                np.testing.assert_allclose(a, b, err_msg=f"{n} {j}",
+                                           **STEP_TOL)
+
+
 @pytest.mark.parametrize("ref", ["terrain_tpu", "one process"])
 @pytest.mark.parametrize("mesh,min_rows", sw.STEP)
 def test_spatial_p2p_step_matches(ranks, references, ref, mesh, min_rows):
     """Every rank returns the global batch's five losses and updates with
     the whole gradients of the pix2pix networks."""
     res = _phase(ranks, "step")
-    want_losses, want_grads = references[ref]
-    for i in range(WORLD):
-        losses, grads = res[i][(mesh, min_rows)]
-        assert set(grads) == {"p2p_gen", "p2p_disc"}
-        for k, v in want_losses.items():
-            np.testing.assert_allclose(losses[k], v, err_msg=k, **STEP_TOL)
-        for n, want in want_grads.items():
-            assert len(grads[n]) == len(want)
-            for j, (a, b) in enumerate(zip(grads[n], want)):
-                np.testing.assert_allclose(a, b, err_msg=f"{n} {j}",
-                                           **STEP_TOL)
+    _check_step([res[i][("p2p", mesh, min_rows)] for i in range(WORLD)],
+                references[ref], "p2p")
 
 
-def test_build_train_takes_a_mesh_for_the_pix2pix_mode_only():
-    mesh = Mesh(np.arange(2).reshape(1, 2))
+@pytest.mark.parametrize("ref", ["terrain_tpu", "one process"])
+@pytest.mark.parametrize("mode,mesh,min_rows", sw.MODE_STEP)
+def test_spatial_both_and_dcgan_steps_match(ranks, references, ref, mode,
+                                            mesh, min_rows):
+    """The four networks held in slabs, in the both and dcgan modes: every
+    rank returns the global batch's five losses and updates with the
+    whole gradients of the mode's networks."""
+    res = _phase(ranks, "step")
+    _check_step([res[i][(mode, mesh, min_rows)] for i in range(WORLD)],
+                references[ref], mode)
+
+
+def test_build_train_takes_a_mesh_for_every_mode(ranks):
+    """smoke_synthetic (the both mode) on a 1x2 mesh: both ranks' train
+    and eval steps give one process's losses."""
+    res = _phase(ranks, "build")
+    want = sw.build_steps(experiments.build_train("smoke_synthetic", "cpu"))
+    for i in (0, 1):
+        for got, ref in zip(res[i], want):
+            for k, v in ref.items():
+                np.testing.assert_allclose(got[k], v, err_msg=k, **STEP_TOL)
+
+
+def test_a_sharded_generator_off_the_fused_path_raises():
+    """The bilinear upsample (or an even h) is not ported onto slabs: the
+    first upsample raises, naming ROADMAP A.5b."""
+    g = dcgan.default_generator(sw.LAT, True, nch=8, h=3, initial_size=4,
+                                final_size=sw.IN, div=[2, 2, 2],
+                                bilinear_upsample=True)
+    g.rows = RowShard(0, 2, None)
     with pytest.raises(NotImplementedError, match="A.5b"):
-        experiments.build_train("smoke_synthetic", "cpu", mesh=mesh)
+        g(torch.zeros(2, sw.LAT), train=True)

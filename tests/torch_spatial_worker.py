@@ -12,20 +12,30 @@ all four, and saves each phase's results as it ends:
     whole -> scatter_rows -> halo_exchange -> the slab's rows mixed with
     its halos -> gather_rows on both;
   * "ops": every slab op of OPS on its rank's rows of seeded whole
-    inputs, on the pair and the quad: output, and the gradients of the
-    slab, the weight and the bias under the cotangent's rows, and the
-    plain versions' call counts (the kernel routes), a BatchNorm on slabs
-    and one on whole rows on the grid and the pair, and the
-    gather_rows / scatter_rows round trip;
+    inputs, on the pair and the quad: output (this rank's rows, or the
+    whole output where a pool leaves slabs), and the gradients of the
+    slab, the weight and the bias under the cotangent's rows (the whole
+    cotangent of a whole output), and the plain versions' call counts
+    (the kernel routes), a BatchNorm on slabs and one on whole rows on
+    the grid and the pair, and the gather_rows / scatter_rows round trip;
   * "place": place and gather of a seeded global batch under
     spatial_batch_sharding on the grid;
   * "unet": the U-Net of tests/test_parallel.py (32px, nf 4, train) and
     its bilinear form on the grid under the rule's MIN_ROWS 8 and under 2
     (`min_rows`): this rank's rows of its data block's output;
-  * "step": a pix2pix train step of STEP_CFG's nets (a tiny
-    test1_nobn_finetunep2p_bilin) on the grid and the quad under MIN_ROWS
-    8 and 2 (experiments._spatial_steps): the losses and the gradients its
-    update was given.
+  * "dcgan": a tiny DCGAN generator (h 5, the fused path) and
+    discriminator (5x5 convs of 64 features: `Conv5x5`) on the grid under
+    MIN_ROWS 8 and 2, train mode: this rank's rows of its data block's
+    output, and every gradient of a seeded cotangent's dot product with
+    the output, summed over the mesh (the discriminator's input's, this
+    rank's rows);
+  * "step": a train step of step_kw's nets (a tiny test1_nobn_bilin
+    family: the four networks) on the grid and the quad under MIN_ROWS 8
+    and 2 (experiments._spatial_steps), in the pix2pix mode (STEP) and in
+    the both and dcgan modes (MODE_STEP): the losses and the gradients
+    its update was given;
+  * "build": experiments.build_train("smoke_synthetic", mesh=) on the
+    pair, one train step and one eval step: their losses.
 The ops' slabs are thinner than the rule's 8 rows (the ops take any
 slab the rule gives them), so the ops phase runs under MIN_ROWS 2.
 """
@@ -67,19 +77,46 @@ OPS = (
      (8, 8, 3, 3), {}, {}),
     ("deconv k2 s2", "conv2d_transpose", (2, 8, 6, 3), (3, 5, 2, 2),
      dict(stride=2), {}),
+    # the DCGAN networks': the discriminator's hidden 5x5 convs (fp32,
+    # cin >= 64: ops/conv.Conv5x5) and its stem, the generator's fused
+    # nearest x2 + conv at h 5 and 3 and its output conv (conv_thin), the
+    # pools between the discriminator's stages (max with planted ties;
+    # the quad's 8-row inputs pool to 4 rows, whole under MIN_ROWS 2: the
+    # pooled rows gathered), pool2's route, and the last pool over the
+    # whole extent (a window across slabs: gathered first)
+    ("conv5x5 Conv5x5", "conv2d", (2, 16, 6, 64), (8, 64, 5, 5),
+     dict(stride=1, padding="same"), {}),
+    ("conv_stem kernel route", "conv2d_leaky", (1, 256, 256, 1),
+     (8, 1, 5, 5), dict(slope=0.25, stride=1, padding="same"), {}),
+    ("upsample2x_nearest_conv k5", "upsample2x_nearest_conv", (2, 8, 6, 4),
+     (3, 4, 5, 5), {}, {}),
+    ("upsample2x_nearest_conv k3", "upsample2x_nearest_conv", (2, 8, 6, 4),
+     (3, 4, 3, 3), {}, {}),
+    ("conv_thin kernel route", "upsample2x_nearest_conv", (1, 64, 128, 8),
+     (1, 8, 5, 5), {}, {}),
+    ("max_pool2d ties", "max_pool2d", (2, 8, 6, 4), None, dict(size=2), {}),
+    ("avg_pool2d", "avg_pool2d", (2, 8, 6, 4), None, dict(size=2), {}),
+    ("pool2 kernel route", "max_pool2d", (1, 8, 16, 8), None, dict(size=2),
+     {"TERRAIN_POOL_VJP": "pallas"}),
+    ("avg_pool2d whole extent", "avg_pool2d", (2, 8, 8, 1), None,
+     dict(size=8), {}),
 )
+POOLS = ("max_pool2d", "avg_pool2d")
 BN_SHAPE = (4, 8, 4, 3)  # a global batch of 4 images of 8 rows, 3 channels
 BATCH = (4, 8, 6, 2)     # place / gather
 UNET = [(bil, mr) for bil in (False, True) for mr in (8, 2)]
 STEP = [(mesh, mr) for mesh in ("grid", "quad") for mr in (8, 2)]
+MODE_STEP = [("both", "grid", 8), ("both", "quad", 2), ("dcgan", "grid", 2),
+             ("dcgan", "quad", 8)]
+DCGAN = (8, 2)
 IN, LAT, GLOBAL_BATCH, LR = 32, 8, 4, 1e-4
 
 
 def op_fn(op):
-    from terrain_tpu_torch.ops import conv, fused, resize
+    from terrain_tpu_torch.ops import conv, fused, pool, resize
 
     return (getattr(conv, op, None) or getattr(fused, op, None)
-            or getattr(resize, op))
+            or getattr(pool, op, None) or getattr(resize, op))
 
 
 def dyadic(r, shape, step):
@@ -95,7 +132,8 @@ def op_inputs(name):
     entry, the op, its kwargs and its switches."""
     _, op, xs, ws, kw, env = next(o for o in OPS if o[0] == name)
     r = np.random.RandomState(sum(map(ord, name)) % 1000)
-    x = dyadic(r, xs, 1 / 4)
+    # a max pool's input in steps of 1: five levels, ties in most windows
+    x = dyadic(r, xs, 1 if op == "max_pool2d" else 1 / 4)
     wt = b = None
     if ws is not None:
         wt = dyadic(r, ws, 1 / 8)
@@ -124,11 +162,14 @@ def call_op(fn, x, wt, b, kw, env, **extra):
 
 
 def plain_counts():
-    """Calls of the three on-path kernels' plain versions."""
-    from terrain_tpu_torch.ops.kernels import bilinear, bilinear_conv, conv_s2
+    """Calls of the six on-path kernels' plain versions."""
+    from terrain_tpu_torch.ops.kernels import (
+        bilinear, bilinear_conv, conv_s2, conv_stem, conv_thin, pool2)
 
     return {"conv_s2": conv_s2.PLAIN.calls, "bilinear": bilinear.PLAIN.calls,
-            "bilinear_conv": bilinear_conv.PLAIN.calls}
+            "bilinear_conv": bilinear_conv.PLAIN.calls,
+            "conv_stem": conv_stem.PLAIN.calls,
+            "conv_thin": conv_thin.PLAIN.calls, "pool2": pool2.PLAIN.calls}
 
 
 @contextlib.contextmanager
@@ -152,15 +193,20 @@ def _rows(mesh):
 def slab_call(op, fn, xs, wt, b, kw, env, rows, h):
     """fn on this rank's slab xs of whole height h, as a layer on slabs
     runs it (parallel/spatial.on_slab; the bilinear x2 alone through
-    RowShard.upsampled), under the switches `env`."""
+    RowShard.upsampled, a pool through spatial.pool), under the switches
+    `env`."""
     from terrain_tpu_torch.parallel import spatial
 
     whole = rows.whole_shape(xs)
+    if op in POOLS:
+        return call_op(lambda x, size: spatial.pool(fn, x, rows, h, size),
+                       xs, None, None, kw, env)
     if wt is None:
         return call_op(lambda x, **k: rows.upsampled(
             lambda e: fn(e, route_shape=whole, **k), x), xs, None, None,
             kw, env)
-    up = op in ("conv2d_transpose", "bilinear2x_conv3x3")
+    up = op in ("conv2d_transpose", "bilinear2x_conv3x3",
+                "upsample2x_nearest_conv")
     io = (h, 2 * h) if up else (h, h // kw.get("stride", 1))
     return call_op(lambda x, w, bb, **k: spatial.on_slab(
         fn, x, w, bb, rows, io, **k), xs, wt, b, kw, env)
@@ -216,8 +262,11 @@ def _ops(mesh):
         before = plain_counts()
         wb = ins[1:] if wt is not None else [None, None]
         y = slab_call(op, fn, xs, *wb, kw, env, rows, x.shape[1])
+        # a whole output (a pool where the rule ends slabs) carries the
+        # whole cotangent, a slab its rows
+        grads = torch.autograd.grad(
+            y, ins, cot if y.shape == cot.shape else rows.take(cot))
         calls = {k: v - before[k] for k, v in plain_counts().items()}
-        grads = torch.autograd.grad(y, ins, rows.take(cot))
         out[name] = ([t.detach().numpy() for t in (y, *grads)], calls)
     return out
 
@@ -321,9 +370,92 @@ def _unet(mesh):
     return out
 
 
-def step_kw():
+def dcgan_nets():
+    """The tiny DCGAN pair of the "dcgan" phase, seeded, biases nonzero:
+    a generator (32px from 4, h 5, 32/32/16/8 features) and a
+    discriminator (64px, h 5, three 5x5 convs of 64 features, no BN,
+    average pools).  Its pools average: with max pools, windows whose two
+    largest values lie 3e-7 apart (relative) route the gradient to
+    another pixel when the conv rounds otherwise, as XLA's and PyTorch's
+    CPU convs do (the unsharded port against terrain_tpu alike), which
+    moves its gradients by up to 2.7e-5; the max pools on slabs are held
+    to the whole op with planted ties ("ops") and, in the steps'
+    discriminators, to terrain_tpu's step."""
+    from terrain_tpu_torch.models import dcgan
+
+    g = dcgan.default_generator(
+        LAT, True, nch=32, h=5, initial_size=4, final_size=IN,
+        div=[1, 2, 4], generator=torch.Generator().manual_seed(3))
+    d = dcgan.default_discriminator(
+        2 * IN, True, nch=2 * IN, h=5, div=[1, 1, 1], bn=False,
+        pool_mode="avg", nonlinearity="linear",
+        generator=torch.Generator().manual_seed(4))
+    r = np.random.RandomState(8)
+    with torch.no_grad():
+        for net in (g, d):
+            for name, p in net.named_parameters():
+                if name.endswith(".b"):
+                    p.copy_(torch.from_numpy(
+                        r.uniform(-0.1, 0.1, p.shape).astype(np.float32)))
+    return g, d
+
+
+def dcgan_inputs():
+    """The global batch: z, the discriminator's images, and seeded
+    cotangents of the generator's output and the discriminator's, scaled
+    so that each network's largest gradients are of order 1 (the dense
+    bias before the generator's bn_in has a zero gradient, whose rounding
+    grows with the cotangent: 1.5e-5 at 64 times this one)."""
+    r = np.random.RandomState(7)
+    gy = r.randn(GLOBAL_BATCH, IN, IN, 1).astype(np.float32) / 64
+    gs = r.randn(GLOBAL_BATCH, 1).astype(np.float32) * 64
+    return (r.rand(GLOBAL_BATCH, LAT).astype(np.float32),
+            r.rand(GLOBAL_BATCH, 2 * IN, 2 * IN, 1).astype(np.float32),
+            gy, gs)
+
+
+def _dcgan(mesh):
+    from terrain_tpu_torch.parallel import shard_rows, spatial
+
+    per = GLOBAL_BATCH // mesh.shape["data"]
+    block = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+    z, x, gy, gs = (torch.from_numpy(a[block]) for a in dcgan_inputs())
+
+    def whole(net, grads):
+        grads = spatial.sum_slab_grads(net, list(grads))
+        for t in grads:
+            torch.distributed.all_reduce(t, group=mesh.data_group)
+        return [t.numpy() for t in grads]
+
+    out = {}
+    for rule in DCGAN:
+        g, d = dcgan_nets()
+        with min_rows(rule):
+            for net in (g, d):
+                for m in net.modules():
+                    if isinstance(m, BatchNorm):
+                        m.process_group = mesh.data_group
+                shard_rows(net, mesh)
+            y = g(z, train=True)
+            gp = whole(g, torch.autograd.grad(y, list(g.parameters()),
+                                              g.rows.take(gy)))
+            xs = d.rows.take(x).requires_grad_()
+            score = d(xs, train=True)
+            dg = torch.autograd.grad(score, [xs, *d.parameters()], gs)
+            out[rule] = (y.detach().numpy(), gp, score.detach().numpy(),
+                         dg[0].numpy(), whole(d, dg[1:]))
+    return out
+
+
+def step_kw(train_mode="p2p"):
     """A tiny test1_nobn_finetunep2p_bilin: the bilinear U-Net and the
-    PatchGAN without BN (nf 4 each), the pix2pix mode, LSGAN, rmsprop."""
+    PatchGAN without BN (nf 4 each), the pix2pix mode, LSGAN, rmsprop;
+    with `train_mode` "both" or "dcgan" the tiny test1_nobn_bilin_both
+    and its dcgan mode (the DCGAN pair: h 3, the fused path).  The DCGAN
+    discriminator's last conv is linear, as the _stable experiments'
+    (TERRAIN_DISC_OUT): the reference's rectify puts out zeros at this
+    size, which would leave its losses and both DCGAN networks'
+    gradients constant."""
     from terrain_tpu_torch.models import dcgan, unet as unet_mod
 
     return dict(
@@ -332,7 +464,8 @@ def step_kw():
         gen_params_dcgan={"nch": 8, "h": 3, "initial_size": 4,
                           "final_size": IN, "div": [2, 2, 2]},
         disc_params_dcgan={"nch": IN, "h": 3, "div": [4, 2], "bn": False,
-                           "nonlinearity": "linear"},
+                           "nonlinearity": "linear",
+                           "conv_out_nonlinearity": "linear"},
         gen_fn_p2p=unet_mod.g_unet, disc_fn_p2p=unet_mod.discriminator,
         gen_params_p2p={"nf": 4, "act": "tanh", "num_repeats": 0,
                         "bilinear_upsample": True},
@@ -340,7 +473,8 @@ def step_kw():
                          "act": "linear", "mul_factor": [1, 2, 4, 8]},
         in_shp=IN, latent_dim=LAT, is_a_grayscale=True, is_b_grayscale=False,
         lsgan=True, opt="rmsprop", opt_args={"learning_rate": LR},
-        train_mode="p2p", verbose=False, seed=1, device="cpu", da=False)
+        train_mode=train_mode, verbose=False, seed=1, device="cpu",
+        da=False)
 
 
 def step_batch():
@@ -378,17 +512,42 @@ def _step(meshes):
     from terrain_tpu_torch.train.trainer import TwoStageGAN
 
     out = {}
-    for key, rule in STEP:
+    for mode, key, rule in [("p2p", *c) for c in STEP] + MODE_STEP:
         mesh = meshes[key]
-        gan = TwoStageGAN(**step_kw())
+        gan = TwoStageGAN(**step_kw(mode))
         rec = recording(gan)
         per = GLOBAL_BATCH // mesh.shape["data"]
         block = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
         with min_rows(rule):
             step, _ = experiments._spatial_steps(gan, mesh)
-            out[(key, rule)] = run_step(
+            out[(mode, key, rule)] = run_step(
                 gan, step, rec, tuple(a[block] for a in step_batch()))
     return out
+
+
+def smoke_batch(latent):
+    """A seeded global batch of smoke_synthetic (64px), batch 2."""
+    r = np.random.RandomState(3)
+    return tuple(torch.from_numpy(a) for a in (
+        r.rand(2, latent).astype(np.float32),
+        r.rand(2, 64, 64, 1).astype(np.float32),
+        (r.rand(2, 64, 64, 3) * 2 - 1).astype(np.float32)))
+
+
+def build_steps(setup):
+    """One train step and one eval step of a build_train setup on
+    smoke_batch: their losses."""
+    batch = smoke_batch(setup.latent_dim)
+    train = setup.train_step(setup.opt_states, batch, {}, setup.lr)
+    return ({k: float(v) for k, v in train.items()},
+            {k: float(v) for k, v in setup.eval_step(batch, {}).items()})
+
+
+def _build(pair):
+    from terrain_tpu_torch import experiments
+
+    return build_steps(experiments.build_train("smoke_synthetic", "cpu",
+                                               mesh=pair))
 
 
 def _work(rank, out_dir):
@@ -408,7 +567,9 @@ def _work(rank, out_dir):
         "round_trip": _round_trip(quad)})
     save(out_dir, "place", rank, _place(grid))
     save(out_dir, "unet", rank, _unet(grid))
+    save(out_dir, "dcgan", rank, _dcgan(grid))
     save(out_dir, "step", rank, _step({"grid": grid, "quad": quad}))
+    save(out_dir, "build", rank, _build(pair) if on_pair else None)
 
 
 def run_rank(rank, world, rendezvous, out_dir):
