@@ -90,10 +90,10 @@ Phases (any failure exits non-zero and prints no result line):
      in fp32 at half the lr (captured anew) and with adam (its step count
      advanced on the device): losses, every parameter, the BN statistics
      and the optimizer state bit-equal, and the hand-written kernels of a
-     profiled replay at 4x their per-step counts; per step at
-     TERRAIN_SCAN=16, by default, eager and graph in turns, with profiled
-     device time and busy share (bf16: the graph's step within 1.25x its
-     device time); then the trainer on 120 pairs on the card, two epochs
+     profiled replay at 4x their per-step counts; bf16 per step at
+     TERRAIN_SCAN=16, by default, eager and graph in turns (fp32 and the
+     profiled device time: the parallel phase); then the trainer on 120
+     pairs on the card, two epochs
      at TERRAIN_SCAN=16 (fp32 through the CLI) and one eager from the same
      seed, fp32 and bf16: epoch times, and epoch 1's results.txt loss
      columns equal to eager's;
@@ -105,12 +105,23 @@ Phases (any failure exits non-zero and prints no result line):
      switches on and the unfused decoder on one, and its step ms, device
      ms and collectives a step; in one process, the two-rank step's twin
      (only its summation orders changed) and epochs over 8 pairs without a
-     mesh and as the twin.  Then two spawned gloo ranks sharing the card,
+     mesh and as the twin.  Then TERRAIN_SCAN on that mesh, the trainer's
+     chunks as CUDA graphs with the NCCL collectives inside: fp32 chunks
+     of 16 steps bit-equal to 16 eager steps on three seeds, the eval
+     chunk, an lr change and a load_model each capturing anew once (the
+     launch calls show one warm-up step and one capture; a replay calls
+     none), chunks of 4 with the switches on and with the unfused decoder
+     whose profiled replays run every kernel 4x its per-step count; bf16
+     per step, the mesh's eager steps, its graph and the graph without a
+     mesh in turns, with device ms and peak MiB (each graph within 1.25x
+     its device time).  Then two spawned gloo ranks sharing the card,
      2 rows each: the same steps against one process's, four planted
      faults (BN statistics local, gradients summed, gradients 1% large,
      half the batch twice) each shown to fail that comparison, three
-     epochs whose loss rows must match one process's, and every kernel of
-     the train path launched on each rank at its local batch;
+     epochs whose loss rows must match one process's, an epoch at
+     TERRAIN_SCAN=4 equal to the k = 1 epoch (a loop over gloo), and
+     every kernel of the train path launched on each rank at its local
+     batch;
  10. accuracy: every distinct library conv of one fp32 step against the
      CPU's fp64 gradients (relative to the largest entry): the DCGAN
      discriminator's 5x5 convs with cin >= 64, whose dW is
@@ -149,7 +160,11 @@ Phases (any failure exits non-zero and prints no result line):
      switches, bilinear with the unfused decoder) as often as in one
      process under the same switches, and a bf16 step.  (The `kernels`
      phase holds the kernels at the slabs' heights.)
-On request only: `tp4` (the `tp` phase on four cards: a 1 x 4 mesh of
+On request only: `scan4` (TERRAIN_SCAN on four NCCL ranks, a card each,
+each rank's wall clock bounded: a 4 x 1 mesh's trainer epoch at
+TERRAIN_SCAN=16 bit-equal to k = 1, bf16 graph against eager at global
+batch 16, a 2 x 2 mesh's and the 1 x 4 spatial `both` step's chunks
+bit-equal to their eager steps), `tp4` (the `tp` phase on four cards: a 1 x 4 mesh of
 NCCL ranks, a card each, and rank 0's one-process step timed beside
 the mesh's), `spatial4` (the `spatial` phase on four cards: a 1 x 4
 mesh of NCCL ranks, the 64² decoder stage a 16-row slab, the stem on
@@ -165,6 +180,7 @@ The last lines are the `kernels` JSON, the card line, and
 """
 
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -293,6 +309,13 @@ PAR_W1_GRAD_TOL = {"fp32": {"dcgan_gen": 2e-2, "dcgan_disc": 2e-5,
                             "p2p_gen": 4e-3, "p2p_disc": 1e-4},
                    "bf16": {"dcgan_gen": 2e-2, "dcgan_disc": 1e-4,
                             "p2p_gen": 5e-2, "p2p_disc": 1e-4}}
+# TERRAIN_SCAN over a mesh: the world-1 NCCL mesh's chunks (fp32 bit-equal
+# to eager, bf16 timed) at terrain_tpu's TPU launch script's k; the two
+# gloo ranks' epoch at TERRAIN_SCAN=PAR_SCAN_GLOO_K over PAR_SCAN_GLOO_N
+# pairs (k steps an epoch), a loop by train/step.py's rule
+PAR_SCAN_K = 16
+PAR_SCAN_GLOO_K = 4
+PAR_SCAN_GLOO_N = 16
 PAR_FAULTS = ("BN statistics local", "gradients summed",
               "gradients 1% large", "half the batch twice")
 # each hand-written kernel's symbol, as the profiler names it
@@ -318,7 +341,7 @@ ACC_ROUTE_TOL = 1e-4
 ACC_TOL = 5e-5
 PHASES = {"kernels", "serve", "train", "trainer", "quality", "raster", "scan",
           "parallel", "accuracy", "tp", "spatial", "conditioning",
-          "determinism", "tp4", "spatial4"}
+          "determinism", "tp4", "spatial4", "scan4"}
 
 
 def set_switches(on, switches=SWITCHES):
@@ -2139,12 +2162,16 @@ def _scan_setup(torch, np, cd):
     return gan, ds, tr
 
 
-def _chunk(torch, np, gan, ds, k, seed):
+def _chunk(torch, np, gan, ds, k, seed, n=TRAIN_BATCH):
+    """k seeded global batches of n over ds: gan's rank's rows of each
+    (the batch arguments of its chunk, as the trainer's epoch slices
+    them)."""
     rnd = np.random.RandomState(seed)
-    Z = torch.from_numpy(rnd.rand(k, TRAIN_BATCH, gan.latent_dim).astype(
-        np.float32)).cuda()
-    idx = torch.from_numpy(rnd.randint(0, ds.N, (k, TRAIN_BATCH)).astype(
-        np.int32)).cuda()
+    rows = gan._local(n)
+    Z = torch.from_numpy(np.ascontiguousarray(rnd.rand(
+        k, n, gan.latent_dim).astype(np.float32)[:, rows])).cuda()
+    idx = torch.from_numpy(np.ascontiguousarray(rnd.randint(
+        0, ds.N, (k, n)).astype(np.int32)[:, rows])).cuda()
     return [ds.batch_args(Z[t], idx[t]) for t in range(k)]
 
 
@@ -2181,8 +2208,8 @@ def scan_equivalence(torch, np, card):
     bf16, with the opt-in switches off and on: k eager steps twice, then
     two replays, every tensor bit-equal; then, fp32 switches off, the same
     at half the lr (the graph captured anew), and with adam, whose step
-    count the graph advances on the device.  Returns the bf16 and fp32
-    setups (rmsprop) for timing."""
+    count the graph advances on the device.  Returns the bf16 setup
+    (rmsprop) for timing."""
     from terrain_tpu_torch.train import optim
     from terrain_tpu_torch.train.losses import TRAIN_KEYS
     from terrain_tpu_torch.train.step import build_scan_step
@@ -2272,67 +2299,49 @@ def scan_equivalence(torch, np, card):
             gan._init_opt_states()
             tr, _ = gan._build_steps(ds.make_prepare(augment=True))
         torch.cuda.empty_cache()
-        kept[label] = (gan, ds, tr)
+        if label == "bf16":
+            kept[label] = (gan, ds, tr)
+        del gan, ds, tr
     return kept
 
 
 def scan_timing(torch, np, card, kept):
-    """Per step at TERRAIN_SCAN=16, switches off, eager and graph in turns
-    (eager, graph, graph, eager: host clock around a synchronized chunk),
-    and the profiled device time and busy share of each.  (The profiler
-    may drop some of a 16-step replay's ~53,000 kernel events: the kernel
-    counts are held on the 4-step replays of scan_equivalence.)"""
+    """bf16 per step at TERRAIN_SCAN=16, switches off, eager and graph in
+    turns (eager, graph, graph, eager: host clock around a synchronized
+    chunk).  The depth cut to keep the whole script's time as the
+    parallel phase took TERRAIN_SCAN over a mesh: fp32 per step (the
+    replays against eager steps) and both graphs' profiled device time
+    and busy share are read there, on the world-1 mesh and without one."""
     from terrain_tpu_torch.train.step import build_scan_step
 
     k = SCAN_TIME_K
-    for label, (gan, ds, tr) in kept.items():
-        batches = _chunk(torch, np, gan, ds, k, 6)
-        scan = build_scan_step(tr)
+    gan, ds, tr = kept.pop("bf16")
+    batches = _chunk(torch, np, gan, ds, k, 6)
+    scan = build_scan_step(tr)
 
-        def eager():
-            rngs = [gan._next_rngs(t) for t in range(k)]
-            for b, r in zip(batches, rngs):
-                tr(gan.opt_states, b, r, gan.lr)
+    def eager():
+        rngs = [gan._next_rngs(t) for t in range(k)]
+        for b, r in zip(batches, rngs):
+            tr(gan.opt_states, b, r, gan.lr)
 
-        def graph():
-            scan(gan.opt_states, batches,
-                 [gan._next_rngs(t) for t in range(k)], gan.lr)
+    def graph():
+        scan(gan.opt_states, batches,
+             [gan._next_rngs(t) for t in range(k)], gan.lr)
 
-        graph()  # warm-up and capture
-        eager()
-        per = {"eager": [], "graph": []}
-        for mode in ("eager", "graph", "graph", "eager"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            (eager if mode == "eager" else graph)()
-            torch.cuda.synchronize()
-            per[mode].append((time.perf_counter() - t0) * 1e3 / k)
-        prof = {m: profiled(torch, f) for m, f in (("eager", eager),
-                                                    ("graph", graph))}
-        busy = {m: sum(r[0] for r in rows) / k
-                for m, (_, rows) in prof.items()}
-        share = {m: busy[m] * k / wall for m, (wall, _) in prof.items()}
-        print(f"scan [{card}] {label} switches off, TERRAIN_SCAN={k}: per "
-              f"step eager {per['eager'][0]:.3f}, graph "
-              f"{per['graph'][0]:.3f}, graph {per['graph'][1]:.3f}, eager "
-              f"{per['eager'][1]:.3f} ms (host clock, in turns); profiled "
-              f"device time a step eager {busy['eager']:.3f} ms (busy share "
-              f"{share['eager']:.3f}), graph {busy['graph']:.3f} ms (busy "
-              f"share {share['graph']:.3f}); "
-              f"{sum(r[1] for r in prof['eager'][1]) / k:.0f} kernels a step "
-              f"eager, {sum(r[1] for r in prof['graph'][1]) / k:.0f} in the "
-              f"replay", flush=True)
-        counts = {name: sum(c for _, c, key in prof["graph"][1] if sym in key)
-                  for name, sym in KERNEL_SYMBOLS.items()}
-        print(f"scan {label}: hand-written kernels among the profiler's "
-              f"events of one replay of {k} steps {counts}", flush=True)
-        graph_ms = statistics.mean(per["graph"])
-        if label == "bf16" and graph_ms > SCAN_BUSY_LIMIT * busy["graph"]:
-            fail(f"scan bf16: the graph's step {graph_ms:.3f} ms is more "
-                 f"than {SCAN_BUSY_LIMIT} x its device time "
-                 f"{busy['graph']:.3f} ms")
-        del scan, batches
-    kept.clear()
+    graph()  # warm-up and capture
+    eager()
+    per = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (eager if mode == "eager" else graph)()
+        torch.cuda.synchronize()
+        per[mode].append((time.perf_counter() - t0) * 1e3 / k)
+    print(f"scan [{card}] bf16 switches off, TERRAIN_SCAN={k}: per step "
+          f"eager {per['eager'][0]:.3f}, graph {per['graph'][0]:.3f}, graph "
+          f"{per['graph'][1]:.3f}, eager {per['eager'][1]:.3f} ms (host "
+          f"clock, in turns)", flush=True)
+    del scan, batches, gan, ds, tr
     torch.cuda.empty_cache()
 
 
@@ -2673,11 +2682,13 @@ def parallel_world1(torch, card, root):
     in turns: none, mesh, mesh, none), profiled device ms and the
     collectives a step.  Then the epochs the two ranks' are held to: over
     PAR_N pairs on the card, one process without a mesh and the twin.
-    Returns (the launch counts of the mesh's steps, failures, the twin's
-    errors {"<label>, seed <s>": errors}, the epoch rows {seed: {"one":
-    row, "twin": row}})."""
+    Then TERRAIN_SCAN over the same mesh (parallel_world1_scan).  Returns
+    (the launch counts of the mesh's steps, those of its TERRAIN_SCAN
+    chunks, failures, the twin's errors {"<label>, seed <s>": errors}, the
+    epoch rows {seed: {"one": row, "twin": row}})."""
     import datetime
 
+    import numpy as np
     import torch.distributed as dist
 
     from terrain_tpu_torch.data import DeviceDataset
@@ -2756,9 +2767,14 @@ def parallel_world1(torch, card, root):
                 del gan
             del ds
             torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        scan_counts, more = parallel_world1_scan(torch, np, card, mesh, root)
+        bad += more
+        print(f"parallel: the world-1 mesh's TERRAIN_SCAN part "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         dist.destroy_process_group()
-    return counts, bad, twins, rows
+    return counts, scan_counts, bad, twins, rows
 
 
 def _par_time(torch, card, label, gans, batch):
@@ -2808,6 +2824,239 @@ def _par_time(torch, card, label, gans, batch):
           f"synchronized, median of 3, in turns); profiled device time "
           f"{dev['none']:.3f} vs {dev['mesh']:.3f} ms; collectives of one "
           f"mesh step {calls}", flush=True)
+
+
+class _ChunkRuns:
+    """gan's TERRAIN_SCAN path over the DeviceDataset ds, as its epoch
+    runs it (TwoStageGAN._chunk_fn; `train` or eval steps): `eager` k
+    single steps, `graph` the chunk of k (one CUDA graph over NCCL groups,
+    a loop over gloo), each from gan's state at the call, its generators
+    re-seeded step by step.  `held` runs one chunk of seeded batches both
+    ways from one state and compares the losses and every tensor the step
+    updates, bit for bit, with the launch counters read around each."""
+
+    def __init__(self, torch, gan, ds, train=True):
+        self.torch, self.gan, self.ds, self.train = torch, gan, ds, train
+
+    def eager(self, batches):
+        from terrain_tpu_torch.train.losses import TRAIN_KEYS
+
+        one = self.gan._chunk_fn(self.ds, self.train, 1)
+        outs = [one([b], [self.gan._next_rngs(0)]) for b in batches]
+        return {k: self.torch.stack([o[k] for o in outs]) for k in TRAIN_KEYS}
+
+    def graph(self, batches):
+        chunk = self.gan._chunk_fn(self.ds, self.train, len(batches))
+        return chunk(batches, [self.gan._next_rngs(t)
+                               for t in range(len(batches))])
+
+    def _result(self, losses):
+        from terrain_tpu_torch.train.losses import TRAIN_KEYS
+        from terrain_tpu_torch.train.step import step_state
+
+        return ([losses[k].float().clone() for k in TRAIN_KEYS],
+                [t.detach().clone() for t in step_state(
+                    self.gan.nets, self.gan.opt_states)])
+
+    def held(self, np, k, seed, n=TRAIN_BATCH):
+        """{"off": the tensors that differ, "of": of how many, "worst":
+        the max abs difference, "eager"/"chunk": the launch counts around
+        each, "eager_s"/"s": the seconds of each (host clock, synchronized;
+        the result's copies included), "peak": the peak MiB allocated
+        during the chunk's call, "losses": the chunk's losses}."""
+        torch = self.torch
+        batches = _chunk(torch, np, self.gan, self.ds, k, seed, n)
+        back = _snapshot(self.gan)
+        _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = self._result(self.eager(batches))
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        eager = _read_counters()
+        back()
+        _reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = self._result(self.graph(batches))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        pairs = list(zip(want[0] + want[1], got[0] + got[1]))
+        return {"off": sum(not a.equal(b) for a, b in pairs),
+                "of": len(pairs),
+                "worst": max(float((a.float() - b.float()).abs().max())
+                             if a.numel() else 0.0 for a, b in pairs),
+                "eager": eager, "chunk": _read_counters(), "s": secs,
+                "eager_s": eager_s, "peak": peak, "losses": got[0]}
+
+
+def _free(torch):
+    """The card's memory of every object no longer reachable, reference
+    cycles included: a trainer's cached chunk functions close over the
+    trainer, so a dropped one holds its CUDA graphs' pools until the
+    collector runs, and ranks spawned onto the same card later would find
+    the memory short (cuDNN then takes other algorithms: other bits)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _capture_counts(chunk, eager, k, captures):
+    """The kernels (not the op counters) whose count around a chunk's call
+    is not `captures` x (a warm-up step + k captured steps) x an eager
+    step's: a capture calls each wrapper once a launch it records, a
+    replay calls none."""
+    return [f"{name} {chunk[name]} != {captures} x {k + 1} x "
+            f"{eager[name]} / {k}" for name in _counters()
+            if chunk[name] * k != captures * (k + 1) * eager[name]]
+
+
+def parallel_world1_scan(torch, np, card, mesh, root):
+    """TERRAIN_SCAN over the world-1 NCCL mesh: TwoStageGAN(mesh=mesh)'s
+    chunks (the trainer's path, 16 pairs on the card), each one CUDA graph
+    with its NCCL collectives inside.  fp32: on each seed of PAR_SEEDS a
+    chunk of PAR_SCAN_K steps bit-equal to PAR_SCAN_K eager steps of the
+    same mesh from the same state (losses, parameters, BN statistics,
+    optimizer state), captured once and replayed; then an lr change and a
+    load_model, each shown to capture anew exactly once, their chunks
+    bit-equal to eager; then chunks of SCAN_K with the opt-in switches on
+    and with the unfused decoder, likewise, each one's replay profiled for
+    the hand-written kernels (SCAN_K x their per-step counts).  bf16: per
+    step at PAR_SCAN_K, the mesh's eager steps, its graph and the graph
+    without a mesh, in turns (host clock around a synchronized chunk,
+    median of 3), with profiled device ms a step and peak MiB (eager: one
+    chunk of steps; a graph: its warm-up step and capture).  Returns (the
+    launch counts around the fp32 chunks' calls, failures)."""
+    from terrain_tpu_torch.data import DeviceDataset
+    from terrain_tpu_torch.data.synthetic import make_pairs
+    from terrain_tpu_torch.experiments import build_gan
+
+    counts, bad = {}, []
+    ds = DeviceDataset(*make_pairs(SCAN_N, 512, seed=0), device="cuda")
+    gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False, mesh=mesh)
+    runs = _ChunkRuns(torch, gan, ds)
+
+    def check(what, k, seed, captures, r=runs):
+        h = r.held(np, k, seed)
+        if r.train:
+            for key, v in h["chunk"].items():
+                counts[key] = counts.get(key, 0) + v
+        wrong = _capture_counts(h["chunk"], h["eager"], k, captures)
+        print(f"parallel [{card}] NCCL world 1, fp32, TERRAIN_SCAN={k}, "
+              f"{what}: the chunk ("
+              f"{'capture + replay' if captures else 'replay'} "
+              f"{h['s'] * 1e3 / k:.3f} ms a step) against {k} eager steps "
+              f"of the mesh ({h['eager_s'] * 1e3 / k:.3f} ms a step; "
+              f"peak {h['peak']:.1f} MiB during the chunk's call): "
+              f"{h['of'] - h['off']} of {h['of']} tensors bit-equal (max abs "
+              f"difference {h['worst']:.3e}); its launch calls "
+              f"{ {n: v for n, v in h['chunk'].items() if v} }", flush=True)
+        if h["off"]:
+            bad.append(f"world-1 scan {what}: {h['off']} of {h['of']} "
+                       f"tensors differ from eager")
+        if wrong:
+            bad.append(f"world-1 scan {what}: {captures} capture(s) "
+                       f"expected, launch calls {wrong}")
+
+    for i, seed in enumerate(PAR_SEEDS):
+        check(f"seed {seed}", PAR_SCAN_K, seed, int(i == 0))
+    check("the eval chunk", PAR_SCAN_K, PAR_SEEDS[0], 1,
+          _ChunkRuns(torch, gan, ds, train=False))
+    gan.lr *= 0.5
+    check("after an lr change", PAR_SCAN_K, PAR_SEEDS[0], 1)
+    path = os.path.join(root, "world1_scan.model")
+    gan.save_model(path)
+    gan.load_model(path, exact=True)
+    os.remove(path)
+    check("after load_model", PAR_SCAN_K, PAR_SEEDS[0], 1)
+    check("a replay after them", PAR_SCAN_K, PAR_SEEDS[1], 0)
+    for label, switches, per_step in (
+            ("switches on", SWITCHES, expected_launches(True)),
+            ("unfused decoder", UNFUSED, expected_launches(False, True))):
+        # one setting's graphs at a time: each holds its private pool, and
+        # cuDNN falls back to other algorithms (other bits) for want of
+        # workspace when the pools crowd the card
+        gan._chunks.clear()
+        _free(torch)
+        set_switches(True, switches)
+        check(label, SCAN_K, PAR_SEEDS[0], 1)
+        batches = _chunk(torch, np, gan, ds, SCAN_K, PAR_SEEDS[0])
+        _, prof = profiled(torch, lambda: runs.graph(batches))
+        seen = {name: sum(c for _, c, key in prof if sym in key)
+                for name, sym in KERNEL_SYMBOLS.items()}
+        print(f"parallel NCCL world 1, {label}: hand-written kernels in "
+              f"one profiled replay of {SCAN_K} steps {seen}", flush=True)
+        for name, sym in KERNEL_SYMBOLS.items():
+            if seen[name] != SCAN_K * per_step.get(name, 0):
+                bad.append(f"world-1 scan {label}: {name} ran {seen[name]} "
+                           f"times in the replay, expected {SCAN_K} x "
+                           f"{per_step.get(name, 0)}")
+        set_switches(False, switches)
+    del gan, runs, check
+    _free(torch)
+    bad += _w1_scan_time(torch, np, card, mesh, ds)
+    return counts, bad
+
+
+def _w1_scan_time(torch, np, card, mesh, ds):
+    """bf16 per step at PAR_SCAN_K: the world-1 mesh's eager steps and its
+    graph, and the graph without a mesh, in turns; profiled device ms a
+    step and peak MiB.  Returns failures (a non-finite loss)."""
+    from terrain_tpu_torch.experiments import build_gan
+
+    k = PAR_SCAN_K
+    runs = {m: _ChunkRuns(torch, build_gan(
+        EXPERIMENT, "cuda", compute_dtype=torch.bfloat16, verbose=False,
+        mesh=m)[0], ds) for m in (mesh, None)}
+    modes = {"mesh eager": (runs[mesh], "eager"),
+             "mesh graph": (runs[mesh], "graph"),
+             "no mesh graph": (runs[None], "graph")}
+    batches = {m: _chunk(torch, np, r.gan, ds, k, 7) for m, r in runs.items()}
+
+    def call(mode):
+        r, how = modes[mode]
+        return getattr(r, how)(batches[mesh if r is runs[mesh] else None])
+
+    peak, capture_s, finite = {}, {}, True
+    for mode in modes:  # the graphs' first calls capture
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = call(mode)
+        torch.cuda.synchronize()
+        capture_s[mode] = time.perf_counter() - t0
+        peak[mode] = torch.cuda.max_memory_allocated() / 2**20
+        finite &= all(bool(torch.isfinite(v).all()) for v in out.values())
+    ms = {m: [] for m in modes}
+    order = list(modes)
+    for mode in order + order[::-1] + order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(mode)
+        torch.cuda.synchronize()
+        ms[mode].append((time.perf_counter() - t0) * 1e3 / k)
+    dev = {}  # (the eager step's device time is _par_time's)
+    for mode in ("mesh graph", "no mesh graph"):
+        _, rows = profiled(torch, lambda: call(mode))
+        dev[mode] = sum(r[0] for r in rows) / k
+    print(f"parallel [{card}] NCCL world 1, bf16, TERRAIN_SCAN={k}, per step "
+          f"(host clock around a synchronized chunk, in turns; median of 3): "
+          + "; ".join(f"{m} " + " / ".join(f"{t:.3f}" for t in ms[m])
+                      + f" ms (median {statistics.median(ms[m]):.3f}), "
+                      + (f"profiled device {dev[m]:.3f} ms, " if m in dev
+                         else "") + f"peak {peak[m]:.1f} MiB" for m in modes)
+          + "; first calls (the graphs' warm-up + capture + replay) "
+          + ", ".join(f"{m} {capture_s[m]:.2f} s" for m in modes), flush=True)
+    bad = [] if finite else ["world-1 scan bf16: a non-finite loss"]
+    for mode in ("mesh graph", "no mesh graph"):
+        step_ms = statistics.median(ms[mode])
+        if step_ms > SCAN_BUSY_LIMIT * dev[mode]:
+            bad.append(f"world-1 scan bf16: the {mode}'s step {step_ms:.3f} "
+                       f"ms is more than {SCAN_BUSY_LIMIT} x its device "
+                       f"time {dev[mode]:.3f} ms")
+    del runs, modes, batches, call
+    _free(torch)
+    return bad
 
 
 def _spawned(work, rank, world, root, backend, *args):
@@ -2901,6 +3150,23 @@ def _par_work(rank, world, root, env):
         out["rows"][seed] = _results_row(d)
         del gan, ds
         torch.cuda.empty_cache()
+    # TERRAIN_SCAN over gloo: the chunk's loop, against k = 1
+    ds = DeviceDataset(*make_pairs(PAR_SCAN_GLOO_N, 512, seed=PAR_SEEDS[0]),
+                       device="cuda")
+    out["scan"] = {}
+    for scan in (str(PAR_SCAN_GLOO_K), "1"):
+        os.environ["TERRAIN_SCAN"] = scan
+        gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False, mesh=mesh)
+        gan.sampler = _tiled_sampler(rank, PAR_SEEDS[0])
+        d = os.path.join(root, f"rank{rank}_scan{scan}")
+        t0 = time.perf_counter()
+        gan.train(ds, ds, TRAIN_BATCH, 1, d, save_every=10)
+        out["scan"][scan] = {"row": _results_row(d),
+                             "ks": sorted({key[1] for key in gan._chunks}),
+                             "s": time.perf_counter() - t0}
+        del gan
+    del os.environ["TERRAIN_SCAN"], ds
+    torch.cuda.empty_cache()
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -2967,6 +3233,18 @@ def parallel_gloo(torch, card, root, twins, one_rows):
                      f"{seed}: the epoch's loss row vs one process's",
                      _row_errors(mine[0], want["one"]), elim,
                      _row_errors(want["twin"], want["one"]))
+    k = str(PAR_SCAN_GLOO_K)
+    for r, got in enumerate(res):
+        chunked, steps = got["scan"][k], got["scan"]["1"]
+        print(f"parallel [{card}] {PAR_WORLD} gloo ranks, rank {r}: an epoch "
+              f"over {PAR_SCAN_GLOO_N} pairs at TERRAIN_SCAN={k} (chunk sizes "
+              f"{chunked['ks']}, a loop over gloo; {chunked['s']:.1f} s) and "
+              f"at 1 ({steps['s']:.1f} s): loss columns equal "
+              f"{chunked['row'] == steps['row']}", flush=True)
+        if chunked["ks"] != [PAR_SCAN_GLOO_K] or \
+                chunked["row"] != steps["row"]:
+            bad.append(f"rank {r}: the TERRAIN_SCAN={k} epoch {chunked} is "
+                       f"not the k = 1 epoch {steps}")
     counts = [r["counts"] for r in res]
     for r, c in enumerate(counts):
         print(f"parallel: rank {r}'s launches at its {TRAIN_BATCH // PAR_WORLD}"
@@ -2978,10 +3256,11 @@ def parallel_gloo(torch, card, root, twins, one_rows):
 
 
 def parallel_slice(torch, card):
-    """Data parallelism over torch.distributed: NCCL at world 1, then two
-    gloo ranks sharing the card.  Every reading is printed before any
-    failure ends the run.  Returns the launch counts of the world-1
-    mesh's steps and of the two ranks, added."""
+    """Data parallelism over torch.distributed: NCCL at world 1 (its steps,
+    then its TERRAIN_SCAN chunks), then two gloo ranks sharing the card.
+    Every reading is printed before any failure ends the run.  Returns the
+    launch counts of the world-1 mesh's steps, of its chunks, and of the
+    two ranks, added."""
     import shutil
     import tempfile
 
@@ -2989,8 +3268,9 @@ def parallel_slice(torch, card):
     saved = os.environ.get("TERRAIN_ARTIFACT_EVERY")
     os.environ["TERRAIN_ARTIFACT_EVERY"] = "1000"
     try:
-        world1, bad, twins, rows = parallel_world1(torch, card, root)
-        torch.cuda.empty_cache()
+        world1, world1_scan, bad, twins, rows = parallel_world1(torch, card,
+                                                                root)
+        _free(torch)
         ranks, more = parallel_gloo(torch, card, root, twins, rows)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3005,9 +3285,236 @@ def parallel_slice(torch, card):
     for c in ranks:
         for k, v in c.items():
             gloo[k] = gloo.get(k, 0) + v
-    print(f"parallel: launches of the world-1 mesh's steps {world1}; of the "
-          f"two ranks {gloo}", flush=True)
-    return world1, gloo
+    _free(torch)
+    print(f"parallel: this process holds "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB of the card after "
+          f"the phase; the card has {torch.cuda.mem_get_info()[0] / 2**20:.1f}"
+          f" MiB free", flush=True)
+    print(f"parallel: launches of the world-1 mesh's steps {world1}; of its "
+          f"TERRAIN_SCAN chunks (warm-up steps and captures) {world1_scan}; "
+          f"of the two ranks {gloo}", flush=True)
+    return world1, world1_scan, gloo
+
+
+# ---------------------------------------------------------------- scan4
+# TERRAIN_SCAN on four NCCL ranks, a card each (on request: `scan4`): a
+# 4 x 1 data mesh's trainer epoch over SCAN4_N pairs at global batch
+# SCAN4_BATCH (one card's TRAIN_BATCH a rank) at TERRAIN_SCAN=16 against
+# the same ranks' k = 1 epoch, fp32, bit for bit; bf16 step ms a rank,
+# graph against eager; a 2 x 2 mesh's chunk (tensor parallelism at the
+# default tp_min_features) and the 1 x 4 spatial `both` step of
+# SP_EXPERIMENT as a chunk of SCAN_K, each bit-equal to its eager steps,
+# with each rank's launch calls a capture's.  A collective replayed inside
+# a graph has no timeout, so each rank's wall clock is bounded by the
+# parent (SCAN4_RANK_S).
+SCAN4_WORLD = 4
+SCAN4_N = 256        # 16 train steps an epoch at SCAN4_BATCH
+SCAN4_VALID_N = 64   # 4 eval steps
+SCAN4_BATCH = 16
+SCAN4_RANK_S = 900
+
+
+def _scan4_work(rank, world, root):
+    """One NCCL rank of scan4_slice.  Writes root/scan4_<r>.json."""
+    os.environ["TERRAIN_ARTIFACT_EVERY"] = "1000"
+    import numpy as np
+    import torch
+
+    from terrain_tpu_torch.data import DeviceDataset
+    from terrain_tpu_torch.data.synthetic import make_pairs
+    from terrain_tpu_torch.device import strict_fp32
+    from terrain_tpu_torch.experiments import build_gan, build_train
+    from terrain_tpu_torch.parallel import make_mesh
+    from terrain_tpu_torch.train.losses import TRAIN_KEYS
+    from terrain_tpu_torch.train.step import build_scan_step, step_state
+
+    strict_fp32()
+    out = {"data": {}}
+    mesh = make_mesh()
+    train = DeviceDataset(*make_pairs(SCAN4_N, 512, seed=0), device="cuda")
+    valid = DeviceDataset(*make_pairs(SCAN4_VALID_N, 512, seed=1),
+                          device="cuda")
+    for scan in (str(PAR_SCAN_K), "1"):
+        os.environ["TERRAIN_SCAN"] = scan
+        gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False, mesh=mesh)
+        gan.sampler = _tiled_sampler(rank, 0)
+        d = os.path.join(root, f"data{rank}_{scan}")
+        t0 = time.perf_counter()
+        gan.train(train, valid, SCAN4_BATCH, 1, d, save_every=10)
+        out["data"][scan] = {"row": _results_row(d),
+                             "ks": sorted({key[1] for key in gan._chunks}),
+                             "s": time.perf_counter() - t0}
+        del gan
+    del os.environ["TERRAIN_SCAN"]
+    torch.cuda.empty_cache()
+
+    # bf16 per step, the mesh's eager steps and graph in turns
+    k = PAR_SCAN_K
+    runs = _ChunkRuns(torch, build_gan(
+        EXPERIMENT, "cuda", compute_dtype=torch.bfloat16, verbose=False,
+        mesh=mesh)[0], train)
+    batches = _chunk(torch, np, runs.gan, train, k, 7, n=SCAN4_BATCH)
+    ms = {"eager": [], "graph": []}
+    for how in ("graph", "eager") + ("eager", "graph") * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(runs, how)(batches)
+        torch.cuda.synchronize()
+        ms[how].append((time.perf_counter() - t0) * 1e3 / k)
+    # each one's first call left out: the graph's captures
+    out["bf16"] = {h: v[1:] for h, v in ms.items()}
+    del runs, batches
+    torch.cuda.empty_cache()
+    grid = make_mesh(n_data=2, n_model=2)
+    quad = make_mesh(n_data=1, n_model=world)
+    if rank == 0:  # one card's graph at TRAIN_BATCH, without a mesh
+        one = _ChunkRuns(torch, build_gan(
+            EXPERIMENT, "cuda", compute_dtype=torch.bfloat16,
+            verbose=False)[0], train)
+        batches = _chunk(torch, np, one.gan, train, k, 7)
+        one_ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one.graph(batches)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3 / k)
+        out["one_graph"] = one_ms[1:]
+        del one, batches
+        torch.cuda.empty_cache()
+
+    # the 2 x 2 mesh: tensor parallelism on 'model', data over 2
+    gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False, mesh=grid)
+    out["grid_sharded"] = {n: len(v) for n, v in gan.sharded.items()}
+    out["grid"] = _ChunkRuns(torch, gan, train).held(np, SCAN_K, 0)
+    out["grid"].pop("losses")
+    del gan
+    torch.cuda.empty_cache()
+
+    # the 1 x 4 spatial step, all four networks on slabs
+    setup = build_train(SP_EXPERIMENT, "cuda", mesh=quad)
+    state = step_state(setup.nets, setup.opt_states)
+    saved = [t.detach().clone() for t in state]
+    batches = [_train_batch(torch, TRAIN_BATCH, setup.in_shp,
+                            setup.latent_dim, seed) for seed in range(SCAN_K)]
+
+    def result(losses):
+        return [losses[key].float().clone() for key in TRAIN_KEYS] + [
+            t.detach().clone() for t in state]
+
+    _reset_counters()
+    outs = [setup.train_step(setup.opt_states, b, {}, setup.lr)
+            for b in batches]
+    want = result({key: torch.stack([o[key] for o in outs])
+                   for key in TRAIN_KEYS})
+    torch.cuda.synchronize()
+    eager = _read_counters()
+    with torch.no_grad():
+        for t, v in zip(state, saved):
+            t.copy_(v)
+    scan = build_scan_step(setup.train_step)
+    _reset_counters()
+    t0 = time.perf_counter()
+    got = result(scan(setup.opt_states, batches, [{}] * SCAN_K, setup.lr))
+    torch.cuda.synchronize()
+    out["spatial"] = {
+        "off": sum(not a.equal(b) for a, b in zip(want, got)),
+        "of": len(want), "s": time.perf_counter() - t0,
+        "worst": max(float((a - b).abs().max()) if a.numel() else 0.0
+                     for a, b in zip(want, got)),
+        "eager": eager, "chunk": _read_counters()}
+    with open(os.path.join(root, f"scan4_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _scan4_rank(rank, world, root):
+    _spawned(_scan4_work, rank, world, root, "nccl")
+
+
+def _spawn_bounded(torch, fn, args, nprocs, limit_s, what):
+    """fn(rank, *args) in nprocs spawned processes, each one's wall clock
+    bounded by limit_s: past it every rank still running is killed and
+    the phase fails (a collective replayed inside a CUDA graph waits for
+    its peers with no timeout)."""
+    ctx = torch.multiprocessing.start_processes(
+        fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.monotonic() + limit_s
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            fail(f"{what}: a rank ran past {limit_s} s and was killed")
+
+
+def scan4_slice(torch, card):
+    """TERRAIN_SCAN on SCAN4_WORLD NCCL ranks, a card each (the comment
+    above SCAN4_WORLD).  Every reading is printed before a failure ends
+    the run."""
+    import shutil
+    import tempfile
+
+    world = SCAN4_WORLD
+    if torch.cuda.device_count() < world:
+        fail(f"scan4: {world} NCCL ranks need {world} cards, found "
+             f"{torch.cuda.device_count()}")
+    root = tempfile.mkdtemp(prefix="scan4_")
+    try:
+        _spawn_bounded(torch, _scan4_rank, (world, root), world,
+                       SCAN4_RANK_S, "scan4")
+        res = []
+        for r in range(world):
+            with open(os.path.join(root, f"scan4_{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bad = []
+    k = str(PAR_SCAN_K)
+    for r, got in enumerate(res):
+        chunked, steps = got["data"][k], got["data"]["1"]
+        print(f"scan4 [{card}] rank {r} of a {world} x 1 NCCL mesh, fp32: "
+              f"an epoch of {SCAN4_N // SCAN4_BATCH} train and "
+              f"{SCAN4_VALID_N // SCAN4_BATCH} eval steps at global batch "
+              f"{SCAN4_BATCH} at TERRAIN_SCAN={k} (chunk sizes "
+              f"{chunked['ks']}; {chunked['s']:.1f} s, captures included) "
+              f"and at 1 ({steps['s']:.1f} s): loss columns equal "
+              f"{chunked['row'] == steps['row']}; bf16 per step (host "
+              f"clock, synchronized chunks of {k}, in turns) eager "
+              + " / ".join(f"{t:.3f}" for t in got["bf16"]["eager"])
+              + f" ms (median {statistics.median(got['bf16']['eager']):.3f}"
+              f"), graph " + " / ".join(f"{t:.3f}" for t in
+                                        got["bf16"]["graph"])
+              + f" ms (median {statistics.median(got['bf16']['graph']):.3f})"
+              + (f"; one card's graph at batch {TRAIN_BATCH} without a mesh "
+                 + " / ".join(f"{t:.3f}" for t in got["one_graph"])
+                 + f" ms (median {statistics.median(got['one_graph']):.3f})"
+                 if r == 0 else ""), flush=True)
+        if chunked["ks"] != sorted([PAR_SCAN_K,
+                                    SCAN4_VALID_N // SCAN4_BATCH]) or \
+                chunked["row"] != steps["row"]:
+            bad.append(f"rank {r}: the TERRAIN_SCAN={k} epoch {chunked} is "
+                       f"not the k = 1 epoch {steps}")
+        if chunked["row"] != res[0]["data"][k]["row"]:
+            bad.append(f"rank {r} recorded other losses than rank 0")
+        for what, h in (("2 x 2 mesh (tensor parallelism, sharded "
+                         f"{got['grid_sharded']})", got["grid"]),
+                        (f"1 x {world} spatial `both` step",
+                         got["spatial"])):
+            wrong = _capture_counts(h["chunk"], h["eager"], SCAN_K, 1)
+            print(f"scan4 [{card}] rank {r}, {what}, fp32: a chunk of "
+                  f"{SCAN_K} (capture + replay {h['s']:.2f} s) against "
+                  f"{SCAN_K} eager steps: {h['of'] - h['off']} of {h['of']} "
+                  f"tensors bit-equal (max abs difference {h['worst']:.3e});"
+                  f" launch calls eager "
+                  f"{ {n: v for n, v in h['eager'].items() if v} }, chunk "
+                  f"{ {n: v for n, v in h['chunk'].items() if v} }",
+                  flush=True)
+            if h["off"]:
+                bad.append(f"rank {r}, {what}: {h['off']} tensors differ")
+            if wrong:
+                bad.append(f"rank {r}, {what}: launch calls {wrong}")
+    if bad:
+        fail(f"scan4: {bad}")
 
 
 # ------------------------------------------------------------------- tp
@@ -4374,6 +4881,7 @@ def main():
     quality_launches, trainer_epoch_s, step_ms = {}, float("nan"), {}
     raster_launches, scan_launches, parallel_launches = {}, {}, {}
     world1_launches, tp_launches, spatial_launches = {}, {}, {}
+    world1_scan_launches = {}
     if want("kernels"):
         # the plain versions and the library calls on cuDNN's default
         # algorithms, as they were measured before the port's step turned
@@ -4425,7 +4933,8 @@ def main():
         print(f"phase scan done at {time.perf_counter() - t_start:.0f} s",
               flush=True)
     if want("parallel"):
-        world1_launches, parallel_launches = parallel_slice(torch, card)
+        world1_launches, world1_scan_launches, parallel_launches = \
+            parallel_slice(torch, card)
         print(f"phase parallel done at {time.perf_counter() - t_start:.0f} "
               f"s", flush=True)
     if want("accuracy"):
@@ -4444,6 +4953,8 @@ def main():
               flush=True)
     if "spatial4" in only:
         spatial_slice(torch, card, world=4, backend="nccl")
+    if "scan4" in only:
+        scan4_slice(torch, card)
     if only:
         print(f"phases {sorted(only)} passed; run without arguments for the "
               f"result lines")
@@ -4482,12 +4993,15 @@ def main():
     # opt-in ones with the switches on, bilinear with the unfused decoder):
     # "parallel" the two gloo ranks at their local batch of 2 (each rank
     # checked on its own in the phase), "parallel_world1" the world-1
-    # NCCL mesh at batch 4
+    # NCCL mesh at batch 4, "parallel_world1_scan" the captures of its
+    # TERRAIN_SCAN graphs (a warm-up step and the k steps recorded; the
+    # replays, which run them, call no wrapper)
     for name in TRAIN_LAUNCHES:
         if name in paths:
             paths[name] += ["raster", "scan"]
     for name in meta:
-        paths[name] += ["parallel", "parallel_world1", "tp"]
+        paths[name] += ["parallel", "parallel_world1",
+                        "parallel_world1_scan", "tp"]
     # the spatial phase's steps on slabs: every kernel
     for name in SP_KERNELS:
         paths[name].append("spatial")
@@ -4495,7 +5009,9 @@ def main():
                 "trainer": trainer_launches, "quality": quality_launches,
                 "raster": raster_launches, "scan": scan_launches,
                 "parallel": parallel_launches,
-                "parallel_world1": world1_launches, "tp": tp_launches,
+                "parallel_world1": world1_launches,
+                "parallel_world1_scan": world1_scan_launches,
+                "tp": tp_launches,
                 "spatial": spatial_launches}
     kernels = []
     for name, (src, rep) in meta.items():

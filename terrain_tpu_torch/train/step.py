@@ -29,8 +29,12 @@ The step changes the modules' parameters and buffers and the optimizer
 states in place.
 
 `build_scan_step` and `build_scan_eval` run k steps as one chunk
-(TERRAIN_SCAN): a plain loop on CPU tensors, one captured CUDA graph on
-the card (`CapturedSteps`).
+(TERRAIN_SCAN), by one rule (`captures`): one captured CUDA graph
+(`CapturedSteps`) on CUDA tensors when every process group the step runs
+a collective on is NCCL's, the collectives inside the graph; a plain loop
+on CPU tensors and over a gloo group.  Under a mesh every rank captures
+and replays the same collectives: whether to capture anew is agreed by
+all of them before each chunk (`_on_any_rank`).
 
 Spatial parallelism (`spatial_mesh`, the four networks held in slabs of
 image rows over the mesh's model group, parallel/spatial.py, in every
@@ -250,8 +254,9 @@ def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
                              opt_states[n], lr * lr_mults.get(n, 1.0))
         return losses
 
-    # what a CUDA graph of this step needs to know (build_scan_step)
+    # what a chunk of this step needs to know (build_scan_step)
     train_step.nets, train_step.optimizer = nets, optimizer
+    train_step.groups = step_groups(nets, data_group)
     return train_step
 
 
@@ -269,8 +274,60 @@ def step_state(nets, opt_states):
     return out
 
 
-def _on_cpu(batches):
-    return batches[0][0].device.type == "cpu"
+def step_groups(nets, data_group=None):
+    """Every process group a step over `nets` runs a collective on, each
+    once, in one order on every rank: the data group, then as the
+    networks' modules hold them (a network's or a layer's row shard, a
+    BatchNorm's statistics, a sharded layer's model group)."""
+    found = {} if data_group is None else {id(data_group): data_group}
+    for net in nets.values():
+        for m in net.modules():
+            for g in (getattr(getattr(m, "rows", None), "group", None),
+                      getattr(m, "process_group", None),
+                      getattr(getattr(m, "shard", None), "group", None)):
+                if g is not None:
+                    found.setdefault(id(g), g)
+    return tuple(found.values())
+
+
+def captures(device_type, backends):
+    """The rule of a chunk of k steps: one captured CUDA graph (True) or a
+    plain loop (False), from the tensors' device type and the backends of
+    the process groups the step runs collectives on.  A graph on CUDA
+    tensors when every group is NCCL's (or there is none): NCCL's
+    collectives are kernels on the device, captured with the step.  A loop
+    on CPU tensors, and over any gloo group: gloo stages a CUDA tensor
+    through the host, which no capture can hold."""
+    return device_type == "cuda" and all(b == "nccl" for b in backends)
+
+
+def _captured(batches, groups):
+    return captures(batches[0][0].device.type,
+                    [dist.get_backend(g) for g in groups])
+
+
+# one capture stream a device, as torch.cuda.graph keeps one default
+# capture stream (_capture_stream)
+_CAPTURE_STREAMS = {}
+
+
+def _capture_stream(dev):
+    """The stream every capture on `dev` warms up and captures on, made
+    once a process.  cuBLAS keeps a workspace for each handle (one a
+    thread) and stream as long as the process lives; a new stream's first
+    matmuls would make theirs inside the warm-up step's activations and
+    hold that whole segment of the cache (gigabytes at the flagship's
+    step), a new one for every capture.  So the stream is made once, and
+    a small linear layer's forward and backward (the autograd thread's
+    handle) make its workspaces first, each in a segment of its own."""
+    stream = _CAPTURE_STREAMS.get(dev)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        with torch.cuda.stream(stream):
+            x = torch.ones(4, 8, device=dev, requires_grad=True)
+            torch.nn.functional.linear(x, x).sum().backward()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    return stream
 
 
 def _stack_losses(out):
@@ -297,12 +354,20 @@ class CapturedSteps:
     random draws come from the generators in `rngs`, registered with the
     graph: a replay draws from each generator's seed and offset at that
     moment, so the caller re-seeds them before each call as before an
-    eager step.  Capture follows one warm-up step on the side stream the
+    eager step.  Capture follows one warm-up step on the stream the
     capture uses: it builds every kernel and sets its launch attributes
     (no build, attribute call or device query may first run inside a
     capture) and readies the libraries' handles for that stream.  The
     warm-up step's updates of `state` and its draws are undone before the
-    capture.  A failed capture or replay raises."""
+    capture.  A failed capture or replay raises.
+
+    The step's collectives (NCCL's: `captures`) are captured with it.  The
+    warm-up step runs each group's first collective, which makes its
+    communicator, outside the capture; inside it each collective is forked
+    from the capturing stream to the group's own stream and joined back,
+    and its buffers come from the graph's private pool.  A captured
+    collective is not watched by the process group's timeout: a replay
+    waits for the other ranks' replays as long as it takes."""
 
     def __init__(self, step, batches, rngs, state=()):
         self.k = len(batches)
@@ -311,9 +376,10 @@ class CapturedSteps:
         slots = [tuple(s[t] for s in self.static) for t in range(self.k)]
         dev = self.static[0].device
         saved = [t.detach().clone() for t in state]
-        gens = _generators(rngs)
+        # held while the graph lives: its key names them by id
+        self.gens = gens = _generators(rngs)
         drawn = [g.get_state() for g in gens]
-        side = torch.cuda.Stream(dev)
+        side = _capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))  # inputs, saved
         with torch.cuda.stream(side):
             step(slots[0], rngs[0])
@@ -338,10 +404,29 @@ class CapturedSteps:
         return {k: v.clone() for k, v in self.out.items()}
 
 
-def _replay(slot, key, step, batches, rngs, state=()):
+def _on_any_rank(flag, groups, device):
+    """Whether `flag` holds on any rank that shares a group of `groups`
+    with this one: one all-reduce (MAX) of one int over each group, in
+    `groups`' order, which is the same on every rank (`step_groups`).  One
+    pass reaches every rank of a mesh: its columns (data groups) then its
+    rows (model groups), or the group of the whole mesh."""
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+    for g in groups:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+    return bool(t.item())
+
+
+def _replay(slot, key, step, batches, rngs, state=(), groups=()):
     """The graph in `slot` for `key`, captured anew (the stale one dropped
-    first) when the key changed, called on `batches`."""
-    if slot.get("key") != key:
+    first) when the key changed, called on `batches`.  Over process groups
+    the graph is captured anew when the key changed on any of their ranks
+    (`_on_any_rank`, at every call): a rank that captured while another
+    replayed would pair its warm-up step's collectives with the other's
+    replay, and hang or sum the wrong tensors."""
+    stale = slot.get("key") != key
+    if groups:
+        stale = _on_any_rank(stale, groups, batches[0][0].device)
+    if stale:
         slot.clear()
         slot["graph"] = CapturedSteps(step, batches, rngs, state)
         slot["key"] = key
@@ -354,19 +439,21 @@ def build_scan_step(train_step):
     batches, rngs, lr) with `batches` and `rngs` sequences of one entry per
     step; the losses come back as a dict of (k,) tensors.
 
-    On CPU tensors the steps run as a plain loop.  On CUDA tensors the k
-    steps are one CUDA graph (`CapturedSteps`), captured at the first call
-    and replayed at every later one; it is captured anew when lr, the
-    batches' shapes, the generators or the addresses of the state it
-    updates (a reloaded optimizer state) change.  lr is a constant of the
-    graph, so the update is the eager step's own fused kernels, and an lr
-    change (ReduceLROnPlateau) takes effect at the next chunk; adam's step
-    count and bias correction live on the device, so a replay advances
-    them."""
+    The steps run as a plain loop or as one CUDA graph (`CapturedSteps`),
+    by `captures` over the step's process groups (`train_step.groups`).
+    The graph is captured at the first call and replayed at every later
+    one; it is captured anew when lr, the batches' shapes, the generators
+    or the addresses of the state it updates (a reloaded optimizer state)
+    change, on this rank or on any rank it shares a group with.  lr is a
+    constant of the graph, so the update is the eager step's own fused
+    kernels, and an lr change (ReduceLROnPlateau) takes effect at the next
+    chunk; adam's step count and bias correction live on the device, so a
+    replay advances them."""
     slot = {}
+    groups = train_step.groups
 
     def scan_step(opt_states, batches, rngs, lr):
-        if _on_cpu(batches):
+        if not _captured(batches, groups):
             return _stack_losses([train_step(opt_states, b, r, lr)
                                   for b, r in zip(batches, rngs)])
         state = step_state(train_step.nets, opt_states)
@@ -375,23 +462,24 @@ def build_scan_step(train_step):
                tuple(t.data_ptr() for t in state))
         return _replay(slot, key,
                        lambda b, r: train_step(opt_states, b, r, lr),
-                       batches, rngs, state)
+                       batches, rngs, state, groups)
 
     return scan_step
 
 
 def build_scan_eval(eval_step):
     """The eval pass's chunk (terrain_tpu/train/step.py:245-257):
-    scan_eval(batches, rngs) -> dict of (k,) losses; a loop on CPU
-    tensors, one CUDA graph on the card, as `build_scan_step`."""
+    scan_eval(batches, rngs) -> dict of (k,) losses; a loop or one CUDA
+    graph by the rule of `build_scan_step`."""
     slot = {}
+    groups = eval_step.groups
 
     def scan_eval(batches, rngs):
-        if _on_cpu(batches):
+        if not _captured(batches, groups):
             return _stack_losses([eval_step(b, r)
                                   for b, r in zip(batches, rngs)])
         key = (_layout(batches), tuple(map(id, _generators(rngs))))
-        return _replay(slot, key, eval_step, batches, rngs)
+        return _replay(slot, key, eval_step, batches, rngs, groups=groups)
 
     return scan_eval
 
@@ -414,6 +502,7 @@ def build_eval_step(nets, *, alpha=100.0, lsgan=False, reconstruction="l1",
             losses = _mean_losses(losses, data_group)
         return losses
 
+    eval_step.groups = step_groups(nets, data_group)
     return eval_step
 
 

@@ -22,8 +22,9 @@ epoch (utils/profiling.py).
 TERRAIN_SCAN=k runs the epoch over a DeviceDataset in chunks of k steps,
 train and eval alike, as terrain_tpu does: on the card each chunk is one
 replay of a CUDA graph of its k steps (train/step.py), captured once and
-cached per (train or eval, k, dataset, TERRAIN_* switches); on the CPU a
-plain loop.  Either way the numbers are the per-step path's.
+cached per (train or eval, k, dataset, TERRAIN_* switches), with a mesh's
+collectives inside when its groups are NCCL's; on the CPU, and over gloo
+groups, a plain loop.  Either way the numbers are the per-step path's.
 
 Random streams.  The prior Z comes from `sampler` (default `np.random.rand`,
 the global numpy stream) and the epoch order from
@@ -51,9 +52,19 @@ of the global index batch.  The prior Z is drawn per rank, its own rows
 are made for the global batch on every rank from the same seeds, each rank
 keeping its rows, so a step equals one process's step on the global batch.
 The step all-reduces the BatchNorms' statistics, the gradients and the
-losses over the data group (train/step.py).  TERRAIN_SCAN is 1 then, as
-terrain_tpu's is with more than one process.  Every rank writes its
-results.txt, dumps and checkpoints, as every terrain_tpu process does.
+losses over the data group (train/step.py).  TERRAIN_SCAN chunks an epoch
+over a DeviceDataset as without a mesh: the ranks' replicated datasets
+are terrain_tpu's single-process mesh, which scans (its host-iterator
+streams, which cannot be stacked into a scan, take k = 1 in either
+package).  Each chunk draws this rank's prior rows and slices its index
+rows step by step, as k single steps do, and on the card every rank
+replays one graph with the chunk's collectives in it.  The triggers of a
+new capture (an lr change, a load_model, the first chunk of a pass) are
+made rank-symmetric by one small all-reduce a chunk (train/step.py
+`_replay`: a capture on every rank when the key changed on any), not by
+construction alone: an lr change follows losses whose last bits two
+model groups need not share.  Every rank writes its results.txt, dumps
+and checkpoints, as every terrain_tpu process does.
 
 Tensor parallelism (a mesh with n_model > 1, terrain_tpu's 'model' axis):
 each network's wide weights, those whose output features number at least
@@ -305,8 +316,8 @@ class TwoStageGAN:
     @staticmethod
     def _scan_k(n_steps):
         """TERRAIN_SCAN as a chunk size that divides the epoch's step count
-        (terrain_tpu/train/trainer.py's rule; a data group runs k = 1, as
-        JAX does with more than one process).  The numbers do not depend on k: a chunk runs the same steps, as one
+        (terrain_tpu/train/trainer.py's rule), with or without a mesh.  The
+        numbers do not depend on k: a chunk runs the same steps, as one
         CUDA graph on the card."""
         want = int(os.environ.get("TERRAIN_SCAN", "1") or "1")
         if want <= 1 or n_steps <= 1:
@@ -381,8 +392,9 @@ class TwoStageGAN:
             steps = sched[:cap] if cap else sched
             if quick_run:
                 steps = steps[:1]
-            # collectives are not captured into a graph yet (A.5b)
-            k = 1 if self._group is not None else self._scan_k(len(steps))
+            # one rule with or without a mesh: a rank's chunk holds its
+            # rows of k global batches (a quick run's one step: k = 1)
+            k = self._scan_k(len(steps))
             run = self._chunk_fn(itr, train, k)
             for c in range(0, len(steps), k):
                 # one copy of the chunk's k latent batches (drawn as the

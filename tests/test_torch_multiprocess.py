@@ -18,6 +18,13 @@ tests/torch_mp_worker.py's `run_rank`.
     tests/test_multiprocess.py's rtol 1e-5, atol 1e-6, and 2 epochs over a
     dataset held on each rank's device with the paired augmentation, at
     the same tolerance;
+  * those epochs over the dataset on the device at TERRAIN_SCAN=2, with
+    the augmentation and without it: equal to the same ranks' per-step
+    epochs bit for bit, a loop over gloo (train/step.py's rule), and
+    without it against terrain_tpu's scanned single-device epochs on the
+    global batch from the same weights, at tests/test_torch_scan.py's
+    2e-4 relative on every loss column (fp32 sums in another order);
+    train/step._on_any_rank raised on one rank reaches both;
   * `python -m terrain_tpu_torch smoke_synthetic train` (cli.main) in each
     rank: equal loss rows and checkpoints on both ranks;
   * entry.dryrun_multichip(2).
@@ -46,6 +53,7 @@ import torch_spawn
 WORLD = 2
 STEP_TOL = dict(rtol=2e-4, atol=2e-5)
 ROW_TOL = dict(rtol=1e-5, atol=1e-6)
+SCAN_TOL = 2e-4  # tests/test_torch_scan.py's LOSS_TOL against terrain_tpu
 
 
 @pytest.fixture(scope="module")
@@ -178,6 +186,67 @@ def test_two_process_device_epochs_match_single_process(ranks, tmp_path,
     gan.train(ds, ds, batch_size=w.GLOBAL_BATCH, num_epochs=2,
               out_dir=str(tmp_path), save_every=999)
     _rows_match(csv_rows(os.path.join(tmp_path, "results.txt")), out, "d")
+
+
+def _loss_rows(out, name, r):
+    return [{k: v for k, v in row.items()
+             if k.startswith(("train_", "valid_"))}
+            for row in csv_rows(os.path.join(out, f"{name}{r}",
+                                             "results.txt"))]
+
+
+@pytest.mark.parametrize("chunked,steps", [("d2", "d"), ("j2", "j1")])
+def test_chunked_device_epochs_equal_the_ranks_per_step_epochs(
+        ranks, chunked, steps):
+    """TERRAIN_SCAN=2 under a data group: each pass one chunk of 2 steps
+    on every rank (a loop over gloo), whose loss rows are the per-step
+    epochs' to the bit, with the augmentation (d) and without (j)."""
+    res, out = ranks
+    for r in range(WORLD):
+        scan = res[r]["scan"]
+        assert scan["ks"] == [2]
+        assert scan["backends"] == ["gloo"] and scan["graph"] is False
+        got, want = _loss_rows(out, chunked, r), _loss_rows(out, steps, r)
+        assert len(got) == 2 and got == want
+
+
+def test_recapture_is_agreed_over_the_steps_groups(ranks):
+    """A flag raised on the last rank alone reaches every rank, so no rank
+    replays while another captures; none raised, none sees one."""
+    res, _ = ranks
+    assert [r["scan"]["any_last"] for r in res] == [True] * WORLD
+    assert [r["scan"]["any_none"] for r in res] == [False] * WORLD
+
+
+def test_chunked_device_epochs_match_terrain_tpus_scanned_epochs(
+        ranks, tmp_path, monkeypatch):
+    """The two ranks' TERRAIN_SCAN=2 epochs without augmentation against
+    terrain_tpu's scanned epochs in one process on the global batch, from
+    the port's weights (a terrain_tpu/v1 checkpoint), the same pairs and
+    the same tiled prior (tiny_cfg.det_sampler)."""
+    from terrain_tpu.data import DeviceDataset as JDeviceDataset
+    from terrain_tpu_torch.data.synthetic import make_pairs
+    from tiny_cfg import build_model
+
+    _, out = ranks
+    monkeypatch.setenv("TERRAIN_ARTIFACT_EVERY", "999")
+    monkeypatch.setenv("TERRAIN_SCAN", "2")
+    path = str(tmp_path / "w.model")
+    TwoStageGAN(**w.tiny_kw(det_sampler(0))).save_model(path)
+    jgan = build_model(None, det_sampler(0))
+    jgan.load_model(path)
+    ds = JDeviceDataset(*make_pairs(w.N_PAIRS, w.IN, seed=0))
+    jgan.train(ds, ds, batch_size=w.GLOBAL_BATCH, num_epochs=2,
+               out_dir=str(tmp_path / "jax"), save_every=999)
+    want = [{k: v for k, v in row.items()
+             if k.startswith(("train_", "valid_"))}
+            for row in csv_rows(str(tmp_path / "jax" / "results.txt"))]
+    assert len(want) == 2 and len(want[0]) == 10
+    for r in range(WORLD):
+        for got_row, want_row in zip(_loss_rows(out, "j2", r), want):
+            for k, v in want_row.items():
+                assert float(got_row[k]) == pytest.approx(
+                    float(v), rel=SCAN_TOL), (r, k)
 
 
 def test_the_cli_trains_data_parallel_under_a_process_group(ranks):

@@ -35,6 +35,8 @@ from terrain_tpu_torch import experiments
 from terrain_tpu_torch.data import DeviceDataset, augment_pair
 from terrain_tpu_torch.data.synthetic import make_pairs
 from terrain_tpu_torch.models import convert, core, dcgan, unet
+from terrain_tpu_torch.ops.norm import BatchNorm
+from terrain_tpu_torch.parallel.tp import Shard
 from terrain_tpu_torch.train import optim, step
 from terrain_tpu_torch.train.losses import TRAIN_KEYS
 from terrain_tpu_torch.train.trainer import TwoStageGAN
@@ -181,7 +183,7 @@ def test_an_lr_change_takes_effect_at_the_next_chunk(monkeypatch):
         else:
             _Baked.made = []
             monkeypatch.setattr(step, "CapturedSteps", _Baked)
-            monkeypatch.setattr(step, "_on_cpu", lambda b: False)
+            monkeypatch.setattr(step, "_captured", lambda b, g: True)
             scan = step.build_scan_step(tr)
             for lr, chunk in zip(lrs, chunks):
                 out = scan(gan.opt_states, chunk, [None, None], lr)
@@ -233,7 +235,7 @@ def test_adam_is_refused_by_the_graph_path(monkeypatch):
         else:
             _Baked.made = []
             monkeypatch.setattr(step, "CapturedSteps", _Baked)
-            monkeypatch.setattr(step, "_on_cpu", lambda b: False)
+            monkeypatch.setattr(step, "_captured", lambda b, g: True)
             scan = step.build_scan_step(tr)
             losses = []
             for chunk in chunks:
@@ -352,6 +354,39 @@ def test_chunked_adam_epochs_match_terrain_tpus_scanned_epochs(monkeypatch,
     its optimizer state and the port's chunk on the device."""
     _held_to_scanned_jax(monkeypatch, tmp_path, opt="adam",
                          opt_args={"learning_rate": 1e-4})
+
+
+@pytest.mark.parametrize("device,backends,graph", [
+    ("cpu", [], False), ("cpu", ["gloo"], False), ("cpu", ["nccl"], False),
+    ("cuda", [], True), ("cuda", ["nccl"], True),
+    ("cuda", ["nccl", "nccl"], True), ("cuda", ["gloo"], False),
+    ("cuda", ["nccl", "gloo"], False)])
+def test_a_chunk_is_a_graph_on_the_card_over_nccl_groups_alone(
+        device, backends, graph):
+    """The rule of a chunk of k steps, from the tensors' device type and
+    the backends of the step's process groups: a captured CUDA graph on
+    CUDA tensors when every group is NCCL's (or there is none), a loop on
+    the CPU and over any gloo group."""
+    assert step.captures(device, backends) is graph
+
+
+def test_a_step_names_every_group_it_runs_a_collective_on():
+    """The groups a step holds (`train_step.groups`, `eval_step.groups`):
+    the data group first, then the networks' own (a BatchNorm's, a
+    sharded layer's, a row shard's), each once; none without a mesh."""
+    gan = _smoke_gan()
+    assert gan.train_step.groups == () and gan.eval_step.groups == ()
+    data, model = object(), object()
+    bn = next(m for m in gan.nets["dcgan_gen"].modules()
+              if isinstance(m, BatchNorm))
+    bn.process_group = data
+    layer = next(m for m in gan.nets["p2p_gen"].modules()
+                 if hasattr(m, "shard"))
+    layer.shard = Shard(0, 2, model)
+    assert step.step_groups(gan.nets, data) == (data, model)
+    assert step.step_groups(gan.nets) == (data, model)
+    layer.shard = Shard(0, 2, data)
+    assert step.step_groups(gan.nets) == (data,)
 
 
 def test_a_kernel_is_not_built_inside_a_capture(monkeypatch):

@@ -453,6 +453,25 @@ def test_build_train_takes_a_mesh_for_every_mode(ranks):
                 np.testing.assert_allclose(got[k], v, err_msg=k, **STEP_TOL)
 
 
+def test_build_train_steps_run_as_a_chunk(ranks):
+    """TERRAIN_SCAN's chunk takes the spatial step: two train and two eval
+    steps of build_train("smoke_synthetic", mesh=) on a 1x2 mesh as chunks
+    of 2 (a loop over gloo) give each rank the losses and the parameters
+    of the two steps one by one, to the bit."""
+    res = _phase(ranks, "build_chunk")
+    for i in (0, 1):
+        (tr, ev, params), (tr2, ev2, params2) = (res[i]["steps"],
+                                                 res[i]["chunk"])
+        for got, want in ((tr2, tr), (ev2, ev)):
+            assert got.keys() == want.keys()
+            for k in want:
+                assert want[k].shape == (2,)
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert len(params2) == len(params)
+        for a, b in zip(params2, params):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_a_sharded_generator_off_the_fused_path_raises():
     """The bilinear upsample (or an even h) is not ported onto slabs: the
     first upsample raises, naming ROADMAP A.5b."""

@@ -16,6 +16,9 @@ temporary directory; each runs tests/torch_tp_worker.py's `run_rank`.
     samplers against one process's;
   * on a 2x2 mesh, 2 epochs over a dataset held on the device, with the
     paired augmentation: finite, and equal to one process's loss rows;
+    at TERRAIN_SCAN=2 (chunks of 2, a loop over gloo) equal to the
+    per-step epochs bit for bit, and a recapture flag raised on one rank
+    reaches all four through the step's data then model group;
   * entry.dryrun_multichip(4) takes n_model = 2, as terrain_tpu's does.
 The single-process conv layout rules (slice offsets on a mesh laid out
 without a process group) are in tests/test_torch_parallel.py.
@@ -211,6 +214,23 @@ def test_2x2_mesh_trains_from_the_device_dataset(ranks, tmp_path,
                 np.testing.assert_allclose(
                     float(row_got[k]), float(row_ref[k]), **ROW_TOL,
                     err_msg=f"epoch {row_ref['epoch']} col {k} rank {r}")
+
+
+def test_grid_chunked_epochs_equal_the_per_step_epochs(ranks):
+    """TERRAIN_SCAN=2 on the 2x2 mesh: chunks of 2 on every rank, loss
+    rows equal to the per-step epochs' to the bit; the step holds a data
+    and a model group, over which one pass of train/step._on_any_rank
+    carries rank 3's flag to every rank of the mesh."""
+    res, out = ranks
+    for r in range(WORLD):
+        scan = res[r]["grid_scan"]
+        assert scan["ks"] == [2] and scan["groups"] == 2 and scan["any"]
+        rows = [[{k: v for k, v in row.items()
+                  if k.startswith(("train_", "valid_"))}
+                 for row in csv_rows(os.path.join(out, f"{name}{r}",
+                                                  "results.txt"))]
+                for name in ("gridscan", "grid")]
+        assert len(rows[0]) == 2 and rows[0] == rows[1]
 
 
 def test_dryrun_multichip_takes_n_model_2_at_4_ranks():

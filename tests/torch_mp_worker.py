@@ -14,8 +14,15 @@ it ends:
 and trains 2 epochs of tests/tiny_cfg.py's model and streams through
 HostShardIterator into out_dir/w<r>/results.txt, and 2 epochs of it with
 the paired augmentation over N_PAIRS pairs held on the device into
-out_dir/d<r>/results.txt; then `python -m terrain_tpu_torch smoke_synthetic
-train` (cli.main) into out_dir/m<r>.
+out_dir/d<r>/results.txt; the same at TERRAIN_SCAN=2 (each pass one chunk
+of 2 steps) into out_dir/d2<r>, and without the augmentation at
+TERRAIN_SCAN=1 and 2 into out_dir/j1<r> and out_dir/j2<r>, saving
+"scan": the chunk sizes the chunked runs took, the backends of the
+step's process groups, whether the step runs as a graph on CPU tensors
+(train/step.py's rule) and train/step._on_any_rank over the step's
+groups with the flag raised on the last rank only and on none; then
+`python -m terrain_tpu_torch smoke_synthetic train` (cli.main) into
+out_dir/m<r>.
 """
 
 import os
@@ -116,10 +123,19 @@ def _work(rank, world, out_dir):
               HostShardIterator(GlobalStream()), batch_size=GLOBAL_BATCH,
               num_epochs=2, out_dir=os.path.join(out_dir, f"w{rank}"),
               save_every=999)
-    gan = TwoStageGAN(**tiny_kw(det_sampler(rank), da=True), mesh=mesh)
     ds = device_pairs()
-    gan.train(ds, ds, batch_size=GLOBAL_BATCH, num_epochs=2,
-              out_dir=os.path.join(out_dir, f"d{rank}"), save_every=999)
+    ks = set()
+    for name, da, scan in (("d", True, "1"), ("d2", True, "2"),
+                           ("j1", False, "1"), ("j2", False, "2")):
+        os.environ["TERRAIN_SCAN"] = scan
+        gan = TwoStageGAN(**tiny_kw(det_sampler(rank), da=da), mesh=mesh)
+        gan.train(ds, ds, batch_size=GLOBAL_BATCH, num_epochs=2,
+                  out_dir=os.path.join(out_dir, f"{name}{rank}"),
+                  save_every=999)
+        if scan == "2":
+            ks |= {key[1] for key in gan._chunks}
+    del os.environ["TERRAIN_SCAN"]
+    save(out_dir, "scan", rank, _scan_rule(gan, ds, ks, rank, world))
 
     # the CLI under a process group: experiments.run builds the mesh
     # and shards its host iterators
@@ -128,6 +144,21 @@ def _work(rank, world, out_dir):
     os.environ.update(TERRAIN_OUT=os.path.join(out_dir, f"cli{rank}"),
                       TERRAIN_MODELS=os.path.join(out_dir, f"m{rank}"))
     assert cli.main(["smoke_synthetic", "train", "--device", "cpu"]) == 0
+
+
+def _scan_rule(gan, ds, ks, rank, world):
+    import torch.distributed as dist
+
+    from terrain_tpu_torch.train import step
+
+    groups = gan.train_step.groups
+    cpu = torch.device("cpu")
+    batch = ds.batch_args(torch.zeros(2, LAT), torch.zeros(2, dtype=torch.long))
+    return {"ks": sorted(ks),
+            "backends": [str(dist.get_backend(g)) for g in groups],
+            "graph": step._captured([batch], groups),
+            "any_last": step._on_any_rank(rank == world - 1, groups, cpu),
+            "any_none": step._on_any_rank(False, groups, cpu)}
 
 
 def run_rank(rank, world, rendezvous, out_dir):

@@ -35,7 +35,10 @@ all four, and saves each phase's results as it ends:
     the both and dcgan modes (MODE_STEP): the losses and the gradients
     its update was given;
   * "build": experiments.build_train("smoke_synthetic", mesh=) on the
-    pair, one train step and one eval step: their losses.
+    pair, one train step and one eval step: their losses; and two train
+    and two eval steps of it, as chunks of 2 (train/step.py's
+    build_scan_step and build_scan_eval: a loop over gloo) and one by
+    one from the same state: their losses and the parameters after.
 The ops' slabs are thinner than the rule's 8 rows (the ops take any
 slab the rule gives them), so the ops phase runs under MIN_ROWS 2.
 """
@@ -525,9 +528,9 @@ def _step(meshes):
     return out
 
 
-def smoke_batch(latent):
+def smoke_batch(latent, seed=3):
     """A seeded global batch of smoke_synthetic (64px), batch 2."""
-    r = np.random.RandomState(3)
+    r = np.random.RandomState(seed)
     return tuple(torch.from_numpy(a) for a in (
         r.rand(2, latent).astype(np.float32),
         r.rand(2, 64, 64, 1).astype(np.float32),
@@ -550,6 +553,34 @@ def _build(pair):
                                                mesh=pair))
 
 
+def _build_chunk(pair):
+    """{"steps" or "chunk": (train losses, eval losses, parameters)} of
+    two train and two eval steps of build_train("smoke_synthetic",
+    mesh=pair), one by one or as chunks of 2, each from a fresh setup."""
+    from terrain_tpu_torch import experiments
+    from terrain_tpu_torch.train.step import build_scan_eval, build_scan_step
+
+    out = {}
+    for how in ("steps", "chunk"):
+        setup = experiments.build_train("smoke_synthetic", "cpu", mesh=pair)
+        batches = [smoke_batch(setup.latent_dim, seed) for seed in (3, 4)]
+        if how == "steps":
+            tr = [setup.train_step(setup.opt_states, b, {}, setup.lr)
+                  for b in batches]
+            ev = [setup.eval_step(b, {}) for b in batches]
+            tr, ev = ({k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+                      for outs in (tr, ev))
+        else:
+            tr = build_scan_step(setup.train_step)(
+                setup.opt_states, batches, [{}, {}], setup.lr)
+            ev = build_scan_eval(setup.eval_step)(batches, [{}, {}])
+        out[how] = ({k: v.numpy() for k, v in tr.items()},
+                    {k: v.numpy() for k, v in ev.items()},
+                    [p.detach().numpy().copy() for net in setup.nets.values()
+                     for p in net.parameters()])
+    return out
+
+
 def _work(rank, out_dir):
     from terrain_tpu_torch.parallel import make_mesh
 
@@ -570,6 +601,8 @@ def _work(rank, out_dir):
     save(out_dir, "dcgan", rank, _dcgan(grid))
     save(out_dir, "step", rank, _step({"grid": grid, "quad": quad}))
     save(out_dir, "build", rank, _build(pair) if on_pair else None)
+    save(out_dir, "build_chunk", rank, _build_chunk(pair) if on_pair
+         else None)
 
 
 def run_rank(rank, world, rendezvous, out_dir):

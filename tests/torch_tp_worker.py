@@ -23,7 +23,11 @@ ends:
   * "grid_sharded" (every rank): the sharded layers of the tiny nets at
     tp_min_features 8 on the 2x2 mesh, which then train 2 epochs over
     N_PAIRS pairs held on the device, with the paired augmentation, into
-    out_dir/grid<r>/results.txt.
+    out_dir/grid<r>/results.txt, and again at TERRAIN_SCAN=2 (each pass
+    one chunk of 2 steps) into out_dir/gridscan<r>; "grid_scan": the chunk
+    sizes that run took, and train/step._on_any_rank over its step's
+    groups (a data group, then a model group) with the flag raised on
+    rank 3 alone.
 """
 
 import os
@@ -154,12 +158,25 @@ def _work(rank, out_dir):
     if rank < 2:
         save(out_dir, "ops", rank, _ops(pair))
         save(out_dir, "tp", rank, _tp(pair, rank, out_dir))
-    gan = TwoStageGAN(**w.tiny_kw(det_sampler(grid.data_index), da=True),
-                      mesh=grid, tp_min_features=8)
-    save(out_dir, "grid_sharded", rank, gan.sharded)
     ds = w.device_pairs()
-    gan.train(ds, ds, batch_size=w.GLOBAL_BATCH, num_epochs=2,
-              out_dir=os.path.join(out_dir, f"grid{rank}"), save_every=999)
+    for name, scan in (("grid", "1"), ("gridscan", "2")):
+        os.environ["TERRAIN_SCAN"] = scan
+        gan = TwoStageGAN(**w.tiny_kw(det_sampler(grid.data_index),
+                                      da=True),
+                          mesh=grid, tp_min_features=8)
+        if scan == "1":
+            save(out_dir, "grid_sharded", rank, gan.sharded)
+        gan.train(ds, ds, batch_size=w.GLOBAL_BATCH, num_epochs=2,
+                  out_dir=os.path.join(out_dir, f"{name}{rank}"),
+                  save_every=999)
+    del os.environ["TERRAIN_SCAN"]
+    from terrain_tpu_torch.train.step import _on_any_rank
+
+    save(out_dir, "grid_scan", rank, {
+        "ks": sorted({key[1] for key in gan._chunks}),
+        "groups": len(gan.train_step.groups),
+        "any": _on_any_rank(rank == 3, gan.train_step.groups,
+                            torch.device("cpu"))})
 
 
 def run_rank(rank, world, rendezvous, out_dir):
