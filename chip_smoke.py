@@ -8,6 +8,13 @@ Phases (any failure exits non-zero and prints no result line):
   1. card: its name and power limit (nvidia-smi), torch/CUDA versions, and
      the nvcc build of every kernel from csrc/ (timed, one nvcc per source,
      all started together);
+  1b. ballast: one fp32 step of the flagship (512px, batch 4, full
+     width) from one seeded state in two fresh processes, one holding the
+     card whole, one after a ballast allocation that leaves free 256 MiB
+     less than the free run's peak reserved: every parameter, BN
+     statistic, optimizer slot and loss bit-equal, and the device kernels
+     of each profiled step compared by name (with cuDNN's FFT engines,
+     which device.strict_fp32 blocks, the two runs differed: PERF.md §2);
   2. kernels: each of the twelve CUDA kernels against its plain PyTorch
      version on the card, in fp32 and bf16 (bilinear: fp32, its only type),
      at the main paths' shapes and small or ragged ones; max-abs error
@@ -60,18 +67,22 @@ Phases (any failure exits non-zero and prints no result line):
      (plain versions) from the same weights and batch: losses, gradients
      and updated weights;
   5. trainer: `python -m terrain_tpu_torch test1_nobn_bilin_both train`
-     through cli.main at full width on 240 synthetic pairs held on the card
+     through cli.main at full width on 120 synthetic pairs held on the card
      as uint8, gathered, normalized and augmented inside the step, both
      switches on: one epoch with a checkpoint, then the same command
      resuming it for a second epoch; results.txt (header, two rows of
-     finite losses), the dumps, both checkpoints (every parameter moved),
+     finite losses), the dumps, the four arch_<net>.txt equal to
+     models/core.describe's text (arch_<net>.png where matplotlib
+     imports, which is printed), both checkpoints (every parameter moved),
      the launch counts of an epoch, epoch time, images/s, the data path's
      share of a step, peak memory; then smoke_synthetic train + gen;
   6. quality: the same command with the unfused decoder, TERRAIN_SWD=1 and
      TERRAIN_PROFILE on host iterators behind the prefetcher (40 synthetic
-     pairs, two epochs, a checkpoint each), then `gen`: swd.txt with
+     pairs, three epochs -- a warm-up, a traced and a clean one -- with a
+     checkpoint each), then `gen`: swd.txt with
      terrain_tpu's columns and finite values, gen's checkpoint picked from
-     it, the trace file, the launch counts, epoch and SWD times, and the SWD
+     it, the trace file and its cost (the traced epoch's time less the clean
+     one's), the launch counts, epoch and SWD times, and the SWD
      pyramid and terrain W1 of the same images on the card against the CPU;
   7. raster: a synthetic raster pair at the NASA rasters' size (21600 x
      10800; a heightmap ~30% ocean, an RGB texture) written as PNGs whose
@@ -82,7 +93,15 @@ Phases (any failure exits non-zero and prints no result line):
      `TERRAIN_RASTER=hm.png,tex.png TERRAIN_EPOCH_CROPS=48 python -m
      terrain_tpu_torch test1_nobn_bilin_both train` at 512px: finite
      losses, the flagship kernels' launch counts, epoch time and the share
-     of a step of the host batch and of the augmentation;
+     of a step of the host batch and of the augmentation.  Then JPEG: each
+     committed fixture of tests/data/jpeg decoded by the port's decoder to
+     the SHA-256 of imageio's bytes committed beside it (MB/s printed), the
+     full-width strip's restart intervals repeated into a 21600 x 10800
+     texture (its decode timed, every band that no vertical upsampling
+     crosses equal to the strip's), and one epoch of
+     `TERRAIN_RASTER=hm.png,texture_2048x1024_420.jpg` (the heightmap a
+     PNG made here at the texture's size) with the first batch against
+     plain slicing and the default path's kernels counted;
   8. scan: TERRAIN_SCAN as one CUDA graph: the flagship step (augmentation
      on) from one saved state, 4 eager steps twice against two replays of
      a 4-step graph, by default (no deterministic algorithms: the port's
@@ -97,9 +116,20 @@ Phases (any failure exits non-zero and prints no result line):
      at TERRAIN_SCAN=16 (fp32 through the CLI) and one eager from the same
      seed, fp32 and bf16: epoch times, and epoch 1's results.txt loss
      columns equal to eager's;
+  8b. nans: TERRAIN_CHECK_NANS=2 on the flagship trainer's steps (fp32,
+     augmentation on), by default and with the switches on and the decoder
+     unfused: two checked eager steps bit-equal to two unchecked ones, and
+     by default a TERRAIN_SCAN=4 graph, checked and unchecked, bit-equal to
+     eager steps; a NaN-poisoned weight of p2p_gen's first encoder conv
+     raising eagerly and in the graph, naming p2p_gen, enc.0.conv and
+     step 1, a NaN in step 3's prior raising naming step 3; bf16 at
+     TERRAIN_SCAN=16, the graph checked and unchecked, per step; every
+     hand-written kernel's outputs checked at least once (the parallel
+     phase plants the poisoned weight on the world-1 NCCL mesh's graph
+     too: it raises after the replay, no rank hangs);
   9. parallel: data parallelism over torch.distributed, fp32 and bf16, at
      global batch 4.  NCCL at world size 1 (one H100 holds no second NCCL
-     rank): TwoStageGAN(mesh=make_mesh()) on three seeds against the step
+     rank): TwoStageGAN(mesh=make_mesh()) on PAR_SEEDS against the step
      without a mesh (losses and the gradients the update takes, each
      network's to its own limit) and bit-equal to itself, with the
      switches on and the unfused decoder on one, and its step ms, device
@@ -107,7 +137,7 @@ Phases (any failure exits non-zero and prints no result line):
      (only its summation orders changed) and epochs over 8 pairs without a
      mesh and as the twin.  Then TERRAIN_SCAN on that mesh, the trainer's
      chunks as CUDA graphs with the NCCL collectives inside: fp32 chunks
-     of 16 steps bit-equal to 16 eager steps on three seeds, the eval
+     of 8 steps bit-equal to 8 eager steps on PAR_SEEDS, the eval
      chunk, an lr change and a load_model each capturing anew once (the
      launch calls show one warm-up step and one capture; a replay calls
      none), chunks of 4 with the switches on and with the unfused decoder
@@ -249,7 +279,9 @@ UNFUSED_LAUNCHES = {"bilinear": 1, "bilinear_backward": 1,
 # U-Net alone
 EVAL_LAUNCHES = {"pool2_fwd": 12, "pool2_bwd": 0, "conv_s2_fwd": 3,
                  "conv_s2_dw": 0}
-TRAINER_N = 240          # the shipped set's size: 250 MB of uint8 on the card
+# half the shipped set's 240 pairs (120 MB of uint8 on the card): the depth
+# cut to keep the whole script within its time
+TRAINER_N = 120
 # the quality path's train set: depth cut to 10 steps an epoch (the widths
 # are the flagship's); the valid set is its floor of 4 pairs, one step
 QUALITY_N = 40
@@ -265,17 +297,22 @@ BC_BWD_MODES = ("conv6", "dense", "xla32")
 RASTER_H, RASTER_W = 10800, 21600
 RASTER_CROPS = 48
 RASTER_DECODE_S = 60.0   # limit: seconds to decode the pair on the host
+# the JPEG fixtures (tests/make_jpeg_fixtures.py, with imageio's digests):
+# each decoded to its digest; the texture trained from; the strip (a
+# restart marker each MCU row) repeated into a 21600 x 10800 texture
+JPEG_DIR = os.path.join("tests", "data", "jpeg")
+JPEG_TEXTURE = "texture_2048x1024_420.jpg"
+JPEG_STRIP = "strip_21600x32_420_rst.jpg"
 # the scan phase: eager steps against one CUDA graph of SCAN_K steps from
 # one saved state, on SCAN_N pairs held on the card; timing at
 # TERRAIN_SCAN=16 (terrain_tpu's TPU launch script); the trainer on
-# SCAN_TRAINER_N pairs at TERRAIN_SCAN=16 (30 train steps an epoch, chunks
-# of 15; the valid pass 3 steps, one chunk): half the trainer phase's
-# epoch, the depth cut to keep the whole script's time as the spatial
-# phase grew (PERF.md §6)
+# SCAN_TRAINER_N pairs at TERRAIN_SCAN=16 (16 train steps an epoch, one
+# chunk; the valid pass 1 step): the depth cut to keep the whole script's
+# time (240 pairs, then 120, now 64)
 SCAN_K = 4
 SCAN_TIME_K = 16
 SCAN_N = 16
-SCAN_TRAINER_N = 120
+SCAN_TRAINER_N = 64
 SCAN_BUSY_LIMIT = 1.25   # bf16: graph step ms / its profiled device ms
 # the parallel phase.  A data-parallel step computes one process's
 # function with its sums in another order: the BatchNorms' statistics and
@@ -301,7 +338,10 @@ SCAN_BUSY_LIMIT = 1.25   # bf16: graph step ms / its profiled device ms
 # now 4.5e-7 to 4.1e-6 in three runs, so 2e-5 leaves 4.8x over them.
 PAR_WORLD = 2
 PAR_N = 8
-PAR_SEEDS = (0, 1, 2)    # the batches and datasets every figure is read on
+# the batches and datasets every figure is read on (two, cut from three to
+# keep the whole script within its time; a limit pooled over the seeds,
+# the twin's largest error, can only shrink)
+PAR_SEEDS = (0, 1)
 PAR_TOL = 1e-4           # two ranks vs one process: the least limit
 PAR_TWIN = 2.0
 PAR_LOSS_TOL = {"fp32": 1e-6, "bf16": 1e-4}  # world 1 vs no mesh
@@ -313,7 +353,8 @@ PAR_W1_GRAD_TOL = {"fp32": {"dcgan_gen": 2e-2, "dcgan_disc": 2e-5,
 # to eager, bf16 timed) at terrain_tpu's TPU launch script's k; the two
 # gloo ranks' epoch at TERRAIN_SCAN=PAR_SCAN_GLOO_K over PAR_SCAN_GLOO_N
 # pairs (k steps an epoch), a loop by train/step.py's rule
-PAR_SCAN_K = 16
+PAR_SCAN_K = 8           # the world-1 mesh's fp32 chunks held to eager
+PAR_SCAN_TIME_K = 16     # its bf16 chunks timed (and scan4's)
 PAR_SCAN_GLOO_K = 4
 PAR_SCAN_GLOO_N = 16
 PAR_FAULTS = ("BN statistics local", "gradients summed",
@@ -339,7 +380,8 @@ KERNEL_SYMBOLS = {"bilinear_conv": "bilinear_conv_kernel",
 # conv, read 4.06e-5 on an NVIDIA H100 80GB HBM3 at 700 W
 ACC_ROUTE_TOL = 1e-4
 ACC_TOL = 5e-5
-PHASES = {"kernels", "serve", "train", "trainer", "quality", "raster", "scan",
+PHASES = {"kernels", "ballast", "serve", "train", "trainer", "quality",
+          "raster", "scan", "nans",
           "parallel", "accuracy", "tp", "spatial", "conditioning",
           "determinism", "tp4", "spatial4", "scan4"}
 
@@ -1569,6 +1611,27 @@ def conditioning(torch):
               f"entry {worst:.3e} at {where}", flush=True)
 
 
+def _check_arch(gan, out):
+    """The fresh run's arch_<net>.txt: terrain_tpu's text for each network
+    (models/core.describe); arch_<net>.png where matplotlib imports."""
+    import importlib.util
+
+    from terrain_tpu_torch.models.core import describe
+
+    have = importlib.util.find_spec("matplotlib") is not None
+    for name, net in gan.nets.items():
+        with open(os.path.join(out, f"arch_{name}.txt")) as f:
+            if f.read() != describe(net):
+                fail(f"trainer: arch_{name}.txt is not describe's text")
+        if os.path.exists(os.path.join(out, f"arch_{name}.png")) != have:
+            fail(f"trainer: arch_{name}.png {'missing' if have else 'drawn'}"
+                 f" with matplotlib {'present' if have else 'absent'}")
+    print(f"trainer: the four arch_<net>.txt equal describe's text; "
+          f"matplotlib {'imports' if have else 'is not installed'} on this "
+          f"machine, so arch_<net>.png {'were drawn' if have else 'were skipped'}",
+          flush=True)
+
+
 # ------------------------------------------------------------------ phase 6
 def trainer_slice(torch, card):
     """This slice's path at full width, through the entry point a user
@@ -1659,6 +1722,7 @@ def trainer_slice(torch, card):
                 fail(f"trainer: no {name} among the dumps")
         # both checkpoints load, and every parameter of every network moved
         gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False)
+        _check_arch(gan, out)
         fresh = {n: [p.detach().clone() for p in net.parameters()]
                  for n, net in gan.nets.items()}
         for e in (1, 2):
@@ -1843,7 +1907,9 @@ def quality_slice(torch, card, trainer_epoch_s, bare_ms):
         dev_steps = TRAINER_N // TRAIN_BATCH + (TRAINER_N // 10) // TRAIN_BATCH
         print(f"quality [{card}]: epoch `time` {times} s, {per_step} ms per "
               f"step of batch {TRAIN_BATCH} (eval included; epoch 1 warms "
-              f"up, epoch 2 is traced); the bare step of this configuration "
+              f"up, epoch 2 is traced, epoch 3 is clean: the trace costs "
+              f"{times[1] - times[2]:.3f} s); the bare step of this "
+              f"configuration "
               f"{bare_ms:.3f} ms; the device-resident trainer phase's first "
               f"epoch {trainer_epoch_s:.3f} s, "
               f"{trainer_epoch_s * 1e3 / dev_steps:.3f} ms per step (fused "
@@ -1947,14 +2013,15 @@ def quality_slice(torch, card, trainer_epoch_s, bare_ms):
 
 
 # ------------------------------------------------------------------ phase 8
-def _synthetic_raster(np, seed=0):
-    """A raster pair at the NASA rasters' size: a heightmap of a few
+def _synthetic_raster(np, seed=0, size=(RASTER_H, RASTER_W)):
+    """A raster pair at the NASA rasters' size (or `size`): a heightmap of a few
     separable waves, made at a quarter of the size and repeated 4x4, about
     30% of it ocean (zeros) in large regions, and an RGB texture coloured
     from it; both carry 2 bits of noise at full size from a random tile
     wider than zlib's window, so neither compresses to nothing."""
     rnd = np.random.RandomState(seed)
-    h, w = RASTER_H // 4, RASTER_W // 4
+    full_h, full_w = size
+    h, w = full_h // 4, full_w // 4
     y = np.linspace(0, 1, h, dtype=np.float32)[:, None]
     x = np.linspace(0, 1, w, dtype=np.float32)[None, :]
     f = np.zeros((h, w), np.float32)
@@ -1972,8 +2039,8 @@ def _synthetic_raster(np, seed=0):
         return np.repeat(np.repeat(a, 4, 0), 4, 1)
 
     noise = rnd.randint(0, 4, size=(512, 16384)).astype(np.uint8)
-    noise = np.tile(noise, (RASTER_H // 512 + 1, RASTER_W // 16384 + 1))
-    noise = noise[:RASTER_H, :RASTER_W]
+    noise = np.tile(noise, (full_h // 512 + 1, full_w // 16384 + 1))
+    noise = noise[:full_h, :full_w]
     hm = full(small)
     hm += noise * full(land)
     tex = full(colour)
@@ -2136,6 +2203,8 @@ def raster_slice(torch, card):
               f"card {aug_ms:.3f} ms = {aug_ms / step_ms:.4f}; losses "
               f"{ {k: float(row['train_' + k]) for k in TRAIN_KEYS} }; "
               f"launches {got}", flush=True)
+        jpeg = raster_jpeg(torch, card, root)
+        got = {k: got[k] + jpeg[k] for k in got}
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2143,6 +2212,154 @@ def raster_slice(torch, card):
             else:
                 os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
+    return got
+
+
+def _jpeg_fixtures():
+    """{name: (bytes, {"shape", "sha256", ...})} of tests/data/jpeg."""
+    with open(os.path.join(HERE, JPEG_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    out = {}
+    for name, want in digests.items():
+        with open(os.path.join(HERE, JPEG_DIR, name), "rb") as f:
+            out[name] = (f.read(), want)
+    return out
+
+
+def _repeat_strip(data, height):
+    """The strip JPEG (one restart interval a row of MCUs) as one of
+    `height` rows: its SOF height patched and its intervals repeated in
+    turn, the RST markers between them renumbered.  Returns the bytes and
+    the rows of a band (MCU row)."""
+    sos = data.index(b"\xff\xda")
+    head_end = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
+    body = data[head_end:data.rindex(b"\xff\xd9")]
+    intervals, start = [], 0
+    i = body.find(b"\xff", 0)
+    while i >= 0:
+        if 0xD0 <= body[i + 1] <= 0xD7:
+            intervals.append(body[start:i])
+            start = i + 2
+        i = body.find(b"\xff", i + 2)
+    intervals.append(body[start:])
+    sof = data.index(b"\xff\xc0")
+    hmax = vmax = 1
+    for c in range(data[sof + 9]):
+        hv = data[sof + 11 + 3 * c]
+        hmax, vmax = max(hmax, hv >> 4), max(vmax, hv & 15)
+    band = 8 * vmax
+    n = height // band
+    head = bytearray(data[:head_end])
+    head[sof + 5:sof + 7] = height.to_bytes(2, "big")
+    out = bytearray(head)
+    for r in range(n):
+        if r:
+            out += bytes([0xFF, 0xD0 + (r - 1) % 8])
+        out += intervals[r % len(intervals)]
+    out += b"\xff\xd9"
+    return bytes(out), band, len(intervals)
+
+
+def raster_jpeg(torch, card, root):
+    """JPEG rasters through the port's decoder: each committed fixture
+    decoded to imageio's digest (tests/make_jpeg_fixtures.py), the decode
+    rate; the strip repeated into a 21600 x 10800 texture, its decode
+    timed and every band that no vertical upsampling crosses equal to the
+    strip's; then one epoch of `TERRAIN_RASTER=hm.png,<texture>.jpg
+    TERRAIN_EPOCH_CROPS=48 test1_nobn_bilin_both train` through cli.main
+    (the heightmap a PNG made here at the texture's size, with ocean), the
+    crop iterator's first batch equal to plain slicing, the default path's
+    kernels launched.  Returns the epoch's launch counts."""
+    import hashlib
+    import math
+
+    import numpy as np
+
+    from terrain_tpu_torch import cli
+    from terrain_tpu_torch.data import RasterCropIterator
+    from terrain_tpu_torch.data.jpeg import decode_jpeg
+    from terrain_tpu_torch.serve.png import encode_png
+    from terrain_tpu_torch.train.losses import TRAIN_KEYS
+
+    fixtures = _jpeg_fixtures()
+    decoded = {}
+    for name, (data, want) in fixtures.items():
+        t0 = time.perf_counter()
+        img = decode_jpeg(data)
+        dt = time.perf_counter() - t0
+        sha = hashlib.sha256(img.tobytes()).hexdigest()
+        print(f"raster [{card}]: JPEG {name} ({len(data)} bytes) decoded "
+              f"to {img.shape} in {dt * 1e3:.1f} ms "
+              f"({img.nbytes / dt / 1e6:.1f} MB/s of pixels); SHA-256 "
+              f"{'equal to' if sha == want['sha256'] else 'NOT'} imageio's",
+              flush=True)
+        if list(img.shape) != want["shape"] or sha != want["sha256"]:
+            fail(f"raster: {name} decoded to other bytes than imageio's")
+        decoded[name] = img
+    strip = decoded[JPEG_STRIP]
+    big, band, kinds = _repeat_strip(fixtures[JPEG_STRIP][0], RASTER_H)
+    t0 = time.perf_counter()
+    tex = decode_jpeg(big)
+    dt = time.perf_counter() - t0
+    print(f"raster [{card}]: a {RASTER_W}x{RASTER_H} baseline JPEG (the "
+          f"strip's {kinds} restart intervals repeated, {len(big) / 1e6:.1f} "
+          f"MB) decoded in {dt:.2f} s ({tex.nbytes / dt / 1e6:.1f} MB/s of "
+          f"pixels)", flush=True)
+    if dt > RASTER_DECODE_S:
+        fail(f"raster: the full-size JPEG took {dt:.1f} s > "
+             f"{RASTER_DECODE_S} s")
+    inner = slice(1, band - 1)  # rows whose chroma context is their band's
+    for r in range(RASTER_H // band):
+        k = r % kinds
+        if not np.array_equal(tex[r * band:(r + 1) * band][inner],
+                              strip[k * band:(k + 1) * band][inner]):
+            fail(f"raster: band {r} of the full-size JPEG is not the "
+                 f"strip's band {k}")
+    del tex, big
+    texture = decoded[JPEG_TEXTURE]
+    h, w = texture.shape[:2]
+    hm = _synthetic_raster(np, seed=2, size=(h, w))[0]
+    paths = [os.path.join(root, "hm_jpeg.png"),
+             os.path.join(HERE, JPEG_DIR, JPEG_TEXTURE)]
+    with open(paths[0], "wb") as f:
+        f.write(encode_png(hm, level=1))
+    it = RasterCropIterator(hm, texture, TRAIN_BATCH, crop=512,
+                            epoch_size=RASTER_CROPS, seed=0)
+    x, y = it.next_uint8()
+    px, py = _plain_crops(np, hm, texture, TRAIN_BATCH, 512, 0)
+    if not (np.array_equal(x, px) and np.array_equal(y, py)):
+        fail("raster: the JPEG texture's first batch is not the plain "
+             "slices of the decoded pair")
+    out = os.path.join(root, "out_jpeg")
+    os.environ.update({"TERRAIN_RASTER": ",".join(paths),
+                       "TERRAIN_EPOCHS": "1", "TERRAIN_OUT": out,
+                       "TERRAIN_MODELS": os.path.join(root, "models_jpeg")})
+    _reset_counters()
+    t0 = time.perf_counter()
+    if cli.main([EXPERIMENT, "train"]) != 0:
+        fail("raster: the CLI returned an error on the JPEG texture")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counters()
+    with open(os.path.join(out, EXPERIMENT, "results.txt")) as f:
+        header, *rows = [ln.split(",") for ln in f.read().splitlines()]
+    if len(rows) != 1:
+        fail(f"raster: the JPEG run's results.txt has {len(rows)} epochs")
+    row = dict(zip(header, rows[0]))
+    if not all(math.isfinite(float(row[f"{s}_{k}"]))
+               for s in ("train", "valid") for k in TRAIN_KEYS):
+        fail(f"raster: a loss of the JPEG run is not finite: {row}")
+    n_train = RASTER_CROPS // TRAIN_BATCH
+    for k, v in TRAIN_LAUNCHES.items():
+        if got[k] < n_train * v:
+            fail(f"raster: {k} launched {got[k]} times in {n_train} train "
+                 f"steps from the JPEG texture")
+    print(f"raster [{card}]: `TERRAIN_RASTER=hm.png,{JPEG_TEXTURE} "
+          f"TERRAIN_EPOCH_CROPS={RASTER_CROPS} {EXPERIMENT} train`: {wall:.1f}"
+          f" s in all, epoch {float(row['time']):.3f} s; the first batch "
+          f"equals plain slicing; losses "
+          f"{ {k: float(row['train_' + k]) for k in TRAIN_KEYS} }; launches "
+          f"{got}", flush=True)
     return got
 
 
@@ -2347,12 +2564,12 @@ def scan_timing(torch, np, card, kept):
 
 def scan_trainer(torch, np, card):
     """The trainer on SCAN_TRAINER_N pairs held on the card at
-    TERRAIN_SCAN=16 (chunks of 15 train steps and one of 3 eval steps),
+    TERRAIN_SCAN=16 (train and eval chunks as _scan_k cuts the epoch),
     dumps off: first `python -m terrain_tpu_torch test1_nobn_bilin_both
     train` in fp32 through cli.main, two epochs, with the counters set to
     0 just before and read just after (its dW and dX kernels show one
-    warm-up step and one capture of 15, not the 60 steps: the graph
-    outlives the epoch); then, on the same
+    warm-up step and one capture of a chunk, not both epochs' steps: the
+    graph outlives the epoch); then, on the same
     pairs made once, an eager epoch from the same seed against it, and in
     bf16 two TERRAIN_SCAN=16 epochs against an eager one.  Eager is
     bit-equal to itself in both settings (scan_equivalence), so epoch 1's
@@ -2364,6 +2581,7 @@ def scan_trainer(torch, np, card):
     from terrain_tpu_torch import cli
     from terrain_tpu_torch.experiments import _get_data, build_gan
     from terrain_tpu_torch.train.losses import TRAIN_KEYS
+    from terrain_tpu_torch.train.trainer import TwoStageGAN
 
     root = tempfile.mkdtemp(prefix="scan_")
     env = {"TERRAIN_SYNTHETIC": "1", "TERRAIN_FAST": "1",
@@ -2380,6 +2598,8 @@ def scan_trainer(torch, np, card):
     set_switches(False)
     n_train = SCAN_TRAINER_N // TRAIN_BATCH
     n_eval = (SCAN_TRAINER_N // 10) // TRAIN_BATCH
+    k_train = TwoStageGAN._scan_k(n_train)
+    k_eval = TwoStageGAN._scan_k(n_eval)
     cols = [f"{s}_{k}" for s in ("train", "valid") for k in TRAIN_KEYS]
 
     def read(out_dir):
@@ -2404,9 +2624,10 @@ def scan_trainer(torch, np, card):
               flush=True)
         for k in ("conv_stem_dw", "conv_stem_dx", "conv_thin_dx",
                   "conv_thin_dw"):
-            if counts[k] != 16 * TRAIN_LAUNCHES[k]:
+            if counts[k] != (1 + k_train) * TRAIN_LAUNCHES[k]:
                 fail(f"scan trainer: {k} launched {counts[k]} times, "
-                     f"expected 16 (a warm-up step and a capture of 15)")
+                     f"expected {1 + k_train} x {TRAIN_LAUNCHES[k]} (a "
+                     f"warm-up step and a capture of {k_train})")
         data = _get_data(512, device="cuda")
         for label, cd in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             rows = {"graph": first} if label == "fp32" else {}
@@ -2428,7 +2649,7 @@ def scan_trainer(torch, np, card):
             print(f"scan trainer [{card}] {label}: `{EXPERIMENT} train` on "
                   f"{SCAN_TRAINER_N} pairs on the card, {n_train} train + "
                   f"{n_eval} eval steps an epoch: at TERRAIN_SCAN="
-                  f"{SCAN_TIME_K} (chunks of 15 and 3) epoch 1 "
+                  f"{SCAN_TIME_K} (chunks of {k_train} and {k_eval}) epoch 1 "
                   f"{float(graph[0]['time']):.3f} s (capture included), "
                   f"epoch 2 {float(graph[1]['time']):.3f} s; eager "
                   f"{float(eager['time']):.3f} s; epoch 1's loss columns "
@@ -2992,19 +3213,44 @@ def parallel_world1_scan(torch, np, card, mesh, root):
                            f"times in the replay, expected {SCAN_K} x "
                            f"{per_step.get(name, 0)}")
         set_switches(False, switches)
-    del gan, runs, check
+    # TERRAIN_CHECK_NANS=2 on the mesh's graph: a planted NaN raises on the
+    # rank after the chunk's collectives, with no hang
+    gan._chunks.clear()
     _free(torch)
+    back = _snapshot(gan)
+    batches = _chunk(torch, np, gan, ds, SCAN_K, PAR_SEEDS[0])
+    _checks_on(True)
+    try:
+        runs.graph(batches)  # a clean chunk: warm-up, capture, replay
+        back()
+        with torch.no_grad():
+            gan.nets["p2p_gen"].enc[0].conv.w.mul_(float("nan"))
+        msg, secs = _raises_nan(torch, lambda: runs.graph(batches),
+                                ["p2p_gen enc.0.conv: ",
+                                 f"step 1 of {SCAN_K}"])
+    finally:
+        _checks_on(False)
+    print(f"parallel [{card}] NCCL world 1, TERRAIN_CHECK_NANS=2, "
+          f"TERRAIN_SCAN={SCAN_K}: a NaN-poisoned p2p_gen weight raised "
+          f"after the replay in {secs:.2f} s: {msg}", flush=True)
+    back()
+    gan._chunks.clear()
+    del gan, runs, check, back, batches
+    _free(torch)
+    print(f"parallel: this process holds "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB of the card after "
+          f"the world-1 mesh's chunks", flush=True)
     bad += _w1_scan_time(torch, np, card, mesh, ds)
     return counts, bad
 
 
 def _w1_scan_time(torch, np, card, mesh, ds):
-    """bf16 per step at PAR_SCAN_K: the world-1 mesh's eager steps and its
+    """bf16 per step at PAR_SCAN_TIME_K: the world-1 mesh's eager steps and its
     graph, and the graph without a mesh, in turns; profiled device ms a
     step and peak MiB.  Returns failures (a non-finite loss)."""
     from terrain_tpu_torch.experiments import build_gan
 
-    k = PAR_SCAN_K
+    k = PAR_SCAN_TIME_K
     runs = {m: _ChunkRuns(torch, build_gan(
         EXPERIMENT, "cuda", compute_dtype=torch.bfloat16, verbose=False,
         mesh=m)[0], ds) for m in (mesh, None)}
@@ -3349,7 +3595,7 @@ def _scan4_work(rank, world, root):
     torch.cuda.empty_cache()
 
     # bf16 per step, the mesh's eager steps and graph in turns
-    k = PAR_SCAN_K
+    k = PAR_SCAN_TIME_K
     runs = _ChunkRuns(torch, build_gan(
         EXPERIMENT, "cuda", compute_dtype=torch.bfloat16, verbose=False,
         mesh=mesh)[0], train)
@@ -4445,6 +4691,333 @@ def spatial_slice(torch, card, world=SP_WORLD, backend="gloo"):
     return total
 
 
+# ----------------------------------------------------------------- nans
+# TERRAIN_CHECK_NANS=2 (utils/nan_check.py) on the flagship at full width:
+# checked steps and chunks give the unchecked bits; planted NaNs raise
+# naming the network, the layer and the step; every kernel is checked.
+NAN_SETTINGS = (("default", {}), ("switches on, decoder unfused",
+                                  {**SWITCHES, **UNFUSED}))
+NAN_EAGER = 2      # checked eager steps held against unchecked ones
+NAN_TIME_K = 16    # the bf16 graph's chunk when timed
+
+
+def _checks_on(on):
+    if on:
+        os.environ["TERRAIN_CHECK_NANS"] = "2"
+    else:
+        os.environ.pop("TERRAIN_CHECK_NANS", None)
+
+
+def _raises_nan(torch, fn, want):
+    """fn() must raise FloatingPointError naming every string of `want`;
+    returns its message and the seconds it took."""
+    t0 = time.perf_counter()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except FloatingPointError as e:
+        msg = str(e)
+        missing = [w for w in want if w not in msg]
+        if missing:
+            fail(f"nans: the NaN raised without naming {missing}: {msg}")
+        return msg, time.perf_counter() - t0
+    fail(f"nans: no FloatingPointError for a planted NaN (want {want})")
+
+
+def nans_slice(torch, card):
+    """The flagship trainer's steps (fp32, 512px, batch 4, augmentation
+    on, SCAN_N pairs on the card) under TERRAIN_CHECK_NANS=2, in each of
+    NAN_SETTINGS: NAN_EAGER checked eager steps bit-equal to unchecked ones
+    from the same state (by default also a TERRAIN_SCAN=SCAN_K chunk,
+    checked and unchecked, bit-equal to eager steps); a NaN-poisoned weight
+    of p2p_gen's first encoder conv raising eagerly and in the graph,
+    naming p2p_gen, enc.0.conv and step 1; a NaN in step 3's prior
+    raising in the graph naming step 3.  Then bf16 at TERRAIN_SCAN=16,
+    the graph checked and unchecked, per step; every kernel's outputs
+    checked at least once.  Returns the kernels' checked launches."""
+    import numpy as np
+
+    from terrain_tpu_torch.data import DeviceDataset
+    from terrain_tpu_torch.data.synthetic import make_pairs
+    from terrain_tpu_torch.experiments import build_gan
+    from terrain_tpu_torch.utils import nan_check
+
+    ds = None
+    nan_check.KERNEL_CHECKS.clear()
+    # the layer's first op to hold the NaN: the library conv by default, a
+    # copy of the weight or the conv_s2 kernel with the switches on
+    poison = ["p2p_gen enc.0.conv: ", "(forward)"]
+    try:
+        for label, switches in NAN_SETTINGS:
+            set_switches(True, switches)
+            gan, _ = build_gan(EXPERIMENT, "cuda", verbose=False)
+            if ds is None:
+                ds = DeviceDataset(*make_pairs(SCAN_N, gan.in_shp, seed=0),
+                                   device="cuda")
+            runs = _ChunkRuns(torch, gan, ds)
+            back = _snapshot(gan)
+            batches = _chunk(torch, np, gan, ds, SCAN_K, 11)
+            got, secs = {}, {}
+            ways = [("eager", False), ("eager", True)]
+            if label == "default":
+                ways += [("graph", False), ("graph", True)]
+            for way, checked in ways:
+                _checks_on(checked)
+                n = NAN_EAGER if way == "eager" else SCAN_K
+                back()
+                # a first call (the graph's warm-up and capture) off the
+                # clock, then from `back` again
+                (runs.eager(batches[:1]) if way == "eager"
+                 else runs.graph(batches))
+                back()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = (runs.eager(batches[:n]) if way == "eager"
+                       else runs.graph(batches))
+                torch.cuda.synchronize()
+                secs[way, checked] = (time.perf_counter() - t0) * 1e3 / n
+                got[way, checked] = runs._result(out)
+            eager4 = None
+            if label == "default":  # SCAN_K unchecked eager steps
+                _checks_on(False)
+                back()
+                eager4 = runs._result(runs.eager(batches))
+            for (way, checked), res in got.items():
+                want = eager4 if way == "graph" else got["eager", False]
+                pairs = list(zip(want[0] + want[1], res[0] + res[1]))
+                off = sum(not a.equal(b) for a, b in pairs)
+                print(f"nans [{card}] fp32 {label}: {way}"
+                      f"{' checked' if checked else ''} "
+                      f"({secs[way, checked]:.3f} ms a step, host clock"
+                      f"{', the replay' if way == 'graph' else ''}) against "
+                      f"unchecked eager steps: {len(pairs) - off} of "
+                      f"{len(pairs)} tensors bit-equal", flush=True)
+                if off:
+                    fail(f"nans {label}: the {way} steps"
+                         f"{' under the checks' if checked else ''} are "
+                         f"off unchecked eager steps in {off} tensors")
+            _checks_on(True)
+            back()
+            w = gan.nets["p2p_gen"].enc[0].conv.w
+            with torch.no_grad():
+                w.mul_(float("nan"))
+            msg, s = _raises_nan(torch, lambda: runs.eager(batches[:1]),
+                                 poison + ["step 1 of 1"])
+            print(f"nans {label}: poisoned p2p_gen weight, eager, raised in "
+                  f"{s:.2f} s: {msg}", flush=True)
+            if label == "default":
+                back()
+                with torch.no_grad():
+                    w.mul_(float("nan"))
+                msg, s = _raises_nan(torch, lambda: runs.graph(batches),
+                                     poison + [f"step 1 of {SCAN_K}"])
+                print(f"nans {label}: poisoned p2p_gen weight, the graph of "
+                      f"{SCAN_K} steps, raised in {s:.2f} s: {msg}",
+                      flush=True)
+                back()
+                planted = [tuple(t.clone() for t in b) for b in batches]
+                planted[2][0][0, 0] = float("nan")  # step 3's prior
+                msg, s = _raises_nan(torch, lambda: runs.graph(planted),
+                                     ["dcgan_gen ", f"step 3 of {SCAN_K}"])
+                print(f"nans {label}: NaN in step 3's prior, the graph, "
+                      f"raised in {s:.2f} s: {msg}", flush=True)
+            _checks_on(False)
+            set_switches(False, switches)
+            del gan, runs, back, batches, got
+            _free(torch)
+        nans_timing(torch, np, card, ds)
+    finally:
+        _checks_on(False)
+        set_switches(False, SWITCHES)
+        set_switches(False, UNFUSED)
+    checked = dict(nan_check.KERNEL_CHECKS)
+    print(f"nans: each hand-written kernel's checked launches {checked}",
+          flush=True)
+    missing = [k for k in _counters() if not checked.get(k)]
+    if missing:
+        fail(f"nans: kernels never checked {missing}")
+    del ds
+    _free(torch)
+    print(f"nans: this process holds "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB of the card after "
+          f"the phase", flush=True)
+    return checked
+
+
+def nans_timing(torch, np, card, ds):
+    """bf16, default switches, TERRAIN_SCAN=NAN_TIME_K: the graph's
+    replay per step, unchecked and checked, in turns (host clock around a
+    synchronized chunk; each captured first)."""
+    from terrain_tpu_torch.experiments import build_gan
+
+    gan, _ = build_gan(EXPERIMENT, "cuda", compute_dtype=torch.bfloat16,
+                       verbose=False)
+    runs = _ChunkRuns(torch, gan, ds)
+    batches = _chunk(torch, np, gan, ds, NAN_TIME_K, 12)
+    per = {False: [], True: []}
+    for checked in (False, True, True, False):
+        _checks_on(checked)
+        if not per[checked]:
+            t0 = time.perf_counter()
+            runs.graph(batches)  # warm-up and capture
+            torch.cuda.synchronize()
+            print(f"nans bf16: {'checked ' if checked else ''}capture of "
+                  f"{NAN_TIME_K} steps {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.graph(batches)
+        torch.cuda.synchronize()
+        per[checked].append((time.perf_counter() - t0) * 1e3 / NAN_TIME_K)
+    _checks_on(False)
+    print(f"nans [{card}] bf16 TERRAIN_SCAN={NAN_TIME_K} graph per step: "
+          f"unchecked {per[False][0]:.3f} / {per[False][1]:.3f} ms, checked "
+          f"{per[True][0]:.3f} / {per[True][1]:.3f} ms (host clock, in "
+          f"turns)", flush=True)
+    del gan, runs, batches
+    _free(torch)
+
+
+# -------------------------------------------------------------- ballast
+# One fp32 step of the flagship (512px, batch 4, full width) from one
+# seeded state in two fresh processes: one holds the card whole, the other
+# first allocates ballast that leaves free only the step's peak (the free
+# run's peak reserved) plus BALLAST_MARGIN_MIB, a negative margin: below
+# the peak, where cuDNN's FFT engines (up to 9 GiB of workspace) could not
+# get theirs before device.strict_fp32 blocked them, and above what the
+# step's allocations need (its peak allocated is ~2.3 GiB under its peak
+# reserved; at 1 GiB under it the step runs out of memory).  Every
+# parameter, BN statistic, optimizer slot and loss must be bit-equal: the
+# cuDNN engine a conv takes must not depend on the card's free memory.
+BALLAST_MARGIN_MIB = -256
+BALLAST_LIMIT_S = 240
+
+
+def ballast_child(torch, out_path, need_mib):
+    """`chip_smoke.py _ballast <out> <MiB>`: one profiled fp32 step, after
+    a ballast allocation that leaves `need_mib` MiB beyond what this
+    process has reserved (0: no ballast).  Saves the state, the losses,
+    the device kernels by name, the peaks and the step ms to `out`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from terrain_tpu_torch.device import strict_fp32
+    from terrain_tpu_torch.experiments import build_train
+    from terrain_tpu_torch.train.step import step_state
+
+    strict_fp32()
+    ts = build_train(EXPERIMENT, "cuda", seed=0, compute_dtype=torch.float32)
+    batch = _train_batch(torch, TRAIN_BATCH, ts.in_shp, ts.latent_dim, 7)
+    torch.cuda.synchronize()
+    ballast = None
+    free, total = torch.cuda.mem_get_info()
+    if need_mib:
+        leave = need_mib * 2**20 - torch.cuda.memory_reserved()
+        ballast = torch.empty(max(free - leave, 0), dtype=torch.uint8,
+                              device="cuda")
+    free_at_step = torch.cuda.mem_get_info()[0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        losses = ts.train_step(ts.opt_states, batch, None, ts.lr)
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            kernels[ev.key] = ev.count
+    state = [t.detach().cpu() for t in step_state(ts.nets, ts.opt_states)]
+    out = {"state": state,
+           "losses": {k: v.detach().cpu() for k, v in losses.items()},
+           "kernels": kernels, "free": free, "total": total,
+           "free_at_step": free_at_step,
+           "ballast": 0 if ballast is None else ballast.numel(),
+           "peak_alloc": torch.cuda.max_memory_allocated(),
+           "peak_reserved": torch.cuda.max_memory_reserved()}
+    times = []
+    for _ in range(3):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        ts.train_step(ts.opt_states, batch, None, ts.lr)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    out["step_ms"] = statistics.median(times)
+    torch.save(out, out_path)
+    return 0
+
+
+def _ballast_run(root, name, need_mib):
+    path = os.path.join(root, f"{name}.pt")
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "_ballast", path,
+         str(need_mib)], capture_output=True, text=True,
+        timeout=BALLAST_LIMIT_S)
+    if p.returncode != 0:
+        fail(f"ballast: the {name} step failed (rc {p.returncode}):\n"
+             f"{p.stdout[-3000:]}{p.stderr[-3000:]}")
+    import torch
+
+    out = torch.load(path)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def ballast_compare(a, b):
+    """(tensors that differ, their count, max abs difference, kernels only
+    in a, kernels only in b)."""
+    import torch
+
+    pairs = list(zip(a["state"], b["state"])) + [
+        (a["losses"][k], b["losses"][k]) for k in a["losses"]]
+    diff = [(x - y).abs().max().item() for x, y in pairs
+            if not torch.equal(x, y)]
+    ka, kb = set(a["kernels"]), set(b["kernels"])
+    return (len(diff), len(pairs), max(diff, default=0.0), sorted(ka - kb),
+            sorted(kb - ka))
+
+
+def ballast_slice(torch, card):
+    """The free run and the ballast run, compared bit for bit; fails unless
+    they are equal, and unless the card's cuDNN is the build whose engine
+    numbers device.CUDNN_ERRATA names (device.CUDNN_MEASURED: under
+    another one the rules could apply to nothing, or to other engines, and
+    the check would have to be made again)."""
+    import shutil
+    import tempfile
+
+    from terrain_tpu_torch.device import CUDNN_ERRATA, CUDNN_MEASURED
+
+    major, minor, patch = torch._C._cudnn.getCompileVersion()
+    have = {"compiled": major * 10000 + minor * 100 + patch,
+            "runtime": torch.backends.cudnn.version()}
+    print(f"ballast [{card}]: cuDNN {have}; {CUDNN_ERRATA}'s engine numbers "
+          f"were measured on {CUDNN_MEASURED}", flush=True)
+    if have != CUDNN_MEASURED:
+        fail(f"ballast: cuDNN {have} is not the build the errata's engine "
+             f"numbers were measured on ({CUDNN_MEASURED}); find the FFT "
+             f"engines' numbers for it and pin the rules to it")
+    root = tempfile.mkdtemp(prefix="ballast_")
+    free = _ballast_run(root, "free", 0)
+    need = int(free["peak_reserved"] / 2**20) + BALLAST_MARGIN_MIB
+    tight = _ballast_run(root, "ballast", need)
+    shutil.rmtree(root, ignore_errors=True)
+    n, of, err, only_free, only_tight = ballast_compare(free, tight)
+    for name, r in (("free", free), ("ballast", tight)):
+        print(f"ballast [{card}]: {name} run: {r['free'] / 2**20:.0f} "
+              f"of {r['total'] / 2**20:.0f} MiB free before, "
+              f"{r['free_at_step'] / 2**20:.0f} at the step (ballast "
+              f"{r['ballast'] / 2**20:.0f} MiB), peak allocated "
+              f"{r['peak_alloc'] / 2**20:.1f} MiB, reserved "
+              f"{r['peak_reserved'] / 2**20:.1f}; fp32 step "
+              f"{r['step_ms']:.3f} ms (CUDA events, median of 3); "
+              f"{len(r['kernels'])} device kernels; {r['wall_s']:.1f} s",
+              flush=True)
+    print(f"ballast: {n} of {of} tensors differ (max abs {err:.3e}); "
+          f"kernels only in the free run: {only_free}; only in the ballast "
+          f"run: {only_tight}", flush=True)
+    if n:
+        fail(f"ballast: the step's bits depend on the free memory "
+             f"({n} of {of} tensors differ)")
+
+
 # ------------------------------------------------- determinism (on request)
 # `python3 chip_smoke.py determinism`: not part of the default run.  From
 # one saved state (the flagship's four networks at full width, their BN
@@ -4849,6 +5422,8 @@ def main():
     except ImportError as e:
         print(f"FAIL: terrain_tpu_torch is not beside this script ({e})")
         return 3
+    if sys.argv[1:2] == ["_ballast"]:  # the ballast phase's child process
+        return ballast_child(torch, sys.argv[2], int(sys.argv[3]))
     only = set(sys.argv[1:])  # e.g. `kernels train`; none = every phase
     unknown = only - PHASES
     if unknown:
@@ -4897,6 +5472,11 @@ def main():
             check_autograd(torch)
         print(f"phase kernels done at {time.perf_counter() - t_start:.0f} s",
               flush=True)
+    if want("ballast"):
+        _free(torch)
+        ballast_slice(torch, card)
+        print(f"phase ballast done at {time.perf_counter() - t_start:.0f} s",
+              flush=True)
     if want("serve"):
         pipe, serve_launches = serve_slice(torch, card)
         device_breakdown(torch, pipe, card)
@@ -4931,6 +5511,10 @@ def main():
     if want("scan"):
         scan_launches = scan_slice(torch, card)
         print(f"phase scan done at {time.perf_counter() - t_start:.0f} s",
+              flush=True)
+    if want("nans"):
+        nans_slice(torch, card)
+        print(f"phase nans done at {time.perf_counter() - t_start:.0f} s",
               flush=True)
     if want("parallel"):
         world1_launches, world1_scan_launches, parallel_launches = \

@@ -12,10 +12,12 @@ Environment, as in terrain_tpu:
   TERRAIN_BS         batch size (default 4)
   TERRAIN_QUICK      "1" -> one minibatch per loop
   TERRAIN_FAST       "1" -> the dataset lives on the device (DeviceDataset)
-  TERRAIN_RASTER     "heightmap.png,texture.png" -> random crops cut on the
+  TERRAIN_RASTER     "heightmap.png,texture.jpg" -> random crops cut on the
                      fly from one raster pair (data/crops.py); before the
-                     synthetic and h5 sources, TERRAIN_FAST ignored.  PNG
-                     only: a JPEG or other format raises
+                     synthetic and h5 sources, TERRAIN_FAST ignored.  PNG or
+                     baseline JPEG (the port's own decoders); TIFF, GIF,
+                     BMP, WebP and the JPEG kinds data/jpeg.py does not
+                     take (progressive, ...) raise
   TERRAIN_EPOCH_CROPS  crops per train epoch of TERRAIN_RASTER (default
                      240; the valid pass takes a tenth, at least a batch)
   TERRAIN_DTYPE=bf16 bf16 compute over fp32 parameters
@@ -29,7 +31,9 @@ Environment, as in terrain_tpu:
   TERRAIN_DISC_OUT   activation of the DCGAN discriminator's final conv
                      (e.g. "linear"), replacing the reference's rectify
   TERRAIN_LR_MULTS   per-network lr multipliers, "net=f,net=f"
-  TERRAIN_CHECK_NANS "1" -> stop on a non-finite epoch loss
+  TERRAIN_CHECK_NANS "1" -> stop on a non-finite epoch loss; "2" -> NaN checks
+                     of every op's output inside the step (and its CUDA
+                     graph), raising at the first (utils/nan_check.py)
   TERRAIN_SWD        "1" -> per-epoch SWD pyramid and terrain W1 -> swd.txt
                      (TERRAIN_TERRAIN_METRICS=0 leaves the W1 columns out)
   TERRAIN_PREFETCH   "0" -> read host iterators in the step loop
@@ -72,6 +76,7 @@ from terrain_tpu_torch.train.checkpoint import pick_best_epoch
 from terrain_tpu_torch.train.step import (
     build_eval_step, build_train_step, step_state)
 from terrain_tpu_torch.train.trainer import TwoStageGAN
+from terrain_tpu_torch.utils import nan_check
 
 _TEST1_DCGAN = {"num_repeats": 0, "div": [2, 2, 4, 4, 8, 8, 8]}
 _TEST1_P2P = {"nf": 64, "act": "tanh", "num_repeats": 0}
@@ -288,7 +293,7 @@ def _spatial_steps(gan, mesh):
     place(step_state(gan.nets, gan.opt_states), mesh)
     step_kw = dict(alpha=gan._step_kw["alpha"], lsgan=gan._step_kw["lsgan"],
                    reconstruction=gan._step_kw["reconstruction"],
-                   spatial_mesh=mesh)
+                   spatial_mesh=mesh, check_nans=nan_check.enabled())
     return (build_train_step(gan.nets, gan.optimizer,
                              train_mode=gan.train_mode,
                              lr_mults=gan._train_kw["lr_mults"], **step_kw),
@@ -318,49 +323,55 @@ def get_device_datasets(dataset, is_a_grayscale, is_b_grayscale, device=None):
                               is_b_grayscale, device=device))
 
 
-# raster formats the port does not decode, by file extension and by magic
-_NOT_PNG_EXT = {".jpg": "JPEG", ".jpeg": "JPEG", ".tif": "TIFF",
-                ".tiff": "TIFF", ".gif": "GIF", ".bmp": "BMP",
-                ".webp": "WebP"}
+# raster formats by file extension and by magic; the port decodes PNG and
+# JPEG with its own codecs and refuses the others by name
+_EXT = {".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
+        ".tif": "TIFF", ".tiff": "TIFF", ".gif": "GIF", ".bmp": "BMP",
+        ".webp": "WebP"}
 _MAGIC = ((b"\x89PNG\r\n\x1a\n", "PNG"), (b"\xff\xd8\xff", "JPEG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"GIF8", "GIF"),
           (b"BM", "BMP"), (b"RIFF", "WebP"))
 
 
-def _refuse_unless_png(path, fmt):
-    if fmt != "PNG":
+def _refuse_unless_decoded(path, fmt):
+    if fmt not in ("PNG", "JPEG"):
         raise NotImplementedError(
-            f"TERRAIN_RASTER: {path} is {fmt}, not PNG; the port decodes PNG "
-            f"rasters only, with its own codec (it depends on no image "
+            f"TERRAIN_RASTER: {path} is {fmt}; the port decodes PNG and "
+            f"JPEG rasters only, with its own codecs (it depends on no image "
             f"library): convert the file to PNG")
 
 
 def read_raster_pair(value):
-    """TERRAIN_RASTER="heightmap.png,texture.png" -> (heightmap (H, W),
-    texture (H, W, 3)), decoded by the port's PNG codec (serve/png.py): the
+    """TERRAIN_RASTER="heightmap.png,texture.jpg" -> (heightmap (H, W),
+    texture (H, W, 3)), decoded by the port's PNG codec (serve/png.py) or
+    JPEG decoder (data/jpeg.py), either file in either format: the
     heightmap's first channel and the texture's first three, as terrain_tpu
-    takes them.  A file named or starting as another format raises
-    NotImplementedError, by name before any file is opened, by its first
-    bytes before either is decoded."""
+    takes them (imageio's bytes).  A file named or starting as another
+    format raises NotImplementedError, by name before any file is opened,
+    by its first bytes before either is decoded; so does a JPEG of a kind
+    the decoder does not take (data/jpeg.py)."""
+    from terrain_tpu_torch.data.jpeg import decode_jpeg
     from terrain_tpu_torch.serve.png import decode_png
 
     paths = value.split(",")
     if len(paths) != 2:
         raise ValueError(f"TERRAIN_RASTER={value!r}: expected "
-                         f'"heightmap.png,texture.png"')
+                         f'"heightmap.png,texture.jpg"')
     for path in paths:
-        _refuse_unless_png(path, _NOT_PNG_EXT.get(
+        _refuse_unless_decoded(path, _EXT.get(
             os.path.splitext(path)[1].lower(), "PNG"))
+    fmts = []
     for path in paths:
         with open(path, "rb") as f:
             head = f.read(8)
-        _refuse_unless_png(path, next((name for magic, name in _MAGIC
-                                       if head.startswith(magic)),
-                                      "of an unknown format"))
+        fmts.append(next((name for magic, name in _MAGIC
+                          if head.startswith(magic)), "of an unknown format"))
+        _refuse_unless_decoded(path, fmts[-1])
     imgs = []
-    for path in paths:
+    for path, fmt in zip(paths, fmts):
         with open(path, "rb") as f:
-            imgs.append(decode_png(f.read()))
+            img = (decode_png if fmt == "PNG" else decode_jpeg)(f.read())
+        imgs.append(img if img.ndim == 3 else img[..., None])
     return imgs[0][..., 0], imgs[1][..., :3]
 
 

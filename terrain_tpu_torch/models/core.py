@@ -168,3 +168,41 @@ def param_count(module):
     """Learnable parameters (BN running statistics excluded), as the JAX
     param_count over the params tree."""
     return sum(p.numel() for p in module.parameters())
+
+
+def keystr(path):
+    """A key path as jax.tree_util.keystr writes it: ['enc'][0]['w']."""
+    return "".join(f"[{k!r}]" if isinstance(k, str) else f"[{k}]"
+                   for k in path)
+
+
+def tree_leaves_with_path(tree, path=()):
+    """(key path, leaf) of a terrain_tpu tree of dicts and lists, in
+    jax.tree_util's flattening order (a dict's keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_path(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def describe(net):
+    """terrain_tpu's models/core.describe for the port's network: its
+    parameter count, its factory config, and each parameter's key path,
+    shape and dtype in terrain_tpu's tree (models/convert.to_jax: JAX
+    layouts; a sharded weight gathered whole, a collective), the same text
+    for the same weights."""
+    from terrain_tpu_torch.models import convert
+
+    params = convert.to_jax(net)[0]
+    flat = list(tree_leaves_with_path(params))
+    total = sum(int(np.prod(leaf.shape)) for _, leaf in flat)
+    lines = [f"{net.name}: {total:,} learnable params"]
+    for k in sorted(net.config):
+        lines.append(f"  config {k} = {net.config[k]!r}")
+    for path, leaf in flat:
+        lines.append(f"  {keystr(path)} {tuple(leaf.shape)} {leaf.dtype}")
+    return "\n".join(lines)

@@ -63,6 +63,13 @@ class DCGANGenerator(nn.Module):
         self.latent_dim = latent_dim
         self.out_rows = final_size
         self.out_ch = 1 if is_a_grayscale else 3
+        # terrain_tpu's Network name and factory config (models/core.describe)
+        self.name = "dcgan_generator"
+        self.config = dict(
+            latent_dim=latent_dim, out_ch=self.out_ch, nch=nch, h=h,
+            initial_size=initial_size, final_size=final_size, div=div,
+            num_repeats=num_repeats, dropout_p=dropout_p,
+            bilinear_upsample=bilinear_upsample)
         self.nch, self.h, self.initial_size = nch, h, initial_size
         self.num_repeats, self.dropout_p = num_repeats, dropout_p
         self.bilinear_upsample = bilinear_upsample
@@ -166,6 +173,12 @@ class DCGANDiscriminator(nn.Module):
         g = generator if generator is not None else torch.Generator()
         self.in_shp = in_shp
         self.out_rows = 1  # (N, 1): whole on every rank
+        self.name = "dcgan_discriminator"
+        self.config = dict(
+            in_shp=in_shp, in_ch=1 if is_a_grayscale else 3, nch=nch, h=h,
+            div=div, num_repeats=num_repeats, bn=bn, pool_mode=pool_mode,
+            nonlinearity=nonlinearity,
+            conv_out_nonlinearity=conv_out_nonlinearity)
         self.bn, self.pool_mode = bn, pool_mode
         self.act = get_activation(nonlinearity)
         self.conv_out_act = get_activation(conv_out_nonlinearity)

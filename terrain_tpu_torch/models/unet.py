@@ -58,6 +58,12 @@ class UNetGenerator(nn.Module):
         g = generator if generator is not None else torch.Generator()
         self.in_shp, self.n_down = in_shp, n_down
         self.out_rows = in_shp
+        self.name = "unet_generator"
+        self.config = dict(
+            in_shp=in_shp, in_ch=1 if is_a_grayscale else 3,
+            out_ch=1 if is_b_grayscale else 3, nf=nf, act=act,
+            dropout_p=dropout_p, num_repeats=num_repeats,
+            bilinear_upsample=bilinear_upsample, n_down=n_down)
         self.dropout_p, self.num_repeats = float(dropout_p), num_repeats
         self.bilinear_upsample = bilinear_upsample
         self.compute_dtype = compute_dtype
@@ -189,10 +195,16 @@ class PatchGAN(nn.Module):
     conv_out.  `bn_rule(idx)` says which blocks carry BN."""
 
     def __init__(self, in_shp, is_a_grayscale, is_b_grayscale, nf, act,
-                 mul_factor, num_repeats, bn_rule, compute_dtype, generator):
+                 mul_factor, num_repeats, bn_rule, compute_dtype, generator,
+                 name="patchgan_discriminator"):
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.in_shp = in_shp
+        self.name = name
+        self.config = dict(
+            in_shp=in_shp, a_ch=1 if is_a_grayscale else 3,
+            b_ch=1 if is_b_grayscale else 3, nf=nf, act=act,
+            mul_factor=tuple(mul_factor), num_repeats=num_repeats)
         self.act = get_activation(act)
         self.compute_dtype = compute_dtype
         cin = (1 if is_a_grayscale else 3) + (1 if is_b_grayscale else 3)
@@ -248,7 +260,7 @@ def discriminator2(in_shp, is_a_grayscale, is_b_grayscale, nf=32,
     """PatchGAN variant with BN on every block except the first."""
     return PatchGAN(in_shp, is_a_grayscale, is_b_grayscale, nf, act,
                     mul_factor, num_repeats, lambda idx: idx != 0,
-                    compute_dtype, generator)
+                    compute_dtype, generator, name="patchgan_discriminator2")
 
 
 class FakeGenerator(nn.Module):
@@ -259,6 +271,7 @@ class FakeGenerator(nn.Module):
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.in_shp, self.compute_dtype = in_shp, compute_dtype
+        self.name, self.config = "fake_generator", dict(in_shp=in_shp)
         self.act = get_activation(act)
         self.conv = Conv(3, 1 if is_a_grayscale else 3,
                          1 if is_b_grayscale else 3, g)
@@ -279,6 +292,7 @@ class FakeDiscriminator(nn.Module):
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.in_shp, self.compute_dtype = in_shp, compute_dtype
+        self.name, self.config = "fake_discriminator", dict(in_shp=in_shp)
         cin = (1 if is_a_grayscale else 3) + (1 if is_b_grayscale else 3)
         self.conv = Conv(3, cin, 1, g)
 

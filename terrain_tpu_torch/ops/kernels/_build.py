@@ -28,6 +28,8 @@ import shutil
 import subprocess
 import threading
 
+from terrain_tpu_torch.utils import nan_check
+
 _HERE = os.path.dirname(os.path.abspath(__file__))  # .../ops/kernels
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "_build")
@@ -143,11 +145,14 @@ class CudaKernel:
     each launch recorded into a CUDA graph once, at its capture.  A
     graph's replays run the recorded launches without calling `launch`,
     so they add nothing; a run sets the count to 0 and reads it to show
-    the path went through the kernel."""
+    the path went through the kernel.  `name` (the entry point without
+    "_launch" unless given) names it in reports and NaN checks."""
 
-    def __init__(self, source, entry, argtypes):
+    def __init__(self, source, entry, argtypes, name=None):
         self.source = source
         self.entry = entry
+        # the kernel's name in reports and NaN checks
+        self.name = name or entry.removesuffix("_launch")
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
@@ -173,12 +178,16 @@ class CudaKernel:
                 self._fn = fn
         return self._fn
 
-    def launch(self, *args):
+    def launch(self, *args, outputs=()):
+        """Calls the entry point with `args`; `outputs`, the tensors it
+        writes, are then checked for NaNs when TERRAIN_CHECK_NANS=2's
+        checks are recording (utils/nan_check.py)."""
         rc = self._bind()(*args)
         if rc != 0:
             msg = self._err(rc).decode(errors="replace")
             raise RuntimeError(f"{self.entry} launch failed: {msg} ({rc})")
         self.launches += 1
+        nan_check.kernel_outputs(self.name, *outputs)
 
 
 def _capturing():

@@ -28,7 +28,7 @@ from terrain_tpu_torch.ops.kernels._build import (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 KERNEL = CudaKernel("bilinear", "bilinear_2x_launch", [_P] * 2 + [_I] * 4
-                    + [_P])
+                    + [_P], name="bilinear")
 # forward calls of the plain version (CPU tensors), backward passes of
 # Bilinear2xFn, and inputs the op had to copy into NHWC-contiguous memory
 PLAIN = OpCounter()
@@ -114,7 +114,8 @@ def bilinear_2x_fwd(x):
                          f"16-byte aligned)")
     n, h, w, c = x.shape
     y = torch.empty((n, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
-    KERNEL.launch(x.data_ptr(), y.data_ptr(), n, h, w, c, stream_of(x))
+    KERNEL.launch(x.data_ptr(), y.data_ptr(), n, h, w, c, stream_of(x),
+                  outputs=(y,))
     return y
 
 

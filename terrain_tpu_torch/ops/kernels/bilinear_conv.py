@@ -102,7 +102,8 @@ def bilinear_conv_fwd(x, w, b):
     f = w.shape[3]
     y = torch.empty((n, 2 * h, 2 * wd, f), dtype=x.dtype, device=x.device)
     KERNEL.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                  n, h, wd, c, f, _DTYPES[x.dtype], stream_of(x))
+                  n, h, wd, c, f, _DTYPES[x.dtype], stream_of(x),
+                  outputs=(y,))
     return y
 
 

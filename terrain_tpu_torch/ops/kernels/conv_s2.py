@@ -150,7 +150,8 @@ def conv_s2_fwd(x, w, b, slope=None):
     y = torch.empty((n, h // 2, wd // 2, f), dtype=x.dtype, device=x.device)
     KERNEL_FWD.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                       n, h, wd, cin, f, int(slope is not None),
-                      float(slope or 0.0), _DTYPES[x.dtype], stream_of(x))
+                      float(slope or 0.0), _DTYPES[x.dtype], stream_of(x),
+                      outputs=(y,))
     return y
 
 
@@ -179,7 +180,8 @@ def conv_s2_dw(x, g, y=None, slope=None):
     KERNEL_DW.launch(x.data_ptr(), g.data_ptr(),
                      y.data_ptr() if mask else None, part.data_ptr(),
                      out.data_ptr(), nb, n, h, wd, cin, f, int(mask),
-                     float(slope or 0.0), _DTYPES[x.dtype], stream_of(x))
+                     float(slope or 0.0), _DTYPES[x.dtype], stream_of(x),
+                     outputs=(out,))
     return out[:rows - 1].reshape(K, K, cin, f), out[rows - 1]
 
 

@@ -134,7 +134,7 @@ def conv_stem_fwd(x, w, b, slope=None):
     y = torch.empty((n, h, wd, f), dtype=x.dtype, device=x.device)
     KERNEL_FWD.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                       n, h, wd, f, int(slope is not None), float(slope or 0.0),
-                      _DTYPES[x.dtype], stream_of(x))
+                      _DTYPES[x.dtype], stream_of(x), outputs=(y,))
     return y
 
 
@@ -157,7 +157,8 @@ def conv_stem_dw(x, g, y=None, slope=None):
     KERNEL_DW.launch(x.data_ptr(), g.data_ptr(),
                      y.data_ptr() if mask else None, part.data_ptr(),
                      out.data_ptr(), nb, n, h, wd, f, int(mask),
-                     float(slope or 0.0), _DTYPES[x.dtype], stream_of(x))
+                     float(slope or 0.0), _DTYPES[x.dtype], stream_of(x),
+                     outputs=(out,))
     return out[:K * K].reshape(K, K, 1, f), out[K * K]
 
 
@@ -174,7 +175,8 @@ def conv_stem_dx(g, w, y=None, slope=None):
     dx = torch.empty((n, h, wd, 1), dtype=g.dtype, device=g.device)
     KERNEL_DX.launch(g.data_ptr(), y.data_ptr() if mask else None,
                      w.data_ptr(), dx.data_ptr(), n, h, wd, f, int(mask),
-                     float(slope or 0.0), _DTYPES[g.dtype], stream_of(g))
+                     float(slope or 0.0), _DTYPES[g.dtype], stream_of(g),
+                     outputs=(dx,))
     return dx
 
 

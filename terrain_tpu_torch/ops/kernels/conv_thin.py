@@ -148,7 +148,7 @@ def conv_thin_fwd(x, w):
     f = w.shape[3]
     y = torch.empty((n, h, wd, f), dtype=x.dtype, device=x.device)
     KERNEL.launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c, f,
-                  _DTYPES[x.dtype], stream_of(x))
+                  _DTYPES[x.dtype], stream_of(x), outputs=(y,))
     return y
 
 
@@ -165,7 +165,7 @@ def conv_thin_dx(g, w):
     check_dx(w)
     dx = torch.empty((n, h, wd, c), dtype=g.dtype, device=g.device)
     KERNEL_DX.launch(g.data_ptr(), w.data_ptr(), dx.data_ptr(), n, h, wd, c,
-                     f, _DTYPES[g.dtype], stream_of(g))
+                     f, _DTYPES[g.dtype], stream_of(g), outputs=(dx,))
     return dx
 
 
@@ -186,7 +186,7 @@ def conv_thin_dw(x, g):
     ptr = part.data_ptr()
     KERNEL_DW.launch(x.data_ptr(), g.data_ptr(), ptr,
                      ptr + 4 * nb * K * K * c * f, nb, n, h, wd, c, f,
-                     _DTYPES[x.dtype], stream_of(x))
+                     _DTYPES[x.dtype], stream_of(x), outputs=(part[nb],))
     return part[nb].view(K, K, c, f)
 
 

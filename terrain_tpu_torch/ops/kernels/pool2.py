@@ -116,7 +116,7 @@ def pool2_fwd(x):
     n, h, w, c = _check("pool2", x)
     y = torch.empty((n, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
     KERNEL_FWD.launch(x.data_ptr(), y.data_ptr(), n, h, w, c,
-                      _DTYPES[x.dtype], stream_of(x))
+                      _DTYPES[x.dtype], stream_of(x), outputs=(y,))
     return y
 
 
@@ -128,7 +128,7 @@ def pool2_bwd(x, g):
     n, h, w, c = _check("pool2_bwd", x, g)
     dx = torch.empty_like(x)
     KERNEL_BWD.launch(x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, h, w, c,
-                      _DTYPES[x.dtype], stream_of(x))
+                      _DTYPES[x.dtype], stream_of(x), outputs=(dx,))
     return dx
 
 

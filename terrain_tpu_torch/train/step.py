@@ -36,6 +36,13 @@ on CPU tensors and over a gloo group.  Under a mesh every rank captures
 and replays the same collectives: whether to capture anew is agreed by
 all of them before each chunk (`_on_any_rank`).
 
+`check_nans` (TERRAIN_CHECK_NANS=2; utils/nan_check.py): each step runs
+under NaN checks of every op's output and raises FloatingPointError at
+the first NaN, naming the step within its chunk, the network, the layer
+and the op.  A chunk's checks are recorded into its graph with the steps
+and read once a chunk; under a mesh the flag goes through the all-reduce
+of `_on_any_rank`, so every rank raises together.
+
 Spatial parallelism (`spatial_mesh`, the four networks held in slabs of
 image rows over the mesh's model group, parallel/spatial.py, in every
 `train_mode`): the batch is prepared whole (gathered and augmented as one
@@ -48,6 +55,8 @@ losses, and each active network's slab layers' gradients are summed over
 'model'.
 """
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 from torch.func import functional_call
@@ -55,6 +64,7 @@ from torch.func import functional_call
 from terrain_tpu_torch.ops.norm import BatchNorm
 from terrain_tpu_torch.parallel import spatial
 from terrain_tpu_torch.train.losses import adv_loss, reconstruction_loss
+from terrain_tpu_torch.utils import nan_check
 
 NET_NAMES = ("dcgan_gen", "dcgan_disc", "p2p_gen", "p2p_disc")
 
@@ -198,7 +208,8 @@ def _spatial_rows(nets, spatial_mesh, data_group):
 
 def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
                      reconstruction="l1", train_mode="both", prepare=None,
-                     lr_mults=None, data_group=None, spatial_mesh=None):
+                     lr_mults=None, data_group=None, spatial_mesh=None,
+                     check_nans=False):
     """Returns train_step(opt_states, batch, rngs, lr) -> losses.
 
     `batch` is whatever `prepare(batch, rngs)` maps to a (Z, X, Y) tuple on
@@ -230,7 +241,10 @@ def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
     block, as with a data group; `prepare` runs on its whole images and
     each network takes its rows.  An active network's slab layers'
     gradients are summed over the model group, its whole-row layers' are
-    whole already (parallel/spatial.py); then the data group averages."""
+    whole already (parallel/spatial.py); then the data group averages.
+
+    `check_nans`: the step carries NaN checks (`.checks`); an eager call
+    runs as a chunk of one (`_loop`), which reads them."""
     active = ACTIVE[train_mode]
     lr_mults = dict(lr_mults or {})
     unknown = set(lr_mults) - set(NET_NAMES)
@@ -239,6 +253,9 @@ def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
     rows, data_group = _spatial_rows(nets, spatial_mesh, data_group)
 
     def train_step(opt_states, batch, rngs, lr):
+        if _eager(train_step):
+            return _loop(lambda b, r: train_step(opt_states, b, r, lr),
+                         [batch], [rngs], train_step)[0]
         Z, X, Y = prepare(batch, rngs) if prepare is not None else batch
         losses, grads = losses_and_grads(
             nets, Z, X, Y, rngs, active=active, alpha=alpha, lsgan=lsgan,
@@ -250,13 +267,15 @@ def build_train_step(nets, optimizer, *, alpha=100.0, lsgan=False,
             grads = {n: mean_over(grads[n], data_group) for n in active}
             losses = _mean_losses(losses, data_group)
         for n in active:
-            optimizer.update(list(nets[n].parameters()), grads[n],
-                             opt_states[n], lr * lr_mults.get(n, 1.0))
+            with nan_check.scope(n, "optimizer update"):
+                optimizer.update(list(nets[n].parameters()), grads[n],
+                                 opt_states[n], lr * lr_mults.get(n, 1.0))
         return losses
 
     # what a chunk of this step needs to know (build_scan_step)
     train_step.nets, train_step.optimizer = nets, optimizer
     train_step.groups = step_groups(nets, data_group)
+    train_step.checks = _checks(nets, check_nans)
     return train_step
 
 
@@ -367,9 +386,13 @@ class CapturedSteps:
     from the capturing stream to the group's own stream and joined back,
     and its buffers come from the graph's private pool.  A captured
     collective is not watched by the process group's timeout: a replay
-    waits for the other ranks' replays as long as it takes."""
+    waits for the other ranks' replays as long as it takes.
 
-    def __init__(self, step, batches, rngs, state=()):
+    `checks` (utils/nan_check.NanChecks): the steps' NaN checks are
+    captured with them, into its flag buffer; a replay rewrites every
+    slot, and the caller reads them."""
+
+    def __init__(self, step, batches, rngs, state=(), checks=None):
         self.k = len(batches)
         self.static = [torch.stack([b[i] for b in batches])
                        for i in range(len(batches[0]))]
@@ -382,7 +405,8 @@ class CapturedSteps:
         side = _capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))  # inputs, saved
         with torch.cuda.stream(side):
-            step(slots[0], rngs[0])
+            with _checking(checks, 0, self.k):
+                step(slots[0], rngs[0])
         torch.cuda.current_stream(dev).wait_stream(side)
         with torch.no_grad():
             for t, v in zip(state, saved):
@@ -393,9 +417,14 @@ class CapturedSteps:
         self.graph = torch.cuda.CUDAGraph()
         for g in gens:
             self.graph.register_generator_state(g)
+        if checks is not None:
+            checks.reset()  # the warm-up step's checks are not read
         with torch.cuda.graph(self.graph, stream=side):
-            self.out = _stack_losses([step(slots[t], rngs[t])
-                                      for t in range(self.k)])
+            out = []
+            for t in range(self.k):
+                with _checking(checks, t, self.k):
+                    out.append(step(slots[t], rngs[t]))
+            self.out = _stack_losses(out)
 
     def __call__(self, batches):
         for i, s in enumerate(self.static):
@@ -405,32 +434,89 @@ class CapturedSteps:
 
 
 def _on_any_rank(flag, groups, device):
-    """Whether `flag` holds on any rank that shares a group of `groups`
-    with this one: one all-reduce (MAX) of one int over each group, in
-    `groups`' order, which is the same on every rank (`step_groups`).  One
-    pass reaches every rank of a mesh: its columns (data groups) then its
-    rows (model groups), or the group of the whole mesh."""
-    t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+    """Whether `flag` (a bool, or a device int32 of shape (1,)) holds on
+    any rank that shares a group of `groups` with this one: one all-reduce
+    (MAX) of one int over each group, in `groups`' order, which is the
+    same on every rank (`step_groups`).  One pass reaches every rank of a
+    mesh: its columns (data groups) then its rows (model groups), or the
+    group of the whole mesh."""
+    t = (flag if torch.is_tensor(flag) else
+         torch.tensor([int(flag)], dtype=torch.int32, device=device))
     for g in groups:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
     return bool(t.item())
 
 
-def _replay(slot, key, step, batches, rngs, state=(), groups=()):
+def _checking(checks, t, k):
+    """NaN checks recording step t of a chunk of k, or nothing."""
+    if checks is None:
+        return contextlib.nullcontext()
+    return checks.step(t, k)
+
+
+def _raise_if_nan(checks, groups, device):
+    """One host read of the checks' flag, over `groups` as `_on_any_rank`
+    makes it: every rank raises when any rank saw a NaN."""
+    if _on_any_rank(checks.hit(), groups, device):
+        checks.raise_first()
+
+
+def _checks(nets, check_nans):
+    """A step's NaN checks (utils/nan_check.NanChecks) for its eager calls
+    and plain-loop chunks, or None."""
+    if not check_nans:
+        return None
+    dev = next(p.device for net in nets.values() for p in net.parameters())
+    return nan_check.NanChecks(nets, dev)
+
+
+def _eager(step):
+    """Whether a call of `step` is an eager one that its NaN checks must
+    wrap: it has checks, and no chunk is recording them already."""
+    return step.checks is not None and nan_check.ACTIVE is None
+
+
+def _loop(call, batches, rngs, step):
+    """A chunk of `step` as a plain loop of `call(batch, rngs)`: the list of
+    the k outputs.  Under the step's NaN checks each step's are recorded
+    and all are read once after the chunk (an eager call: a chunk of
+    one)."""
+    checks = step.checks
+    if checks is None:
+        return [call(b, r) for b, r in zip(batches, rngs)]
+    checks.reset()
+    out = []
+    for t, (b, r) in enumerate(zip(batches, rngs)):
+        with checks.step(t, len(batches)):
+            out.append(call(b, r))
+    _raise_if_nan(checks, step.groups, checks.flags.device)
+    return out
+
+
+def _replay(slot, key, step, call, batches, rngs, state=()):
     """The graph in `slot` for `key`, captured anew (the stale one dropped
-    first) when the key changed, called on `batches`.  Over process groups
-    the graph is captured anew when the key changed on any of their ranks
-    (`_on_any_rank`, at every call): a rank that captured while another
-    replayed would pair its warm-up step's collectives with the other's
-    replay, and hang or sum the wrong tensors."""
+    first) when the key changed, called on `batches`.  Over the step's
+    process groups the graph is captured anew when the key changed on any
+    of their ranks (`_on_any_rank`, at every call): a rank that captured
+    while another replayed would pair its warm-up step's collectives with
+    the other's replay, and hang or sum the wrong tensors.  A step with
+    NaN checks gets a graph of its own checks, read after each replay."""
+    groups = step.groups
+    dev = batches[0][0].device
     stale = slot.get("key") != key
     if groups:
-        stale = _on_any_rank(stale, groups, batches[0][0].device)
+        stale = _on_any_rank(stale, groups, dev)
     if stale:
         slot.clear()
-        slot["graph"] = CapturedSteps(step, batches, rngs, state)
+        slot["checks"] = (None if step.checks is None
+                          else nan_check.NanChecks(step.nets, dev))
+        slot["graph"] = CapturedSteps(call, batches, rngs, state,
+                                      checks=slot["checks"])
         slot["key"] = key
-    return slot["graph"](batches)
+    out = slot["graph"](batches)
+    if slot["checks"] is not None:
+        _raise_if_nan(slot["checks"], groups, dev)
+    return out
 
 
 def build_scan_step(train_step):
@@ -444,25 +530,26 @@ def build_scan_step(train_step):
     The graph is captured at the first call and replayed at every later
     one; it is captured anew when lr, the batches' shapes, the generators
     or the addresses of the state it updates (a reloaded optimizer state)
-    change, on this rank or on any rank it shares a group with.  lr is a
+    change, on this rank or on any rank it shares a group with.  A step
+    with NaN checks (`check_nans`) has them recorded step by step and read
+    once a chunk.  lr is a
     constant of the graph, so the update is the eager step's own fused
     kernels, and an lr change (ReduceLROnPlateau) takes effect at the next
     chunk; adam's step count and bias correction live on the device, so a
     replay advances them."""
     slot = {}
-    groups = train_step.groups
 
     def scan_step(opt_states, batches, rngs, lr):
-        if not _captured(batches, groups):
-            return _stack_losses([train_step(opt_states, b, r, lr)
-                                  for b, r in zip(batches, rngs)])
+        def call(b, r):
+            return train_step(opt_states, b, r, lr)
+
+        if not _captured(batches, train_step.groups):
+            return _stack_losses(_loop(call, batches, rngs, train_step))
         state = step_state(train_step.nets, opt_states)
         key = (float(lr), _layout(batches),
                tuple(map(id, _generators(rngs))),
                tuple(t.data_ptr() for t in state))
-        return _replay(slot, key,
-                       lambda b, r: train_step(opt_states, b, r, lr),
-                       batches, rngs, state, groups)
+        return _replay(slot, key, train_step, call, batches, rngs, state)
 
     return scan_step
 
@@ -472,28 +559,29 @@ def build_scan_eval(eval_step):
     scan_eval(batches, rngs) -> dict of (k,) losses; a loop or one CUDA
     graph by the rule of `build_scan_step`."""
     slot = {}
-    groups = eval_step.groups
 
     def scan_eval(batches, rngs):
-        if not _captured(batches, groups):
-            return _stack_losses([eval_step(b, r)
-                                  for b, r in zip(batches, rngs)])
+        if not _captured(batches, eval_step.groups):
+            return _stack_losses(_loop(eval_step, batches, rngs, eval_step))
         key = (_layout(batches), tuple(map(id, _generators(rngs))))
-        return _replay(slot, key, eval_step, batches, rngs, groups=groups)
+        return _replay(slot, key, eval_step, eval_step, batches, rngs)
 
     return scan_eval
 
 
 def build_eval_step(nets, *, alpha=100.0, lsgan=False, reconstruction="l1",
-                    prepare=None, data_group=None, spatial_mesh=None):
+                    prepare=None, data_group=None, spatial_mesh=None,
+                    check_nans=False):
     """Returns eval_step(batch, rngs) -> losses: train-mode forwards (batch
     statistics, live dropout), no update of parameters or BN statistics.
     With a `data_group`, the losses are their means over it;
-    `spatial_mesh` as build_train_step's."""
+    `spatial_mesh` and `check_nans` as build_train_step's."""
     rows, data_group = _spatial_rows(nets, spatial_mesh, data_group)
 
     @torch.no_grad()
     def eval_step(batch, rngs=None):
+        if _eager(eval_step):
+            return _loop(eval_step, [batch], [rngs], eval_step)[0]
         Z, X, Y = prepare(batch, rngs) if prepare is not None else batch
         losses = forward_losses(nets, Z, X, Y, rngs, alpha=alpha,
                                 lsgan=lsgan, reconstruction=reconstruction,
@@ -502,7 +590,9 @@ def build_eval_step(nets, *, alpha=100.0, lsgan=False, reconstruction="l1",
             losses = _mean_losses(losses, data_group)
         return losses
 
+    eval_step.nets = nets
     eval_step.groups = step_groups(nets, data_group)
+    eval_step.checks = _checks(nets, check_nans)
     return eval_step
 
 

@@ -80,8 +80,14 @@ meshes, one process and terrain_tpu.  Host iterators are sharded by the
 data index (HostShardIterator's process_index=mesh.data_index,
 process_count=n_data).
 
+TERRAIN_CHECK_NANS=2 runs every train and eval step, and every chunk's
+CUDA graph, under the NaN checks of utils/nan_check.py (the JAX package's
+checkify float checks): the first op whose output holds a NaN raises
+FloatingPointError naming the step within its chunk, the network, the
+layer and the op; k stays as TERRAIN_SCAN chose it.
+
 Not ported yet, and refused rather than ignored: TERRAIN_AOT and its
-TERRAIN_AOT_KEY, TERRAIN_CHECK_NANS=2.
+TERRAIN_AOT_KEY.
 """
 
 import glob
@@ -96,6 +102,7 @@ from terrain_tpu_torch.data import (
 from terrain_tpu_torch.data.prefetch import Prefetcher
 from terrain_tpu_torch.device import resolve_device
 from terrain_tpu_torch.models import convert, param_count
+from terrain_tpu_torch.models.core import describe
 from terrain_tpu_torch.ops.norm import BatchNorm
 from terrain_tpu_torch.parallel.mesh import place
 from terrain_tpu_torch.parallel.tp import shard_module
@@ -108,6 +115,8 @@ from terrain_tpu_torch.train.step import (
     ACTIVE, NET_NAMES, build_eval_step, build_scan_eval, build_scan_step,
     build_train_step, step_state)
 from terrain_tpu_torch.utils.async_writer import AsyncWriter
+from terrain_tpu_torch.utils import nan_check
+from terrain_tpu_torch.utils.arch_diagram import draw_network
 from terrain_tpu_torch.utils.images import (
     convert_to_rgb, save_png_u8, to_u8, write_image_grid)
 from terrain_tpu_torch.utils.profiling import trace
@@ -158,8 +167,6 @@ class TwoStageGAN:
         if os.environ.get("TERRAIN_AOT_KEY", "shapes") != "shapes":
             _not_ported("TERRAIN_AOT_KEY (the key of TERRAIN_AOT's cache)",
                         "utils")
-        if os.environ.get("TERRAIN_CHECK_NANS") == "2":
-            _not_ported("TERRAIN_CHECK_NANS=2 (use 1)", "utils")
         self.device = resolve_device(device)
         self.in_shp = in_shp
         self.latent_dim = latent_dim
@@ -266,10 +273,16 @@ class TwoStageGAN:
             place(step_state(self.nets, self.opt_states), self.mesh)
 
     def _build_steps(self, prepare):
+        """(train step, eval step) on `prepare`'s batches, under NaN checks
+        when TERRAIN_CHECK_NANS=2 (read here, at build time, as the JAX
+        package's _jit_step reads it)."""
+        check = nan_check.enabled()
         return (build_train_step(self.nets, self.optimizer, prepare=prepare,
-                                 data_group=self._group, **self._train_kw),
+                                 data_group=self._group, check_nans=check,
+                                 **self._train_kw),
                 build_eval_step(self.nets, prepare=prepare,
-                                data_group=self._group, **self._step_kw))
+                                data_group=self._group, check_nans=check,
+                                **self._step_kw))
 
     # ------------------------------------------------------------- artifacts
     def _submit(self, fn, *args):
@@ -659,15 +672,25 @@ class TwoStageGAN:
         return best, epoch(best)
 
     def _dump_architectures(self, out_dir):
-        """arch_<net>.txt: the module tree and every parameter's shape."""
+        """arch_<net>.txt (models/core.describe: terrain_tpu's text) and
+        arch_<net>.png (utils/arch_diagram.py) for each network, at the
+        start of a fresh verbose run (terrain_tpu/train/trainer.py:533).
+        The picture keeps terrain_tpu's best-effort contract: without
+        matplotlib it is skipped, with one printed line saying so; the
+        text is always written."""
         if not self.verbose:
             return
         for name, net in self.nets.items():
             with open(os.path.join(out_dir, f"arch_{name}.txt"), "w") as g:
-                g.write(f"{net}\n\n")
-                for pname, p in net.named_parameters():
-                    g.write(f"{pname}: {tuple(p.shape)}\n")
-                g.write(f"\n{param_count(net):,} learnable params\n")
+                g.write(describe(net))
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            print(f"arch_<net>.png skipped: matplotlib does not import "
+                  f"({e}); arch_<net>.txt written")
+            return
+        for name, net in self.nets.items():
+            draw_network(net, os.path.join(out_dir, f"arch_{name}.png"))
 
     # ---------------------------------------------------------- checkpoints
     def _opt_state_to_jax(self, net):

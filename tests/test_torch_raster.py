@@ -5,8 +5,8 @@ from the same seed, byte for byte (both draw their offsets from
 native library's bytes; the port's PNG decoder undoes every filter type as
 its per-byte plain version does and reads other encoders' files;
 `_get_data` gives terrain_tpu's first batches from the same PNG pair; a
-file that is not a PNG is refused; and smoke_synthetic trains from a
-raster through the CLI.  Rasters are a few hundred pixels a side.
+JPEG is decoded (tests/test_torch_jpeg.py holds the decoder), a TIFF or
+GIF refused; and smoke_synthetic trains from a raster through the CLI.  Rasters are a few hundred pixels a side.
 """
 
 import math
@@ -216,24 +216,39 @@ def test_get_data_gives_terrain_tpus_first_batches(tmp_path, rng, hm_dtype,
 
 
 @pytest.mark.parametrize("name,head,fmt", [
-    ("b.jpg", None, "JPEG"),                      # by extension, unread
+    ("b.jpg", None, "JPEG"),                      # by extension
     ("b.png", b"\xff\xd8\xff\xe0\x00\x10JFIF", "JPEG"),  # by its bytes
     ("b.tif", None, "TIFF"),
     ("b.raster", b"GIF89a", "GIF"),
 ])
 def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, head,
                                                fmt, monkeypatch):
-    value, _, _ = _write_pair(tmp_path, rng)
+    """TIFF and GIF are refused by name, before either file is decoded; a
+    JPEG, named so or starting so, is decoded by the port's JPEG decoder to
+    imageio's bytes."""
+    value, hm, _ = _write_pair(tmp_path, rng)
     other = tmp_path / name
+    if fmt == "JPEG":
+        iio = pytest.importorskip("imageio.v3")
+        from PIL import Image
+
+        tex = rng.randint(0, 256, size=(48, 40, 3)).astype(np.uint8)
+        Image.fromarray(tex).save(other, "JPEG", quality=85)
+        got_hm, got_tex = experiments.read_raster_pair(
+            f"{value.split(',')[0]},{other}")
+        np.testing.assert_array_equal(got_hm, hm)
+        np.testing.assert_array_equal(got_tex, iio.imread(other.read_bytes()))
+        return
     if head is not None:
         other.write_bytes(head + bytes(64))
     decoded = []
     monkeypatch.setattr(png, "decode_png",
                         lambda b: decoded.append(1) or None)
-    with pytest.raises(NotImplementedError, match=f"is {fmt}, not PNG"):
+    with pytest.raises(NotImplementedError,
+                       match=f"is {fmt}; the port decodes PNG and JPEG"):
         experiments.read_raster_pair(f"{value.split(',')[0]},{other}")
     assert decoded == []  # neither file was decoded
-    with pytest.raises(ValueError, match="heightmap.png,texture.png"):
+    with pytest.raises(ValueError, match="heightmap.png,texture.jpg"):
         experiments.read_raster_pair(value.split(",")[0])
 
 

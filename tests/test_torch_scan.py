@@ -145,7 +145,7 @@ class _Baked:
 
     made = []
 
-    def __init__(self, fn, batches, rngs, state=()):
+    def __init__(self, fn, batches, rngs, state=(), checks=None):
         self.fn = fn
         self.state = state
         _Baked.made.append(self)

@@ -3,7 +3,9 @@ JAX trainer (tests/test_torch_trainer.py holds those against terrain_tpu's
 trainer, in a file of their own, so that the two heavy files run on
 different pytest-xdist workers): exact resume, checkpoint choice against
 terrain_tpu's `_resolve_model`, the CLI's train/gen/interp and the serve
-CLI, the switches that still raise, the NaN stop, and the host-iterator
+CLI, the switches that still raise and the two that train since they
+were ported (TERRAIN_CHECK_NANS=2, a JPEG texture), the NaN stop, and the
+host-iterator
 path with TERRAIN_SCAN and TERRAIN_EVAL_STEPS; smoke_synthetic (64px),
 fp32.
 """
@@ -194,8 +196,6 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("env,match", [
     ({"TERRAIN_AOT": "/x"}, "TERRAIN_AOT"),
-    ({"TERRAIN_CHECK_NANS": "2"}, "TERRAIN_CHECK_NANS"),
-    ({"TERRAIN_RASTER": "a.png,b.jpg"}, "TERRAIN_RASTER: b.jpg is JPEG"),
     ({"TERRAIN_AOT_KEY": "jaxpr"}, "TERRAIN_AOT_KEY"),
 ])
 def test_unported_switches_raise(env, match, monkeypatch, tmp_path):
@@ -206,6 +206,43 @@ def test_unported_switches_raise(env, match, monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         experiments.run("smoke_synthetic", "train", "cpu")
     assert not (tmp_path / "out" / "smoke_synthetic" / "results.txt").exists()
+
+
+def _jpeg_raster(tmp_path):
+    """TERRAIN_RASTER for a PNG heightmap and a JPEG texture of 96x128."""
+    from PIL import Image
+
+    from terrain_tpu_torch.serve.png import encode_png
+
+    rnd = np.random.RandomState(0)
+    hm = np.zeros((96, 128), np.uint8)
+    hm[:, 40:] = rnd.randint(1, 255, (96, 88))
+    tex = rnd.randint(0, 256, (96, 128, 3)).astype(np.uint8)
+    (tmp_path / "hm.png").write_bytes(encode_png(hm))
+    Image.fromarray(tex).save(tmp_path / "tex.jpg", quality=85)
+    return f"{tmp_path / 'hm.png'},{tmp_path / 'tex.jpg'}"
+
+
+@pytest.mark.parametrize("case", ["TERRAIN_CHECK_NANS=2", "a JPEG texture"])
+def test_formerly_refused_switches_train(case, monkeypatch, tmp_path):
+    """The two switch values the port refused until it ported them now
+    train smoke_synthetic through the CLI: the NaN checks
+    (utils/nan_check.py) and a JPEG texture (data/jpeg.py)."""
+    env = {"TERRAIN_OUT": str(tmp_path / "out"),
+           "TERRAIN_MODELS": str(tmp_path / "models"),
+           "TERRAIN_EPOCHS": "1", "TERRAIN_QUICK": "1"}
+    if case == "TERRAIN_CHECK_NANS=2":
+        env["TERRAIN_CHECK_NANS"] = "2"
+    else:
+        pytest.importorskip("PIL")
+        env.update(TERRAIN_RASTER=_jpeg_raster(tmp_path),
+                   TERRAIN_EPOCH_CROPS="8")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert cli.main(["smoke_synthetic", "train", "--device", "cpu"]) == 0
+    (row,) = csv_rows(str(tmp_path / "out" / "smoke_synthetic"
+                          / "results.txt"))
+    assert all(np.isfinite(float(row[c])) for c in LOSS_COLS)
 
 
 def test_mesh_raises_and_nans_stop_the_run(monkeypatch, tmp_path):
