@@ -8,6 +8,17 @@ Phases (any failure exits non-zero and prints no result line):
   1. card: its name and power limit (nvidia-smi), torch/CUDA versions, and
      the nvcc build of every kernel from csrc/ (timed, one nvcc per source,
      all started together);
+  1a. coldstart: a fresh process to the end of one bf16 eager flagship
+     step with the libraries already built (and a cold machine's figure:
+     that plus phase 1's nvcc build and the two host g++ builds); a fresh
+     TERRAIN_AOT store filled (phase 1's libraries and records copied in,
+     then utils/aot.fill); a fresh process with no
+     compiler reachable (PATH an empty directory, CUDA_HOME and CUDA_PATH
+     unset) taking the same step from the store, its launch counts the
+     default path's; then, in that process, a copy of the store whose
+     bilinear record names compute capability 8.0 (its library
+     overwritten with bytes that cannot load): the build raises naming
+     the entry; with nvcc (this process) it is rebuilt;
   1b. ballast: one fp32 step of the flagship (512px, batch 4, full
      width) from one seeded state in two fresh processes, one holding the
      card whole, one after a ballast allocation that leaves free 256 MiB
@@ -55,7 +66,9 @@ Phases (any failure exits non-zero and prints no result line):
      compute over fp32 parameters, with the two opt-in kernel switches
      (TERRAIN_POOL_VJP=pallas, TERRAIN_PALLAS_CONVS2=1) off and on, and in
      fp32 with the unfused decoder, and in fp32 and bf16 with
-     TERRAIN_BC_BWD=dense and =xla32: a warm-up step, then timed steps with
+     TERRAIN_BC_BWD=dense and =xla32, and in fp32 and bf16 with
+     TERRAIN_POOL_VJP=lanes and =dense (pool2 launched 0 times): a
+     warm-up step, then timed steps with
      the launch counters set to 0 just before and read just after (per
      step: conv_stem fwd 2, dW 1, dX 1; conv_thin fwd, dX, dW 1 each;
      bilinear_conv 2 and its backward 2; with the switches on pool2 fwd 12
@@ -65,9 +78,11 @@ Phases (any failure exits non-zero and prints no result line):
      peak memory, and a profiled step by kernel; then one step of the 256px
      configuration, switches on, on the card (kernels) and on the CPU
      (plain versions) from the same weights and batch: losses, gradients
-     and updated weights;
+     and updated weights; and the 2x2 pool alone at (8,512²,64), forward
+     plus backward, under sas, pallas, lanes and dense, fp32 and bf16,
+     beside the pool2 kernels' bound;
   5. trainer: `python -m terrain_tpu_torch test1_nobn_bilin_both train`
-     through cli.main at full width on 120 synthetic pairs held on the card
+     through cli.main at full width on 64 synthetic pairs held on the card
      as uint8, gathered, normalized and augmented inside the step, both
      switches on: one epoch with a checkpoint, then the same command
      resuming it for a second epoch; results.txt (header, two rows of
@@ -82,7 +97,8 @@ Phases (any failure exits non-zero and prints no result line):
      checkpoint each), then `gen`: swd.txt with
      terrain_tpu's columns and finite values, gen's checkpoint picked from
      it, the trace file and its cost (the traced epoch's time less the clean
-     one's), the launch counts, epoch and SWD times, and the SWD
+     one's), the launch counts, epoch and SWD times, the SWD evaluation's
+     peak memory, and the SWD
      pyramid and terrain W1 of the same images on the card against the CPU;
   7. raster: a synthetic raster pair at the NASA rasters' size (21600 x
      10800; a heightmap ~30% ocean, an RGB texture) written as PNGs whose
@@ -185,7 +201,13 @@ Phases (any failure exits non-zero and prints no result line):
      short, the DCGAN discriminator's slab dW not summed, conv_thin's
      halo rows zeroed, the stride-2 crop and the stem's crop one row off,
      the last two also in the twin) each shown to fail; one seed of
-     test1_nobn_finetunep2p_bilin's pix2pix step compared alike; each
+     test1_nobn_finetunep2p_bilin's pix2pix step compared alike; one
+     seed of the flagship with the DCGAN generator's bilinear_upsample
+     (h 5: each stage's bilinear x2 and 5x5 conv on a slab with two
+     low-resolution halo rows a side; experiments.build_train's
+     dcgan_bilinear) compared alike, with two planted faults (the
+     upsample's halo row next to the slab zeroed, the halo one row short)
+     each shown to fail; each
      rank's launches of all twelve kernels (pool2 and conv_s2 with the
      switches, bilinear with the unfused decoder) as often as in one
      process under the same switches, and a bf16 step.  (The `kernels`
@@ -213,18 +235,21 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import threading
 import time
 
+T_IMPORT = time.perf_counter()  # the coldstart child's timeline starts here
 HERE = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENT = "test1_nobn_bilin_both"
 F32_PEAK = 67e12     # H100 SXM fp32 CUDA cores, FLOP/s
 BF16_PEAK = 989e12   # H100 SXM dense bf16 tensor cores, FLOP/s
 TF32_PEAK = 495e12   # H100 SXM dense TF32 tensor cores, FLOP/s
 HBM_BW = 3.35e12     # H100 SXM HBM3, bytes/s
+CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit installs it
 F32_TOL = 1e-4       # x max|ref|: fp32 sums in another order
 BILINEAR_TOL = 1e-6  # x max|ref|: the same fp32 operations in the same order
 BF16_TOL = 2e-2      # x max|ref|: both round an fp32 sum to bf16 (2^-8
@@ -279,9 +304,9 @@ UNFUSED_LAUNCHES = {"bilinear": 1, "bilinear_backward": 1,
 # U-Net alone
 EVAL_LAUNCHES = {"pool2_fwd": 12, "pool2_bwd": 0, "conv_s2_fwd": 3,
                  "conv_s2_dw": 0}
-# half the shipped set's 240 pairs (120 MB of uint8 on the card): the depth
-# cut to keep the whole script within its time
-TRAINER_N = 120
+# of the shipped set's 240 pairs (64 MB of uint8 on the card): the depth
+# cut to keep the whole script within its time (240, then 120, now 64)
+TRAINER_N = 64
 # the quality path's train set: depth cut to 10 steps an epoch (the widths
 # are the flagship's); the valid set is its floor of 4 pairs, one step
 QUALITY_N = 40
@@ -292,6 +317,11 @@ SWD_N = 16               # images per SWD evaluation (the trainer's n)
 SWD_TOL = 1e-4           # relative, card vs CPU: fp32 sums in another order
 # TERRAIN_BC_BWD, the bilinear_conv backward's route (conv6 is the default)
 BC_BWD_MODES = ("conv6", "dense", "xla32")
+# TERRAIN_POOL_VJP's two custom-VJP formulations (ops/pool.py), the
+# alternatives to the pool2 kernels: the flagship step under each, and the
+# pool alone at the discriminator's first pool's shape
+POOL_MODES = ("lanes", "dense")
+POOL_TIME_SHAPE = (8, 512, 512, 64)
 # the raster phase: a synthetic pair at the NASA rasters' size (21600 x
 # 10800, SURVEY.md:76), one epoch of TERRAIN_EPOCH_CROPS crops from it
 RASTER_H, RASTER_W = 10800, 21600
@@ -380,7 +410,8 @@ KERNEL_SYMBOLS = {"bilinear_conv": "bilinear_conv_kernel",
 # conv, read 4.06e-5 on an NVIDIA H100 80GB HBM3 at 700 W
 ACC_ROUTE_TOL = 1e-4
 ACC_TOL = 5e-5
-PHASES = {"kernels", "ballast", "serve", "train", "trainer", "quality",
+PHASES = {"coldstart", "kernels", "ballast", "serve", "train", "trainer",
+          "quality",
           "raster", "scan", "nans",
           "parallel", "accuracy", "tp", "spatial", "conditioning",
           "determinism", "tp4", "spatial4", "scan4"}
@@ -1395,22 +1426,29 @@ def train_slice(torch, card):
     from terrain_tpu_torch.models import param_count
 
     counts, step_ms = {}, {}
-    for label, cd, on, unfused, bc_bwd in (
-            ("fp32", torch.float32, False, False, None),
-            ("fp32", torch.float32, False, True, None),
-            ("fp32", torch.float32, True, False, None),
-            ("bf16", torch.bfloat16, False, False, None),
-            ("bf16", torch.bfloat16, True, False, None),
-            *((lb, cd, False, False, m)
+    for label, cd, on, unfused, bc_bwd, pool in (
+            ("fp32", torch.float32, False, False, None, None),
+            ("fp32", torch.float32, False, True, None, None),
+            ("fp32", torch.float32, True, False, None, None),
+            ("bf16", torch.bfloat16, False, False, None, None),
+            ("bf16", torch.bfloat16, True, False, None, None),
+            *((lb, cd, False, False, m, None)
               for lb, cd in (("fp32", torch.float32),
                              ("bf16", torch.bfloat16))
-              for m in BC_BWD_MODES[1:])):
+              for m in BC_BWD_MODES[1:]),
+            *((lb, cd, False, False, None, m)
+              for lb, cd in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16))
+              for m in POOL_MODES)):
         set_switches(on)
         set_switches(unfused, UNFUSED)
         set_switches(bc_bwd is not None, {"TERRAIN_BC_BWD": bc_bwd})
+        if pool:  # set_switches(on) unset it: switches are off here
+            os.environ["TERRAIN_POOL_VJP"] = pool
         label = (f"{label} switches {'on' if on else 'off'}"
                  + (" unfused decoder" if unfused else "")
-                 + (f" TERRAIN_BC_BWD={bc_bwd}" if bc_bwd else ""))
+                 + (f" TERRAIN_BC_BWD={bc_bwd}" if bc_bwd else "")
+                 + (f" TERRAIN_POOL_VJP={pool}" if pool else ""))
         t0 = time.perf_counter()
         ts = build_train(EXPERIMENT, "cuda", seed=0, compute_dtype=cd)
         batch = _train_batch(torch, TRAIN_BATCH, ts.in_shp, ts.latent_dim, 7)
@@ -1458,8 +1496,10 @@ def train_slice(torch, card):
             if same:
                 fail(f"train {label}: {len(same)} parameters of {n} did not "
                      f"change")
-        profile_once(torch, lambda: ts.train_step(
-            ts.opt_states, batch, None, ts.lr), f"train step {label}", top=12)
+        if not (bc_bwd or pool):  # the alternatives' profiles: cut for time
+            profile_once(torch, lambda: ts.train_step(
+                ts.opt_states, batch, None, ts.lr), f"train step {label}",
+                top=12)
         if cd == torch.float32:
             for k, v in got.items():
                 counts[k] = counts.get(k, 0) + v
@@ -1468,7 +1508,44 @@ def train_slice(torch, card):
     set_switches(False)
     set_switches(False, UNFUSED)
     os.environ.pop("TERRAIN_BC_BWD", None)
+    pool_timing(torch, card)
     return counts, step_ms
+
+
+def pool_timing(torch, card):
+    """The DCGAN discriminator's 2x2 max pool at (8,512²,64), forward plus
+    backward, under each TERRAIN_POOL_VJP formulation as PyTorch ops (sas:
+    the library pool; lanes and dense: ops/pool.py's Functions; pallas:
+    the pool2 kernels), fp32 and bf16, beside the pool2 kernels' bound
+    (each input read once, each output written once: x and y forward, x,
+    the cotangent and dx backward)."""
+    from terrain_tpu_torch.ops import max_pool2d
+
+    n, h, w, c = POOL_TIME_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, h, w, c), generator=g, device="cuda").to(dt)
+        cot = torch.randn((n, h // 2, w // 2, c), generator=g,
+                          device="cuda").to(dt)
+        xr = x.requires_grad_()
+        es = x.element_size()
+        bound = es * n * h * w * c * (5 + 9) / 4 / HBM_BW * 1e3
+        ms = {}
+        for mode in ("sas", "pallas", *POOL_MODES):
+            os.environ["TERRAIN_POOL_VJP"] = mode
+
+            def fwd_bwd():
+                return torch.autograd.grad(max_pool2d(xr, 2), xr, cot)
+
+            ms[mode] = time_ms(fwd_bwd, reps=20)
+        os.environ.pop("TERRAIN_POOL_VJP")
+        print(f"pool timing [{card}] {POOL_TIME_SHAPE} {str(dt)[6:]}: "
+              f"forward + backward ms (CUDA events, median of 20) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+              + f"; the pool2 kernels' bound {bound:.4f} ms (bytes)",
+              flush=True)
+        del x, xr, cot
+    torch.cuda.empty_cache()
 
 
 def train_agreement(torch):
@@ -1998,6 +2075,13 @@ def quality_slice(torch, card, trainer_epoch_s, bare_ms):
                     (torch.cuda.max_memory_allocated() - base) / 2**20, 1)
         print(f"quality [{card}]: peak MiB above the resident weights of the "
               f"U-Net G det forward at 512px {peaks}", flush=True)
+        print(f"quality [{card}]: the unfused decoder's SWD evaluation "
+              f"({SWD_N} images, under device.strict_fp32): peak MiB "
+              f"allocated {[p for _, p in seg['log_swd']]} (each epoch's, "
+              f"weights included); its U-Net forward at batch {SWD_N} "
+              f"{peaks[f'unfused decoder, batch {SWD_N}']} MiB above the "
+              f"weights, the fused decoder's "
+              f"{peaks[f'fused decoder, batch {SWD_N}']}", flush=True)
         del pipe, x
     finally:
         for name, method in saved_methods.items():
@@ -4165,6 +4249,11 @@ SP_FAULTS = ("halo rows zeroed", "halo shifted by one row",
 # where a max pool's two largest values lie that close its gradient goes
 # to the other one: 6.5e-5 to 4.9e-4, held to 1.7e-3 (each limit about
 # 3.5x the largest reading; NVIDIA H100 80GB HBM3, 700 W)
+# path (a): the flagship's step with the DCGAN generator's
+# bilinear_upsample (h 5: each stage's bilinear x2 and 5x5 conv on the slab
+# with two low-resolution halo rows a side), one seed, and two faults
+SP_BILINEAR_FAULTS = ("bilinear x2's halo row zeroed",
+                      "bilinear x2 + 5x5 conv's halo one row short")
 SP_TWIN_TOL = {"grad p2p_gen": 2e-2, "grad p2p_disc": PAR_TOL,
                "grad dcgan_gen": 1.7e-2, "grad dcgan_disc": 1.7e-3}
 SP_SWITCHED = (("switches", SWITCHES), ("unfused", UNFUSED))
@@ -4187,9 +4276,12 @@ SP_LAUNCHES = {"default": _SP_DEFAULT,
                "p2p": {"conv_stem_fwd": 2, "conv_stem_dw": 0,
                        "conv_stem_dx": 0, "conv_thin": 1, "conv_thin_dx": 0,
                        "conv_thin_dw": 0, "bilinear_conv": 2},
-               "bf16": _SP_DEFAULT}
+               "bf16": _SP_DEFAULT,
+               # the generator's 5x5 output conv is no conv_thin
+               "bilinear": dict(_SP_DEFAULT, conv_thin=0, conv_thin_dx=0,
+                                conv_thin_dw=0)}
 SP_STEPS = {"default": len(PAR_SEEDS), "switches": 1, "unfused": 1, "p2p": 1,
-            "bf16": 1}
+            "bf16": 1, "bilinear": 1}
 # every hand-written kernel runs on the slabs (pool2 and conv_s2 with the
 # switches, bilinear with the unfused decoder)
 SP_KERNELS = ("bilinear_conv", "conv_thin", "conv_thin_dx", "conv_thin_dw",
@@ -4361,6 +4453,7 @@ def _sp_fault(torch, nets, fault):
 
     from terrain_tpu_torch.models.dcgan import (
         DCGANDiscriminator, DCGANGenerator)
+    from terrain_tpu_torch.ops import bilinear2x_conv
     from terrain_tpu_torch.parallel import spatial
 
     nets = list(nets)
@@ -4368,6 +4461,7 @@ def _sp_fault(torch, nets, fault):
     real_same = spatial.RowShard.same_conv
     real_on_slab = spatial.on_slab
     real_sum = spatial.sum_slab_grads
+    real_up_halo = spatial.upsample_halo
     thin_w = next(n for n in nets if isinstance(n, DCGANGenerator)) \
         .conv_out.w
 
@@ -4436,6 +4530,30 @@ def _sp_fault(torch, nets, fault):
                             Zeroed(rows.index, rows.count, rows.group),
                             io_rows, **kw)
 
+    def up_row_zeroed(op, x, w, b, rows, io_rows, **kw):
+        # the DCGAN generator's bilinear x2 + conv on its slab with the
+        # halo row next to the slab (the one the upsample reads) zeroed
+        if op is not bilinear2x_conv:
+            return real_on_slab(op, x, w, b, rows, io_rows, **kw)
+
+        class Zeroed(type(rows)):
+            __slots__ = ()
+
+            def halo(self, x, top, bottom):
+                ext = rows.halo(x, top, bottom)
+                t, r = 0 if rows.first else top, x.shape[1]
+                keep = torch.ones((1, ext.shape[1], 1, 1), dtype=ext.dtype,
+                                  device=ext.device)
+                if t:
+                    keep[:, t - 1] = 0
+                if ext.shape[1] > t + r:
+                    keep[:, t + r] = 0
+                return ext * keep
+
+        return real_on_slab(op, x, w, b,
+                            Zeroed(rows.index, rows.count, rows.group),
+                            io_rows, **kw)
+
     slab_bns = [m for net in nets for m in net.modules()
                 if spatial.on_slabs(m) and hasattr(m, "process_group")]
     groups = [m.process_group for m in slab_bns]
@@ -4470,6 +4588,11 @@ def _sp_fault(torch, nets, fault):
                                            crop_off),
         "stem crop one row off": patch(spatial.RowShard, "same_conv",
                                        stem_crop_off),
+        "bilinear x2's halo row zeroed": patch(spatial, "on_slab",
+                                               up_row_zeroed),
+        "bilinear x2 + 5x5 conv's halo one row short": patch(
+            spatial, "upsample_halo",
+            lambda k, taps: real_up_halo(k, taps) - (k == 5 and taps == 2)),
     }
     if fault not in patches:
         fail(f"spatial: unknown fault {fault}")
@@ -4515,23 +4638,26 @@ def _sp_work(rank, world, root):
             c[k] = c.get(k, 0) + v
         return r
 
-    def built(experiment, mesh=None, cd=None):
-        setup = build_train(experiment, "cuda", mesh=mesh, compute_dtype=cd)
+    def built(experiment, mesh=None, cd=None, bilinear=False):
+        setup = build_train(experiment, "cuda", mesh=mesh, compute_dtype=cd,
+                            dcgan_bilinear=bilinear)
         _seed_biases(torch, setup)
         return setup, _recorder(setup), _setup_snapshot(setup)
 
     mesh = make_mesh(n_data=1, n_model=world)
 
-    def stage(experiment):
+    def stage(experiment, bilinear=False):
         """The step on the mesh, and on rank 0 one process's and the
         twin's; returns (compared(key, label, batch, timed), twin_step,
         setup)."""
-        setup, rec, back = built(experiment, mesh)
-        out["slabs"] = {n: sum(on_slabs(m) for m in net.modules())
-                        for n, net in setup.nets.items()}
+        setup, rec, back = built(experiment, mesh, bilinear=bilinear)
+        out["slabs_bilinear" if bilinear else "slabs"] = {
+            n: sum(on_slabs(m) for m in net.modules())
+            for n, net in setup.nets.items()}
         if rank == 0:
-            one, rec_one, back_one = built(experiment)
-            twin, rec_twin, back_twin = built(experiment)
+            one, rec_one, back_one = built(experiment, bilinear=bilinear)
+            twin, rec_twin, back_twin = built(experiment,
+                                              bilinear=bilinear)
 
         def twin_step(batch):
             back_twin()
@@ -4593,6 +4719,12 @@ def _sp_work(rank, world, root):
     compared(f"p2p seed {PAR_SEEDS[0]}", "p2p", batch)
     del setup, compared
     torch.cuda.empty_cache()
+    setup, compared, faulty = stage(SP_EXPERIMENT, bilinear=True)
+    ref = compared(f"bilinear seed {PAR_SEEDS[0]}", "bilinear", batch)
+    for fault in SP_BILINEAR_FAULTS:
+        faulty(fault, batch, ref)
+    del setup, compared, faulty, ref
+    torch.cuda.empty_cache()
     bf16, rec16, _ = built(SP_EXPERIMENT, mesh, torch.bfloat16)
     losses = counted("bf16", lambda: _sp_step(torch, bf16, rec16, batch))[0]
     out["finite"] &= all(np.isfinite(v) for v in losses.values())
@@ -4632,7 +4764,8 @@ def spatial_slice(torch, card, world=SP_WORLD, backend="gloo"):
         print(f"spatial [{card}] {backend} rank {r} of a 1 x {world} mesh "
               f"({SP_EXPERIMENT}, 512px, batch {TRAIN_BATCH}, fp32): "
               f"layers and BatchNorms on slabs "
-              f"{got['slabs']}; steps (ms, host clock" + (
+              f"{got['slabs']} (with the bilinear DCGAN generator "
+              f"{got['slabs_bilinear']}); steps (ms, host clock" + (
                   ", a correctness path: gloo stages through the host"
                   if backend == "gloo" else "") + ") "
               + " ".join(f"{t:.1f}" for t in got["step_ms"])
@@ -4648,9 +4781,10 @@ def spatial_slice(torch, card, world=SP_WORLD, backend="gloo"):
                      _sp_twin_limits(twin))
         bad += _show(f"{what}, {key}: one step vs one process", err,
                      _twin_limits(twin), twin)
-    lim = _twin_limits(res[0]["twin"][f"seed {PAR_SEEDS[0]}"])
     for fault, err in res[0]["faults"].items():
-        caught = _over(err, lim)
+        seed = ("bilinear " if fault in SP_BILINEAR_FAULTS else "") \
+            + f"seed {PAR_SEEDS[0]}"
+        caught = _over(err, _twin_limits(res[0]["twin"][seed]))
         print(f"spatial [{card}] the planted fault '{fault}' fails the "
               f"comparison on {caught}", flush=True)
         if not caught:
@@ -5016,6 +5150,201 @@ def ballast_slice(torch, card):
     if n:
         fail(f"ballast: the step's bits depend on the free memory "
              f"({n} of {of} tensors differ)")
+
+
+# ------------------------------------------------------------ coldstart
+# TERRAIN_AOT (utils/aot.py) on the card: the cost of a cold start as the
+# port had it (a fresh process to the end of one bf16 eager flagship step,
+# the libraries already built, plus the nvcc and g++ builds a cold machine
+# adds), then a fresh store filled, a process with no compiler reachable
+# taking the same step from it, and a store entry recorded for another
+# compute capability: raising in that process, rebuilt with a compiler,
+# never loaded.
+COLD_LIMIT_S = 300
+COLD_ENTRY = "bilinear"  # the store entry given another card's record
+
+
+def cold_child(torch, out_path, other=None):
+    """`chip_smoke.py _cold <out> [<store>]`: one bf16 eager step of the
+    flagship (full width, batch 4) in a fresh process; saves the seconds
+    of its imports (torch and the package), of building the model and of
+    the step, the launch counts, the losses and the compilers it can find.
+    With a second store, then builds from it and saves what it raised."""
+    t_main = time.perf_counter()
+    from terrain_tpu_torch.device import strict_fp32
+    from terrain_tpu_torch.experiments import build_train
+    from terrain_tpu_torch.ops.kernels import _build
+
+    strict_fp32()
+    ts = build_train(EXPERIMENT, "cuda", seed=0, compute_dtype=torch.bfloat16)
+    batch = _train_batch(torch, TRAIN_BATCH, ts.in_shp, ts.latent_dim, 7)
+    torch.cuda.synchronize()
+    t_built = time.perf_counter()
+    _reset_counters()
+    losses = ts.train_step(ts.opt_states, batch, None, ts.lr)
+    torch.cuda.synchronize()
+    out = {"main_s": t_main - T_IMPORT, "built_s": t_built - t_main,
+           "step_s": time.perf_counter() - t_built,
+           "counts": _read_counters(),
+           "losses": {k: float(v) for k, v in losses.items()},
+           "compilers": {c: shutil.which(c) for c in
+                         ("nvcc", "g++", "c++", "gcc")}}
+    if other:
+        os.environ["TERRAIN_AOT"] = other
+        try:
+            _build.build()
+            out["other"] = None
+        except RuntimeError as e:
+            out["other"] = str(e)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _no_compiler_env(root):
+    """os.environ with no compiler reachable: PATH an empty directory,
+    CUDA_HOME and CUDA_PATH unset."""
+    empty = os.path.join(root, "empty_bin")
+    os.makedirs(empty, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = empty
+    return env
+
+
+def _cold_run(root, name, env, *args):
+    """The _cold child under `env`: (its result, wall seconds from the
+    process's start to its exit, its output)."""
+    path = os.path.join(root, f"{name}.json")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "_cold",
+                        path, *args], env=env, capture_output=True,
+                       text=True, timeout=COLD_LIMIT_S)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        fail(f"coldstart: the {name} step failed (rc {p.returncode}):\n"
+             f"{p.stdout[-3000:]}{p.stderr[-3000:]}")
+    with open(path) as f:
+        return json.load(f), wall, p.stdout
+
+
+def coldstart_slice(torch, card, build_s):
+    """ROADMAP A.7's cold-start cost, then the TERRAIN_AOT store: filled,
+    loaded by a process with no compiler, and a mismatched entry never
+    loaded.  `build_s`: phase 1's nvcc build of the six sources."""
+    import contextlib
+    import ctypes
+    import io
+    import tempfile
+
+    from terrain_tpu_torch.ops.kernels import _build
+    from terrain_tpu_torch.utils import aot
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cold_")
+    store = os.path.join(root, "store")
+    other = os.path.join(root, "other")
+    saved = {k: os.environ.get(k) for k in ("TERRAIN_AOT", "TERRAIN_AOT_KEY")}
+    for k in saved:
+        os.environ.pop(k, None)
+    try:
+        # as things stand: the libraries in _build/ (phase 1 built them)
+        warm, warm_wall, _ = _cold_run(root, "built", dict(os.environ))
+        # the host libraries from nothing, as a cold machine builds them
+        os.environ["TERRAIN_AOT"] = os.path.join(root, "host_only")
+        t0 = time.perf_counter()
+        for s in _build.HOST_SOURCES:
+            _build.build_host(os.path.join(aot.PACKAGE, s))
+        host_s = time.perf_counter() - t0
+        os.environ.pop("TERRAIN_AOT")
+        # a fresh store: phase 1's six libraries with their records, then
+        # the trainer's fill (every record checked, the host libraries
+        # built)
+        os.makedirs(store)
+        for path, _ in _build.build().values():
+            for f in (path, aot.record_path(path)):
+                shutil.copy(f, store)
+        os.environ["TERRAIN_AOT"] = store
+        t0 = time.perf_counter()
+        paths = aot.fill()
+        fill_s = time.perf_counter() - t0
+        records = {os.path.basename(p): aot.read_record(p) for p in paths}
+        print(f"coldstart [{card}]: the store {sorted(os.listdir(store))}; "
+              f"filled in {fill_s:.1f} s (phase 1's six CUDA libraries "
+              f"copied in, their records checked, the two host libraries "
+              f"built); a record {records[os.path.basename(paths[0])]}",
+              flush=True)
+        if len(paths) != len(_build.SOURCES) + len(_build.HOST_SOURCES) or \
+                any(r is None for r in records.values()):
+            fail(f"coldstart: the store lacks a library or a record: "
+                 f"{records}")
+        # a copy whose COLD_ENTRY record names another compute capability,
+        # its library bytes that cannot load
+        shutil.copytree(store, other)
+        os.environ["TERRAIN_AOT"] = other
+        lib = _build.lib_path(COLD_ENTRY)
+        os.environ.pop("TERRAIN_AOT")
+        aot.write_record(lib, dict(aot.read_record(lib), capability="8.0",
+                                   device="another card"))
+        with open(lib, "wb") as f:
+            f.write(b"not a library: loading it fails")
+        # a process with no compiler: the step from the store, then a
+        # build from the other store
+        env = _no_compiler_env(root)
+        env["TERRAIN_AOT"] = store
+        got, got_wall, out = _cold_run(root, "store", env, other)
+        want = expected_launches(False)
+        bad = {k: (got["counts"].get(k), v) for k, v in want.items()
+               if got["counts"].get(k) != v}
+        finite = all(v == v and abs(v) != float("inf")
+                     for v in got["losses"].values())
+        print(f"coldstart [{card}]: a fresh process to the end of one bf16 "
+              f"eager step of {EXPERIMENT} (512px, batch {TRAIN_BATCH}): "
+              f"libraries built in _build/ {warm_wall:.1f} s (imports "
+              f"{warm['main_s']:.1f}, model {warm['built_s']:.1f}, step "
+              f"{warm['step_s']:.1f}); a cold machine adds phase 1's nvcc "
+              f"build {build_s:.1f} s and the two g++ builds {host_s:.1f} s: "
+              f"{warm_wall + build_s + host_s:.1f} s; from a TERRAIN_AOT "
+              f"store with no compiler reachable (PATH an empty directory, "
+              f"CUDA_HOME unset; found {got['compilers']}) {got_wall:.1f} s "
+              f"(imports {got['main_s']:.1f}, model {got['built_s']:.1f}, "
+              f"step {got['step_s']:.1f}, then the other store's build); "
+              f"its launches {got['counts']}", flush=True)
+        if any(got["compilers"].values()) or bad or not finite \
+                or "rebuilding" in out:
+            fail(f"coldstart: the step from the store: compilers "
+                 f"{got['compilers']}, launches off {bad}, losses "
+                 f"{got['losses']}")
+        print(f"coldstart: in that process, the store whose {COLD_ENTRY} "
+              f"record names compute capability 8.0: {got['other']}",
+              flush=True)
+        if not got["other"] or lib not in got["other"] \
+                or "8.0" not in got["other"]:
+            fail("coldstart: a mismatched entry without a compiler did not "
+                 "raise naming it")
+        os.environ["TERRAIN_AOT"] = other
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            _build.build((COLD_ENTRY,))
+        rebuild_s = time.perf_counter() - t0
+        os.environ.pop("TERRAIN_AOT")
+        ctypes.CDLL(lib)  # the rebuilt library loads
+        new = aot.read_record(lib)
+        print(f"coldstart: with nvcc, the same store: "
+              f"{text.getvalue().strip()!r} ({rebuild_s:.1f} s); the new "
+              f"record's capability {new['capability']}; the phase took "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        if f"rebuilding {lib}" not in text.getvalue() \
+                or new["capability"] == "8.0":
+            fail("coldstart: a mismatched entry was not rebuilt")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ------------------------------------------------- determinism (on request)
@@ -5424,6 +5753,11 @@ def main():
         return 3
     if sys.argv[1:2] == ["_ballast"]:  # the ballast phase's child process
         return ballast_child(torch, sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["_cold"]:  # the coldstart phase's child process
+        return cold_child(torch, *sys.argv[2:4])
+    if not (os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+            or shutil.which("nvcc")) and os.path.exists(CUDA_NVCC):
+        os.environ["CUDA_HOME"] = os.path.dirname(os.path.dirname(CUDA_NVCC))
     only = set(sys.argv[1:])  # e.g. `kernels train`; none = every phase
     unknown = only - PHASES
     if unknown:
@@ -5442,8 +5776,9 @@ def main():
           flush=True)
     t0 = time.perf_counter()
     report = _build.build()
-    print(f"build: {', '.join(report)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    build_s = time.perf_counter() - t0
+    print(f"build: {', '.join(report)} in {build_s:.1f} s with "
+          f"{_build.nvcc_path()}", flush=True)
     for name, (path, log) in report.items():
         entry = ""  # the (mangled) kernel the next lines are about
         for line in log.splitlines():
@@ -5457,6 +5792,10 @@ def main():
     raster_launches, scan_launches, parallel_launches = {}, {}, {}
     world1_launches, tp_launches, spatial_launches = {}, {}, {}
     world1_scan_launches = {}
+    if want("coldstart"):
+        coldstart_slice(torch, card, build_s)
+        print(f"phase coldstart done at {time.perf_counter() - t_start:.0f} "
+              f"s", flush=True)
     if want("kernels"):
         # the plain versions and the library calls on cuDNN's default
         # algorithms, as they were measured before the port's step turned

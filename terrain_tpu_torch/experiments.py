@@ -206,14 +206,18 @@ def stability_overrides(environ):
 
 
 def build_gan(experiment, device=None, *, seed=0, compute_dtype=None,
-              verbose=True, da=True, mesh=None):
+              verbose=True, da=True, mesh=None, dcgan_bilinear=False):
     """(TwoStageGAN, artifact-dir name) for a registered experiment, with
     seeded weights on `device` (default: the card; raises without one).
     The generators get the weights `build_model` gives them for the same
     seed.  `mesh` (parallel.make_mesh) trains over its ranks: data-parallel
     on 'data', tensor-parallel on 'model' (TwoStageGAN's default
-    tp_min_features)."""
+    tp_min_features).  `dcgan_bilinear`: the DCGAN generator with
+    terrain_tpu's `bilinear_upsample` factory option (the same parameter
+    tree; no registered experiment sets it)."""
     cfg, name = _config(experiment)
+    if dcgan_bilinear:
+        cfg = dict(cfg, dcgan=dict(cfg["dcgan"], bilinear_upsample=True))
     cd = compute_dtype or compute_dtype_from_env(os.environ)
     disc_kw, lr_mults = stability_overrides(os.environ)
     if cfg["disc_out"] is not None:
@@ -253,7 +257,7 @@ class TrainSetup:
 
 
 def build_train(experiment, device=None, *, seed=0, compute_dtype=None,
-                mesh=None):
+                mesh=None, dcgan_bilinear=False):
     """The bare training pieces of a registered experiment, without data,
     augmentation or the epoch loop: the trainer's networks, optimizer and
     host-batch steps.
@@ -264,10 +268,11 @@ def build_train(experiment, device=None, *, seed=0, compute_dtype=None,
     every BatchNorm takes the data group, the state is placed over the
     mesh, and the steps of the experiment's own train_mode take this
     rank's data block of each global batch, whole images, of which they
-    keep this rank's rows: each returns one process's losses."""
+    keep this rank's rows: each returns one process's losses.
+    `dcgan_bilinear`: as build_gan's."""
     gan, name = build_gan(experiment, device, seed=seed,
                           compute_dtype=compute_dtype, verbose=False,
-                          da=False)
+                          da=False, dcgan_bilinear=dcgan_bilinear)
     train_step, eval_step = gan.train_step, gan.eval_step
     if mesh is not None:
         train_step, eval_step = _spatial_steps(gan, mesh)

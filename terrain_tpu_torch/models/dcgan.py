@@ -27,9 +27,16 @@ generator starts from a vector: its Dense layer and `bn_in` carry no
 rows, its small stages run on whole rows, the first stage whose output
 the rule holds in slabs scatters it (or the reshape, when the rule holds
 the first map in slabs), and its output is a slab (`out_rows`, the final
-height).  Only the fused path runs on slabs (a stage's nearest x2 and
-conv as one op, on the slab with a halo): the bilinear upsample or an
-even h under row sharding raises.  The discriminator takes its input as
+height).  A stage's upsample and the conv after it run as one op on the
+slab with a halo: the nearest x2 fused with an odd-h conv
+(ops/fused.upsample2x_nearest_conv, one low-resolution row a side), or
+with bilinear_upsample the bilinear x2 and the conv unfused, as
+terrain_tpu runs them (ops/fused.bilinear2x_conv, two rows a side for the
+default h = 5).  An even h under row sharding raises: 'same' pads
+(h-1)//2 rows on each side, as in terrain_tpu (ops/conv.py:105-106), so
+each conv's output is one row shorter than its input and the heights are
+no equal slabs (on one device the port gives terrain_tpu's shrunken
+output).  The discriminator takes its input as
 slabs, pools a slab between stages (`spatial.pool`, gathering where the
 rule ends slabs) and returns its (N, 1) output whole (`out_rows` 1,
 never a slab).
@@ -40,8 +47,8 @@ from torch import nn
 
 from terrain_tpu_torch.models.core import Conv, Dense, dropout
 from terrain_tpu_torch.ops import (
-    BatchNorm, avg_pool2d, conv2d, conv2d_leaky, dense, get_activation,
-    leaky_relu, max_pool2d, upsample2x_nearest_conv, upsample_bilinear_2x,
+    BatchNorm, avg_pool2d, bilinear2x_conv, conv2d, conv2d_leaky, dense,
+    get_activation, leaky_relu, max_pool2d, upsample2x_nearest_conv,
     upsample_nearest_2x)
 from terrain_tpu_torch.parallel import spatial
 
@@ -107,15 +114,11 @@ class DCGANGenerator(nn.Module):
     def _conv(self, x, conv, pending_up):
         cd = self.compute_dtype
         if pending_up:
-            if not self.bilinear_upsample and self.h % 2 == 1:
+            if self.bilinear_upsample:
+                return conv(bilinear2x_conv, x, compute_dtype=cd)
+            if self.h % 2 == 1:
                 return conv(upsample2x_nearest_conv, x, compute_dtype=cd)
-            if self.rows is not None:
-                raise NotImplementedError(
-                    "a DCGAN generator off the fused nearest x2 + odd-h "
-                    "conv path (bilinear_upsample, or an even h) under row "
-                    "sharding is not ported (ROADMAP A.5b)")
-            x = (upsample_bilinear_2x(x) if self.bilinear_upsample
-                 else upsample_nearest_2x(x))
+            x = upsample_nearest_2x(x)
         return conv(conv2d, x, stride=1, padding="same", compute_dtype=cd)
 
     def forward(self, z, train=False, generator=None, update_stats=False):
@@ -123,6 +126,12 @@ class DCGANGenerator(nn.Module):
         train=True uses batch statistics and live dropout drawn from
         `generator`; the running statistics are written only with
         update_stats=True (a train step)."""
+        if self.rows is not None and self.h % 2 == 0:
+            raise ValueError(
+                f"a DCGAN generator of even h ({self.h}) in slabs of rows: "
+                f"'same' pads (h-1)//2 rows on each side, so each conv's "
+                f"output is one row shorter than its input and the heights "
+                f"do not stay equal slabs; take an odd h")
         cd = self.compute_dtype or torch.float32
         x = self.dense(dense, z.to(cd), compute_dtype=cd)
         x = self.bn_in(x, train, update_stats)

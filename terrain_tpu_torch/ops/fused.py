@@ -20,6 +20,15 @@
    does (the kernel has no row-tile rule of its own: its tiles are
    bounds-checked, so a slab of any height launches; chip_smoke.py holds
    it at the slabs' heights).
+4. bilinear2x_conv: bilinear x2 then a k x k 'same' conv, unfused, as the
+   DCGAN generator with bilinear_upsample takes them
+   (terrain_tpu/models/dcgan.py:109-119): one op only so that a slab of
+   image rows can take the halo both reads need (parallel/spatial.on_slab:
+   two low-resolution rows on each side for k = 5), the upsample and the
+   conv each routed on the whole image's shape.
+Each op names `upsample_taps`, the low-resolution rows an upsampled row
+reads (2 bilinear, 1 nearest), from which parallel/spatial.upsample_halo
+counts a slab's halo.
 """
 
 from functools import lru_cache
@@ -132,3 +141,19 @@ def bilinear2x_conv3x3(x, w, b=None, *, compute_dtype=None,
     return conv2d(upsample_bilinear_2x(x, route_shape=shape), w, b, stride=1,
                   padding="same", compute_dtype=cd,
                   route_shape=(n, 2 * h, 2 * wd, c))
+
+
+def bilinear2x_conv(x, w, b=None, *, compute_dtype=None, route_shape=None):
+    """conv2d(upsample_bilinear_2x(x), w, 'same', stride 1), w (cout, cin,
+    k, k).  `route_shape`: the input shape whose regime picks both
+    routes (default x's; a slab's whole image)."""
+    n, h, wd, c = route_shape or tuple(x.shape)
+    return conv2d(upsample_bilinear_2x(x, route_shape=(n, h, wd, c)), w, b,
+                  stride=1, padding="same",
+                  compute_dtype=compute_dtype or x.dtype,
+                  route_shape=(n, 2 * h, 2 * wd, c))
+
+
+upsample2x_nearest_conv.upsample_taps = 1
+bilinear2x_conv3x3.upsample_taps = 2
+bilinear2x_conv.upsample_taps = 2

@@ -3,10 +3,14 @@
 Each source is compiled by `nvcc` for Hopper (sm_90a) into its own shared
 library with a plain C interface and loaded with ctypes -- seconds per
 file, where a PyTorch C++ extension takes minutes.  Libraries go to
-terrain_tpu_torch/_build/ (git-ignored), named by a hash of the sources
-and flags, so an edited source is rebuilt and a built one is reused.  The
-build happens at first use, or for all kernels at once (one nvcc process
-per source, started together) through `build()`.  A failed build raises.
+terrain_tpu_torch/_build/ (git-ignored), or to TERRAIN_AOT's store when
+that is set (read at each build; utils/aot.py), named by a hash of the
+sources and flags, so an edited source is rebuilt and a built one is
+reused; each has a record beside it (flags, compiler, card), and one whose
+record does not fit the process is rebuilt, or raises where no compiler
+is found (utils/aot.py).  The build happens at first use, or for all
+kernels at once (one nvcc process per source, started together) through
+`build()`.  A failed build raises.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `CudaKernel.launch` raises if that is not 0.  The
@@ -28,7 +32,7 @@ import shutil
 import subprocess
 import threading
 
-from terrain_tpu_torch.utils import nan_check
+from terrain_tpu_torch.utils import aot, nan_check
 
 _HERE = os.path.dirname(os.path.abspath(__file__))  # .../ops/kernels
 CSRC = os.path.join(_HERE, "csrc")
@@ -42,17 +46,28 @@ _lock = threading.Lock()
 
 
 HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+# the host C++ sources, relative to the package (serve/png.py, data/jpeg.py)
+HOST_SOURCES = ("serve/csrc/png_unfilter.cpp", "data/csrc/jpeg_decode.cpp")
+
+
+def lib_dir():
+    """Where libraries go: TERRAIN_AOT's store when set, else BUILD_DIR."""
+    return aot.store_dir() or BUILD_DIR
 
 
 def nvcc_path():
+    """nvcc under CUDA_HOME (or CUDA_PATH), else on PATH: a process given
+    neither finds no compiler (a machine that runs from a TERRAIN_AOT
+    store)."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     cands = [os.path.join(home, "bin", "nvcc")] if home else []
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    cands.append(shutil.which("nvcc") or "")
     for c in cands:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
-                       "are built from csrc/ at first use")
+    raise RuntimeError("nvcc not found (set CUDA_HOME, or put nvcc on "
+                       "PATH); the CUDA kernels are built from csrc/ at "
+                       "first use")
 
 
 def _digest(name):
@@ -61,37 +76,59 @@ def _digest(name):
         if fn == f"{name}.cu" or fn.endswith(".cuh"):
             with open(os.path.join(CSRC, fn), "rb") as f:
                 h.update(fn.encode() + f.read())
-    return h.hexdigest()[:16]
+    return aot.key(h)
 
 
-def lib_path(name):
-    return os.path.join(BUILD_DIR, f"{name}-{_digest(name)}.so")
+def lib_path(name, digest=None):
+    return os.path.join(lib_dir(), f"{name}-{digest or _digest(name)}.so")
+
+
+def _loadable(path, digest, flags, cuda, compiler):
+    """Whether the library at `path` exists and its record fits this
+    process.  One whose record does not fit is rebuilt when `compiler()`
+    finds a compiler (one printed line says which and why), and raises
+    naming it and the mismatch when none is found: it is never loaded."""
+    if not os.path.exists(path):
+        return False
+    why = aot.mismatch(aot.read_record(path), digest, flags, cuda)
+    if why is None:
+        return True
+    try:
+        compiler()
+    except RuntimeError as e:
+        raise RuntimeError(f"{path} is not loaded: {why}; and it cannot be "
+                           f"rebuilt: {e}") from None
+    print(f"rebuilding {path}: {why}", flush=True)
+    return False
 
 
 def build(names=SOURCES):
     """Compile every named source that has no library yet, all nvcc
     processes at once.  Returns {name: (path, ptxas report)}; raises with
     the compiler's output if one fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(lib_dir(), exist_ok=True)
     procs = {}
     for name in names:
-        path = lib_path(name)
-        if os.path.exists(path):
+        digest = _digest(name)
+        path = lib_path(name, digest)
+        if _loadable(path, digest, NVCC_FLAGS, True, nvcc_path):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC, f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), tmp, path)
+            text=True), tmp, path, digest)
     failed = []
-    for name, (p, tmp, path) in procs.items():
+    for name, (p, tmp, path, digest) in procs.items():
         out, _ = p.communicate()
         if p.returncode != 0:
             failed.append(f"--- {name} (rc {p.returncode})\n{out}")
             continue
         with open(f"{path}.log", "w") as f:
             f.write(out)
+        aot.write_record(path, aot.make_record(digest, NVCC_FLAGS,
+                                               nvcc_path(), True))
         os.replace(tmp, path)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -117,23 +154,26 @@ def host_compiler():
 
 
 def build_host(src):
-    """Compile one host C++ source with a plain C interface into BUILD_DIR,
-    named by a hash of the source and flags, unless that library exists.
-    Returns its path; raises with the compiler's output if it fails."""
+    """Compile one host C++ source with a plain C interface into the
+    library directory (`lib_dir`), named by a hash of the source and
+    flags, unless that library exists with a record that fits.  Returns
+    its path; raises with the compiler's output if it fails."""
     with open(src, "rb") as f:
         text = f.read()
-    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode() + text)
+    digest = aot.key(hashlib.sha256(" ".join(HOST_FLAGS).encode() + text))
     name = os.path.splitext(os.path.basename(src))[0]
-    path = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
-    if os.path.exists(path):
+    path = os.path.join(lib_dir(), f"{name}-{digest}.so")
+    if _loadable(path, digest, HOST_FLAGS, False, host_compiler):
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(lib_dir(), exist_ok=True)
+    cxx = host_compiler()
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    p = subprocess.run([host_compiler(), *HOST_FLAGS, "-o", tmp, src],
+    p = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, src],
                        capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"host C++ build of {src} failed (rc "
                            f"{p.returncode}):\n{p.stdout}{p.stderr}")
+    aot.write_record(path, aot.make_record(digest, HOST_FLAGS, cxx, False))
     os.replace(tmp, path)
     return path
 

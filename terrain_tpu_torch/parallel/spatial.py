@@ -24,7 +24,9 @@ a 'same' k x k conv at stride 1 reads (k-1)//2 rows on each side, the
 3x3 stride-2 conv one row above (Lasagne pads symmetrically, so output
 row y reads input rows 2y-1 .. 2y+1), the bilinear x2, the fused
 bilinear x2 + 3x3 conv and the fused nearest x2 + k x k conv (the DCGAN
-generator's stages, k = 3 or 5) one low-resolution row on each side.
+generator's stages, k = 3 or 5) one low-resolution row on each side, the
+bilinear x2 + 5x5 conv (the DCGAN generator's stages with
+bilinear_upsample) two (`upsample_halo`).
 The op runs on the slab
 with its halo as if that were the image and keeps the rows of the slab:
 rows next to a halo are exact, because the halo holds the true
@@ -140,14 +142,33 @@ class RowShard:
         raise NotImplementedError(
             f"a {k}x{k} stride-{s} 'same' op on a slab of {r} rows")
 
-    def upsampled(self, fn, x):
-        """fn, a 2x upsample of rows (bilinear, alone or with a 3x3 'same'
-        conv after it, or nearest with a 3x3 or 5x5 'same' conv after it,
-        whose output row 2i + phase reads input rows i-1 .. i+1), on this
-        rank's slab x: run on the slab with one halo row on each side, the
-        slab's 2r output rows kept."""
-        top = 0 if self.first else 1
-        return fn(self.halo(x, 1, 1)).narrow(1, 2 * top, 2 * x.shape[1])
+    def upsampled(self, fn, x, halo=1):
+        """fn, a 2x upsample of rows, alone or with a 'same' conv after it,
+        on this rank's slab x: run on the slab with `halo` low-resolution
+        rows on each side (`upsample_halo`; one for the bilinear x2 alone),
+        the slab's 2r output rows kept."""
+        top = 0 if self.first else halo
+        return fn(self.halo(x, halo, halo)).narrow(1, 2 * top,
+                                                   2 * x.shape[1])
+
+
+def upsample_halo(k, taps):
+    """The low-resolution rows on each side of a slab that a 2x upsample
+    then a k x k 'same' conv (k odd, p = (k-1)/2) reads, with `taps` 2 for
+    the bilinear x2 and 1 for the nearest.  Output row Y of the conv reads
+    upsampled rows Y-p .. Y+p.  The bilinear's upsampled row 2j reads
+    low-resolution rows j-1 and j, row 2j+1 rows j and j+1 (half-pixel
+    centres); the nearest's both read row j.  A slab of low-resolution rows
+    a .. a+r-1 keeps output rows 2a .. 2a+2r-1, so its first reads
+    upsampled row 2a-p, which reads low-resolution row a - ceil((p+1)/2)
+    (bilinear) or a - ceil(p/2) (nearest), and its last alike below: the
+    bilinear takes ceil((p+1)/2) rows a side, 1 for k = 3 and 2 for k = 5;
+    the nearest ceil(p/2), 1 for both.  On the slab with that halo the
+    upsample's edge clamp (and the conv's zero padding) falls only on
+    upsampled rows that no kept row reads, except at the image's edges,
+    where the rank gets no halo and the clamp is the image's own."""
+    p = (k - 1) // 2
+    return -(-(p + taps - 1) // 2)
 
 
 def _buffer(shape, like):
@@ -307,8 +328,9 @@ def on_slab(op, x, w, b, rows, io_rows, **kw):
     """op(x, w, b, **kw) of a layer of whole heights `io_rows` on this
     rank's slab x, by the route of the whole image (`route_shape`).  The
     heights and the kernel's size name the halo: a k2 s2 deconv (h_out =
-    2 h_in, k = 2) needs none, a 2x upsample then 3x3 conv (h_out = 2
-    h_in) one row on each side (`RowShard.upsampled`), a 'same' conv of
+    2 h_in, k = 2) needs none, a 2x upsample then k x k conv (h_out = 2
+    h_in) the rows `upsample_halo` counts from k and the op's
+    `upsample_taps` on each side (`RowShard.upsampled`), a 'same' conv of
     stride h_in / h_out its k's (`RowShard.same_conv`)."""
     (h_in, h_out), k = io_rows, w.shape[2]
     if h_out == 2 * h_in and k == 2:
@@ -322,7 +344,7 @@ def on_slab(op, x, w, b, rows, io_rows, **kw):
         return op(ext, w, b, route_shape=whole, **kw)
 
     if h_out == 2 * h_in:
-        return rows.upsampled(fn, x)
+        return rows.upsampled(fn, x, upsample_halo(k, op.upsample_taps))
     return rows.same_conv(fn, x, k, h_in // h_out)
 
 

@@ -86,8 +86,10 @@ checkify float checks): the first op whose output holds a NaN raises
 FloatingPointError naming the step within its chunk, the network, the
 layer and the op; k stays as TERRAIN_SCAN chose it.
 
-Not ported yet, and refused rather than ignored: TERRAIN_AOT and its
-TERRAIN_AOT_KEY.
+TERRAIN_AOT=dir (and its TERRAIN_AOT_KEY) keeps the port's built
+libraries in `dir` (utils/aot.py): on the card the trainer loads or builds
+every one of them there when it is made, so a store filled by one run
+starts the next without a compiler.
 """
 
 import glob
@@ -115,7 +117,7 @@ from terrain_tpu_torch.train.step import (
     ACTIVE, NET_NAMES, build_eval_step, build_scan_eval, build_scan_step,
     build_train_step, step_state)
 from terrain_tpu_torch.utils.async_writer import AsyncWriter
-from terrain_tpu_torch.utils import nan_check
+from terrain_tpu_torch.utils import aot, nan_check
 from terrain_tpu_torch.utils.arch_diagram import draw_network
 from terrain_tpu_torch.utils.images import (
     convert_to_rgb, save_png_u8, to_u8, write_image_grid)
@@ -124,12 +126,6 @@ from terrain_tpu_torch.utils.profiling import trace
 
 def _floatX(x):
     return np.asarray(x, dtype=np.float32)
-
-
-def _not_ported(what, slice_name):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice "
-        f"(ROADMAP.md queue A)")
 
 
 # the random streams of a step: 0 the paired augmentation, then each
@@ -162,12 +158,9 @@ class TwoStageGAN:
                 and mesh.data_group is None:
             raise ValueError(f"a {mesh.shape} mesh needs a process group: "
                              f"call parallel.initialize() before make_mesh()")
-        if os.environ.get("TERRAIN_AOT"):
-            _not_ported("TERRAIN_AOT", "utils")
-        if os.environ.get("TERRAIN_AOT_KEY", "shapes") != "shapes":
-            _not_ported("TERRAIN_AOT_KEY (the key of TERRAIN_AOT's cache)",
-                        "utils")
         self.device = resolve_device(device)
+        if aot.store_dir() and self.device.type == "cuda":
+            aot.fill()  # TERRAIN_AOT: the built libraries, loaded or stored
         self.in_shp = in_shp
         self.latent_dim = latent_dim
         self.is_a_grayscale = is_a_grayscale

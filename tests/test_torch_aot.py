@@ -1,0 +1,272 @@
+"""TERRAIN_AOT and TERRAIN_AOT_KEY in terrain_tpu_torch (utils/aot.py,
+ops/kernels/_build.py): a store of the port's built libraries.
+
+On the CPU the host libraries build (g++): they go into the store with
+their records, and a fresh process whose PATH holds no compiler loads them
+and decodes the committed PNG and JPEG fixtures to their digests (SHA-256
+of Pillow's and imageio's decodes).  A record that does not fit is rebuilt
+with a compiler and raises without one; an edited source gives a new
+entry; TERRAIN_AOT_KEY=jaxpr keys on every file of the package.  The CUDA
+sources need nvcc and a card, which the CPU tests do not assume: their
+key, path and record logic only.  chip_smoke.py's `coldstart` phase runs the store on the
+card."""
+
+import hashlib
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+from terrain_tpu_torch.data import jpeg
+from terrain_tpu_torch.ops.kernels import _build
+from terrain_tpu_torch.serve import png
+from terrain_tpu_torch.utils import aot
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+DATA = ROOT / "tests" / "data"
+HOSTS = [os.path.join(aot.PACKAGE, s) for s in _build.HOST_SOURCES]
+
+DECODE = """
+import hashlib, json, os, sys
+from terrain_tpu_torch.data.jpeg import decode_jpeg
+from terrain_tpu_torch.serve.png import decode_png
+out = {}
+for kind, fn in (("png", decode_png), ("jpeg", decode_jpeg)):
+    d = os.path.join(sys.argv[1], kind)
+    for name in json.load(open(os.path.join(d, "digests.json"))):
+        if name.startswith("strip_"):
+            continue
+        a = fn(open(os.path.join(d, name), "rb").read())
+        out[name] = hashlib.sha256(a.tobytes()).hexdigest()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture
+def store(tmp_path, monkeypatch):
+    d = tmp_path / "store"
+    monkeypatch.setenv("TERRAIN_AOT", str(d))
+    monkeypatch.delenv("TERRAIN_AOT_KEY", raising=False)
+    return d
+
+
+def _no_compiler_env(tmp_path):
+    """The environment of a process that finds no compiler: PATH holds
+    only a directory with python in it, CUDA_HOME and CUDA_PATH unset."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir(exist_ok=True)
+    if not (bin_dir / "python").exists():
+        (bin_dir / "python").symlink_to(sys.executable)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env.update(PATH=str(bin_dir), PYTHONPATH=str(ROOT))
+    return env
+
+
+def _no_compiler(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+
+
+def test_the_host_sources_are_the_decoders():
+    assert sorted(HOSTS) == sorted([png._UNFILTER_SRC, jpeg._SRC])
+
+
+def test_host_libraries_go_to_the_store_with_their_records(store):
+    paths = [_build.build_host(src) for src in HOSTS]
+    for path, src in zip(paths, HOSTS):
+        assert os.path.dirname(path) == str(store)
+        rec = json.loads(pathlib.Path(aot.record_path(path)).read_text())
+        assert rec["format"] == aot.FORMAT_VERSION
+        assert rec["flags"] == _build.HOST_FLAGS
+        assert path.endswith(f"-{rec['digest']}.so")
+        assert rec["arch"].startswith("host-")
+        assert rec["compiler"] and rec["device"] is None
+        assert aot.mismatch(rec, rec["digest"], _build.HOST_FLAGS,
+                            False) is None
+    # a second build loads what is there
+    mtimes = [os.stat(p).st_mtime_ns for p in paths]
+    assert [_build.build_host(src) for src in HOSTS] == paths
+    assert [os.stat(p).st_mtime_ns for p in paths] == mtimes
+
+
+def test_a_process_without_compilers_loads_the_store_and_decodes(
+        store, tmp_path):
+    for src in HOSTS:
+        _build.build_host(src)
+    env = _no_compiler_env(tmp_path)
+    env["TERRAIN_AOT"] = str(store)
+    assert shutil.which("g++", path=env["PATH"]) is None
+    assert shutil.which("c++", path=env["PATH"]) is None
+    r = subprocess.run([sys.executable, "-c", DECODE, str(DATA)], env=env,
+                       cwd=tmp_path, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    got = json.loads(r.stdout.splitlines()[-1])
+    want = {}
+    for kind in ("png", "jpeg"):
+        digests = json.loads((DATA / kind / "digests.json").read_text())
+        want.update({n: v["sha256"] for n, v in digests.items()
+                     if not n.startswith("strip_")})
+    assert len(want) >= 4 and got == want
+    assert "rebuilding" not in r.stdout
+    # the same process on an empty store raises: nothing to load, no g++
+    env["TERRAIN_AOT"] = str(tmp_path / "empty")
+    r = subprocess.run([sys.executable, "-c", DECODE, str(DATA)], env=env,
+                       cwd=tmp_path, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "no host C++ compiler" in r.stderr
+
+
+def test_the_png_fixture_digest_is_pillows_decode():
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    digests = json.loads((DATA / "png" / "digests.json").read_text())
+    for name, want in digests.items():
+        a = np.asarray(Image.open(io.BytesIO((DATA / "png" / name)
+                                             .read_bytes())))
+        assert list(a.shape) == want["shape"]
+        assert hashlib.sha256(a.tobytes()).hexdigest() == want["sha256"]
+
+
+@pytest.mark.parametrize("field,value", [
+    ("digest", "0" * 16), ("flags", ["-O0"]), ("format", 0),
+    ("arch", "host-other"), (None, None), ("json", "[]")])
+def test_a_record_that_does_not_fit_is_rebuilt_or_raises(
+        field, value, store, monkeypatch, capsys):
+    src = HOSTS[0]
+    path = _build.build_host(src)
+    rec = aot.read_record(path)
+    if field is None:
+        os.remove(aot.record_path(path))  # no record at all
+    elif field == "json":
+        pathlib.Path(aot.record_path(path)).write_text(value)  # no object
+    else:
+        aot.write_record(path, {**rec, field: value})
+    why = aot.mismatch(aot.read_record(path), rec["digest"],
+                       _build.HOST_FLAGS, False)
+    assert why is not None
+    with monkeypatch.context() as m:
+        _no_compiler(m)
+        with pytest.raises(RuntimeError) as err:
+            _build.build_host(src)
+        assert path in str(err.value) and why in str(err.value)
+        assert "no host C++ compiler" in str(err.value)
+    capsys.readouterr()
+    before = os.stat(path).st_mtime_ns
+    assert _build.build_host(src) == path
+    out = capsys.readouterr().out
+    assert out == f"rebuilding {path}: {why}\n"
+    assert os.stat(path).st_mtime_ns != before
+    assert aot.read_record(path) == rec
+
+
+def test_an_edited_source_gives_a_new_entry(store, tmp_path):
+    src = tmp_path / "png_unfilter.cpp"
+    shutil.copy(png._UNFILTER_SRC, src)
+    first = _build.build_host(str(src))
+    src.write_text(src.read_text() + "\n// edited\n")
+    second = _build.build_host(str(src))
+    assert first != second
+    assert {p.name for p in store.iterdir()} == {
+        os.path.basename(f) for p in (first, second)
+        for f in (p, aot.record_path(p))}
+
+
+def test_the_jaxpr_key_covers_every_file_of_the_package(tmp_path,
+                                                        monkeypatch):
+    """TERRAIN_AOT_KEY=jaxpr adds the package's digest to every key; the
+    digest moves with any file of the package, a module, a kernel or
+    data alike, and not with its built libraries or caches."""
+    copy = tmp_path / "pkg"
+    shutil.copytree(aot.PACKAGE, copy, ignore=shutil.ignore_patterns(
+        "_build", "__pycache__"))
+    base = aot.package_digest(str(copy))
+    seen = {base}
+    for rel in ("ops/pool.py", "ops/kernels/csrc/pool2.cu",
+                "data/csrc/jpeg_decode.cpp", "cudnn_errata.json"):
+        f = copy / rel
+        text = f.read_bytes()
+        f.write_bytes(text + b"\n")
+        aot.package_digest.cache_clear()
+        d = aot.package_digest(str(copy))
+        assert d not in seen, rel
+        seen.add(d)
+        f.write_bytes(text)
+    (copy / "_build").mkdir()
+    (copy / "_build" / "x.so").write_text("built")
+    (copy / "__pycache__").mkdir()
+    (copy / "__pycache__" / "x.pyc").write_text("cache")
+    aot.package_digest.cache_clear()
+    assert aot.package_digest(str(copy)) == base
+
+    def key_of(value):
+        if value is None:
+            monkeypatch.delenv("TERRAIN_AOT_KEY", raising=False)
+        else:
+            monkeypatch.setenv("TERRAIN_AOT_KEY", value)
+        return _build._digest("pool2"), aot.key(hashlib.sha256(b"x"))
+
+    default = key_of(None)
+    assert key_of("shapes") == default == key_of("other")
+    jaxpr = key_of("jaxpr")
+    assert jaxpr[0] != default[0] and jaxpr[1] != default[1]
+    monkeypatch.setattr(aot, "package_digest", lambda root=None: "edited")
+    assert key_of("jaxpr") != jaxpr
+
+
+def test_cuda_libraries_go_to_the_store_and_need_nvcc(store, monkeypatch):
+    """Under TERRAIN_AOT a CUDA library's path is in the store, named by
+    its key; with no entry and no nvcc the build raises naming nvcc."""
+    for name in _build.SOURCES:
+        assert _build.lib_path(name) == str(
+            store / f"{name}-{_build._digest(name)}.so")
+    monkeypatch.delenv("TERRAIN_AOT")
+    assert _build.lib_path("pool2").startswith(_build.BUILD_DIR)
+    monkeypatch.setenv("TERRAIN_AOT", str(store))
+    _no_compiler(monkeypatch)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(("pool2",))
+
+
+def test_a_cuda_entry_built_on_another_card_is_not_loaded(store,
+                                                          monkeypatch):
+    """A store entry whose record names compute capability 8.0, on a
+    card of 9.0: with no nvcc the build raises naming the entry and both
+    capabilities; the library is never opened."""
+    import torch
+
+    name = "pool2"
+    path = _build.lib_path(name)
+    store.mkdir()
+    pathlib.Path(path).write_bytes(b"not a library")
+    rec = {"format": aot.FORMAT_VERSION, "digest": _build._digest(name),
+           "flags": _build.NVCC_FLAGS, "arch": aot.CUDA_ARCH,
+           "compiler": "release 12.4", "torch_cuda": torch.version.cuda,
+           "device": "NVIDIA A100", "capability": "8.0"}
+    aot.write_record(path, rec)
+    monkeypatch.setattr(aot, "device", lambda: ("NVIDIA H100", "9.0"))
+    _no_compiler(monkeypatch)
+    with pytest.raises(RuntimeError) as err:
+        _build.build((name,))
+    msg = str(err.value)
+    assert path in msg and "8.0" in msg and "9.0" in msg
+    assert "nvcc not found" in msg
+    # the same record on a card of 8.0 fits
+    monkeypatch.setattr(aot, "device", lambda: ("NVIDIA A100", "8.0"))
+    assert aot.mismatch(aot.read_record(path), rec["digest"],
+                        _build.NVCC_FLAGS, True) is None
+    # and a record of another CUDA major version does not
+    other = dict(rec, torch_cuda="11.8" if torch.version.cuda != "11.8"
+                 else "12.4")
+    assert "CUDA" in aot.mismatch(other, rec["digest"], _build.NVCC_FLAGS,
+                                  True)

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from terrain_tpu.ops import pool as jpool
 from terrain_tpu.ops.pallas import conv_s2 as jc2
 from terrain_tpu.ops.pallas import pool2 as jp2
 from terrain_tpu_torch import ops
@@ -145,10 +146,88 @@ def test_max_pool2d_dispatch_follows_the_switch(rng, monkeypatch):
     for t, size in ((torch.rand(1, 16, 8, 8), 2), (torch.rand(1, 16, 16, 8), 4)):
         ops.max_pool2d(t, size)
     assert p2.PLAIN.calls == before + 1
+    for mode, fn in (("lanes", "LanesPoolBackward"),
+                     ("dense", "DensePoolBackward")):
+        monkeypatch.setenv("TERRAIN_POOL_VJP", mode)
+        got = ops.max_pool2d(x.clone().requires_grad_(), 2)
+        assert type(got.grad_fn).__name__ == fn
+        np.testing.assert_array_equal(got.detach().numpy(), ref.numpy())
+    assert p2.PLAIN.calls == before + 1        # pool2 is not on these paths
+
+
+# ------------------------------------------------- TERRAIN_POOL_VJP=lanes|dense
+def _jax_alt_pool(mode, size):
+    if mode == "lanes":
+        return jpool._max_pool2d_lanes
+    return lambda a: jpool._max_pool2d_nonoverlap(a, size)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode,size", [("lanes", 2), ("dense", 2),
+                                       ("dense", 4)])
+def test_lanes_and_dense_match_terrain_tpu_exactly(mode, size, dtype, ties,
+                                                   rng, monkeypatch):
+    """The forward and the gradient of terrain_tpu's custom-VJP pools
+    (terrain_tpu/ops/pool.py `_max_pool2d_lanes`,
+    `_max_pool2d_nonoverlap`), bit for bit, through ops.max_pool2d."""
+    monkeypatch.setenv("TERRAIN_POOL_VJP", mode)
+    n, h, w, c = 2, 8, 16, 8
+    x = rng.randn(n, h, w, c).astype(np.float32)
+    if ties:
+        x = np.round(x * 1.5) / 2.0
+    cot = rng.randn(n, h // size, w // size, c).astype(np.float32)
+    x, cot = (_f32(jnp.asarray(a).astype(JDT[dtype])) for a in (x, cot))
+    jx, jcot = (jnp.asarray(a).astype(JDT[dtype]) for a in (x, cot))
+    want, vjp = jax.vjp(_jax_alt_pool(mode, size), jx)
+    (want_dx,) = vjp(jcot)
+    tx = _to_torch(x, dtype).requires_grad_()
+    got = ops.max_pool2d(tx, size)
+    assert got.dtype == TDT[dtype]
+    np.testing.assert_array_equal(_tnp(got), _f32(want))
+    (dx,) = torch.autograd.grad(got, tx, _to_torch(cot, dtype))
+    assert dx.dtype == TDT[dtype]
+    np.testing.assert_array_equal(_tnp(dx), _f32(want_dx))
+
+
+@pytest.mark.parametrize("mode", ["lanes", "dense", "sas"])
+def test_pool_ties_route_the_cotangent_as_terrain_tpu_does(mode,
+                                                           monkeypatch):
+    """A window of four equal values: lanes and the library pool send the
+    cotangent to its first element, dense splits it in four; a window
+    whose maximum ties in its odd column of both rows: the even row's."""
+    monkeypatch.setenv("TERRAIN_POOL_VJP", mode)
+    x = torch.tensor([[1.0, 1.0, 0.0, 2.0],
+                      [1.0, 1.0, 1.0, 2.0]]).reshape(1, 2, 4, 1)
+    x = x.repeat(1, 1, 1, 8).requires_grad_()
+    (dx,) = torch.autograd.grad(ops.max_pool2d(x, 2),
+                                x, torch.full((1, 1, 2, 8), 4.0))
+    want = {"dense": [[1.0, 1.0, 0.0, 2.0], [1.0, 1.0, 0.0, 2.0]]}.get(
+        mode, [[4.0, 0.0, 0.0, 4.0], [0.0, 0.0, 0.0, 0.0]])
+    np.testing.assert_array_equal(dx[0, :, :, 0].numpy(), want)
+    if mode != "sas":
+        jdx = jax.grad(lambda a: jnp.sum(
+            _jax_alt_pool(mode, 2)(a) * 4.0))(jnp.asarray(x.detach().numpy()))
+        np.testing.assert_array_equal(dx.numpy(), np.asarray(jdx))
+
+
+def test_lanes_and_dense_take_only_their_regime(monkeypatch):
+    """As in terrain_tpu: lanes only a 2x2 window, dense any size of
+    stride == size, both only floating x with H and W divisible by the
+    size; a slab takes the whole image's regime (`route_shape`)."""
     for mode in ("lanes", "dense"):
         monkeypatch.setenv("TERRAIN_POOL_VJP", mode)
-        with pytest.raises(NotImplementedError):
-            ops.max_pool2d(x, 2)
+        for t, size, stride in ((torch.rand(1, 6, 8, 2), 4, None),
+                                (torch.rand(1, 8, 8, 2), 2, 1),
+                                (torch.rand(1, 5, 8, 2), 2, None)):
+            y = ops.max_pool2d(t.requires_grad_(), size, stride)
+            assert type(y.grad_fn).__name__ == "PermuteBackward0"
+        y = ops.max_pool2d(torch.rand(1, 8, 8, 2).requires_grad_(), 4)
+        assert type(y.grad_fn).__name__ == (
+            "DensePoolBackward" if mode == "dense" else "PermuteBackward0")
+        y = ops.max_pool2d(torch.rand(1, 4, 8, 2).requires_grad_(), 2,
+                           route_shape=(1, 8, 8, 2))
+        assert type(y.grad_fn).__name__ != "PermuteBackward0"
 
 
 # --------------------------------------------------------------- conv_s2

@@ -2,9 +2,9 @@
 terrain_tpu's checkify float checks, on the CPU, at terrain_tpu's tiny
 trainer configuration (16px).
 
-The same NaN-poisoned weight (p2p_gen's first encoder conv, carried across
-with convert.load_jax) makes both packages raise in step 1; the port names
-the network, the layer, the op and the step.  A clean checked run gives the
+The NaN-poisoned weight of terrain_tpu's own checkify test (p2p_gen's
+first encoder conv, carried across with convert.load_jax) makes the port
+raise in step 1, naming the network, the layer, the op and the step.  A clean checked run gives the
 unchecked run's bits, per step and as a TERRAIN_SCAN chunk (a loop on the
 CPU).  A NaN planted in step 2 of a chunk names step 2, one that only a
 backward op makes names that op and its forward layer, Inf alone raises
@@ -19,7 +19,6 @@ import pytest
 import torch
 from torch import nn
 
-from terrain_tpu.data import Hdf5Iterator as JHdf5Iterator
 from terrain_tpu.data.synthetic import make_pairs as jmake_pairs
 from terrain_tpu.models import dcgan as jdcgan
 from terrain_tpu.models import p2p as jp2p
@@ -87,23 +86,19 @@ def _device_sets():
 
 
 def test_a_poisoned_weight_raises_in_both_packages(tmp_path, monkeypatch):
-    """terrain_tpu/tests/test_trainer.py's checkify case, and the same
-    weights in the port: step 1 raises, naming p2p_gen's layer.  The JAX
-    step compiles under checkify; terrain_tpu's CLI keeps such programs in
-    the repository's .jax_cache, which this test reads as tests that
-    import the CLI do (compiling it afresh on the CPU takes minutes)."""
-    import terrain_tpu.cli  # noqa: F401 (sets the compilation cache)
-
-    monkeypatch.setenv("TERRAIN_CHECK_NANS", "2")
+    """The weights of terrain_tpu/tests/test_trainer.py's checkify case,
+    p2p_gen's first encoder conv poisoned with NaN, in the port: step 1
+    raises, naming p2p_gen's layer.  That terrain_tpu raises on them is
+    its own test (tests/test_trainer.py
+    `test_checkify_nan_guard_localizes`); the JAX step under checkify is
+    not compiled here a second time."""
     jgan = _jax_gan()
     jgan.params["p2p_gen"]["enc"][0]["conv"]["w"] = (
         jgan.params["p2p_gen"]["enc"][0]["conv"]["w"] * np.nan)
     weights = {n: (jax.tree.map(np.asarray, jgan.params[n]),
                    jax.tree.map(np.asarray, jgan.states[n]))
                for n in jgan.nets}
-    with pytest.raises(Exception, match="(?i)nan"):
-        jgan.train(*_iters(JHdf5Iterator), BS, 1, str(tmp_path / "j"), None,
-                   quick_run=True)
+    monkeypatch.setenv("TERRAIN_CHECK_NANS", "2")
     gan = _torch_gan(weights)
     with pytest.raises(FloatingPointError, match="(?i)nan") as err:
         gan.train(*_iters(), BS, 1, str(tmp_path / "t"), None,

@@ -23,15 +23,19 @@ finish, and `test_every_rank_ran_to_its_end`.
     JAX's own rtol 1e-4 / atol 1e-5;
   * a tiny DCGAN generator (the fused path) and discriminator (Conv5x5)
     on a 2x2 mesh against terrain_tpu's unsharded apply, output and every
-    gradient, at rtol 1e-4 / atol 1e-5;
+    gradient, at rtol 1e-4 / atol 1e-5; the generator with
+    bilinear_upsample at h 3 and 5 on a 1x2 and a 1x4 mesh alike, the
+    halo that `upsample_halo` counts against the taps by brute force, and
+    an even h against terrain_tpu on one device (its shrunken output) and
+    raising on slabs;
   * a tiny test1_nobn_finetunep2p_bilin pix2pix step, and the tiny
     four-network step in the both and dcgan modes, on a 2x2 and a 1x4
     mesh (experiments._spatial_steps) against terrain_tpu's step and the
     port's one-process step: every loss and every gradient at rtol 2e-4 /
-    atol 2e-5, global batch 4;
+    atol 2e-5, global batch 4; the both mode with the bilinear generator
+    at h 5 against one process;
   * experiments.build_train("smoke_synthetic", mesh=) on a 1x2 mesh: its
-    train and eval steps give one process's losses; a sharded DCGAN
-    generator off the fused path raises.
+    train and eval steps give one process's losses.
 """
 
 import jax
@@ -357,6 +361,77 @@ def test_dcgan_on_a_2x2_mesh_matches_terrain_tpus_unsharded_apply(
                                        **UNET_TOL)
 
 
+def _jax_generator(port):
+    """terrain_tpu's DCGAN generator of a port generator's config."""
+    c = port.config
+    return jdcgan.default_generator(
+        c["latent_dim"], c["out_ch"] == 1, nch=c["nch"], h=c["h"],
+        initial_size=c["initial_size"], final_size=c["final_size"],
+        div=list(c["div"]), bilinear_upsample=c["bilinear_upsample"])
+
+
+@pytest.fixture(scope="module")
+def bilinear_references():
+    """terrain_tpu's output of the worker's bilinear generators on the
+    whole batch, train mode, and the gradients of the seeded cotangent's
+    dot product with it, by h."""
+    out = {}
+    z, _, gy, _ = sw.dcgan_inputs()
+    for h in (3, 5):
+        port = sw.bilinear_generator(h)
+        params, state = convert.to_jax(port)
+        jnet = _jax_generator(port)
+
+        def f(p):
+            y = jnet.apply(p, state, z, train=True)[0]
+            return jnp.sum(y * gy), y
+
+        gp, y = jax.jit(jax.grad(f, has_aux=True))(params)
+        out[h] = (np.asarray(y), [t.numpy() for t in convert.params_from_jax(
+            port, jax.tree.map(np.asarray, gp))])
+    return out
+
+
+@pytest.mark.parametrize("mesh,h,min_rows", sw.BILINEAR)
+def test_bilinear_dcgan_generator_on_slabs_matches_terrain_tpus_apply(
+        ranks, bilinear_references, mesh, h, min_rows):
+    """The DCGAN generator with bilinear_upsample (each stage's bilinear
+    x2 and h x h conv on the slab with `upsample_halo`'s rows: one a side
+    at h 3, two at h 5) held in slabs on a 1x2 and a 1x4 mesh against
+    the same weights in terrain_tpu's apply on the whole batch, train
+    mode: each rank's rows of the output and every gradient of a seeded
+    cotangent's dot product with the whole output."""
+    res = _phase(ranks, "bilinear")
+    want_y, want_g = bilinear_references[h]
+    n = MESHES[mesh][1]
+    r = sw.IN // n
+    for i in _members(mesh):
+        y_i, grads = res[i][(mesh, h, min_rows)]
+        np.testing.assert_allclose(y_i, want_y[:, r * i:r * (i + 1)],
+                                   **UNET_TOL)
+        assert len(grads) == len(want_g)
+        for j, (a, b) in enumerate(zip(grads, want_g)):
+            np.testing.assert_allclose(a, b, err_msg=f"{h} {j}", **UNET_TOL)
+
+
+@pytest.mark.parametrize("k,taps,want", [(3, 2, 1), (5, 2, 2), (7, 2, 2),
+                                         (3, 1, 1), (5, 1, 1), (1, 2, 1)])
+def test_upsample_halo_counts_the_rows_the_taps_read(k, taps, want):
+    """The low-resolution halo of a 2x upsample (2 taps bilinear, 1
+    nearest) then a k x k 'same' conv: the farthest low-resolution row
+    that the slab's first output row reads, by brute force on the taps."""
+    from terrain_tpu_torch.parallel.spatial import upsample_halo
+
+    p = (k - 1) // 2
+    a, r = 10, 4  # the slab's low-resolution rows a .. a+r-1
+    reads = {1: lambda y: [y // 2],
+             2: lambda y: [(y - 1) // 2, (y + 1) // 2]}[taps]
+    first = min(j for y in range(2 * a - p, 2 * a + p + 1) for j in reads(y))
+    last = max(j for y in range(2 * (a + r) - 1 - p, 2 * (a + r) + p)
+               for j in reads(y))
+    assert a - first == last - (a + r - 1) == want == upsample_halo(k, taps)
+
+
 def _jax_step_nets():
     return {
         "dcgan_gen": jdcgan.default_generator(
@@ -472,12 +547,51 @@ def test_build_train_steps_run_as_a_chunk(ranks):
             np.testing.assert_array_equal(a, b)
 
 
-def test_a_sharded_generator_off_the_fused_path_raises():
-    """The bilinear upsample (or an even h) is not ported onto slabs: the
-    first upsample raises, naming ROADMAP A.5b."""
-    g = dcgan.default_generator(sw.LAT, True, nch=8, h=3, initial_size=4,
+@pytest.mark.parametrize("bilinear", [False, True],
+                         ids=["nearest", "bilinear"])
+def test_an_even_h_generator_matches_terrain_tpu_on_one_device(bilinear):
+    """An even h shrinks each 'same' conv's output by one row in both
+    packages ((h-1)//2 rows of padding a side): h 4 from 4 over three
+    stages gives 17 rows, not final_size's 32, and the same values."""
+    g = dcgan.default_generator(sw.LAT, True, nch=32, h=4, initial_size=4,
+                                final_size=sw.IN, div=[1, 2, 4],
+                                bilinear_upsample=bilinear,
+                                generator=torch.Generator().manual_seed(5))
+    params, state = convert.to_jax(g)
+    z = sw.dcgan_inputs()[0]
+    want = np.asarray(_jax_generator(g).apply(params, state, z,
+                                              train=True)[0])
+    got = g(torch.from_numpy(z), train=True).detach().numpy()
+    assert got.shape == want.shape == (sw.GLOBAL_BATCH, 17, 17, 1)
+    np.testing.assert_allclose(got, want, **UNET_TOL)
+
+
+@pytest.mark.parametrize("bilinear", [False, True],
+                         ids=["nearest", "bilinear"])
+def test_an_even_h_generator_on_slabs_raises_naming_why(bilinear):
+    """On slabs an even h raises before any layer runs: its heights are
+    no equal slabs."""
+    g = dcgan.default_generator(sw.LAT, True, nch=8, h=4, initial_size=4,
                                 final_size=sw.IN, div=[2, 2, 2],
-                                bilinear_upsample=True)
+                                bilinear_upsample=bilinear)
     g.rows = RowShard(0, 2, None)
-    with pytest.raises(NotImplementedError, match="A.5b"):
+    with pytest.raises(ValueError, match="even h .*equal slabs"):
         g(torch.zeros(2, sw.LAT), train=True)
+
+
+@pytest.fixture(scope="module")
+def bilinear_one_process():
+    gan = TwoStageGAN(**sw.step_kw("both", bilinear=True))
+    rec = sw.recording(gan)
+    gan.train_step, _ = gan._build_steps(None)
+    return sw.run_step(gan, gan.train_step, rec, sw.step_batch())
+
+
+@pytest.mark.parametrize("mesh,min_rows", sw.BILINEAR_STEP)
+def test_spatial_both_step_with_the_bilinear_generator_matches(
+        ranks, bilinear_one_process, mesh, min_rows):
+    """The both mode with the DCGAN generator's bilinear upsample at h 5
+    on slabs: every rank's losses and gradients are one process's."""
+    res = _phase(ranks, "step")
+    _check_step([res[i][("bilinear", mesh, min_rows)]
+                 for i in range(WORLD)], bilinear_one_process, "both")

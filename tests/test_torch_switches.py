@@ -2,7 +2,9 @@
 JAX package reads is read by the port, refused on a value the port does not
 honour, or named as a no-op on this card with its reason; TERRAIN_PLATFORM
 at the CLI and server entry points; and TERRAIN_BC_BWD=xla32 under bf16
-computing the decoder stages' backward in fp32.
+computing the decoder stages' backward in fp32.  TERRAIN_AOT,
+TERRAIN_AOT_KEY and TERRAIN_POOL_VJP's lanes and dense, once refused, are
+honoured: read where they act, and named by no NotImplementedError.
 
 The JAX package's names are read from its sources as text, without
 importing it: a switch added there later fails here until the port decides
@@ -75,6 +77,37 @@ def test_no_op_tables_name_jax_switches_with_a_reason():
         "TERRAIN_THIN_TH", "TERRAIN_SERVE_QFETCH"}
     # terrain_tpu reads TERRAIN_ACT_BWD in both conv kernels' backwards
     assert len(listed["TERRAIN_ACT_BWD"]) == 2
+
+
+def _refusals(path):
+    """The TERRAIN_* names in the messages of a module's
+    `raise NotImplementedError(...)` statements."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        exc = getattr(node, "exc", None) if isinstance(node, ast.Raise) \
+            else None
+        if isinstance(exc, ast.Call) and getattr(
+                exc.func, "id", None) == "NotImplementedError":
+            for c in ast.walk(exc):
+                if isinstance(c, ast.Constant) and isinstance(c.value, str):
+                    names.update(re.findall(r"TERRAIN_[A-Z0-9_]+", c.value))
+    return names
+
+
+@pytest.mark.parametrize("name,module", [
+    ("TERRAIN_AOT", "utils/aot.py"), ("TERRAIN_AOT_KEY", "utils/aot.py"),
+    ("TERRAIN_POOL_VJP", "ops/pool.py")])
+def test_the_switches_once_refused_are_honoured(name, module, monkeypatch):
+    port = ROOT / "terrain_tpu_torch"
+    assert name in _code_strings(port / module)
+    for path in port.rglob("*.py"):
+        assert name not in _refusals(path), path
+    if name == "TERRAIN_POOL_VJP":
+        from terrain_tpu_torch.ops import max_pool2d
+
+        for mode in ("lanes", "dense"):
+            monkeypatch.setenv(name, mode)
+            assert max_pool2d(torch.ones(1, 4, 4, 2), 2).shape == (1, 2, 2, 2)
 
 
 @pytest.mark.parametrize("value,want", [(None, "cuda"), ("", "cuda"),

@@ -327,6 +327,39 @@ def test_two_consecutive_train_steps_match_jax(world):
         assert any(jax.tree.leaves(moved)), n
 
 
+@pytest.mark.parametrize("mode", ["lanes", "dense"])
+def test_a_train_step_under_the_pool_switch_matches_jax(mode, world,
+                                                       monkeypatch):
+    """TERRAIN_POOL_VJP=lanes or dense in both packages: one step of the
+    four networks gives terrain_tpu's losses and weights, the DCGAN
+    discriminator's max pools taken by the switch's formulation."""
+    from terrain_tpu_torch.ops import pool
+
+    monkeypatch.setenv("TERRAIN_POOL_VJP", mode)
+    fn = {"lanes": pool.LanesPool, "dense": pool.DensePool}[mode]
+    calls, real = [], fn.forward
+    monkeypatch.setattr(fn, "forward", staticmethod(
+        lambda ctx, *a: calls.append(1) or real(ctx, *a)))
+    jnets, params, states, batch = world
+    jopt = joptim.rmsprop()
+    jtrain = jax.jit(jstep.build_train_step(jnets, jopt, train_mode="both",
+                                            **KW))
+    jp, js, _, jl = jtrain(params, states,
+                           {n: jopt.init(params[n]) for n in jnets},
+                           tuple(map(jnp.asarray, batch)),
+                           jax.random.PRNGKey(42), LR)
+    tnets, tbatch = _carried(world)
+    topt = optim.rmsprop()
+    tl = step.build_train_step(tnets, topt, train_mode="both", **KW)(
+        step.init_opt_states(tnets, topt), tbatch, None, LR)
+    assert len(calls) == 2 * 2  # the real and the fake pass, two pools
+    for k in losses.TRAIN_KEYS:
+        assert float(tl[k]) == pytest.approx(float(jl[k]), rel=2e-5), k
+    tp, ts = _dump(tnets)
+    _tree_close(tp, jp, 0, 2e-5)
+    _tree_close(ts, js, 1e-5, 1e-6)
+
+
 def test_one_backward_equals_four_independent_grads(world):
     tnets, tbatch = _carried(world)
     _, grads = step.losses_and_grads(tnets, *tbatch, update_stats=False, **KW)

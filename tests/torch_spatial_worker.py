@@ -29,11 +29,16 @@ all four, and saves each phase's results as it ends:
     output, and every gradient of a seeded cotangent's dot product with
     the output, summed over the mesh (the discriminator's input's, this
     rank's rows);
+  * "bilinear": the tiny DCGAN generator with bilinear_upsample at h 3
+    and 5 (BILINEAR) on the pair and the quad under MIN_ROWS 8 and 2,
+    train mode: this rank's rows of the output and every gradient of a
+    seeded cotangent's dot product with the output, summed over the mesh;
   * "step": a train step of step_kw's nets (a tiny test1_nobn_bilin
     family: the four networks) on the grid and the quad under MIN_ROWS 8
     and 2 (experiments._spatial_steps), in the pix2pix mode (STEP) and in
-    the both and dcgan modes (MODE_STEP): the losses and the gradients
-    its update was given;
+    the both and dcgan modes (MODE_STEP), and in the both mode with the
+    bilinear DCGAN generator at h 5 (BILINEAR_STEP): the losses and the
+    gradients its update was given;
   * "build": experiments.build_train("smoke_synthetic", mesh=) on the
     pair, one train step and one eval step: their losses; and two train
     and two eval steps of it, as chunks of 2 (train/step.py's
@@ -112,6 +117,9 @@ STEP = [(mesh, mr) for mesh in ("grid", "quad") for mr in (8, 2)]
 MODE_STEP = [("both", "grid", 8), ("both", "quad", 2), ("dcgan", "grid", 2),
              ("dcgan", "quad", 8)]
 DCGAN = (8, 2)
+BILINEAR = [(mesh, h, mr) for mesh in ("pair", "quad") for h in (3, 5)
+            for mr in (8, 2)]
+BILINEAR_STEP = [("grid", 8), ("quad", 2)]
 IN, LAT, GLOBAL_BATCH, LR = 32, 8, 4, 1e-4
 
 
@@ -403,6 +411,43 @@ def dcgan_nets():
     return g, d
 
 
+def bilinear_generator(h):
+    """The "dcgan" phase's generator with bilinear_upsample and `h`."""
+    from terrain_tpu_torch.models import dcgan
+
+    g = dcgan.default_generator(
+        LAT, True, nch=32, h=h, initial_size=4, final_size=IN,
+        div=[1, 2, 4], bilinear_upsample=True,
+        generator=torch.Generator().manual_seed(3 + h))
+    r = np.random.RandomState(8 + h)
+    with torch.no_grad():
+        for name, p in g.named_parameters():
+            if name.endswith(".b"):
+                p.copy_(torch.from_numpy(
+                    r.uniform(-0.1, 0.1, p.shape).astype(np.float32)))
+    return g
+
+
+def _bilinear(meshes):
+    from terrain_tpu_torch.parallel import shard_rows, spatial
+
+    z, _, gy, _ = (torch.from_numpy(a) for a in dcgan_inputs())
+    out = {}
+    for key, h, rule in BILINEAR:
+        mesh = meshes[key]
+        if mesh is None:
+            continue
+        g = bilinear_generator(h)
+        with min_rows(rule):
+            shard_rows(g, mesh)
+            y = g(z, train=True)
+            grads = spatial.sum_slab_grads(g, list(torch.autograd.grad(
+                y, list(g.parameters()), g.rows.take(gy))))
+        out[(key, h, rule)] = (y.detach().numpy(),
+                               [t.numpy() for t in grads])
+    return out
+
+
 def dcgan_inputs():
     """The global batch: z, the discriminator's images, and seeded
     cotangents of the generator's output and the discriminator's, scaled
@@ -450,7 +495,7 @@ def _dcgan(mesh):
     return out
 
 
-def step_kw(train_mode="p2p"):
+def step_kw(train_mode="p2p", bilinear=False):
     """A tiny test1_nobn_finetunep2p_bilin: the bilinear U-Net and the
     PatchGAN without BN (nf 4 each), the pix2pix mode, LSGAN, rmsprop;
     with `train_mode` "both" or "dcgan" the tiny test1_nobn_bilin_both
@@ -458,14 +503,19 @@ def step_kw(train_mode="p2p"):
     discriminator's last conv is linear, as the _stable experiments'
     (TERRAIN_DISC_OUT): the reference's rectify puts out zeros at this
     size, which would leave its losses and both DCGAN networks'
-    gradients constant."""
+    gradients constant.  `bilinear`: the DCGAN generator with
+    bilinear_upsample at h 5."""
     from terrain_tpu_torch.models import dcgan, unet as unet_mod
+
+    gen = {"nch": 8, "h": 3, "initial_size": 4, "final_size": IN,
+           "div": [2, 2, 2]}
+    if bilinear:
+        gen.update(h=5, bilinear_upsample=True)
 
     return dict(
         gen_fn_dcgan=dcgan.default_generator,
         disc_fn_dcgan=dcgan.default_discriminator,
-        gen_params_dcgan={"nch": 8, "h": 3, "initial_size": 4,
-                          "final_size": IN, "div": [2, 2, 2]},
+        gen_params_dcgan=gen,
         disc_params_dcgan={"nch": IN, "h": 3, "div": [4, 2], "bn": False,
                            "nonlinearity": "linear",
                            "conv_out_nonlinearity": "linear"},
@@ -515,9 +565,11 @@ def _step(meshes):
     from terrain_tpu_torch.train.trainer import TwoStageGAN
 
     out = {}
-    for mode, key, rule in [("p2p", *c) for c in STEP] + MODE_STEP:
+    for mode, key, rule in ([("p2p", *c) for c in STEP] + MODE_STEP
+                            + [("bilinear", *c) for c in BILINEAR_STEP]):
         mesh = meshes[key]
-        gan = TwoStageGAN(**step_kw(mode))
+        gan = TwoStageGAN(**(step_kw("both", bilinear=True)
+                             if mode == "bilinear" else step_kw(mode)))
         rec = recording(gan)
         per = GLOBAL_BATCH // mesh.shape["data"]
         block = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
@@ -599,6 +651,8 @@ def _work(rank, out_dir):
     save(out_dir, "place", rank, _place(grid))
     save(out_dir, "unet", rank, _unet(grid))
     save(out_dir, "dcgan", rank, _dcgan(grid))
+    save(out_dir, "bilinear", rank, _bilinear(
+        {"pair": pair if on_pair else None, "quad": quad}))
     save(out_dir, "step", rank, _step({"grid": grid, "quad": quad}))
     save(out_dir, "build", rank, _build(pair) if on_pair else None)
     save(out_dir, "build_chunk", rank, _build_chunk(pair) if on_pair
