@@ -82,7 +82,7 @@ Phases (any failure exits non-zero and prints no result line):
      plus backward, under sas, pallas, lanes and dense, fp32 and bf16,
      beside the pool2 kernels' bound;
   5. trainer: `python -m terrain_tpu_torch test1_nobn_bilin_both train`
-     through cli.main at full width on 64 synthetic pairs held on the card
+     through cli.main at full width on 40 synthetic pairs held on the card
      as uint8, gathered, normalized and augmented inside the step, both
      switches on: one epoch with a checkpoint, then the same command
      resuming it for a second epoch; results.txt (header, two rows of
@@ -117,7 +117,33 @@ Phases (any failure exits non-zero and prints no result line):
      crosses equal to the strip's), and one epoch of
      `TERRAIN_RASTER=hm.png,texture_2048x1024_420.jpg` (the heightmap a
      PNG made here at the texture's size) with the first batch against
-     plain slicing and the default path's kernels counted;
+     plain slicing and the default path's kernels counted.  Then the
+     progressive fixtures (among the committed ones above, two of them cut
+     after their second and third scan, which libjpeg-turbo smooths) and
+     the progressive strip's scans, their restart intervals repeated,
+     as a 21600 x 10800 texture: its decode timed, its peak host memory
+     read in a fresh process, its bands held to the strip's, and one
+     epoch of `TERRAIN_RASTER=hm.png,<that texture>` (the PNG heightmap
+     above) with the first batch against plain slicing and the kernels
+     counted;
+  7b. inputs: in a child process where h5py, imageio and PIL cannot be
+     imported (the card's machine has none): the committed h5py files of
+     tests/data/h5 read by data/h5.py to their digests (the latest-libver
+     gzip file refused by name) and the gzip file's read rate; 48 + 4
+     synthetic pairs at 512px streamed into an h5 by the port's writer and
+     read back equal; one epoch of `TERRAIN_DATA=<that h5>
+     test1_nobn_bilin_both train` with TERRAIN_FAST=1 (the same launches
+     and the same loss bits as the same epoch from TERRAIN_SYNTHETIC=1,
+     which runs first, after a synthetic warm-up epoch of 8 pairs at the
+     same shapes, so that every timed epoch is warm; each after np.random.seed(0), the priors'
+     stream)
+     and one through the host iterator (its first batch plain slicing,
+     the same launches); then the four port tools on small
+     inputs, each timed: make_synthetic (its pairs), build_dataset from a
+     PNG heightmap and the progressive texture (its arrays the plain
+     crops, filter and RandomState(42) split; a --subset-from of the 10
+     closest crops), pick_epoch (its pick, exit code 1 without swd.txt)
+     and compare_published on the card (its rows the CPU's);
   8. scan: TERRAIN_SCAN as one CUDA graph: the flagship step (augmentation
      on) from one saved state, 4 eager steps twice against two replays of
      a 4-step graph, by default (no deterministic algorithms: the port's
@@ -235,6 +261,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -305,8 +332,9 @@ UNFUSED_LAUNCHES = {"bilinear": 1, "bilinear_backward": 1,
 EVAL_LAUNCHES = {"pool2_fwd": 12, "pool2_bwd": 0, "conv_s2_fwd": 3,
                  "conv_s2_dw": 0}
 # of the shipped set's 240 pairs (64 MB of uint8 on the card): the depth
-# cut to keep the whole script within its time (240, then 120, now 64)
-TRAINER_N = 64
+# cut to keep the whole script within its time (240, then 120, 64, now 40:
+# 10 train steps an epoch, as the quality path's)
+TRAINER_N = 40
 # the quality path's train set: depth cut to 10 steps an epoch (the widths
 # are the flagship's); the valid set is its floor of 4 pairs, one step
 QUALITY_N = 40
@@ -333,6 +361,25 @@ RASTER_DECODE_S = 60.0   # limit: seconds to decode the pair on the host
 JPEG_DIR = os.path.join("tests", "data", "jpeg")
 JPEG_TEXTURE = "texture_2048x1024_420.jpg"
 JPEG_STRIP = "strip_21600x32_420_rst.jpg"
+# the progressive kinds: the strip (a DRI of one MCU row before each scan)
+# repeated into a 21600 x 10800 texture and trained from; the texture the
+# inputs phase builds a dataset from
+JPEG_PSTRIP = "progressive_strip_21600x32_420_rst.jpg"
+JPEG_PTEXTURE = "progressive_2048x1024_420.jpg"
+# the inputs phase: a child process in which these cannot be imported (the
+# card's machine has none of them; the port reads h5 files without h5py),
+# the committed h5py files (tests/make_h5_fixtures.py), and the pairs an
+# epoch trains on from an h5 the port writes (the synthetic set of
+# TERRAIN_N=INPUTS_N: its valid set is 4 pairs)
+BLOCKED = ("h5py", "imageio", "PIL")
+H5_DIR = os.path.join("tests", "data", "h5")
+H5_GZIP = "pairs_earliest_gzip.h5"
+INPUTS_N = 48
+# a first, shorter synthetic epoch at the same shapes (batch 4, 512px; 2
+# train steps and the valid floor's 1) takes cuDNN's warm-up, so that the
+# synthetic and h5 epochs compared after it are all warm
+INPUTS_WARMUP_N = 8
+INPUTS_LIMIT_S = 600
 # the scan phase: eager steps against one CUDA graph of SCAN_K steps from
 # one saved state, on SCAN_N pairs held on the card; timing at
 # TERRAIN_SCAN=16 (terrain_tpu's TPU launch script); the trainer on
@@ -412,7 +459,7 @@ ACC_ROUTE_TOL = 1e-4
 ACC_TOL = 5e-5
 PHASES = {"coldstart", "kernels", "ballast", "serve", "train", "trainer",
           "quality",
-          "raster", "scan", "nans",
+          "raster", "inputs", "scan", "nans",
           "parallel", "accuracy", "tp", "spatial", "conditioning",
           "determinism", "tp4", "spatial4", "scan4"}
 
@@ -1709,6 +1756,39 @@ def _check_arch(gan, out):
           flush=True)
 
 
+def _memoize_pairs():
+    """Synthetic pairs made once per (n, size, seed) in this process, each
+    call given a copy: the phases and their CLI runs draw the same sets
+    again and again (data/synthetic.py gives the same bytes for equal
+    arguments), and making them is set-up outside every timed step and
+    epoch.  _plain_pairs() restores the plain function where its time is
+    the measurement."""
+    from terrain_tpu_torch.data import synthetic
+
+    plain, made = synthetic.make_pairs, {}
+
+    def make_pairs(n, size, seed=0):
+        key = (int(n), int(size), int(seed))
+        if key not in made:
+            made[key] = plain(n, size, seed)
+        return tuple(a.copy() for a in made[key])
+
+    make_pairs.plain = plain
+    synthetic.make_pairs = make_pairs
+
+
+@contextlib.contextmanager
+def _plain_pairs():
+    from terrain_tpu_torch.data import synthetic
+
+    memo = synthetic.make_pairs
+    synthetic.make_pairs = getattr(memo, "plain", memo)
+    try:
+        yield
+    finally:
+        synthetic.make_pairs = memo
+
+
 # ------------------------------------------------------------------ phase 6
 def trainer_slice(torch, card):
     """This slice's path at full width, through the entry point a user
@@ -1726,6 +1806,7 @@ def trainer_slice(torch, card):
     from terrain_tpu_torch.experiments import _get_data, build_gan
     from terrain_tpu_torch.train import checkpoint
     from terrain_tpu_torch.train.losses import TRAIN_KEYS
+    from terrain_tpu_torch.train.trainer import TwoStageGAN
 
     root = tempfile.mkdtemp(prefix="trainer_")
     env = {"TERRAIN_SYNTHETIC": "1", "TERRAIN_FAST": "1",
@@ -1740,6 +1821,15 @@ def trainer_slice(torch, card):
     out = os.path.join(root, "out", EXPERIMENT)
     models = os.path.join(root, "models", EXPERIMENT)
     counts = {}
+    # each checkpoint the CLI writes, timed where it is written
+    save, saves = TwoStageGAN.save_model, []
+
+    def timed_save(self, filename):
+        t0 = time.perf_counter()
+        save(self, filename)
+        saves.append((time.perf_counter() - t0, filename))
+
+    TwoStageGAN.save_model = timed_save
     try:
         for epochs, resume in ((1, None), (2, "auto")):
             os.environ["TERRAIN_EPOCHS"] = str(epochs)
@@ -1818,13 +1908,15 @@ def trainer_slice(torch, card):
         # augment of one batch from the 250 MB set) by CUDA events, beside
         # the epoch's time per train step
         t0 = time.perf_counter()
-        ds, _ = _get_data(gan.in_shp, device="cuda")
+        with _plain_pairs():
+            ds, _ = _get_data(gan.in_shp, device="cuda")
         torch.cuda.synchronize()
         t_data = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        gan.save_model(os.path.join(models, "again.model"))
-        t_save = time.perf_counter() - t0
-        size = os.path.getsize(os.path.join(models, "again.model"))
+        # the resumed run's write of 2.model
+        t_save, last = saves[-1]
+        if [os.path.basename(f) for _, f in saves] != ["1.model", "2.model"]:
+            fail(f"trainer: the CLI wrote the checkpoints {saves}")
+        size = os.path.getsize(last)
         print(f"trainer: outside the epoch: making the {TRAINER_N}+"
               f"{TRAINER_N // 10} synthetic pairs and putting them on the "
               f"card {t_data:.1f} s; writing a checkpoint {t_save:.1f} s "
@@ -1859,6 +1951,7 @@ def trainer_slice(torch, card):
         print(f"trainer: smoke_synthetic train + gen on the card in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     finally:
+        TwoStageGAN.save_model = save
         set_switches(False)
         for k, v in saved.items():
             if v is None:
@@ -2239,7 +2332,7 @@ def raster_slice(torch, card):
         xa = torch.from_numpy(x).cuda().float() / 255.0
         ya = torch.from_numpy(y).cuda().float() / 127.5 - 1.0
         aug_ms = time_ms(lambda: augment_pair(g, xa, ya))
-        del dhm, dtex, hm, tex, it
+        del dhm, dtex, tex, it  # hm stays: the progressive epoch's check
         os.environ.update({
             "TERRAIN_RASTER": ",".join(paths),
             "TERRAIN_EPOCH_CROPS": str(RASTER_CROPS), "TERRAIN_EPOCHS": "2",
@@ -2287,7 +2380,7 @@ def raster_slice(torch, card):
               f"card {aug_ms:.3f} ms = {aug_ms / step_ms:.4f}; losses "
               f"{ {k: float(row['train_' + k]) for k in TRAIN_KEYS} }; "
               f"launches {got}", flush=True)
-        jpeg = raster_jpeg(torch, card, root)
+        jpeg = raster_jpeg(torch, card, root, hm)
         got = {k: got[k] + jpeg[k] for k in got}
     finally:
         for k, v in saved.items():
@@ -2305,6 +2398,8 @@ def _jpeg_fixtures():
         digests = json.load(f)
     out = {}
     for name, want in digests.items():
+        if name == "reference":  # the Pillow and libjpeg-turbo versions
+            continue
         with open(os.path.join(HERE, JPEG_DIR, name), "rb") as f:
             out[name] = (f.read(), want)
     return out
@@ -2344,7 +2439,7 @@ def _repeat_strip(data, height):
     return bytes(out), band, len(intervals)
 
 
-def raster_jpeg(torch, card, root):
+def raster_jpeg(torch, card, root, hm_big):
     """JPEG rasters through the port's decoder: each committed fixture
     decoded to imageio's digest (tests/make_jpeg_fixtures.py), the decode
     rate; the strip repeated into a 21600 x 10800 texture, its decode
@@ -2444,7 +2539,591 @@ def raster_jpeg(torch, card, root):
           f"equals plain slicing; losses "
           f"{ {k: float(row['train_' + k]) for k in TRAIN_KEYS} }; launches "
           f"{got}", flush=True)
+    prog = raster_progressive(torch, np, card, root, decoded[JPEG_PSTRIP],
+                              hm_big)
+    return {k: got[k] + prog[k] for k in got}
+
+
+def _segments(data, start):
+    """(marker, start, end) of each segment of JPEG bytes from `start`; a
+    scan's entropy-coded data and its RST markers belong to its SOS."""
+    pos = start
+    while pos < len(data) - 1:
+        m = data[pos + 1]
+        if m == 0xD9:
+            yield m, pos, pos + 2
+            return
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if m == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] != 0x00
+                       and not 0xD0 <= data[end + 1] <= 0xD7):
+                end += 1
+        yield m, pos, end
+        pos = end
+
+
+def _repeat_progressive(data, height):
+    """The progressive strip (a DRI of one MCU row before each scan) as one
+    of `height` rows: its SOF2 height patched and each scan's restart
+    intervals -- rows of MCUs of the interleaved DC scans, rows of one
+    component's blocks in the others -- repeated in turn, the RST markers
+    between them renumbered.  Returns the bytes, the rows of a band (MCU
+    row), the bands of the strip and the scans' intervals."""
+    sof = data.index(b"\xff\xc2")
+    comps = {data[sof + 10 + 3 * c]: data[sof + 11 + 3 * c]
+             for c in range(data[sof + 9])}
+    vmax = max(hv & 15 for hv in comps.values())
+    strip_h = int.from_bytes(data[sof + 5:sof + 7], "big")
+    out = bytearray(data[:2])
+    counts = []
+    for m, a, b in _segments(data, 2):
+        if m != 0xDA:
+            out += data[a:b]
+            continue
+        head = a + 2 + int.from_bytes(data[a + 2:a + 4], "big")
+        ns = data[a + 4]
+        if ns > 1:
+            rows = -(-height // (8 * vmax))
+            per = -(-strip_h // (8 * vmax))
+        else:
+            v = comps[data[a + 5]] & 15
+            rows = -(-(-(-height * v // vmax)) // 8)
+            per = -(-(-(-strip_h * v // vmax)) // 8)
+        body = data[head:b]
+        intervals, start = [], 0
+        i = body.find(b"\xff")
+        while i >= 0:
+            if 0xD0 <= body[i + 1] <= 0xD7:
+                intervals.append(body[start:i])
+                start = i + 2
+            i = body.find(b"\xff", i + 2)
+        intervals.append(body[start:])
+        if len(intervals) != per:
+            fail(f"raster: a progressive scan of the strip has "
+                 f"{len(intervals)} restart intervals, not its {per} rows")
+        out += data[a:head]
+        for r in range(rows):
+            if r:
+                out += bytes([0xFF, 0xD0 + (r - 1) % 8])
+            out += intervals[r % per]
+        counts.append(per)
+    out[sof + 5:sof + 7] = height.to_bytes(2, "big")
+    return bytes(out), 8 * vmax, strip_h // (8 * vmax), counts
+
+
+def _decode_peak(path):
+    """(seconds, peak MB above the resident set before the call) of
+    decode_jpeg on the file at `path`, in a fresh process whose VmRSS
+    (/proc/self/status, read only) a thread samples every millisecond while
+    the call runs (ctypes lets go of the GIL; getrusage's peak would carry
+    the parent's across the spawn)."""
+    code = (
+        "import json, sys, threading, time\n"
+        f"sys.path.insert(0, {HERE!r})\n"
+        "from terrain_tpu_torch.data.jpeg import decode_jpeg, read_header\n"
+        "def rss():\n"
+        "    for ln in open('/proc/self/status'):\n"
+        "        if ln.startswith('VmRSS'):\n"
+        "            return int(ln.split()[1]) * 1024\n"
+        "data = open(sys.argv[1], 'rb').read()\n"
+        "read_header(data)  # the library loaded before the count\n"
+        "before = rss()\n"
+        "seen, done = [before], threading.Event()\n"
+        "def watch():\n"
+        "    while not done.is_set():\n"
+        "        seen.append(rss())\n"
+        "        time.sleep(0.001)\n"
+        "t = threading.Thread(target=watch)\n"
+        "t.start()\n"
+        "t0 = time.perf_counter()\n"
+        "img = decode_jpeg(data)\n"
+        "dt = time.perf_counter() - t0\n"
+        "done.set()\n"
+        "t.join()\n"
+        "print(json.dumps({'s': dt, 'peak': max(seen) - before, "
+        "'samples': len(seen), 'out': img.nbytes}))\n")
+    p = subprocess.run([sys.executable, "-c", code, path],
+                       capture_output=True, text=True, timeout=300)
+    if p.returncode != 0:
+        fail(f"raster: the decoder's memory run failed:\n{p.stderr[-2000:]}")
+    return json.loads(p.stdout.splitlines()[-1])
+
+
+def raster_progressive(torch, np, card, root, strip, hm):
+    """The progressive strip's scans repeated into a 21600 x 10800 texture:
+    its decode timed (and its peak host memory in a fresh process), every
+    band that no vertical upsampling crosses equal to the strip's; then one
+    epoch of `TERRAIN_RASTER=hm.png,<that texture> TERRAIN_EPOCH_CROPS=48
+    test1_nobn_bilin_both train` with the first batch against plain
+    slicing of `hm` (the raster phase's heightmap, hm.png's bytes).
+    Returns the epoch's launch counts."""
+    import math
+
+    from terrain_tpu_torch import cli
+    from terrain_tpu_torch.data import RasterCropIterator
+    from terrain_tpu_torch.data.jpeg import decode_jpeg
+    from terrain_tpu_torch.train.losses import TRAIN_KEYS
+
+    with open(os.path.join(HERE, JPEG_DIR, JPEG_PSTRIP), "rb") as f:
+        big, band, kinds, counts = _repeat_progressive(f.read(), RASTER_H)
+    path = os.path.join(root, "tex_progressive.jpg")
+    with open(path, "wb") as f:
+        f.write(big)
+    t0 = time.perf_counter()
+    tex = decode_jpeg(big)
+    dt = time.perf_counter() - t0
+    print(f"raster [{card}]: a {RASTER_W}x{RASTER_H} progressive JPEG (the "
+          f"strip's {len(counts)} scans, {counts} restart intervals each, "
+          f"repeated; {len(big) / 1e6:.1f} MB) decoded in {dt:.2f} s "
+          f"({tex.nbytes / dt / 1e6:.1f} MB/s of pixels)", flush=True)
+    if dt > RASTER_DECODE_S:
+        fail(f"raster: the progressive JPEG took {dt:.1f} s > "
+             f"{RASTER_DECODE_S} s")
+    inner = slice(1, band - 1)
+    for r in range(RASTER_H // band):
+        k = r % kinds
+        if not np.array_equal(tex[r * band:(r + 1) * band][inner],
+                              strip[k * band:(k + 1) * band][inner]):
+            fail(f"raster: band {r} of the progressive JPEG is not the "
+                 f"strip's band {k}")
+    peak = _decode_peak(path)
+    print(f"raster [{card}]: in a fresh process the decode took "
+          f"{peak['s']:.2f} s and its peak host memory was "
+          f"{peak['peak'] / 1e6:.1f} MB above the process's before it "
+          f"({peak['samples']} samples of VmRSS; the output "
+          f"{peak['out'] / 1e6:.1f} MB, the coefficients 699.8 MB)",
+          flush=True)
+    it = RasterCropIterator(hm, tex, TRAIN_BATCH, crop=512,
+                            epoch_size=RASTER_CROPS, seed=0)
+    x, y = it.next_uint8()
+    px, py = _plain_crops(np, hm, tex, TRAIN_BATCH, 512, 0)
+    if not (np.array_equal(x, px) and np.array_equal(y, py)):
+        fail("raster: the progressive texture's first batch is not the "
+             "plain slices of the decoded pair")
+    del hm, tex, it, big
+    out = os.path.join(root, "out_progressive")
+    os.environ.update({
+        "TERRAIN_RASTER": f"{os.path.join(root, 'hm.png')},{path}",
+        "TERRAIN_EPOCHS": "1", "TERRAIN_OUT": out,
+        "TERRAIN_MODELS": os.path.join(root, "models_progressive")})
+    _reset_counters()
+    t0 = time.perf_counter()
+    if cli.main([EXPERIMENT, "train"]) != 0:
+        fail("raster: the CLI returned an error on the progressive texture")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counters()
+    with open(os.path.join(out, EXPERIMENT, "results.txt")) as f:
+        header, *rows = [ln.split(",") for ln in f.read().splitlines()]
+    if len(rows) != 1:
+        fail(f"raster: the progressive run's results.txt has {len(rows)} "
+             f"epochs")
+    row = dict(zip(header, rows[0]))
+    if not all(math.isfinite(float(row[f"{s}_{k}"]))
+               for s in ("train", "valid") for k in TRAIN_KEYS):
+        fail(f"raster: a loss of the progressive run is not finite: {row}")
+    n_train = RASTER_CROPS // TRAIN_BATCH
+    for k, v in TRAIN_LAUNCHES.items():
+        if got[k] < n_train * v:
+            fail(f"raster: {k} launched {got[k]} times in {n_train} train "
+                 f"steps from the progressive texture")
+    print(f"raster [{card}]: `TERRAIN_RASTER=hm.png,tex_progressive.jpg "
+          f"TERRAIN_EPOCH_CROPS={RASTER_CROPS} {EXPERIMENT} train` "
+          f"(21600x10800 PNG + progressive JPEG): {wall:.1f} s in all "
+          f"(both decoded again), epoch {float(row['time']):.3f} s; the "
+          f"first batch equals plain slicing; launches "
+          f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
     return got
+
+
+# ----------------------------------------------------------------- inputs
+def _blocked_libraries():
+    """Make h5py, imageio and PIL unimportable in this process (an import
+    of a name that sys.modules maps to None raises ImportError); fails if
+    one is already imported."""
+    for name in BLOCKED:
+        if name in sys.modules and sys.modules[name] is not None:
+            fail(f"inputs: {name} was imported before the phase began")
+        sys.modules[name] = None
+
+
+def _h5_fixtures(np, card):
+    """The committed h5py files (tests/make_h5_fixtures.py) read by the
+    port's reader to their digests (the refused one raising its text); the
+    gzip-chunked file's read rate (median of 20 reads)."""
+    import hashlib
+
+    from terrain_tpu_torch.data import h5
+
+    with open(os.path.join(HERE, H5_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    for name, want in digests.items():
+        if name == "reference":
+            continue
+        path = os.path.join(HERE, H5_DIR, name)
+        if "refused" in want:
+            try:
+                with h5.File(path) as f:
+                    f["xt"]
+            except NotImplementedError as e:
+                if want["refused"] not in str(e):
+                    fail(f"inputs: {name} raised {e!r}")
+                print(f"inputs: {name} refused as it must be: {e}")
+                continue
+            fail(f"inputs: {name} was read, not refused")
+        with h5.File(path) as f:
+            for k, w in want.items():
+                a = np.ascontiguousarray(f[k])
+                if (list(a.shape) != w["shape"] or str(a.dtype) != w["dtype"]
+                        or hashlib.sha256(a.tobytes()).hexdigest()
+                        != w["sha256"]):
+                    fail(f"inputs: {name}/{k} is not h5py's array")
+        print(f"inputs: {name}: the port's reader gives h5py's arrays "
+              f"({', '.join(sorted(want))})", flush=True)
+    path = os.path.join(HERE, H5_DIR, H5_GZIP)
+    times, nbytes = [], 0
+    for _ in range(20):
+        t0 = time.perf_counter()
+        with h5.File(path) as f:
+            nbytes = sum(np.asarray(f[k]).nbytes for k in f.keys())
+        times.append(time.perf_counter() - t0)
+    dt = statistics.median(times)
+    print(f"inputs [{card}]: {H5_GZIP} (gzip + shuffle chunks, a pair a "
+          f"chunk, fletcher32 on yt) read in {dt * 1e3:.3f} ms, "
+          f"{nbytes / dt / 1e6:.1f} MB/s of arrays (median of 20 reads, "
+          f"warm)", flush=True)
+
+
+def _h5_pairs(np, card, path):
+    """INPUTS_N + 4 synthetic pairs at 512px (the arrays TERRAIN_SYNTHETIC=1
+    TERRAIN_N=INPUTS_N makes) streamed row by row into an h5 by the port's
+    writer, read back (memmaps) equal; returns the arrays."""
+    from terrain_tpu_torch.data import h5
+    from terrain_tpu_torch.data.synthetic import make_pairs
+
+    xt, yt = make_pairs(INPUTS_N, 512, seed=0)
+    xv, yv = make_pairs(max(INPUTS_N // 10, 4), 512, seed=1)
+    arrays = {"xt": xt, "yt": yt, "xv": xv, "yv": yv}
+    t0 = time.perf_counter()
+    maps = h5.create(path, {k: (a.shape, a.dtype) for k, a in arrays.items()})
+    for k, a in arrays.items():
+        for i in range(len(a)):
+            maps[k][i] = a[i]
+        maps[k].flush()
+    del maps
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with h5.File(path) as f:
+        back = {k: np.array(f[k]) for k in f.keys()}
+    t_read = time.perf_counter() - t0
+    nbytes = sum(a.nbytes for a in arrays.values())
+    if sorted(back) != sorted(arrays) or not all(
+            np.array_equal(back[k], a) for k, a in arrays.items()):
+        fail("inputs: the written h5 reads back as other arrays")
+    print(f"inputs [{card}]: {INPUTS_N}+{len(xv)} pairs at 512px "
+          f"({nbytes / 1e6:.1f} MB) streamed into an h5 row by row in "
+          f"{t_write:.3f} s; read back through the memmaps in {t_read:.3f} s "
+          f"({nbytes / t_read / 1e6:.1f} MB/s, warm), equal", flush=True)
+    return arrays
+
+
+def _epoch(torch, card, label, env, root):
+    """One epoch of `EXPERIMENT train` through cli.main under `env`, the
+    default path (switches off): (launch counts, results row)."""
+    import math
+
+    import numpy as np
+
+    from terrain_tpu_torch import cli
+    from terrain_tpu_torch.train.losses import TRAIN_KEYS
+
+    out = os.path.join(root, f"out_{label}")
+    keep = {"TERRAIN_EPOCHS": "1", "TERRAIN_SAVE_EVERY": "10",
+            "TERRAIN_ARTIFACT_EVERY": "1000", "TERRAIN_OUT": out,
+            "TERRAIN_MODELS": os.path.join(root, f"models_{label}")}
+    for k in ("TERRAIN_SYNTHETIC", "TERRAIN_FAST", "TERRAIN_N",
+              "TERRAIN_DATA", "TERRAIN_RASTER", "TERRAIN_RESUME"):
+        os.environ.pop(k, None)
+    os.environ.update({**keep, **env})
+    set_switches(False)
+    # the prior Z comes from the global numpy stream (as in terrain_tpu):
+    # seeded alike, two epochs of one process draw the same priors
+    np.random.seed(0)
+    _reset_counters()
+    t0 = time.perf_counter()
+    if cli.main([EXPERIMENT, "train"]) != 0:
+        fail(f"inputs: the {label} epoch's CLI returned an error")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counters()
+    with open(os.path.join(out, EXPERIMENT, "results.txt")) as f:
+        header, *rows = [ln.split(",") for ln in f.read().splitlines()]
+    if len(rows) != 1:
+        fail(f"inputs: the {label} epoch's results.txt has {len(rows)} rows")
+    row = dict(zip(header, rows[0]))
+    losses = {f"{s}_{k}": row[f"{s}_{k}"] for s in ("train", "valid")
+              for k in TRAIN_KEYS}
+    if not all(math.isfinite(float(v)) for v in losses.values()):
+        fail(f"inputs: a loss of the {label} epoch is not finite: {row}")
+    n_train = int(env.get("TERRAIN_N", INPUTS_N)) // TRAIN_BATCH
+    for k, v in TRAIN_LAUNCHES.items():
+        if got[k] < n_train * v:
+            fail(f"inputs: {k} launched {got[k]} times in the {label} "
+                 f"epoch's {n_train} train steps")
+    print(f"inputs [{card}]: `{' '.join(f'{k}={v}' for k, v in env.items())}"
+          f" {EXPERIMENT} train`: {wall:.1f} s in all, epoch "
+          f"{float(row['time']):.3f} s; launches "
+          f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
+    return got, losses, float(row["time"])
+
+
+def _h5_epochs(torch, np, card, path, arrays, root):
+    """The same epoch from TERRAIN_SYNTHETIC, from the h5 on the card
+    (TERRAIN_FAST=1) and through the host iterator, each after
+    np.random.seed(0): the h5 epochs launch the kernels as the synthetic
+    one does; the device one's losses are its bits; the host iterator's
+    first batch is plain slicing.  A shorter synthetic epoch first takes
+    the warm-up (cuDNN's choices for the shapes), so every timed epoch is
+    warm."""
+    from terrain_tpu_torch.experiments import get_iterators
+
+    env = {"TERRAIN_SYNTHETIC": "1", "TERRAIN_FAST": "1"}
+    _, _, cold_s = _epoch(torch, card, "synthetic_warmup",
+                          {**env, "TERRAIN_N": str(INPUTS_WARMUP_N)}, root)
+    syn, syn_losses, syn_s = _epoch(torch, card, "synthetic",
+                                    {**env, "TERRAIN_N": str(INPUTS_N)}, root)
+    fast, fast_losses, fast_s = _epoch(
+        torch, card, "h5_fast", {"TERRAIN_DATA": path, "TERRAIN_FAST": "1"},
+        root)
+    if fast != syn:
+        fail(f"inputs: the h5 epoch launched {fast}, the synthetic one {syn}")
+    if fast_losses != syn_losses:
+        fail(f"inputs: the h5 epoch's losses {fast_losses} are not the "
+             f"synthetic one's {syn_losses}")
+    tr, _ = get_iterators(path, TRAIN_BATCH, True, False)
+    slices = [slice(i, i + TRAIN_BATCH)
+              for i in range(0, INPUTS_N, TRAIN_BATCH)]
+    np.random.RandomState(0).shuffle(slices)
+    x, y = next(tr)
+    px = arrays["xt"][slices[0]].astype(np.float32) / 255.0
+    py = (arrays["yt"][slices[0]].astype(np.float32) - 127.5) / 127.5
+    if not (np.array_equal(x, px) and np.array_equal(y, py)):
+        fail("inputs: the h5 host iterator's first batch is not plain "
+             "slicing of the pairs")
+    host, _, host_s = _epoch(torch, card, "h5_host", {"TERRAIN_DATA": path},
+                             root)
+    if host != syn:
+        fail(f"inputs: the h5 host-iterator epoch launched {host}, the "
+             f"synthetic one {syn}")
+    print(f"inputs [{card}]: the {INPUTS_N}-pair epoch, warm: "
+          f"TERRAIN_SYNTHETIC on the card {syn_s:.3f} s (after a warm-up "
+          f"epoch of {INPUTS_WARMUP_N} pairs, {cold_s:.3f} s), the h5 on the "
+          f"card {fast_s:.3f} s "
+          f"(its losses the same bits), the h5 through the host iterator "
+          f"{host_s:.3f} s (its first batch plain slicing)", flush=True)
+    return {k: fast[k] + host[k] for k in fast}
+
+
+def _timed(card, name, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    dt = time.perf_counter() - t0
+    print(f"inputs [{card}]: tool {name}: {dt:.3f} s", flush=True)
+    return out
+
+
+def _plain_dataset(np, hm, tex, crop, stride):
+    """build_dataset's arrays by plain loops: windows at `stride` that lie
+    whole in the rasters and whose heightmap is at most 90% zeros, in
+    order, shuffled by RandomState(42), the first 90% for training."""
+    keep = []
+    for y in range(0, hm.shape[0], stride):
+        for x in range(0, hm.shape[1], stride):
+            h = hm[y:y + crop, x:x + crop]
+            if h.shape == (crop, crop) and (h == 0).mean() <= 0.9:
+                keep.append((y, x))
+    order = np.random.RandomState(42).permutation(len(keep))
+    n_train = int(len(keep) * 0.9)
+    xs = np.stack([hm[y:y + crop, x:x + crop, None]
+                   for y, x in (keep[i] for i in order)])
+    ys = np.stack([tex[y:y + crop, x:x + crop]
+                   for y, x in (keep[i] for i in order)])
+    return {"xt": xs[:n_train], "yt": ys[:n_train], "xv": xs[n_train:],
+            "yv": ys[n_train:]}
+
+
+def _tools(torch, np, card, root):
+    """The four port tools on small inputs, each timed and checked."""
+    import contextlib
+    import io
+
+    from terrain_tpu_torch.data import h5
+    from terrain_tpu_torch.data.jpeg import decode_jpeg
+    from terrain_tpu_torch.data.synthetic import make_pairs
+    from terrain_tpu_torch.serve.png import encode_png
+    from terrain_tpu_torch.tools import (
+        build_dataset, compare_published, make_synthetic, pick_epoch)
+
+    def arrays(path):
+        with h5.File(path) as f:
+            return {k: np.array(f[k]) for k in f.keys()}
+
+    def quiet(fn, *args):  # the tool's own lines kept from the log
+        def run():
+            with contextlib.redirect_stdout(io.StringIO()):
+                return fn(*args)
+        return run
+
+    out = os.path.join(root, "syn.h5")
+    _timed(card, "make_synthetic (8+2 pairs, 64px)",
+           quiet(make_synthetic.main,
+                 [out, "--n", "8", "--n-valid", "2", "--size", "64"]))
+    got = arrays(out)
+    xt, yt = make_pairs(8, 64, seed=0)
+    if not (np.array_equal(got["xt"], xt) and np.array_equal(got["yt"], yt)):
+        fail("inputs: make_synthetic wrote other pairs")
+    # build_dataset: a PNG heightmap with ocean and the progressive texture
+    with open(os.path.join(HERE, JPEG_DIR, JPEG_PTEXTURE), "rb") as f:
+        tex = decode_jpeg(f.read())
+    hm = _synthetic_raster(np, seed=2, size=tex.shape[:2])[0]
+    hm_path = os.path.join(root, "bd_hm.png")
+    with open(hm_path, "wb") as f:
+        f.write(encode_png(hm, level=1))
+    ds = os.path.join(root, "bd.h5")
+    _timed(card, f"build_dataset ({tex.shape[1]}x{tex.shape[0]} PNG + "
+           f"progressive JPEG, crop 512, stride 100)",
+           quiet(build_dataset.main, [
+               "--heightmap", hm_path, "--texture",
+               os.path.join(HERE, JPEG_DIR, JPEG_PTEXTURE), "--crop", "512",
+               "--stride", "100", "--out", ds]))
+    got, want = arrays(ds), _plain_dataset(np, hm, tex, 512, 100)
+    if sorted(got) != sorted(want) or not all(
+            np.array_equal(got[k], want[k]) for k in want):
+        fail("inputs: build_dataset's arrays are not the plain crops")
+    ref = os.path.join(root, "brown.png")
+    with open(ref, "wb") as f:
+        f.write(encode_png(np.full((16, 16, 3), (150, 110, 70), np.uint8)))
+    sub = os.path.join(root, "sub.h5")
+    _timed(card, "build_dataset --subset-from (top 10)",
+           quiet(build_dataset.main, [
+               "--subset-from", ds, "--ref-img", ref, "--top-k", "10",
+               "--out", sub]))
+    d = [float(np.sum((np.array([150, 110, 70.0]) - np.mean(
+        np.asarray(t, np.float64), axis=(0, 1))) ** 2)) for t in want["yt"]]
+    chosen = sorted(np.argsort(d)[:10].tolist())
+    got = arrays(sub)
+    if not (np.array_equal(got["yt"], want["yt"][chosen])
+            and np.array_equal(got["xv"], want["xt"][chosen])):
+        fail("inputs: build_dataset's subset is not the 10 closest crops")
+    print(f"inputs: build_dataset gives the plain crops ({len(want['xt'])} "
+          f"train / {len(want['xv'])} valid) and the closest 10", flush=True)
+    # pick_epoch on a run's swd.txt and checkpoints
+    run_out, run_models = os.path.join(root, "run"), os.path.join(root, "ckpt")
+    os.makedirs(run_out)
+    os.makedirs(run_models)
+    with open(os.path.join(run_out, "swd.txt"), "w") as f:
+        f.write("epoch,swd_mean\n1,0.9\n2,0.3\n3,0.5\n")
+    for e in (1, 3):
+        open(os.path.join(run_models, f"{e}.model"), "wb").close()
+    buf = io.StringIO()
+
+    def pick():
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            return pick_epoch.main([run_out, run_models])
+
+    rc = _timed(card, "pick_epoch", pick)
+    if rc != 0 or buf.getvalue().strip() != os.path.join(run_models,
+                                                         "3.model"):
+        fail(f"inputs: pick_epoch said {buf.getvalue()!r} (rc {rc})")
+    with contextlib.redirect_stderr(io.StringIO()):
+        if pick_epoch.main([root, run_models]) != 1:
+            fail("inputs: pick_epoch found a pick without swd.txt")
+    # compare_published on the card and on the CPU
+    dirs = {}
+    for label, n, seed in (("ref", 20, 0), ("gen", 8, 1)):
+        d = os.path.join(root, label)
+        os.makedirs(d)
+        rnd = np.random.RandomState(seed)
+        for i in range(n):
+            low = rnd.rand(64, 64)
+            img = (np.kron(low, np.ones((8, 8))) * 200
+                   + rnd.rand(512, 512) * 50).astype(np.uint8)
+            with open(os.path.join(d, f"{i}.png"), "wb") as f:
+                f.write(encode_png(np.repeat(img[..., None], 3, -1), level=1))
+        dirs[label] = d
+    rows = {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+
+        def compare():
+            with contextlib.redirect_stdout(buf):
+                return compare_published.main([
+                    dirs["gen"], "--ref-dir", dirs["ref"], "--scale", "256",
+                    "--real-h5", ds, "--device", device])
+
+        _timed(card, f"compare_published ({device}; 20 + 8 512px PNGs at "
+               f"256px, --real-h5)", compare)
+        rows[device] = [ln for ln in buf.getvalue().splitlines()
+                        if not ln.startswith("#")]
+    if len(rows["cuda"]) != 5:
+        fail(f"inputs: compare_published printed {rows['cuda']}")
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        va, vb = (np.array([float(v) for v in re.findall(
+            r"-?\d+\.\d+", r[r.index("swd_mean="):])]) for r in (a, b))
+        # printed to 4 decimals: each side rounds by up to 0.5e-4
+        if len(va) != 7 or not np.isfinite(va).all() or (
+                np.abs(va - vb) > SWD_TOL * np.abs(vb) + 1e-4).any():
+            fail(f"inputs: compare_published's card row {a!r} is not the "
+                 f"CPU's {b!r}")
+    print("inputs: compare_published's rows on the card equal the CPU's "
+          "(4 decimals):\n  " + "\n  ".join(rows["cuda"]), flush=True)
+
+
+def inputs_child(torch, root):
+    """`chip_smoke.py _inputs <dir>`: the inputs phase in a process where
+    h5py, imageio and PIL cannot be imported.  Writes its epochs' launch
+    counts to <dir>/inputs.json."""
+    import numpy as np
+
+    from terrain_tpu_torch.device import strict_fp32
+
+    _blocked_libraries()
+    strict_fp32()
+    card = card_line()
+    _h5_fixtures(np, card)
+    path = os.path.join(root, "pairs.h5")
+    arrays = _h5_pairs(np, card, path)
+    launches = _h5_epochs(torch, np, card, path, arrays, root)
+    _tools(torch, np, card, root)
+    with open(os.path.join(root, "inputs.json"), "w") as f:
+        json.dump(launches, f)
+    return 0
+
+
+def inputs_slice(torch, card):
+    """The inputs phase (h5 files without h5py, the port's tools) in a
+    child process with h5py, imageio and PIL unimportable; returns the
+    launch counts of its two h5 epochs."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="inputs_")
+    try:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "_inputs", root], capture_output=True, text=True,
+                           timeout=INPUTS_LIMIT_S)
+        print(p.stdout, end="", flush=True)
+        if p.returncode != 0:
+            fail(f"inputs: the child failed (rc {p.returncode}):\n"
+                 f"{p.stderr[-3000:]}")
+        with open(os.path.join(root, "inputs.json")) as f:
+            launches = json.load(f)
+        print(f"inputs: the phase's process took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 # ------------------------------------------------------------------ phase 9
@@ -5755,6 +6434,8 @@ def main():
         return ballast_child(torch, sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:2] == ["_cold"]:  # the coldstart phase's child process
         return cold_child(torch, *sys.argv[2:4])
+    if sys.argv[1:2] == ["_inputs"]:  # the inputs phase's child process
+        return inputs_child(torch, sys.argv[2])
     if not (os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
             or shutil.which("nvcc")) and os.path.exists(CUDA_NVCC):
         os.environ["CUDA_HOME"] = os.path.dirname(os.path.dirname(CUDA_NVCC))
@@ -5769,6 +6450,7 @@ def main():
         return not only or phase in only
 
     strict_fp32()
+    _memoize_pairs()
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -5790,6 +6472,7 @@ def main():
     rows, serve_launches, train_launches, trainer_launches = {}, {}, {}, {}
     quality_launches, trainer_epoch_s, step_ms = {}, float("nan"), {}
     raster_launches, scan_launches, parallel_launches = {}, {}, {}
+    inputs_launches = {}
     world1_launches, tp_launches, spatial_launches = {}, {}, {}
     world1_scan_launches = {}
     if want("coldstart"):
@@ -5846,6 +6529,10 @@ def main():
     if want("raster"):
         raster_launches = raster_slice(torch, card)
         print(f"phase raster done at {time.perf_counter() - t_start:.0f} s",
+              flush=True)
+    if want("inputs"):
+        inputs_launches = inputs_slice(torch, card)
+        print(f"phase inputs done at {time.perf_counter() - t_start:.0f} s",
               flush=True)
     if want("scan"):
         scan_launches = scan_slice(torch, card)
@@ -5911,7 +6598,8 @@ def main():
         paths[name].remove("quality")
     for name in serve_launches:
         paths[name].append("serve")
-    # the raster epoch and the TERRAIN_SCAN epoch run the default path;
+    # the raster epochs, the inputs phase's h5 epochs and the TERRAIN_SCAN
+    # epoch run the default path;
     # the parallel phase's steps every kernel of the train path (the
     # opt-in ones with the switches on, bilinear with the unfused decoder):
     # "parallel" the two gloo ranks at their local batch of 2 (each rank
@@ -5921,7 +6609,7 @@ def main():
     # replays, which run them, call no wrapper)
     for name in TRAIN_LAUNCHES:
         if name in paths:
-            paths[name] += ["raster", "scan"]
+            paths[name] += ["raster", "inputs", "scan"]
     for name in meta:
         paths[name] += ["parallel", "parallel_world1",
                         "parallel_world1_scan", "tp"]
@@ -5930,7 +6618,8 @@ def main():
         paths[name].append("spatial")
     launches = {"serve": serve_launches, "train": train_launches,
                 "trainer": trainer_launches, "quality": quality_launches,
-                "raster": raster_launches, "scan": scan_launches,
+                "raster": raster_launches, "inputs": inputs_launches,
+                "scan": scan_launches,
                 "parallel": parallel_launches,
                 "parallel_world1": world1_launches,
                 "parallel_world1_scan": world1_scan_launches,

@@ -1,4 +1,5 @@
-"""Baseline JPEG decoding for the trainer's raster pairs (TERRAIN_RASTER).
+"""JPEG decoding for the trainer's raster pairs (TERRAIN_RASTER) and the
+port's dataset tools.
 
 The JAX package reads its rasters with imageio, which decodes a JPEG
 through Pillow and libjpeg-turbo.  The port depends on no image library:
@@ -8,11 +9,16 @@ one decoding raises), which reproduces libjpeg-turbo's default integer
 routines and so gives `imageio.v3.imread`'s bytes: (H, W) for a grayscale
 file, (H, W, 3) RGB for a YCbCr one.
 
-It takes sequential Huffman JPEGs (SOF0, SOF1) of 8-bit samples, one
-interleaved scan, sampling factors up to 2x2 and restart intervals.  Any
-other kind (progressive, lossless, arithmetic-coded, 12-bit, CMYK or
-RGB-coded) raises NotImplementedError naming it; a damaged file raises
-ValueError.
+It takes Huffman JPEGs of 8-bit samples, sampling factors up to 2x2 and
+restart intervals: sequential ones (SOF0, SOF1) of one interleaved scan,
+and progressive ones (SOF2), with libjpeg-turbo's block smoothing where a
+file leaves coefficients unrefined (one cut after an early scan).  Held
+byte-equal to imageio under Pillow 12.1.0 with libjpeg-turbo 3.1.3.  A
+progressive image holds all its coefficients while it decodes (128 bytes a
+block: ~700 MB for a 21600x10800 4:2:0 texture, beside the output).  Any
+other kind (lossless, arithmetic-coded, 12-bit, CMYK or RGB-coded, or
+sequential of several scans) raises NotImplementedError naming it; a
+damaged file raises ValueError.
 """
 
 import ctypes

@@ -57,14 +57,10 @@ def make_pairs(n, size, seed=0):
 
 
 def write_h5(path, n_train=16, n_valid=4, size=64, seed=0):
-    """Write a reference-layout h5 (xt/yt/xv/yv, uint8 NHWC)."""
-    import h5py
+    """Write a reference-layout h5 (xt/yt/xv/yv, uint8 NHWC) with data/h5.py's
+    writer."""
+    from terrain_tpu_torch.data import h5
 
     xt, yt = make_pairs(n_train, size, seed)
     xv, yv = make_pairs(n_valid, size, seed + 1)
-    with h5py.File(path, "w") as f:
-        f.create_dataset("xt", data=xt)
-        f.create_dataset("yt", data=yt)
-        f.create_dataset("xv", data=xv)
-        f.create_dataset("yv", data=yv)
-    return path
+    return h5.write(path, {"xt": xt, "yt": yt, "xv": xv, "yv": yv})

@@ -5,7 +5,12 @@ on a device, and `run(name, mode)` is what `python -m terrain_tpu_torch
 <name> <train|gen|interp>` calls.
 
 Environment, as in terrain_tpu:
-  TERRAIN_DATA       path to the paired h5 (default data/textures_v2_brown500.h5)
+  TERRAIN_DATA       path to the paired h5 (xt/yt/xv/yv, uint8 NHWC; default
+                     data/textures_v2_brown500.h5), read by data/h5.py without
+                     h5py: h5py's files of either libver, contiguous (a
+                     memmap of the file), compact or chunked (deflate,
+                     shuffle, fletcher32); build one with `python -m
+                     terrain_tpu_torch.tools.build_dataset`
   TERRAIN_SYNTHETIC  "1" -> synthetic terrain pairs made in memory
   TERRAIN_N          synthetic train-set size (default 240)
   TERRAIN_EPOCHS     number of epochs (default 1000)
@@ -14,10 +19,11 @@ Environment, as in terrain_tpu:
   TERRAIN_FAST       "1" -> the dataset lives on the device (DeviceDataset)
   TERRAIN_RASTER     "heightmap.png,texture.jpg" -> random crops cut on the
                      fly from one raster pair (data/crops.py); before the
-                     synthetic and h5 sources, TERRAIN_FAST ignored.  PNG or
-                     baseline JPEG (the port's own decoders); TIFF, GIF,
-                     BMP, WebP and the JPEG kinds data/jpeg.py does not
-                     take (progressive, ...) raise
+                     synthetic and h5 sources, TERRAIN_FAST ignored.  PNG
+                     (8- or 16-bit, not interlaced or palette) or JPEG
+                     (baseline or progressive; the port's own decoders);
+                     TIFF, GIF, BMP, WebP and the JPEG kinds data/jpeg.py
+                     does not take (lossless, arithmetic-coded, ...) raise
   TERRAIN_EPOCH_CROPS  crops per train epoch of TERRAIN_RASTER (default
                      240; the valid pass takes a tenth, at least a batch)
   TERRAIN_DTYPE=bf16 bf16 compute over fp32 parameters
@@ -60,10 +66,12 @@ import glob
 import os
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from terrain_tpu_torch.data import (
-    DeviceDataset, Hdf5Iterator, RasterCropIterator)
+    DeviceDataset, Hdf5Iterator, RasterCropIterator, h5)
+from terrain_tpu_torch.data.raster import format_by_name, format_of, read_raster
 from terrain_tpu_torch.device import compute_dtype_from_env, resolve_device
 from terrain_tpu_torch.models import dcgan, unet
 from terrain_tpu_torch.ops.norm import BatchNorm
@@ -307,43 +315,22 @@ def _spatial_steps(gan, mesh):
 
 # ------------------------------------------------------------------- data
 def get_iterators(dataset, batch_size, is_a_grayscale, is_b_grayscale):
-    """Host-iterator pair over an h5 file (xt/yt/xv/yv, uint8 NHWC).
-    Augmentation is the trainer's, on the device."""
-    import h5py
-
+    """Host-iterator pair over an h5 file (xt/yt/xv/yv, uint8 NHWC), read by
+    data/h5.py: a contiguous dataset is a memmap of the file, so a batch
+    reads its rows only.  Augmentation is the trainer's, on the device."""
     kw = dict(is_a_grayscale=is_a_grayscale, is_b_grayscale=is_b_grayscale)
-    with h5py.File(dataset, "r") as f:  # read into host memory once
-        return (Hdf5Iterator(f["xt"][:], f["yt"][:], batch_size, **kw),
-                Hdf5Iterator(f["xv"][:], f["yv"][:], batch_size, **kw))
+    with h5.File(dataset) as f:
+        return (Hdf5Iterator(f["xt"], f["yt"], batch_size, **kw),
+                Hdf5Iterator(f["xv"], f["yv"], batch_size, **kw))
 
 
 def get_device_datasets(dataset, is_a_grayscale, is_b_grayscale, device=None):
     """Device-resident dataset pair from an h5 file."""
-    import h5py
-
-    with h5py.File(dataset, "r") as f:
-        return (DeviceDataset(f["xt"][:], f["yt"][:], is_a_grayscale,
-                              is_b_grayscale, device=device),
-                DeviceDataset(f["xv"][:], f["yv"][:], is_a_grayscale,
-                              is_b_grayscale, device=device))
-
-
-# raster formats by file extension and by magic; the port decodes PNG and
-# JPEG with its own codecs and refuses the others by name
-_EXT = {".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
-        ".tif": "TIFF", ".tiff": "TIFF", ".gif": "GIF", ".bmp": "BMP",
-        ".webp": "WebP"}
-_MAGIC = ((b"\x89PNG\r\n\x1a\n", "PNG"), (b"\xff\xd8\xff", "JPEG"),
-          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"GIF8", "GIF"),
-          (b"BM", "BMP"), (b"RIFF", "WebP"))
-
-
-def _refuse_unless_decoded(path, fmt):
-    if fmt not in ("PNG", "JPEG"):
-        raise NotImplementedError(
-            f"TERRAIN_RASTER: {path} is {fmt}; the port decodes PNG and "
-            f"JPEG rasters only, with its own codecs (it depends on no image "
-            f"library): convert the file to PNG")
+    with h5.File(dataset) as f:
+        return (DeviceDataset(np.array(f["xt"]), np.array(f["yt"]),
+                              is_a_grayscale, is_b_grayscale, device=device),
+                DeviceDataset(np.array(f["xv"]), np.array(f["yv"]),
+                              is_a_grayscale, is_b_grayscale, device=device))
 
 
 def read_raster_pair(value):
@@ -355,27 +342,16 @@ def read_raster_pair(value):
     format raises NotImplementedError, by name before any file is opened,
     by its first bytes before either is decoded; so does a JPEG of a kind
     the decoder does not take (data/jpeg.py)."""
-    from terrain_tpu_torch.data.jpeg import decode_jpeg
-    from terrain_tpu_torch.serve.png import decode_png
-
     paths = value.split(",")
     if len(paths) != 2:
         raise ValueError(f"TERRAIN_RASTER={value!r}: expected "
                          f'"heightmap.png,texture.jpg"')
     for path in paths:
-        _refuse_unless_decoded(path, _EXT.get(
-            os.path.splitext(path)[1].lower(), "PNG"))
-    fmts = []
-    for path in paths:
-        with open(path, "rb") as f:
-            head = f.read(8)
-        fmts.append(next((name for magic, name in _MAGIC
-                          if head.startswith(magic)), "of an unknown format"))
-        _refuse_unless_decoded(path, fmts[-1])
+        format_by_name(path)
+    fmts = [format_of(path) for path in paths]
     imgs = []
     for path, fmt in zip(paths, fmts):
-        with open(path, "rb") as f:
-            img = (decode_png if fmt == "PNG" else decode_jpeg)(f.read())
+        img = read_raster(path, fmt)
         imgs.append(img if img.ndim == 3 else img[..., None])
     return imgs[0][..., 0], imgs[1][..., :3]
 

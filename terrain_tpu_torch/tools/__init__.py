@@ -1,1 +1,5 @@
-"""Measurement tools run on the card by hand (not on any main path)."""
+"""Tools run by hand: the measurement tools of the card's kernels
+(bilinear_conv_variants, conv_stem_variants, thin_s2_variants, conv5_dw)
+and the ports of the repository's data and quality tools (make_synthetic,
+build_dataset, pick_epoch, compare_published), each run as `python -m
+terrain_tpu_torch.tools.<name>`.  None is on a main path."""

@@ -1,6 +1,9 @@
 """The port stands alone: no module of terrain_tpu_torch and no line of
-chip_smoke.py imports jax, jaxlib or terrain_tpu, and importing the whole
-package builds no kernel and touches no CUDA device."""
+chip_smoke.py imports jax, jaxlib or terrain_tpu, nor h5py, imageio or PIL
+(the card's machine has none of the three: the port reads HDF5, PNG and
+JPEG with its own code), importing the whole package builds no kernel and
+touches no CUDA device, and its data path runs where the three cannot be
+imported."""
 
 import ast
 import importlib
@@ -15,27 +18,37 @@ FILES = sorted((ROOT / "terrain_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
-def _banned(name):
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "terrain_tpu")
+JAX = ("jax", "jaxlib", "terrain_tpu")
+LIBRARIES = ("h5py", "imageio", "PIL")  # none on the card's machine
 
 
-@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
-def test_no_jax_or_terrain_tpu_imports(path):
+def _imports(path, banned):
+    """The names of `banned` packages that `path` imports anywhere."""
     tree = ast.parse(path.read_text(), filename=str(path))
+
+    def hit(name):
+        return name.split(".")[0] in banned
+
     bad = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            bad += [a.name for a in node.names if _banned(a.name)]
+            bad += [a.name for a in node.names if hit(a.name)]
         elif isinstance(node, ast.ImportFrom):
-            if node.level == 0 and node.module and _banned(node.module):
+            if node.level == 0 and node.module and hit(node.module):
                 bad.append(node.module)
         elif isinstance(node, ast.Call) and getattr(
                 node.func, "id", getattr(node.func, "attr", "")) in (
                     "import_module", "__import__"):
             bad += [a.value for a in node.args
                     if isinstance(a, ast.Constant) and isinstance(a.value, str)
-                    and _banned(a.value)]
+                    and hit(a.value)]
+    return bad
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_terrain_tpu_imports(path):
+    """Neither JAX nor the JAX package, nor h5py, imageio or PIL."""
+    bad = _imports(path, JAX + LIBRARIES)
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -76,6 +89,14 @@ def test_the_file_list_covers_the_package():
                  "terrain_tpu_torch/parallel/tp.py",
                  "terrain_tpu_torch/parallel/spatial.py",
                  "terrain_tpu_torch/tools/conv5_dw.py",
+                 "terrain_tpu_torch/data/h5.py",
+                 "terrain_tpu_torch/data/jpeg.py",
+                 "terrain_tpu_torch/data/raster.py",
+                 "terrain_tpu_torch/eval/resize.py",
+                 "terrain_tpu_torch/tools/make_synthetic.py",
+                 "terrain_tpu_torch/tools/build_dataset.py",
+                 "terrain_tpu_torch/tools/pick_epoch.py",
+                 "terrain_tpu_torch/tools/compare_published.py",
                  "terrain_tpu_torch/entry.py"):
         assert must in names
 
@@ -100,3 +121,45 @@ def test_importing_every_module_builds_nothing_and_touches_no_device():
     assert built() == before
     assert not torch.cuda.is_initialized()
     assert "triton" not in sys.modules
+
+
+BLOCKED = """
+import sys
+for name in ("h5py", "imageio", "PIL"):
+    assert name not in sys.modules, name
+    sys.modules[name] = None  # an import of it raises ImportError
+import hashlib, json, os
+import numpy as np
+from terrain_tpu_torch.data import h5
+from terrain_tpu_torch.data.jpeg import decode_jpeg
+from terrain_tpu_torch.experiments import get_iterators
+from terrain_tpu_torch.tools import (
+    build_dataset, compare_published, make_synthetic, pick_epoch)
+data = sys.argv[1]
+d = json.load(open(os.path.join(data, "h5", "digests.json")))
+with h5.File(os.path.join(data, "h5", "pairs_earliest_gzip.h5")) as f:
+    a = np.ascontiguousarray(f["yt"])
+assert hashlib.sha256(a.tobytes()).hexdigest() == \
+    d["pairs_earliest_gzip.h5"]["yt"]["sha256"]
+tr, va = get_iterators(os.path.join(data, "h5",
+                                    "pairs_earliest_contiguous.h5"),
+                       2, True, False)
+assert tr.N == 6 and next(tr)[0].shape == (2, 64, 64, 1)
+j = json.load(open(os.path.join(data, "jpeg", "digests.json")))
+name = "progressive_2048x1024_420_cut2.jpg"
+img = decode_jpeg(open(os.path.join(data, "jpeg", name), "rb").read())
+assert hashlib.sha256(img.tobytes()).hexdigest() == j[name]["sha256"]
+print("ok")
+"""
+
+
+def test_the_data_path_runs_without_h5py_imageio_or_pil():
+    """A process in which h5py, imageio and PIL cannot be imported reads
+    the committed h5py files and a progressive JPEG to their digests and
+    imports the port's data tools."""
+    import subprocess
+
+    r = subprocess.run([sys.executable, "-c", BLOCKED,
+                        str(ROOT / "tests" / "data")], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
