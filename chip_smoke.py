@@ -10,7 +10,7 @@ Phases (any failure exits non-zero and prints no result line):
      all started together);
   1a. coldstart: a fresh process to the end of one bf16 eager flagship
      step with the libraries already built (and a cold machine's figure:
-     that plus phase 1's nvcc build and the two host g++ builds); a fresh
+     that plus phase 1's nvcc build and the three host g++ builds); a fresh
      TERRAIN_AOT store filled (phase 1's libraries and records copied in,
      then utils/aot.fill); a fresh process with no
      compiler reachable (PATH an empty directory, CUDA_HOME and CUDA_PATH
@@ -366,6 +366,13 @@ JPEG_STRIP = "strip_21600x32_420_rst.jpg"
 # inputs phase builds a dataset from
 JPEG_PSTRIP = "progressive_strip_21600x32_420_rst.jpg"
 JPEG_PTEXTURE = "progressive_2048x1024_420.jpg"
+# the TIFF, PNG and BMP fixtures (tests/make_raster_fixtures.py, with
+# imageio's digests): each decoded to its digest; the two full-width TIFF
+# strips (8 rows a strip) repeated into a 21600 x 10800 pair, decoded and
+# trained from
+RASTER_FIXTURE_DIRS = ("tiff", "png", "bmp")
+TIFF_TEXTURE_STRIP = "strip_21600x32_rgb_lzw.tif"
+TIFF_HEIGHT_STRIP = "strip_21600x32_gray16_deflate.tif"
 # the inputs phase: a child process in which these cannot be imported (the
 # card's machine has none of them; the port reads h5 files without h5py),
 # the committed h5py files (tests/make_h5_fixtures.py), and the pairs an
@@ -2332,7 +2339,7 @@ def raster_slice(torch, card):
         xa = torch.from_numpy(x).cuda().float() / 255.0
         ya = torch.from_numpy(y).cuda().float() / 127.5 - 1.0
         aug_ms = time_ms(lambda: augment_pair(g, xa, ya))
-        del dhm, dtex, tex, it  # hm stays: the progressive epoch's check
+        del dhm, dtex, tex, it  # hm stays: the progressive texture's first batch
         os.environ.update({
             "TERRAIN_RASTER": ",".join(paths),
             "TERRAIN_EPOCH_CROPS": str(RASTER_CROPS), "TERRAIN_EPOCHS": "2",
@@ -2382,6 +2389,9 @@ def raster_slice(torch, card):
               f"launches {got}", flush=True)
         jpeg = raster_jpeg(torch, card, root, hm)
         got = {k: got[k] + jpeg[k] for k in got}
+        del hm
+        tif = raster_tiff(torch, card, root)
+        got = {k: got[k] + tif[k] for k in got}
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2539,9 +2549,8 @@ def raster_jpeg(torch, card, root, hm_big):
           f"equals plain slicing; losses "
           f"{ {k: float(row['train_' + k]) for k in TRAIN_KEYS} }; launches "
           f"{got}", flush=True)
-    prog = raster_progressive(torch, np, card, root, decoded[JPEG_PSTRIP],
-                              hm_big)
-    return {k: got[k] + prog[k] for k in got}
+    raster_progressive(torch, np, card, root, decoded[JPEG_PSTRIP], hm_big)
+    return got
 
 
 def _segments(data, start):
@@ -2611,21 +2620,26 @@ def _repeat_progressive(data, height):
     return bytes(out), 8 * vmax, strip_h // (8 * vmax), counts
 
 
-def _decode_peak(path):
+def _decode_peak(path, module="terrain_tpu_torch.data.jpeg",
+                 decode="decode_jpeg"):
     """(seconds, peak MB above the resident set before the call) of
-    decode_jpeg on the file at `path`, in a fresh process whose VmRSS
-    (/proc/self/status, read only) a thread samples every millisecond while
+    `module`'s `decode` (its `read_header` first, so the library is loaded
+    before the count) on the file at `path` (bytes read for a JPEG, the
+    path itself for a TIFF, which the decoder maps), in a fresh process
+    whose VmRSS (/proc/self/status, read only) a thread samples every
+    millisecond while
     the call runs (ctypes lets go of the GIL; getrusage's peak would carry
     the parent's across the spawn)."""
     code = (
         "import json, sys, threading, time\n"
         f"sys.path.insert(0, {HERE!r})\n"
-        "from terrain_tpu_torch.data.jpeg import decode_jpeg, read_header\n"
+        f"from {module} import {decode} as decode, read_header\n"
         "def rss():\n"
         "    for ln in open('/proc/self/status'):\n"
         "        if ln.startswith('VmRSS'):\n"
         "            return int(ln.split()[1]) * 1024\n"
         "data = open(sys.argv[1], 'rb').read()\n"
+        f"data = sys.argv[1] if {decode!r} == 'decode_tiff' else data\n"
         "read_header(data)  # the library loaded before the count\n"
         "before = rss()\n"
         "seen, done = [before], threading.Event()\n"
@@ -2636,7 +2650,7 @@ def _decode_peak(path):
         "t = threading.Thread(target=watch)\n"
         "t.start()\n"
         "t0 = time.perf_counter()\n"
-        "img = decode_jpeg(data)\n"
+        "img = decode(data)\n"
         "dt = time.perf_counter() - t0\n"
         "done.set()\n"
         "t.join()\n"
@@ -2652,17 +2666,13 @@ def _decode_peak(path):
 def raster_progressive(torch, np, card, root, strip, hm):
     """The progressive strip's scans repeated into a 21600 x 10800 texture:
     its decode timed (and its peak host memory in a fresh process), every
-    band that no vertical upsampling crosses equal to the strip's; then one
-    epoch of `TERRAIN_RASTER=hm.png,<that texture> TERRAIN_EPOCH_CROPS=48
-    test1_nobn_bilin_both train` with the first batch against plain
-    slicing of `hm` (the raster phase's heightmap, hm.png's bytes).
-    Returns the epoch's launch counts."""
-    import math
-
-    from terrain_tpu_torch import cli
+    band that no vertical upsampling crosses equal to the strip's, and the
+    crop iterator's first batch from it and `hm` (the raster phase's
+    heightmap, hm.png's bytes) against plain slicing.  (No epoch through
+    the CLI, to keep the script's time: the TIFF pair's epoch trains from a
+    21600 x 10800 pair, the 2048 x 1024 JPEG's from a JPEG texture.)"""
     from terrain_tpu_torch.data import RasterCropIterator
     from terrain_tpu_torch.data.jpeg import decode_jpeg
-    from terrain_tpu_torch.train.losses import TRAIN_KEYS
 
     with open(os.path.join(HERE, JPEG_DIR, JPEG_PSTRIP), "rb") as f:
         big, band, kinds, counts = _repeat_progressive(f.read(), RASTER_H)
@@ -2700,38 +2710,205 @@ def raster_progressive(torch, np, card, root, strip, hm):
     if not (np.array_equal(x, px) and np.array_equal(y, py)):
         fail("raster: the progressive texture's first batch is not the "
              "plain slices of the decoded pair")
-    del hm, tex, it, big
-    out = os.path.join(root, "out_progressive")
+    os.remove(path)
+
+
+def _raster_fixtures(card):
+    """Every committed TIFF, PNG and BMP fixture decoded to imageio's
+    digests (shape, dtype, SHA-256): its bytes by the format's decoder (as
+    imageio decodes bytes, through Pillow), and its path by data/raster.py
+    (as imageio reads a path: a *.tif through its tifffile plugin).
+    Returns the decoded TIFF strips by name."""
+    import hashlib
+
+    from terrain_tpu_torch.data.bmp import decode_bmp
+    from terrain_tpu_torch.data.raster import read_raster
+    from terrain_tpu_torch.data.tiff import decode_tiff
+    from terrain_tpu_torch.serve.png import read_png
+
+    def same(img, want):
+        return [list(img.shape), str(img.dtype),
+                hashlib.sha256(img.tobytes()).hexdigest()] == [
+                    want["shape"], want["dtype"], want["sha256"]]
+
+    decode = {"tiff": decode_tiff, "png": read_png, "bmp": decode_bmp}
+    strips, counts, t_all = {}, {}, 0.0
+    for kind in RASTER_FIXTURE_DIRS:
+        d = os.path.join(HERE, "tests", "data", kind)
+        with open(os.path.join(d, "digests.json")) as f:
+            digests = json.load(f)
+        for name, want in digests.items():
+            if name == "reference":  # the Pillow, imageio, libtiff versions
+                continue
+            path = os.path.join(d, name)
+            with open(path, "rb") as f:
+                data = f.read()
+            t0 = time.perf_counter()
+            img = decode[kind](data)
+            t_all += time.perf_counter() - t0
+            if not same(img, want):
+                fail(f"raster: {kind}/{name} decoded to {img.shape} "
+                     f"{img.dtype}, not imageio's {want['shape']} "
+                     f"{want['dtype']} (or other bytes)")
+            by_path = want.get("path", want)
+            if by_path is not None and not same(read_raster(path), by_path):
+                fail(f"raster: {kind}/{name} read by its path is not "
+                     f"imageio's {by_path['shape']} {by_path['dtype']}")
+            if name.startswith("strip_"):
+                strips[name] = img
+            counts[kind] = counts.get(kind, 0) + 1
+    print(f"raster [{card}]: {counts} fixtures (every PNG, TIFF and BMP "
+          f"variant the port takes) decoded to imageio's shapes, dtypes and "
+          f"SHA-256 in {t_all:.2f} s, from their bytes and from their "
+          f"paths", flush=True)
+    return strips
+
+
+def _tiff_repeat(data, height):
+    """A TIFF strip file (strips of equal rows) as one of `height` rows: its
+    compressed strips once, and a fresh IFD (every tag of the strip's,
+    ImageLength patched) whose StripOffsets point at them in turn.
+    Returns the bytes, the rows of a strip and the strips of the file."""
+    import struct
+
+    from terrain_tpu_torch.data.tiff import _ifd
+
+    bo, tags = _ifd(data)
+    rps = tags[278][0]
+    offs, counts = tags[273], tags[279]
+    out = bytearray(b"II*\x00" if bo == "<" else b"MM\x00*") + bytes(4)
+    at = []
+    for o, n in zip(offs, counts):
+        at.append(len(out))
+        out += data[o:o + n]
+    n_strips = -(-height // rps)
+    tags = dict(tags)
+    tags[257] = (height,)
+    tags[273] = tuple(at[i % len(at)] for i in range(n_strips))
+    tags[279] = tuple(counts[i % len(counts)] for i in range(n_strips))
+    types = {273: 4, 279: 4, 256: 4, 257: 4, 278: 4}
+    ifd = len(out) + len(out) % 2
+    out += bytes(len(out) % 2)
+    struct.pack_into(bo + "I", out, 4, ifd)
+    keep = sorted(t for t in tags  # numbers only: no text tags
+                  if all(isinstance(v, (int, float)) for v in tags[t]))
+    after = ifd + 2 + 12 * len(keep) + 4
+    entries, blobs = b"", b""
+    for t in keep:
+        typ = types.get(t, 3)
+        vals = tags[t]
+        if t in (282, 283):  # resolutions: RATIONAL
+            typ, payload = 5, struct.pack(bo + "II", 1, 1)
+            vals = (1,)
+        else:
+            payload = struct.pack(bo + ("I" if typ == 4 else "H") * len(vals),
+                                  *[int(v) for v in vals])
+        if len(payload) <= 4:
+            field = payload + bytes(4 - len(payload))
+        else:
+            field = struct.pack(bo + "I", after + len(blobs))
+            blobs += payload
+        entries += struct.pack(bo + "HHI", t, typ, len(vals)) + field
+    out += struct.pack(bo + "H", len(keep)) + entries + bytes(4) + blobs
+    return bytes(out), rps, len(offs)
+
+
+def raster_tiff(torch, card, root):
+    """TIFF rasters through the port's decoder: the committed TIFF, PNG and
+    BMP fixtures decoded to imageio's digests; the two full-width strips
+    (an LZW RGB texture with predictor 2, and 16-bit deflate heights)
+    repeated into a 21600 x 10800 pair, each decoded within
+    RASTER_DECODE_S (seconds, MB/s, and the texture's peak host memory in
+    a fresh process), every band equal to the strip's; then one epoch of
+    `TERRAIN_RASTER=hm.tif,tex.tif TERRAIN_EPOCH_CROPS=48
+    test1_nobn_bilin_both train` through cli.main, its first batch against
+    plain slicing of the decoded pair (the heights cast to uint8 as both
+    packages cast them).  Returns the epoch's launch counts."""
+    import math
+
+    import numpy as np
+
+    from terrain_tpu_torch import cli
+    from terrain_tpu_torch.data import RasterCropIterator
+    from terrain_tpu_torch.data.tiff import decode_tiff
+    from terrain_tpu_torch.train.losses import TRAIN_KEYS
+
+    strips = _raster_fixtures(card)
+    paths, decoded = {}, {}
+    for label, name in (("tex", TIFF_TEXTURE_STRIP),
+                        ("hm", TIFF_HEIGHT_STRIP)):
+        with open(os.path.join(HERE, "tests", "data", "tiff", name),
+                  "rb") as f:
+            big, rps, kinds = _tiff_repeat(f.read(), RASTER_H)
+        paths[label] = os.path.join(root, f"{label}.tif")
+        with open(paths[label], "wb") as f:
+            f.write(big)
+        t0 = time.perf_counter()
+        img = decode_tiff(paths[label])
+        dt = time.perf_counter() - t0
+        print(f"raster [{card}]: a {RASTER_W}x{RASTER_H} TIFF {label} ("
+              f"{name}'s {kinds} strips of {rps} rows repeated, "
+              f"{len(big) / 1e6:.1f} MB) decoded to {img.shape} {img.dtype} "
+              f"in {dt:.2f} s ({img.nbytes / dt / 1e6:.1f} MB/s of pixels)",
+              flush=True)
+        if dt > RASTER_DECODE_S:
+            fail(f"raster: the full-size TIFF {label} took {dt:.1f} s > "
+                 f"{RASTER_DECODE_S} s")
+        strip = strips[name]
+        for r in range(RASTER_H // rps):
+            k = r % kinds
+            if not np.array_equal(img[r * rps:(r + 1) * rps],
+                                  strip[k * rps:(k + 1) * rps]):
+                fail(f"raster: band {r} of the full-size TIFF {label} is "
+                     f"not the strip's band {k}")
+        decoded[label] = img
+        del big
+    peak = _decode_peak(paths["tex"], "terrain_tpu_torch.data.tiff",
+                        "decode_tiff")
+    print(f"raster [{card}]: in a fresh process the TIFF texture's decode "
+          f"took {peak['s']:.2f} s and its peak host memory was "
+          f"{peak['peak'] / 1e6:.1f} MB above the process's before it "
+          f"({peak['samples']} samples of VmRSS; the output "
+          f"{peak['out'] / 1e6:.1f} MB)", flush=True)
+    hm8 = np.asarray(decoded["hm"], np.uint8)
+    it = RasterCropIterator(decoded["hm"], decoded["tex"], TRAIN_BATCH,
+                            crop=512, epoch_size=RASTER_CROPS, seed=0)
+    x, y = it.next_uint8()
+    px, py = _plain_crops(np, hm8, decoded["tex"], TRAIN_BATCH, 512, 0)
+    if not (np.array_equal(x, px) and np.array_equal(y, py)):
+        fail("raster: the TIFF pair's first batch is not the plain slices "
+             "of the decoded pair")
+    del decoded, hm8, it
+    out = os.path.join(root, "out_tiff")
     os.environ.update({
-        "TERRAIN_RASTER": f"{os.path.join(root, 'hm.png')},{path}",
+        "TERRAIN_RASTER": f"{paths['hm']},{paths['tex']}",
         "TERRAIN_EPOCHS": "1", "TERRAIN_OUT": out,
-        "TERRAIN_MODELS": os.path.join(root, "models_progressive")})
+        "TERRAIN_MODELS": os.path.join(root, "models_tiff")})
     _reset_counters()
     t0 = time.perf_counter()
     if cli.main([EXPERIMENT, "train"]) != 0:
-        fail("raster: the CLI returned an error on the progressive texture")
+        fail("raster: the CLI returned an error on the TIFF pair")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = _read_counters()
     with open(os.path.join(out, EXPERIMENT, "results.txt")) as f:
         header, *rows = [ln.split(",") for ln in f.read().splitlines()]
     if len(rows) != 1:
-        fail(f"raster: the progressive run's results.txt has {len(rows)} "
-             f"epochs")
+        fail(f"raster: the TIFF run's results.txt has {len(rows)} epochs")
     row = dict(zip(header, rows[0]))
     if not all(math.isfinite(float(row[f"{s}_{k}"]))
                for s in ("train", "valid") for k in TRAIN_KEYS):
-        fail(f"raster: a loss of the progressive run is not finite: {row}")
+        fail(f"raster: a loss of the TIFF run is not finite: {row}")
     n_train = RASTER_CROPS // TRAIN_BATCH
     for k, v in TRAIN_LAUNCHES.items():
         if got[k] < n_train * v:
             fail(f"raster: {k} launched {got[k]} times in {n_train} train "
-                 f"steps from the progressive texture")
-    print(f"raster [{card}]: `TERRAIN_RASTER=hm.png,tex_progressive.jpg "
+                 f"steps from the TIFF pair")
+    print(f"raster [{card}]: `TERRAIN_RASTER=hm.tif,tex.tif "
           f"TERRAIN_EPOCH_CROPS={RASTER_CROPS} {EXPERIMENT} train` "
-          f"(21600x10800 PNG + progressive JPEG): {wall:.1f} s in all "
-          f"(both decoded again), epoch {float(row['time']):.3f} s; the "
-          f"first batch equals plain slicing; launches "
+          f"(21600x10800 16-bit deflate heights + LZW texture): {wall:.1f} s "
+          f"in all (both decoded again), epoch {float(row['time']):.3f} s; "
+          f"the first batch equals plain slicing; launches "
           f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
     return got
 
@@ -2748,9 +2925,10 @@ def _blocked_libraries():
 
 
 def _h5_fixtures(np, card):
-    """The committed h5py files (tests/make_h5_fixtures.py) read by the
-    port's reader to their digests (the refused one raising its text); the
-    gzip-chunked file's read rate (median of 20 reads)."""
+    """The committed h5py files (tests/make_h5_fixtures.py: both libvers,
+    contiguous and gzip-chunked, and one file for each of layout version
+    4's five chunk indices) read by the port's reader to their digests;
+    the gzip-chunked file's read rate (median of 20 reads)."""
     import hashlib
 
     from terrain_tpu_torch.data import h5
@@ -2761,16 +2939,6 @@ def _h5_fixtures(np, card):
         if name == "reference":
             continue
         path = os.path.join(HERE, H5_DIR, name)
-        if "refused" in want:
-            try:
-                with h5.File(path) as f:
-                    f["xt"]
-            except NotImplementedError as e:
-                if want["refused"] not in str(e):
-                    fail(f"inputs: {name} raised {e!r}")
-                print(f"inputs: {name} refused as it must be: {e}")
-                continue
-            fail(f"inputs: {name} was read, not refused")
         with h5.File(path) as f:
             for k, w in want.items():
                 a = np.ascontiguousarray(f[k])
@@ -3080,6 +3248,66 @@ def _tools(torch, np, card, root):
           "(4 decimals):\n  " + "\n  ".join(rows["cuda"]), flush=True)
 
 
+def _importer(torch, np, card, root):
+    """The reference-weights importer at full width: a seeded flagship
+    exported to a reference payload, written as the reference writes it
+    (a gzip-pickle at protocol 2), imported into a model of another seed
+    through the tool's CLI (a terrain_tpu/v1 checkpoint) and loaded back;
+    every tensor and one generate request served from each bit-equal."""
+    import gzip
+    import pickle
+
+    from terrain_tpu_torch.experiments import build_gan
+    from terrain_tpu_torch.sample.samplers import TwoStagePipeline
+    from terrain_tpu_torch.serve import TerrainClient, TerrainServer
+    from terrain_tpu_torch.tools import import_reference_weights as tool
+
+    t0 = time.perf_counter()
+    # seed 1: the CLI builds its model with seed 0, so the import changes
+    # every weight
+    src, _ = build_gan(EXPERIMENT, "cuda", seed=1, verbose=False)
+    payload = tool.export_from_model(src)
+    ref = os.path.join(root, "reference.model")
+    with gzip.open(ref, "wb", compresslevel=0) as f:  # stored: the format
+        # is gzip either way, and deflating 253 MB took ~15-19 s
+        pickle.dump(payload, f, protocol=2)
+    out = os.path.join(root, "imported.model")
+    if tool.main([ref, out, "--experiment", EXPERIMENT]) != 0:
+        fail("inputs: the importer's CLI returned an error")
+    dst, _ = build_gan(EXPERIMENT, "cuda", seed=2, verbose=False)
+    dst.load_model(out)
+    n = 0
+    for name, net in src.nets.items():
+        theirs = dst.nets[name].state_dict()
+        for k, v in net.state_dict().items():
+            if not torch.equal(v, theirs[k]):
+                fail(f"inputs: the imported {name}.{k} is not the original")
+            n += 1
+    t_import = time.perf_counter() - t0
+    answers = []
+    for gan in (src, dst):
+        pipe = TwoStagePipeline(gan.nets["dcgan_gen"], gan.nets["p2p_gen"],
+                                latent_dim=gan.latent_dim,
+                                in_shp=gan.in_shp, device="cuda",
+                                compute_dtype=torch.float32)
+        server = TerrainServer(pipe, port=0, max_batch=1).start_background()
+        try:
+            with TerrainClient(server.host, server.port) as cl:
+                answers.append(cl.generate(1, seed=11))
+        finally:
+            server.shutdown()
+    (h0, t0_), (h1, t1) = answers
+    if not (np.array_equal(h0, h1) and np.array_equal(t0_, t1)):
+        fail("inputs: the imported model's generate request differs")
+    print(f"inputs [{card}]: the importer round trip of {EXPERIMENT} "
+          f"({sum(len(p) for p in payload['dcgan'].values()) + sum(len(p) for p in payload['p2p'].values())} "
+          f"reference arrays, {os.path.getsize(ref) / 1e6:.1f} MB pickle): "
+          f"{n} tensors bit-equal after export, pickle, the CLI's import "
+          f"and checkpoint, in {t_import:.1f} s; one generate request from "
+          f"each model bit-equal ({h0.shape} heightmap, {t0_.shape} "
+          f"texture)", flush=True)
+
+
 def inputs_child(torch, root):
     """`chip_smoke.py _inputs <dir>`: the inputs phase in a process where
     h5py, imageio and PIL cannot be imported.  Writes its epochs' launch
@@ -3096,6 +3324,7 @@ def inputs_child(torch, root):
     arrays = _h5_pairs(np, card, path)
     launches = _h5_epochs(torch, np, card, path, arrays, root)
     _tools(torch, np, card, root)
+    _importer(torch, np, card, root)
     with open(os.path.join(root, "inputs.json"), "w") as f:
         json.dump(launches, f)
     return 0
@@ -5950,7 +6179,7 @@ def coldstart_slice(torch, card, build_s):
         records = {os.path.basename(p): aot.read_record(p) for p in paths}
         print(f"coldstart [{card}]: the store {sorted(os.listdir(store))}; "
               f"filled in {fill_s:.1f} s (phase 1's six CUDA libraries "
-              f"copied in, their records checked, the two host libraries "
+              f"copied in, their records checked, the three host libraries "
               f"built); a record {records[os.path.basename(paths[0])]}",
               flush=True)
         if len(paths) != len(_build.SOURCES) + len(_build.HOST_SOURCES) or \
@@ -5982,7 +6211,7 @@ def coldstart_slice(torch, card, build_s):
               f"libraries built in _build/ {warm_wall:.1f} s (imports "
               f"{warm['main_s']:.1f}, model {warm['built_s']:.1f}, step "
               f"{warm['step_s']:.1f}); a cold machine adds phase 1's nvcc "
-              f"build {build_s:.1f} s and the two g++ builds {host_s:.1f} s: "
+              f"build {build_s:.1f} s and the three g++ builds {host_s:.1f} s: "
               f"{warm_wall + build_s + host_s:.1f} s; from a TERRAIN_AOT "
               f"store with no compiler reachable (PATH an empty directory, "
               f"CUDA_HOME unset; found {got['compilers']}) {got_wall:.1f} s "

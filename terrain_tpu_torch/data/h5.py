@@ -13,15 +13,20 @@ Read:
   * superblock versions 2 and 3 (libver="latest"): "OHDR" version-2
     object headers with "OCHK" continuations, groups of compact link
     messages;
-  * data layout message version 3 (and version 4 where it encodes the same
-    compact or contiguous storage): compact, contiguous, and chunked with a
-    v1 B-tree chunk index through the deflate, shuffle and fletcher32
-    filters (the checksum is checked);
+  * data layout message versions 3 and 4: compact, contiguous, and
+    chunked through the deflate, shuffle and fletcher32 filters (the
+    checksum is checked), with version 3's v1 B-tree chunk index or any of
+    version 4's five (libver="latest"): single chunk (filtered or not),
+    implicit, fixed array (FAHD/FADB, paged past 2^page bits entries),
+    extensible array (EAHD/EAIB/EASB/EADB: super blocks, paged data
+    blocks) and version 2 B-tree (BTHD/BTIN/BTLF, record types 10 and 11,
+    any depth); each of these structures' Jenkins lookup3 checksum is
+    checked, and a mismatch raises ValueError;
   * storage never allocated, which reads as the fill value;
   * fixed-point and IEEE floating-point data of either byte order.
-Anything else raises NotImplementedError naming it: layout version 4's
-chunk indices, virtual and external storage, other filters, dense link
-storage, shared messages, soft and external links, other datatypes.
+Anything else raises NotImplementedError naming it: virtual and external
+storage, other filters, dense link storage, shared messages, soft and
+external links, other datatypes.
 
 A contiguous dataset comes back as a read-only `np.memmap` of the file, so
 a dataset larger than memory opens at once and reads only the rows sliced
@@ -47,6 +52,7 @@ _CLASSES = {2: "time", 3: "string", 4: "bitfield", 5: "opaque",
 _FILTERS = {4: "szip", 5: "nbit", 6: "scaleoffset", 32000: "lzf",
             32001: "blosc", 32004: "lz4", 32008: "bitshuffle",
             32013: "zfp", 32015: "zstd"}
+# layout version 4's chunk indices, every one of them read
 _INDICES = {1: "single chunk", 2: "implicit", 3: "fixed array",
             4: "extensible array", 5: "version 2 B-tree"}
 # IEEE layouts: size -> (sign bit, exponent location, exponent size,
@@ -82,6 +88,53 @@ def fletcher32(data):
     return (((s2 - 1) % 65535 + 1) << 16) | ((s1 - 1) % 65535 + 1)
 
 
+def _rot(x, k):
+    return ((x << k) | (x >> (32 - k))) & 0xFFFFFFFF
+
+
+def lookup3(data, initval=0):
+    """Bob Jenkins' lookup3 hashlittle, as HDF5's H5_checksum_lookup3
+    computes the checksum of its version-2 metadata (B-tree v2, fixed and
+    extensible array blocks)."""
+    data = bytes(data)
+    n = len(data)
+    a = b = c = (0xDEADBEEF + n + initval) & 0xFFFFFFFF
+    m = 0xFFFFFFFF
+    k = 0
+    while n - k > 12:
+        x, y, z = struct.unpack_from("<III", data, k)
+        a, b, c = (a + x) & m, (b + y) & m, (c + z) & m
+        a = (a - c) & m; a ^= _rot(c, 4); c = (c + b) & m  # noqa: E702
+        b = (b - a) & m; b ^= _rot(a, 6); a = (a + c) & m  # noqa: E702
+        c = (c - b) & m; c ^= _rot(b, 8); b = (b + a) & m  # noqa: E702
+        a = (a - c) & m; a ^= _rot(c, 16); c = (c + b) & m  # noqa: E702
+        b = (b - a) & m; b ^= _rot(a, 19); a = (a + c) & m  # noqa: E702
+        c = (c - b) & m; c ^= _rot(b, 4); b = (b + a) & m  # noqa: E702
+        k += 12
+    if n - k == 0:
+        return c
+    x, y, z = struct.unpack("<III", data[k:] + bytes(12 - (n - k)))
+    a, b, c = (a + x) & m, (b + y) & m, (c + z) & m
+    c ^= b; c = (c - _rot(b, 14)) & m  # noqa: E702
+    a ^= c; a = (a - _rot(c, 11)) & m  # noqa: E702
+    b ^= a; b = (b - _rot(a, 25)) & m  # noqa: E702
+    c ^= b; c = (c - _rot(b, 16)) & m  # noqa: E702
+    a ^= c; a = (a - _rot(c, 4)) & m  # noqa: E702
+    b ^= a; b = (b - _rot(a, 14)) & m  # noqa: E702
+    c ^= b; c = (c - _rot(b, 24)) & m  # noqa: E702
+    return c
+
+
+def _enc_size(n):
+    """HDF5's H5VM_limit_enc_size: the bytes that hold counts up to n."""
+    return (max(int(n), 1).bit_length() - 1) // 8 + 1
+
+
+def _chunk_size_len(nbytes):
+    """The bytes of a filtered chunk's size in a version-4 chunk index."""
+    return min(1 + ((max(int(nbytes), 1).bit_length() - 1) + 8) // 8, 8)
+
+
 def _unfilter(raw, filters, mask, itemsize):
     """A chunk's stored bytes through its filters, last first; a filter
     whose bit is set in the chunk's mask was skipped when it was written."""
@@ -115,6 +168,7 @@ class _Dataset:
 
     def __init__(self):
         self.shape = None
+        self.maxshape = None
         self.dtype = None
         self.fill = None
         self.layout = None
@@ -366,7 +420,7 @@ class File:
         fill_old = None
         for mtype, data in messages:
             if mtype == 0x01:
-                ds.shape = self._dataspace(data)
+                ds.shape, ds.maxshape = self._dataspace(data)
             elif mtype == 0x03:
                 ds.dtype = _datatype(data)
             elif mtype == 0x04:
@@ -390,7 +444,8 @@ class File:
         return ds
 
     def _dataspace(self, data):
-        version, rank = data[0], data[1]
+        """(dims, max dims; an unlimited one None)."""
+        version, rank, flags = data[0], data[1], data[2]
         if version == 1:
             p = 8
         elif version == 2:
@@ -399,7 +454,13 @@ class File:
             p = 4
         else:
             raise NotImplementedError(f"HDF5: dataspace version {version}")
-        return tuple(_u(data, p + self.L * i, self.L) for i in range(rank))
+        dims = tuple(_u(data, p + self.L * i, self.L) for i in range(rank))
+        if not flags & 1:
+            return dims, dims
+        p += self.L * rank
+        big = (1 << (8 * self.L)) - 1
+        return dims, tuple(None if v == big else v for v in (
+            _u(data, p + self.L * i, self.L) for i in range(rank)))
 
     def _layout(self, data):
         version, cls = data[0], data[1]
@@ -415,24 +476,55 @@ class File:
         if cls != 2:
             raise NotImplementedError(f"HDF5: data layout class {cls}")
         if version == 4:
-            p = 4 + data[3] * data[4]
-            index = _INDICES.get(data[p + 1], f"type {data[p + 1]}")
-            raise NotImplementedError(
-                f"HDF5: data layout version 4's {index} chunk index")
+            return self._layout4(data)
         ndims = data[2]
         btree = _u(data, 3, self.O)
         dims = [_u(data, 3 + self.O + 4 * i, 4) for i in range(ndims)]
         return ("chunked", btree, dims)
 
+    def _layout4(self, data):
+        """Version 4's chunked layout: ("chunked4", index type, address,
+        chunk dims with the element size last, the single chunk's filtered
+        size and mask).  Each index's own parameters are in its header."""
+        flags, ndims, enc = data[2], data[3], data[4]
+        if flags & 1:
+            raise NotImplementedError(
+                "HDF5: partial edge chunks stored unfiltered "
+                "(H5D_CHUNK_DONT_FILTER_PARTIAL_CHUNKS)")
+        dims = [_u(data, 5 + enc * i, enc) for i in range(ndims)]
+        p = 5 + enc * ndims
+        index = data[p]
+        if index not in _INDICES:
+            raise NotImplementedError(
+                f"HDF5: chunk index type {index} (the reader knows "
+                f"{', '.join(_INDICES.values())})")
+        single = None
+        if index == 1 and flags & 2:
+            single = (_u(data, p + 1, self.L), _u(data, p + 1 + self.L, 4))
+        # the index's parameters: the filtered single chunk's size and mask;
+        # a fixed array's page bits; an extensible array's five sizes; a
+        # version 2 B-tree's node size, split and merge percentages
+        p += 1 + {1: self.L + 4 if flags & 2 else 0, 2: 0, 3: 1, 4: 5,
+                  5: 6}[index]
+        return ("chunked4", index, _u(data, p, self.O), dims, single)
+
     def _chunked(self, ds):
-        _, btree, dims = ds.layout
+        if ds.layout[0] == "chunked4":
+            _, index, addr, dims, single = ds.layout
+        else:
+            _, addr, dims = ds.layout
+            index, single = 0, None
         chunk = tuple(dims[:-1])
         out = np.full(ds.shape, ds.fill, ds.dtype)
-        if btree == self.undef:
+        if addr == self.undef or not out.size:
             return out
-        for (size, mask, offs), addr in self._btree_children(
-                btree, 1, len(dims)):
-            a = self._addr(addr)
+        nbytes = int(np.prod(chunk)) * ds.dtype.itemsize
+        if index == 0:
+            entries = self._btree_children(addr, 1, len(dims))
+        else:
+            entries = self._index4(ds, index, addr, chunk, nbytes, single)
+        for (size, mask, offs), a in entries:
+            a = self._addr(a)
             raw = _unfilter(bytes(self._buf[a:a + size]), ds.filters, mask,
                             ds.dtype.itemsize)
             block = np.frombuffer(raw, ds.dtype,
@@ -440,6 +532,263 @@ class File:
             dst = tuple(slice(o, min(o + c, s))
                         for o, c, s in zip(offs, chunk, ds.shape))
             out[dst] = block[tuple(slice(0, d.stop - d.start) for d in dst)]
+        return out
+
+    # ------------------------------------------- layout version 4's indices
+    def _checked(self, a, n, what):
+        """The n bytes at file address `a` (absolute), followed by their
+        lookup3 checksum, which must match."""
+        if a + n + 4 > len(self._buf):
+            raise ValueError(f"HDF5: a {what} lies past the file's end")
+        body = bytes(self._buf[a:a + n])
+        (want,) = struct.unpack("<I", self._buf[a + n:a + n + 4])
+        if lookup3(body) != want:
+            raise ValueError(f"HDF5: a {what} fails its lookup3 checksum")
+        return body
+
+    def _entry(self, buf, p, filtered, nbytes):
+        """One chunk entry of a fixed or extensible array or a B-tree
+        record: (address, stored size, filter mask) and its length."""
+        a = _u(buf, p, self.O)
+        if not filtered:
+            return (a, nbytes, 0), self.O
+        n = _chunk_size_len(nbytes)
+        return (a, _u(buf, p + self.O, n),
+                _u(buf, p + self.O + n, 4)), self.O + n + 4
+
+    def _index4(self, ds, index, addr, chunk, nbytes, single):
+        """[((stored size, filter mask, element offsets), address)] of a
+        version-4 chunk index's allocated chunks."""
+        grid_dims = [m if m is not None else s
+                     for s, m in zip(ds.shape, ds.maxshape)]
+        grid = [-(-d // c) for d, c in zip(grid_dims, chunk)]
+        filtered = bool(ds.filters)
+        if index == 1:
+            size, mask = single if single else (nbytes, 0)
+            return [((size, mask, [0] * len(chunk)), addr)]
+        if index == 2:
+            n = int(np.prod(grid))
+            return [((nbytes, 0, self._offsets(i, grid, chunk)),
+                     addr + i * nbytes) for i in range(n)]
+        unlim = 0
+        if index == 3:
+            elems = self._fixed_array(addr, filtered, nbytes)
+        elif index == 4:
+            elems = self._extensible_array(addr, filtered, nbytes)
+            unlim = next((i for i, m in enumerate(ds.maxshape) if m is None),
+                         0)
+        else:
+            return [((size, mask, [s * c for s, c in zip(scaled, chunk)]),
+                     a) for (a, size, mask), scaled in
+                    self._btree2(addr, filtered, nbytes, len(chunk))
+                    if a != self.undef]
+        out = []
+        for i, (a, size, mask) in enumerate(elems):
+            if a == self.undef:
+                continue
+            if unlim:  # the unlimited dimension is the slowest (swizzled)
+                g = [grid[unlim]] + grid[:unlim] + grid[unlim + 1:]
+                offs = self._offsets(i, g, [chunk[unlim]] + list(
+                    chunk[:unlim]) + list(chunk[unlim + 1:]))
+                offs = offs[1:unlim + 1] + [offs[0]] + offs[unlim + 1:]
+            else:
+                offs = self._offsets(i, grid, chunk)
+            out.append(((size, mask, offs), a))
+        return out
+
+    @staticmethod
+    def _offsets(i, grid, chunk):
+        """The element offsets of chunk i in row-major order over `grid`."""
+        scaled = []
+        for g in reversed(grid):
+            i, r = divmod(i, g)
+            scaled.append(r)
+        return [s * c for s, c in zip(reversed(scaled), chunk)]
+
+    def _fixed_array(self, addr, filtered, nbytes):
+        """[(address, size, mask)] of every entry of a fixed array."""
+        b, O, L = self._buf, self.O, self.L
+        h = self._addr(addr)
+        if b[h:h + 4] != b"FAHD":
+            raise ValueError("HDF5: a fixed array header without FAHD")
+        hd = self._checked(h, 8 + L + O, "fixed array header")
+        esize, page_bits = hd[6], hd[7]
+        n = _u(hd, 8, L)
+        d = self._addr(_u(hd, 8 + L, O))
+        if b[d:d + 4] != b"FADB":
+            raise ValueError("HDF5: a fixed array data block without FADB")
+        per_page = 1 << page_bits
+        paged = n > per_page
+        if not paged:
+            body = self._checked(d, 6 + O + n * esize, "fixed array data "
+                                 "block")
+            return [self._entry(body, 6 + O + i * esize, filtered, nbytes)[0]
+                    for i in range(n)]
+        pages = -(-n // per_page)
+        nmap = -(-pages // 8)
+        prefix = self._checked(d, 6 + O + nmap, "fixed array data block")
+        bitmap = prefix[6 + O:]
+        at = d + 6 + O + nmap + 4
+        out = []
+        for pg in range(pages):
+            k = min(per_page, n - pg * per_page)
+            if not bitmap[pg // 8] & (0x80 >> (pg % 8)):
+                out += [(self.undef, 0, 0)] * k
+            else:
+                body = self._checked(at + pg * (per_page * esize + 4),
+                                     k * esize, "fixed array page")
+                out += [self._entry(body, i * esize, filtered, nbytes)[0]
+                        for i in range(k)]
+        return out
+
+    def _extensible_array(self, addr, filtered, nbytes):
+        """[(address, size, mask)] of every element of an extensible array
+        up to its largest index set (H5EAcache.c, H5EA__lookup_elmt)."""
+        b, O, L = self._buf, self.O, self.L
+        h = self._addr(addr)
+        if b[h:h + 4] != b"EAHD":
+            raise ValueError("HDF5: an extensible array header without "
+                             "EAHD")
+        hd = self._checked(h, 12 + 6 * L + O, "extensible array header")
+        esize, max_bits, iblk_elmts, dblk_min, sblk_min_ptrs, page_bits = \
+            hd[6:12]
+        n_max = _u(hd, 12 + 4 * L, L)  # the largest index set, plus one
+        iaddr = _u(hd, 12 + 6 * L, O)
+        undef = (self.undef, 0, 0)
+        if iaddr == self.undef:
+            return [undef] * n_max
+        off_size = (max_bits + 7) // 8
+        nsblks = 1 + max_bits - (dblk_min.bit_length() - 1)
+        info, start, start_dblk = [], 0, 0
+        for u in range(nsblks):
+            nd, ne = 1 << (u // 2), (1 << ((u + 1) // 2)) * dblk_min
+            info.append((nd, ne, start, start_dblk))
+            start += nd * ne
+            start_dblk += nd
+        iblk_sblks = 2 * (sblk_min_ptrs.bit_length() - 1)
+        ndblk = 2 * (sblk_min_ptrs - 1)
+        nsblk = nsblks - iblk_sblks
+        ia = self._addr(iaddr)
+        if b[ia:ia + 4] != b"EAIB":
+            raise ValueError("HDF5: an extensible array index block without "
+                             "EAIB")
+        ib = self._checked(ia, 6 + O + iblk_elmts * esize + (ndblk + nsblk)
+                           * O, "extensible array index block")
+        p = 6 + O
+        out = [self._entry(ib, p + i * esize, filtered, nbytes)[0]
+               for i in range(iblk_elmts)]
+        p += iblk_elmts * esize
+        dblks = [_u(ib, p + i * O, O) for i in range(ndblk)]
+        sblks = [_u(ib, p + (ndblk + i) * O, O) for i in range(nsblk)]
+        per_page = 1 << page_bits
+        prefix = 6 + O + off_size  # a data block before its elements
+
+        def dblock(a, ne, page_init):
+            """The ne elements of the data block at a (pages whose bit in
+            page_init is clear read as unallocated)."""
+            if a == self.undef:
+                return [undef] * ne
+            a = self._addr(a)
+            if b[a:a + 4] != b"EADB":
+                raise ValueError("HDF5: an extensible array data block "
+                                 "without EADB")
+            if ne <= per_page:
+                body = self._checked(a, prefix + ne * esize,
+                                     "extensible array data block")
+                return [self._entry(body, prefix + i * esize, filtered,
+                                    nbytes)[0] for i in range(ne)]
+            self._checked(a, prefix, "extensible array data block")
+            got = []
+            for pg in range(ne // per_page):
+                if page_init is not None and not page_init(pg):
+                    got += [undef] * per_page
+                    continue
+                body = self._checked(a + prefix + 4 + pg * (
+                    per_page * esize + 4), per_page * esize,
+                    "extensible array data block page")
+                got += [self._entry(body, i * esize, filtered, nbytes)[0]
+                        for i in range(per_page)]
+            return got
+
+        for u, (nd, ne, _, first) in enumerate(info):
+            if len(out) >= n_max:
+                break
+            if u < iblk_sblks:
+                for j in range(nd):
+                    out += dblock(dblks[first + j], ne, None)
+                continue
+            sa = sblks[u - iblk_sblks]
+            if sa == self.undef:
+                out += [undef] * (nd * ne)
+                continue
+            sa = self._addr(sa)
+            if b[sa:sa + 4] != b"EASB":
+                raise ValueError("HDF5: an extensible array super block "
+                                 "without EASB")
+            npages = ne // per_page if ne > per_page else 0
+            # a byte or more of page bits a data block (H5EAsblock.c)
+            nmap = nd * ((npages + 7) // 8)
+            sb = self._checked(sa, 6 + O + off_size + nmap + nd * O,
+                               "extensible array super block")
+            bitmap = sb[6 + O + off_size:6 + O + off_size + nmap]
+            q = 6 + O + off_size + nmap
+            for j in range(nd):
+                init = None
+                if npages:
+                    def init(pg, j=j):
+                        k = j * npages + pg
+                        return bitmap[k // 8] & (0x80 >> (k % 8))
+                out += dblock(_u(sb, q + j * O, O), ne, init)
+        return out[:n_max]
+
+    def _btree2(self, addr, filtered, nbytes, ndims):
+        """[((address, size, mask), scaled offsets)] of every record of a
+        version-2 B-tree of chunks (record types 10 and 11)."""
+        b, O, L = self._buf, self.O, self.L
+        h = self._addr(addr)
+        if b[h:h + 4] != b"BTHD":
+            raise ValueError("HDF5: a version 2 B-tree header without BTHD")
+        hd = self._checked(h, 16 + O + 2 + L, "version 2 B-tree header")
+        rtype, node_size, rec_size, depth = hd[5], _u(hd, 6, 4), \
+            _u(hd, 10, 2), _u(hd, 12, 2)
+        if rtype not in (10, 11):
+            raise NotImplementedError(f"HDF5: a version 2 B-tree of record "
+                                      f"type {rtype}")
+        root, root_n = _u(hd, 16, O), _u(hd, 16 + O, 2)
+        # the sizes of the record counts in child pointers (H5B2hdr.c)
+        max_nrec = [(node_size - 10) // rec_size]
+        cum = [max_nrec[0]]
+        cum_size = [0]
+        nrec_size = _enc_size(max_nrec[0])
+        for d in range(1, depth + 1):
+            ptr = O + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+            max_nrec.append((node_size - (10 + ptr)) // (rec_size + ptr))
+            cum.append((max_nrec[d] + 1) * cum[d - 1] + max_nrec[d])
+            cum_size.append(_enc_size(cum[d]))
+        out = []
+
+        def record(body, p):
+            ent, n = self._entry(body, p, rtype == 11, nbytes)
+            scaled = [_u(body, p + n + 8 * i, 8) for i in range(ndims)]
+            out.append((ent, scaled))
+
+        def node(a, nrec, d):
+            a = self._addr(a)
+            sig = b"BTLF" if d == 0 else b"BTIN"
+            if b[a:a + 4] != sig:
+                raise ValueError(f"HDF5: a version 2 B-tree node without "
+                                 f"{sig.decode()}")
+            ptr = O + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+            size = 6 + nrec * rec_size + (0 if d == 0 else (nrec + 1) * ptr)
+            body = self._checked(a, size, "version 2 B-tree node")
+            for i in range(nrec):
+                record(body, 6 + i * rec_size)
+            for i in range(nrec + 1 if d else 0):
+                q = 6 + nrec * rec_size + i * ptr
+                node(_u(body, q, O), _u(body, q + O, nrec_size), d - 1)
+
+        if root != self.undef and root_n:
+            node(root, root_n, depth)
         return out
 
 

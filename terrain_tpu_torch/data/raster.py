@@ -1,29 +1,50 @@
 """Raster files for the trainer's crops (TERRAIN_RASTER) and the dataset
 tools: the format by name and by first bytes, and the decode by the port's
-own codecs (serve/png.py for PNG, data/jpeg.py for JPEG).  Every other
-format is refused by name."""
+own codecs, each giving the array `imageio.v3.imread` gives (the JAX
+package's reader):
+  PNG   serve/png.py    every colour type and depth, Adam7, palettes
+  JPEG  data/jpeg.py    baseline, extended and progressive Huffman
+  TIFF  data/tiff.py    baseline: strips or tiles, LZW, deflate, PackBits
+  BMP   data/bmp.py     uncompressed, BI_BITFIELDS, RLE8 and RLE4
+GIF is refused by name: imageio gives it a frame axis that the JAX
+package's crop iterator does not take, so terrain_tpu cannot train from
+one either.  WebP is refused by name until the port has a VP8 decoder."""
 
 import os
 
+from terrain_tpu_torch.data.bmp import decode_bmp
+from terrain_tpu_torch.data.bmp import read_header as bmp_header
 from terrain_tpu_torch.data.jpeg import decode_jpeg
-from terrain_tpu_torch.serve.png import decode_png
+from terrain_tpu_torch.data.tiff import imread_like as read_tiff
+from terrain_tpu_torch.data.tiff import read_header as tiff_header
+from terrain_tpu_torch.serve.png import read_png
 
-# raster formats by file extension and by magic; the port decodes PNG and
-# JPEG with its own codecs and refuses the others by name
-_EXT = {".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
-        ".tif": "TIFF", ".tiff": "TIFF", ".gif": "GIF", ".bmp": "BMP",
-        ".webp": "WebP"}
+# raster formats by file extension and by magic
+_EXT = {".png": "PNG", ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
+        ".tif": "TIFF", ".tiff": "TIFF", ".bmp": "BMP", ".dib": "BMP",
+        ".gif": "GIF", ".webp": "WebP"}
 _MAGIC = ((b"\x89PNG\r\n\x1a\n", "PNG"), (b"\xff\xd8\xff", "JPEG"),
-          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"GIF8", "GIF"),
-          (b"BM", "BMP"), (b"RIFF", "WebP"))
+          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
+          (b"MM\x00+", "TIFF"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+          (b"RIFF", "WebP"))
+_REFUSED = {
+    "GIF": "imageio gives a GIF a frame axis, (1, H, W) or (1, H, W, 3), "
+           "which terrain_tpu's crop iterator refuses, so neither package "
+           "trains from one: convert it to PNG",
+    "WebP": "a WebP decoder (VP8/VP8L) is queued, not yet written: convert "
+            "it to PNG",
+}
+_DECODERS = {"JPEG": decode_jpeg, "BMP": decode_bmp, "PNG": read_png}
 
 
 def _refuse_unless_decoded(path, fmt):
-    if fmt not in ("PNG", "JPEG"):
+    if fmt in _REFUSED:
         raise NotImplementedError(
-            f"TERRAIN_RASTER: {path} is {fmt}; the port decodes PNG and "
-            f"JPEG rasters only, with its own codecs (it depends on no image "
-            f"library): convert the file to PNG")
+            f"TERRAIN_RASTER: {path} is {fmt}; {_REFUSED[fmt]}")
+    if fmt not in ("PNG", "JPEG", "TIFF", "BMP"):
+        raise NotImplementedError(
+            f"TERRAIN_RASTER: {path} is {fmt}; the port decodes PNG, JPEG, "
+            f"TIFF and BMP rasters, with its own codecs")
 
 
 def format_by_name(path):
@@ -46,11 +67,24 @@ def format_of(path):
     return fmt
 
 
+def check_header(path, fmt):
+    """Raise NotImplementedError where the header of `path` (a TIFF's first
+    IFD, a BMP's headers) names a variant the port does not decode, before
+    any pixel is decoded."""
+    if fmt == "TIFF":
+        tiff_header(path)
+    elif fmt == "BMP":
+        with open(path, "rb") as f:
+            bmp_header(f.read(1 << 19))  # the headers and any palette
+
+
 def read_raster(path, fmt=None):
-    """A PNG or JPEG raster decoded by the port's codecs, as
-    imageio.v3.imread gives it but for a PNG of one channel, which keeps
-    its channel axis: (H, W, C) from a PNG, (H, W) or (H, W, 3) from a
-    JPEG (uint8; a 16-bit PNG uint16)."""
+    """A PNG, JPEG, TIFF or BMP raster decoded by the port's codecs to the
+    array imageio.v3.imread(path) gives: its shape, dtype and bytes (a TIFF
+    named *.tif through imageio's tifffile plugin, data/tiff.py; mapped,
+    not read, so a large one is never held twice)."""
     fmt = fmt or format_of(path)
+    if fmt == "TIFF":
+        return read_tiff(path)
     with open(path, "rb") as f:
-        return (decode_png if fmt == "PNG" else decode_jpeg)(f.read())
+        return _DECODERS[fmt](f.read())

@@ -71,7 +71,8 @@ import torch
 
 from terrain_tpu_torch.data import (
     DeviceDataset, Hdf5Iterator, RasterCropIterator, h5)
-from terrain_tpu_torch.data.raster import format_by_name, format_of, read_raster
+from terrain_tpu_torch.data.raster import (
+    check_header, format_by_name, format_of, read_raster)
 from terrain_tpu_torch.device import compute_dtype_from_env, resolve_device
 from terrain_tpu_torch.models import dcgan, unet
 from terrain_tpu_torch.ops.norm import BatchNorm
@@ -334,14 +335,18 @@ def get_device_datasets(dataset, is_a_grayscale, is_b_grayscale, device=None):
 
 
 def read_raster_pair(value):
-    """TERRAIN_RASTER="heightmap.png,texture.jpg" -> (heightmap (H, W),
-    texture (H, W, 3)), decoded by the port's PNG codec (serve/png.py) or
-    JPEG decoder (data/jpeg.py), either file in either format: the
-    heightmap's first channel and the texture's first three, as terrain_tpu
-    takes them (imageio's bytes).  A file named or starting as another
-    format raises NotImplementedError, by name before any file is opened,
-    by its first bytes before either is decoded; so does a JPEG of a kind
-    the decoder does not take (data/jpeg.py)."""
+    """TERRAIN_RASTER="heightmap.png,texture.jpg" -> (heightmap, texture),
+    each a PNG, JPEG, TIFF or BMP decoded by the port's codecs
+    (data/raster.py) to imageio's array, then taken as
+    terrain_tpu/experiments.py:111-114 takes it: the heightmap's first
+    channel where it has channels, the texture's first three; the crop
+    iterator then casts both to uint8 as terrain_tpu's does (a uint16
+    wraps, a bool gives 0/1, a float truncates).  A file named or starting
+    as another format (GIF, WebP) raises NotImplementedError, by name
+    before any file is opened, by its first bytes before either is
+    decoded; so does a TIFF or BMP whose header names a variant the codec
+    does not take (a JPEG-compressed or BigTIFF file, CMYK), and a JPEG
+    of another kind as it is decoded (data/jpeg.py)."""
     paths = value.split(",")
     if len(paths) != 2:
         raise ValueError(f"TERRAIN_RASTER={value!r}: expected "
@@ -349,11 +354,12 @@ def read_raster_pair(value):
     for path in paths:
         format_by_name(path)
     fmts = [format_of(path) for path in paths]
-    imgs = []
     for path, fmt in zip(paths, fmts):
-        img = read_raster(path, fmt)
-        imgs.append(img if img.ndim == 3 else img[..., None])
-    return imgs[0][..., 0], imgs[1][..., :3]
+        check_header(path, fmt)
+    hm, tex = (read_raster(path, fmt) for path, fmt in zip(paths, fmts))
+    if hm.ndim == 3:
+        hm = hm[..., 0]
+    return hm, tex[..., :3]
 
 
 def _shard_hosts(pair):

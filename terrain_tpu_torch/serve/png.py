@@ -5,8 +5,9 @@ The port depends on no image library.  `encode_png` writes 8- or 16-bit
 gray, gray+alpha, RGB or RGBA images, with the "Up" filter on every row by
 default (smooth terrain compresses well under it) or any per-row choice of
 the five filter types; filtering reads only the unfiltered image, so numpy
-vectorizes it.  `decode_png` reads any non-interlaced 8/16-bit image of
-those colour types.  Undoing the Average and Paeth filters is sequential
+vectorizes it.  `decode_png` reads any PNG: every colour type and
+bit depth, Adam7 interlaced or not, palettes through PLTE; `read_png` gives
+what `imageio.v3.imread` gives for it (Pillow's modes).  Undoing the Average and Paeth filters is sequential
 along a row, so it runs in host C++ (csrc/png_unfilter.cpp, built at
 first use with the host compiler; without one decoding raises).
 `unfilter_reference` is the same work one byte at a time in Python, the
@@ -179,24 +180,123 @@ def read_header(buf):
     return w, h, depth, ctype, interlace
 
 
-def decode_png(buf):
-    """PNG bytes -> (H, W, C) uint8 or uint16 array."""
-    w, h, depth, ctype, interlace = read_header(buf)
-    if depth not in (8, 16) or ctype not in _CHANNELS or interlace:
-        raise ValueError(f"unsupported PNG: depth {depth}, colour type "
-                         f"{ctype}, interlace {interlace}")
-    pos, idat = 8, []
-    while pos < len(buf):
+# colour type -> the bit depths PNG allows for it
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def unpack_samples(rows, w, depth):
+    """(h, row bytes) of `depth`-bit samples (1, 2 or 4), most significant
+    first, as PNG, TIFF and BMP pack them -> (h, w) uint8 values."""
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    v = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return v.reshape(rows.shape[0], -1)[:, :w]
+
+
+def _samples(raw, w, h, depth, c):
+    """Inflated, filtered rows of one image (or one Adam7 pass) -> (h, w, c)
+    samples: uint8 (values 0 to 2^depth - 1 below 8 bits) or uint16."""
+    bits = c * depth
+    stride = -(-w * bits // 8)
+    out = unfilter(raw, h, stride, max(1, bits // 8))
+    if depth < 8:
+        return unpack_samples(out, w, depth)[..., None]
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16).reshape(h, w, c)
+    return out.reshape(h, w, c)
+
+
+def _chunks(buf):
+    """(IDAT bytes joined, PLTE bytes or None) of a PNG."""
+    pos, idat, plte = 8, [], None
+    while pos + 8 <= len(buf):
         (n,) = struct.unpack(">I", buf[pos:pos + 4])
         tag = buf[pos + 4:pos + 8]
         if tag == b"IDAT":
             idat.append(buf[pos + 8:pos + 8 + n])
+        elif tag == b"PLTE":
+            plte = bytes(buf[pos + 8:pos + 8 + n])
         elif tag == b"IEND":
             break
         pos += 12 + n
-    c = _CHANNELS[ctype]
-    bpp = c * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    out = unfilter(raw, h, w * bpp, bpp)
-    img = out.view(">u2").astype(np.uint16) if depth == 16 else out
-    return img.reshape(h, w, c)
+    return b"".join(idat), plte
+
+
+def decode_samples(buf):
+    """PNG bytes -> (samples (H, W, C), bit depth, colour type, palette):
+    the stored samples de-interlaced (uint8, values below 2^depth for 1, 2
+    and 4 bits, or uint16) and, for colour type 3, PLTE as a (256, 3) uint8
+    table (entries past PLTE black, as Pillow pads it)."""
+    w, h, depth, ctype, interlace = read_header(buf)
+    if ctype not in _DEPTHS or depth not in _DEPTHS[ctype] or \
+            interlace not in (0, 1):
+        raise ValueError(f"unsupported PNG: depth {depth}, colour type "
+                         f"{ctype}, interlace {interlace}")
+    data, plte = _chunks(buf)
+    c = 1 if ctype == 3 else _CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(data), np.uint8)
+    if not interlace:
+        img = _samples(raw, w, h, depth, c)
+    else:
+        img = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no bytes, not even filters
+            n = ph * (1 + -(-pw * c * depth // 8))
+            img[y0::dy, x0::dx] = _samples(raw[at:at + n], pw, ph, depth, c)
+            at += n
+    palette = None
+    if ctype == 3:
+        if plte is None or len(plte) % 3:
+            raise ValueError("PNG: a palette image without its PLTE")
+        palette = np.zeros((256, 3), np.uint8)
+        k = min(len(plte) // 3, 256)
+        palette[:k] = np.frombuffer(plte, np.uint8)[:3 * k].reshape(k, 3)
+    return img, depth, ctype, palette
+
+
+def decode_png(buf):
+    """PNG bytes -> (H, W, C) uint8 or uint16 array: 8- and 16-bit samples
+    as stored, gray of 1, 2 or 4 bits scaled to 0-255, a palette image as
+    its RGB colours."""
+    img, depth, ctype, palette = decode_samples(buf)
+    if ctype == 3:
+        return palette[img[..., 0]]
+    if depth < 8:
+        return img * np.uint8(255 // ((1 << depth) - 1))
+    return img
+
+
+def pillow_bool(v):
+    """A bool array as Pillow's mode "1" gives it to numpy: True stored as
+    the byte 255, not 1 (so its bytes, and a digest of them, are Pillow's;
+    comparisons and casts see True either way)."""
+    return np.where(np.asarray(v) != 0, np.uint8(255), np.uint8(0)).view(
+        bool)
+
+
+def read_png(buf):
+    """PNG bytes -> the array imageio.v3.imread returns (through Pillow's
+    modes): bool (H, W) for 1-bit gray, uint8 (H, W) for 2-, 4- and 8-bit
+    gray (2 and 4 scaled by 85 and 17), uint16 (H, W) for 16-bit gray,
+    (H, W, 3) RGB for a palette image (tRNS ignored, as imageio ignores it
+    for every colour type), and for 16-bit colour the high bytes as uint8:
+    RGB, RGBA, and gray+alpha as (L, L, L, A)."""
+    img, depth, ctype, palette = decode_samples(buf)
+    if ctype == 3:
+        return palette[img[..., 0]]
+    if ctype == 0:
+        g = img[..., 0]
+        if depth == 1:
+            return pillow_bool(g)
+        return g * np.uint8(255 // ((1 << depth) - 1)) if depth < 8 else g
+    if depth == 16:
+        img = (img >> 8).astype(np.uint8)
+        if ctype == 4:  # Pillow's "LA;16B" into RGBA
+            return img[..., [0, 0, 0, 1]]
+    return img

@@ -1,5 +1,6 @@
 """Tools run by hand: the measurement tools of the card's kernels
 (bilinear_conv_variants, conv_stem_variants, thin_s2_variants, conv5_dw)
 and the ports of the repository's data and quality tools (make_synthetic,
-build_dataset, pick_epoch, compare_published), each run as `python -m
-terrain_tpu_torch.tools.<name>`.  None is on a main path."""
+build_dataset, pick_epoch, compare_published, import_reference_weights),
+each run as `python -m terrain_tpu_torch.tools.<name>`.  None is on a main
+path."""

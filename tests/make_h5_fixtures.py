@@ -13,12 +13,25 @@ and 1), written by h5py as the reference's tools write them:
   pairs_latest_contiguous.h5    libver="latest" (superblock 3, OHDR
                                 headers, compact links), contiguous
   pairs_latest_gzip.h5          libver="latest", gzip-chunked: layout
-                                version 4's fixed-array chunk index, which
-                                data/h5.py refuses by name
+                                version 4's fixed-array chunk index
+and, with libver="latest", one file for each of layout version 4's chunk
+indices (seeded random data, a few datasets each):
+  layout4_fixed_array.h5        1056 chunks, so the data block is paged
+                                (2^10 entries a page), gzip + shuffle; and
+                                an unpaged, unfiltered one
+  layout4_extensible_array.h5   one unlimited dimension: 300 chunks reach
+                                the first super block; gzip + fletcher32;
+                                the unlimited dimension second; a sparse
+                                one (most chunks never written)
+  layout4_btree2.h5             two unlimited dimensions: a version 2
+                                B-tree of depth 1 (900 records), unfiltered
+                                and gzip'd float32
+  layout4_single_chunk.h5       one chunk, unfiltered and gzip'd
+  layout4_implicit.h5           early allocation, no filter: the implicit
+                                index (h5py's low-level creation list)
 digests.json holds, for each file, each dataset's shape, dtype and the
-SHA-256 of h5py's array (or, for the refused file, the error the port's
-reader must raise), and under "reference" the h5py and HDF5 versions that
-wrote them.  h5py is needed here, not on the card: chip_smoke.py reads the
+SHA-256 of h5py's array, and under "reference" the h5py and HDF5 versions
+that wrote them.  h5py is needed here, not on the card: chip_smoke.py reads the
 committed files with the port's reader to these digests, and
 tests/test_torch_h5.py re-runs this script and checks them.
 """
@@ -35,8 +48,6 @@ sys.path.insert(0, os.path.dirname(HERE))
 DEFAULT_DIR = os.path.join(HERE, "data", "h5")
 
 N_TRAIN, N_VALID, SIZE = 6, 2, 64
-REFUSED = {"pairs_latest_gzip.h5":
-           "data layout version 4's fixed array chunk index"}
 
 
 def pairs():
@@ -70,6 +81,55 @@ FILES = {"pairs_earliest_contiguous.h5": (None, False),
          "pairs_latest_gzip.h5": ("latest", True)}
 
 
+def _layout4(path, kind):
+    import h5py
+
+    rnd = np.random.RandomState(len(kind))
+
+    def u1(*shape):
+        return rnd.randint(0, 256, shape).astype("u1")
+
+    with h5py.File(path, "w", libver="latest") as f:
+        if kind == "fixed_array":
+            f.create_dataset("paged", data=u1(66, 64), chunks=(2, 2),
+                             compression="gzip", shuffle=True)
+            f.create_dataset("small", data=rnd.randint(
+                -2**31, 2**31, (10, 12)).astype("<i4"), chunks=(3, 5))
+        elif kind == "extensible_array":
+            f.create_dataset("rows", data=u1(300, 5), chunks=(1, 5),
+                             maxshape=(None, 5))
+            f.create_dataset("rows_gzip", data=u1(300, 5), chunks=(1, 5),
+                             maxshape=(None, 5), compression="gzip",
+                             fletcher32=True)
+            f.create_dataset("cols", data=u1(6, 300), chunks=(3, 1),
+                             maxshape=(6, None))
+            d = f.create_dataset("sparse", (1000, 3), dtype="u1",
+                                 chunks=(1, 3), maxshape=(None, 3),
+                                 fillvalue=9)
+            d[500:510] = u1(10, 3)
+        elif kind == "btree2":
+            f.create_dataset("plain", data=u1(60, 60), chunks=(2, 2),
+                             maxshape=(None, None))
+            f.create_dataset("gzip", data=rnd.randn(60, 60).astype("<f4"),
+                             chunks=(2, 2), maxshape=(None, None),
+                             compression="gzip")
+        elif kind == "single_chunk":
+            f.create_dataset("plain", data=u1(7, 9), chunks=(7, 9))
+            f.create_dataset("gzip", data=u1(7, 9), chunks=(7, 9),
+                             compression="gzip")
+        else:
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            dcpl.set_chunk((4, 4))
+            dcpl.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY)
+            h5py.h5d.create(f.id, b"d", h5py.h5t.STD_U8LE,
+                            h5py.h5s.create_simple((10, 10)), dcpl=dcpl)
+            f["d"][...] = u1(10, 10)
+
+
+LAYOUT4 = ("fixed_array", "extensible_array", "btree2", "single_chunk",
+           "implicit")
+
+
 def digest(a):
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
@@ -81,11 +141,11 @@ def main(out_dir=DEFAULT_DIR):
     digests = {"reference": {"h5py": h5py.__version__,
                              "hdf5": h5py.version.hdf5_version}}
     for name, (libver, chunked) in FILES.items():
+        write(os.path.join(out_dir, name), libver, chunked)
+    for kind in LAYOUT4:
+        _layout4(os.path.join(out_dir, f"layout4_{kind}.h5"), kind)
+    for name in list(FILES) + [f"layout4_{k}.h5" for k in LAYOUT4]:
         path = os.path.join(out_dir, name)
-        write(path, libver, chunked)
-        if name in REFUSED:
-            digests[name] = {"refused": REFUSED[name]}
-            continue
         entry = {}
         with h5py.File(path, "r") as f:
             for k in sorted(f):

@@ -1,0 +1,782 @@
+"""Write the PNG, TIFF and BMP fixtures of tests/data/{png,tiff,bmp}/ and
+their digests.
+
+    python tests/make_raster_fixtures.py [directory]   # default tests/data
+
+Every variant the port's raster decoders take (serve/png.py, data/tiff.py,
+data/bmp.py), small and seeded, written by small encoders here (Pillow
+writes no interlaced PNG, no TIFF tile, planar layout or floating-point
+predictor, no RLE BMP) and, where Pillow writes the kind, by Pillow:
+  png/   gray at 1, 2, 4, 8 and 16 bits; palettes at 1, 2, 4 and 8 bits
+         (one whose PLTE is shorter than its indices reach); gray+alpha
+         and colour at 8 and 16 bits; tRNS on gray, colour and palette
+         images; each of those Adam7-interlaced too, and sizes that leave
+         passes empty; the rows' filter types cycling through 0-4
+  tiff/  either byte order; strips and tiles (ragged edges); none, LZW,
+         deflate (8 and 32946), PackBits; predictors 2 and 3; planar
+         configuration 2; FillOrder 2; min-is-white, gray, RGB, palette;
+         ExtraSamples 0, 1 and 2; 1-32 bits, SampleFormat 1, 2 and 3; and
+         two full-width strips of the NASA rasters' size (21600 columns):
+         strip_21600x32_rgb_lzw.tif (Pillow: LZW, predictor 2, 8 rows a
+         strip) and strip_21600x32_gray16_deflate.tif (Pillow: deflate,
+         16-bit, ocean zeros), which chip_smoke.py repeats into a
+         21600x10800 pair
+  bmp/   1, 4 and 8 bits through palettes (black and white, a gray ramp,
+         colours), BI_RLE8 and BI_RLE4 (every escape), 16 bits (5-5-5 and
+         5-6-5), 24 and 32 bits (BI_RGB and BI_BITFIELDS with alpha),
+         bottom-up and top-down, the core, info, v4 and v5 headers
+Each directory's digests.json holds, for each file, its size, the shape,
+dtype and SHA-256 of the array imageio.v3.imread decodes from its bytes
+(through Pillow), for a TIFF also under "path" those of imageio's decode
+of the file by its *.tif name (through imageio's tifffile plugin, as the
+JAX package reads TERRAIN_RASTER; null where no plugin reads it), and
+under "reference" the Pillow, imageio and libtiff versions.  The committed PNG that
+no script writes (terrain_48x40_rgb_5filters.png) keeps its entry.
+Pillow and imageio are needed here, not on the card: chip_smoke.py holds
+the port's decoders to the committed digests, and the port's tests re-run
+this script and check them.
+"""
+
+import hashlib
+import io
+import json
+import os
+import struct
+import sys
+import zlib
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DEFAULT_DIR = os.path.join(HERE, "data")
+STRIP_W, STRIP_H = 21600, 32
+
+
+def terrain(h, w, seed, channels=3):
+    """(h, w, channels) uint8: a few waves, ~30% ocean (zeros in channel
+    0's heights), coloured like land and sea, with one level of noise."""
+    rnd = np.random.RandomState(seed)
+    y = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    x = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    f = np.zeros((h, w), np.float32)
+    for _ in range(4):
+        fy, fx, py, px = rnd.uniform(1, 9, 4)
+        f += np.sin(fy * 6.2832 * y + py) * np.cos(fx * 6.2832 * x + px)
+    f -= np.quantile(f, 0.3)
+    land = f > 0
+    t = np.clip(f / f.max(), 0, 1)
+    c = [np.where(land, 90 + 110 * t, 20), np.where(land, 110 + 60 * t, 60),
+         np.where(land, 60 + 40 * t, 150), np.where(land, 255, 128)]
+    img = np.stack(c[:channels], -1) + rnd.randint(0, 2, (h, w, channels))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+# -------------------------------------------------------------------- PNG
+def _png_chunk(tag, data):
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def _pack_bits(v, bits):
+    """(h, w) values of `bits` bits -> (h, packed row bytes), most
+    significant first, rows padded with zeros."""
+    h, w = v.shape
+    per = 8 // bits
+    pad = (-w) % per
+    v = np.concatenate([v, np.zeros((h, pad), v.dtype)], 1).astype(np.uint8)
+    v = v.reshape(h, -1, per)
+    out = np.zeros(v.shape[:2], np.uint8)
+    for i in range(per):
+        out |= v[:, :, i] << (8 - bits * (i + 1))
+    return out
+
+
+def _png_rows(samples, depth):
+    """(h, w, c) samples -> (h, row bytes) uint8 as PNG stores them."""
+    h, w, c = samples.shape
+    if depth < 8:
+        return _pack_bits(samples[..., 0], depth)
+    dt = ">u2" if depth == 16 else np.uint8
+    return np.ascontiguousarray(samples.astype(dt)).view(np.uint8).reshape(
+        h, -1)
+
+
+def _png_filter(rows, bpp, first_type=0):
+    """Each row led by its filter type, the types cycling through 0-4."""
+    out = []
+    prev = np.zeros(rows.shape[1], np.int32)
+    for r, row in enumerate(rows.astype(np.int32)):
+        t = (first_type + r) % 5
+        left = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])
+        ul = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        if t == 0:
+            pred = 0
+        elif t == 1:
+            pred = left
+        elif t == 2:
+            pred = prev
+        elif t == 3:
+            pred = (left + prev) // 2
+        else:
+            p = left + prev - ul
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, prev, ul))
+        out.append(bytes([t]) + ((row - pred) & 255).astype(np.uint8)
+                   .tobytes())
+        prev = row
+    return b"".join(out)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def png_bytes(samples, depth, ctype, plte=None, trns=None, interlace=0):
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, c = samples.shape
+    assert c == _PNG_CHANNELS[ctype]
+    bpp = max(1, c * depth // 8)
+    if interlace:
+        data = b""
+        for i, (x0, y0, dx, dy) in enumerate(ADAM7):
+            sub = samples[y0::dy, x0::dx]
+            if sub.size:
+                data += _png_filter(_png_rows(sub, depth), bpp, i)
+    else:
+        data = _png_filter(_png_rows(samples, depth), bpp)
+    out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if plte is not None:
+        out += _png_chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
+    if trns is not None:
+        out += _png_chunk(b"tRNS", trns)
+    # the image data in two IDAT chunks, as encoders may split it
+    z = zlib.compress(data, 6)
+    cut = len(z) // 2
+    return (out + _png_chunk(b"IDAT", z[:cut]) + _png_chunk(b"IDAT", z[cut:])
+            + _png_chunk(b"IEND", b""))
+
+
+def png_fixtures():
+    rnd = np.random.RandomState(1)
+    h, w = 29, 37
+    tex = terrain(h, w, 11, 4)
+    g8 = tex[..., 0]
+    g16 = (tex[..., 0].astype(np.uint16) * 257 + rnd.randint(0, 256, (h, w))
+           ).astype(np.uint16)
+    rgb16 = tex[..., :3].astype(np.uint16) * 257 + rnd.randint(
+        0, 256, (h, w, 3)).astype(np.uint16)
+    plte = rnd.randint(0, 256, (256, 3))
+    out = {}
+    for inter, tag in ((0, ""), (1, "_adam7")):
+        for d in (1, 2, 4):
+            out[f"gray{d}{tag}.png"] = png_bytes(g8 >> (8 - d), d, 0,
+                                                 interlace=inter)
+            out[f"palette{d}{tag}.png"] = png_bytes(
+                g8 >> (8 - d), d, 3, plte=plte[:1 << d], interlace=inter)
+        out[f"gray8{tag}.png"] = png_bytes(g8, 8, 0, interlace=inter)
+        out[f"gray16{tag}.png"] = png_bytes(g16, 16, 0, interlace=inter)
+        out[f"palette8{tag}.png"] = png_bytes(g8, 8, 3, plte=plte,
+                                              interlace=inter)
+        out[f"graya8{tag}.png"] = png_bytes(tex[..., [0, 3]], 8, 4,
+                                            interlace=inter)
+        out[f"graya16{tag}.png"] = png_bytes(
+            np.stack([g16, g16[::-1]], -1), 16, 4, interlace=inter)
+        out[f"rgb8{tag}.png"] = png_bytes(tex[..., :3], 8, 2,
+                                          interlace=inter)
+        out[f"rgb16{tag}.png"] = png_bytes(rgb16, 16, 2, interlace=inter)
+        out[f"rgba8{tag}.png"] = png_bytes(tex, 8, 6, interlace=inter)
+        out[f"rgba16{tag}.png"] = png_bytes(
+            np.concatenate([rgb16, g16[..., None]], -1), 16, 6,
+            interlace=inter)
+    # tRNS on every kind it applies to (imageio ignores it)
+    out["gray8_trns.png"] = png_bytes(g8, 8, 0, trns=struct.pack(">H", 20))
+    out["rgb8_trns.png"] = png_bytes(tex[..., :3], 8, 2,
+                                     trns=struct.pack(">HHH", 20, 60, 150))
+    out["palette8_trns_adam7.png"] = png_bytes(
+        g8, 8, 3, plte=plte, trns=bytes(range(0, 256, 2)), interlace=1)
+    out["palette4_simple_trns.png"] = png_bytes(
+        g8 >> 4, 4, 3, plte=plte[:16], trns=b"\xff\xff\x00\xff")
+    # indices past a short PLTE (Pillow pads the palette with black)
+    out["palette8_short_plte.png"] = png_bytes(g8, 8, 3, plte=plte[:40])
+    # sizes whose Adam7 passes are partly empty
+    for hh, ww in ((1, 1), (1, 5), (3, 2), (5, 1)):
+        out[f"rgb8_{ww}x{hh}_adam7.png"] = png_bytes(
+            tex[:hh, :ww, :3], 8, 2, interlace=1)
+        out[f"gray1_{ww}x{hh}_adam7.png"] = png_bytes(
+            g8[:hh, :ww] >> 7, 1, 0, interlace=1)
+    return out
+
+
+# ------------------------------------------------------------------- TIFF
+def lzw_encode(data):
+    """TIFF LZW (libtiff's tif_lzw.c LZWEncode): a clear code first, codes
+    of 9-12 bits most significant first, the width growing when the next
+    entry no longer fits, a clear code when the table is full."""
+    out, acc, nacc = bytearray(), 0, 0
+    width = 9
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            out.append((acc >> (nacc - 8)) & 0xFF)
+            nacc -= 8
+        acc &= (1 << nacc) - 1
+
+    def reset():
+        return {bytes([i]): i for i in range(256)}, 258
+
+    put(256)
+    table, nxt = reset()
+    w = b""
+    for byte in data:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4094:
+            put(256)
+            width = 9
+            table, nxt = reset()
+        elif nxt > (1 << width) - 1:
+            width += 1
+        w = bytes([byte])
+    if w:
+        put(table[w])
+        nxt += 1
+        if nxt == 4094:
+            put(256)
+            width = 9
+        elif nxt > (1 << width) - 1:
+            width += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def packbits_encode(data):
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i + 1
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 2:
+            out += bytes([(257 - (j - i)) & 0xFF, data[i]])
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and
+                                             data[j] == data[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def _tiff_chunk_bytes(block, bits, bo, predictor):
+    """(rows, cols, s) samples of one strip or tile -> its bytes before
+    compression, the predictor applied."""
+    rows, cols, s = block.shape
+    if bits < 8:
+        return _pack_bits(block[..., 0], bits).tobytes()
+    if predictor == 2:
+        v = block.reshape(rows, cols * s).astype(block.dtype)
+        d = v.copy()
+        d[:, s:] = v[:, s:] - v[:, :-s]
+        block = d.reshape(rows, cols, s)
+    if predictor == 3:  # libtiff's fpDiff: byte planes, then differences
+        k = block.dtype.itemsize
+        le = block.astype("<" + block.dtype.str[1:]).reshape(rows, cols * s)
+        b = le.view(np.uint8).reshape(rows, cols * s, k)
+        planes = np.concatenate([b[:, :, k - 1 - j] for j in range(k)], 1)
+        d = planes.astype(np.int32)
+        d[:, s:] = planes[:, s:].astype(np.int32) - planes[:, :-s]
+        return (d & 255).astype(np.uint8).tobytes()
+    return np.ascontiguousarray(block.astype(bo + block.dtype.str[1:])
+                                ).tobytes()
+
+
+def tiff_bytes(img, bo="<", photometric=1, compression=1, predictor=1,
+               planar=1, tile=None, rows_per_strip=None, bits=None,
+               extra=(), colormap=None, fill_order=1, sample_format=None,
+               more_tags=None):
+    """A one-image TIFF of img ((H, W) or (H, W, S); for `bits` < 8 the
+    values themselves) in the given layout; `more_tags` {tag: (type,
+    values)} adds or replaces IFD entries (SHORT 3 or LONG 4)."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, s = img.shape
+    bits = bits or img.dtype.itemsize * 8
+    if tile:
+        tw, th = tile
+        grid = [(y, x) for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        th, tw = rows_per_strip or h, w
+        grid = [(y, 0) for y in range(0, h, th)]
+    planes = range(s) if planar == 2 else [None]
+    chunks = []
+    for p in planes:
+        for y, x in grid:
+            block = img[y:y + th, x:x + tw]
+            if p is not None:
+                block = block[..., p:p + 1]
+            if tile:  # a tile is always whole: pad the edges
+                full = np.zeros((th, tw, block.shape[2]), img.dtype)
+                full[:block.shape[0], :block.shape[1]] = block
+                block = full
+            raw = _tiff_chunk_bytes(block, bits, bo, predictor)
+            if compression == 5:
+                raw = lzw_encode(raw)
+            elif compression in (8, 32946):
+                raw = zlib.compress(raw, 6)
+            elif compression == 32773:
+                raw = packbits_encode(raw)
+            if fill_order == 2:
+                raw = raw.translate(_REVERSED)
+            chunks.append(raw)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * s),
+            259: (3, [compression]), 262: (3, [photometric]),
+            277: (3, [s]), 284: (3, [planar])}
+    if fill_order != 1:
+        tags[266] = (3, [fill_order])
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if extra:
+        tags[338] = (3, list(extra))
+    if sample_format:
+        tags[339] = (3, [sample_format] * s)
+    if colormap is not None:
+        tags[320] = (3, list(np.asarray(colormap, np.uint16).T.reshape(-1)))
+    data = bytearray(b"II*\x00" if bo == "<" else b"MM\x00*")
+    data += struct.pack(bo + "I", 0)
+    offsets = []
+    for c in chunks:
+        offsets.append(len(data))
+        data += c
+        data += bytes(len(data) % 2)
+    counts = [len(c) for c in chunks]
+    if tile:
+        tags.update({322: (3, [tw]), 323: (3, [th]), 324: (4, offsets),
+                     325: (4, counts)})
+    else:
+        tags.update({273: (4, offsets), 278: (4, [th]), 279: (4, counts)})
+    tags.update(more_tags or {})
+    ifd_at = len(data)
+    struct.pack_into(bo + "I", data, 4, ifd_at)
+    n = len(tags)
+    after = ifd_at + 2 + 12 * n + 4
+    entries, blobs = b"", b""
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        code = "H" if typ == 3 else "I"
+        payload = struct.pack(bo + code * len(vals), *vals)
+        if len(payload) <= 4:
+            field = payload + bytes(4 - len(payload))
+        else:
+            field = struct.pack(bo + "I", after + len(blobs))
+            blobs += payload + bytes(len(payload) % 2)
+        entries += struct.pack(bo + "HHI", tag, typ, len(vals)) + field
+    data += struct.pack(bo + "H", n) + entries + bytes(4) + blobs
+    return bytes(data)
+
+
+def _pillow(img, fmt, **kw):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    img.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def tiff_fixtures(with_strips=True):
+    from PIL import Image
+
+    rnd = np.random.RandomState(2)
+    h, w = 29, 37
+    tex = terrain(h, w, 12, 4)
+    rgb, g8 = tex[..., :3], tex[..., 0]
+    g16 = (g8.astype(np.uint16) * 257 + rnd.randint(0, 256, (h, w))).astype(
+        np.uint16)
+    f32 = (g8.astype(np.float32) / 7.0 - 3.0) * np.float32(1.7)
+    i16 = (g16.astype(np.int32) - 30000).astype(np.int16)
+    cmap = rnd.randint(0, 65536, (256, 3))
+    premult = tex.copy()
+    premult[..., 3] = rnd.randint(0, 256, (h, w))
+    premult[0, :5, 3] = [0, 255, 1, 128, 0]
+    premult[..., :3] = (premult[..., :3].astype(np.int32)
+                        * premult[..., 3:4] // 255).astype(np.uint8)
+    out = {
+        "rgb8_lzw_pred2_strips_le.tif": tiff_bytes(
+            rgb, photometric=2, compression=5, predictor=2,
+            rows_per_strip=4),
+        "rgb8_lzw_pred2_tiles_be.tif": tiff_bytes(
+            rgb, ">", 2, 5, 2, tile=(16, 16)),
+        "rgb8_deflate_tiles_be.tif": tiff_bytes(
+            rgb, ">", 2, 32946, tile=(16, 16)),
+        "rgb8_adobe_deflate_planar2_le.tif": tiff_bytes(
+            rgb, photometric=2, compression=8, planar=2, rows_per_strip=8),
+        "rgb8_packbits_planar2_tiles_be.tif": tiff_bytes(
+            rgb, ">", 2, 32773, planar=2, tile=(16, 32)),
+        "rgb8_none_tiles_be.tif": tiff_bytes(rgb, ">", 2, tile=(32, 16)),
+        "rgb8_none_planar2_le.tif": tiff_bytes(rgb, photometric=2, planar=2,
+                                               rows_per_strip=10),
+        "rgba8_lzw_extra2_le.tif": tiff_bytes(
+            tex, photometric=2, compression=5, extra=(2,),
+            rows_per_strip=7),
+        "rgba8_lzw_extra2_planar2_be.tif": tiff_bytes(
+            tex, ">", 2, 5, planar=2, extra=(2,), rows_per_strip=16),
+        "rgba8_deflate_extra1_le.tif": tiff_bytes(
+            premult, photometric=2, compression=8, extra=(1,)),
+        "rgba8_deflate_extra1_planar2_le.tif": tiff_bytes(
+            premult, photometric=2, compression=8, extra=(1,), planar=2),
+        "rgbx8_lzw_extra0_be.tif": tiff_bytes(tex, ">", 2, 5, extra=(0,)),
+        "rgba8_none_noextra_le.tif": tiff_bytes(tex, photometric=2),
+        "rgb16_lzw_pred2_le.tif": tiff_bytes(
+            np.stack([g16, g16[::-1], g16[:, ::-1]], -1), photometric=2,
+            compression=5, predictor=2),
+        "rgb16_deflate_be.tif": tiff_bytes(
+            np.stack([g16, g16[::-1], g16[:, ::-1]], -1), ">", 2, 8),
+        "rgba16_lzw_extra2_be.tif": tiff_bytes(
+            np.stack([g16, g16[::-1], g16[:, ::-1], g16.T[:h, :w]
+                      if h == w else g16], -1), ">", 2, 5, extra=(2,)),
+        "gray8_lzw_le.tif": tiff_bytes(g8, compression=5),
+        "gray8_lzw_fillorder2_le.tif": tiff_bytes(g8, compression=5,
+                                                  fill_order=2),
+        "gray8_packbits_minwhite_be.tif": tiff_bytes(g8, ">", 0, 32773),
+        "gray8_deflate_pred2_tiles_le.tif": tiff_bytes(
+            g8, compression=8, predictor=2, tile=(16, 16)),
+        "gray8_signed_lzw_le.tif": tiff_bytes(g8, compression=5,
+                                              sample_format=2),
+        "graya8_lzw_extra2_le.tif": tiff_bytes(
+            tex[..., [0, 3]], compression=5, extra=(2,)),
+        "gray16_lzw_pred2_be.tif": tiff_bytes(g16, ">", 1, 5, 2,
+                                              rows_per_strip=5),
+        "gray16_deflate_pred2_le.tif": tiff_bytes(g16, compression=32946,
+                                                  predictor=2),
+        "gray16_none_be.tif": tiff_bytes(g16, ">"),
+        "gray16_minwhite_lzw_le.tif": tiff_bytes(g16, photometric=0,
+                                                 compression=5),
+        "int16_lzw_pred2_le.tif": tiff_bytes(i16, compression=5,
+                                             predictor=2, sample_format=2),
+        "int16_none_be.tif": tiff_bytes(i16, ">", sample_format=2),
+        # big-endian and compressed: Pillow swaps libtiff's bytes again
+        "int16_lzw_be.tif": tiff_bytes(i16, ">", 1, 5, sample_format=2),
+        "int32_deflate_le.tif": tiff_bytes(i16.astype(np.int32) * 7919,
+                                           compression=8, sample_format=2),
+        "int32_lzw_be.tif": tiff_bytes(i16.astype(np.int32) * 7919, ">", 1,
+                                       5, sample_format=2),
+        "uint32_none_le.tif": tiff_bytes(g16.astype(np.uint32) * 40503),
+        "float32_lzw_pred3_le.tif": tiff_bytes(
+            f32, compression=5, predictor=3, sample_format=3,
+            rows_per_strip=6),
+        "float32_deflate_pred3_tiles_be.tif": tiff_bytes(
+            f32, ">", 1, 8, 3, tile=(16, 16), sample_format=3),
+        "float32_none_minwhite_be.tif": tiff_bytes(f32, ">", 0,
+                                                   sample_format=3),
+        "palette8_lzw_le.tif": tiff_bytes(g8, photometric=3, compression=5,
+                                          colormap=cmap),
+        "palette8_extra0_lzw_le.tif": tiff_bytes(
+            tex[..., [0, 3]], photometric=3, compression=5, colormap=cmap,
+            extra=(0,)),
+        "palette8_alpha_deflate_le.tif": tiff_bytes(
+            tex[..., [0, 3]], photometric=3, compression=8, colormap=cmap,
+            extra=(2,)),
+    }
+    for bits in (1, 2, 4):
+        v = g8 >> (8 - bits)
+        out[f"gray{bits}_lzw_le.tif"] = tiff_bytes(v, compression=5,
+                                                   bits=bits)
+        out[f"gray{bits}_minwhite_packbits_be.tif"] = tiff_bytes(
+            v, ">", 0, 32773, bits=bits, rows_per_strip=9)
+        out[f"palette{bits}_deflate_tiles_le.tif"] = tiff_bytes(
+            v, photometric=3, compression=8, bits=bits, tile=(16, 16),
+            colormap=cmap[:1 << bits])
+    out["gray1_none_be.tif"] = tiff_bytes(g8 >> 7, ">", bits=1)
+    # and Pillow's own files of the kinds it writes
+    for name, mode in (("pillow_rgb_lzw.tif", "RGB"),
+                       ("pillow_rgba_deflate.tif", "RGBA"),
+                       ("pillow_gray_packbits.tif", "L")):
+        comp = {"lzw": "tiff_lzw", "deflate": "tiff_deflate",
+                "packbits": "packbits"}[name.split("_")[2][:-4]]
+        img = Image.fromarray(tex if mode == "RGBA" else
+                              rgb if mode == "RGB" else g8)
+        out[name] = _pillow(img, "TIFF", compression=comp)
+    out["pillow_1bit_lzw.tif"] = _pillow(Image.fromarray(g8).convert("1"),
+                                         "TIFF", compression="tiff_lzw")
+    if with_strips:
+        out.update(tiff_strips())
+    return out
+
+
+def strip_heights(h, w, seed=5):
+    """(h, w) uint16 heights: the texture's land as 256 * k + 1..255 (so a
+    uint8 cast keeps it land), its ocean zero."""
+    t = terrain(h, w, seed, 1)[..., 0].astype(np.uint16)
+    land = t > 30
+    return np.where(land, (t % 200) * 256 + t % 255 + 1, 0).astype(np.uint16)
+
+
+def tiff_strips():
+    """The two full-width strips, by Pillow (LZW with predictor 2, and
+    deflate): a texture and its 16-bit heights, 8 rows a strip."""
+    from PIL import Image
+
+    tex = terrain(STRIP_H, STRIP_W, 6)
+    hm = strip_heights(STRIP_H, STRIP_W)
+    return {
+        "strip_21600x32_rgb_lzw.tif": _pillow(
+            Image.fromarray(tex), "TIFF", compression="tiff_lzw",
+            tiffinfo={317: 2, 278: 8}),
+        "strip_21600x32_gray16_deflate.tif": _pillow(
+            Image.fromarray(hm), "TIFF", compression="tiff_adobe_deflate",
+            tiffinfo={317: 2, 278: 8}),
+    }
+
+
+# -------------------------------------------------------------------- BMP
+def bmp_bytes(pixels, bits, palette=None, compression=0, masks=None,
+              header=40, top_down=False, rle=None, colors_used=0):
+    """A BMP of `pixels` ((H, W) indices or (H, W, 3|4) RGB(A)), or of the
+    run-length data `rle` for BI_RLE8/BI_RLE4."""
+    h, w = pixels.shape[:2]
+    if rle is not None:
+        body = rle
+    else:
+        rows = pixels[::-1] if not top_down else pixels
+        if bits < 8:
+            packed = _pack_bits(rows, bits)
+        elif bits == 8:
+            packed = rows.astype(np.uint8)
+        elif bits == 16:
+            r, g, b = (rows[..., i].astype(np.uint32) for i in range(3))
+            if masks == (0xF800, 0x7E0, 0x1F):
+                v = (r >> 3) << 11 | (g >> 2) << 5 | b >> 3
+            else:
+                v = (r >> 3) << 10 | (g >> 3) << 5 | b >> 3
+            packed = v.astype("<u2").view(np.uint8).reshape(h, -1)
+        elif bits == 24:
+            packed = rows[..., 2::-1].reshape(h, -1)
+        else:
+            a = (rows[..., 3] if rows.shape[2] == 4
+                 else np.full((h, w), 0x5A, np.uint8))
+            packed = np.stack([rows[..., 2], rows[..., 1], rows[..., 0], a],
+                              -1).reshape(h, -1)
+            if masks == (0xFF, 0xFF00, 0xFF0000, 0xFF000000):  # RGBA
+                packed = np.stack([rows[..., 0], rows[..., 1], rows[..., 2],
+                                   a], -1).reshape(h, -1)
+        stride = -(-packed.shape[1] // 4) * 4
+        body = np.zeros((h, stride), np.uint8)
+        body[:, :packed.shape[1]] = packed
+        body = body.tobytes()
+    pal = b""
+    if palette is not None:
+        pad = 3 if header == 12 else 4
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        if pad == 4:
+            p = np.concatenate([p, np.zeros((len(p), 1), np.uint8)], 1)
+        pal = p.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bits, compression, len(body), 2835, 2835,
+                           colors_used, 0)
+        if header >= 52 and masks is not None:
+            info += struct.pack("<4I", *(tuple(masks) + (0,))[:4])
+        info += bytes(header - len(info))
+        if header == 40 and masks is not None:
+            info += struct.pack("<3I", *masks[:3])
+    offset = 14 + len(info) + len(pal)
+    head = b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
+    return head + info + pal + body
+
+
+def _rle8(rows, w):
+    """Run-length BI_RLE8 data of (H, W) indices (bottom-up), with encoded
+    runs, absolute runs (odd and even), a delta escape, end of line and
+    end of bitmap."""
+    out = bytearray()
+    for r, row in enumerate(rows):
+        x = 0
+        if r == 2:  # a delta: Pillow reads two more bytes and moves by them
+            out += bytes([0, 2, 1, 0, 3, 0])
+            x = 3
+        while x < w:
+            j = x
+            while j < w and row[j] == row[x] and j - x < 255:
+                j += 1
+            if j - x >= 3 or w - x < 3:
+                out += bytes([j - x, row[x]])
+                x = j
+            else:
+                n = min(w - x, 5 if r % 2 else 4)
+                out += bytes([0, n]) + bytes(row[x:x + n].tolist())
+                if n % 2:
+                    out += b"\x00"
+                x += n
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def _rle4(rows, w):
+    """BI_RLE4 data: encoded runs of two alternating nibbles (odd lengths
+    too) and absolute runs of even lengths (Pillow misreads an odd one:
+    it takes one byte too few)."""
+    out = bytearray()
+    for r, row in enumerate(rows):
+        x = 0
+        while x < w:
+            n = min(w - x, 7 if r % 2 else 6)
+            if r % 3 == 0 or n < 4:
+                out += bytes([n, (row[x] << 4) | row[min(x + 1, w - 1)]])
+            else:
+                n -= n % 2
+                data = bytes((row[x + i] << 4) | row[x + i + 1]
+                             for i in range(0, n, 2))
+                out += bytes([0, n]) + data
+                if len(data) % 2:
+                    out += b"\x00"
+            x += n
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def bmp_fixtures():
+    from PIL import Image
+
+    rnd = np.random.RandomState(3)
+    h, w = 29, 37
+    tex = terrain(h, w, 13, 4)
+    rgb, g8 = tex[..., :3], tex[..., 0]
+    pal = rnd.randint(0, 256, (256, 3))
+    gray = np.repeat(np.arange(256)[:, None], 3, 1)
+    bw = np.array([[0, 0, 0], [255, 255, 255]])
+    out = {
+        "pal1_bw.bmp": bmp_bytes(g8 >> 7, 1, bw),
+        "pal1_colour.bmp": bmp_bytes(g8 >> 7, 1, pal[:2]),
+        "pal4.bmp": bmp_bytes(g8 >> 4, 4, pal[:16]),
+        "pal8.bmp": bmp_bytes(g8, 8, pal),
+        "pal8_gray.bmp": bmp_bytes(g8, 8, gray),
+        "pal8_top_down.bmp": bmp_bytes(g8, 8, pal, top_down=True),
+        "pal8_few_colours.bmp": bmp_bytes(g8 % 40, 8, pal[:40],
+                                          colors_used=40),
+        "pal8_core.bmp": bmp_bytes(g8, 8, pal, header=12),
+        "rle8.bmp": bmp_bytes(g8, 8, pal, 1, rle=_rle8(
+            (g8 // 32 * 32)[::-1], w)),
+        "rle8_gray.bmp": bmp_bytes(g8, 8, gray, 1, rle=_rle8(g8[::-1], w)),
+        "rle4.bmp": bmp_bytes(g8 >> 4, 4, pal[:16], 2, rle=_rle4(
+            (g8 >> 4)[::-1], w)),
+        "rgb16_555.bmp": bmp_bytes(rgb, 16),
+        "rgb16_565_bitfields.bmp": bmp_bytes(
+            rgb, 16, compression=3, masks=(0xF800, 0x7E0, 0x1F)),
+        "rgb16_555_bitfields_v4.bmp": bmp_bytes(
+            rgb, 16, compression=3, masks=(0x7C00, 0x3E0, 0x1F), header=108),
+        "rgb24.bmp": bmp_bytes(rgb, 24),
+        "rgb24_top_down.bmp": bmp_bytes(rgb, 24, top_down=True),
+        "rgb24_core.bmp": bmp_bytes(rgb, 24, header=12),
+        "rgb24_v5.bmp": bmp_bytes(rgb, 24, header=124),
+        "rgb32.bmp": bmp_bytes(tex, 32),
+        "rgb32_bitfields.bmp": bmp_bytes(
+            tex, 32, compression=3, masks=(0xFF0000, 0xFF00, 0xFF)),
+        "rgba32_bitfields_v5.bmp": bmp_bytes(
+            tex, 32, compression=3,
+            masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000), header=124),
+        "rgba32_bitfields_rgba_v4.bmp": bmp_bytes(
+            tex, 32, compression=3,
+            masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000), header=108),
+    }
+    for name, mode in (("pillow_rgb.bmp", "RGB"), ("pillow_l.bmp", "L"),
+                       ("pillow_1.bmp", "1"), ("pillow_p.bmp", "P")):
+        img = Image.fromarray(rgb if mode in ("RGB", "P") else g8)
+        img = img.convert(mode) if mode != "P" else img.quantize(50)
+        out[name] = _pillow(img, "BMP")
+    return out
+
+
+# ---------------------------------------------------------------- digests
+def _summary(a):
+    a = np.asarray(a)
+    return {"shape": list(a.shape), "dtype": str(a.dtype),
+            "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+
+
+def digest(data, path=None):
+    """imageio's decode of the bytes (through Pillow): {bytes, shape, dtype,
+    sha256}; with `path`, under "path" its decode of the file by name (a
+    *.tif through its tifffile plugin; null where that fails)."""
+    import warnings
+
+    import imageio.v3 as iio
+
+    out = {"bytes": len(data), **_summary(iio.imread(data))}
+    if path is not None:
+        try:
+            with warnings.catch_warnings():  # the plugin's deprecation
+                warnings.simplefilter("ignore")
+                out["path"] = _summary(iio.imread(path))
+        except Exception:  # noqa: BLE001 -- no plugin reads it
+            out["path"] = None
+    return out
+
+
+def reference():
+    import imageio
+    import PIL
+    from PIL import features
+
+    return {"pillow": PIL.__version__, "imageio": imageio.__version__,
+            "libtiff": features.version("libtiff")}
+
+
+KINDS = {"png": png_fixtures, "tiff": tiff_fixtures, "bmp": bmp_fixtures}
+# committed files no script here writes, kept with their entries
+KEPT = {"png": ("terrain_48x40_rgb_5filters.png",)}
+
+
+def main(out_dir=DEFAULT_DIR, kinds=tuple(KINDS)):
+    """Write every kind's files and digests.json under out_dir/<kind>/;
+    returns {kind: digests}."""
+    got = {}
+    for kind in kinds:
+        d = os.path.join(out_dir, kind)
+        os.makedirs(d, exist_ok=True)
+        digests = {"reference": reference()}
+        for name in KEPT.get(kind, ()):
+            src = os.path.join(DEFAULT_DIR, kind, name)
+            with open(src, "rb") as f:
+                data = f.read()
+            if os.path.abspath(d) != os.path.dirname(os.path.abspath(src)):
+                with open(os.path.join(d, name), "wb") as f:
+                    f.write(data)
+            digests[name] = digest(data)
+        for name, data in KINDS[kind]().items():
+            path = os.path.join(d, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            digests[name] = digest(data, path if kind == "tiff" else None)
+        with open(os.path.join(d, "digests.json"), "w") as f:
+            json.dump(digests, f, indent=1, sort_keys=True)
+            f.write("\n")
+        print(f"{kind}: {len(digests) - 1} files, "
+              f"{sum(v['bytes'] for k, v in digests.items() if k != 'reference')} "
+              f"bytes")
+        got[kind] = digests
+    return got
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])

@@ -3,8 +3,8 @@ ops/kernels/_build.py): a store of the port's built libraries.
 
 On the CPU the host libraries build (g++): they go into the store with
 their records, and a fresh process whose PATH holds no compiler loads them
-and decodes the committed PNG and JPEG fixtures to their digests (SHA-256
-of Pillow's and imageio's decodes).  A record that does not fit is rebuilt
+and decodes the committed PNG, JPEG, TIFF and BMP fixtures to their
+digests (SHA-256 of imageio's decodes).  A record that does not fit is rebuilt
 with a compiler and raises without one; an edited source gives a new
 entry; TERRAIN_AOT_KEY=jaxpr keys on every file of the package.  The CUDA
 sources need nvcc and a card, which the CPU tests do not assume: their
@@ -21,7 +21,7 @@ import sys
 
 import pytest
 
-from terrain_tpu_torch.data import jpeg
+from terrain_tpu_torch.data import jpeg, tiff
 from terrain_tpu_torch.ops.kernels import _build
 from terrain_tpu_torch.serve import png
 from terrain_tpu_torch.utils import aot
@@ -31,20 +31,20 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data"
 HOSTS = [os.path.join(aot.PACKAGE, s) for s in _build.HOST_SOURCES]
 
+KINDS = ("png", "jpeg", "tiff", "bmp")
 DECODE = """
 import hashlib, json, os, sys
-from terrain_tpu_torch.data.jpeg import decode_jpeg
-from terrain_tpu_torch.serve.png import decode_png
+from terrain_tpu_torch.data.raster import read_raster
 out = {}
-for kind, fn in (("png", decode_png), ("jpeg", decode_jpeg)):
+for kind in %r:
     d = os.path.join(sys.argv[1], kind)
     for name in json.load(open(os.path.join(d, "digests.json"))):
         if name.startswith("strip_") or name == "reference":
             continue
-        a = fn(open(os.path.join(d, name), "rb").read())
+        a = read_raster(os.path.join(d, name))
         out[name] = hashlib.sha256(a.tobytes()).hexdigest()
 print(json.dumps(out))
-"""
+""" % (KINDS,)
 
 
 @pytest.fixture
@@ -75,7 +75,9 @@ def _no_compiler(monkeypatch):
 
 
 def test_the_host_sources_are_the_decoders():
-    assert sorted(HOSTS) == sorted([png._UNFILTER_SRC, jpeg._SRC])
+    """The PNG unfilter, the JPEG decoder, and the TIFF and BMP runs (one
+    library: data/bmp.py binds data/tiff.py's)."""
+    assert sorted(HOSTS) == sorted([png._UNFILTER_SRC, jpeg._SRC, tiff._SRC])
 
 
 def test_host_libraries_go_to_the_store_with_their_records(store):
@@ -110,11 +112,15 @@ def test_a_process_without_compilers_loads_the_store_and_decodes(
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout.splitlines()[-1])
     want = {}
-    for kind in ("png", "jpeg"):
+    for kind in KINDS:
         digests = json.loads((DATA / kind / "digests.json").read_text())
-        want.update({n: v["sha256"] for n, v in digests.items()
-                     if not n.startswith("strip_") and n != "reference"})
-    assert len(want) >= 4 and got == want
+        # read_raster(path) is imageio's decode of the path
+        want.update({n: v.get("path", v)["sha256"]
+                     for n, v in digests.items()
+                     if not n.startswith("strip_") and n != "reference"
+                     and v.get("path", v) is not None})
+    assert len(want) >= 100 and set(want) <= set(got)
+    assert {n: got[n] for n in want} == want
     assert "rebuilding" not in r.stdout
     # the same process on an empty store raises: nothing to load, no g++
     env["TERRAIN_AOT"] = str(tmp_path / "empty")
@@ -125,15 +131,16 @@ def test_a_process_without_compilers_loads_the_store_and_decodes(
 
 
 def test_the_png_fixture_digest_is_pillows_decode():
-    import io
-
+    """Every PNG digest is imageio's decode, through Pillow (a palette image
+    expanded as imageio expands it)."""
+    import imageio.v3 as iio
     import numpy as np
-    from PIL import Image
 
     digests = json.loads((DATA / "png" / "digests.json").read_text())
     for name, want in digests.items():
-        a = np.asarray(Image.open(io.BytesIO((DATA / "png" / name)
-                                             .read_bytes())))
+        if name == "reference":  # the Pillow and imageio versions
+            continue
+        a = np.asarray(iio.imread((DATA / "png" / name).read_bytes()))
         assert list(a.shape) == want["shape"]
         assert hashlib.sha256(a.tobytes()).hexdigest() == want["sha256"]
 

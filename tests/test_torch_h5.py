@@ -7,8 +7,11 @@ version-1 object headers, symbol-table groups) and with libver="latest"
 chunked datasets (gzip, shuffle, fletcher32), unallocated ones (the fill
 value), integer and float types of either byte order, nested groups,
 headers long enough to need continuation blocks, and the reference
-layout.  The reader gives h5py's arrays bit for bit and refuses every
-other kind by name.  The writer's files are read by h5py and by
+layout; under libver="latest" each of layout version 4's five chunk
+indices (a paged fixed array, an extensible array's super blocks and
+paged data blocks, a version 2 B-tree of depth 1 and more, single chunk,
+implicit), whose lookup3 checksums are checked.  The reader gives h5py's
+arrays bit for bit and refuses every other kind by name.  The writer's files are read by h5py and by
 terrain_tpu's get_iterators with the port's batches.  The committed
 fixtures of tests/data/h5 (tests/make_h5_fixtures.py, read by
 chip_smoke.py on the card) still match h5py and the reader.
@@ -90,13 +93,6 @@ def test_the_reader_gives_h5pys_arrays(libver, layout, tmp_path):
     with h5.File(path) as f, h5py.File(path, "r") as g:
         assert f.keys() == sorted(g.keys())
         for name in names:
-            if layout == "chunked" and libver == "latest" and \
-                    g[name].chunks is not None:
-                # layout version 4: its chunk indices are refused
-                with pytest.raises(NotImplementedError,
-                                   match="layout version 4's"):
-                    f[name]
-                continue
             got = f[name]
             _same(np.asarray(got), g[name][()])
             if layout == "contiguous" and name[2:] in arrays and \
@@ -190,14 +186,14 @@ def _refusal_files(tmp_path):
     make("external", lambda f: f.create_dataset(
         "d", (4,), dtype="u1", external=[("ext.bin", 0, 4)]),
         "d", "external data files")
-    make("extensible array", lambda f: f.create_dataset(
-        "d", data=np.arange(20), chunks=(5,), maxshape=(None,)),
-        "d", "layout version 4's extensible array chunk index",
+    make("lzf on layout 4", lambda f: f.create_dataset(
+        "d", data=np.arange(20), chunks=(5,), maxshape=(None,),
+        compression="lzf"), "d", r"the lzf filter \(id 32000\)",
         libver="latest")
-    make("version 2 B-tree", lambda f: f.create_dataset(
-        "d", data=np.zeros((4, 4)), chunks=(2, 2), maxshape=(None, None)),
-        "d", "layout version 4's version 2 B-tree chunk index",
-        libver="latest")
+    make("scaleoffset on layout 4", lambda f: f.create_dataset(
+        "d", data=np.arange(16).reshape(4, 4), chunks=(2, 2),
+        maxshape=(None, None), scaleoffset=0), "d",
+        r"the scaleoffset filter \(id 6\)", libver="latest")
 
     def virtual(f):
         layout = h5py.VirtualLayout(shape=(4,), dtype="i8")
@@ -214,7 +210,7 @@ def _refusal_files(tmp_path):
 
 @pytest.mark.parametrize("kind", [
     "lzf", "scaleoffset", "string", "compound", "enum", "soft link",
-    "external", "extensible array", "version 2 B-tree", "virtual",
+    "external", "lzf on layout 4", "scaleoffset on layout 4", "virtual",
     "dense links"])
 def test_other_kinds_are_refused_by_name(kind, tmp_path):
     path, name, match = _refusal_files(tmp_path)[kind]
@@ -265,6 +261,124 @@ def test_fletcher32_is_hdf5s():
         s1 = (s1 & 0xFFFF) + (s1 >> 16)
         s2 = (s2 & 0xFFFF) + (s2 >> 16)
         assert h5.fletcher32(data.tobytes()) == (s2 << 16) | s1
+
+
+# -------------------------------------------------- layout version 4
+def _implicit(f, name, data):
+    """An implicit chunk index: early allocation and no filter, through
+    h5py's low-level dataset creation property list."""
+    dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+    dcpl.set_chunk((4, 3))
+    dcpl.set_alloc_time(h5py.h5d.ALLOC_TIME_EARLY)
+    h5py.h5d.create(f.id, name.encode(), h5py.h5t.STD_I16BE,
+                    h5py.h5s.create_simple(data.shape), dcpl=dcpl)
+    f[name][...] = data
+
+
+def _sparse(f, name, data):
+    d = f.create_dataset(name, (1000, 3), dtype="<u2", chunks=(1, 3),
+                         maxshape=(None, 3), fillvalue=7)
+    d[500:510] = data[:10, :3]
+
+
+_L4 = {  # kind -> (index type, create(f, name, data), data's shape)
+    "single chunk": (1, lambda f, n, a: f.create_dataset(
+        n, data=a, chunks=a.shape), (5, 6)),
+    "single chunk, filtered": (1, lambda f, n, a: f.create_dataset(
+        n, data=a, chunks=a.shape, compression="gzip", shuffle=True,
+        fletcher32=True), (5, 6)),
+    "implicit": (2, _implicit, (10, 7)),
+    "fixed array": (3, lambda f, n, a: f.create_dataset(
+        n, data=a, chunks=(3, 2)), (10, 7)),
+    "fixed array, paged": (3, lambda f, n, a: f.create_dataset(
+        n, data=a, chunks=(1, 1), compression="gzip"), (40, 30)),
+    "extensible array": (4, lambda f, n, a: f.create_dataset(
+        n, data=a, chunks=(2, 3), maxshape=(None, 7)), (31, 7)),
+    "extensible array, super blocks": (4, lambda f, n, a: f.create_dataset(
+        n, data=a, chunks=(1, 2), maxshape=(None, 4), compression="gzip",
+        fletcher32=True), (400, 4)),
+    "extensible array, second dimension": (4, lambda f, n, a:
+                                           f.create_dataset(
+        n, data=a, chunks=(2, 1), maxshape=(4, None)), (4, 300)),
+    "extensible array, sparse": (4, _sparse, (10, 3)),
+    "version 2 B-tree": (5, lambda f, n, a: f.create_dataset(
+        n, data=a, chunks=(2, 2), maxshape=(None, None)), (40, 40)),
+    "version 2 B-tree, filtered": (5, lambda f, n, a: f.create_dataset(
+        n, data=a, chunks=(2, 2), maxshape=(None, None),
+        compression="gzip"), (40, 40)),
+    "version 2 B-tree, depth 2": (5, lambda f, n, a: f.create_dataset(
+        n, data=a, chunks=(1, 1), maxshape=(None, None)), (90, 90)),
+}
+
+
+def _index_of(f, name):
+    ds = f._dataset(f._messages(f._find(name)), name)
+    return ds.layout[1] if ds.layout[0] == "chunked4" else None
+
+
+def _btree2_depth(path):
+    data = open(path, "rb").read()
+    i = data.index(b"BTHD")
+    return int.from_bytes(data[i + 12:i + 14], "little")
+
+
+@pytest.mark.parametrize("kind", list(_L4))
+def test_layout4_chunk_indices_read_as_h5py(kind, tmp_path):
+    index, create, shape = _L4[kind]
+    rnd = np.random.RandomState(len(kind))
+    data = rnd.randint(-30000, 30000, shape).astype(">i2")
+    path = tmp_path / "l4.h5"
+    with h5py.File(path, "w", libver="latest") as f:
+        create(f, "d", data)
+    with h5.File(path) as f, h5py.File(path, "r") as g:
+        assert _index_of(f, "d") == index
+        _same(np.asarray(f["d"]), g["d"][()])
+    if kind == "version 2 B-tree, depth 2":
+        assert _btree2_depth(path) == 2
+    elif index == 5:
+        assert _btree2_depth(path) >= 1
+
+
+def test_an_extensible_arrays_paged_data_blocks(tmp_path):
+    """140,000 one-byte chunks: data blocks of more than 2^10 elements in a
+    super block are paged, each page with its checksum and its bit in the
+    super block's page bitmap (a byte or more a data block)."""
+    path = tmp_path / "ea.h5"
+    a = (np.arange(140000) % 251).astype("u1")
+    with h5py.File(path, "w", libver="latest") as f:
+        f.create_dataset("d", data=a, chunks=(1,), maxshape=(None,))
+    with h5.File(path) as f:
+        _same(np.asarray(f["d"]), a)
+
+
+@pytest.mark.parametrize("sig,fixture", [
+    (b"FAHD", "layout4_fixed_array.h5"), (b"FADB", "layout4_fixed_array.h5"),
+    (b"EAHD", "layout4_extensible_array.h5"),
+    (b"EAIB", "layout4_extensible_array.h5"),
+    (b"EASB", "layout4_extensible_array.h5"),
+    (b"EADB", "layout4_extensible_array.h5"),
+    (b"BTHD", "layout4_btree2.h5"), (b"BTIN", "layout4_btree2.h5"),
+    (b"BTLF", "layout4_btree2.h5")])
+def test_a_flipped_byte_fails_the_lookup3_checksum(sig, fixture, tmp_path):
+    data = bytearray(open(os.path.join(FIXTURES, fixture), "rb").read())
+    i = data.index(sig)
+    data[i + 5] ^= 0x10  # its client id or record type: checksummed
+    path = tmp_path / fixture
+    path.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="lookup3 checksum"):
+        with h5.File(path) as f:
+            for k in f.keys():
+                np.asarray(f[k])
+
+
+def test_lookup3_is_bob_jenkins_hashlittle():
+    """lookup3.c's own self-test values, and lengths of every remainder."""
+    assert h5.lookup3(b"") == 0xDEADBEEF
+    assert h5.lookup3(b"", 0xDEADBEEF) == 0xBD5B7DDE
+    assert h5.lookup3(b"Four score and seven years ago") == 0x17770551
+    assert h5.lookup3(b"Four score and seven years ago", 1) == 0xCD628161
+    seen = {h5.lookup3(bytes(range(n))) for n in range(40)}
+    assert len(seen) == 40
 
 
 # ------------------------------------------------------------------ writer
@@ -325,8 +439,9 @@ def test_write_h5_is_terrain_tpus(tmp_path):
 # ---------------------------------------------------------------- fixtures
 def test_committed_fixtures_match_h5py_and_the_reader(tmp_path):
     """The script writes files whose h5py arrays have the committed digests
-    (the latest-libver gzip file refused, naming its chunk index), and the
-    reader gives those arrays from the committed files."""
+    (the latest-libver gzip file and the five layout-4 indices' files
+    among them), and the reader gives those arrays from the committed
+    files."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -336,15 +451,11 @@ def test_committed_fixtures_match_h5py_and_the_reader(tmp_path):
     with open(os.path.join(FIXTURES, "digests.json")) as f:
         committed = json.load(f)
     assert mod.main(str(tmp_path)) == committed
+    assert {f"layout4_{k}.h5" for k in mod.LAYOUT4} <= set(committed)
     for name, want in committed.items():
         if name == "reference":
             continue
         path = os.path.join(FIXTURES, name)
-        if "refused" in want:
-            with pytest.raises(NotImplementedError, match=want["refused"]):
-                with h5.File(path) as f:
-                    f["xt"]
-            continue
         with h5.File(path) as f:
             assert f.keys() == sorted(want)
             for k, w in want.items():

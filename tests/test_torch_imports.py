@@ -92,6 +92,9 @@ def test_the_file_list_covers_the_package():
                  "terrain_tpu_torch/data/h5.py",
                  "terrain_tpu_torch/data/jpeg.py",
                  "terrain_tpu_torch/data/raster.py",
+                 "terrain_tpu_torch/data/tiff.py",
+                 "terrain_tpu_torch/data/bmp.py",
+                 "terrain_tpu_torch/tools/import_reference_weights.py",
                  "terrain_tpu_torch/eval/resize.py",
                  "terrain_tpu_torch/tools/make_synthetic.py",
                  "terrain_tpu_torch/tools/build_dataset.py",
@@ -149,14 +152,28 @@ j = json.load(open(os.path.join(data, "jpeg", "digests.json")))
 name = "progressive_2048x1024_420_cut2.jpg"
 img = decode_jpeg(open(os.path.join(data, "jpeg", name), "rb").read())
 assert hashlib.sha256(img.tobytes()).hexdigest() == j[name]["sha256"]
+from terrain_tpu_torch.data.raster import read_raster
+from terrain_tpu_torch.tools import import_reference_weights
+for kind, name in (("tiff", "rgb8_lzw_pred2_tiles_be.tif"),
+                   ("bmp", "rle4.bmp"), ("png", "palette4_adam7.png")):
+    d = json.load(open(os.path.join(data, kind, "digests.json")))[name]
+    a = read_raster(os.path.join(data, kind, name))
+    assert hashlib.sha256(a.tobytes()).hexdigest() == \
+        d.get("path", d)["sha256"], name
+with h5.File(os.path.join(data, "h5", "layout4_btree2.h5")) as f:
+    a = np.ascontiguousarray(f["plain"])
+assert hashlib.sha256(a.tobytes()).hexdigest() == json.load(open(
+    os.path.join(data, "h5", "digests.json")))["layout4_btree2.h5"][
+    "plain"]["sha256"]
 print("ok")
 """
 
 
 def test_the_data_path_runs_without_h5py_imageio_or_pil():
     """A process in which h5py, imageio and PIL cannot be imported reads
-    the committed h5py files and a progressive JPEG to their digests and
-    imports the port's data tools."""
+    the committed h5py files (a layout-4 B-tree too), a progressive JPEG, a
+    TIFF, a BMP and an interlaced palette PNG to their digests and imports
+    the port's data tools and the weights importer."""
     import subprocess
 
     r = subprocess.run([sys.executable, "-c", BLOCKED,

@@ -5,8 +5,11 @@ from the same seed, byte for byte (both draw their offsets from
 native library's bytes; the port's PNG decoder undoes every filter type as
 its per-byte plain version does and reads other encoders' files;
 `_get_data` gives terrain_tpu's first batches from the same PNG pair; a
-JPEG is decoded (tests/test_torch_jpeg.py holds the decoder), a TIFF or
-GIF refused; and smoke_synthetic trains from a raster through the CLI.  Rasters are a few hundred pixels a side.
+JPEG, TIFF or BMP is decoded (tests/test_torch_jpeg.py, test_torch_tiff.py
+and test_torch_bmp.py hold the decoders), a GIF, a WebP and the TIFF
+variants the port does not take refused by name before either file is
+decoded; and smoke_synthetic trains from a raster through the CLI.
+Rasters are a few hundred pixels a side.
 """
 
 import math
@@ -215,41 +218,104 @@ def test_get_data_gives_terrain_tpus_first_batches(tmp_path, rng, hm_dtype,
                 np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("name,head,fmt", [
-    ("b.jpg", None, "JPEG"),                      # by extension
-    ("b.png", b"\xff\xd8\xff\xe0\x00\x10JFIF", "JPEG"),  # by its bytes
-    ("b.tif", None, "TIFF"),
-    ("b.raster", b"GIF89a", "GIF"),
+def _pil_save(path, img, fmt, **kw):
+    from PIL import Image
+
+    Image.fromarray(img).save(path, fmt, **kw)
+
+
+@pytest.mark.parametrize("name,fmt", [
+    ("b.jpg", "JPEG"),                 # by extension
+    ("b.png", "JPEG"),                 # a JPEG's bytes under another name
+    ("b.tif", "TIFF"),
+    ("b.bmp", "BMP"),
 ])
-def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, head,
-                                               fmt, monkeypatch):
-    """TIFF and GIF are refused by name, before either file is decoded; a
-    JPEG, named so or starting so, is decoded by the port's JPEG decoder to
-    imageio's bytes."""
+def test_a_raster_that_is_not_a_png_is_decoded(tmp_path, rng, name, fmt):
+    """A JPEG, TIFF or BMP texture, named so or starting so, is decoded by
+    the port's codec to imageio's bytes."""
+    iio = pytest.importorskip("imageio.v3")
     value, hm, _ = _write_pair(tmp_path, rng)
     other = tmp_path / name
-    if fmt == "JPEG":
-        iio = pytest.importorskip("imageio.v3")
-        from PIL import Image
+    tex = rng.randint(0, 256, size=(48, 40, 3)).astype(np.uint8)
+    kw = {"quality": 85} if fmt == "JPEG" else (
+        {"compression": "tiff_lzw"} if fmt == "TIFF" else {})
+    _pil_save(other, tex, fmt, **kw)
+    got_hm, got_tex = experiments.read_raster_pair(
+        f"{value.split(',')[0]},{other}")
+    np.testing.assert_array_equal(got_hm, hm)
+    want = iio.imread(other.read_bytes())
+    assert got_tex.dtype == want.dtype
+    np.testing.assert_array_equal(got_tex, want)
 
-        tex = rng.randint(0, 256, size=(48, 40, 3)).astype(np.uint8)
-        Image.fromarray(tex).save(other, "JPEG", quality=85)
-        got_hm, got_tex = experiments.read_raster_pair(
-            f"{value.split(',')[0]},{other}")
-        np.testing.assert_array_equal(got_hm, hm)
-        np.testing.assert_array_equal(got_tex, iio.imread(other.read_bytes()))
-        return
-    if head is not None:
-        other.write_bytes(head + bytes(64))
+
+def _bigtiff(path):
+    path.write_bytes(b"II+\x00\x08\x00\x00\x00" + bytes(64))
+
+
+@pytest.mark.parametrize("name,make,match", [
+    ("b.raster", lambda p: p.write_bytes(b"GIF89a" + bytes(64)),
+     "is GIF; imageio gives a GIF a frame axis"),
+    ("b.gif", None, "is GIF; imageio gives a GIF a frame axis"),
+    ("b.webp", None, "is WebP; a WebP decoder"),
+    ("b.raster", lambda p: p.write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 "),
+     "is WebP; a WebP decoder"),
+    ("b.tif", lambda p: _pil_save(p, np.zeros((16, 16, 3), np.uint8),
+                                  "TIFF", compression="jpeg"),
+     r"TIFF: compression 7 \(JPEG\)"),
+    ("b.tif", _bigtiff, r"TIFF: BigTIFF"),
+    ("b.tiff", lambda p: _cmyk(p), r"TIFF: photometric 5 \(CMYK\)"),
+])
+def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
+                                               match, monkeypatch):
+    """What the port does not decode (JPEG, TIFF and BMP it does, in the
+    test above): GIF and WebP by name and by magic, JPEG-in-TIFF, BigTIFF
+    and CMYK by their TIFF headers -- NotImplementedError naming them,
+    before either file is decoded."""
+    value, hm, _ = _write_pair(tmp_path, rng)
+    other = tmp_path / name
+    if make is not None:
+        make(other)
     decoded = []
-    monkeypatch.setattr(png, "decode_png",
-                        lambda b: decoded.append(1) or None)
-    with pytest.raises(NotImplementedError,
-                       match=f"is {fmt}; the port decodes PNG and JPEG"):
+    from terrain_tpu_torch.data import raster
+
+    for fn in ("read_png", "decode_jpeg", "read_tiff", "decode_bmp"):
+        monkeypatch.setattr(raster, fn, lambda *a: decoded.append(1))
+    monkeypatch.setattr(raster, "_DECODERS", {
+        k: (lambda *a: decoded.append(1)) for k in raster._DECODERS})
+    with pytest.raises(NotImplementedError, match=match):
         experiments.read_raster_pair(f"{value.split(',')[0]},{other}")
     assert decoded == []  # neither file was decoded
     with pytest.raises(ValueError, match="heightmap.png,texture.jpg"):
         experiments.read_raster_pair(value.split(",")[0])
+
+
+def _cmyk(path):
+    from PIL import Image
+
+    Image.fromarray(np.zeros((16, 16, 4), np.uint8), "CMYK").save(path,
+                                                                  "TIFF")
+
+
+@pytest.mark.parametrize("which", ["heightmap", "texture"])
+def test_a_gif_pair_fails_in_terrain_tpu_and_is_refused_here(
+        tmp_path, rng, which, monkeypatch):
+    """imageio gives a GIF a frame axis, which terrain_tpu's crop iterator
+    asserts against; the port refuses the file by name."""
+    pytest.importorskip("imageio")
+    from terrain_tpu import experiments as jexp
+
+    value, hm, tex = _write_pair(tmp_path, rng)
+    gif = tmp_path / f"{which}.gif"
+    _pil_save(gif, hm if which == "heightmap" else tex[..., :3], "GIF")
+    paths = value.split(",")
+    paths[0 if which == "heightmap" else 1] = str(gif)
+    monkeypatch.setenv("TERRAIN_RASTER", ",".join(paths))
+    monkeypatch.setenv("TERRAIN_BS", "2")
+    monkeypatch.setenv("TERRAIN_EPOCH_CROPS", "4")
+    with pytest.raises(AssertionError):
+        jexp._get_data(64)
+    with pytest.raises(NotImplementedError, match="is GIF"):
+        experiments._get_data(64, device="cpu")
 
 
 def test_smoke_synthetic_trains_from_a_raster(tmp_path, rng, monkeypatch):
