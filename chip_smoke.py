@@ -10,7 +10,7 @@ Phases (any failure exits non-zero and prints no result line):
      all started together);
   1a. coldstart: a fresh process to the end of one bf16 eager flagship
      step with the libraries already built (and a cold machine's figure:
-     that plus phase 1's nvcc build and the three host g++ builds); a fresh
+     that plus phase 1's nvcc build and the four host g++ builds); a fresh
      TERRAIN_AOT store filled (phase 1's libraries and records copied in,
      then utils/aot.fill); a fresh process with no
      compiler reachable (PATH an empty directory, CUDA_HOME and CUDA_PATH
@@ -144,6 +144,25 @@ Phases (any failure exits non-zero and prints no result line):
      crops, filter and RandomState(42) split; a --subset-from of the 10
      closest crops), pick_epoch (its pick, exit code 1 without swd.txt)
      and compare_published on the card (its rows the CPU's);
+  7c. artifacts: in a child process where h5py, imageio and PIL cannot be
+     imported: the committed GIF clips of tests/data/gif written by the
+     port's GIF writer (serve/gif.py) and read back by its reader to
+     imageio's frame counts, durations and loop, the gray and 60-colour
+     clips' frames to imageio's SHA-256, every full-colour frame within
+     1.10 times Pillow's mean error plus 0.25 grey levels; a full-width
+     checkpoint of test1_nobn_bilin_both (seeded weights), then `python
+     -m terrain_tpu_torch test1_nobn_bilin_both interp` through cli.main:
+     224 frames of 512 x 1024 (56 dispatches of 4), frames/s, the
+     launches of bilinear_conv (2) and conv_thin (1) a dispatch; `gen`
+     (100 samples); then the port's four artifact tools, each timed:
+     make_filmstrip and make_gen_sheet (their PNGs the plain numpy
+     composition of their tiles), render_clip to a GIF (read back: one
+     frame for each run of equal frames with 40 ms for each frame of the
+     run, loop 0, each frame's mean error against its source within
+     CLIP_MAE_LIMIT; a gray clip of the heightmaps bit-equal; an .mp4
+     refused naming ffmpeg) and pack_artifacts on a trainer-shaped
+     directory (the CSVs' last rows per epoch, torn rows dropped; copies
+     byte-equal; dump_a's sheet the plain composition);
   8. scan: TERRAIN_SCAN as one CUDA graph: the flagship step (augmentation
      on) from one saved state, 4 eager steps twice against two replays of
      a 4-step graph, by default (no deterministic algorithms: the port's
@@ -381,6 +400,18 @@ TIFF_HEIGHT_STRIP = "strip_21600x32_gray16_deflate.tif"
 BLOCKED = ("h5py", "imageio", "PIL")
 H5_DIR = os.path.join("tests", "data", "h5")
 H5_GZIP = "pairs_earliest_gzip.h5"
+# artifacts: the flagship's interp clip, (10 - 1) * 25 interpolants of which
+# whole batches of 4 are written (experiments._MODES), 512 x 1024 each
+CLIP_SAMPLES, CLIP_BATCH = 10, 4
+CLIP_DISPATCHES = (CLIP_SAMPLES - 1) * 25 // CLIP_BATCH
+CLIP_LAUNCHES = {"bilinear_conv": 2, "conv_thin": 1}  # each dispatch
+GIF_DIR = os.path.join("tests", "data", "gif")
+# a full-colour clip frame's mean absolute error against its source, grey
+# levels: the median cut's 256 entries on the flagship's random-weight
+# frames (the committed clips hold the writer to Pillow's own error)
+CLIP_MAE_LIMIT = 12.0
+CLIP_GRAY_FRAMES = 24    # heightmap halves rendered as a gray clip
+ARTIFACTS_LIMIT_S = 600
 INPUTS_N = 48
 # a first, shorter synthetic epoch at the same shapes (batch 4, 512px; 2
 # train steps and the valid floor's 1) takes cuDNN's warm-up, so that the
@@ -466,7 +497,7 @@ ACC_ROUTE_TOL = 1e-4
 ACC_TOL = 5e-5
 PHASES = {"coldstart", "kernels", "ballast", "serve", "train", "trainer",
           "quality",
-          "raster", "inputs", "scan", "nans",
+          "raster", "inputs", "artifacts", "scan", "nans",
           "parallel", "accuracy", "tp", "spatial", "conditioning",
           "determinism", "tp4", "spatial4", "scan4"}
 
@@ -2743,13 +2774,32 @@ def _raster_fixtures(card):
             path = os.path.join(d, name)
             with open(path, "rb") as f:
                 data = f.read()
+            if "refused" in want:  # refused by name, from bytes and path
+                for read in (lambda: decode[kind](data),
+                             lambda: read_raster(path)):
+                    try:
+                        read()
+                        fail(f"raster: {kind}/{name} was decoded")
+                    except NotImplementedError as e:
+                        if want["refused"] not in str(e):
+                            fail(f"raster: {kind}/{name} refused as {e}")
+                counts["refused"] = counts.get("refused", 0) + 1
+                continue
             t0 = time.perf_counter()
-            img = decode[kind](data)
+            if "error" in want:  # Pillow raises OSError on its bytes
+                try:
+                    decode[kind](data)
+                    fail(f"raster: {kind}/{name} decoded where Pillow "
+                         f"raises")
+                except OSError:
+                    pass
+            else:
+                img = decode[kind](data)
+                if not same(img, want):
+                    fail(f"raster: {kind}/{name} decoded to {img.shape} "
+                         f"{img.dtype}, not imageio's {want['shape']} "
+                         f"{want['dtype']} (or other bytes)")
             t_all += time.perf_counter() - t0
-            if not same(img, want):
-                fail(f"raster: {kind}/{name} decoded to {img.shape} "
-                     f"{img.dtype}, not imageio's {want['shape']} "
-                     f"{want['dtype']} (or other bytes)")
             by_path = want.get("path", want)
             if by_path is not None and not same(read_raster(path), by_path):
                 fail(f"raster: {kind}/{name} read by its path is not "
@@ -2758,9 +2808,10 @@ def _raster_fixtures(card):
                 strips[name] = img
             counts[kind] = counts.get(kind, 0) + 1
     print(f"raster [{card}]: {counts} fixtures (every PNG, TIFF and BMP "
-          f"variant the port takes) decoded to imageio's shapes, dtypes and "
-          f"SHA-256 in {t_all:.2f} s, from their bytes and from their "
-          f"paths", flush=True)
+          f"variant the port takes; where Pillow raises on the bytes, the "
+          f"port too) decoded to imageio's shapes, dtypes and SHA-256 in "
+          f"{t_all:.2f} s, from their bytes and from their paths; the "
+          f"refused ones refused by name", flush=True)
     return strips
 
 
@@ -2914,13 +2965,13 @@ def raster_tiff(torch, card, root):
 
 
 # ----------------------------------------------------------------- inputs
-def _blocked_libraries():
+def _blocked_libraries(phase="inputs"):
     """Make h5py, imageio and PIL unimportable in this process (an import
     of a name that sys.modules maps to None raises ImportError); fails if
     one is already imported."""
     for name in BLOCKED:
         if name in sys.modules and sys.modules[name] is not None:
-            fail(f"inputs: {name} was imported before the phase began")
+            fail(f"{phase}: {name} was imported before the phase began")
         sys.modules[name] = None
 
 
@@ -3092,11 +3143,11 @@ def _h5_epochs(torch, np, card, path, arrays, root):
     return {k: fast[k] + host[k] for k in fast}
 
 
-def _timed(card, name, fn):
+def _timed(card, name, fn, phase="inputs"):
     t0 = time.perf_counter()
     out = fn()
     dt = time.perf_counter() - t0
-    print(f"inputs [{card}]: tool {name}: {dt:.3f} s", flush=True)
+    print(f"{phase} [{card}]: tool {name}: {dt:.3f} s", flush=True)
     return out
 
 
@@ -3349,6 +3400,323 @@ def inputs_slice(torch, card):
         with open(os.path.join(root, "inputs.json")) as f:
             launches = json.load(f)
         print(f"inputs: the phase's process took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# ----------------------------------------------------------------- phase 7c
+def _gif_fixtures(np, card):
+    """The committed clips of tests/data/gif through the port's GIF writer
+    and reader: imageio's frame counts, durations, loop and size; the gray
+    and 60-colour clips' frames bit-equal to imageio's decodes; every
+    full-colour frame within 1.10 x Pillow's mean error + 0.25."""
+    import hashlib
+    import importlib.util
+
+    from terrain_tpu_torch.serve.gif import encode_gif, gif_meta, read_gif
+    from terrain_tpu_torch.serve.png import read_png_path
+
+    d = os.path.join(HERE, GIF_DIR)
+    with open(os.path.join(d, "digests.json")) as f:
+        digests = json.load(f)
+    # the clip of 512 x 1024 frames is made by the fixture script (numpy
+    # integers only), not stored
+    spec = importlib.util.spec_from_file_location(
+        "make_gif_fixtures", os.path.join(HERE, "tests",
+                                          "make_gif_fixtures.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    equal = total = 0
+    for clip, want in digests.items():
+        if clip == "reference":
+            continue
+        src = ([read_png_path(os.path.join(d, n)) for n in want["frames"]]
+               if want["frames"] else list(script.frames(clip)))
+        data = encode_gif(src, 40)
+        meta = gif_meta(data)
+        got = read_gif(data)
+        if (len(got), meta["durations"], meta["loop"], list(meta["size"])) \
+                != (want["n_frames"], want["durations"], want["loop"],
+                    want["size"]):
+            fail(f"artifacts: the {clip} clip's GIF has {len(got)} frames, "
+                 f"durations {meta['durations']}, loop {meta['loop']}, size "
+                 f"{meta['size']}; imageio's: {want}")
+        shas = [hashlib.sha256(g.tobytes()).hexdigest() for g in got]
+        same = sum(a == b for a, b in zip(shas, want["decoded_sha256"]))
+        if not clip.startswith("rgb") and same != len(got):
+            fail(f"artifacts: the {clip} clip decodes to other pixels than "
+                 f"imageio's")
+        at, k = [], -1
+        for i, f in enumerate(src):
+            k += not (i and np.array_equal(f, src[i - 1]))
+            at.append(k)
+        for i, f in enumerate(src):
+            rgb = f if f.ndim == 3 else np.repeat(f[..., None], 3, -1)
+            err = float(np.abs(got[at[i]].astype(np.int64) - rgb).mean())
+            lim = 1.10 * want["pillow_mae"][i] + 0.25
+            if err > lim:
+                fail(f"artifacts: {clip} frame {i}'s mean error {err:.4f} "
+                     f"is over {lim:.4f} (1.10 x Pillow's + 0.25)")
+        equal += same
+        total += len(got)
+    print(f"artifacts [{card}]: the committed GIF clips (one of 512 x 1024 "
+          f"full-colour frames): frame counts, durations and loop as "
+          f"imageio writes them; {equal} of {total} decoded frames "
+          f"bit-equal to imageio's (the gray and 60-colour ones required, "
+          f"the full-colour ones within 1.10 x Pillow's error + 0.25)",
+          flush=True)
+
+
+def _interp(torch, np, card, root):
+    """A full-width flagship checkpoint, then `interp` and `gen` through
+    cli.main; returns (the interp run's launch counts, the clip's
+    directory, gen's directory)."""
+    from terrain_tpu_torch import cli
+    from terrain_tpu_torch.experiments import build_gan
+    from terrain_tpu_torch.models import convert
+    from terrain_tpu_torch.train import checkpoint
+
+    os.environ.update({"TERRAIN_OUT": os.path.join(root, "out"),
+                       "TERRAIN_MODELS": os.path.join(root, "models"),
+                       "TERRAIN_PICK": "name"})
+    t0 = time.perf_counter()
+    gan, name = build_gan(EXPERIMENT, "cuda", verbose=False)
+    models = os.path.join(root, "models", name)
+    os.makedirs(models)
+    # the weights and BN statistics only: interp loads no optimizer state
+    trees = {n: convert.to_jax(net) for n, net in gan.nets.items()}
+    checkpoint.save_model(os.path.join(models, "600.model"),
+                          {n: t[0] for n, t in trees.items()},
+                          {n: t[1] for n, t in trees.items()})
+    del gan, trees
+    torch.cuda.empty_cache()
+    t_ckpt = time.perf_counter() - t0
+    _reset_counters()
+    t0 = time.perf_counter()
+    if cli.main([EXPERIMENT, "interp"]) != 0:
+        fail("artifacts: the interp CLI returned an error")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counters()
+    clip = os.path.join(root, "out", name, "interp_clip")
+    frames = sorted(os.listdir(clip))
+    n = CLIP_DISPATCHES * CLIP_BATCH
+    if frames != [f"concat_{i:04d}.png" for i in range(n)]:
+        fail(f"artifacts: interp wrote {len(frames)} files, not concat_0000"
+             f" .. concat_{n - 1:04d}.png")
+    for k, v in CLIP_LAUNCHES.items():
+        if got[k] != v * CLIP_DISPATCHES:
+            fail(f"artifacts: interp launched {k} {got[k]} times, expected "
+                 f"{v} in each of {CLIP_DISPATCHES} dispatches")
+    others = {k: v for k, v in got.items() if v and k not in CLIP_LAUNCHES}
+    print(f"artifacts [{card}]: a full-width {EXPERIMENT} checkpoint "
+          f"(weights and BN statistics) built and written in {t_ckpt:.1f} "
+          f"s; `{EXPERIMENT} interp`: "
+          f"{n} frames of 512 x 1024 in {wall:.1f} s (checkpoint load, "
+          f"{CLIP_DISPATCHES} two-stage dispatches of {CLIP_BATCH}, PNG "
+          f"writes): {n / wall:.2f} frames/s; launches a dispatch "
+          f"{ {k: got[k] / CLIP_DISPATCHES for k in CLIP_LAUNCHES} }, "
+          f"others {others}", flush=True)
+    t0 = time.perf_counter()
+    if cli.main([EXPERIMENT, "gen"]) != 0:
+        fail("artifacts: the gen CLI returned an error")
+    gen = os.path.join(root, "out", name, "gen")
+    if len(os.listdir(gen)) != 100:
+        fail(f"artifacts: gen wrote {len(os.listdir(gen))} samples, not "
+             f"100")
+    print(f"artifacts [{card}]: `{EXPERIMENT} gen`: 100 samples in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return got, clip, gen
+
+
+def _grid(np, imgs, cols, rows):
+    """The plain composition: rows x cols cells, row by row, zeros past
+    the last image."""
+    cells = list(imgs) + [np.zeros_like(imgs[0])] * (cols * rows - len(imgs))
+    return np.concatenate([np.concatenate(cells[r * cols:(r + 1) * cols], 1)
+                           for r in range(rows)], 0)
+
+
+def _artifact_tools(np, card, root, clip, gen):
+    """The port's four artifact tools on the interp clip, the gen samples
+    and a trainer-shaped directory, each timed and its outputs checked."""
+    import concurrent.futures
+    from terrain_tpu_torch.serve.gif import gif_meta, read_gif
+    from terrain_tpu_torch.serve.png import read_png_path, write_png_path
+    from terrain_tpu_torch.tools import (make_filmstrip, make_gen_sheet,
+                                         pack_artifacts, render_clip)
+
+    out = os.path.join(root, "tools")
+    os.makedirs(out)
+    files = [os.path.join(clip, f) for f in sorted(os.listdir(clip))]
+    # make_filmstrip: 8 evenly spaced frames side by side
+    strip = os.path.join(out, "strip.png")
+    _timed(card, "make_filmstrip", lambda: make_filmstrip.main(
+        [clip, strip]), "artifacts")
+    picks = make_filmstrip.picks(files, 8)
+    if not np.array_equal(read_png_path(strip), np.concatenate(
+            [read_png_path(f) for f in picks], 1)):
+        fail("artifacts: the filmstrip is not its 8 frames side by side")
+    # render_clip: the GIF, read back
+    gif_path = os.path.join(out, "clip.gif")
+    t0 = time.perf_counter()
+    _timed(card, "render_clip", lambda: render_clip.main([clip, gif_path]),
+           "artifacts")
+    dt = time.perf_counter() - t0
+    runs = []  # [first frame, length] of each run of equal frames
+    prev = None
+    for f in files:
+        with open(f, "rb") as fh:
+            data = fh.read()  # the encoder is deterministic: equal bytes
+        if data == prev:      # are equal frames and the reverse
+            runs[-1][1] += 1
+        else:
+            runs.append([f, 1])
+        prev = data
+    meta = gif_meta(gif_path)
+    frames = read_gif(gif_path)
+    if len(frames) != len(runs) or meta["loop"] != 0 or \
+            meta["durations"] != [40 * k for _, k in runs]:
+        fail(f"artifacts: the GIF has {len(frames)} frames (durations "
+             f"{sorted(set(meta['durations']))}, loop {meta['loop']}); its "
+             f"{len(files)} frames have {len(runs)} runs of equal frames")
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        srcs = list(pool.map(read_png_path, [f for f, _ in runs]))
+    errs = [float(np.abs(g.astype(np.int16) - s).mean())
+            for g, s in zip(frames, srcs)]
+    colours = len(np.unique(srcs[0].reshape(-1, 3).astype(np.uint32)
+                            @ np.array([65536, 256, 1], np.uint32)))
+    del srcs
+    if max(errs) > CLIP_MAE_LIMIT:
+        fail(f"artifacts: a GIF frame's mean error is {max(errs):.3f}, over "
+             f"{CLIP_MAE_LIMIT}")
+    print(f"artifacts [{card}]: clip.gif: {len(frames)} frames from "
+          f"{len(files)} ({len(files) - len(frames)} merged into the frame "
+          f"before), {os.path.getsize(gif_path) / 2**20:.1f} MiB, "
+          f"{dt * 1e3 / len(files):.1f} ms a 512 x 1024 frame (PNG read, "
+          f"quantize on {min(8, os.cpu_count() or 1)} threads, LZW); mean "
+          f"error against the sources {min(errs):.3f}-{max(errs):.3f} grey "
+          f"levels; the first frame has {colours} colours", flush=True)
+    gray_dir = os.path.join(out, "gray")
+    os.makedirs(gray_dir)
+    grays = []
+    for i, f in enumerate(files[:CLIP_GRAY_FRAMES]):
+        # the heightmap, 0 lifted to 1: a first frame whose gray levels are
+        # exactly 0 .. 2^k - 1 reads as L in Pillow, and imageio cannot
+        # stack it with the RGB frames after it (read_gif raises alike)
+        g = np.maximum(read_png_path(f)[:, :512, 0], 1)
+        grays.append(g)
+        write_png_path(os.path.join(gray_dir, f"concat_{i:04d}.png"), g)
+    gray_gif = os.path.join(out, "gray.gif")
+    _timed(card, "render_clip (gray)", lambda: render_clip.main(
+        [gray_dir, gray_gif]), "artifacts")
+    got = read_gif(gray_gif)
+    keep = [g for i, g in enumerate(grays)
+            if not (i and np.array_equal(g, grays[i - 1]))]
+    if len(got) != len(keep) or any(
+            not np.array_equal(a, np.repeat(b[..., None], 3, -1))
+            for a, b in zip(got, keep)):
+        fail("artifacts: the gray clip does not decode to its frames")
+    try:
+        render_clip.main([gray_dir, os.path.join(out, "c.mp4")])
+        fail("artifacts: render_clip wrote an .mp4")
+    except NotImplementedError as e:
+        if "ffmpeg" not in str(e):
+            fail(f"artifacts: the .mp4 refusal does not name ffmpeg: {e}")
+    # make_gen_sheet: 5 x 5 of the first 25 samples (sorted by name)
+    sheet = os.path.join(out, "sheet.png")
+    _timed(card, "make_gen_sheet", lambda: make_gen_sheet.main(
+        [gen, sheet]), "artifacts")
+    samples = sorted(os.path.join(gen, f) for f in os.listdir(gen))[:25]
+    if not np.array_equal(read_png_path(sheet), _grid(
+            np, [read_png_path(f) for f in samples], 5, 5)):
+        fail("artifacts: the gen sheet is not its 25 tiles")
+    # pack_artifacts on a trainer-shaped directory
+    run = os.path.join(out, "run")
+    os.makedirs(os.path.join(run, "dump_a"))
+    header = "epoch,train_loss,valid_loss,lr,time,mode"
+    rows = [f"{e},{1 / e:.5f},{2 / e:.5f},2e-4,{e * 1.5:.2f},both"
+            for e in range(1, 7)]
+    text = [header] + rows[:4] + ["3,0.5", "2,junk"] + [
+        r.replace("both", "resumed") for r in rows[2:]]
+    with open(os.path.join(run, "results.txt"), "w") as f:
+        f.write("\n".join(text) + "\n")
+    want_csv = "\n".join([header] + rows[:2] + [
+        r.replace("both", "resumed") for r in rows[2:]]) + "\n"
+    for e, f in enumerate(samples[:6]):
+        shutil.copy(f, os.path.join(run, f"out_{e + 1}.png"))
+    shutil.copy(samples[6], os.path.join(run, "arch_p2p_gen.png"))
+    for i, f in enumerate(samples[:20]):
+        shutil.copy(f, os.path.join(run, "dump_a", f"{i}.png"))
+    packed = os.path.join(out, "packed")
+    _timed(card, "pack_artifacts", lambda: pack_artifacts.main(run, packed),
+           "artifacts")
+    with open(os.path.join(packed, "results.txt")) as f:
+        if f.read() != want_csv:
+            fail("artifacts: pack_artifacts' results.txt is not the last "
+                 "row of each epoch without the torn ones")
+    want_files = {"results.txt", "arch_p2p_gen.png", "out_1.png",
+                  "out_4.png", "out_6.png", "dump_a_final.png"}
+    if set(os.listdir(packed)) != want_files:
+        fail(f"artifacts: pack_artifacts wrote {sorted(os.listdir(packed))}")
+    for name in want_files - {"results.txt", "dump_a_final.png"}:
+        with open(os.path.join(packed, name), "rb") as a, \
+                open(os.path.join(run, name), "rb") as b:
+            if a.read() != b.read():
+                fail(f"artifacts: pack_artifacts' {name} is not a copy")
+    dump = sorted(os.path.join(run, "dump_a", f) for f in
+                  os.listdir(os.path.join(run, "dump_a")))
+    if not np.array_equal(read_png_path(os.path.join(
+            packed, "dump_a_final.png")), _grid(
+            np, [read_png_path(f) for f in dump], 5, 4)):
+        fail("artifacts: dump_a_final.png is not its 20 samples, 5 a row")
+
+
+def artifacts_child(torch, root):
+    """`chip_smoke.py _artifacts <dir>`: the artifacts phase in a process
+    where h5py, imageio and PIL cannot be imported.  Writes the interp
+    run's launch counts to <dir>/artifacts.json."""
+    import numpy as np
+
+    from terrain_tpu_torch.device import strict_fp32
+
+    _blocked_libraries("artifacts")
+    strict_fp32()
+    card = card_line()
+    t0 = time.perf_counter()
+    _gif_fixtures(np, card)
+    launches, clip, gen = _interp(torch, np, card, root)
+    t1 = time.perf_counter()
+    _artifact_tools(np, card, root, clip, gen)
+    print(f"artifacts [{card}]: the four tools and their checks took "
+          f"{time.perf_counter() - t1:.1f} s; the phase's work "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with open(os.path.join(root, "artifacts.json"), "w") as f:
+        json.dump(launches, f)
+    return 0
+
+
+def artifacts_slice(torch, card):
+    """The artifacts phase (the flagship's interp clip at full width and
+    the port's four artifact tools) in a child process with h5py, imageio
+    and PIL unimportable; returns the interp run's launch counts."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="artifacts_")
+    try:
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "_artifacts", root], capture_output=True,
+                           text=True, timeout=ARTIFACTS_LIMIT_S)
+        print(p.stdout, end="", flush=True)
+        if p.returncode != 0:
+            fail(f"artifacts: the child failed (rc {p.returncode}):\n"
+                 f"{p.stderr[-3000:]}")
+        with open(os.path.join(root, "artifacts.json")) as f:
+            launches = json.load(f)
+        print(f"artifacts: the phase's process took "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -6179,7 +6547,7 @@ def coldstart_slice(torch, card, build_s):
         records = {os.path.basename(p): aot.read_record(p) for p in paths}
         print(f"coldstart [{card}]: the store {sorted(os.listdir(store))}; "
               f"filled in {fill_s:.1f} s (phase 1's six CUDA libraries "
-              f"copied in, their records checked, the three host libraries "
+              f"copied in, their records checked, the four host libraries "
               f"built); a record {records[os.path.basename(paths[0])]}",
               flush=True)
         if len(paths) != len(_build.SOURCES) + len(_build.HOST_SOURCES) or \
@@ -6211,7 +6579,7 @@ def coldstart_slice(torch, card, build_s):
               f"libraries built in _build/ {warm_wall:.1f} s (imports "
               f"{warm['main_s']:.1f}, model {warm['built_s']:.1f}, step "
               f"{warm['step_s']:.1f}); a cold machine adds phase 1's nvcc "
-              f"build {build_s:.1f} s and the three g++ builds {host_s:.1f} s: "
+              f"build {build_s:.1f} s and the four g++ builds {host_s:.1f} s: "
               f"{warm_wall + build_s + host_s:.1f} s; from a TERRAIN_AOT "
               f"store with no compiler reachable (PATH an empty directory, "
               f"CUDA_HOME unset; found {got['compilers']}) {got_wall:.1f} s "
@@ -6665,6 +7033,8 @@ def main():
         return cold_child(torch, *sys.argv[2:4])
     if sys.argv[1:2] == ["_inputs"]:  # the inputs phase's child process
         return inputs_child(torch, sys.argv[2])
+    if sys.argv[1:2] == ["_artifacts"]:  # the artifacts phase's child
+        return artifacts_child(torch, sys.argv[2])
     if not (os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
             or shutil.which("nvcc")) and os.path.exists(CUDA_NVCC):
         os.environ["CUDA_HOME"] = os.path.dirname(os.path.dirname(CUDA_NVCC))
@@ -6701,7 +7071,7 @@ def main():
     rows, serve_launches, train_launches, trainer_launches = {}, {}, {}, {}
     quality_launches, trainer_epoch_s, step_ms = {}, float("nan"), {}
     raster_launches, scan_launches, parallel_launches = {}, {}, {}
-    inputs_launches = {}
+    inputs_launches, artifacts_launches = {}, {}
     world1_launches, tp_launches, spatial_launches = {}, {}, {}
     world1_scan_launches = {}
     if want("coldstart"):
@@ -6763,6 +7133,10 @@ def main():
         inputs_launches = inputs_slice(torch, card)
         print(f"phase inputs done at {time.perf_counter() - t_start:.0f} s",
               flush=True)
+    if want("artifacts"):
+        artifacts_launches = artifacts_slice(torch, card)
+        print(f"phase artifacts done at {time.perf_counter() - t_start:.0f} "
+              f"s", flush=True)
     if want("scan"):
         scan_launches = scan_slice(torch, card)
         print(f"phase scan done at {time.perf_counter() - t_start:.0f} s",
@@ -6827,6 +7201,9 @@ def main():
         paths[name].remove("quality")
     for name in serve_launches:
         paths[name].append("serve")
+    # the artifacts phase's interp clip: the served two-stage dispatch
+    for name in CLIP_LAUNCHES:
+        paths[name].append("artifacts")
     # the raster epochs, the inputs phase's h5 epochs and the TERRAIN_SCAN
     # epoch run the default path;
     # the parallel phase's steps every kernel of the train path (the
@@ -6848,6 +7225,7 @@ def main():
     launches = {"serve": serve_launches, "train": train_launches,
                 "trainer": trainer_launches, "quality": quality_launches,
                 "raster": raster_launches, "inputs": inputs_launches,
+                "artifacts": artifacts_launches,
                 "scan": scan_launches,
                 "parallel": parallel_launches,
                 "parallel_world1": world1_launches,

@@ -4,11 +4,16 @@ own codecs, each giving the array `imageio.v3.imread` gives (the JAX
 package's reader):
   PNG   serve/png.py    every colour type and depth, Adam7, palettes
   JPEG  data/jpeg.py    baseline, extended and progressive Huffman
-  TIFF  data/tiff.py    baseline: strips or tiles, LZW, deflate, PackBits
+  TIFF  data/tiff.py    baseline and BigTIFF: strips or tiles, LZW,
+                        deflate, PackBits; gray, RGB, palette, CMYK,
+                        YCbCr, CIELab; Orientation 1-8
   BMP   data/bmp.py     uncompressed, BI_BITFIELDS, RLE8 and RLE4
 GIF is refused by name: imageio gives it a frame axis that the JAX
 package's crop iterator does not take, so terrain_tpu cannot train from
-one either.  WebP is refused by name until the port has a VP8 decoder."""
+one either (serve/gif.py writes and reads the port's clips, not rasters).
+WebP is refused by name until the port has a VP8 decoder; a TIFF that
+imageio's tifffile plugin cannot read at a *.tif path (JPEG in TIFF,
+subsampled YCbCr) is refused by name in data/tiff.py."""
 
 import os
 
@@ -16,7 +21,7 @@ from terrain_tpu_torch.data.bmp import decode_bmp
 from terrain_tpu_torch.data.bmp import read_header as bmp_header
 from terrain_tpu_torch.data.jpeg import decode_jpeg
 from terrain_tpu_torch.data.tiff import imread_like as read_tiff
-from terrain_tpu_torch.data.tiff import read_header as tiff_header
+from terrain_tpu_torch.data.tiff import read_header_like as tiff_header
 from terrain_tpu_torch.serve.png import read_png
 
 # raster formats by file extension and by magic

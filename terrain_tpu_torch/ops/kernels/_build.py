@@ -47,9 +47,9 @@ _lock = threading.Lock()
 
 HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # the host C++ sources, relative to the package (serve/png.py, data/jpeg.py,
-# data/tiff.py and data/bmp.py)
+# data/tiff.py and data/bmp.py, serve/gif.py)
 HOST_SOURCES = ("serve/csrc/png_unfilter.cpp", "data/csrc/jpeg_decode.cpp",
-                "data/csrc/raster_decode.cpp")
+                "data/csrc/raster_decode.cpp", "serve/csrc/gif_encode.cpp")
 
 
 def lib_dir():

@@ -300,3 +300,20 @@ def read_png(buf):
         if ctype == 4:  # Pillow's "LA;16B" into RGBA
             return img[..., [0, 0, 0, 1]]
     return img
+
+
+def read_png_path(path):
+    """The PNG at `path` as `imageio.v3.imread(path)` gives it (read_png)."""
+    with open(path, "rb") as f:
+        return read_png(f.read())
+
+
+def write_png_path(path, img):
+    """`imageio.v3.imwrite(path, img)` for a PNG name: img (encode_png's
+    shapes and dtypes) as a PNG at `path`.  imageio picks the format by the
+    name; the port writes PNG only, and refuses any other name by name."""
+    if os.path.splitext(os.fspath(path))[1].lower() != ".png":
+        raise NotImplementedError(f"{path}: the port writes PNG images only "
+                                  f"(serve/png.py); name the output *.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(img))

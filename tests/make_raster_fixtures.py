@@ -15,8 +15,9 @@ predictor, no RLE BMP) and, where Pillow writes the kind, by Pillow:
   tiff/  either byte order; strips and tiles (ragged edges); none, LZW,
          deflate (8 and 32946), PackBits; predictors 2 and 3; planar
          configuration 2; FillOrder 2; min-is-white, gray, RGB, palette;
-         ExtraSamples 0, 1 and 2; 1-32 bits, SampleFormat 1, 2 and 3; and
-         two full-width strips of the NASA rasters' size (21600 columns):
+         ExtraSamples 0, 1 and 2; 1-32 bits, SampleFormat 1, 2 and 3;
+         BigTIFF; CMYK, YCbCr and CIELab; Orientation 1-8; JPEG (refused);
+         and two full-width strips of the NASA rasters' size (21600 columns):
          strip_21600x32_rgb_lzw.tif (Pillow: LZW, predictor 2, 8 rows a
          strip) and strip_21600x32_gray16_deflate.tif (Pillow: deflate,
          16-bit, ocean zeros), which chip_smoke.py repeats into a
@@ -27,10 +28,13 @@ predictor, no RLE BMP) and, where Pillow writes the kind, by Pillow:
          bottom-up and top-down, the core, info, v4 and v5 headers
 Each directory's digests.json holds, for each file, its size, the shape,
 dtype and SHA-256 of the array imageio.v3.imread decodes from its bytes
-(through Pillow), for a TIFF also under "path" those of imageio's decode
-of the file by its *.tif name (through imageio's tifffile plugin, as the
-JAX package reads TERRAIN_RASTER; null where no plugin reads it), and
-under "reference" the Pillow, imageio and libtiff versions.  The committed PNG that
+(through Pillow; where Pillow raises OSError -- a truncated read, or a
+big-endian BigTIFF it cannot open -- "error" says so instead),
+for a TIFF also under "path" those of imageio's decode of the file by its
+*.tif name (through imageio's tifffile plugin, as the JAX package reads
+TERRAIN_RASTER; null where no plugin reads it), under "refused" the words
+the port's refusal names a file by (JPEG in TIFF), and under "reference"
+the Pillow, imageio and libtiff versions.  The committed PNG that
 no script writes (terrain_48x40_rgb_5filters.png) keeps its entry.
 Pillow and imageio are needed here, not on the card: chip_smoke.py holds
 the port's decoders to the committed digests, and the port's tests re-run
@@ -312,10 +316,12 @@ def _tiff_chunk_bytes(block, bits, bo, predictor):
 def tiff_bytes(img, bo="<", photometric=1, compression=1, predictor=1,
                planar=1, tile=None, rows_per_strip=None, bits=None,
                extra=(), colormap=None, fill_order=1, sample_format=None,
-               more_tags=None):
+               more_tags=None, big=False):
     """A one-image TIFF of img ((H, W) or (H, W, S); for `bits` < 8 the
     values themselves) in the given layout; `more_tags` {tag: (type,
-    values)} adds or replaces IFD entries (SHORT 3 or LONG 4)."""
+    values)} adds or replaces IFD entries (SHORT 3, LONG 4 or RATIONAL 5,
+    a rational as a (numerator, denominator) pair); `big` writes a
+    BigTIFF (magic 43, 20-byte entries, offsets and counts as LONG8 16)."""
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
@@ -361,36 +367,47 @@ def tiff_bytes(img, bo="<", photometric=1, compression=1, predictor=1,
         tags[339] = (3, [sample_format] * s)
     if colormap is not None:
         tags[320] = (3, list(np.asarray(colormap, np.uint16).T.reshape(-1)))
-    data = bytearray(b"II*\x00" if bo == "<" else b"MM\x00*")
-    data += struct.pack(bo + "I", 0)
+    if big:
+        data = bytearray(b"II+\x00" if bo == "<" else b"MM\x00+")
+        data += struct.pack(bo + "HHQ", 8, 0, 0)
+    else:
+        data = bytearray(b"II*\x00" if bo == "<" else b"MM\x00*")
+        data += struct.pack(bo + "I", 0)
     offsets = []
     for c in chunks:
         offsets.append(len(data))
         data += c
         data += bytes(len(data) % 2)
     counts = [len(c) for c in chunks]
+    wide = 16 if big else 4  # the type of offsets and counts
     if tile:
-        tags.update({322: (3, [tw]), 323: (3, [th]), 324: (4, offsets),
-                     325: (4, counts)})
+        tags.update({322: (3, [tw]), 323: (3, [th]), 324: (wide, offsets),
+                     325: (wide, counts)})
     else:
-        tags.update({273: (4, offsets), 278: (4, [th]), 279: (4, counts)})
+        tags.update({273: (wide, offsets), 278: (4, [th]),
+                     279: (wide, counts)})
     tags.update(more_tags or {})
     ifd_at = len(data)
-    struct.pack_into(bo + "I", data, 4, ifd_at)
+    word, count_code, entry = ("Q", "Q", 20) if big else ("I", "H", 12)
+    struct.pack_into(bo + word, data, 8 if big else 4, ifd_at)
     n = len(tags)
-    after = ifd_at + 2 + 12 * n + 4
+    after = (ifd_at + struct.calcsize(count_code) + entry * n
+             + struct.calcsize(word))
     entries, blobs = b"", b""
     for tag in sorted(tags):
         typ, vals = tags[tag]
-        code = "H" if typ == 3 else "I"
-        payload = struct.pack(bo + code * len(vals), *vals)
-        if len(payload) <= 4:
-            field = payload + bytes(4 - len(payload))
+        code = {3: "H", 4: "I", 5: "II", 16: "Q"}[typ]
+        flat = [v for pair in vals for v in pair] if typ == 5 else vals
+        payload = struct.pack(bo + code * len(vals), *flat)
+        if len(payload) <= struct.calcsize(word):
+            field = payload + bytes(struct.calcsize(word) - len(payload))
         else:
-            field = struct.pack(bo + "I", after + len(blobs))
+            field = struct.pack(bo + word, after + len(blobs))
             blobs += payload + bytes(len(payload) % 2)
-        entries += struct.pack(bo + "HHI", tag, typ, len(vals)) + field
-    data += struct.pack(bo + "H", n) + entries + bytes(4) + blobs
+        entries += (struct.pack(bo + "HH" + word, tag, typ, len(vals))
+                    + field)
+    data += (struct.pack(bo + count_code, n) + entries
+             + bytes(struct.calcsize(word)) + blobs)
     return bytes(data)
 
 
@@ -517,9 +534,77 @@ def tiff_fixtures(with_strips=True):
         out[name] = _pillow(img, "TIFF", compression=comp)
     out["pillow_1bit_lzw.tif"] = _pillow(Image.fromarray(g8).convert("1"),
                                          "TIFF", compression="tiff_lzw")
+    out.update(tiff_kinds(tex))
     if with_strips:
         out.update(tiff_strips())
     return out
+
+
+def tiff_kinds(tex):
+    """BigTIFF in either byte order, strips and tiles, none, LZW and
+    deflate (this script's writer; Pillow writes a BigTIFF uncompressed
+    only, which is here too); CMYK, YCbCr and CIELab by Pillow (YCbCr
+    uncompressed: Pillow reads it 4 bytes a pixel and raises "image file is
+    truncated") and by this writer (big-endian, tiles, 16-bit CMYK,
+    CMYK plus an unspecified extra sample, YCbCr with ReferenceBlackWhite
+    and luma coefficients of its own); Orientation 1-8 by Pillow, as
+    stored through tifffile and transposed through Pillow; and JPEG in
+    TIFF (Pillow), which imageio's tifffile plugin cannot decompress at a
+    *.tif path and the port refuses by name."""
+    from PIL import Image
+
+    rgb = tex[..., :3]
+    out = {}
+    for bo, end in (("<", "le"), (">", "be")):
+        for comp, cname in ((1, "none"), (5, "lzw"), (8, "deflate")):
+            out[f"bigtiff_rgb8_{cname}_strips_{end}.tif"] = tiff_bytes(
+                rgb, bo, 2, comp, rows_per_strip=7, big=True)
+            out[f"bigtiff_rgb8_{cname}_tiles_{end}.tif"] = tiff_bytes(
+                rgb, bo, 2, comp, 2 if comp == 5 else 1, tile=(16, 16),
+                big=True)
+    out["bigtiff_gray16_lzw_pred2_be.tif"] = tiff_bytes(
+        tex[..., 0].astype(np.uint16) * 251, ">", 1, 5, 2, big=True)
+    out["pillow_bigtiff_rgb.tif"] = _pillow(Image.fromarray(rgb), "TIFF",
+                                            big_tiff=True)
+    for mode in ("CMYK", "YCbCr", "LAB"):
+        img = Image.fromarray(rgb).convert(mode)
+        for comp in ("raw", "tiff_lzw"):
+            name = f"pillow_{mode.lower()}_{comp.removeprefix('tiff_')}.tif"
+            out[name] = _pillow(img, "TIFF", compression=comp)
+    cmyk = np.asarray(Image.fromarray(rgb).convert("CMYK"))
+    ycc = np.asarray(Image.fromarray(rgb).convert("YCbCr"))
+    lab = np.asarray(Image.fromarray(rgb).convert("LAB"))
+    out["cmyk8_lzw_tiles_be.tif"] = tiff_bytes(cmyk, ">", 5, 5, 2,
+                                               tile=(16, 16))
+    out["cmyk16_deflate_le.tif"] = tiff_bytes(
+        cmyk.astype(np.uint16) * 257, photometric=5, compression=8)
+    out["cmykx8_packbits_be.tif"] = tiff_bytes(
+        np.concatenate([cmyk, tex[..., 3:]], -1), ">", 5, 32773,
+        extra=(0,))
+    out["ycbcr8_deflate_refbw_be.tif"] = tiff_bytes(
+        ycc, ">", 6, 8, rows_per_strip=5, more_tags={
+            529: (5, [(2990, 10000), (5870, 10000), (1140, 10000)]),
+            530: (3, [1, 1]),
+            532: (5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1),
+                      (240, 1)])})
+    out["lab8_lzw_tiles_le.tif"] = tiff_bytes(lab, "<", 8, 5,
+                                              tile=(16, 32))
+    for o in range(1, 9):
+        out[f"pillow_orientation{o}.tif"] = _pillow(
+            Image.fromarray(rgb), "TIFF", tiffinfo={274: o})
+    out["pillow_orientation6_gray16_lzw.tif"] = _pillow(
+        Image.fromarray(tex[..., 0].astype(np.uint16) * 257), "TIFF",
+        compression="tiff_lzw", tiffinfo={274: 6})
+    out["pillow_orientation7_ycbcr_lzw.tif"] = _pillow(
+        Image.fromarray(rgb).convert("YCbCr"), "TIFF",
+        compression="tiff_lzw", tiffinfo={274: 7})
+    out["pillow_jpeg_refused.tif"] = _pillow(Image.fromarray(rgb), "TIFF",
+                                             compression="jpeg")
+    return out
+
+
+# the fixtures the port refuses by name, with the words it names them by
+REFUSED = {"pillow_jpeg_refused.tif": "compression 7 (JPEG)"}
 
 
 def strip_heights(h, w, seed=5):
@@ -715,14 +800,21 @@ def _summary(a):
 
 
 def digest(data, path=None):
-    """imageio's decode of the bytes (through Pillow): {bytes, shape, dtype,
-    sha256}; with `path`, under "path" its decode of the file by name (a
-    *.tif through its tifffile plugin; null where that fails)."""
+    """imageio's decode of the bytes through Pillow (its first choice; where
+    Pillow cannot open a file, a big-endian BigTIFF, imageio falls back to
+    OpenCV where that is installed, which the port does not follow):
+    {bytes, shape, dtype, sha256}, or {bytes, error: "OSError"} where
+    Pillow raises one; with `path`, under "path" its decode of the file by
+    name (a *.tif through its tifffile plugin; null where that fails)."""
     import warnings
 
     import imageio.v3 as iio
 
-    out = {"bytes": len(data), **_summary(iio.imread(data))}
+    try:  # Pillow, imageio's first choice for bytes, and no fall-back
+        out = {"bytes": len(data),
+               **_summary(iio.imread(data, plugin="pillow"))}
+    except OSError:  # "image file is truncated", "cannot identify"
+        out = {"bytes": len(data), "error": "OSError"}
     if path is not None:
         try:
             with warnings.catch_warnings():  # the plugin's deprecation
@@ -768,6 +860,8 @@ def main(out_dir=DEFAULT_DIR, kinds=tuple(KINDS)):
             with open(path, "wb") as f:
                 f.write(data)
             digests[name] = digest(data, path if kind == "tiff" else None)
+            if name in REFUSED:
+                digests[name]["refused"] = REFUSED[name]
         with open(os.path.join(d, "digests.json"), "w") as f:
             json.dump(digests, f, indent=1, sort_keys=True)
             f.write("\n")

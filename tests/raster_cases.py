@@ -29,13 +29,31 @@ def summary(a):
 def check_fixture(kind, name, decode):
     """decode(bytes) of a committed fixture gives imageio's decode of its
     bytes, and data/raster.read_raster(path) imageio's of its path (the
-    same but for TIFFs), as the digests hold them."""
+    same but for TIFFs), as the digests hold them; where imageio raises
+    OSError on the bytes ("error"), decode raises it too; a fixture the
+    port refuses ("refused") is refused by name both ways."""
+    import builtins
+    import re
+
+    import pytest
+
     from terrain_tpu_torch.data.raster import read_raster
 
     want = digests(kind)[name]
     path = os.path.join(DATA, kind, name)
     with open(path, "rb") as f:
-        assert summary(decode(f.read())) == [
+        data = f.read()
+    if "refused" in want:
+        for read in (lambda: decode(data), lambda: read_raster(path)):
+            with pytest.raises(NotImplementedError,
+                               match=re.escape(want["refused"])):
+                read()
+        return
+    if "error" in want:
+        with pytest.raises(getattr(builtins, want["error"])):
+            decode(data)
+    else:
+        assert summary(decode(data)) == [
             want["shape"], want["dtype"], want["sha256"]]
     by_path = want.get("path", want)
     if by_path is not None:

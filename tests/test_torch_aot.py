@@ -23,7 +23,7 @@ import pytest
 
 from terrain_tpu_torch.data import jpeg, tiff
 from terrain_tpu_torch.ops.kernels import _build
-from terrain_tpu_torch.serve import png
+from terrain_tpu_torch.serve import gif, png
 from terrain_tpu_torch.utils import aot
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -38,8 +38,10 @@ from terrain_tpu_torch.data.raster import read_raster
 out = {}
 for kind in %r:
     d = os.path.join(sys.argv[1], kind)
-    for name in json.load(open(os.path.join(d, "digests.json"))):
-        if name.startswith("strip_") or name == "reference":
+    digests = json.load(open(os.path.join(d, "digests.json")))
+    for name, want in digests.items():
+        if name.startswith("strip_") or name == "reference" or \
+                "refused" in want:
             continue
         a = read_raster(os.path.join(d, name))
         out[name] = hashlib.sha256(a.tobytes()).hexdigest()
@@ -75,9 +77,12 @@ def _no_compiler(monkeypatch):
 
 
 def test_the_host_sources_are_the_decoders():
-    """The PNG unfilter, the JPEG decoder, and the TIFF and BMP runs (one
-    library: data/bmp.py binds data/tiff.py's)."""
-    assert sorted(HOSTS) == sorted([png._UNFILTER_SRC, jpeg._SRC, tiff._SRC])
+    """The PNG unfilter, the JPEG decoder, the TIFF and BMP runs (one
+    library: data/bmp.py binds data/tiff.py's), and the GIF writer's
+    quantizer and LZW coder: four host libraries."""
+    assert sorted(HOSTS) == sorted([png._UNFILTER_SRC, jpeg._SRC, tiff._SRC,
+                                    gif._SRC])
+    assert len(HOSTS) == 4
 
 
 def test_host_libraries_go_to_the_store_with_their_records(store):
@@ -128,6 +133,31 @@ def test_a_process_without_compilers_loads_the_store_and_decodes(
                        cwd=tmp_path, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0 and "no host C++ compiler" in r.stderr
+
+
+RENDER = """
+import numpy as np
+from terrain_tpu_torch.serve.gif import encode_gif, read_gif
+rng = np.random.RandomState(0)
+frames = [rng.randint(0, 256, (24, 40, 3)).astype(np.uint8) for _ in range(3)]
+got = read_gif(encode_gif(frames, 40))
+print(got.shape, int(np.abs(got.astype(int) - np.stack(frames)).max()))
+"""
+
+
+def test_a_process_without_compilers_renders_a_clip_from_the_store(
+        store, tmp_path):
+    """The GIF writer's library comes from the store too: a clip is
+    quantized, coded and read back with no compiler on PATH."""
+    for src in HOSTS:
+        _build.build_host(src)
+    env = _no_compiler_env(tmp_path)
+    env["TERRAIN_AOT"] = str(store)
+    r = subprocess.run([sys.executable, "-c", RENDER], env=env, cwd=tmp_path,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    shape, err = r.stdout.split(")")
+    assert shape == "(3, 24, 40, 3" and 0 < int(err) < 128
 
 
 def test_the_png_fixture_digest_is_pillows_decode():

@@ -248,8 +248,22 @@ def test_a_raster_that_is_not_a_png_is_decoded(tmp_path, rng, name, fmt):
     np.testing.assert_array_equal(got_tex, want)
 
 
-def _bigtiff(path):
-    path.write_bytes(b"II+\x00\x08\x00\x00\x00" + bytes(64))
+def _subsampled_ycbcr(path):
+    """YCbCr with 2x2 chroma: imageio's tifffile plugin raises at a *.tif
+    path ("chroma subsampling not supported")."""
+    from raster_cases import script
+
+    path.write_bytes(script().tiff_bytes(
+        np.zeros((16, 16, 3), np.uint8), "<", 6, 5,
+        more_tags={530: (3, [2, 2])}))
+
+
+def _cmyk4(path):
+    """CMYK of 4-bit samples, outside Pillow's table of modes."""
+    from raster_cases import script
+
+    path.write_bytes(script().tiff_bytes(
+        np.zeros((16, 16, 4), np.uint8), photometric=5, bits=4))
 
 
 @pytest.mark.parametrize("name,make,match", [
@@ -262,15 +276,15 @@ def _bigtiff(path):
     ("b.tif", lambda p: _pil_save(p, np.zeros((16, 16, 3), np.uint8),
                                   "TIFF", compression="jpeg"),
      r"TIFF: compression 7 \(JPEG\)"),
-    ("b.tif", _bigtiff, r"TIFF: BigTIFF"),
-    ("b.tiff", lambda p: _cmyk(p), r"TIFF: photometric 5 \(CMYK\)"),
+    ("b.tif", _subsampled_ycbcr, r"TIFF: YCbCr subsampled \(2, 2\)"),
+    ("b.tiff", _cmyk4, r"TIFF: CMYK samples \(4, 4, 4, 4\)"),
 ])
 def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
                                                match, monkeypatch):
     """What the port does not decode (JPEG, TIFF and BMP it does, in the
-    test above): GIF and WebP by name and by magic, JPEG-in-TIFF, BigTIFF
-    and CMYK by their TIFF headers -- NotImplementedError naming them,
-    before either file is decoded."""
+    test above): GIF and WebP by name and by magic, JPEG-in-TIFF,
+    subsampled YCbCr at a *.tif path and 4-bit CMYK by their TIFF headers
+    -- NotImplementedError naming them, before either file is decoded."""
     value, hm, _ = _write_pair(tmp_path, rng)
     other = tmp_path / name
     if make is not None:
@@ -289,11 +303,28 @@ def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
         experiments.read_raster_pair(value.split(",")[0])
 
 
-def _cmyk(path):
+def _cmyk(path, rng):
     from PIL import Image
 
-    Image.fromarray(np.zeros((16, 16, 4), np.uint8), "CMYK").save(path,
-                                                                  "TIFF")
+    Image.fromarray(rng.randint(0, 256, (48, 40, 4)).astype(np.uint8),
+                    "CMYK").save(path, "TIFF")
+
+
+def test_a_cmyk_tiff_texture_is_read_as_imageio_reads_its_path(tmp_path,
+                                                               rng):
+    """A CMYK texture named *.tiff: its samples as stored, as imageio's
+    tifffile plugin (the JAX package's reader) gives them, the first
+    three kept as for any texture."""
+    iio = pytest.importorskip("imageio.v3")
+    value, hm, _ = _write_pair(tmp_path, rng)
+    other = tmp_path / "b.tiff"
+    _cmyk(other, rng)
+    got_hm, got_tex = experiments.read_raster_pair(
+        f"{value.split(',')[0]},{other}")
+    np.testing.assert_array_equal(got_hm, hm)
+    want = iio.imread(other)
+    assert want.shape == (48, 40, 4) and got_tex.dtype == want.dtype
+    np.testing.assert_array_equal(got_tex, want[..., :3])
 
 
 @pytest.mark.parametrize("which", ["heightmap", "texture"])

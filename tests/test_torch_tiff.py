@@ -112,11 +112,19 @@ def _refused():
         "JPEG 2000": (_patched({259: 34712}),
                       r"compression 34712 \(JPEG 2000\)"),
         "CCITT": (_patched({259: 4}), r"compression 4 \(CCITT Group 4\)"),
-        "BigTIFF": (b"II+\x00\x08\x00\x00\x00" + bytes(32), "BigTIFF"),
-        "CMYK": (pil("CMYK"), r"photometric 5 \(CMYK\)"),
-        "YCbCr": (_patched({262: 6}), r"photometric 6 \(YCbCr\)"),
-        "CIELab": (_patched({262: 8}), r"photometric 8 \(CIELab\)"),
-        "rotated": (_patched({274: 6}), "Orientation 6"),
+        # BigTIFF, CMYK, YCbCr and CIELab are read; their kinds that stay
+        # refused: JPEG in a BigTIFF, 4-bit CMYK, compressed YCbCr with
+        # subsampled chroma, 16-bit CIELab
+        "BigTIFF": (mk.tiff_bytes(_image(8, 8, 3, np.uint8, 0), "<", 2, 7,
+                                  big=True), r"compression 7 \(JPEG\)"),
+        "CMYK": (mk.tiff_bytes(_image(8, 8, 4, np.uint8, 0) >> 4,
+                               photometric=5, bits=4),
+                 r"CMYK samples \(4, 4, 4, 4\)"),
+        "YCbCr": (mk.tiff_bytes(_image(8, 8, 3, np.uint8, 0), "<", 6, 5,
+                                more_tags={530: (3, [2, 2])}),
+                  r"subsampled \(2, 2\)"),
+        "CIELab": (mk.tiff_bytes(_image(8, 8, 3, np.uint16, 0),
+                                 photometric=8), r"CIELab samples"),
         "two extra samples": (mk.tiff_bytes(
             _image(4, 4, 2, np.uint8, 1), extra=(0,)),
             "min-is-black samples"),
@@ -130,6 +138,173 @@ def test_other_kinds_are_refused_by_name(kind):
         tiff.read_header(data)
     with pytest.raises(NotImplementedError, match=match):
         tiff.decode_tiff(data)
+
+
+def _write(tmp_path, name, data):
+    path = tmp_path / name
+    path.write_bytes(data)
+    return path
+
+
+def _both_routes(tmp_path, data, name="x.tif"):
+    """The port's arrays against imageio's, from the bytes (Pillow) and at a
+    *.tif path (imageio's tifffile plugin)."""
+    path = _write(tmp_path, name, data)
+    assert summary(tiff.decode_tiff(data)) == summary(
+        iio.imread(data, plugin="pillow"))
+    assert summary(tiff.imread_like(path)) == summary(iio.imread(path))
+
+
+@pytest.mark.parametrize("layout", [dict(rows_per_strip=5),
+                                    dict(tile=(16, 32)),
+                                    dict(rows_per_strip=4, planar=2)])
+@pytest.mark.parametrize("compression,predictor", [
+    (1, 1), (5, 2), (8, 1), (32773, 1)])
+@pytest.mark.parametrize("bo", ["<", ">"])
+def test_bigtiff_layouts_read_as_imageio_reads_them(bo, layout, compression,
+                                                    predictor, tmp_path):
+    """BigTIFF (20-byte entries, LONG8 offsets and counts) in every layout
+    and compression.  Pillow cannot open a big-endian one ('Missing
+    dimensions'): from bytes the port raises OSError as Pillow does; at a
+    *.tif path both byte orders read as imageio's tifffile plugin reads
+    them."""
+    img = _image(21, 37, 3, np.uint8, 11)
+    img[:, :20] //= 16
+    data = mk.tiff_bytes(img, bo, 2, compression, predictor, big=True,
+                         **layout)
+    if bo == "<":
+        _both_routes(tmp_path, data)
+    else:
+        with pytest.raises(OSError):
+            iio.imread(data, plugin="pillow")
+        with pytest.raises(OSError, match="big-endian BigTIFF"):
+            tiff.decode_tiff(data)
+        path = _write(tmp_path, "x.tif", data)
+        assert summary(tiff.imread_like(path)) == summary(iio.imread(path))
+
+
+@pytest.mark.parametrize("mode", ["CMYK", "YCbCr", "LAB"])
+@pytest.mark.parametrize("bo", ["<", ">"])
+@pytest.mark.parametrize("layout", [dict(rows_per_strip=6),
+                                    dict(tile=(16, 16))])
+def test_cmyk_ycbcr_and_lab_read_as_imageio_reads_them(mode, bo, layout,
+                                                       tmp_path):
+    """LZW with predictor 2 in either byte order, strips and tiles: the
+    samples as stored at a *.tif path; through Pillow CMYK and CIELab as
+    stored, YCbCr (subsampling 1, 1) converted to RGB by libtiff's tables
+    (YCbCr in tiles is refused on that route)."""
+    from PIL import Image
+
+    rgb = mk.terrain(23, 41, 9)
+    samples = np.asarray(Image.fromarray(rgb).convert(mode))
+    photo = {"CMYK": 5, "YCbCr": 6, "LAB": 8}[mode]
+    tags = {530: (3, [1, 1])} if mode == "YCbCr" else None
+    data = mk.tiff_bytes(samples, bo, photo, 5, 2, more_tags=tags, **layout)
+    if mode == "YCbCr" and "tile" in layout:
+        path = _write(tmp_path, "x.tif", data)
+        assert summary(tiff.imread_like(path)) == summary(iio.imread(path))
+        with pytest.raises(NotImplementedError, match="tiles or planes"):
+            tiff.decode_tiff(data)
+    else:
+        _both_routes(tmp_path, data)
+
+
+def test_ycbcr_to_rgb_is_libtiffs_for_every_value():
+    """Every (Y, Cb, Cr) of 8 bits, deflated, converted through Pillow
+    (libtiff's TIFFYCbCrtoRGB) and by the port, with the default
+    ReferenceBlackWhite and a studio-range one and other luma weights."""
+    v = np.arange(256 ** 3, dtype=np.uint32)
+    ycc = np.stack([v >> 16, (v >> 8) & 255, v & 255], -1).astype(
+        np.uint8).reshape(4096, 4096, 3)
+    for tags in ({530: (3, [1, 1])},
+                 {530: (3, [1, 1]),
+                  529: (5, [(2126, 10000), (7152, 10000), (722, 10000)]),
+                  532: (5, [(16, 1), (235, 1), (128, 1), (240, 1),
+                            (128, 1), (240, 1)])}):
+        data = mk.tiff_bytes(ycc, "<", 6, 8, rows_per_strip=512,
+                             more_tags=tags)
+        np.testing.assert_array_equal(tiff.decode_tiff(data),
+                                      iio.imread(data, plugin="pillow"))
+
+
+def test_subsampled_ycbcr_as_imageio_meets_it(tmp_path):
+    """2x2 subsampled YCbCr: imageio's tifffile plugin raises
+    NotImplementedError at a *.tif path and the port refuses it by name;
+    from bytes Pillow reads an uncompressed one 4 bytes a pixel and raises
+    at the file's end (the port too), and a compressed one is refused."""
+    ycc = _image(32, 40, 3, np.uint8, 4)  # 4 bytes a pixel reach the end
+    tags = {530: (3, [2, 2])}
+    for comp in (1, 5):
+        data = mk.tiff_bytes(ycc, "<", 6, comp, more_tags=tags)
+        path = _write(tmp_path, f"sub{comp}.tif", data)
+        with pytest.raises(NotImplementedError, match="chroma subsampling"):
+            iio.imread(path)
+        with pytest.raises(NotImplementedError, match="chroma subsampling"):
+            tiff.imread_like(path)
+        with pytest.raises(NotImplementedError, match="chroma subsampling"):
+            tiff.read_header(path, "tifffile")
+        if comp == 1:
+            with pytest.raises(OSError, match="truncated"):
+                iio.imread(data, plugin="pillow")
+            with pytest.raises(OSError, match="truncated"):
+                tiff.decode_tiff(data)
+        else:
+            with pytest.raises(NotImplementedError, match="subsampled"):
+                tiff.decode_tiff(data)
+
+
+def test_uncompressed_ycbcr_is_read_four_bytes_a_pixel_as_pillow_does():
+    """Where the bytes after a strip reach far enough, Pillow's RGBX raw
+    mode reads them as pixels (no error): the port gives the same bytes."""
+    ycc = _image(6, 9, 3, np.uint8, 5)
+    data = mk.tiff_bytes(ycc, "<", 6, 1, rows_per_strip=2,
+                         more_tags={530: (3, [1, 1])})
+    data = data[:8] + data[8:] + bytes(512)  # room past the IFD
+    np.testing.assert_array_equal(tiff.decode_tiff(data),
+                                  iio.imread(data, plugin="pillow"))
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("kind", ["rgb8_lzw", "gray16_none", "bool_lzw",
+                                  "float32_deflate"])
+def test_orientation_as_imageio_reads_it(orientation, kind, tmp_path):
+    """Orientation 1-8: stored at a *.tif path, transposed through Pillow
+    (exif_transpose), and read_header's size along each route."""
+    img = {"rgb8_lzw": _image(13, 22, 3, np.uint8, 1),
+           "gray16_none": _image(13, 22, 1, np.uint16, 2),
+           "bool_lzw": _image(13, 22, 1, np.uint8, 3) >> 7,
+           "float32_deflate": _image(13, 22, 1, np.float32, 4)}[kind]
+    comp = {"lzw": 5, "none": 1, "deflate": 8}[kind.split("_")[1]]
+    data = mk.tiff_bytes(img, "<", 2 if img.shape[-1] == 3 else 1, comp,
+                         bits=1 if kind.startswith("bool") else None,
+                         sample_format=3 if kind.startswith("float") else
+                         None, more_tags={274: (3, [orientation])})
+    _both_routes(tmp_path, data)
+    h, w = (22, 13) if orientation >= 5 else (13, 22)
+    assert tiff.read_header(data)[:2] == (h, w)
+    assert tiff.read_header(data, "tifffile")[:2] == (13, 22)
+
+
+def test_jpeg_in_tiff_is_read_by_neither_package_at_its_path(tmp_path):
+    """imageio reads JPEG in TIFF from bytes (Pillow, libtiff) but not at a
+    *.tif path (its tifffile plugin: "cannot decompress JPEG"), which is
+    how the JAX package reads TERRAIN_RASTER: the port refuses it by name
+    on both routes, and read_raster before any pixel is decoded."""
+    from terrain_tpu_torch.data import raster
+
+    path = DATA + "/tiff/pillow_jpeg_refused.tif"
+    with pytest.raises(ValueError, match="cannot decompress JPEG"):
+        iio.imread(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    assert iio.imread(data).shape == (29, 37, 3)
+    for read in (lambda: tiff.decode_tiff(data),
+                 lambda: tiff.imread_like(path),
+                 lambda: raster.check_header(path, "TIFF")):
+        with pytest.raises(NotImplementedError,
+                           match=r"compression 7 \(JPEG\).*cannot "
+                                 r"decompress it either"):
+            read()
 
 
 def test_damaged_files_raise_value_error(tmp_path):
