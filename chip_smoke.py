@@ -75,7 +75,9 @@ Phases (any failure exits non-zero and prints no result line):
      and bwd 12, conv_s2 fwd 3 and dW 2, with them off 0; with the unfused
      decoder bilinear 1 and its backward 1, bilinear_conv 0), finite losses,
      every parameter of all four networks changed, step time, images/s,
-     peak memory, and a profiled step by kernel; then one step of the 256px
+     peak memory, and a profiled step by kernel; the eager bf16 step with
+     CudaKernel.launch as it is and with the parent's (before its profiler
+     labels) in turns; then one step of the 256px
      configuration, switches on, on the card (kernels) and on the CPU
      (plain versions) from the same weights and batch: losses, gradients
      and updated weights; and the 2x2 pool alone at (8,512²,64), forward
@@ -97,7 +99,12 @@ Phases (any failure exits non-zero and prints no result line):
      checkpoint each), then `gen`: swd.txt with
      terrain_tpu's columns and finite values, gen's checkpoint picked from
      it, the trace file and its cost (the traced epoch's time less the clean
-     one's), the launch counts, epoch and SWD times, the SWD evaluation's
+     one's) summarized by tools/summarize_trace (its family table and top
+     ops by roofline headroom; the family rows summing to the busy time,
+     each hand-written kernel's events equal to its launches over the
+     epoch and to its terrain:: labels, none in a library family, the
+     cuDNN, GEMM and hand-written families 99% bounded, the summarizer
+     within 20 s), the launch counts, epoch and SWD times, the SWD evaluation's
      peak memory, and the SWD
      pyramid and terrain W1 of the same images on the card against the CPU;
   7. raster: a synthetic raster pair at the NASA rasters' size (21600 x
@@ -171,7 +178,9 @@ Phases (any failure exits non-zero and prints no result line):
      advanced on the device): losses, every parameter, the BN statistics
      and the optimizer state bit-equal, and the hand-written kernels of a
      profiled replay at 4x their per-step counts; bf16 per step at
-     TERRAIN_SCAN=16, by default, eager and graph in turns (fp32 and the
+     TERRAIN_SCAN=16, by default, eager and graph in turns, and one such
+     replay traced and summarized (every hand-written kernel in its family,
+     16x one bare step's launches) (fp32 and the
      profiled device time: the parallel phase); then the trainer on 120
      pairs on the card, two epochs
      at TERRAIN_SCAN=16 (fp32 through the CLI) and one eager from the same
@@ -291,10 +300,6 @@ import time
 T_IMPORT = time.perf_counter()  # the coldstart child's timeline starts here
 HERE = os.path.dirname(os.path.abspath(__file__))
 EXPERIMENT = "test1_nobn_bilin_both"
-F32_PEAK = 67e12     # H100 SXM fp32 CUDA cores, FLOP/s
-BF16_PEAK = 989e12   # H100 SXM dense bf16 tensor cores, FLOP/s
-TF32_PEAK = 495e12   # H100 SXM dense TF32 tensor cores, FLOP/s
-HBM_BW = 3.35e12     # H100 SXM HBM3, bytes/s
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # where the CUDA toolkit installs it
 F32_TOL = 1e-4       # x max|ref|: fp32 sums in another order
 BILINEAR_TOL = 1e-6  # x max|ref|: the same fp32 operations in the same order
@@ -361,6 +366,16 @@ QUALITY_N = 40
 # (TERRAIN_PROFILE), epoch 3 is the clean one
 QUALITY_EPOCHS = 3
 SWD_N = 16               # images per SWD evaluation (the trainer's n)
+# the summarizer on the traced epoch: its seconds (limit), the share of the
+# cuDNN, GEMM and hand-written families' ms that must carry a bound, the
+# family rows' sum against the busy total (relative), the tables' length
+SUMMARY_LIMIT_S = 20.0
+SUMMARY_BOUNDED = 0.99
+SUMMARY_SUM_TOL = 1e-3
+SUMMARY_TOP = 15
+# seconds the trace summaries, the traced replays and eager step, and the
+# train phase's label check took (printed at the end)
+TRACE_WORK_S = []
 SWD_TOL = 1e-4           # relative, card vs CPU: fp32 sums in another order
 # TERRAIN_BC_BWD, the bilinear_conv backward's route (conv6 is the default)
 BC_BWD_MODES = ("conv6", "dense", "xla32")
@@ -474,19 +489,6 @@ PAR_SCAN_GLOO_K = 4
 PAR_SCAN_GLOO_N = 16
 PAR_FAULTS = ("BN statistics local", "gradients summed",
               "gradients 1% large", "half the batch twice")
-# each hand-written kernel's symbol, as the profiler names it
-KERNEL_SYMBOLS = {"bilinear_conv": "bilinear_conv_kernel",
-                  "conv_thin": "thin_fwd_kernel",
-                  "conv_thin_dx": "thin_dx_kernel",
-                  "conv_thin_dw": "thin_dw_kernel",
-                  "conv_stem_fwd": "stem_fwd_kernel",
-                  "conv_stem_dw": "stem_dw_kernel",
-                  "conv_stem_dx": "stem_dx_kernel",
-                  "pool2_fwd": "pool2_fwd_kernel",
-                  "pool2_bwd": "pool2_bwd_kernel",
-                  "conv_s2_fwd": "s2_fwd_kernel",
-                  "conv_s2_dw": "s2_dw_kernel",
-                  "bilinear": "bilinear_2x_kernel"}
 # the accuracy phase: each library conv of the fp32 step against fp64,
 # relative to the largest entry.  The DCGAN discriminator's 5x5 convs with
 # cin >= 64 take ops/conv.Conv5x5's dW (cuDNN's own fp32 dW of them is
@@ -528,24 +530,6 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0].strip()
-
-
-def bound_ms(flops, nbytes, fp32, tf32_passes=0):
-    """The least time the card could take for a kernel's work: its bytes
-    (each input read once, each output written once) at HBM_BW, or its
-    operations at the peak of their type, whichever is longer.  bf16 work
-    goes at the bf16 tensor cores' peak; fp32 work at the CUDA cores', or,
-    for a kernel whose fp32-accurate products take `tf32_passes` passes on
-    the TF32 tensor cores (bilinear_conv's 3xTF32 split), that many passes
-    at their peak.  Returns (ms, "operations" or "bytes")."""
-    if not fp32:
-        t_ops = flops / BF16_PEAK * 1e3
-    elif tf32_passes:
-        t_ops = tf32_passes * flops / TF32_PEAK * 1e3
-    else:
-        t_ops = flops / F32_PEAK * 1e3
-    t_bytes = nbytes / HBM_BW * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def time_ms(fn, reps=30, warm=3):
@@ -597,14 +581,16 @@ def kernel_cases(torch):
     """One dict per kernel and shape: name, shape, make(dtype, generator) ->
     args, the kernel's wrapper, its plain version, one library call for the
     same function, the operations and (per dtype) the bytes of the work.
-    The first case of each kernel is the main path's shape.  `f32_out`
+    The first case of each kernel is the main path's shape.  `cost(dtype)`
+    is the kernel module's cost model at the case's shape: (flops, bytes,
+    TF32 passes).  `f32_out`
     marks outputs that are fp32 whatever the input type (dW, db).  Where the
     library call computes less than the kernel (a forward without its
     activation, a gradient without the leaky select, dW without db),
     `lib_same` is a library route that computes the same function: the
     activation, or the select, the library gradient and the db sum.
-    `tf32_passes` is the number of TF32 tensor-core passes the kernel's
-    fp32 products take (see bound_ms).  `slab` marks the heights that the
+    The TF32 passes are those the kernel's fp32 products take
+    (utils/roofline.bound_ms).  `slab` marks the heights that the
     spatial phase gives a kernel (a slab of rows with its halo): checked
     and not timed."""
     import torch.nn.functional as F
@@ -617,8 +603,8 @@ def kernel_cases(torch):
     from terrain_tpu_torch.ops.kernels import conv_thin as ct
     from terrain_tpu_torch.ops.kernels import pool2 as p2
 
-    def es(dt):
-        return torch.finfo(dt).bits // 8
+    def cost(mod, name, **shape):
+        return lambda dt: mod.cost(name, dtype=dt, **shape)
 
     def nchw(t):
         return t.permute(0, 3, 1, 2)
@@ -635,8 +621,7 @@ def kernel_cases(torch):
             name="conv_thin", shape=(n, h, w, c, f), make=make,
             kern=ct.conv_thin_fwd, plain=ct.conv_thin_plain, twice=True,
             lib=lambda x, wt: F.conv2d(nchw(x), oihw(wt), padding=1),
-            flops=2.0 * n * h * w * 9 * c * f,
-            nbytes=lambda dt: es(dt) * (n * h * w * (c + f) + 9 * c * f))
+            cost=cost(ct, "conv_thin", n=n, h=h, w=w, c=c, f=f))
 
     def thin_dx(n, h, w, c, f):
         def make(dt, g):
@@ -648,8 +633,7 @@ def kernel_cases(torch):
             kern=ct.conv_thin_dx, plain=ct.conv_thin_dx_plain, twice=True,
             lib=lambda gg, wt: ng.conv2d_input((n, c, h, w), oihw(wt),
                                                nchw(gg), padding=1),
-            flops=2.0 * n * h * w * 9 * c * f,
-            nbytes=lambda dt: es(dt) * (n * h * w * (c + f) + 9 * c * f))
+            cost=cost(ct, "conv_thin_dx", n=n, h=h, w=w, c=c, f=f))
 
     def thin_dw(n, h, w, c, f):
         def make(dt, g):
@@ -662,8 +646,7 @@ def kernel_cases(torch):
             twice=True,
             lib=lambda x, gg: ng.conv2d_weight(nchw(x), (f, c, 3, 3),
                                                nchw(gg), padding=1),
-            flops=2.0 * n * h * w * 9 * c * f,
-            nbytes=lambda dt: es(dt) * n * h * w * (c + f) + 4 * 9 * c * f)
+            cost=cost(ct, "conv_thin_dw", n=n, h=h, w=w, c=c, f=f))
 
     def masked(gg, y, slope):
         return gg if slope is None else torch.where(y >= 0, gg, slope * gg)
@@ -692,12 +675,9 @@ def kernel_cases(torch):
                                           padding=2),
             lib_same=lambda x, wt, b: leaky(
                 F.conv2d(nchw(x), oihw(wt), b.to(x.dtype), padding=2), slope),
-            flops=2.0 * n * h * w * 25 * f,
-            nbytes=lambda dt: es(dt) * (n * h * w * (1 + f) + 25 * f) + 4 * f)
+            cost=cost(cs, "conv_stem_fwd", n=n, h=h, w=w, f=f))
 
     def stem_dw(n, h, w, f, slope):
-        k = 2 if slope is not None else 1
-
         def make(dt, g):
             x, _, _, y, gg = stem_args(dt, g, n, h, w, f, slope)
             return (x, gg, y)
@@ -716,12 +696,10 @@ def kernel_cases(torch):
             # dW alone, on the unmasked cotangent
             lib=lambda x, gg, y: ng.conv2d_weight(nchw(x), (f, 1, 5, 5),
                                                   nchw(gg), padding=2),
-            flops=2.0 * n * h * w * 26 * f,
-            nbytes=lambda dt: es(dt) * n * h * w * (1 + k * f) + 4 * 26 * f)
+            cost=cost(cs, "conv_stem_dw", n=n, h=h, w=w, f=f,
+                      mask=int(slope is not None)))
 
     def stem_dx(n, h, w, f, slope):
-        k = 2 if slope is not None else 1
-
         def make(dt, g):
             _, wt, _, y, gg = stem_args(dt, g, n, h, w, f, slope)
             return (gg, wt, y)
@@ -738,8 +716,8 @@ def kernel_cases(torch):
             # dX on the unmasked cotangent
             lib=lambda gg, wt, y: ng.conv2d_input((n, 1, h, w), oihw(wt),
                                                   nchw(gg), padding=2),
-            flops=2.0 * n * h * w * 25 * f,
-            nbytes=lambda dt: es(dt) * (n * h * w * (1 + k * f) + 25 * f))
+            cost=cost(cs, "conv_stem_dx", n=n, h=h, w=w, f=f,
+                      mask=int(slope is not None)))
 
     def bil(n, h, w, c, f):
         def make(dt, g):
@@ -752,15 +730,11 @@ def kernel_cases(torch):
                                align_corners=False)
             return F.conv2d(up, oihw(wt), b.to(x.dtype), padding=1)
 
-        flops = 2.0 * n * 4 * h * w * 9 * c * f
-
-        def nbytes(dt):
-            return es(dt) * (n * h * w * (c + 4 * f) + 9 * c * f) + 4 * f
-
         return dict(
             name="bilinear_conv", shape=(n, h, w, c, f), make=make,
             kern=bc.bilinear_conv_fwd, plain=bc.bilinear_conv_plain, lib=lib,
-            flops=flops, nbytes=nbytes, twice=True, tf32_passes=3)
+            cost=cost(bc, "bilinear_conv", n=n, h=h, w=w, c=c, f=f),
+            twice=True)
 
     def pool_x(dt, g, n, h, w, c, ties):
         x = _rand(torch, g, (n, h, w, c), dt)
@@ -775,8 +749,7 @@ def kernel_cases(torch):
             name="pool2_fwd", shape=(n, h, w, c, "ties" if ties else "random"),
             make=make, kern=p2.pool2_fwd, plain=p2.pool2_fwd_plain, exact=True,
             lib=lambda x: F.max_pool2d(nchw(x), 2),
-            flops=3.0 * n * (h // 2) * (w // 2) * c,
-            nbytes=lambda dt: es(dt) * n * h * w * c * 5 // 4)
+            cost=cost(p2, "pool2_fwd", n=n, h=h, w=w, c=c))
 
     def pool_bwd(n, h, w, c, ties=False):
         def make(dt, g):
@@ -793,8 +766,8 @@ def kernel_cases(torch):
         return dict(
             name="pool2_bwd", shape=(n, h, w, c, "ties" if ties else "random"),
             make=make, kern=p2.pool2_bwd, plain=p2.pool2_bwd_plain, exact=True,
-            lib_make=lib_make, flops=5.0 * n * (h // 2) * (w // 2) * c,
-            nbytes=lambda dt: es(dt) * n * h * w * c * 9 // 4)
+            lib_make=lib_make,
+            cost=cost(p2, "pool2_bwd", n=n, h=h, w=w, c=c))
 
     def s2_args(dt, g, n, h, w, c, f, slope):
         x = _rand(torch, g, (n, h, w, c), dt)
@@ -817,13 +790,9 @@ def kernel_cases(torch):
             lib_same=lambda x, wt, b: leaky(
                 F.conv2d(nchw(x), oihw(wt), b.to(x.dtype), stride=2,
                          padding=1), slope),
-            flops=2.0 * n * (h // 2) * (w // 2) * 9 * c * f,
-            nbytes=lambda dt: es(dt) * (n * h * w * c + n * h * w // 4 * f
-                                        + 9 * c * f) + 4 * f)
+            cost=cost(c2, "conv_s2_fwd", n=n, h=h, w=w, c=c, f=f))
 
     def s2_dw(n, h, w, c, f, slope):
-        k = 2 if slope is not None else 1
-
         def make(dt, g):
             x, _, _, y, gg = s2_args(dt, g, n, h, w, c, f, slope)
             return (x, gg, y)
@@ -842,9 +811,8 @@ def kernel_cases(torch):
             # dW alone, on the unmasked cotangent
             lib=lambda x, gg, y: ng.conv2d_weight(
                 nchw(x), (f, c, 3, 3), nchw(gg), stride=2, padding=1),
-            flops=2.0 * n * (h // 2) * (w // 2) * (9 * c + 1) * f,
-            nbytes=lambda dt: es(dt) * (n * h * w * c + k * n * h * w // 4 * f)
-            + 4 * (9 * c + 1) * f)
+            cost=cost(c2, "conv_s2_dw", n=n, h=h, w=w, c=c, f=f,
+                      mask=int(slope is not None)))
 
     def up2(n, h, w, c):
         def make(dt, g):
@@ -860,10 +828,7 @@ def kernel_cases(torch):
             # fp32 only, as terrain_tpu's guard; the same products and sums
             # in the same order as the plain version, each rounded alone
             dtypes=(torch.float32,), tol=BILINEAR_TOL,
-            # three flops per interpolated value: the row pass makes 2H*W,
-            # the column pass 4H*W values per channel
-            flops=3.0 * n * (2 * h * w + 4 * h * w) * c,
-            nbytes=lambda dt: es(dt) * n * h * w * c * 5)
+            cost=cost(bl, "bilinear", n=n, h=h, w=w, c=c))
 
     return [up2(4, 128, 128, 256), up2(8, 128, 128, 256),
             up2(2, 136, 200, 128),
@@ -967,11 +932,13 @@ def _as_tuple(v):
 
 
 def check_kernels(torch):
+    from terrain_tpu_torch.utils.roofline import bound_ms
+
     results = {}
     g = torch.Generator(device="cuda").manual_seed(1234)
     for case in kernel_cases(torch):
         name, shape = case["name"], case["shape"]
-        big = case["flops"] > 1e9
+        big = case["cost"](torch.float32)[0] > 1e9
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             if dt not in case.get("dtypes", (dt,)):
                 continue
@@ -1023,8 +990,8 @@ def check_kernels(torch):
                                reps=10 if big else 30)
             lib_ms = time_ms(lib, reps=10 if big else 30)
             fp32 = dt == torch.float32
-            bound, by = bound_ms(case["flops"], case["nbytes"](dt), fp32,
-                                 case.get("tf32_passes", 0))
+            flops, nbytes, passes = case["cost"](dt)
+            bound, by = bound_ms(flops, nbytes, fp32, passes)
             row = dict(shape=shape, dtype=str(dt).split(".")[-1],
                        max_abs_err=err, tol=lim, ms=ms, stream_ms=dev_ms,
                        plain_ms=plain_ms,
@@ -1035,9 +1002,8 @@ def check_kernels(torch):
                     lambda: case["lib_same"](*args), reps=10 if big else 30)
                 extra += (f" library_same_ms {row['library_same_ms']:.4f} "
                           f"(the same function through library calls)")
-            if fp32 and "tf32_passes" in case:  # the CUDA cores', as before
-                row["cuda_core_bound_ms"] = bound_ms(
-                    case["flops"], case["nbytes"](dt), True)[0]
+            if fp32 and passes:  # the CUDA cores', as before
+                row["cuda_core_bound_ms"] = bound_ms(flops, nbytes, True)[0]
                 extra += (f" cuda_core_bound_ms "
                           f"{row['cuda_core_bound_ms']:.4f}")
             print(f"kernel {name} {shape} {row['dtype']}: max_abs_err "
@@ -1065,6 +1031,7 @@ def check_autograd(torch):
     from terrain_tpu_torch.ops.kernels import conv_stem as cs
     from terrain_tpu_torch.ops.kernels import conv_thin as ct
     from terrain_tpu_torch.ops.kernels import pool2 as p2
+    from terrain_tpu_torch.utils import roofline
 
     g = torch.Generator(device="cuda").manual_seed(99)
 
@@ -1136,7 +1103,7 @@ def check_autograd(torch):
             yp, x, cot, retain_graph=True))
         lib_ms = time_ms(lambda: torch.autograd.grad(
             yl, xl, cot.permute(0, 3, 1, 2), retain_graph=True))
-        bound = 4 * n * h * w * c * 5 / HBM_BW * 1e3
+        bound = 4 * n * h * w * c * 5 / roofline.HBM_BW * 1e3
         print(f"op bilinear backward {shape} float32: ms {ms:.4f} (the "
               f"transpose, PyTorch ops as in the JAX package) plain_ms "
               f"{plain_ms:.4f} library_ms {lib_ms:.4f} (autograd of the "
@@ -1362,9 +1329,19 @@ def device_breakdown(torch, pipe, card):
                  "bucket 8 two-stage det")
 
 
+def device_rows(prof):
+    """The key_averages rows of a profile's device-side events.  CPU ops
+    carry their kernels' time too, and a `record_function` label
+    (CudaKernel.launch's) has a device span as long as the kernels inside
+    it: both left out, as torch's own table leaves the labels out."""
+    return [ev for ev in prof.key_averages()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA")
+            and not ev.is_user_annotation]
+
+
 def profiled(torch, fn):
     """One profiled call: (wall ms, [(device ms, count, kernel name)]) of
-    its device-side events."""
+    its device-side events (device_rows)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1375,10 +1352,7 @@ def profiled(torch, fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = []
-    for ev in prof.key_averages():
-        # device-side events only: CPU ops carry their kernels' time too
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            continue
+    for ev in device_rows(prof):
         dev = getattr(ev, "self_device_time_total",
                       getattr(ev, "self_cuda_time_total", 0)) / 1e3
         if dev > 0:
@@ -1444,20 +1418,9 @@ def agreement(torch, pipe):
 
 # ------------------------------------------------------------------ phase 5
 def _counters():
-    from terrain_tpu_torch.ops.kernels import bilinear as bl
-    from terrain_tpu_torch.ops.kernels import bilinear_conv as bc
-    from terrain_tpu_torch.ops.kernels import conv_s2 as c2
-    from terrain_tpu_torch.ops.kernels import conv_stem as cs
-    from terrain_tpu_torch.ops.kernels import conv_thin as ct
-    from terrain_tpu_torch.ops.kernels import pool2 as p2
+    from terrain_tpu_torch.ops.kernels import all_kernels
 
-    return {"bilinear_conv": bc.KERNEL, "conv_thin": ct.KERNEL,
-            "conv_thin_dx": ct.KERNEL_DX, "conv_thin_dw": ct.KERNEL_DW,
-            "conv_stem_fwd": cs.KERNEL_FWD, "conv_stem_dw": cs.KERNEL_DW,
-            "conv_stem_dx": cs.KERNEL_DX,
-            "pool2_fwd": p2.KERNEL_FWD, "pool2_bwd": p2.KERNEL_BWD,
-            "conv_s2_fwd": c2.KERNEL_FWD, "conv_s2_dw": c2.KERNEL_DW,
-            "bilinear": bl.KERNEL}
+    return all_kernels()
 
 
 def _op_counters():
@@ -1581,6 +1544,8 @@ def train_slice(torch, card):
             if same:
                 fail(f"train {label}: {len(same)} parameters of {n} did not "
                      f"change")
+        if label == "bf16 switches off":
+            label_check(torch, card, got, evs)
         if not (bc_bwd or pool):  # the alternatives' profiles: cut for time
             profile_once(torch, lambda: ts.train_step(
                 ts.opt_states, batch, None, ts.lr), f"train step {label}",
@@ -1597,6 +1562,34 @@ def train_slice(torch, card):
     return counts, step_ms
 
 
+def label_check(torch, card, got, evs, calls=200_000):
+    """What the profiler labels add to a launch with no profiler recording:
+    CudaKernel.labelled(), the one check `launch` makes before it calls
+    the entry point, timed on the host clock over `calls` calls (the
+    loop's own cost included), times the step's launches (`got`, over
+    TRAIN_STEPS steps), against the spread of the step's CUDA-event times
+    (`evs`).  Fails if that cost reaches the spread."""
+    kernels = _counters()
+    per_step = sum(got[n] for n in kernels) / TRAIN_STEPS
+    k = next(iter(kernels.values()))
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        k.labelled()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    TRACE_WORK_S.append(time.perf_counter() - t0)
+    ms = sorted(s.elapsed_time(e) for s, e in evs)
+    cost = us * per_step / 1e3
+    print(f"train bf16 switches off [{card}]: CudaKernel.labelled() with no "
+          f"profiler {us:.4f} us a call (host clock, {calls} calls, loop "
+          f"included) x {per_step:g} launches a step = {cost:.6f} ms a "
+          f"step, against the eager step's spread over {TRAIN_STEPS} steps "
+          f"{ms[-1] - ms[0]:.3f} ms (CUDA events {ms[0]:.3f} to "
+          f"{ms[-1]:.3f} ms)", flush=True)
+    if not cost < ms[-1] - ms[0]:
+        fail(f"train: the label check costs {cost:.6f} ms a step, the "
+             f"step's spread is {ms[-1] - ms[0]:.3f} ms")
+
+
 def pool_timing(torch, card):
     """The DCGAN discriminator's 2x2 max pool at (8,512²,64), forward plus
     backward, under each TERRAIN_POOL_VJP formulation as PyTorch ops (sas:
@@ -1605,6 +1598,7 @@ def pool_timing(torch, card):
     (each input read once, each output written once: x and y forward, x,
     the cotangent and dx backward)."""
     from terrain_tpu_torch.ops import max_pool2d
+    from terrain_tpu_torch.utils import roofline
 
     n, h, w, c = POOL_TIME_SHAPE
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -1614,7 +1608,7 @@ def pool_timing(torch, card):
                           device="cuda").to(dt)
         xr = x.requires_grad_()
         es = x.element_size()
-        bound = es * n * h * w * c * (5 + 9) / 4 / HBM_BW * 1e3
+        bound = es * n * h * w * c * (5 + 9) / 4 / roofline.HBM_BW * 1e3
         ms = {}
         for mode in ("sas", "pallas", *POOL_MODES):
             os.environ["TERRAIN_POOL_VJP"] = mode
@@ -2001,6 +1995,105 @@ def trainer_slice(torch, card):
 
 
 # ------------------------------------------------------------------ phase 7
+def summarize_checked(path, card, what, eager=False, per_step=None,
+                      quiet=False, summary=None, bounded=None, csv=False):
+    """tools/summarize_trace on one trace, its family table and its top
+    ops by headroom printed, then checked: the family rows sum to the busy
+    time; every hand-written kernel event lands in its kernel's family
+    (none in a library family or "other"); the cuDNN, GEMM and
+    hand-written families carry a bound on SUMMARY_BOUNDED of their ms and
+    each hand-written kernel's events equal the increase of its CudaKernel
+    counter over the traced block (the trace's `terrain_launches`) and its
+    `terrain::` annotations (`eager`); or, for a graph replay (`per_step`,
+    (steps, {kernel: launches in one bare step})), equal the steps times
+    one step's launches, every one under the cudaGraphLaunch.  `bounded`
+    (default `eager`) checks the bounded shares alone.  `quiet` prints
+    the header lines and the family table alone; `summary`, one made
+    already, is checked in place of the trace at `path`, which the
+    command line's code (`run`) reads otherwise, with `--csv
+    <path>.csv` where `csv` (its header and rows checked).  Returns the
+    Summary and the summarizer's seconds."""
+    from terrain_tpu_torch.tools import summarize_trace as st
+    from terrain_tpu_torch.utils.profiling import LAUNCHES_KEY
+
+    lines = []
+    t0 = time.perf_counter()
+    if summary is None:
+        csv_path = f"{path}.csv" if csv else None
+        summ = st.run([path, "--top", str(SUMMARY_TOP)]
+                      + (["--csv", csv_path] if csv else []), out=lines.append)
+        secs = time.perf_counter() - t0
+        TRACE_WORK_S.append(secs)
+    else:
+        summ, secs = summary, summary.seconds
+        st.report(summ, SUMMARY_TOP, out=lines.append)
+    print(f"{what} [{card}]: tools/summarize_trace"
+          + (f" on {os.path.basename(path)} "
+             f"({os.path.getsize(path) / 2**20:.1f} MiB)" if path else "")
+          + f" in {secs:.2f} s:", flush=True)
+    if quiet:  # the header and the family table
+        lines = lines[:next(i for i, line in enumerate(lines)
+                            if line.startswith("\nby launching op"))]
+    print("\n".join(lines), flush=True)
+    if summary is None and csv:
+        with open(csv_path) as f:
+            rows = f.read().splitlines()
+        if rows[0] != st.CSV_HEADER or len(rows) - 1 != len(summ.per_op):
+            fail(f"{what}: the CSV has {len(rows) - 1} rows under "
+                 f"{rows[0]!r}, expected {len(summ.per_op)} under the JAX "
+                 f"tool's header")
+        print(f"{what}: --csv wrote {len(rows) - 1} rows under the JAX "
+              f"tool's header", flush=True)
+    fam_sum = sum(v[0] for v in summ.families.values())
+    if not abs(fam_sum - summ.busy_ms) <= SUMMARY_SUM_TOL * summ.busy_ms:
+        fail(f"{what}: the family rows sum to {fam_sum} ms, busy "
+             f"{summ.busy_ms} ms")
+    for (name, op, _), row in summ.per_op.items():
+        base = st.kernel_base(name)
+        if (base in st.hand_written() or base in st.SHARED_SYMBOLS) \
+                and not row.family.startswith(st.HAND_PREFIX):
+            fail(f"{what}: hand-written {base} under {op} fell to "
+                 f"{row.family}")
+    hand = summ.hand
+    if eager if bounded is None else bounded:
+        for fam, (ms, _, bnd) in summ.families.items():
+            if (fam in st.LIBRARY_BOUNDED or fam.startswith(st.HAND_PREFIX)) \
+                    and bnd < SUMMARY_BOUNDED * ms:
+                fail(f"{what}: {fam} has a bound on {bnd:.3f} of its "
+                     f"{ms:.3f} ms")
+    if eager:
+        launched = summ.meta.get(LAUNCHES_KEY)
+        if launched is None:
+            fail(f"{what}: the trace holds no {LAUNCHES_KEY}")
+        for name, h in hand.items():
+            want = (launched[name], launched[name], launched[name])
+            if (h["events"], h["labels"], h["linked"] + h["by_order"]) \
+                    != want:
+                fail(f"{what}: {name} has {h} against {launched[name]} "
+                     f"launches")
+        print(f"{what}: hand-written kernel events = launches = terrain:: "
+              f"labels { {n: h['events'] for n, h in hand.items()} }; "
+              f"linked through correlation (launch inside its label) "
+              f"{sum(h['linked'] for h in hand.values())}, by name and "
+              f"order {sum(h['by_order'] for h in hand.values())}",
+              flush=True)
+    if per_step is not None:
+        steps, grid = per_step
+        for name, h in hand.items():
+            if h["events"] != steps * grid.get(name, 0):
+                fail(f"{what}: {name} ran {h['events']} times in the "
+                     f"replay, expected {steps} x {grid.get(name, 0)}")
+        ops = {op for (name, op, _), row in summ.per_op.items()
+               if row.family.startswith(st.HAND_PREFIX)}
+        if ops != {st.GRAPH_LAUNCH}:
+            fail(f"{what}: hand-written kernels launched by {ops}")
+        print(f"{what}: hand-written kernel events "
+              f"{ {n: h['events'] for n, h in hand.items() if h['events']} }"
+              f" = {steps} x one bare step's launches, each in its family "
+              f"under {st.GRAPH_LAUNCH}", flush=True)
+    return summ, secs
+
+
 def quality_slice(torch, card, trainer_epoch_s, bare_ms):
     """The trainer's quality path at full width, through the entry point:
     `python -m terrain_tpu_torch test1_nobn_bilin_both train` with the
@@ -2142,10 +2235,11 @@ def quality_slice(torch, card, trainer_epoch_s, bare_ms):
         sizes = [os.path.getsize(os.path.join(trace_dir, t)) for t in traces]
         if len(traces) != 1 or not sizes[0]:
             fail(f"quality: TERRAIN_PROFILE wrote {traces} {sizes}")
-        with open(os.path.join(trace_dir, traces[0])) as f:
-            n_kern = f.read().count('"cat": "kernel"')
-        print(f"quality: trace {traces[0]}, {sizes[0] / 2**20:.1f} MiB, "
-              f"{n_kern} device kernel events", flush=True)
+        _, secs = summarize_checked(
+            os.path.join(trace_dir, traces[0]), card,
+            "quality (traced epoch 2)", eager=True, csv=True)
+        if secs > SUMMARY_LIMIT_S:
+            fail(f"quality: the summarizer took {secs:.1f} s")
         # gen: picks the epoch of the least swd_mean from swd.txt
         best = min(swd_rows, key=lambda r: float(r["swd_mean"]))["epoch"]
         _reset_counters()
@@ -3777,6 +3871,27 @@ def _held(e1, e2, g):
     return out, bad
 
 
+def traced_replay(card, what, replay, per_step):
+    """`replay()`, one replay of a graph of SCAN_K steps, traced
+    (utils/profiling.trace) and summarized: every hand-written kernel event
+    in its family under the cudaGraphLaunch, SCAN_K times `per_step`
+    ({kernel: launches in one bare step}; summarize_checked)."""
+    import tempfile
+
+    from terrain_tpu_torch.utils.profiling import trace
+
+    root = tempfile.mkdtemp(prefix="replay_trace_")
+    try:
+        t0 = time.perf_counter()
+        with trace(root, "cuda"):
+            replay()
+        TRACE_WORK_S.append(time.perf_counter() - t0)
+        summarize_checked(os.path.join(root, os.listdir(root)[0]), card,
+                          what, per_step=(SCAN_K, per_step), quiet=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def scan_equivalence(torch, np, card):
     """Eager steps against one CUDA graph of SCAN_K steps, from one saved
     state (networks, BN statistics, optimizer state, generator seeds), by
@@ -3786,7 +3901,8 @@ def scan_equivalence(torch, np, card):
     two replays, every tensor bit-equal; then, fp32 switches off, the same
     at half the lr (the graph captured anew), and with adam, whose step
     count the graph advances on the device.  Returns the bf16 setup
-    (rmsprop) for timing."""
+    (rmsprop) for timing.  At the lr as given with rmsprop, a third replay
+    is traced and summarized (traced_replay)."""
     from terrain_tpu_torch.train import optim
     from terrain_tpu_torch.train.losses import TRAIN_KEYS
     from terrain_tpu_torch.train.step import build_scan_step
@@ -3857,17 +3973,11 @@ def scan_equivalence(torch, np, card):
                 fail(f"scan {what}: eager and the graph are not bit-equal: "
                      f"{(bad + bad2)[:5]}")
             if lr_scale == 1.0 and opt == "rmsprop":
-                # the hand-written kernels in a replay
-                _, prof = profiled(torch, lambda: scan(
-                    gan.opt_states, batches, start(), lr))
-                counts = {name: sum(c for _, c, key in prof if sym in key)
-                          for name, sym in KERNEL_SYMBOLS.items()}
-                print(f"scan {what}: hand-written kernels in one profiled "
-                      f"replay of {SCAN_K} steps {counts}", flush=True)
-                for name, n in expected_launches(on).items():
-                    if name in KERNEL_SYMBOLS and counts[name] != SCAN_K * n:
-                        fail(f"scan {what}: {name} ran {counts[name]} times "
-                             f"in the replay, expected {SCAN_K} x {n}")
+                rngs = start()
+                traced_replay(
+                    card, f"scan {what}, one traced replay of {SCAN_K} steps",
+                    lambda: scan(gan.opt_states, batches, rngs, lr),
+                    expected_launches(on))
             start()  # the saved state back
             del scan, e1, e2, g, g2, saved, every, cats
         set_switches(False)
@@ -3889,7 +3999,11 @@ def scan_timing(torch, np, card, kept):
     parallel phase took TERRAIN_SCAN over a mesh: fp32 per step (the
     replays against eager steps) and both graphs' profiled device time
     and busy share are read there, on the world-1 mesh and without one."""
+    import tempfile
+
+    from terrain_tpu_torch.tools.summarize_trace import borrow_bounds
     from terrain_tpu_torch.train.step import build_scan_step
+    from terrain_tpu_torch.utils.profiling import trace
 
     k = SCAN_TIME_K
     gan, ds, tr = kept.pop("bf16")
@@ -3918,6 +4032,45 @@ def scan_timing(torch, np, card, kept):
           f"eager {per['eager'][0]:.3f}, graph {per['graph'][0]:.3f}, graph "
           f"{per['graph'][1]:.3f}, eager {per['eager'][1]:.3f} ms (host "
           f"clock, in turns)", flush=True)
+    # one eager step and one replay traced and summarized: every
+    # hand-written kernel of the replay's k steps in its family, k times the
+    # eager step's launches; the replay's kernels given the eager step's op
+    # instances and bounds (by name and order) for its headroom table
+    root = tempfile.mkdtemp(prefix="scan_trace_")
+    t_block = time.perf_counter()
+    try:
+        rngs = gan._next_rngs(0)
+        _reset_counters()
+        with trace(os.path.join(root, "eager"), "cuda"):
+            tr(gan.opt_states, batches[0], rngs, gan.lr)
+        one = {n: c for n, c in _read_counters().items() if n in _counters()}
+        t0 = time.perf_counter()
+        with trace(os.path.join(root, "replay"), "cuda"):
+            graph()
+        t_trace = time.perf_counter() - t0
+        paths = {p: os.path.join(root, p, os.listdir(os.path.join(root, p))[0])
+                 for p in ("eager", "replay")}
+        eager_s, _ = summarize_checked(
+            paths["eager"], card, "scan bf16, one traced eager step",
+            eager=True, quiet=True)
+        replay_s, _ = summarize_checked(
+            paths["replay"], card, f"scan bf16 TERRAIN_SCAN={k}, one traced "
+            f"replay ({t_trace:.1f} s with the trace)", per_step=(k, one),
+            quiet=True)
+        borrowed = borrow_bounds(replay_s, eager_s, k)
+        summarize_checked(None, card, f"scan bf16 TERRAIN_SCAN={k}, the "
+                          f"replay with the eager step's bounds",
+                          summary=borrowed)
+        print(f"scan bf16: kernels not run {k} times as often in the replay "
+              f"as in the eager step, left unbounded (replayed, eager): "
+              f"{ {n[:60]: c for n, c in borrowed.unmatched.items()} }",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the traces and the borrowing (the summaries are counted by
+    # summarize_checked itself)
+    TRACE_WORK_S.append(time.perf_counter() - t_block
+                        - eager_s.seconds - replay_s.seconds)
     del scan, batches, gan, ds, tr
     torch.cuda.empty_cache()
 
@@ -4501,11 +4654,12 @@ def parallel_world1_scan(torch, np, card, mesh, root):
     optimizer state), captured once and replayed; then an lr change and a
     load_model, each shown to capture anew exactly once, their chunks
     bit-equal to eager; then chunks of SCAN_K with the opt-in switches on
-    and with the unfused decoder, likewise, each one's replay profiled for
-    the hand-written kernels (SCAN_K x their per-step counts).  bf16: per
+    and with the unfused decoder, likewise, each one's replay traced and
+    summarized for the hand-written kernels (traced_replay: SCAN_K x their
+    per-step counts).  bf16: per
     step at PAR_SCAN_K, the mesh's eager steps, its graph and the graph
     without a mesh, in turns (host clock around a synchronized chunk,
-    median of 3), with profiled device ms a step and peak MiB (eager: one
+    median of 2), with profiled device ms a step and peak MiB (eager: one
     chunk of steps; a graph: its warm-up step and capture).  Returns (the
     launch counts around the fp32 chunks' calls, failures)."""
     from terrain_tpu_torch.data import DeviceDataset
@@ -4562,16 +4716,13 @@ def parallel_world1_scan(torch, np, card, mesh, root):
         set_switches(True, switches)
         check(label, SCAN_K, PAR_SEEDS[0], 1)
         batches = _chunk(torch, np, gan, ds, SCAN_K, PAR_SEEDS[0])
-        _, prof = profiled(torch, lambda: runs.graph(batches))
-        seen = {name: sum(c for _, c, key in prof if sym in key)
-                for name, sym in KERNEL_SYMBOLS.items()}
-        print(f"parallel NCCL world 1, {label}: hand-written kernels in "
-              f"one profiled replay of {SCAN_K} steps {seen}", flush=True)
-        for name, sym in KERNEL_SYMBOLS.items():
-            if seen[name] != SCAN_K * per_step.get(name, 0):
-                bad.append(f"world-1 scan {label}: {name} ran {seen[name]} "
-                           f"times in the replay, expected {SCAN_K} x "
-                           f"{per_step.get(name, 0)}")
+        try:
+            traced_replay(card, f"parallel NCCL world 1, {label}, one "
+                          f"traced replay of {SCAN_K} steps",
+                          lambda: runs.graph(batches), per_step)
+        except SystemExit:  # its FAIL line printed; the phase reads on
+            bad.append(f"world-1 scan {label}: the traced replay failed "
+                       f"its checks")
         set_switches(False, switches)
     # TERRAIN_CHECK_NANS=2 on the mesh's graph: a planted NaN raises on the
     # rank after the chunk's collectives, with no hang
@@ -4635,7 +4786,8 @@ def _w1_scan_time(torch, np, card, mesh, ds):
         finite &= all(bool(torch.isfinite(v).all()) for v in out.values())
     ms = {m: [] for m in modes}
     order = list(modes)
-    for mode in order + order[::-1] + order:
+    # two turns each, cut from three to keep the whole script's time
+    for mode in order + order[::-1]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         call(mode)
@@ -4646,7 +4798,7 @@ def _w1_scan_time(torch, np, card, mesh, ds):
         _, rows = profiled(torch, lambda: call(mode))
         dev[mode] = sum(r[0] for r in rows) / k
     print(f"parallel [{card}] NCCL world 1, bf16, TERRAIN_SCAN={k}, per step "
-          f"(host clock around a synchronized chunk, in turns; median of 3): "
+          f"(host clock around a synchronized chunk, in turns; median of 2): "
           + "; ".join(f"{m} " + " / ".join(f"{t:.3f}" for t in ms[m])
                       + f" ms (median {statistics.median(ms[m]):.3f}), "
                       + (f"profiled device {dev[m]:.3f} ms, " if m in dev
@@ -6328,10 +6480,7 @@ def ballast_child(torch, out_path, need_mib):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         losses = ts.train_step(ts.opt_states, batch, None, ts.lr)
         torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            kernels[ev.key] = ev.count
+    kernels = {ev.key: ev.count for ev in device_rows(prof)}
     state = [t.detach().cpu() for t in step_state(ts.nets, ts.opt_states)]
     out = {"state": state,
            "losses": {k: v.detach().cpu() for k, v in losses.items()},
@@ -6745,8 +6894,7 @@ def _det_step_ms(torch, run):
         run.one()
         torch.cuda.synchronize()
     kernels = {ev.key: getattr(ev, "self_device_time_total", 0) / 1e3
-               for ev in prof.key_averages()
-               if str(getattr(ev, "device_type", "")).endswith("CUDA")}
+               for ev in device_rows(prof)}
     return statistics.median(times), sum(kernels.values()), kernels
 
 
@@ -7169,7 +7317,9 @@ def main():
     if "scan4" in only:
         scan4_slice(torch, card)
     if only:
-        print(f"phases {sorted(only)} passed; run without arguments for the "
+        print(f"phases {sorted(only)} passed (the trace summaries, the "
+              f"traced replays and eager step and train's label check "
+              f"{sum(TRACE_WORK_S):.1f} s); run without arguments for the "
               f"result lines")
         return 0
 
@@ -7251,7 +7401,10 @@ def main():
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "library_same_ms": main_row.get("library_same_ms")})
-    print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
+    print(f"all phases passed in {time.perf_counter() - t_start:.0f} s; "
+          f"the trace summaries, the traced replays and eager step and "
+          f"train's label check took {sum(TRACE_WORK_S):.1f} s of it (the "
+          f"traced epoch's own cost is printed by quality)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,11 @@ kernels at once (one nvcc process per source, started together) through
 `build()`.  A failed build raises.
 
 Each C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `CudaKernel.launch` raises if that is not 0.  The
+`cudaGetLastError()`; `CudaKernel.launch` raises if that is not 0.  While
+a profiler records (and no graph capture is under way), `launch` names the
+call in the trace: a `record_function` labelled with `label`, which the
+kernel's `__global__` launches inside it link to through the trace's
+correlation ids (tools/summarize_trace.py reads it).  The
 stream is the device's current one (`stream_of`): inside a CUDA graph
 capture (train/step.py) that is the capturing stream, so the kernels are
 recorded into the graph with PyTorch's own launches.  A kernel is built,
@@ -188,17 +192,27 @@ class CudaKernel:
     graph's replays run the recorded launches without calling `launch`,
     so they add nothing; a run sets the count to 0 and reads it to show
     the path went through the kernel.  `name` (the entry point without
-    "_launch" unless given) names it in reports and NaN checks."""
+    "_launch" unless given) names it in reports and NaN checks.  `symbol`
+    is the `__global__` function the entry point launches, as a profiler
+    names it; `cost_args` are the names of the shape arguments of its
+    module's `cost(name, ...)`, in the order `launch`'s `shape` gives
+    their values."""
 
-    def __init__(self, source, entry, argtypes, name=None):
+    def __init__(self, source, entry, argtypes, name=None, symbol=None,
+                 cost_args=()):
+        import torch
+
         self.source = source
         self.entry = entry
         # the kernel's name in reports and NaN checks
         self.name = name or entry.removesuffix("_launch")
+        self.symbol = symbol
+        self.cost_args = tuple(cost_args)
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
         self._err = None
+        self._profiling = torch._C._autograd._profiler_enabled
 
     def _bind(self):
         if self._fn is None and _capturing():
@@ -220,11 +234,33 @@ class CudaKernel:
                 self._fn = fn
         return self._fn
 
-    def launch(self, *args, outputs=()):
+    def label(self, shape):
+        """`terrain::<name>(<arg>=<value>,...)`, the shape values named by
+        `cost_args`; a dtype is written as "float32" or "bfloat16"."""
+        vals = ",".join(f"{k}={str(v).removeprefix('torch.')}"
+                        for k, v in zip(self.cost_args, shape, strict=True))
+        return f"terrain::{self.name}({vals})"
+
+    def labelled(self):
+        """True while a profiler records outside a graph capture: `launch`
+        then labels its call.  With no profiler this is the one check a
+        launch adds."""
+        return self._profiling() and not _capturing()
+
+    def launch(self, *args, outputs=(), shape=()):
         """Calls the entry point with `args`; `outputs`, the tensors it
         writes, are then checked for NaNs when TERRAIN_CHECK_NANS=2's
-        checks are recording (utils/nan_check.py)."""
-        rc = self._bind()(*args)
+        checks are recording (utils/nan_check.py).  `shape`, the values of
+        `cost_args`, labels the call while a profiler records outside a
+        graph capture; otherwise nothing is opened."""
+        fn = self._bind()
+        if self.labelled():
+            import torch
+
+            with torch.profiler.record_function(self.label(shape)):
+                rc = fn(*args)
+        else:
+            rc = fn(*args)
         if rc != 0:
             msg = self._err(rc).decode(errors="replace")
             raise RuntimeError(f"{self.entry} launch failed: {msg} ({rc})")

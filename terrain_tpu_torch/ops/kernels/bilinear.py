@@ -24,11 +24,13 @@ from torch.autograd.function import once_differentiable
 
 from terrain_tpu_torch.ops.kernels._build import (
     CudaKernel, OpCounter, all_on_cpu, nhwc_contiguous, stream_of)
+from terrain_tpu_torch.utils.roofline import itemsize
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 KERNEL = CudaKernel("bilinear", "bilinear_2x_launch", [_P] * 2 + [_I] * 4
-                    + [_P], name="bilinear")
+                    + [_P], name="bilinear", symbol="bilinear_2x_kernel",
+                    cost_args=("n", "h", "w", "c", "dtype"))
 # forward calls of the plain version (CPU tensors), backward passes of
 # Bilinear2xFn, and inputs the op had to copy into NHWC-contiguous memory
 PLAIN = OpCounter()
@@ -39,6 +41,15 @@ COPIES = OpCounter()
 # 128 rows and columns, where the TPU kernel beat XLA's resize
 TILE = 32
 MIN_SPATIAL = 128
+
+
+def cost(name, n, h, w, c, dtype):
+    """(flops, bytes, tf32_passes) of one launch of the kernel (`name`
+    "bilinear") on an (n,h,w,c) input: three flops per interpolated value
+    (the row pass makes 2H*W, the column pass 4H*W values per channel), the
+    input read once and the 4x output written once."""
+    return (3.0 * n * (2 * h * w + 4 * h * w) * c,
+            itemsize(dtype) * n * h * w * c * 5, 0)
 
 
 def _pick_tile(dim, target, align=8):
@@ -115,7 +126,7 @@ def bilinear_2x_fwd(x):
     n, h, w, c = x.shape
     y = torch.empty((n, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
     KERNEL.launch(x.data_ptr(), y.data_ptr(), n, h, w, c, stream_of(x),
-                  outputs=(y,))
+                  outputs=(y,), shape=(n, h, w, c, x.dtype))
     return y
 
 

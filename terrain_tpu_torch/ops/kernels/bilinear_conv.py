@@ -38,6 +38,7 @@ from torch.nn import grad as ng
 
 from terrain_tpu_torch.ops.kernels._build import (
     CudaKernel, OpCounter, all_on_cpu, stream_of)
+from terrain_tpu_torch.utils.roofline import itemsize
 
 TILE = 32
 MIN_SPATIAL = 32
@@ -45,9 +46,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNEL = CudaKernel(
     "bilinear_conv", "bilinear_conv_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    symbol="bilinear_conv_kernel",
+    cost_args=("n", "h", "w", "c", "f", "dtype"))
 BACKWARD = OpCounter()  # backward passes of BilinearConvFn
 PLAIN = OpCounter()     # calls of the plain version (CPU tensors)
+
+
+def cost(name, n, h, w, c, f, dtype):
+    """(flops, bytes, tf32_passes) of one launch of the kernel (`name`
+    "bilinear_conv") on an (n,h,w,c) input to (n,2h,2w,f): the 3x3 conv's
+    products at the upsampled size, x, w and y moved once, b in fp32; its
+    fp32 products take three TF32 passes (3xTF32)."""
+    return (2.0 * n * 4 * h * w * 9 * c * f,
+            itemsize(dtype) * (n * h * w * (c + 4 * f) + 9 * c * f) + 4 * f, 3)
 
 
 def _pick_tile(dim, target):
@@ -103,7 +115,7 @@ def bilinear_conv_fwd(x, w, b):
     y = torch.empty((n, 2 * h, 2 * wd, f), dtype=x.dtype, device=x.device)
     KERNEL.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                   n, h, wd, c, f, _DTYPES[x.dtype], stream_of(x),
-                  outputs=(y,))
+                  outputs=(y,), shape=(n, h, wd, c, f, x.dtype))
     return y
 
 

@@ -34,6 +34,7 @@ from torch.nn import grad as nn_grad
 from terrain_tpu_torch.ops.kernels._build import (
     CudaKernel, OpCounter, all_on_cpu, nhwc_contiguous, partial_blocks,
     stream_of)
+from terrain_tpu_torch.utils.roofline import itemsize
 
 K = 3
 DW_PER_SM = 1  # dW+db: one persistent block an SM (csrc/conv_s2.cu)
@@ -41,9 +42,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 KERNEL_FWD = CudaKernel("conv_s2", "conv_s2_fwd_launch",
-                        [_P] * 4 + [_I] * 6 + [_F, _I, _P])
+                        [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+                        symbol="s2_fwd_kernel",
+                        cost_args=("n", "h", "w", "c", "f", "dtype"))
 KERNEL_DW = CudaKernel("conv_s2", "conv_s2_dw_launch",
-                       [_P] * 5 + [_I] * 7 + [_F, _I, _P])
+                       [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+                       symbol="s2_dw_kernel",
+                       cost_args=("n", "h", "w", "c", "f", "mask", "dtype"))
 
 # terrain_tpu switches this module has no use for, each with the reason
 NO_OP_SWITCHES = {
@@ -54,6 +59,22 @@ NO_OP_SWITCHES = {
 # into NHWC-contiguous memory before a launch
 PLAIN = OpCounter()
 COPIES = OpCounter()
+
+
+def cost(name, n, h, w, c, f, dtype, mask=0):
+    """(flops, bytes, tf32_passes) of one launch of `name` (conv_s2_fwd or
+    conv_s2_dw) on an (n,h,w,c) input and (n,h/2,w/2,f) output or
+    cotangent; `mask` 1 when dW reads the saved output for the leaky
+    select.  Each input read once, each output written once (dW and db in
+    fp32)."""
+    es, k = itemsize(dtype), 2 if mask else 1
+    if name == "conv_s2_fwd":
+        return (2.0 * n * (h // 2) * (w // 2) * 9 * c * f,
+                es * (n * h * w * c + n * h * w // 4 * f + 9 * c * f) + 4 * f,
+                0)
+    return (2.0 * n * (h // 2) * (w // 2) * (9 * c + 1) * f,
+            es * (n * h * w * c + k * n * h * w // 4 * f)
+            + 4 * (9 * c + 1) * f, 0)
 
 
 def _pick_th(hout):
@@ -151,7 +172,7 @@ def conv_s2_fwd(x, w, b, slope=None):
     KERNEL_FWD.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                       n, h, wd, cin, f, int(slope is not None),
                       float(slope or 0.0), _DTYPES[x.dtype], stream_of(x),
-                      outputs=(y,))
+                      outputs=(y,), shape=(n, h, wd, cin, f, x.dtype))
     return y
 
 
@@ -181,7 +202,8 @@ def conv_s2_dw(x, g, y=None, slope=None):
                      y.data_ptr() if mask else None, part.data_ptr(),
                      out.data_ptr(), nb, n, h, wd, cin, f, int(mask),
                      float(slope or 0.0), _DTYPES[x.dtype], stream_of(x),
-                     outputs=(out,))
+                     outputs=(out,),
+                     shape=(n, h, wd, cin, f, int(mask), x.dtype))
     return out[:rows - 1].reshape(K, K, cin, f), out[rows - 1]
 
 

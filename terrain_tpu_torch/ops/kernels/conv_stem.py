@@ -27,17 +27,24 @@ import torch.nn.functional as F
 
 from terrain_tpu_torch.ops.kernels._build import (
     CudaKernel, OpCounter, all_on_cpu, partial_blocks, stream_of)
+from terrain_tpu_torch.utils.roofline import itemsize
 
 K = 5
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 KERNEL_FWD = CudaKernel("conv_stem", "conv_stem_fwd_launch",
-                        [_P] * 4 + [_I] * 5 + [_F, _I, _P])
+                        [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+                        symbol="stem_fwd_kernel",
+                        cost_args=("n", "h", "w", "f", "dtype"))
 KERNEL_DW = CudaKernel("conv_stem", "conv_stem_dw_launch",
-                       [_P] * 5 + [_I] * 6 + [_F, _I, _P])
+                       [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+                       symbol="stem_dw_kernel",
+                       cost_args=("n", "h", "w", "f", "mask", "dtype"))
 KERNEL_DX = CudaKernel("conv_stem", "conv_stem_dx_launch",
-                       [_P] * 4 + [_I] * 5 + [_F, _I, _P])
+                       [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+                       symbol="stem_dx_kernel",
+                       cost_args=("n", "h", "w", "f", "mask", "dtype"))
 PLAIN = OpCounter()  # calls of the plain versions (CPU tensors)
 
 # terrain_tpu switches this module has no use for, each with the reason
@@ -51,6 +58,22 @@ NO_OP_SWITCHES = {
     "TERRAIN_STEM_TH": "the TPU kernels' row-band tile height; these "
                        "kernels' tiles are fixed by F",
 }
+
+
+def cost(name, n, h, w, f, dtype, mask=0):
+    """(flops, bytes, tf32_passes) of one launch of `name` (conv_stem_fwd,
+    conv_stem_dw or conv_stem_dx) at an (n,h,w,1) image and F maps; `mask`
+    1 when dW or dX reads the saved output for the leaky select.  Each
+    input read once, each output written once (dW and db in fp32)."""
+    es, k = itemsize(dtype), 2 if mask else 1
+    if name == "conv_stem_fwd":
+        return (2.0 * n * h * w * 25 * f,
+                es * (n * h * w * (1 + f) + 25 * f) + 4 * f, 0)
+    if name == "conv_stem_dw":
+        return (2.0 * n * h * w * 26 * f,
+                es * n * h * w * (1 + k * f) + 4 * 26 * f, 0)
+    return (2.0 * n * h * w * 25 * f,
+            es * (n * h * w * (1 + k * f) + 25 * f), 0)
 
 
 def supported(x_shape, w_shape, stride, padding):
@@ -134,7 +157,8 @@ def conv_stem_fwd(x, w, b, slope=None):
     y = torch.empty((n, h, wd, f), dtype=x.dtype, device=x.device)
     KERNEL_FWD.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
                       n, h, wd, f, int(slope is not None), float(slope or 0.0),
-                      _DTYPES[x.dtype], stream_of(x), outputs=(y,))
+                      _DTYPES[x.dtype], stream_of(x), outputs=(y,),
+                      shape=(n, h, wd, f, x.dtype))
     return y
 
 
@@ -158,7 +182,7 @@ def conv_stem_dw(x, g, y=None, slope=None):
                      y.data_ptr() if mask else None, part.data_ptr(),
                      out.data_ptr(), nb, n, h, wd, f, int(mask),
                      float(slope or 0.0), _DTYPES[x.dtype], stream_of(x),
-                     outputs=(out,))
+                     outputs=(out,), shape=(n, h, wd, f, int(mask), x.dtype))
     return out[:K * K].reshape(K, K, 1, f), out[K * K]
 
 
@@ -176,7 +200,7 @@ def conv_stem_dx(g, w, y=None, slope=None):
     KERNEL_DX.launch(g.data_ptr(), y.data_ptr() if mask else None,
                      w.data_ptr(), dx.data_ptr(), n, h, wd, f, int(mask),
                      float(slope or 0.0), _DTYPES[g.dtype], stream_of(g),
-                     outputs=(dx,))
+                     outputs=(dx,), shape=(n, h, wd, f, int(mask), g.dtype))
     return dx
 
 

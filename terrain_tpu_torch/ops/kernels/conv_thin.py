@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from terrain_tpu_torch.ops.kernels._build import (
     CudaKernel, OpCounter, all_on_cpu, partial_blocks, stream_of)
+from terrain_tpu_torch.utils.roofline import itemsize
 
 K = 3
 TH = 16  # the JAX guard's band height (h % TH == 0)
@@ -27,12 +28,16 @@ SW = 64  # output columns of a strip of the row stream (csrc/conv_thin.cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+_ARGS = ("n", "h", "w", "c", "f", "dtype")  # cost()'s shape arguments
 KERNEL = CudaKernel("conv_thin", "conv_thin_launch",
-                    [_P] * 3 + [_I] * 6 + [_P])
+                    [_P] * 3 + [_I] * 6 + [_P], symbol="thin_fwd_kernel",
+                    cost_args=_ARGS)
 KERNEL_DX = CudaKernel("conv_thin", "conv_thin_dx_launch",
-                       [_P] * 3 + [_I] * 6 + [_P])
+                       [_P] * 3 + [_I] * 6 + [_P], symbol="thin_dx_kernel",
+                       cost_args=_ARGS)
 KERNEL_DW = CudaKernel("conv_thin", "conv_thin_dw_launch",
-                       [_P] * 4 + [_I] * 7 + [_P])
+                       [_P] * 4 + [_I] * 7 + [_P], symbol="thin_dw_kernel",
+                       cost_args=_ARGS)
 PLAIN = OpCounter()  # calls of the plain versions (CPU tensors)
 
 # terrain_tpu switches this module has no use for, each with the reason
@@ -40,6 +45,18 @@ NO_OP_SWITCHES = {
     "TERRAIN_THIN_TH": "the TPU kernel's row-band tile height; these "
                        "kernels' tiles are their own",
 }
+
+
+def cost(name, n, h, w, c, f, dtype):
+    """(flops, bytes, tf32_passes) of one launch of `name` (conv_thin,
+    conv_thin_dx or conv_thin_dw) on an (n,h,w,c) input and (n,h,w,f)
+    output or cotangent: each input read once, each output written once
+    (dW in fp32)."""
+    es = itemsize(dtype)
+    flops = 2.0 * n * h * w * 9 * c * f
+    if name == "conv_thin_dw":
+        return flops, es * n * h * w * (c + f) + 4 * 9 * c * f, 0
+    return flops, es * (n * h * w * (c + f) + 9 * c * f), 0
 
 
 def supported(x_shape, w_shape, stride, padding):
@@ -148,7 +165,8 @@ def conv_thin_fwd(x, w):
     f = w.shape[3]
     y = torch.empty((n, h, wd, f), dtype=x.dtype, device=x.device)
     KERNEL.launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c, f,
-                  _DTYPES[x.dtype], stream_of(x), outputs=(y,))
+                  _DTYPES[x.dtype], stream_of(x), outputs=(y,),
+                  shape=(n, h, wd, c, f, x.dtype))
     return y
 
 
@@ -165,7 +183,8 @@ def conv_thin_dx(g, w):
     check_dx(w)
     dx = torch.empty((n, h, wd, c), dtype=g.dtype, device=g.device)
     KERNEL_DX.launch(g.data_ptr(), w.data_ptr(), dx.data_ptr(), n, h, wd, c,
-                     f, _DTYPES[g.dtype], stream_of(g), outputs=(dx,))
+                     f, _DTYPES[g.dtype], stream_of(g), outputs=(dx,),
+                     shape=(n, h, wd, c, f, g.dtype))
     return dx
 
 
@@ -186,7 +205,8 @@ def conv_thin_dw(x, g):
     ptr = part.data_ptr()
     KERNEL_DW.launch(x.data_ptr(), g.data_ptr(), ptr,
                      ptr + 4 * nb * K * K * c * f, nb, n, h, wd, c, f,
-                     _DTYPES[x.dtype], stream_of(x), outputs=(part[nb],))
+                     _DTYPES[x.dtype], stream_of(x), outputs=(part[nb],),
+                     shape=(n, h, wd, c, f, x.dtype))
     return part[nb].view(K, K, c, f)
 
 

@@ -28,16 +28,34 @@ import torch
 
 from terrain_tpu_torch.ops.kernels._build import (
     CudaKernel, OpCounter, all_on_cpu, nhwc_contiguous, stream_of)
+from terrain_tpu_torch.utils.roofline import itemsize
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-KERNEL_FWD = CudaKernel("pool2", "pool2_fwd_launch", [_P] * 2 + [_I] * 5 + [_P])
-KERNEL_BWD = CudaKernel("pool2", "pool2_bwd_launch", [_P] * 3 + [_I] * 5 + [_P])
+_ARGS = ("n", "h", "w", "c", "dtype")  # cost()'s shape arguments
+KERNEL_FWD = CudaKernel("pool2", "pool2_fwd_launch",
+                        [_P] * 2 + [_I] * 5 + [_P],
+                        symbol="pool2_fwd_kernel", cost_args=_ARGS)
+KERNEL_BWD = CudaKernel("pool2", "pool2_bwd_launch",
+                        [_P] * 3 + [_I] * 5 + [_P],
+                        symbol="pool2_bwd_kernel", cost_args=_ARGS)
 # calls of the plain versions (CPU tensors), and tensors the op had to copy
 # into NHWC-contiguous memory before a launch
 PLAIN = OpCounter()
 COPIES = OpCounter()
+
+
+def cost(name, n, h, w, c, dtype):
+    """(flops, bytes, tf32_passes) of one launch of `name` (pool2_fwd or
+    pool2_bwd) at an (n,h,w,c) input: the forward's three compares per
+    output and the backward's five operations, each input read once, each
+    output written once."""
+    es = itemsize(dtype)
+    if name == "pool2_fwd":
+        return (3.0 * n * (h // 2) * (w // 2) * c, es * n * h * w * c * 5 // 4,
+                0)
+    return 5.0 * n * (h // 2) * (w // 2) * c, es * n * h * w * c * 9 // 4, 0
 
 
 def _pick_th(h, w, c):
@@ -116,7 +134,8 @@ def pool2_fwd(x):
     n, h, w, c = _check("pool2", x)
     y = torch.empty((n, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
     KERNEL_FWD.launch(x.data_ptr(), y.data_ptr(), n, h, w, c,
-                      _DTYPES[x.dtype], stream_of(x), outputs=(y,))
+                      _DTYPES[x.dtype], stream_of(x), outputs=(y,),
+                      shape=(n, h, w, c, x.dtype))
     return y
 
 
@@ -128,7 +147,8 @@ def pool2_bwd(x, g):
     n, h, w, c = _check("pool2_bwd", x, g)
     dx = torch.empty_like(x)
     KERNEL_BWD.launch(x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, h, w, c,
-                      _DTYPES[x.dtype], stream_of(x), outputs=(dx,))
+                      _DTYPES[x.dtype], stream_of(x), outputs=(dx,),
+                      shape=(n, h, w, c, x.dtype))
     return dx
 
 

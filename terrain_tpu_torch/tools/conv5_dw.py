@@ -76,7 +76,8 @@ def _kernels(fn):
         torch.cuda.synchronize()
     return {ev.key[:90]: round(ev.self_device_time_total / 1e3, 4)
             for ev in prof.key_averages()
-            if ev.self_device_time_total > 0}
+            # a CudaKernel.launch label's device span repeats its kernel's
+            if ev.self_device_time_total > 0 and not ev.is_user_annotation}
 
 
 def _err(a, ref):

@@ -206,3 +206,31 @@ def test_checkpoints_cross_packages(nets, two_stage, tmp_path):
     jax.tree.map(np.testing.assert_array_equal, js["dcgan_gen"], sd)
     with pytest.raises(ValueError, match="mode"):
         pipe.load_model(out, mode="gen")
+
+
+def test_a_checkpoint_in_many_gzip_members_reads_in_both_packages(
+        nets, tmp_path, monkeypatch):
+    """save_model writes its pickle as gzip members compressed on host
+    threads; with members far smaller than the payload, terrain_tpu's
+    loader and the port's read back the same arrays."""
+    import zlib
+
+    _, _, (pd, sd), (pu, su), _, _ = nets
+    monkeypatch.setattr(checkpoint, "CHUNK", 4096)
+    out = str(tmp_path / "7.model")
+    checkpoint.save_model(out, {"dcgan_gen": pd, "dcgan_disc": {},
+                                "p2p_gen": pu, "p2p_disc": {}},
+                          {"dcgan_gen": sd, "dcgan_disc": {},
+                           "p2p_gen": su, "p2p_disc": {}},
+                          extra={"lr": 1e-4})
+    with open(out, "rb") as f:
+        raw = f.read()
+    first = zlib.decompressobj(31)
+    first.decompress(raw)
+    assert len(first.unused_data) > 0  # more members follow the first
+    jp, js, _ = jckpt.load_model(out, {}, {})
+    jax.tree.map(np.testing.assert_array_equal, jp["p2p_gen"], pu)
+    jax.tree.map(np.testing.assert_array_equal, js["dcgan_gen"], sd)
+    got, extra = checkpoint.load_model(out)
+    jax.tree.map(np.testing.assert_array_equal, got["dcgan_gen"][0], pd)
+    assert extra == {"lr": 1e-4}

@@ -1,6 +1,6 @@
 """The numerical design of csrc/bilinear_conv.cu and of the stem's forward
 (csrc/conv_stem.cu), emulated on the CPU, and the bound chip_smoke.py
-reckons for them.
+reckons for them (terrain_tpu_torch/utils/roofline.py).
 
 The kernel multiplies the upsampled tile u and the weights w on the TF32
 tensor cores.  One TF32 pass rounds both factors to 11 significant bits, so
@@ -23,9 +23,6 @@ terrain_tpu_torch/tools/bilinear_conv_variants.py builds the same variants
 there.
 """
 
-import importlib.util
-import pathlib
-
 import numpy as np
 import pytest
 import torch
@@ -33,7 +30,6 @@ import torch.nn.functional as F
 
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOL = 1e-4  # x max|ref|: chip_smoke.py's F32_TOL
 
 
@@ -168,21 +164,19 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
     assert torch.equal(hi + lo, v)
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_bilinear_conv_bound_counts_the_tf32_passes():
     """fp32: three TF32 passes at 495 TFLOP/s (the CUDA cores' 67 TFLOP/s
-    figure stays available); bf16: the bf16 tensor cores' 989 TFLOP/s."""
-    cs = _chip_smoke()
+    figure stays available); bf16: the bf16 tensor cores' 989 TFLOP/s.
+    chip_smoke.py bounds each kernel with the package's model, and the
+    kernel's own cost() counts the three passes."""
+    from terrain_tpu_torch.ops.kernels import bilinear_conv
+    from terrain_tpu_torch.utils import roofline as cs
+
     flops = 2.0 * 4 * 4 * 64 * 64 * 9 * 512 * 128   # (4,64²,512)->128
     ms, by = cs.bound_ms(flops, 1e6, True, tf32_passes=3)
     assert by == "operations"
+    assert bilinear_conv.cost("bilinear_conv", 4, 64, 64, 512, 128,
+                              "float32")[::2] == (flops, 3)
     assert ms == pytest.approx(3 * flops / 495e12 * 1e3, rel=1e-12)
     assert ms == pytest.approx(0.46857, rel=1e-4)
     assert cs.bound_ms(flops, 1e6, False)[0] == \
