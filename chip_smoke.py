@@ -10,7 +10,7 @@ Phases (any failure exits non-zero and prints no result line):
      all started together);
   1a. coldstart: a fresh process to the end of one bf16 eager flagship
      step with the libraries already built (and a cold machine's figure:
-     that plus phase 1's nvcc build and the four host g++ builds); a fresh
+     that plus phase 1's nvcc build and the five host g++ builds); a fresh
      TERRAIN_AOT store filled (phase 1's libraries and records copied in,
      then utils/aot.fill); a fresh process with no
      compiler reachable (PATH an empty directory, CUDA_HOME and CUDA_PATH
@@ -132,7 +132,13 @@ Phases (any failure exits non-zero and prints no result line):
      read in a fresh process, its bands held to the strip's, and one
      epoch of `TERRAIN_RASTER=hm.png,<that texture>` (the PNG heightmap
      above) with the first batch against plain slicing and the kernels
-     counted;
+     counted.  Then every committed PNG, TIFF, BMP, WebP, PNM and TGA
+     fixture to imageio's digests, from its bytes and its path, and the
+     TIFF strips as a 21600 x 10800 pair, decoded and trained from.  Then
+     the committed 1024 x 640 WebP pair (lossless heights, q90 texture):
+     each decoded (best of 3: s and MP/s), the first batch against plain
+     slicing, and one epoch of `TERRAIN_RASTER=hm.webp,tex.webp
+     TERRAIN_EPOCH_CROPS=16` with finite losses and the kernels counted;
   7b. inputs: in a child process where h5py, imageio and PIL cannot be
      imported (the card's machine has none): the committed h5py files of
      tests/data/h5 read by data/h5.py to their digests (the latest-libver
@@ -400,11 +406,15 @@ JPEG_STRIP = "strip_21600x32_420_rst.jpg"
 # inputs phase builds a dataset from
 JPEG_PSTRIP = "progressive_strip_21600x32_420_rst.jpg"
 JPEG_PTEXTURE = "progressive_2048x1024_420.jpg"
-# the TIFF, PNG and BMP fixtures (tests/make_raster_fixtures.py, with
-# imageio's digests): each decoded to its digest; the two full-width TIFF
-# strips (8 rows a strip) repeated into a 21600 x 10800 pair, decoded and
-# trained from
-RASTER_FIXTURE_DIRS = ("tiff", "png", "bmp")
+# the TIFF, PNG, BMP, WebP, PNM and TGA fixtures
+# (tests/make_raster_fixtures.py, with imageio's digests): each decoded to
+# its digest; the two full-width TIFF strips (8 rows a strip) repeated into
+# a 21600 x 10800 pair, decoded and trained from; the 1024 x 640 WebP pair
+# (lossless heights, q90 texture) decoded, timed and trained from
+RASTER_FIXTURE_DIRS = ("tiff", "png", "bmp", "webp", "pnm", "tga")
+WEBP_PAIR = ("pillow_pair_hm_1024x640_lossless.webp",
+             "pillow_pair_tex_1024x640_q90.webp")
+WEBP_CROPS = 16  # the WebP epoch: 4 train steps of 512px crops
 TIFF_TEXTURE_STRIP = "strip_21600x32_rgb_lzw.tif"
 TIFF_HEIGHT_STRIP = "strip_21600x32_gray16_deflate.tif"
 # the inputs phase: a child process in which these cannot be imported (the
@@ -2517,6 +2527,8 @@ def raster_slice(torch, card):
         del hm
         tif = raster_tiff(torch, card, root)
         got = {k: got[k] + tif[k] for k in got}
+        wp = raster_webp(torch, card, root)
+        got = {k: got[k] + wp[k] for k in got}
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2574,6 +2586,56 @@ def _repeat_strip(data, height):
     return bytes(out), band, len(intervals)
 
 
+def _raster_epoch(torch, np, what, hm, tex, paths, root, crops):
+    """The raster pair at `paths` (decoded here to hm, uint8 (H, W), and
+    tex): the crop iterator's first batch against plain slicing, then one
+    epoch of `TERRAIN_RASTER=<paths> TERRAIN_EPOCH_CROPS=<crops>
+    EXPERIMENT train` through cli.main with the counters set to 0 just
+    before and read just after: one row of finite losses, every kernel's
+    launches in its train steps.  Returns (counts, wall s, the row)."""
+    import math
+
+    from terrain_tpu_torch import cli
+    from terrain_tpu_torch.data import RasterCropIterator
+    from terrain_tpu_torch.train.losses import TRAIN_KEYS
+
+    it = RasterCropIterator(hm, tex, TRAIN_BATCH, crop=512,
+                            epoch_size=crops, seed=0)
+    x, y = it.next_uint8()
+    px, py = _plain_crops(np, hm, tex, TRAIN_BATCH, 512, 0)
+    if not (np.array_equal(x, px) and np.array_equal(y, py)):
+        fail(f"raster: the {what}'s first batch is not the plain slices of "
+             f"the decoded pair")
+    del it
+    tag = what.split()[0].lower()
+    out = os.path.join(root, f"out_{tag}")
+    os.environ.update({
+        "TERRAIN_RASTER": ",".join(paths), "TERRAIN_EPOCH_CROPS": str(crops),
+        "TERRAIN_EPOCHS": "1", "TERRAIN_OUT": out,
+        "TERRAIN_MODELS": os.path.join(root, f"models_{tag}")})
+    _reset_counters()
+    t0 = time.perf_counter()
+    if cli.main([EXPERIMENT, "train"]) != 0:
+        fail(f"raster: the CLI returned an error on the {what}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counters()
+    with open(os.path.join(out, EXPERIMENT, "results.txt")) as f:
+        header, *rows = [ln.split(",") for ln in f.read().splitlines()]
+    if len(rows) != 1:
+        fail(f"raster: the {what} run's results.txt has {len(rows)} epochs")
+    row = dict(zip(header, rows[0]))
+    if not all(math.isfinite(float(row[f"{s}_{k}"]))
+               for s in ("train", "valid") for k in TRAIN_KEYS):
+        fail(f"raster: a loss of the {what} run is not finite: {row}")
+    n_train = crops // TRAIN_BATCH
+    for k, v in TRAIN_LAUNCHES.items():
+        if got[k] < n_train * v:
+            fail(f"raster: {k} launched {got[k]} times in {n_train} train "
+                 f"steps from the {what}")
+    return got, wall, row
+
+
 def raster_jpeg(torch, card, root, hm_big):
     """JPEG rasters through the port's decoder: each committed fixture
     decoded to imageio's digest (tests/make_jpeg_fixtures.py), the decode
@@ -2585,12 +2647,9 @@ def raster_jpeg(torch, card, root, hm_big):
     crop iterator's first batch equal to plain slicing, the default path's
     kernels launched.  Returns the epoch's launch counts."""
     import hashlib
-    import math
 
     import numpy as np
 
-    from terrain_tpu_torch import cli
-    from terrain_tpu_torch.data import RasterCropIterator
     from terrain_tpu_torch.data.jpeg import decode_jpeg
     from terrain_tpu_torch.serve.png import encode_png
     from terrain_tpu_torch.train.losses import TRAIN_KEYS
@@ -2637,37 +2696,8 @@ def raster_jpeg(torch, card, root, hm_big):
              os.path.join(HERE, JPEG_DIR, JPEG_TEXTURE)]
     with open(paths[0], "wb") as f:
         f.write(encode_png(hm, level=1))
-    it = RasterCropIterator(hm, texture, TRAIN_BATCH, crop=512,
-                            epoch_size=RASTER_CROPS, seed=0)
-    x, y = it.next_uint8()
-    px, py = _plain_crops(np, hm, texture, TRAIN_BATCH, 512, 0)
-    if not (np.array_equal(x, px) and np.array_equal(y, py)):
-        fail("raster: the JPEG texture's first batch is not the plain "
-             "slices of the decoded pair")
-    out = os.path.join(root, "out_jpeg")
-    os.environ.update({"TERRAIN_RASTER": ",".join(paths),
-                       "TERRAIN_EPOCHS": "1", "TERRAIN_OUT": out,
-                       "TERRAIN_MODELS": os.path.join(root, "models_jpeg")})
-    _reset_counters()
-    t0 = time.perf_counter()
-    if cli.main([EXPERIMENT, "train"]) != 0:
-        fail("raster: the CLI returned an error on the JPEG texture")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = _read_counters()
-    with open(os.path.join(out, EXPERIMENT, "results.txt")) as f:
-        header, *rows = [ln.split(",") for ln in f.read().splitlines()]
-    if len(rows) != 1:
-        fail(f"raster: the JPEG run's results.txt has {len(rows)} epochs")
-    row = dict(zip(header, rows[0]))
-    if not all(math.isfinite(float(row[f"{s}_{k}"]))
-               for s in ("train", "valid") for k in TRAIN_KEYS):
-        fail(f"raster: a loss of the JPEG run is not finite: {row}")
-    n_train = RASTER_CROPS // TRAIN_BATCH
-    for k, v in TRAIN_LAUNCHES.items():
-        if got[k] < n_train * v:
-            fail(f"raster: {k} launched {got[k]} times in {n_train} train "
-                 f"steps from the JPEG texture")
+    got, wall, row = _raster_epoch(torch, np, "JPEG texture", hm, texture,
+                                   paths, root, RASTER_CROPS)
     print(f"raster [{card}]: `TERRAIN_RASTER=hm.png,{JPEG_TEXTURE} "
           f"TERRAIN_EPOCH_CROPS={RASTER_CROPS} {EXPERIMENT} train`: {wall:.1f}"
           f" s in all, epoch {float(row['time']):.3f} s; the first batch "
@@ -2839,16 +2869,22 @@ def raster_progressive(torch, np, card, root, strip, hm):
 
 
 def _raster_fixtures(card):
-    """Every committed TIFF, PNG and BMP fixture decoded to imageio's
-    digests (shape, dtype, SHA-256): its bytes by the format's decoder (as
-    imageio decodes bytes, through Pillow), and its path by data/raster.py
-    (as imageio reads a path: a *.tif through its tifffile plugin).
-    Returns the decoded TIFF strips by name."""
+    """Every committed TIFF, PNG, BMP, WebP, PNM and TGA fixture decoded to
+    imageio's digests (shape, dtype, SHA-256): its bytes by the format's
+    decoder (as imageio decodes bytes, through Pillow), and its path by
+    data/raster.py (as imageio reads a path: a *.tif through its tifffile
+    plugin, a *.pbm through OpenCV); where imageio raises on the bytes,
+    the exception the digests name.  Returns the decoded TIFF strips by
+    name."""
+    import builtins
     import hashlib
 
     from terrain_tpu_torch.data.bmp import decode_bmp
+    from terrain_tpu_torch.data.pnm import decode_pnm
     from terrain_tpu_torch.data.raster import read_raster
+    from terrain_tpu_torch.data.tga import decode_tga
     from terrain_tpu_torch.data.tiff import decode_tiff
+    from terrain_tpu_torch.data.webp import decode_webp
     from terrain_tpu_torch.serve.png import read_png
 
     def same(img, want):
@@ -2856,7 +2892,8 @@ def _raster_fixtures(card):
                 hashlib.sha256(img.tobytes()).hexdigest()] == [
                     want["shape"], want["dtype"], want["sha256"]]
 
-    decode = {"tiff": decode_tiff, "png": read_png, "bmp": decode_bmp}
+    decode = {"tiff": decode_tiff, "png": read_png, "bmp": decode_bmp,
+              "webp": decode_webp, "pnm": decode_pnm, "tga": decode_tga}
     strips, counts, t_all = {}, {}, 0.0
     for kind in RASTER_FIXTURE_DIRS:
         d = os.path.join(HERE, "tests", "data", kind)
@@ -2868,24 +2905,28 @@ def _raster_fixtures(card):
             path = os.path.join(d, name)
             with open(path, "rb") as f:
                 data = f.read()
-            if "refused" in want:  # refused by name, from bytes and path
-                for read in (lambda: decode[kind](data),
-                             lambda: read_raster(path)):
-                    try:
-                        read()
-                        fail(f"raster: {kind}/{name} was decoded")
-                    except NotImplementedError as e:
-                        if want["refused"] not in str(e):
-                            fail(f"raster: {kind}/{name} refused as {e}")
+            refused = [(read, want["refused"]) for read in (
+                lambda: decode[kind](data), lambda: read_raster(path))
+                ] if "refused" in want else []
+            if "path_refused" in want:
+                refused = [(lambda: read_raster(path), want["path_refused"])]
+            for read, words in refused:  # refused by name
+                try:
+                    read()
+                    fail(f"raster: {kind}/{name} was decoded")
+                except NotImplementedError as e:
+                    if words not in str(e):
+                        fail(f"raster: {kind}/{name} refused as {e}")
+            if "refused" in want:
                 counts["refused"] = counts.get("refused", 0) + 1
                 continue
             t0 = time.perf_counter()
-            if "error" in want:  # Pillow raises OSError on its bytes
+            if "error" in want:  # imageio raises on its bytes
                 try:
                     decode[kind](data)
-                    fail(f"raster: {kind}/{name} decoded where Pillow "
+                    fail(f"raster: {kind}/{name} decoded where imageio "
                          f"raises")
-                except OSError:
+                except getattr(builtins, want["error"]):
                     pass
             else:
                 img = decode[kind](data)
@@ -2895,17 +2936,18 @@ def _raster_fixtures(card):
                          f"{want['dtype']} (or other bytes)")
             t_all += time.perf_counter() - t0
             by_path = want.get("path", want)
-            if by_path is not None and not same(read_raster(path), by_path):
+            if by_path is not None and "path_refused" not in want and \
+                    not same(read_raster(path), by_path):
                 fail(f"raster: {kind}/{name} read by its path is not "
                      f"imageio's {by_path['shape']} {by_path['dtype']}")
             if name.startswith("strip_"):
                 strips[name] = img
             counts[kind] = counts.get(kind, 0) + 1
-    print(f"raster [{card}]: {counts} fixtures (every PNG, TIFF and BMP "
-          f"variant the port takes; where Pillow raises on the bytes, the "
-          f"port too) decoded to imageio's shapes, dtypes and SHA-256 in "
-          f"{t_all:.2f} s, from their bytes and from their paths; the "
-          f"refused ones refused by name", flush=True)
+    print(f"raster [{card}]: {counts} fixtures (every PNG, TIFF, BMP, WebP, "
+          f"PNM and TGA variant the port takes; where imageio raises on the "
+          f"bytes, the port too) decoded to imageio's shapes, dtypes and "
+          f"SHA-256 in {t_all:.2f} s, from their bytes and from their "
+          f"paths; the refused ones refused by name", flush=True)
     return strips
 
 
@@ -2969,14 +3011,10 @@ def raster_tiff(torch, card, root):
     test1_nobn_bilin_both train` through cli.main, its first batch against
     plain slicing of the decoded pair (the heights cast to uint8 as both
     packages cast them).  Returns the epoch's launch counts."""
-    import math
 
     import numpy as np
 
-    from terrain_tpu_torch import cli
-    from terrain_tpu_torch.data import RasterCropIterator
     from terrain_tpu_torch.data.tiff import decode_tiff
-    from terrain_tpu_torch.train.losses import TRAIN_KEYS
 
     strips = _raster_fixtures(card)
     paths, decoded = {}, {}
@@ -3015,45 +3053,56 @@ def raster_tiff(torch, card, root):
           f"{peak['peak'] / 1e6:.1f} MB above the process's before it "
           f"({peak['samples']} samples of VmRSS; the output "
           f"{peak['out'] / 1e6:.1f} MB)", flush=True)
-    hm8 = np.asarray(decoded["hm"], np.uint8)
-    it = RasterCropIterator(decoded["hm"], decoded["tex"], TRAIN_BATCH,
-                            crop=512, epoch_size=RASTER_CROPS, seed=0)
-    x, y = it.next_uint8()
-    px, py = _plain_crops(np, hm8, decoded["tex"], TRAIN_BATCH, 512, 0)
-    if not (np.array_equal(x, px) and np.array_equal(y, py)):
-        fail("raster: the TIFF pair's first batch is not the plain slices "
-             "of the decoded pair")
-    del decoded, hm8, it
-    out = os.path.join(root, "out_tiff")
-    os.environ.update({
-        "TERRAIN_RASTER": f"{paths['hm']},{paths['tex']}",
-        "TERRAIN_EPOCHS": "1", "TERRAIN_OUT": out,
-        "TERRAIN_MODELS": os.path.join(root, "models_tiff")})
-    _reset_counters()
-    t0 = time.perf_counter()
-    if cli.main([EXPERIMENT, "train"]) != 0:
-        fail("raster: the CLI returned an error on the TIFF pair")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = _read_counters()
-    with open(os.path.join(out, EXPERIMENT, "results.txt")) as f:
-        header, *rows = [ln.split(",") for ln in f.read().splitlines()]
-    if len(rows) != 1:
-        fail(f"raster: the TIFF run's results.txt has {len(rows)} epochs")
-    row = dict(zip(header, rows[0]))
-    if not all(math.isfinite(float(row[f"{s}_{k}"]))
-               for s in ("train", "valid") for k in TRAIN_KEYS):
-        fail(f"raster: a loss of the TIFF run is not finite: {row}")
-    n_train = RASTER_CROPS // TRAIN_BATCH
-    for k, v in TRAIN_LAUNCHES.items():
-        if got[k] < n_train * v:
-            fail(f"raster: {k} launched {got[k]} times in {n_train} train "
-                 f"steps from the TIFF pair")
+    got, wall, row = _raster_epoch(
+        torch, np, "TIFF pair", np.asarray(decoded["hm"], np.uint8),
+        decoded["tex"], [paths["hm"], paths["tex"]], root, RASTER_CROPS)
     print(f"raster [{card}]: `TERRAIN_RASTER=hm.tif,tex.tif "
           f"TERRAIN_EPOCH_CROPS={RASTER_CROPS} {EXPERIMENT} train` "
           f"(21600x10800 16-bit deflate heights + LZW texture): {wall:.1f} s "
           f"in all (both decoded again), epoch {float(row['time']):.3f} s; "
           f"the first batch equals plain slicing; launches "
+          f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
+    return got
+
+
+def raster_webp(torch, card, root):
+    """WebP rasters through the port's decoder: the committed 1024 x 640
+    pair (lossless heights with ocean zeros, a q90 lossy texture) decoded
+    from its bytes (the best of 3 timed: s and MP/s each), the crop
+    iterator's first batch against plain slicing, then one epoch of
+    `TERRAIN_RASTER=hm.webp,tex.webp TERRAIN_EPOCH_CROPS=16
+    test1_nobn_bilin_both train` through cli.main: finite losses and the
+    train steps' launches of every kernel.  Returns the epoch's counts."""
+    import math
+
+    import numpy as np
+
+    from terrain_tpu_torch.data.webp import decode_webp
+
+    d = os.path.join(HERE, "tests", "data", "webp")
+    paths, decoded = {}, {}
+    for label, name in zip(("hm", "tex"), WEBP_PAIR):
+        paths[label] = os.path.join(d, name)
+        with open(paths[label], "rb") as f:
+            data = f.read()
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = decode_webp(data)
+            best = min(best, time.perf_counter() - t0)
+        mp = img.shape[0] * img.shape[1] / 1e6
+        print(f"raster [{card}]: the WebP {label} {name} ({len(data)} "
+              f"bytes) decoded to {img.shape} {img.dtype} in {best:.4f} s "
+              f"(best of 3): {mp / best:.1f} MP/s on the host", flush=True)
+        decoded[label] = img
+    got, wall, row = _raster_epoch(
+        torch, np, "WebP pair", decoded["hm"][..., 0], decoded["tex"],
+        [paths["hm"], paths["tex"]], root, WEBP_CROPS)
+    print(f"raster [{card}]: `TERRAIN_RASTER=hm.webp,tex.webp "
+          f"TERRAIN_EPOCH_CROPS={WEBP_CROPS} {EXPERIMENT} train` (1024x640 "
+          f"lossless heights + q90 texture): {wall:.1f} s in all (both "
+          f"decoded again), epoch {float(row['time']):.3f} s; the first "
+          f"batch equals plain slicing; launches "
           f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
     return got
 
@@ -6696,7 +6745,7 @@ def coldstart_slice(torch, card, build_s):
         records = {os.path.basename(p): aot.read_record(p) for p in paths}
         print(f"coldstart [{card}]: the store {sorted(os.listdir(store))}; "
               f"filled in {fill_s:.1f} s (phase 1's six CUDA libraries "
-              f"copied in, their records checked, the four host libraries "
+              f"copied in, their records checked, the five host libraries "
               f"built); a record {records[os.path.basename(paths[0])]}",
               flush=True)
         if len(paths) != len(_build.SOURCES) + len(_build.HOST_SOURCES) or \
@@ -6728,7 +6777,7 @@ def coldstart_slice(torch, card, build_s):
               f"libraries built in _build/ {warm_wall:.1f} s (imports "
               f"{warm['main_s']:.1f}, model {warm['built_s']:.1f}, step "
               f"{warm['step_s']:.1f}); a cold machine adds phase 1's nvcc "
-              f"build {build_s:.1f} s and the four g++ builds {host_s:.1f} s: "
+              f"build {build_s:.1f} s and the five g++ builds {host_s:.1f} s: "
               f"{warm_wall + build_s + host_s:.1f} s; from a TERRAIN_AOT "
               f"store with no compiler reachable (PATH an empty directory, "
               f"CUDA_HOME unset; found {got['compilers']}) {got_wall:.1f} s "

@@ -1,5 +1,5 @@
-// The byte-level decoders of terrain_tpu_torch/data/tiff.py and data/bmp.py,
-// in host C++.
+// The byte-level decoders of terrain_tpu_torch/data/tiff.py, data/bmp.py and
+// data/tga.py, in host C++.
 //
 // The JAX package reads its rasters with imageio, through Pillow, which
 // decodes a compressed TIFF with libtiff and a run-length BMP with its own
@@ -16,7 +16,11 @@
 //   * bmp_rle: Pillow's BmpRleDecoder (BmpImagePlugin.py) for BI_RLE8 and
 //     BI_RLE4, quirks included: a delta escape reads two more bytes than
 //     it names and moves by those, an odd RLE4 absolute run drops its last
-//     pixel, and an absolute run's padding follows the file position.
+//     pixel, and an absolute run's padding follows the file position;
+//   * tga_rle: Pillow's TgaRleDecode.c for run-length TGA: a repeat packet
+//     must end within its row (Pillow: "buffer overrun"), a literal packet
+//     runs on into the rows after, and whatever follows the last row is
+//     ignored.
 // A 21600x10800 RGB TIFF is ~700 MB of pixels: a Python loop over it would
 // take hours, these take seconds, and tiff.py runs its strips or tiles on
 // several threads (ctypes lets go of the GIL during each call).
@@ -274,6 +278,40 @@ extern "C" int bmp_rle(const uint8_t* src, int64_t n, int rle4,
       if (have < want) break;
       x += byte;
       if ((p + base_parity) % 2 != 0) ++p;
+    }
+  }
+  return kOk;
+}
+
+// Run-length TGA packets -> the rows as stored (height rows of width
+// pixels of bpp bytes).  Returns kMalformed where the packets end before
+// the last row or a repeat packet crosses a row's end.
+extern "C" int tga_rle(const uint8_t* src, int64_t n, int bpp, int64_t width,
+                       int64_t height, uint8_t* out, char* msg,
+                       int64_t msg_len) {
+  const int64_t row = width * bpp, total = row * height;
+  int64_t len = 0, p = 0;
+  while (len < total) {
+    if (p >= n)
+      return fail(kMalformed, msg, msg_len, "TGA: the run-length data is cut short");
+    const int64_t count = (src[p] & 0x7f) + 1;
+    if (src[p] & 0x80) {
+      if (p + 1 + bpp > n)
+        return fail(kMalformed, msg, msg_len, "TGA: a repeat packet is cut short");
+      if (len % row + count * bpp > row)
+        return fail(kMalformed, msg, msg_len,
+                    "TGA: a repeat packet crosses the end of a row");
+      for (int64_t i = 0; i < count; ++i, len += bpp)
+        std::memcpy(out + len, src + p + 1, bpp);
+      p += 1 + bpp;
+    } else {
+      const int64_t bytes = count * bpp;
+      if (p + 1 + bytes > n)
+        return fail(kMalformed, msg, msg_len, "TGA: a literal packet is cut short");
+      const int64_t take = bytes < total - len ? bytes : total - len;
+      std::memcpy(out + len, src + p + 1, take);
+      len += take;
+      p += 1 + bytes;
     }
   }
   return kOk;

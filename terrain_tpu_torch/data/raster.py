@@ -8,48 +8,76 @@ package's reader):
                         deflate, PackBits; gray, RGB, palette, CMYK,
                         YCbCr, CIELab; Orientation 1-8
   BMP   data/bmp.py     uncompressed, BI_BITFIELDS, RLE8 and RLE4
+  WebP  data/webp.py    VP8L (lossless), VP8 (lossy), ALPH alpha
+  PNM   data/pnm.py     P1-P6 plain and binary, maxval 1-65535, Pf floats
+  TGA   data/tga.py     types 1-3 and their run-length forms, by name only
+                        (*.tga, *.icb, *.vda, *.vst: TGA has no magic)
 GIF is refused by name: imageio gives it a frame axis that the JAX
 package's crop iterator does not take, so terrain_tpu cannot train from
 one either (serve/gif.py writes and reads the port's clips, not rasters).
-WebP is refused by name until the port has a VP8 decoder; a TIFF that
-imageio's tifffile plugin cannot read at a *.tif path (JPEG in TIFF,
-subsampled YCbCr) is refused by name in data/tiff.py."""
+JPEG 2000 is refused by name until the port has its decoder, and so is a
+*.pfm path (imageio reads it through OpenCV, not Pillow); what a decoder
+does not take is refused by name there: a TIFF that imageio's tifffile
+plugin cannot read at a *.tif path (JPEG in TIFF, subsampled YCbCr), an
+animated WebP, a PNM kind that imageio reads through OpenCV (PF, P7, a
+*.pbm path holding anything but a bitmap)."""
 
 import os
 
+from terrain_tpu_torch.data import pnm, tga
 from terrain_tpu_torch.data.bmp import decode_bmp
 from terrain_tpu_torch.data.bmp import read_header as bmp_header
 from terrain_tpu_torch.data.jpeg import decode_jpeg
 from terrain_tpu_torch.data.tiff import imread_like as read_tiff
 from terrain_tpu_torch.data.tiff import read_header_like as tiff_header
+from terrain_tpu_torch.data.webp import decode_webp
+from terrain_tpu_torch.data.webp import read_header as webp_header
 from terrain_tpu_torch.serve.png import read_png
 
 # raster formats by file extension and by magic
+_PNM = dict.fromkeys(m[:2] for m in pnm.MAGICS)  # P1-P6, Pf, P0, Py, PF, P7
 _EXT = {".png": "PNG", ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
         ".tif": "TIFF", ".tiff": "TIFF", ".bmp": "BMP", ".dib": "BMP",
-        ".gif": "GIF", ".webp": "WebP"}
+        ".gif": "GIF", ".webp": "WebP", ".pbm": "PNM", ".pgm": "PNM",
+        ".ppm": "PNM", ".pnm": "PNM", ".pfm": "PFM", ".jp2": "JPEG 2000",
+        ".j2k": "JPEG 2000", ".jpx": "JPEG 2000", ".j2c": "JPEG 2000",
+        **{ext: "TGA" for ext in tga.EXTENSIONS}}
 _MAGIC = ((b"\x89PNG\r\n\x1a\n", "PNG"), (b"\xff\xd8\xff", "JPEG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
           (b"MM\x00+", "TIFF"), (b"GIF8", "GIF"), (b"BM", "BMP"),
-          (b"RIFF", "WebP"))
+          (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+          (b"\xffO\xffQ", "JPEG 2000"),
+          *((m, "PNM") for m in _PNM))
 _REFUSED = {
     "GIF": "imageio gives a GIF a frame axis, (1, H, W) or (1, H, W, 3), "
            "which terrain_tpu's crop iterator refuses, so neither package "
            "trains from one: convert it to PNG",
-    "WebP": "a WebP decoder (VP8/VP8L) is queued, not yet written: convert "
-            "it to PNG",
+    "JPEG 2000": "a JPEG 2000 decoder (EBCOT and the 5/3 and 9/7 "
+                 "wavelets) is queued, not yet written: convert it to PNG",
+    "PFM": "imageio reads a *.pfm path through OpenCV, not Pillow, and the "
+           "port does not reproduce OpenCV's reading: convert it to PNG",
 }
-_DECODERS = {"JPEG": decode_jpeg, "BMP": decode_bmp, "PNG": read_png}
+_DECODED = ("PNG", "JPEG", "TIFF", "BMP", "WebP", "PNM", "TGA")
+_DECODERS = {"JPEG": decode_jpeg, "BMP": decode_bmp, "PNG": read_png,
+             "WebP": decode_webp, "TGA": tga.decode_tga}
 
 
 def _refuse_unless_decoded(path, fmt):
     if fmt in _REFUSED:
         raise NotImplementedError(
             f"TERRAIN_RASTER: {path} is {fmt}; {_REFUSED[fmt]}")
-    if fmt not in ("PNG", "JPEG", "TIFF", "BMP"):
+    if fmt not in _DECODED:
         raise NotImplementedError(
             f"TERRAIN_RASTER: {path} is {fmt}; the port decodes PNG, JPEG, "
-            f"TIFF and BMP rasters, with its own codecs")
+            f"TIFF, BMP, WebP, PNM and TGA rasters, with its own codecs")
+
+
+def _sniff(head):
+    """The format that the first bytes of a file name, or None."""
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    return next((name for magic, name in _MAGIC if head.startswith(magic)),
+                None)
 
 
 def format_by_name(path):
@@ -61,35 +89,47 @@ def format_by_name(path):
 
 
 def format_of(path):
-    """The raster format of `path` by its name, then by its first bytes;
-    NotImplementedError unless the port decodes it."""
-    format_by_name(path)
+    """The raster format of `path` by its name, then by its first bytes (a
+    TGA, which has no magic, by its name alone); NotImplementedError unless
+    the port decodes it."""
+    by_name = format_by_name(path)
     with open(path, "rb") as f:
-        head = f.read(8)
-    fmt = next((name for magic, name in _MAGIC if head.startswith(magic)),
-               "of an unknown format")
+        head = f.read(16)
+    fmt = _sniff(head) or ("TGA" if by_name == "TGA"
+                           else "of an unknown format")
     _refuse_unless_decoded(path, fmt)
     return fmt
 
 
 def check_header(path, fmt):
     """Raise NotImplementedError where the header of `path` (a TIFF's first
-    IFD, a BMP's headers) names a variant the port does not decode, before
-    any pixel is decoded."""
+    IFD, a BMP's headers, a WebP's chunks, a PNM's magic) names a variant
+    the port does not decode, before any pixel is decoded; ValueError
+    where it is damaged."""
     if fmt == "TIFF":
         tiff_header(path)
-    elif fmt == "BMP":
-        with open(path, "rb") as f:
+        return
+    with open(path, "rb") as f:
+        if fmt == "BMP":
             bmp_header(f.read(1 << 19))  # the headers and any palette
+        elif fmt == "WebP":
+            webp_header(f.read())
+        elif fmt == "PNM":
+            pnm.check_kind(path, f.read(8))
+        elif fmt == "TGA":
+            tga.read_header(f.read(18))
 
 
 def read_raster(path, fmt=None):
-    """A PNG, JPEG, TIFF or BMP raster decoded by the port's codecs to the
-    array imageio.v3.imread(path) gives: its shape, dtype and bytes (a TIFF
-    named *.tif through imageio's tifffile plugin, data/tiff.py; mapped,
-    not read, so a large one is never held twice)."""
+    """A raster decoded by the port's codecs to the array
+    imageio.v3.imread(path) gives: its shape, dtype and bytes (a TIFF named
+    *.tif through imageio's tifffile plugin, data/tiff.py, mapped, not
+    read, so a large one is never held twice; a *.pbm through its OpenCV
+    plugin, data/pnm.py)."""
     fmt = fmt or format_of(path)
     if fmt == "TIFF":
         return read_tiff(path)
+    if fmt == "PNM":
+        return pnm.read_pnm(path)
     with open(path, "rb") as f:
         return _DECODERS[fmt](f.read())

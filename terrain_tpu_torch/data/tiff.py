@@ -110,6 +110,10 @@ def _lib():
         ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p,
         ctypes.c_int64]
     lib.bmp_rle.restype = ctypes.c_int
+    lib.tga_rle.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+    lib.tga_rle.restype = ctypes.c_int
     return lib
 
 

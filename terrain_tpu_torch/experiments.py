@@ -19,11 +19,11 @@ Environment, as in terrain_tpu:
   TERRAIN_FAST       "1" -> the dataset lives on the device (DeviceDataset)
   TERRAIN_RASTER     "heightmap.png,texture.jpg" -> random crops cut on the
                      fly from one raster pair (data/crops.py); before the
-                     synthetic and h5 sources, TERRAIN_FAST ignored.  PNG
-                     (8- or 16-bit, not interlaced or palette) or JPEG
-                     (baseline or progressive; the port's own decoders);
-                     TIFF, GIF, BMP, WebP and the JPEG kinds data/jpeg.py
-                     does not take (lossless, arithmetic-coded, ...) raise
+                     synthetic and h5 sources, TERRAIN_FAST ignored.  PNG,
+                     JPEG, TIFF, BMP, WebP, PNM or TGA, decoded by the
+                     port's own codecs (data/raster.py); GIF, JPEG 2000 and
+                     the kinds a codec does not take (an animated WebP,
+                     lossless or arithmetic-coded JPEG, ...) raise
   TERRAIN_EPOCH_CROPS  crops per train epoch of TERRAIN_RASTER (default
                      240; the valid pass takes a tenth, at least a batch)
   TERRAIN_DTYPE=bf16 bf16 compute over fp32 parameters
@@ -336,17 +336,18 @@ def get_device_datasets(dataset, is_a_grayscale, is_b_grayscale, device=None):
 
 def read_raster_pair(value):
     """TERRAIN_RASTER="heightmap.png,texture.jpg" -> (heightmap, texture),
-    each a PNG, JPEG, TIFF or BMP decoded by the port's codecs
-    (data/raster.py) to imageio's array, then taken as
+    each a PNG, JPEG, TIFF, BMP, WebP, PNM or TGA decoded by the port's
+    codecs (data/raster.py) to imageio's array, then taken as
     terrain_tpu/experiments.py:111-114 takes it: the heightmap's first
-    channel where it has channels, the texture's first three; the crop
-    iterator then casts both to uint8 as terrain_tpu's does (a uint16
-    wraps, a bool gives 0/1, a float truncates).  A file named or starting
-    as another format (GIF, WebP) raises NotImplementedError, by name
-    before any file is opened, by its first bytes before either is
-    decoded; so does a TIFF or BMP whose header names a variant the codec
-    does not take (a JPEG-compressed or BigTIFF file, CMYK), and a JPEG
-    of another kind as it is decoded (data/jpeg.py)."""
+    channel where it has channels (a WebP always has three), the
+    texture's first three; the crop iterator then casts both to uint8 as
+    terrain_tpu's does (a uint16 or int32 wraps, a bool gives 0/1, a
+    float truncates).  A file named or starting as another format (GIF,
+    JPEG 2000) raises NotImplementedError, by name before any file is
+    opened, by its first bytes before either is decoded; so does a file
+    whose header names a variant its codec does not take (a
+    JPEG-compressed TIFF, an animated WebP, a PAM), and a JPEG of another
+    kind as it is decoded (data/jpeg.py)."""
     paths = value.split(",")
     if len(paths) != 2:
         raise ValueError(f"TERRAIN_RASTER={value!r}: expected "

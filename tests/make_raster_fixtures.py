@@ -1,5 +1,5 @@
-"""Write the PNG, TIFF and BMP fixtures of tests/data/{png,tiff,bmp}/ and
-their digests.
+"""Write the PNG, TIFF, BMP, WebP, PNM and TGA fixtures of
+tests/data/{png,tiff,bmp,webp,pnm,tga}/ and their digests.
 
     python tests/make_raster_fixtures.py [directory]   # default tests/data
 
@@ -26,15 +26,31 @@ predictor, no RLE BMP) and, where Pillow writes the kind, by Pillow:
          colours), BI_RLE8 and BI_RLE4 (every escape), 16 bits (5-5-5 and
          5-6-5), 24 and 32 bits (BI_RGB and BI_BITFIELDS with alpha),
          bottom-up and top-down, the core, info, v4 and v5 headers
+  webp/  Pillow's lossy files at quality 0-100 and method 0, 4, 6, lossless
+         ones, palettes of 2, 3, 11 and 200 colours, RGBA (exact, alpha
+         quality 50 and 100), gray, 1x1, 17x33 and 257x513, VP8X with ICCP
+         and EXIF, animations (refused); VP8 frames re-coded with the
+         simple filter, sharpness, filter deltas, 2-8 token partitions
+         (tests/vp8_bits.py); ALPH raw and VP8L-coded with each filter; the
+         VP8X layouts Pillow does not write; damaged files; and the
+         1024x640 pair chip_smoke.py's raster phase trains from
+  pnm/   P1-P6 plain and binary at maxval 1-65535, comments, Pf both byte
+         orders, P0CMYK/PyRGBA/PyCMYK, Pillow's files, bitmaps at *.pbm
+         paths (imageio reads them through OpenCV), the kinds refused
+  tga/   types 1-3 and 9-11 at every depth Pillow reads, 16- and 24-bit
+         colour maps, the four origins, ID fields, literals running on
+         across rows, Pillow's files, and what Pillow cannot read
 Each directory's digests.json holds, for each file, its size, the shape,
 dtype and SHA-256 of the array imageio.v3.imread decodes from its bytes
 (through Pillow; where Pillow raises OSError -- a truncated read, or a
-big-endian BigTIFF it cannot open -- "error" says so instead),
-for a TIFF also under "path" those of imageio's decode of the file by its
-*.tif name (through imageio's tifffile plugin, as the JAX package reads
-TERRAIN_RASTER; null where no plugin reads it), under "refused" the words
-the port's refusal names a file by (JPEG in TIFF), and under "reference"
-the Pillow, imageio and libtiff versions.  The committed PNG that
+big-endian BigTIFF it cannot open -- "error" says so instead; for a WebP,
+PNM or TGA "error" is ValueError, what the port raises wherever imageio
+fails), for a TIFF, WebP, PNM or TGA also under "path" those of imageio's
+decode of the file by its name (a *.tif through imageio's tifffile
+plugin, a *.pbm through OpenCV, as the JAX package reads TERRAIN_RASTER;
+null where no plugin reads it), under "refused" (or "path_refused", at
+its path only) the words the port's refusal names a file by, and under
+"reference" the Pillow, imageio, libtiff (and libwebp) versions.  The committed PNG that
 no script writes (terrain_48x40_rgb_5filters.png) keeps its entry.
 Pillow and imageio are needed here, not on the card: chip_smoke.py holds
 the port's decoders to the committed digests, and the port's tests re-run
@@ -604,7 +620,16 @@ def tiff_kinds(tex):
 
 
 # the fixtures the port refuses by name, with the words it names them by
-REFUSED = {"pillow_jpeg_refused.tif": "compression 7 (JPEG)"}
+REFUSED = {"pillow_jpeg_refused.tif": "compression 7 (JPEG)",
+           "pillow_animated_2_frames.webp": "an animated file",
+           "animated_1_frame.webp": "an animated file",
+           "pam_refused.pgm": "P7 (PAM)",
+           "pf_colour_refused.ppm": "PF (colour PFM)",
+           "pyp_refused.pgm": "PyP"}
+# refused at their path only (the bytes decode through Pillow)
+PATH_REFUSED = {"gray_at_pbm_path_refused.pbm": "a *.pbm path holding P5"}
+# the kinds whose decoders raise ValueError wherever imageio fails
+VALUE_ERROR_KINDS = ("webp", "pnm", "tga")
 
 
 def strip_heights(h, w, seed=5):
@@ -792,6 +817,357 @@ def bmp_fixtures():
     return out
 
 
+# ------------------------------------------------------------------- WebP
+def _riff(chunks):
+    """A WebP file of (tag, payload) chunks, each padded to even length."""
+    body = b"WEBP" + b"".join(
+        tag + struct.pack("<I", len(c)) + c + b"\0" * (len(c) & 1)
+        for tag, c in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def _chunks(data):
+    out, p = [], 12
+    while p < len(data):
+        (n,) = struct.unpack("<I", data[p + 4:p + 8])
+        out.append((data[p:p + 4], data[p + 8:p + 8 + n]))
+        p += 8 + n + (n & 1)
+    return out
+
+
+def _vp8x(w, h, alpha):
+    return (b"VP8X", bytes([0x10 if alpha else 0, 0, 0, 0])
+            + struct.pack("<I", w - 1)[:3] + struct.pack("<I", h - 1)[:3])
+
+
+def _alpha_filter(a, kind):
+    """The deltas ALPH's filter `kind` (1 horizontal, 2 vertical, 3
+    gradient) leaves of the plane a, libwebp's unfilter undoing them."""
+    a = a.astype(np.int32)
+    pred = np.zeros_like(a)
+    pred[0, 1:] = a[0, :-1]
+    pred[1:, 0] = a[:-1, 0]
+    if kind == 1:
+        pred[1:, 1:] = a[1:, :-1]
+    elif kind == 2:
+        pred[1:, 1:] = a[:-1, 1:]
+    elif kind == 3:
+        pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    return ((a - pred) % 256).astype(np.uint8)
+
+
+def _alph(plane, kind, compressed):
+    """An ALPH payload: the header byte, then the filtered plane raw or as
+    a VP8L image stream (Pillow's lossless encoding of it as gray, without
+    the stream's 5-byte header: the green channel is the alpha)."""
+    from PIL import Image
+
+    deltas = _alpha_filter(plane, kind) if kind else plane
+    if not compressed:
+        return bytes([kind << 2]) + deltas.tobytes()
+    vp8l = _chunks(_pillow(Image.fromarray(deltas), "WEBP", lossless=True,
+                           method=4))[0][1]
+    return bytes([1 | kind << 2]) + vp8l[5:]
+
+
+def webp_pair():
+    """The 1024x640 pair chip_smoke.py's raster phase times and trains
+    from: lossless heights (ocean zeros) and a q90 lossy texture."""
+    tex = terrain(640, 1024, 61)
+    hm = np.where(tex[..., 0] > 30, tex[..., 1], 0).astype(np.uint8)
+    return hm, tex
+
+
+def webp_fixtures():
+    """Pillow's files (every quality and method, palettes, alpha, gray, odd
+    sizes, VP8X with ICCP and EXIF, animations) and the kinds Pillow
+    cannot write, built here: the simple loop filter, sharpness, filter
+    deltas and several token partitions (tests/vp8_bits.py), raw and
+    VP8L-coded ALPH chunks with each filter, VP8X layouts Pillow does not
+    make, and damaged files."""
+    sys.path.insert(0, HERE)
+    import vp8_bits
+    from PIL import Image
+
+    out = {}
+    tex = terrain(48, 64, 41)
+    img = Image.fromarray(tex)
+    for q in (0, 5, 50, 90, 100):
+        for m in (0, 4, 6):
+            out[f"pillow_lossy_q{q}_m{m}.webp"] = _pillow(
+                img, "WEBP", quality=q, method=m)
+    for q in (0, 50, 100):
+        for m in (0, 6):
+            out[f"pillow_lossless_q{q}_m{m}.webp"] = _pillow(
+                img, "WEBP", lossless=True, quality=q, method=m)
+    rnd = np.random.RandomState(43)
+    for k in (2, 3, 11, 200):  # colour indexing: 8, 4, 2 and 1 a byte
+        pal = rnd.randint(0, 256, (k, 3)).astype(np.uint8)
+        idx = (np.arange(37 * 29).reshape(37, 29) // 5 + rnd.randint(
+            0, 2, (37, 29))) % k
+        out[f"pillow_palette{k}.webp"] = _pillow(
+            Image.fromarray(pal[idx]), "WEBP", lossless=True)
+    rgba = terrain(40, 56, 44, 4)
+    rgba[..., 3] = (np.arange(56)[None] * 4 + rnd.randint(0, 40, (40, 56))
+                    ).clip(0, 255)
+    rgba_img = Image.fromarray(rgba)
+    out["pillow_rgba_lossless_exact.webp"] = _pillow(
+        rgba_img, "WEBP", lossless=True, exact=True)
+    out["pillow_rgba_lossless.webp"] = _pillow(rgba_img, "WEBP",
+                                               lossless=True)
+    for aq in (50, 100):
+        out[f"pillow_rgba_lossy_aq{aq}.webp"] = _pillow(
+            rgba_img, "WEBP", quality=80, alpha_quality=aq)
+    out["pillow_rgba_lossy_m6.webp"] = _pillow(rgba_img, "WEBP", quality=60,
+                                               method=6)
+    gray = Image.fromarray(tex[..., 0])
+    out["pillow_gray_lossy.webp"] = _pillow(gray, "WEBP", quality=75)
+    out["pillow_gray_lossless.webp"] = _pillow(gray, "WEBP", lossless=True)
+    for h, w in ((1, 1), (17, 33), (257, 513)):
+        with np.errstate(invalid="ignore"):  # 1x1: one height, no range
+            sized = Image.fromarray(terrain(h, w, 45))
+        out[f"pillow_lossy_{h}x{w}.webp"] = _pillow(sized, "WEBP",
+                                                    quality=70)
+        out[f"pillow_lossless_{h}x{w}.webp"] = _pillow(
+            sized, "WEBP", lossless=True, quality=0, method=0)
+    out["pillow_vp8x_iccp_exif_lossless.webp"] = _pillow(
+        rgba_img, "WEBP", lossless=True, icc_profile=b"\x00" * 13,
+        exif=b"Exif\x00\x00MM\x00*\x00\x00\x00\x08" + bytes(6))
+    out["pillow_vp8x_iccp_lossy.webp"] = _pillow(img, "WEBP", quality=60,
+                                                 icc_profile=b"\x01" * 9)
+    frames = [Image.fromarray(terrain(24, 32, s)) for s in (46, 47)]
+    out["pillow_animated_2_frames.webp"] = _pillow(
+        frames[0], "WEBP", save_all=True, append_images=frames[1:],
+        lossless=True)
+    still = _chunks(_pillow(frames[0], "WEBP", lossless=True))[0]
+    anmf = bytes(6) + struct.pack("<I", 31)[:3] + struct.pack("<I", 23)[:3] \
+        + struct.pack("<I", 40)[:3] + b"\x00" + still[0] \
+        + struct.pack("<I", len(still[1])) + still[1] + b"\0" * (
+            len(still[1]) & 1)
+    out["animated_1_frame.webp"] = _riff([
+        (b"VP8X", bytes([0x02, 0, 0, 0]) + struct.pack("<I", 31)[:3]
+         + struct.pack("<I", 23)[:3]),
+        (b"ANIM", bytes(4) + b"\x00\x00"), (b"ANMF", anmf)])
+    hm, pair_tex = webp_pair()
+    out["pillow_pair_hm_1024x640_lossless.webp"] = _pillow(
+        Image.fromarray(hm), "WEBP", lossless=True)
+    out["pillow_pair_tex_1024x640_q90.webp"] = _pillow(
+        Image.fromarray(pair_tex), "WEBP", quality=90)
+    # VP8 frames re-coded with the header changed (eight macroblock rows,
+    # so eight partitions all hold tokens)
+    for q in (90, 30):
+        frame = vp8_bits.Frame(_chunks(_pillow(
+            Image.fromarray(terrain(136, 72, 48)), "WEBP", quality=q))[0][1])
+        for name, kw in (
+                ("simple", {"simple": 1}),
+                ("simple_sharp7_parts4", {"simple": 1, "sharpness": 7,
+                                          "parts": 4}),
+                ("sharp3", {"sharpness": 3}),
+                ("deltas", {"deltas": ([5, 0, 0, 0], [-9, 0, 0, 0])}),
+                ("deltas_level40", {"deltas": ([-20, 3, 0, 0], [30, 0, 0, 0]),
+                                    "level": 40}),
+                ("level0", {"level": 0}),
+                ("parts2", {"parts": 2}),
+                ("parts8", {"parts": 8}),
+                ("simple_level63", {"simple": 1, "level": 63})):
+            out[f"vp8_q{q}_{name}.webp"] = _riff(
+                [(b"VP8 ", frame.encode(**kw))])
+    # ALPH chunks Pillow does not write, on one lossy frame
+    h, w = 40, 56
+    vp8 = _chunks(_pillow(Image.fromarray(rgba[..., :3]), "WEBP",
+                          quality=80))[0]
+    for kind in range(4):
+        for comp in (0, 1):
+            out[f"alph_filter{kind}_{'vp8l' if comp else 'raw'}.webp"] = \
+                _riff([_vp8x(w, h, True),
+                       (b"ALPH", _alph(rgba[..., 3], kind, comp)), vp8])
+    alph = (b"ALPH", _alph(rgba[..., 3], 1, 1))
+    out["vp8x_no_alpha_flag_with_alph.webp"] = _riff(
+        [_vp8x(w, h, False), alph, vp8])
+    out["vp8x_alpha_flag_no_alph.webp"] = _riff([_vp8x(w, h, True), vp8])
+    vp8l = _chunks(out["pillow_rgba_lossless.webp"])[0][1]
+    bits = struct.unpack("<I", vp8l[1:5])[0]
+    vp8l_opaque = vp8l[:1] + struct.pack("<I", bits & ~(1 << 28)) + vp8l[5:]
+    out["vp8x_alpha_flag_vp8l_alpha_bit_0.webp"] = _riff(
+        [_vp8x(w, h, True), (b"VP8L", vp8l_opaque)])
+    out["vp8x_no_alpha_flag_vp8l.webp"] = _riff(
+        [_vp8x(w, h, False), (b"VP8L", vp8l)])
+    out["vp8l_alpha_bit_0.webp"] = _riff([(b"VP8L", vp8l_opaque)])
+    out["two_alph_chunks.webp"] = _riff([_vp8x(w, h, True), alph, alph, vp8])
+    out["alph_with_vp8l.webp"] = _riff([_vp8x(w, h, True), alph,
+                                        (b"VP8L", vp8l)])
+    out["canvas_not_frame_size.webp"] = _riff([_vp8x(w + 1, h, True), vp8])
+    lossy = out["pillow_lossy_q90_m4.webp"]
+    out["truncated_lossy.webp"] = lossy[:len(lossy) - 40]
+    cut = _chunks(lossy)[0][1]
+    out["token_partition_cut.webp"] = _riff([(b"VP8 ", cut[:len(cut) // 2])])
+    lossless = out["pillow_lossless_q50_m6.webp"]
+    ll = _chunks(lossless)[0][1]
+    out["vp8l_stream_cut.webp"] = _riff([(b"VP8L", ll[:len(ll) * 2 // 3])])
+    return out
+
+
+# ------------------------------------------------------------------- PNM
+def _pnm(magic, w, h, maxval, body):
+    head = b"%s\n%d %d\n" % (magic, w, h)
+    return head + (b"%d\n" % maxval if maxval is not None else b"") + body
+
+
+def _plain(v, per_line=12):
+    v = np.asarray(v).reshape(-1)
+    return b"\n".join(b" ".join(b"%d" % x for x in v[i:i + per_line])
+                      for i in range(0, v.size, per_line)) + b"\n"
+
+
+def pnm_fixtures():
+    """P1-P6 plain and binary at maxval 1, 15, 255, 1000 and 65535,
+    comments (one inside a token), Pf both ways round, Pillow's CMYK and
+    RGBA kinds, Pillow's own files, a bitmap at a *.pbm path (imageio reads
+    it through OpenCV), and the kinds refused by name."""
+    from PIL import Image
+
+    rnd = np.random.RandomState(51)
+    t = terrain(13, 17, 52)
+    bits = t[..., 0] > 100
+    out = {"p1_plain.pbm": _pnm(b"P1", 17, 13, None, _plain(bits)),
+           "p1_plain_tight.pgm": b"P1\n# no spaces\n17 13\n"
+           + b"".join(b"".join(b"%d" % x for x in r) + b"\n"
+                      for r in bits.astype(int)),
+           "p4.pbm": _pnm(b"P4", 17, 13, None,
+                          np.packbits(bits, axis=1).tobytes()),
+           "p4.pgm": _pnm(b"P4", 17, 13, None,
+                          np.packbits(bits, axis=1).tobytes())}
+    for maxval in (1, 15, 255, 1000, 65535):
+        g = (t[..., 1].astype(np.int64) * maxval // 255)
+        c = (t.astype(np.int64) * maxval // 255)
+        out[f"p2_max{maxval}.pgm"] = _pnm(b"P2", 17, 13, maxval, _plain(g))
+        out[f"p3_max{maxval}.ppm"] = _pnm(b"P3", 17, 13, maxval, _plain(c))
+        dt = ">u2" if maxval > 255 else np.uint8
+        out[f"p5_max{maxval}.pgm"] = _pnm(b"P5", 17, 13, maxval,
+                                          g.astype(dt).tobytes())
+        out[f"p6_max{maxval}.ppm"] = _pnm(b"P6", 17, 13, maxval,
+                                          c.astype(dt).tobytes())
+    out["p5_max200_past_maxval.pnm"] = _pnm(
+        b"P5", 4, 1, 200, bytes([0, 100, 200, 250]))
+    out["comments.pgm"] = (b"P2\n# a comment\n1#7 inside a token\n7 1 "
+                           b"#\n255\n" + _plain(t[0, :, 0]) + b"# end\n")
+    out["pf_little.pgm"] = b"Pf\n17 13\n-1.0\n" + (
+        t[..., 2].astype("<f4") / 7).tobytes()
+    out["pf_big.pgm"] = b"Pf\n17 13\n2.5\n" + (
+        t[..., 0].astype(">f4") / 3).tobytes()
+    for magic in (b"P0CMYK", b"PyRGBA", b"PyCMYK"):
+        four = terrain(13, 17, 53, 4)
+        out[f"{magic.decode().lower()}.pnm"] = _pnm(magic, 17, 13, 255,
+                                                    four.tobytes())
+    out["pyrgba_max100.pnm"] = _pnm(b"PyRGBA", 17, 13, 100,
+                                    (terrain(13, 17, 54, 4) % 101).tobytes())
+    big = Image.fromarray(terrain(37, 41, 55))
+    out["pillow_rgb.ppm"] = _pillow(big, "PPM")
+    out["pillow_gray.pgm"] = _pillow(big.convert("L"), "PPM")
+    out["pillow_bitmap.pbm"] = _pillow(big.convert("1"), "PPM")
+    out["pillow_i16.pgm"] = _pillow(Image.fromarray(
+        rnd.randint(0, 65536, (9, 11)).astype(np.uint16)), "PPM")
+    out["pillow_float.pgm"] = _pillow(Image.fromarray(
+        rnd.uniform(0, 300, (9, 11)).astype(np.float32)), "PPM")
+    out["pam_refused.pgm"] = (b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\n"
+                              b"TUPLTYPE GRAYSCALE\nENDHDR\n\x05")
+    out["pf_colour_refused.ppm"] = b"PF\n1 1\n-1.0\n" + bytes(12)
+    out["pyp_refused.pgm"] = _pnm(b"PyP", 1, 1, 255, b"\x07")
+    out["gray_at_pbm_path_refused.pbm"] = out["p5_max255.pgm"]
+    out["truncated.ppm"] = out["p6_max255.ppm"][:-7]
+    out["plain_too_large.pgm"] = _pnm(b"P2", 2, 1, 9, b"3 12\n")
+    return out
+
+
+# -------------------------------------------------------------------- TGA
+def _tga(img_type, depth, w, h, data, flags=0x20, cmap=b"", cmap_depth=0,
+         start=0, ident=b""):
+    n = len(cmap) // (2 if cmap_depth == 16 else max(cmap_depth, 8) // 8)
+    return struct.pack("<BBBHHBHHHHBB", len(ident), int(bool(cmap)),
+                       img_type, start, n, cmap_depth, 0, 0, w, h, depth,
+                       flags) + ident + cmap + data
+
+
+def _tga_rle(px, bpp):
+    """Run-length packets of a (n, bpp) pixel stream: a repeat for each run
+    of 2-128 equal pixels within a row of 7, literals otherwise, one
+    literal of up to 128 running on across rows."""
+    out, i, n = bytearray(), 0, len(px)
+    while i < n:
+        j = i
+        while j + 1 < n and j + 1 - i < 128 and (j + 1) % 7 and \
+                bytes(px[j + 1]) == bytes(px[i]):
+            j += 1
+        if j > i:
+            out += bytes([0x80 | (j - i)]) + bytes(px[i])
+            i = j + 1
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and bytes(px[j]) != bytes(px[j - 1]):
+            j += 1
+        out += bytes([j - i - 1]) + px[i:j].tobytes()
+        i = j
+    return bytes(out)
+
+
+def tga_fixtures():
+    """Image types 1-3 and 9-11 at every depth Pillow reads, 16- and
+    24-bit colour maps (a first index, indices past the map), the four
+    origins, an ID field, run-length literals running on across rows,
+    Pillow's own files, and what Pillow cannot read."""
+    from PIL import Image
+
+    rnd = np.random.RandomState(61)
+    w, h = 7, 5
+    t = terrain(h, w, 62, 4)
+    rgb, gray = t[..., 2::-1], t[..., 0]
+    v16 = (rnd.randint(0, 1 << 16, (h, w)).astype("<u2"))
+    out = {}
+    for rle in (0, 8):
+        tag = "_rle" if rle else ""
+        for name, typ, depth, px in (
+                ("gray8", 3, 8, gray[..., None]),
+                ("gray_alpha16", 3, 16, t[..., :2]),
+                ("bgr24", 2, 24, rgb),
+                ("bgra32", 2, 32, np.dstack([rgb, t[..., 3]])),
+                ("bgra15", 2, 16, v16.view(np.uint8).reshape(h, w, 2))):
+            flat = px.reshape(-1, px.shape[-1])
+            data = _tga_rle(flat, flat.shape[1]) if rle else flat.tobytes()
+            out[f"{name}{tag}.tga"] = _tga(typ | rle, depth, w, h, data)
+        idx = rnd.randint(0, 9, (h, w)).astype(np.uint8)
+        data = _tga_rle(idx.reshape(-1, 1), 1) if rle else idx.tobytes()
+        out[f"map24{tag}.tga"] = _tga(1 | rle, 8, w, h, data,
+                                      cmap=rnd.randint(0, 256, 18).astype(
+                                          np.uint8).tobytes(), cmap_depth=24,
+                                      start=2)
+        out[f"map16{tag}.tga"] = _tga(1 | rle, 8, w, h, data,
+                                      cmap=rnd.randint(0, 1 << 16, 7).astype(
+                                          "<u2").tobytes(), cmap_depth=16)
+    out["bitmap1.tga"] = _tga(3, 1, 11, 3, np.packbits(
+        rnd.randint(0, 2, (3, 11)).astype(np.uint8), axis=1).tobytes())
+    for flags in (0x00, 0x10, 0x30):
+        out[f"origin_{flags:02x}.tga"] = _tga(2, 24, w, h, rgb.tobytes(),
+                                              flags=flags)
+        out[f"origin_{flags:02x}_rle.icb"] = _tga(
+            10, 32, w, h, _tga_rle(t.reshape(-1, 4), 4), flags=flags)
+    out["ident.vda"] = _tga(3, 8, w, h, gray.tobytes(), ident=b"terrain")
+    out["long_literal_rle.vst"] = _tga(11, 8, 2, 3,
+                                       bytes([0x05, 1, 2, 3, 4, 5, 6]))
+    big = Image.fromarray(terrain(29, 31, 63, 4))
+    for rle in (False, True):
+        tag = "_rle" if rle else ""
+        for mode in ("RGB", "RGBA", "L", "LA", "1"):
+            out[f"pillow_{mode.lower()}{tag}.tga"] = _pillow(
+                big.convert(mode), "TGA", rle=rle and mode != "1")
+        out[f"pillow_p{tag}.tga"] = _pillow(big.convert("RGB").quantize(40),
+                                            "TGA", rle=rle)
+    out["map32_unreadable.tga"] = _tga(1, 8, 2, 1, bytes([0, 1]),
+                                       cmap=bytes(8), cmap_depth=32)
+    out["repeat_across_rows.tga"] = _tga(11, 8, 2, 2, bytes([0x83, 7]))
+    out["truncated_rle.tga"] = _tga(10, 24, 2, 2, bytes([0x81, 1, 2, 3]))
+    return out
+
+
 # ---------------------------------------------------------------- digests
 def _summary(a):
     a = np.asarray(a)
@@ -799,22 +1175,28 @@ def _summary(a):
             "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
 
 
-def digest(data, path=None):
+def digest(data, path=None, kind=None):
     """imageio's decode of the bytes through Pillow (its first choice; where
     Pillow cannot open a file, a big-endian BigTIFF, imageio falls back to
     OpenCV where that is installed, which the port does not follow):
     {bytes, shape, dtype, sha256}, or {bytes, error: "OSError"} where
-    Pillow raises one; with `path`, under "path" its decode of the file by
-    name (a *.tif through its tifffile plugin; null where that fails)."""
+    Pillow raises one -- for a WebP, PNM or TGA {bytes, error: "ValueError",
+    imageio: the class it raised} where it raises anything, the port's
+    decoders raising ValueError there; with `path`, under "path" its
+    decode of the file by name (a *.tif through its tifffile plugin, a
+    *.pbm through OpenCV; null where that fails)."""
     import warnings
 
     import imageio.v3 as iio
 
+    caught = Exception if kind in VALUE_ERROR_KINDS else OSError
     try:  # Pillow, imageio's first choice for bytes, and no fall-back
         out = {"bytes": len(data),
                **_summary(iio.imread(data, plugin="pillow"))}
-    except OSError:  # "image file is truncated", "cannot identify"
+    except caught as e:  # "image file is truncated", "cannot identify"
         out = {"bytes": len(data), "error": "OSError"}
+        if kind in VALUE_ERROR_KINDS:
+            out.update(error="ValueError", imageio=type(e).__name__)
     if path is not None:
         try:
             with warnings.catch_warnings():  # the plugin's deprecation
@@ -825,16 +1207,20 @@ def digest(data, path=None):
     return out
 
 
-def reference():
+def reference(kind):
     import imageio
     import PIL
     from PIL import features
 
-    return {"pillow": PIL.__version__, "imageio": imageio.__version__,
-            "libtiff": features.version("libtiff")}
+    out = {"pillow": PIL.__version__, "imageio": imageio.__version__,
+           "libtiff": features.version("libtiff")}
+    if kind == "webp":
+        out["libwebp"] = features.version("webp")
+    return out
 
 
-KINDS = {"png": png_fixtures, "tiff": tiff_fixtures, "bmp": bmp_fixtures}
+KINDS = {"png": png_fixtures, "tiff": tiff_fixtures, "bmp": bmp_fixtures,
+         "webp": webp_fixtures, "pnm": pnm_fixtures, "tga": tga_fixtures}
 # committed files no script here writes, kept with their entries
 KEPT = {"png": ("terrain_48x40_rgb_5filters.png",)}
 
@@ -846,7 +1232,7 @@ def main(out_dir=DEFAULT_DIR, kinds=tuple(KINDS)):
     for kind in kinds:
         d = os.path.join(out_dir, kind)
         os.makedirs(d, exist_ok=True)
-        digests = {"reference": reference()}
+        digests = {"reference": reference(kind)}
         for name in KEPT.get(kind, ()):
             src = os.path.join(DEFAULT_DIR, kind, name)
             with open(src, "rb") as f:
@@ -859,9 +1245,13 @@ def main(out_dir=DEFAULT_DIR, kinds=tuple(KINDS)):
             path = os.path.join(d, name)
             with open(path, "wb") as f:
                 f.write(data)
-            digests[name] = digest(data, path if kind == "tiff" else None)
+            digests[name] = digest(
+                data, path if kind == "tiff" or kind in VALUE_ERROR_KINDS
+                else None, kind)
             if name in REFUSED:
                 digests[name]["refused"] = REFUSED[name]
+            if name in PATH_REFUSED:
+                digests[name]["path_refused"] = PATH_REFUSED[name]
         with open(os.path.join(d, "digests.json"), "w") as f:
             json.dump(digests, f, indent=1, sort_keys=True)
             f.write("\n")

@@ -1,6 +1,8 @@
 """Shared by the port's raster tests (test_torch_png_formats.py,
-test_torch_tiff.py, test_torch_bmp.py): the committed fixtures of
-tests/data/{png,tiff,bmp}/ (tests/make_raster_fixtures.py) against their
+test_torch_tiff.py, test_torch_bmp.py, test_torch_webp.py,
+test_torch_pnm_tga.py): the committed fixtures of
+tests/data/{png,tiff,bmp,webp,pnm,tga}/ (tests/make_raster_fixtures.py)
+against their
 digests, the script re-run, and a raster pair's first batches against
 terrain_tpu's `_get_data`."""
 
@@ -29,9 +31,10 @@ def summary(a):
 def check_fixture(kind, name, decode):
     """decode(bytes) of a committed fixture gives imageio's decode of its
     bytes, and data/raster.read_raster(path) imageio's of its path (the
-    same but for TIFFs), as the digests hold them; where imageio raises
-    OSError on the bytes ("error"), decode raises it too; a fixture the
-    port refuses ("refused") is refused by name both ways."""
+    same but for TIFFs and a *.pbm), as the digests hold them; where
+    imageio raises on the bytes ("error"), decode raises the exception
+    named there; a fixture the port refuses ("refused") is refused by name
+    both ways, one it refuses at its path ("path_refused") by path."""
     import builtins
     import re
 
@@ -55,6 +58,11 @@ def check_fixture(kind, name, decode):
     else:
         assert summary(decode(data)) == [
             want["shape"], want["dtype"], want["sha256"]]
+    if "path_refused" in want:
+        with pytest.raises(NotImplementedError,
+                           match=re.escape(want["path_refused"])):
+            read_raster(path)
+        return
     by_path = want.get("path", want)
     if by_path is not None:
         assert summary(read_raster(path)) == [

@@ -3,8 +3,9 @@ ops/kernels/_build.py): a store of the port's built libraries.
 
 On the CPU the host libraries build (g++): they go into the store with
 their records, and a fresh process whose PATH holds no compiler loads them
-and decodes the committed PNG, JPEG, TIFF and BMP fixtures to their
-digests (SHA-256 of imageio's decodes).  A record that does not fit is rebuilt
+and decodes the committed PNG, JPEG, TIFF, BMP, WebP, PNM and TGA fixtures
+to their digests (SHA-256 of imageio's decodes).  A record that does not
+fit is rebuilt
 with a compiler and raises without one; an edited source gives a new
 entry; TERRAIN_AOT_KEY=jaxpr keys on every file of the package.  The CUDA
 sources need nvcc and a card, which the CPU tests do not assume: their
@@ -21,7 +22,7 @@ import sys
 
 import pytest
 
-from terrain_tpu_torch.data import jpeg, tiff
+from terrain_tpu_torch.data import jpeg, tiff, webp
 from terrain_tpu_torch.ops.kernels import _build
 from terrain_tpu_torch.serve import gif, png
 from terrain_tpu_torch.utils import aot
@@ -31,7 +32,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data"
 HOSTS = [os.path.join(aot.PACKAGE, s) for s in _build.HOST_SOURCES]
 
-KINDS = ("png", "jpeg", "tiff", "bmp")
+KINDS = ("png", "jpeg", "tiff", "bmp", "webp", "pnm", "tga")
 DECODE = """
 import hashlib, json, os, sys
 from terrain_tpu_torch.data.raster import read_raster
@@ -41,7 +42,8 @@ for kind in %r:
     digests = json.load(open(os.path.join(d, "digests.json")))
     for name, want in digests.items():
         if name.startswith("strip_") or name == "reference" or \
-                "refused" in want:
+                "refused" in want or "path_refused" in want or \
+                want.get("path", want) is None:
             continue
         a = read_raster(os.path.join(d, name))
         out[name] = hashlib.sha256(a.tobytes()).hexdigest()
@@ -77,12 +79,13 @@ def _no_compiler(monkeypatch):
 
 
 def test_the_host_sources_are_the_decoders():
-    """The PNG unfilter, the JPEG decoder, the TIFF and BMP runs (one
-    library: data/bmp.py binds data/tiff.py's), and the GIF writer's
-    quantizer and LZW coder: four host libraries."""
+    """The PNG unfilter, the JPEG decoder, the TIFF, BMP and TGA runs (one
+    library: data/bmp.py and data/tga.py bind data/tiff.py's), the GIF
+    writer's quantizer and LZW coder, and the WebP decoder: five host
+    libraries."""
     assert sorted(HOSTS) == sorted([png._UNFILTER_SRC, jpeg._SRC, tiff._SRC,
-                                    gif._SRC])
-    assert len(HOSTS) == 4
+                                    gif._SRC, webp._SRC])
+    assert len(HOSTS) == 5
 
 
 def test_host_libraries_go_to_the_store_with_their_records(store):
@@ -123,7 +126,8 @@ def test_a_process_without_compilers_loads_the_store_and_decodes(
         want.update({n: v.get("path", v)["sha256"]
                      for n, v in digests.items()
                      if not n.startswith("strip_") and n != "reference"
-                     and v.get("path", v) is not None})
+                     and v.get("path", v) is not None
+                     and "refused" not in v and "path_refused" not in v})
     assert len(want) >= 100 and set(want) <= set(got)
     assert {n: got[n] for n in want} == want
     assert "rebuilding" not in r.stdout

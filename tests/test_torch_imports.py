@@ -94,6 +94,9 @@ def test_the_file_list_covers_the_package():
                  "terrain_tpu_torch/data/raster.py",
                  "terrain_tpu_torch/data/tiff.py",
                  "terrain_tpu_torch/data/bmp.py",
+                 "terrain_tpu_torch/data/webp.py",
+                 "terrain_tpu_torch/data/pnm.py",
+                 "terrain_tpu_torch/data/tga.py",
                  "terrain_tpu_torch/tools/import_reference_weights.py",
                  "terrain_tpu_torch/eval/resize.py",
                  "terrain_tpu_torch/tools/make_synthetic.py",
@@ -155,7 +158,9 @@ assert hashlib.sha256(img.tobytes()).hexdigest() == j[name]["sha256"]
 from terrain_tpu_torch.data.raster import read_raster
 from terrain_tpu_torch.tools import import_reference_weights
 for kind, name in (("tiff", "rgb8_lzw_pred2_tiles_be.tif"),
-                   ("bmp", "rle4.bmp"), ("png", "palette4_adam7.png")):
+                   ("bmp", "rle4.bmp"), ("png", "palette4_adam7.png"),
+                   ("webp", "alph_filter3_vp8l.webp"), ("pnm", "p4.pbm"),
+                   ("tga", "map16_rle.tga")):
     d = json.load(open(os.path.join(data, kind, "digests.json")))[name]
     a = read_raster(os.path.join(data, kind, name))
     assert hashlib.sha256(a.tobytes()).hexdigest() == \
@@ -172,7 +177,9 @@ print("ok")
 def test_the_data_path_runs_without_h5py_imageio_or_pil():
     """A process in which h5py, imageio and PIL cannot be imported reads
     the committed h5py files (a layout-4 B-tree too), a progressive JPEG, a
-    TIFF, a BMP and an interlaced palette PNG to their digests and imports
+    TIFF, a BMP, an interlaced palette PNG, a WebP with a filtered VP8L
+    ALPH chunk, a PBM at its path and a run-length TGA to their digests
+    and imports
     the port's data tools and the weights importer."""
     import subprocess
 

@@ -4,9 +4,11 @@ from the same seed, byte for byte (both draw their offsets from
 `np.random.RandomState`); the three host helpers give the JAX package's
 native library's bytes; the port's PNG decoder undoes every filter type as
 its per-byte plain version does and reads other encoders' files;
-`_get_data` gives terrain_tpu's first batches from the same PNG pair; a
-JPEG, TIFF or BMP is decoded (tests/test_torch_jpeg.py, test_torch_tiff.py
-and test_torch_bmp.py hold the decoders), a GIF, a WebP and the TIFF
+`_get_data` gives terrain_tpu's first batches from the same PNG pair, a
+lossy WebP texture with 16-bit PGM heights and a TGA pair; a JPEG, TIFF,
+BMP, WebP, PNM or TGA is decoded (tests/test_torch_jpeg.py,
+test_torch_tiff.py, test_torch_bmp.py, test_torch_webp.py and
+test_torch_pnm_tga.py hold the decoders), a GIF, JPEG 2000 and the
 variants the port does not take refused by name before either file is
 decoded; and smoke_synthetic trains from a raster through the CLI.
 Rasters are a few hundred pixels a side.
@@ -194,14 +196,41 @@ def _write_pair(tmp_path, rng, size=(160, 200), hm_dtype=np.uint8):
     return f"{hp},{tp}", hm, tex
 
 
-@pytest.mark.parametrize("hm_dtype", [np.uint8, np.uint16])
+def _write_other_pair(tmp_path, rng, kind):
+    """A raster pair in other formats, as Pillow writes them: "webp_pgm16"
+    a lossy WebP texture with 16-bit PGM heights (int32 from imageio),
+    "tga" an 8-bit gray TGA heightmap with a run-length RGB texture."""
+    from PIL import Image
+
+    h, w = 160, 200
+    hm = np.zeros((h, w), np.uint16)
+    hm[:, w // 3:] = rng.randint(1, 65535, size=(h, w - w // 3))
+    tex = rng.randint(0, 256, size=(h, w, 3)).astype(np.uint8)
+    if kind == "webp_pgm16":
+        hp, tp = tmp_path / "hm.pgm", tmp_path / "tex.webp"
+        Image.fromarray(hm).save(hp, "PPM")
+        Image.fromarray(tex).save(tp, "WEBP", quality=80)
+    else:
+        hp, tp = tmp_path / "hm.tga", tmp_path / "tex.tga"
+        Image.fromarray((hm >> 8).astype(np.uint8)).save(hp, "TGA")
+        Image.fromarray(tex).save(tp, "TGA", rle=True)
+    return f"{hp},{tp}", hp, tp
+
+
+@pytest.mark.parametrize("hm_dtype", [np.uint8, np.uint16, "webp_pgm16",
+                                      "tga"])
 def test_get_data_gives_terrain_tpus_first_batches(tmp_path, rng, hm_dtype,
                                                    monkeypatch):
-    pytest.importorskip("imageio")
+    iio = pytest.importorskip("imageio.v3")
     from terrain_tpu import experiments as jexp
 
-    value, hm, tex = _write_pair(tmp_path, rng, hm_dtype=hm_dtype)
+    if isinstance(hm_dtype, str):  # imageio's decodes, as terrain_tpu's
+        value, hp, tp = _write_other_pair(tmp_path, rng, hm_dtype)
+        hm, tex = iio.imread(hp), iio.imread(tp)
+    else:
+        value, hm, tex = _write_pair(tmp_path, rng, hm_dtype=hm_dtype)
     got_hm, got_tex = experiments.read_raster_pair(value)
+    assert got_hm.dtype == hm.dtype
     np.testing.assert_array_equal(got_hm, hm)
     np.testing.assert_array_equal(got_tex, tex[..., :3])
     for k, v in {"TERRAIN_RASTER": value, "TERRAIN_BS": "2",
@@ -229,23 +258,52 @@ def _pil_save(path, img, fmt, **kw):
     ("b.png", "JPEG"),                 # a JPEG's bytes under another name
     ("b.tif", "TIFF"),
     ("b.bmp", "BMP"),
+    ("b.webp", "WEBP"),
+    ("b.jpg", "WEBP"),                 # a WebP's bytes under another name
+    ("b.pgm", "PPM-L"),
+    ("b.ppm", "PPM"),
+    ("b.pbm", "PPM-1"),                # imageio reads the path via OpenCV
+    ("b.tga", "TGA"),
 ])
 def test_a_raster_that_is_not_a_png_is_decoded(tmp_path, rng, name, fmt):
-    """A JPEG, TIFF or BMP texture, named so or starting so, is decoded by
-    the port's codec to imageio's bytes."""
+    """A JPEG, TIFF, BMP, WebP, PNM or TGA texture, named so or starting
+    so, is decoded by the port's codec to imageio's bytes (for a WebP, PNM
+    or TGA, imageio's decode of the path, as the JAX package reads it)."""
     iio = pytest.importorskip("imageio.v3")
+    from PIL import Image
+
     value, hm, _ = _write_pair(tmp_path, rng)
     other = tmp_path / name
     tex = rng.randint(0, 256, size=(48, 40, 3)).astype(np.uint8)
+    fmt, _, mode = fmt.partition("-")
     kw = {"quality": 85} if fmt == "JPEG" else (
         {"compression": "tiff_lzw"} if fmt == "TIFF" else {})
-    _pil_save(other, tex, fmt, **kw)
+    if mode:
+        Image.fromarray(tex).convert(mode).save(other, fmt)
+    else:
+        _pil_save(other, tex, fmt, **kw)
     got_hm, got_tex = experiments.read_raster_pair(
         f"{value.split(',')[0]},{other}")
     np.testing.assert_array_equal(got_hm, hm)
-    want = iio.imread(other.read_bytes())
+    if fmt in ("JPEG", "TIFF", "BMP"):
+        want = iio.imread(other.read_bytes())
+    else:
+        want = iio.imread(other)[..., :3]
     assert got_tex.dtype == want.dtype
     np.testing.assert_array_equal(got_tex, want)
+
+
+def _webp_animated():
+    """Two frames, as Pillow writes an animated WebP (VP8X, ANIM, ANMF)."""
+    import io
+
+    from PIL import Image
+
+    frames = [Image.fromarray(np.full((8, 8, 3), v, np.uint8))
+              for v in (0, 255)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:])
+    return buf.getvalue()
 
 
 def _subsampled_ycbcr(path):
@@ -270,9 +328,20 @@ def _cmyk4(path):
     ("b.raster", lambda p: p.write_bytes(b"GIF89a" + bytes(64)),
      "is GIF; imageio gives a GIF a frame axis"),
     ("b.gif", None, "is GIF; imageio gives a GIF a frame axis"),
-    ("b.webp", None, "is WebP; a WebP decoder"),
-    ("b.raster", lambda p: p.write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 "),
-     "is WebP; a WebP decoder"),
+    ("b.jp2", None, "is JPEG 2000; a JPEG 2000 decoder"),
+    ("b.j2k", None, "is JPEG 2000; a JPEG 2000 decoder"),
+    ("b.raster", lambda p: p.write_bytes(
+        b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(32)),
+     "is JPEG 2000; a JPEG 2000 decoder"),
+    ("b.png", lambda p: p.write_bytes(b"\xffO\xffQ" + bytes(32)),
+     "is JPEG 2000; a JPEG 2000 decoder"),
+    ("b.pfm", None, "is PFM; imageio reads a \\*.pfm path through OpenCV"),
+    ("b.webp", lambda p: p.write_bytes(_webp_animated()),
+     "WebP: an animated file"),
+    ("b.pgm", lambda p: p.write_bytes(b"P7\nWIDTH 1\nHEIGHT 1\nENDHDR\n"),
+     r"PNM: P7 \(PAM\)"),
+    ("b.pbm", lambda p: p.write_bytes(b"P5\n1 1\n255\n\x00"),
+     r"PNM: a \*.pbm path holding P5"),
     ("b.tif", lambda p: _pil_save(p, np.zeros((16, 16, 3), np.uint8),
                                   "TIFF", compression="jpeg"),
      r"TIFF: compression 7 \(JPEG\)"),
@@ -281,10 +350,12 @@ def _cmyk4(path):
 ])
 def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
                                                match, monkeypatch):
-    """What the port does not decode (JPEG, TIFF and BMP it does, in the
-    test above): GIF and WebP by name and by magic, JPEG-in-TIFF,
-    subsampled YCbCr at a *.tif path and 4-bit CMYK by their TIFF headers
-    -- NotImplementedError naming them, before either file is decoded."""
+    """What the port does not decode (the test above shows what it does):
+    GIF and JPEG 2000 by name and by magic, a *.pfm by name, JPEG-in-TIFF,
+    subsampled YCbCr at a *.tif path and 4-bit CMYK by their TIFF headers,
+    an animated WebP by its chunks, PAM and a *.pbm holding gray by their
+    magic -- NotImplementedError naming them, before either file is
+    decoded."""
     value, hm, _ = _write_pair(tmp_path, rng)
     other = tmp_path / name
     if make is not None:
@@ -292,8 +363,11 @@ def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
     decoded = []
     from terrain_tpu_torch.data import raster
 
-    for fn in ("read_png", "decode_jpeg", "read_tiff", "decode_bmp"):
+    for fn in ("read_png", "decode_jpeg", "read_tiff", "decode_bmp",
+               "decode_webp"):
         monkeypatch.setattr(raster, fn, lambda *a: decoded.append(1))
+    monkeypatch.setattr(raster.pnm, "read_pnm",
+                        lambda *a: decoded.append(1))
     monkeypatch.setattr(raster, "_DECODERS", {
         k: (lambda *a: decoded.append(1)) for k in raster._DECODERS})
     with pytest.raises(NotImplementedError, match=match):

@@ -22,7 +22,7 @@ import torch
 from terrain_tpu_torch.data.synthetic import make_pairs
 from terrain_tpu_torch.eval import swd, terrain
 from terrain_tpu_torch.eval.resize import resize_bilinear
-from terrain_tpu_torch.serve.png import encode_png
+from terrain_tpu_torch.serve.png import decode_png, encode_png
 from terrain_tpu_torch.tools import (
     build_dataset, compare_published, make_synthetic, pick_epoch)
 from test_torch_eval import jax_swd_draws, jax_terrain_draws
@@ -122,6 +122,34 @@ def test_build_dataset_writes_the_root_tools_arrays(progressive, tmp_path,
         _run_root("build_dataset", [*sub, "--out",
                                     str(tmp_path / "r_sub.h5")], monkeypatch)
         _same_h5(tmp_path / "m_sub.h5", tmp_path / "r_sub.h5")
+
+
+@pytest.mark.parametrize("kind", ["pgm16_webp", "pbm_tga"])
+def test_build_dataset_reads_the_other_raster_formats_as_the_root_tool(
+        kind, tmp_path, monkeypatch, capsys):
+    """A 16-bit PGM heightmap with a lossy WebP texture, and a bitmap PBM
+    (imageio reads its path through OpenCV) with a run-length TGA one: the
+    port's decoders give the repo-root tool's arrays."""
+    hm_png, tex_jpg, _ = _rasters(tmp_path, 300, 400)
+    hm = decode_png(hm_png.read_bytes()).reshape(300, 400)
+    tex = np.asarray(Image.open(tex_jpg))
+    if kind == "pgm16_webp":
+        hm_path, tex_path = tmp_path / "hm.pgm", tmp_path / "tex.webp"
+        Image.fromarray(hm.astype(np.uint16) * 257).save(hm_path, "PPM")
+        Image.fromarray(tex).save(tex_path, "WEBP", quality=80)
+    else:
+        hm_path, tex_path = tmp_path / "hm.pbm", tmp_path / "tex.tga"
+        Image.fromarray(hm > 0).save(hm_path, "PPM")
+        Image.fromarray(tex).save(tex_path, "TGA", rle=True)
+    common = ["--heightmap", str(hm_path), "--texture", str(tex_path),
+              "--crop", "128", "--stride", "50"]
+    mine, theirs = tmp_path / "m.h5", tmp_path / "r.h5"
+    build_dataset.main([*common, "--out", str(mine)])
+    out_mine = capsys.readouterr().out.replace(str(mine), "OUT")
+    _run_root("build_dataset", [*common, "--out", str(theirs)], monkeypatch)
+    assert out_mine == capsys.readouterr().out.replace(str(theirs), "OUT")
+    _same_h5(mine, theirs)
+    assert len(_h5_arrays(mine)["xt"]) > 5
 
 
 def test_build_dataset_streams_rows_into_the_file(tmp_path, monkeypatch):
