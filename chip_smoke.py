@@ -10,7 +10,7 @@ Phases (any failure exits non-zero and prints no result line):
      all started together);
   1a. coldstart: a fresh process to the end of one bf16 eager flagship
      step with the libraries already built (and a cold machine's figure:
-     that plus phase 1's nvcc build and the five host g++ builds); a fresh
+     that plus phase 1's nvcc build and the six host g++ builds); a fresh
      TERRAIN_AOT store filled (phase 1's libraries and records copied in,
      then utils/aot.fill); a fresh process with no
      compiler reachable (PATH an empty directory, CUDA_HOME and CUDA_PATH
@@ -138,7 +138,17 @@ Phases (any failure exits non-zero and prints no result line):
      the committed 1024 x 640 WebP pair (lossless heights, q90 texture):
      each decoded (best of 3: s and MP/s), the first batch against plain
      slicing, and one epoch of `TERRAIN_RASTER=hm.webp,tex.webp
-     TERRAIN_EPOCH_CROPS=16` with finite losses and the kernels counted;
+     TERRAIN_EPOCH_CROPS=16` with finite losses and the kernels counted.
+     Then JPEG 2000 (every committed JP2/J2K fixture among the ones above):
+     the two committed 1024 x 1024 tiles (16-bit lossless heights, 5/3
+     with five levels; an RGB 9/7 texture with the ICT and three layers)
+     each repeated into a 20480 x 10240 codestream and, in a fresh
+     process, decoded three times (the best: s and MP/s) with its peak host
+     memory sampled, every tile equal to the lone tile's decode; and one
+     epoch of
+     `TERRAIN_RASTER=<heights>.jp2,<texture>.jp2 TERRAIN_EPOCH_CROPS=16`
+     from the two tiles, with the first batch against plain slicing,
+     finite losses and the kernels counted;
   7b. inputs: in a child process where h5py, imageio and PIL cannot be
      imported (the card's machine has none): the committed h5py files of
      tests/data/h5 read by data/h5.py to their digests (the latest-libver
@@ -406,17 +416,22 @@ JPEG_STRIP = "strip_21600x32_420_rst.jpg"
 # inputs phase builds a dataset from
 JPEG_PSTRIP = "progressive_strip_21600x32_420_rst.jpg"
 JPEG_PTEXTURE = "progressive_2048x1024_420.jpg"
-# the TIFF, PNG, BMP, WebP, PNM and TGA fixtures
+# the TIFF, PNG, BMP, WebP, PNM, TGA and JPEG 2000 fixtures
 # (tests/make_raster_fixtures.py, with imageio's digests): each decoded to
 # its digest; the two full-width TIFF strips (8 rows a strip) repeated into
 # a 21600 x 10800 pair, decoded and trained from; the 1024 x 640 WebP pair
-# (lossless heights, q90 texture) decoded, timed and trained from
-RASTER_FIXTURE_DIRS = ("tiff", "png", "bmp", "webp", "pnm", "tga")
+# (lossless heights, q90 texture) decoded, timed and trained from; the two
+# 1024 x 1024 JPEG 2000 tiles repeated into 20480 x 10240 codestreams,
+# decoded and timed, and trained from
+RASTER_FIXTURE_DIRS = ("tiff", "png", "bmp", "webp", "pnm", "tga", "jp2")
 WEBP_PAIR = ("pillow_pair_hm_1024x640_lossless.webp",
              "pillow_pair_tex_1024x640_q90.webp")
 WEBP_CROPS = 16  # the WebP epoch: 4 train steps of 512px crops
 TIFF_TEXTURE_STRIP = "strip_21600x32_rgb_lzw.tif"
 TIFF_HEIGHT_STRIP = "strip_21600x32_gray16_deflate.tif"
+JP2_TILES = ("tile_1024_gray16_53_5levels.jp2", "tile_1024_rgb_97_3layers.jp2")
+JP2_H, JP2_W = 10240, 20480  # 10 x 20 tiles of 1024
+JP2_CROPS = 16  # the JPEG 2000 epoch: 4 train steps of 512px crops
 # the inputs phase: a child process in which these cannot be imported (the
 # card's machine has none of them; the port reads h5 files without h5py),
 # the committed h5py files (tests/make_h5_fixtures.py), and the pairs an
@@ -2529,6 +2544,8 @@ def raster_slice(torch, card):
         got = {k: got[k] + tif[k] for k in got}
         wp = raster_webp(torch, card, root)
         got = {k: got[k] + wp[k] for k in got}
+        j2 = raster_jp2(torch, card, root)
+        got = {k: got[k] + j2[k] for k in got}
     finally:
         for k, v in saved.items():
             if v is None:
@@ -2880,6 +2897,7 @@ def _raster_fixtures(card):
     import hashlib
 
     from terrain_tpu_torch.data.bmp import decode_bmp
+    from terrain_tpu_torch.data.jp2 import decode_jp2
     from terrain_tpu_torch.data.pnm import decode_pnm
     from terrain_tpu_torch.data.raster import read_raster
     from terrain_tpu_torch.data.tga import decode_tga
@@ -2893,7 +2911,8 @@ def _raster_fixtures(card):
                     want["shape"], want["dtype"], want["sha256"]]
 
     decode = {"tiff": decode_tiff, "png": read_png, "bmp": decode_bmp,
-              "webp": decode_webp, "pnm": decode_pnm, "tga": decode_tga}
+              "webp": decode_webp, "pnm": decode_pnm, "tga": decode_tga,
+              "jp2": decode_jp2}
     strips, counts, t_all = {}, {}, 0.0
     for kind in RASTER_FIXTURE_DIRS:
         d = os.path.join(HERE, "tests", "data", kind)
@@ -2944,7 +2963,8 @@ def _raster_fixtures(card):
                 strips[name] = img
             counts[kind] = counts.get(kind, 0) + 1
     print(f"raster [{card}]: {counts} fixtures (every PNG, TIFF, BMP, WebP, "
-          f"PNM and TGA variant the port takes; where imageio raises on the "
+          f"PNM, TGA and JPEG 2000 variant the port takes, an animated "
+          f"WebP's first frame; where imageio raises on the "
           f"bytes, the port too) decoded to imageio's shapes, dtypes and "
           f"SHA-256 in {t_all:.2f} s, from their bytes and from their "
           f"paths; the refused ones refused by name", flush=True)
@@ -3103,6 +3123,167 @@ def raster_webp(torch, card, root):
           f"lossless heights + q90 texture): {wall:.1f} s in all (both "
           f"decoded again), epoch {float(row['time']):.3f} s; the first "
           f"batch equals plain slicing; launches "
+          f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
+    return got
+
+
+def _jp2_repeat(data, height, width):
+    """A one-tile JPEG 2000 file (a JP2 box or a bare codestream) as a
+    codestream of `height` x `width` made of that tile: its main header
+    with a new SIZ (the image `height` x `width` at the origin, tiles of
+    the lone tile's size at the origin), then its one tile-part repeated,
+    Isot counting the tiles, and EOC.  Every repeated tile decodes as the
+    lone tile does: the tile is a power of two no smaller than 2^levels,
+    so every tile origin is a multiple of 2^levels (the same filter
+    parities at every level) and each band's origin a multiple of its
+    code-block size or of its own width within one code-block (the same
+    code-block partition), and with the default precincts (2^15, larger
+    than the image) every resolution is one precinct in every tile.  It
+    checks these.  Returns the bytes and the tile count."""
+    import struct
+
+    at = data.find(b"jp2c")
+    cs = data[at + 4:] if data[:2] != b"\xffO" else data
+    p, segs = 2, []
+    while True:
+        m, n = struct.unpack(">HH", cs[p:p + 4])
+        if m == 0xFF90:
+            break
+        segs.append((m, cs[p + 4:p + 2 + n]))
+        p += 2 + n
+    siz = dict(segs)[0xFF51]
+    cod = dict(segs)[0xFF52]
+    x1, y1, x0, y0, tw, th, tx0, ty0 = struct.unpack(">8I", siz[2:34])
+    levels = cod[5]
+    if (x0, y0, tx0, ty0) != (0, 0, 0, 0) or (tw, th) != (x1, y1) or \
+            tw != th or tw & (tw - 1) or tw < 1 << levels or cod[0] & 1 or \
+            height % th or width % tw or max(height, width) > 1 << 15:
+        fail(f"raster: the JPEG 2000 tile is not one tile of a power of two "
+             f"at the origin with default precincts ({x1}x{y1}, tiles "
+             f"{tw}x{th}, {levels} levels, Scod {cod[0]})")
+    isot, psot, tpsot, tnsot = struct.unpack(">HIBB", cs[p + 4:p + 12])
+    part = cs[p + 12:p + psot]
+    if isot or tpsot or tnsot != 1 or cs[p + psot:p + psot + 2] != \
+            b"\xff\xd9":
+        fail("raster: the JPEG 2000 tile is not one tile-part then EOC")
+    siz = siz[:2] + struct.pack(">8I", width, height, 0, 0, tw, th, 0, 0) \
+        + siz[34:]
+    n_tiles = (height // th) * (width // tw)
+    out = bytearray(b"\xff\x4f")
+    for m, x in segs:
+        out += struct.pack(">HH", m, len(x) + 2) + (siz if m == 0xFF51 else x)
+    for k in range(n_tiles):
+        out += struct.pack(">HHHIBB", 0xFF90, 10, k, psot, 0, 1) + part
+    out += b"\xff\xd9"
+    return bytes(out), n_tiles
+
+
+def _jp2_runs(path, tile_path, runs=3):
+    """In a fresh process: the JPEG 2000 codestream at `path` decoded
+    `runs` times (each timed; the previous array dropped first) while a
+    thread samples VmRSS (/proc/self/status, read only) every millisecond,
+    the peak taken above the resident set after the bytes are read and
+    the library loaded; then every tile of the last decode held to the
+    decode of the one-tile file at `tile_path`.  Returns {times, peak,
+    samples, out, tiles, equal}."""
+    code = (
+        "import json, sys, threading, time\n"
+        f"sys.path.insert(0, {HERE!r})\n"
+        "import numpy as np\n"
+        "from terrain_tpu_torch.data.jp2 import decode_jp2, read_header\n"
+        "def rss():\n"
+        "    for ln in open('/proc/self/status'):\n"
+        "        if ln.startswith('VmRSS'):\n"
+        "            return int(ln.split()[1]) * 1024\n"
+        "data = open(sys.argv[1], 'rb').read()\n"
+        "read_header(data)  # the library loaded before the count\n"
+        "before = rss()\n"
+        "seen, done = [before], threading.Event()\n"
+        "def watch():\n"
+        "    while not done.is_set():\n"
+        "        seen.append(rss())\n"
+        "        time.sleep(0.001)\n"
+        "t = threading.Thread(target=watch)\n"
+        "t.start()\n"
+        "times, img = [], None\n"
+        f"for _ in range({runs}):\n"
+        "    img = None\n"
+        "    t0 = time.perf_counter()\n"
+        "    img = decode_jp2(data)\n"
+        "    times.append(time.perf_counter() - t0)\n"
+        "done.set()\n"
+        "t.join()\n"
+        "tile = decode_jp2(open(sys.argv[2], 'rb').read())\n"
+        "n = tile.shape[0]\n"
+        "grid = img.reshape(img.shape[0] // n, n, img.shape[1] // n, n,\n"
+        "                   *img.shape[2:])\n"
+        "equal = all(np.array_equal(grid[r, :, c], tile)\n"
+        "            for r in range(grid.shape[0]) for c in range(grid.shape[2]))\n"
+        "print(json.dumps({'times': times, 'peak': max(seen) - before,\n"
+        "                  'samples': len(seen), 'out': img.nbytes,\n"
+        "                  'tiles': grid.shape[0] * grid.shape[2],\n"
+        "                  'equal': equal}))\n")
+    p = subprocess.run([sys.executable, "-c", code, path, tile_path],
+                       capture_output=True, text=True, timeout=600)
+    if p.returncode != 0:
+        fail(f"raster: the JPEG 2000 decode runs failed:\n{p.stderr[-2000:]}")
+    return json.loads(p.stdout.splitlines()[-1])
+
+
+def raster_jp2(torch, card, root):
+    """JPEG 2000 rasters through the port's decoder (the committed fixtures
+    are held to imageio's digests with the others, _raster_fixtures): the
+    two committed 1024 x 1024 tiles (JP2_TILES: 16-bit lossless heights,
+    5/3 with five levels; an RGB 9/7 texture with the ICT and three quality
+    layers) each repeated into a JP2_H x JP2_W codestream (_jp2_repeat)
+    and, in a fresh process (_jp2_runs), decoded from its bytes three
+    times (the best: s and MP/s) with its peak host memory sampled, every
+    tile of the decode equal to the lone tile's; then one epoch of
+    `TERRAIN_RASTER=<heights>.jp2,<texture>.jp2 TERRAIN_EPOCH_CROPS=16
+    test1_nobn_bilin_both train` from the two tiles through cli.main: the
+    first batch against plain slicing (the heights cast to uint8 as both
+    packages cast them), finite losses and the train steps' launches of
+    every kernel.  Returns the epoch's counts."""
+    import numpy as np
+
+    from terrain_tpu_torch.data.jp2 import decode_jp2
+
+    d = os.path.join(HERE, "tests", "data", "jp2")
+    paths, tiles = {}, {}
+    for label, name in zip(("hm", "tex"), JP2_TILES):
+        paths[label] = os.path.join(d, name)
+        with open(paths[label], "rb") as f:
+            data = f.read()
+        tiles[label] = decode_jp2(data)
+        big, n_tiles = _jp2_repeat(data, JP2_H, JP2_W)
+        path = os.path.join(root, f"{label}_{JP2_W}x{JP2_H}.j2k")
+        with open(path, "wb") as f:
+            f.write(big)
+        runs = _jp2_runs(path, paths[label])
+        if not runs["equal"] or runs["tiles"] != n_tiles:
+            fail(f"raster: a tile of the {JP2_W}x{JP2_H} JPEG 2000 {label} "
+                 f"is not the lone tile's decode")
+        best = min(runs["times"])
+        mp = JP2_H * JP2_W / 1e6
+        print(f"raster [{card}]: a {JP2_W}x{JP2_H} JPEG 2000 {label} ({name}'s"
+              f" tile-part repeated {n_tiles} times, {len(big) / 1e6:.1f} MB) "
+              f"decoded to {tiles[label].dtype} in a fresh process in "
+              f"{best:.3f} s (best of 3: "
+              f"{', '.join(f'{t:.3f}' for t in runs['times'])}): "
+              f"{mp / best:.1f} MP/s on the host, every tile the lone tile's "
+              f"decode; peak host memory {runs['peak'] / 1e6:.1f} MB above "
+              f"the process's after reading the codestream "
+              f"({runs['samples']} samples of VmRSS; the output "
+              f"{runs['out'] / 1e6:.1f} MB)", flush=True)
+        del big
+    got, wall, row = _raster_epoch(
+        torch, np, "JPEG 2000 pair", np.asarray(tiles["hm"], np.uint8),
+        tiles["tex"], [paths["hm"], paths["tex"]], root, JP2_CROPS)
+    print(f"raster [{card}]: `TERRAIN_RASTER=<heights>.jp2,<texture>.jp2 "
+          f"TERRAIN_EPOCH_CROPS={JP2_CROPS} {EXPERIMENT} train` (the two "
+          f"1024x1024 tiles: 16-bit 5/3 heights + 9/7 texture): {wall:.1f} s "
+          f"in all (both decoded again), epoch {float(row['time']):.3f} s; "
+          f"the first batch equals plain slicing; launches "
           f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
     return got
 
@@ -6745,7 +6926,7 @@ def coldstart_slice(torch, card, build_s):
         records = {os.path.basename(p): aot.read_record(p) for p in paths}
         print(f"coldstart [{card}]: the store {sorted(os.listdir(store))}; "
               f"filled in {fill_s:.1f} s (phase 1's six CUDA libraries "
-              f"copied in, their records checked, the five host libraries "
+              f"copied in, their records checked, the six host libraries "
               f"built); a record {records[os.path.basename(paths[0])]}",
               flush=True)
         if len(paths) != len(_build.SOURCES) + len(_build.HOST_SOURCES) or \
@@ -6777,7 +6958,7 @@ def coldstart_slice(torch, card, build_s):
               f"libraries built in _build/ {warm_wall:.1f} s (imports "
               f"{warm['main_s']:.1f}, model {warm['built_s']:.1f}, step "
               f"{warm['step_s']:.1f}); a cold machine adds phase 1's nvcc "
-              f"build {build_s:.1f} s and the five g++ builds {host_s:.1f} s: "
+              f"build {build_s:.1f} s and the six g++ builds {host_s:.1f} s: "
               f"{warm_wall + build_s + host_s:.1f} s; from a TERRAIN_AOT "
               f"store with no compiler reachable (PATH an empty directory, "
               f"CUDA_HOME unset; found {got['compilers']}) {got_wall:.1f} s "

@@ -37,9 +37,14 @@
 //     header, the green channel), and the horizontal, vertical and gradient
 //     unfilters (dsp/filters.c).
 // The constant tables are the VP8 and VP8L formats' own (RFC 6386, RFC
-// 9649).  Refused, by name: animated files (ANIM/ANMF).  A damaged or
-// truncated file fails, as do layouts libwebp's demuxer rejects (two ALPH
-// chunks, a chunk between ALPH and the image, ALPH with VP8L).
+// 9649).  An animation (VP8X's animation flag, ANIM, ANMF frames) gives
+// WebPAnimDecoder's first frame: a zeroed canvas of VP8X's size with the
+// frame decoded into its rectangle, RGBA under VP8X's alpha flag, else RGB
+// (a frame's ALPH chunk always counts; every frame's chunks and bounds are
+// checked as the demuxer checks them).  A damaged or truncated file fails,
+// as do layouts libwebp's demuxer rejects (two ALPH chunks, a chunk between
+// ALPH and the image, ALPH with VP8L, ANMF before ANIM, a frame outside
+// the canvas).
 //
 // Built at first use with the host C++ compiler into terrain_tpu_torch/_build/
 // (ops/kernels/_build.py build_host) and called through ctypes.
@@ -54,7 +59,7 @@
 
 namespace {
 
-enum Status { kOk = 0, kUnsupported = 1, kMalformed = 2 };
+enum Status { kOk = 0, kMalformed = 2 };
 
 struct Failure {
   int status;
@@ -62,9 +67,6 @@ struct Failure {
 };
 
 [[noreturn]] void bad(const std::string& msg) { throw Failure{kMalformed, msg}; }
-[[noreturn]] void refuse(const std::string& msg) {
-  throw Failure{kUnsupported, msg};
-}
 
 const uint8_t kZigzag[16] = {
     0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15,
@@ -1859,12 +1861,14 @@ std::vector<uint8_t> decode_alpha(const uint8_t* p, size_t n, int width, int hei
 // ------------------------------------------------------------- RIFF --
 
 struct Layout {
-  int width = 0, height = 0, channels = 3;
+  int width = 0, height = 0, channels = 3;  // of the output (an animation's canvas)
   const uint8_t* image = nullptr;
   size_t image_size = 0, image_avail = 0;  // the chunk's size, with its pad
   bool lossless = false;
   const uint8_t* alpha = nullptr;  // an ALPH payload that counts
   size_t alpha_size = 0;
+  bool animated = false;  // then the first frame's size and place on the canvas
+  int frame_w = 0, frame_h = 0, x = 0, y = 0;
 };
 
 struct Chunk {
@@ -1874,6 +1878,95 @@ struct Chunk {
 };
 
 inline uint32_t fourcc(const char* s) { return le32(reinterpret_cast<const uint8_t*>(s)); }
+
+// The width and height of a VP8 or VP8L bitstream, as WebPGetFeatures reads
+// them.
+void frame_size(const uint8_t* p, size_t n, bool lossless, int& w, int& h) {
+  if (lossless) {
+    const LHeader lh = vp8l_header(p, n);
+    w = lh.width;
+    h = lh.height;
+    return;
+  }
+  if (n < 10) bad("VP8: the frame header is cut short");
+  if (p[3] != 0x9d || p[4] != 0x01 || p[5] != 0x2a) bad("VP8: no start code");
+  w = le16(p + 6) & 0x3fff;
+  h = le16(p + 8) & 0x3fff;
+}
+
+// An animation (VP8X's animation flag, ANIM, ANMF frames) as libwebp's
+// demuxer validates it, with the first frame's bitstream and place: the
+// canvas of VP8X's size, RGBA by VP8X's alpha flag, else RGB.  A frame's
+// ALPH chunk always counts (the demuxer drops ALPH only in still files).
+Layout parse_animation(const std::vector<Chunk>& chunks, int canvas_w, int canvas_h,
+                       bool alpha_flag) {
+  Layout lay;
+  lay.animated = true;
+  lay.width = canvas_w;
+  lay.height = canvas_h;
+  lay.channels = alpha_flag ? 4 : 3;
+  bool anim = false, first = true;
+  if (std::none_of(chunks.begin(), chunks.end(),
+                   [](const Chunk& c) { return c.tag == fourcc("ANMF"); }))
+    bad("WebP: VP8X's animation flag without ANMF frames");
+  for (size_t i = 1; i < chunks.size(); ++i) {
+    const Chunk& c = chunks[i];
+    if (c.tag == fourcc("ANIM")) {
+      if (c.size < 6) bad("WebP: an ANIM chunk is cut short");
+      anim = true;
+      continue;
+    }
+    if (c.tag == fourcc("ALPH") || c.tag == fourcc("VP8 ") || c.tag == fourcc("VP8L"))
+      bad("WebP: an image chunk outside the frames of an animation");
+    if (c.tag != fourcc("ANMF")) continue;  // ICCP, EXIF, XMP, unknown
+    if (!anim) bad("WebP: an ANMF frame before the ANIM chunk");
+    if (c.size < 16) bad("WebP: an ANMF chunk is cut short");
+    const int x = 2 * int(le24(c.data)), y = 2 * int(le24(c.data + 3));
+    const uint8_t* alph = nullptr;
+    size_t alph_size = 0;
+    const uint8_t* img = nullptr;
+    size_t img_size = 0, img_avail = 0;
+    bool lossless = false;
+    for (size_t q = 16; q + 8 <= c.size;) {
+      const uint32_t tag = le32(c.data + q), size = le32(c.data + q + 4);
+      if (size > c.size - q - 8) bad("WebP: a frame's chunk runs past its ANMF chunk");
+      if (tag == fourcc("ALPH")) {
+        if (alph) bad("WebP: two ALPH chunks in a frame");
+        alph = c.data + q + 8;
+        alph_size = size;
+      } else if (tag == fourcc("VP8 ") || tag == fourcc("VP8L")) {
+        img = c.data + q + 8;
+        img_size = size;
+        img_avail = std::min<size_t>(size + (size & 1), c.size - q - 8);
+        lossless = tag == fourcc("VP8L");
+        break;
+      } else {
+        bad("WebP: a frame's chunk is neither ALPH, VP8 nor VP8L");
+      }
+      q += 8 + size + (size & 1);
+    }
+    if (!img) bad("WebP: an animation frame without an image");
+    if (alph && lossless) bad("WebP: an ALPH chunk with a VP8L frame");
+    int w, h;
+    frame_size(img, img_size, lossless, w, h);
+    if (!w || !h) bad("WebP: an empty frame");
+    if (x + w > canvas_w || y + h > canvas_h) bad("WebP: a frame leaves the canvas");
+    if (first) {
+      lay.image = img;
+      lay.image_size = img_size;
+      lay.image_avail = img_avail;
+      lay.lossless = lossless;
+      lay.alpha = alph;
+      lay.alpha_size = alph_size;
+      lay.frame_w = w;
+      lay.frame_h = h;
+      lay.x = x;
+      lay.y = y;
+      first = false;
+    }
+  }
+  return lay;
+}
 
 Layout parse(const uint8_t* data, size_t n) {
   if (n < 12 || std::memcmp(data, "RIFF", 4) || std::memcmp(data + 8, "WEBP", 4))
@@ -1907,13 +2000,9 @@ Layout parse(const uint8_t* data, size_t n) {
     vp8x = true;
     i = 1;
   }
-  for (const Chunk& c : chunks) {
-    if (c.tag == fourcc("ANMF")) {
-      if (anim_flag) refuse("WebP: an animated file (ANIM/ANMF frames)");
-      bad("WebP: ANMF frames without VP8X's animation flag");
-    }
-  }
-  if (anim_flag) bad("WebP: VP8X's animation flag without ANMF frames");
+  if (anim_flag) return parse_animation(chunks, canvas_w, canvas_h, alpha_flag);
+  for (const Chunk& c : chunks)
+    if (c.tag == fourcc("ANMF")) bad("WebP: ANMF frames without VP8X's animation flag");
   const Chunk* alph = nullptr;
   for (; i < chunks.size(); ++i) {
     const Chunk& c = chunks[i];
@@ -1941,11 +2030,7 @@ Layout parse(const uint8_t* data, size_t n) {
     lay.height = h.height;
     lay.channels = h.alpha ? 4 : 3;
   } else {
-    const uint8_t* p = lay.image;
-    if (lay.image_size < 10) bad("VP8: the frame header is cut short");
-    if (p[3] != 0x9d || p[4] != 0x01 || p[5] != 0x2a) bad("VP8: no start code");
-    lay.width = le16(p + 6) & 0x3fff;
-    lay.height = le16(p + 8) & 0x3fff;
+    frame_size(lay.image, lay.image_size, false, lay.width, lay.height);
     lay.channels = (alpha_flag || alph) ? 4 : 3;
     if (alph && alpha_flag) {  // libwebp's demuxer drops ALPH without the flag
       lay.alpha = alph->data;
@@ -1958,10 +2043,10 @@ Layout parse(const uint8_t* data, size_t n) {
   return lay;
 }
 
-void decode(const uint8_t* data, size_t n, uint8_t* out) {
-  const Layout lay = parse(data, n);
+// The frame of `lay` (a still image, or an animation's first frame) into out,
+// width x height x ch.
+void decode_frame(const Layout& lay, uint8_t* out, int ch) {
   const size_t px = size_t(lay.width) * lay.height;
-  const int ch = lay.channels;
   if (lay.lossless) {
     const std::vector<uint32_t> argb =
         vp8l_pixels(lay.image + 5, lay.image_avail - 5, lay.width, lay.height);
@@ -1988,6 +2073,27 @@ void decode(const uint8_t* data, size_t n, uint8_t* out) {
   }
 }
 
+// WebPAnimDecoder's first frame: a zeroed (transparent) RGBA canvas, the
+// frame decoded into its rectangle (no blending: nothing is under it), then
+// RGB or RGBA.
+void decode(const uint8_t* data, size_t n, uint8_t* out) {
+  Layout lay = parse(data, n);
+  if (!lay.animated) {
+    decode_frame(lay, out, lay.channels);
+    return;
+  }
+  const int cw = lay.width, chh = lay.height, ch = lay.channels;
+  lay.width = lay.frame_w;
+  lay.height = lay.frame_h;
+  std::vector<uint8_t> frame(size_t(lay.width) * lay.height * 4);
+  decode_frame(lay, frame.data(), 4);
+  std::memset(out, 0, size_t(cw) * chh * ch);
+  for (int y = 0; y < lay.height; ++y)
+    for (int x = 0; x < lay.width; ++x)
+      std::memcpy(out + (size_t(lay.y + y) * cw + lay.x + x) * ch,
+                  &frame[(size_t(y) * lay.width + x) * 4], size_t(ch));
+}
+
 int finish(const Failure& e, char* msg, int64_t len) {
   if (len > 0) std::snprintf(msg, static_cast<size_t>(len), "%s", e.msg.c_str());
   return e.status;
@@ -1995,8 +2101,8 @@ int finish(const Failure& e, char* msg, int64_t len) {
 
 }  // namespace
 
-// hwc: height, width, channels (3 or 4).  Returns 0, 1 for a kind the
-// decoder refuses, 2 for a damaged file, with a message in msg.
+// hwc: height, width, channels (3 or 4).  Returns 0, or 2 for a damaged
+// file, with a message in msg.
 extern "C" int webp_header(const uint8_t* data, int64_t n, int64_t* hwc, char* msg,
                            int64_t msg_len) {
   try {

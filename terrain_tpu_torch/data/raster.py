@@ -8,23 +8,28 @@ package's reader):
                         deflate, PackBits; gray, RGB, palette, CMYK,
                         YCbCr, CIELab; Orientation 1-8
   BMP   data/bmp.py     uncompressed, BI_BITFIELDS, RLE8 and RLE4
-  WebP  data/webp.py    VP8L (lossless), VP8 (lossy), ALPH alpha
+  WebP  data/webp.py    VP8L (lossless), VP8 (lossy), ALPH alpha; an
+                        animation's first frame on its canvas
+  JPEG 2000 data/jp2.py JP2 and bare codestreams (*.j2k, *.j2c, *.jpc):
+                        the 5/3 and 9/7 wavelets, layers, precincts,
+                        tiles, every progression order
   PNM   data/pnm.py     P1-P6 plain and binary, maxval 1-65535, Pf floats
   TGA   data/tga.py     types 1-3 and their run-length forms, by name only
                         (*.tga, *.icb, *.vda, *.vst: TGA has no magic)
 GIF is refused by name: imageio gives it a frame axis that the JAX
 package's crop iterator does not take, so terrain_tpu cannot train from
 one either (serve/gif.py writes and reads the port's clips, not rasters).
-JPEG 2000 is refused by name until the port has its decoder, and so is a
-*.pfm path (imageio reads it through OpenCV, not Pillow); what a decoder
-does not take is refused by name there: a TIFF that imageio's tifffile
-plugin cannot read at a *.tif path (JPEG in TIFF, subsampled YCbCr), an
-animated WebP, a PNM kind that imageio reads through OpenCV (PF, P7, a
-*.pbm path holding anything but a bitmap)."""
+A *.pfm path is refused by name (imageio reads it through OpenCV, not
+Pillow); what a decoder does not take is refused by name there: a TIFF
+that imageio's tifffile plugin cannot read at a *.tif path (JPEG in TIFF,
+subsampled YCbCr), a PNM kind that imageio reads through OpenCV (PF, P7, a
+*.pbm path holding anything but a bitmap), a JPEG 2000 feature no fixture
+holds (POC, PPM/PPT, RGN, SOP/EPH, code-block styles, subsampling,
+palettes, sYCC)."""
 
 import os
 
-from terrain_tpu_torch.data import pnm, tga
+from terrain_tpu_torch.data import jp2, pnm, tga
 from terrain_tpu_torch.data.bmp import decode_bmp
 from terrain_tpu_torch.data.bmp import read_header as bmp_header
 from terrain_tpu_torch.data.jpeg import decode_jpeg
@@ -41,25 +46,24 @@ _EXT = {".png": "PNG", ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
         ".gif": "GIF", ".webp": "WebP", ".pbm": "PNM", ".pgm": "PNM",
         ".ppm": "PNM", ".pnm": "PNM", ".pfm": "PFM", ".jp2": "JPEG 2000",
         ".j2k": "JPEG 2000", ".jpx": "JPEG 2000", ".j2c": "JPEG 2000",
+        ".jpc": "JPEG 2000", ".jpf": "JPEG 2000",
         **{ext: "TGA" for ext in tga.EXTENSIONS}}
 _MAGIC = ((b"\x89PNG\r\n\x1a\n", "PNG"), (b"\xff\xd8\xff", "JPEG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
           (b"MM\x00+", "TIFF"), (b"GIF8", "GIF"), (b"BM", "BMP"),
-          (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-          (b"\xffO\xffQ", "JPEG 2000"),
+          *((m, "JPEG 2000") for m in jp2.MAGICS),
           *((m, "PNM") for m in _PNM))
 _REFUSED = {
     "GIF": "imageio gives a GIF a frame axis, (1, H, W) or (1, H, W, 3), "
            "which terrain_tpu's crop iterator refuses, so neither package "
            "trains from one: convert it to PNG",
-    "JPEG 2000": "a JPEG 2000 decoder (EBCOT and the 5/3 and 9/7 "
-                 "wavelets) is queued, not yet written: convert it to PNG",
     "PFM": "imageio reads a *.pfm path through OpenCV, not Pillow, and the "
            "port does not reproduce OpenCV's reading: convert it to PNG",
 }
-_DECODED = ("PNG", "JPEG", "TIFF", "BMP", "WebP", "PNM", "TGA")
+_DECODED = ("PNG", "JPEG", "TIFF", "BMP", "WebP", "PNM", "TGA", "JPEG 2000")
 _DECODERS = {"JPEG": decode_jpeg, "BMP": decode_bmp, "PNG": read_png,
-             "WebP": decode_webp, "TGA": tga.decode_tga}
+             "WebP": decode_webp, "TGA": tga.decode_tga,
+             "JPEG 2000": jp2.decode_jp2}
 
 
 def _refuse_unless_decoded(path, fmt):
@@ -69,7 +73,8 @@ def _refuse_unless_decoded(path, fmt):
     if fmt not in _DECODED:
         raise NotImplementedError(
             f"TERRAIN_RASTER: {path} is {fmt}; the port decodes PNG, JPEG, "
-            f"TIFF, BMP, WebP, PNM and TGA rasters, with its own codecs")
+            f"TIFF, BMP, WebP, PNM, TGA and JPEG 2000 rasters, with its own "
+            f"codecs")
 
 
 def _sniff(head):
@@ -103,9 +108,10 @@ def format_of(path):
 
 def check_header(path, fmt):
     """Raise NotImplementedError where the header of `path` (a TIFF's first
-    IFD, a BMP's headers, a WebP's chunks, a PNM's magic) names a variant
-    the port does not decode, before any pixel is decoded; ValueError
-    where it is damaged."""
+    IFD, a BMP's headers, a WebP's chunks, a PNM's magic, a JPEG 2000
+    file's boxes and main header) names a variant the port does not
+    decode, before any pixel is decoded; ValueError where it is
+    damaged."""
     if fmt == "TIFF":
         tiff_header(path)
         return
@@ -118,6 +124,8 @@ def check_header(path, fmt):
             pnm.check_kind(path, f.read(8))
         elif fmt == "TGA":
             tga.read_header(f.read(18))
+        elif fmt == "JPEG 2000":
+            jp2.read_header(f.read())
 
 
 def read_raster(path, fmt=None):

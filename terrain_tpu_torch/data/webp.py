@@ -16,12 +16,14 @@ ICCP, EXIF, XMP or unknown chunks, and ALPH before a VP8 image, raw or
 VP8L-coded, with any of the four filters): VP8L with every transform, meta
 prefix codes and the colour cache; VP8 with segments, either loop filter,
 one to eight token partitions, and libwebp's fancy upsampling to RGB.
-Held bit-equal to imageio under Pillow 12.1.0 with libwebp 1.6.0
-(tests/data/webp/digests.json).  An animated file (ANIM/ANMF; imageio
-reads its first frame composited on a canvas) raises NotImplementedError;
-a damaged or truncated file raises ValueError, as does a layout libwebp's
+An animated file (VP8X's animation flag, ANIM, ANMF frames) gives what
+imageio gives, its first frame as WebPAnimDecoder composes it: a zeroed
+(transparent) canvas of VP8X's size with the frame at its offset, (H, W, 4)
+under VP8X's alpha flag, else (H, W, 3).  Held bit-equal to imageio under
+Pillow 12.1.0 with libwebp 1.6.0 (tests/data/webp/digests.json).  A
+damaged or truncated file raises ValueError, as does a layout libwebp's
 demuxer rejects (two ALPH chunks, a chunk between ALPH and the image,
-ALPH before a VP8L image).  A block's inverse DCT is libwebp's on x86
+ALPH before a VP8L image, ANMF before ANIM, a frame outside its canvas).  A block's inverse DCT is libwebp's on x86
 (its SSE2 routine's 16-bit steps), so even a damaged file that libwebp
 decodes comes back with imageio's bytes.
 """
@@ -51,16 +53,13 @@ def _lib():
 
 def _raise(rc, msg):
     text = msg.value.decode(errors="replace")
-    if rc == 1:
-        raise NotImplementedError(f"{text}; the port decodes still WebP "
-                                  f"images (VP8, VP8L, ALPH)")
     raise ValueError(text)
 
 
 def read_header(buf):
     """(height, width, channels) of WebP bytes the decoder takes (the RIFF
-    chunks and the image's header are read); raises as `decode_webp` does
-    for any other."""
+    chunks and the image's header are read; an animation's canvas); raises
+    as `decode_webp` does for any other."""
     buf = bytes(buf)
     hwc = np.zeros(3, np.int64)
     msg = ctypes.create_string_buffer(_MSG)

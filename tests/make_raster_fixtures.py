@@ -621,15 +621,22 @@ def tiff_kinds(tex):
 
 # the fixtures the port refuses by name, with the words it names them by
 REFUSED = {"pillow_jpeg_refused.tif": "compression 7 (JPEG)",
-           "pillow_animated_2_frames.webp": "an animated file",
-           "animated_1_frame.webp": "an animated file",
            "pam_refused.pgm": "P7 (PAM)",
            "pf_colour_refused.ppm": "PF (colour PFM)",
-           "pyp_refused.pgm": "PyP"}
+           "pyp_refused.pgm": "PyP",
+           "refused_poc.j2k": "POC progression changes",
+           "refused_ppm.j2k": "PPM packed packet headers",
+           "refused_rgn.j2k": "RGN regions of interest",
+           "refused_sop.j2k": "SOP/EPH packet markers",
+           "refused_cblk_style.j2k": "code-block style 4",
+           "refused_htj2k.j2k": "HTJ2K code-blocks",
+           "refused_subsampled.j2k": "a subsampled component",
+           "refused_pclr.jp2": "a palette (pclr/cmap)",
+           "refused_sycc.jp2": "sYCC colour"}
 # refused at their path only (the bytes decode through Pillow)
 PATH_REFUSED = {"gray_at_pbm_path_refused.pbm": "a *.pbm path holding P5"}
 # the kinds whose decoders raise ValueError wherever imageio fails
-VALUE_ERROR_KINDS = ("webp", "pnm", "tga")
+VALUE_ERROR_KINDS = ("webp", "pnm", "tga", "jp2")
 
 
 def strip_heights(h, w, seed=5):
@@ -840,6 +847,25 @@ def _vp8x(w, h, alpha):
             + struct.pack("<I", w - 1)[:3] + struct.pack("<I", h - 1)[:3])
 
 
+def _anmf(x, y, w, h, flags, chunks):
+    """An ANMF chunk: a frame at (x, y) (even), w x h, 40 ms, `flags`
+    (1 dispose, 2 no blending), of `chunks` (ALPH, then VP8 or VP8L)."""
+    sub = b"".join(tag + struct.pack("<I", len(c)) + c + b"\0" * (len(c) & 1)
+                   for tag, c in chunks)
+    return (b"ANMF", b"".join(struct.pack("<I", v)[:3] for v in (
+        x // 2, y // 2, w - 1, h - 1, 40)) + bytes([flags]) + sub)
+
+
+def _anim(canvas, alpha, frames):
+    """An animated WebP: VP8X (the animation flag, and the alpha flag when
+    `alpha`), ANIM, then the ANMF chunks."""
+    w, h = canvas
+    return _riff([(b"VP8X", bytes([0x02 | (0x10 if alpha else 0), 0, 0, 0])
+                   + struct.pack("<I", w - 1)[:3]
+                   + struct.pack("<I", h - 1)[:3]),
+                  (b"ANIM", bytes(6))] + frames)
+
+
 def _alpha_filter(a, kind):
     """The deltas ALPH's filter `kind` (1 horizontal, 2 vertical, 3
     gradient) leaves of the plane a, libwebp's unfilter undoing them."""
@@ -948,6 +974,37 @@ def webp_fixtures():
         (b"VP8X", bytes([0x02, 0, 0, 0]) + struct.pack("<I", 31)[:3]
          + struct.pack("<I", 23)[:3]),
         (b"ANIM", bytes(4) + b"\x00\x00"), (b"ANMF", anmf)])
+    rgba_frames = [Image.fromarray(terrain(24, 32, s, 4)) for s in (49, 50)]
+    for f in rgba_frames:
+        f.putalpha(Image.fromarray((np.arange(32)[None] * 8 + np.zeros(
+            (24, 1), int)).clip(0, 255).astype(np.uint8)))
+    out["pillow_animated_lossy_rgba.webp"] = _pillow(
+        rgba_frames[0], "WEBP", save_all=True, append_images=rgba_frames[1:],
+        quality=70)
+    out["pillow_animated_lossy.webp"] = _pillow(
+        frames[0], "WEBP", save_all=True, append_images=frames[1:],
+        quality=60)
+    # a first frame at an offset of a larger canvas: lossy with ALPH,
+    # lossless, lossy without alpha; under VP8X's alpha flag and without
+    frame = terrain(20, 26, 51, 4)
+    lossy_alph = _chunks(_pillow(Image.fromarray(frame), "WEBP",
+                                 quality=60))[1:]
+    lossless = _chunks(_pillow(Image.fromarray(frame), "WEBP",
+                               lossless=True))
+    lossy = _chunks(_pillow(Image.fromarray(frame[..., :3]), "WEBP",
+                            quality=60))
+    for name, sub in (("lossy_alph", lossy_alph), ("lossless", lossless),
+                      ("lossy", lossy)):
+        for alpha in (True, False):
+            out[f"animated_offset_{name}{'' if alpha else '_no_alpha_flag'}"
+                f".webp"] = _anim((40, 33), alpha, [
+                    _anmf(6, 8, 26, 20, 0, sub),
+                    _anmf(0, 0, 26, 20, 2, sub)])
+    out["animated_frame_leaves_canvas.webp"] = _anim(
+        (30, 30), True, [_anmf(6, 12, 26, 20, 0, lossless)])
+    out["animated_anmf_before_anim.webp"] = _riff([
+        (b"VP8X", bytes([0x12, 0, 0, 0]) + struct.pack("<I", 39)[:3]
+         + struct.pack("<I", 32)[:3]), _anmf(0, 0, 26, 20, 0, lossless)])
     hm, pair_tex = webp_pair()
     out["pillow_pair_hm_1024x640_lossless.webp"] = _pillow(
         Image.fromarray(hm), "WEBP", lossless=True)
@@ -1004,6 +1061,315 @@ def webp_fixtures():
     lossless = out["pillow_lossless_q50_m6.webp"]
     ll = _chunks(lossless)[0][1]
     out["vp8l_stream_cut.webp"] = _riff([(b"VP8L", ll[:len(ll) * 2 // 3])])
+    return out
+
+
+# --------------------------------------------------------------- JPEG 2000
+def heights16(h, w, seed):
+    """(h, w) uint16 heights: six octaves of waves over 0..60000 with two
+    bits of noise, ~30% ocean zeros."""
+    rnd = np.random.RandomState(seed)
+    y = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    x = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    f = np.zeros((h, w), np.float32)
+    for k in range(6):
+        fy, fx, py, px = rnd.uniform(1, 4 * (k + 1), 4)
+        f += np.sin(fy * 6.2832 * y + py) * np.cos(fx * 6.2832 * x + px) / (
+            k + 1)
+    f -= np.quantile(f, 0.3)
+    out = np.clip(f / f.max(), 0, 1) * 60000 + rnd.randint(0, 4, (h, w))
+    return np.where(f > 0, out, 0).astype(np.uint16)
+
+
+# the 1024x1024 one-tile files chip_smoke.py repeats into 20480x10240
+# codestreams and trains from
+JP2_TILES = ("tile_1024_gray16_53_5levels.jp2", "tile_1024_rgb_97_3layers.jp2")
+
+
+def jp2_tiles():
+    """A 16-bit lossless heights tile (5/3, five levels) and an RGB texture
+    tile (9/7 and the ICT, three quality layers), one tile each."""
+    from PIL import Image
+
+    hm = heights16(1024, 1024, 81)
+    tex = terrain(1024, 1024, 82)
+    return {
+        JP2_TILES[0]: _pillow(Image.fromarray(hm), "JPEG2000",
+                              num_resolutions=6),
+        JP2_TILES[1]: _pillow(Image.fromarray(tex), "JPEG2000",
+                              irreversible=True, quality_mode="rates",
+                              quality_layers=[80, 40, 20]),
+    }
+
+
+def j2k_parts(cs):
+    """A codestream as (main header up to its first SOT, [[Isot, TPsot,
+    TNsot, tile-part header markers, data], ...], what follows the last
+    tile-part)."""
+    p = 2
+    while True:
+        m, n = struct.unpack(">HH", cs[p:p + 4])
+        if m == 0xFF90:
+            break
+        p += 2 + n
+    main, parts = cs[:p], []
+    while cs[p:p + 2] == b"\xff\x90":
+        isot, psot, tpsot, tnsot = struct.unpack(">HIBB", cs[p + 4:p + 12])
+        q = p + 12
+        while cs[q:q + 2] != b"\xff\x93":
+            q += 2 + struct.unpack(">H", cs[q + 2:q + 4])[0]
+        parts.append([isot, tpsot, tnsot, cs[p + 12:q], cs[q + 2:p + psot]])
+        p += psot
+    return main, parts, cs[p:]
+
+
+def j2k_join(main, parts, tail=b"\xff\xd9", psot0_last=False):
+    out = bytearray(main)
+    for i, (isot, tpsot, tnsot, hdr, data) in enumerate(parts):
+        psot = 0 if psot0_last and i == len(parts) - 1 else \
+            12 + len(hdr) + 2 + len(data)
+        out += struct.pack(">HHHIBB", 0xFF90, 10, isot, psot, tpsot, tnsot)
+        out += hdr + b"\xff\x93" + data
+    return bytes(out + tail)
+
+
+def _main_markers(main):
+    """The main header's marker segments as [(marker, payload)], SOC and
+    SIZ first."""
+    out, p = [], 2
+    while p < len(main):
+        m, n = struct.unpack(">HH", main[p:p + 4])
+        out.append((m, main[p + 4:p + 2 + n]))
+        p += 2 + n
+    return out
+
+
+def _main(segments):
+    return b"\xff\x4f" + b"".join(struct.pack(">HH", m, len(x) + 2) + x
+                                  for m, x in segments)
+
+
+def _edit(cs, fn):
+    """The codestream with its main header's segments edited by fn."""
+    main, parts, tail = j2k_parts(cs)
+    return j2k_join(_main(fn(_main_markers(main))), parts, tail)
+
+
+def _boxes(data):
+    out, p = [], 0
+    while p < len(data):
+        n, t = struct.unpack(">I4s", data[p:p + 8])
+        n = n or len(data) - p
+        out.append((t, data[p + 8:p + n]))
+        p += n
+    return out
+
+
+def _box(tag, payload):
+    return struct.pack(">I", 8 + len(payload)) + tag + payload
+
+
+def _jp2(boxes):
+    return b"".join(_box(t, x) for t, x in boxes)
+
+
+def _jp2h(data, fn):
+    """A JP2 file with the sub-boxes of its jp2h box edited by fn."""
+    return _jp2([(t, _jp2(fn(_boxes(x))) if t == b"jp2h" else x)
+                 for t, x in _boxes(data)])
+
+
+def _colr(enumcs=None, icc=None):
+    body = b"\x02\x00\x00" + icc if icc is not None else \
+        b"\x01\x00\x00" + struct.pack(">I", enumcs)
+    return lambda bs: [(t, body if t == b"colr" else x) for t, x in bs]
+
+
+def _cod(cs, fn):
+    """The codestream with its COD segment's payload edited by fn."""
+    return _edit(cs, lambda segs: [(m, fn(bytearray(x)) if m == 0xFF52
+                                    else x) for m, x in segs])
+
+
+def jp2_fixtures():
+    """Pillow's files over its options (both wavelets, 1-7 resolutions,
+    code-block and precinct sizes, tiles and offsets, every progression,
+    quality layers by rate and by dB, mct, JP2 and bare codestreams, PLT,
+    comments, signed samples) in gray, 16-bit gray, gray+alpha, RGB and
+    RGBA; OpenCV's 16-bit gray and RGB files; codestreams rewritten here
+    (tile-parts split, reordered, interleaved, TNsot 0, Psot 0, derived
+    quantization, QCC and COC, JP2 boxes and colour spaces); cuts where
+    openjpeg still decodes and where it fails; the kinds refused by name;
+    and the two 1024x1024 tiles of chip_smoke.py's raster phase."""
+    import cv2
+    from PIL import Image
+
+    out = {}
+    tex = terrain(37, 45, 91)
+    rgba = terrain(29, 34, 92, 4)
+    rgba[..., 3] = (np.arange(34)[None] * 7).clip(0, 255)
+    gray = tex[..., 1]
+    g16 = heights16(37, 45, 93)
+    la = np.stack([gray, tex[..., 2]], -1)
+    imgs = {"gray8": Image.fromarray(gray), "gray16": Image.fromarray(g16),
+            "la": Image.fromarray(la, "LA"), "rgb": Image.fromarray(tex),
+            "rgba": Image.fromarray(rgba)}
+    for name, img in imgs.items():
+        out[f"pillow_{name}_53.jp2"] = _pillow(img, "JPEG2000")
+        out[f"pillow_{name}_97.jp2"] = _pillow(img, "JPEG2000",
+                                               irreversible=True)
+        out[f"pillow_{name}_53.j2k"] = _pillow(img, "JPEG2000", no_jp2=True)
+    rgb = imgs["rgb"]
+    for r in range(1, 8):  # 9/7: levels 0 (dequantisation and ICT) to 6
+        big = Image.fromarray(terrain(70, 83, 94))
+        out[f"pillow_rgb_97_res{r}.jp2"] = _pillow(
+            big, "JPEG2000", irreversible=True, num_resolutions=r)
+        out[f"pillow_gray16_53_res{r}.jp2"] = _pillow(
+            Image.fromarray(heights16(70, 83, 95)), "JPEG2000",
+            num_resolutions=r)
+    for cb in ((4, 4), (4, 64), (64, 16), (32, 128)):
+        out[f"pillow_rgb_cb{cb[0]}x{cb[1]}.jp2"] = _pillow(
+            rgb, "JPEG2000", codeblock_size=cb, irreversible=cb[0] == 64)
+    for prog in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL"):
+        for irr in (False, True):
+            out[f"pillow_rgb_{prog.lower()}_{'97' if irr else '53'}.jp2"] = \
+                _pillow(rgb, "JPEG2000", progression=prog,
+                        precinct_size=(16, 8), tile_size=(24, 20),
+                        num_resolutions=3, quality_mode="dB",
+                        quality_layers=[28, 36, 44], irreversible=irr)
+    out["pillow_rgb_precincts_4x128.jp2"] = _pillow(
+        rgb, "JPEG2000", precinct_size=(4, 128), progression="PCRL",
+        num_resolutions=2)
+    out["pillow_rgb_tiles_16x20.jp2"] = _pillow(rgb, "JPEG2000",
+                                                tile_size=(16, 20))
+    out["pillow_rgb_97_tiles_offsets.jp2"] = _pillow(
+        rgb, "JPEG2000", tile_size=(15, 12), tile_offset=(3, 2),
+        offset=(7, 5), irreversible=True, progression="RPCL",
+        num_resolutions=3)
+    out["pillow_gray16_tiles_offsets.j2k"] = _pillow(
+        imgs["gray16"], "JPEG2000", tile_size=(20, 11), tile_offset=(1, 4),
+        offset=(5, 9), no_jp2=True, progression="CPRL",
+        precinct_size=(8, 16), num_resolutions=3)
+    for mode, layers in (("rates", [60, 30, 12]), ("dB", [24, 33, 42])):
+        for irr in (False, True):
+            out[f"pillow_rgb_layers_{mode}_{'97' if irr else '53'}.jp2"] = \
+                _pillow(rgb, "JPEG2000", quality_mode=mode,
+                        quality_layers=layers, irreversible=irr)
+    out["pillow_gray16_layers_rates_97.j2k"] = _pillow(
+        imgs["gray16"], "JPEG2000", quality_mode="rates",
+        quality_layers=[50, 10], irreversible=True, no_jp2=True)
+    out["pillow_rgb_mct0_97.jp2"] = _pillow(rgb, "JPEG2000", mct=0,
+                                            irreversible=True)
+    out["pillow_rgb_plt_comment.j2k"] = _pillow(
+        rgb, "JPEG2000", plt=True, comment="terrain", no_jp2=True,
+        tile_size=(32, 32))
+    for name in ("gray8", "gray16", "la", "rgb"):
+        out[f"pillow_{name}_signed.jp2"] = _pillow(imgs[name], "JPEG2000",
+                                                   signed=True)
+    for size in ((1, 1), (1, 9), (9, 1), (2, 3)):
+        with np.errstate(invalid="ignore"):  # one height, no range
+            small = Image.fromarray(terrain(*size, 96))
+        out[f"pillow_rgb_{size[0]}x{size[1]}.jp2"] = _pillow(
+            small, "JPEG2000", num_resolutions=1)
+    out["pillow_rgb_97_odd_7x5_tiles.j2k"] = _pillow(
+        Image.fromarray(terrain(7, 5, 97)), "JPEG2000", irreversible=True,
+        num_resolutions=2, tile_size=(4, 4), offset=(3, 3), tile_offset=(1, 2),
+        no_jp2=True)
+    # OpenCV: 16-bit gray and RGB (its own openjpeg, 6 resolutions, a cdef
+    # box on four channels)
+    big16 = heights16(70, 73, 98)
+    rgb16 = np.stack([big16, big16[::-1], big16[:, ::-1]], -1)
+    for name, arr in (("gray16", big16), ("rgb16", rgb16),
+                      ("rgba8", terrain(70, 73, 99, 4))):
+        ok, buf = cv2.imencode(".jp2", arr)
+        assert ok
+        out[f"opencv_{name}.jp2"] = buf.tobytes()
+    # codestreams rewritten: tile-parts
+    cs = out["pillow_rgb_tiles_16x20.jp2"]
+    cs = _boxes(cs)[-1][1]
+    main, parts, tail = j2k_parts(cs)
+    split = []
+    for isot, _, _, hdr, data in parts:
+        k = len(data) // 3
+        split += [[isot, 0, 2, hdr, data[:k]], [isot, 1, 2, b"", data[k:]]]
+    out["tileparts_split.j2k"] = j2k_join(main, split)
+    out["tileparts_reversed.j2k"] = j2k_join(main, parts[::-1])
+    out["tileparts_interleaved.j2k"] = j2k_join(
+        main, split[0::2] + split[1::2][::-1])
+    out["tileparts_tnsot0.j2k"] = j2k_join(
+        main, [[a, b, 0, h, x] for a, b, _, h, x in split])
+    out["tileparts_tnsot0_no_eoc.j2k"] = j2k_join(
+        main, [[a, b, 0, h, x] for a, b, _, h, x in parts], tail=b"")
+    out["tileparts_psot0_last.j2k"] = j2k_join(main, parts, psot0_last=True)
+    out["tileparts_tile_missing.j2k"] = j2k_join(main, parts[:2] + parts[3:])
+    out["cut_after_sot_marker.j2k"] = j2k_join(main, parts[:4],
+                                               tail=b"\xff\x90")
+    out["cut_in_tile.j2k"] = cs[:len(cs) * 2 // 3]
+    out["cut_before_eoc.j2k"] = cs[:-2]
+    out["cut_in_main_header.j2k"] = cs[:40]
+    out["junk_for_eoc.j2k"] = cs[:-2] + b"\x12\x34"
+    out["tileparts_out_of_order.j2k"] = j2k_join(
+        main, [split[1], split[0]] + split[2:])
+    # quantization and coding style segments
+    cs97 = _boxes(out["pillow_rgb_97_res1.jp2"])[-1][1]
+
+    def derived(segs):
+        return [(m, bytes([(x[0] & 0xe0) | 1]) + x[1:3] if m == 0xFF5C else x)
+                for m, x in segs]
+    out["qcd_derived_res1.j2k"] = _edit(cs97, derived)
+    out["qcd_derived_res4.j2k"] = _edit(
+        _boxes(out["pillow_rgb_97_res4.jp2"])[-1][1], derived)
+
+    def per_component(segs):
+        cod = next(x for m, x in segs if m == 0xFF52)
+        qcd = next(x for m, x in segs if m == 0xFF5C)
+        return segs + [(0xFF53, bytes([1]) + cod[0:1] + cod[5:]),
+                       (0xFF5D, bytes([2]) + qcd)]
+    out["coc_qcc_main.j2k"] = _edit(cs, per_component)
+    # JP2 boxes and colour spaces
+    jrgb = out["pillow_rgb_53.jp2"]
+    bxs = _boxes(jrgb)
+    out["jp2_xml_uuid_boxes.jp2"] = _jp2(
+        bxs[:2] + [(b"xml ", b"<terrain/>")] + bxs[2:3]
+        + [(b"uuid", bytes(20))] + bxs[3:])
+    out["jp2_res_bpcc_unknown.jp2"] = _jp2h(jrgb, lambda b: b + [
+        (b"res ", _box(b"resc", bytes([0, 1, 0, 1, 0, 1, 0, 1, 0, 0]))),
+        (b"bpcc", bytes([7, 7, 7])), (b"zzzz", b"abc")])
+    out["jp2_colr_after_ihdr_swapped.jp2"] = _jp2h(jrgb, lambda b: b[::-1])
+    out["jp2c_length_0.jp2"] = _jp2(bxs[:3]) + struct.pack(">I", 0) \
+        + b"jp2c" + bxs[3][1]
+    out["jp2_colr_icc.jp2"] = _jp2h(jrgb, _colr(icc=bytes(40)))
+    out["jp2_colr_enumcs_99.jp2"] = _jp2h(jrgb, _colr(99))
+    out["jp2_no_colr.jp2"] = _jp2h(
+        jrgb, lambda b: [(t, x) for t, x in b if t != b"colr"])
+    out["jp2_cmyk.jp2"] = _jp2h(out["pillow_rgba_53.jp2"], _colr(12))
+    out["jp2_gray_colr_on_rgb.jp2"] = _jp2h(jrgb, _colr(17))
+    out["jp2_ihdr_size_differs.jp2"] = _jp2h(jrgb, lambda b: [
+        (t, struct.pack(">II", 40, 50) + x[8:] if t == b"ihdr" else x)
+        for t, x in b])
+    out["jp2_ihdr_bpc9_gray.jp2"] = _jp2h(out["pillow_gray8_53.jp2"], lambda b: [
+        (t, x[:10] + bytes([9]) + x[11:] if t == b"ihdr" else x)
+        for t, x in b])
+    # refused by name
+    j2k = out["pillow_rgb_53.j2k"]
+
+    def insert(marker, payload):
+        return _edit(j2k, lambda segs: segs + [(marker, payload)])
+    out["refused_poc.j2k"] = insert(0xFF5F, bytes([0, 0, 0, 1, 6, 3, 0]))
+    out["refused_ppm.j2k"] = insert(0xFF60, bytes(1))
+    out["refused_rgn.j2k"] = insert(0xFF5E, bytes([0, 0, 2]))
+    out["refused_sop.j2k"] = _cod(j2k, lambda x: bytes([x[0] | 2]) + x[1:])
+    out["refused_cblk_style.j2k"] = _cod(
+        j2k, lambda x: x[:8] + bytes([4]) + x[9:])
+    out["refused_htj2k.j2k"] = _cod(
+        j2k, lambda x: x[:8] + bytes([0x40]) + x[9:])
+    out["refused_subsampled.j2k"] = _edit(j2k, lambda segs: [
+        (m, x[:36 + 3 * 2 + 1] + bytes([2, 2]) + x[36 + 3 * 2 + 3:]
+         if m == 0xFF51 else x) for m, x in segs])
+    out["refused_pclr.jp2"] = _jp2h(out["pillow_gray8_53.jp2"], lambda b: b + [
+        (b"pclr", struct.pack(">HB", 2, 3) + bytes([7, 7, 7]) + bytes(6))])
+    out["refused_sycc.jp2"] = _jp2h(jrgb, _colr(18))
+    out.update(jp2_tiles())
     return out
 
 
@@ -1201,7 +1567,11 @@ def digest(data, path=None, kind=None):
         try:
             with warnings.catch_warnings():  # the plugin's deprecation
                 warnings.simplefilter("ignore")
-                out["path"] = _summary(iio.imread(path))
+                # a JPEG 2000 path through Pillow, imageio's first choice
+                # (where Pillow fails imageio tries OpenCV, which the port
+                # does not follow)
+                out["path"] = _summary(iio.imread(
+                    path, **({"plugin": "pillow"} if kind == "jp2" else {})))
         except Exception:  # noqa: BLE001 -- no plugin reads it
             out["path"] = None
     return out
@@ -1216,11 +1586,17 @@ def reference(kind):
            "libtiff": features.version("libtiff")}
     if kind == "webp":
         out["libwebp"] = features.version("webp")
+    if kind == "jp2":
+        import cv2
+
+        out["openjpeg"] = features.version("jpg_2000")
+        out["opencv"] = cv2.__version__
     return out
 
 
 KINDS = {"png": png_fixtures, "tiff": tiff_fixtures, "bmp": bmp_fixtures,
-         "webp": webp_fixtures, "pnm": pnm_fixtures, "tga": tga_fixtures}
+         "webp": webp_fixtures, "pnm": pnm_fixtures, "tga": tga_fixtures,
+         "jp2": jp2_fixtures}
 # committed files no script here writes, kept with their entries
 KEPT = {"png": ("terrain_48x40_rgb_5filters.png",)}
 

@@ -3,8 +3,8 @@ ops/kernels/_build.py): a store of the port's built libraries.
 
 On the CPU the host libraries build (g++): they go into the store with
 their records, and a fresh process whose PATH holds no compiler loads them
-and decodes the committed PNG, JPEG, TIFF, BMP, WebP, PNM and TGA fixtures
-to their digests (SHA-256 of imageio's decodes).  A record that does not
+and decodes the committed PNG, JPEG, TIFF, BMP, WebP, PNM, TGA and JPEG
+2000 fixtures to their digests (SHA-256 of imageio's decodes).  A record that does not
 fit is rebuilt
 with a compiler and raises without one; an edited source gives a new
 entry; TERRAIN_AOT_KEY=jaxpr keys on every file of the package.  The CUDA
@@ -22,7 +22,7 @@ import sys
 
 import pytest
 
-from terrain_tpu_torch.data import jpeg, tiff, webp
+from terrain_tpu_torch.data import jp2, jpeg, tiff, webp
 from terrain_tpu_torch.ops.kernels import _build
 from terrain_tpu_torch.serve import gif, png
 from terrain_tpu_torch.utils import aot
@@ -32,7 +32,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data"
 HOSTS = [os.path.join(aot.PACKAGE, s) for s in _build.HOST_SOURCES]
 
-KINDS = ("png", "jpeg", "tiff", "bmp", "webp", "pnm", "tga")
+KINDS = ("png", "jpeg", "tiff", "bmp", "webp", "pnm", "tga", "jp2")
 DECODE = """
 import hashlib, json, os, sys
 from terrain_tpu_torch.data.raster import read_raster
@@ -81,11 +81,11 @@ def _no_compiler(monkeypatch):
 def test_the_host_sources_are_the_decoders():
     """The PNG unfilter, the JPEG decoder, the TIFF, BMP and TGA runs (one
     library: data/bmp.py and data/tga.py bind data/tiff.py's), the GIF
-    writer's quantizer and LZW coder, and the WebP decoder: five host
-    libraries."""
+    writer's quantizer and LZW coder, the WebP decoder and the JPEG 2000
+    decoder: six host libraries."""
     assert sorted(HOSTS) == sorted([png._UNFILTER_SRC, jpeg._SRC, tiff._SRC,
-                                    gif._SRC, webp._SRC])
-    assert len(HOSTS) == 5
+                                    gif._SRC, webp._SRC, jp2._SRC])
+    assert len(HOSTS) == 6
 
 
 def test_host_libraries_go_to_the_store_with_their_records(store):

@@ -6,11 +6,12 @@ native library's bytes; the port's PNG decoder undoes every filter type as
 its per-byte plain version does and reads other encoders' files;
 `_get_data` gives terrain_tpu's first batches from the same PNG pair, a
 lossy WebP texture with 16-bit PGM heights and a TGA pair; a JPEG, TIFF,
-BMP, WebP, PNM or TGA is decoded (tests/test_torch_jpeg.py,
-test_torch_tiff.py, test_torch_bmp.py, test_torch_webp.py and
-test_torch_pnm_tga.py hold the decoders), a GIF, JPEG 2000 and the
-variants the port does not take refused by name before either file is
-decoded; and smoke_synthetic trains from a raster through the CLI.
+BMP, WebP (an animation's first frame too), PNM, TGA or JPEG 2000 is
+decoded (tests/test_torch_jpeg.py, test_torch_tiff.py, test_torch_bmp.py,
+test_torch_webp.py, test_torch_pnm_tga.py and test_torch_jp2.py hold the
+decoders), a GIF and the variants the port does not take refused by name
+before either file is decoded; and smoke_synthetic trains from a raster
+through the CLI.
 Rasters are a few hundred pixels a side.
 """
 
@@ -264,11 +265,17 @@ def _pil_save(path, img, fmt, **kw):
     ("b.ppm", "PPM"),
     ("b.pbm", "PPM-1"),                # imageio reads the path via OpenCV
     ("b.tga", "TGA"),
+    ("b.jp2", "JPEG2000-jp2"),         # JPEG 2000 by name
+    ("b.j2k", "JPEG2000-j2k"),         # a bare codestream by name
+    ("b.raster", "JPEG2000-jp2"),      # by the JP2 signature box
+    ("b.png", "JPEG2000-j2k"),         # by the codestream's SOC and SIZ
+    ("b.webp", "WEBP-animated"),       # an animation's first frame
 ])
 def test_a_raster_that_is_not_a_png_is_decoded(tmp_path, rng, name, fmt):
-    """A JPEG, TIFF, BMP, WebP, PNM or TGA texture, named so or starting
-    so, is decoded by the port's codec to imageio's bytes (for a WebP, PNM
-    or TGA, imageio's decode of the path, as the JAX package reads it)."""
+    """A JPEG, TIFF, BMP, WebP, PNM, TGA or JPEG 2000 texture, named so or
+    starting so, is decoded by the port's codec to imageio's bytes (for a
+    WebP, PNM, TGA or JPEG 2000, imageio's decode of the path, as the JAX
+    package reads it; for an animated WebP, its first frame)."""
     iio = pytest.importorskip("imageio.v3")
     from PIL import Image
 
@@ -278,6 +285,11 @@ def test_a_raster_that_is_not_a_png_is_decoded(tmp_path, rng, name, fmt):
     fmt, _, mode = fmt.partition("-")
     kw = {"quality": 85} if fmt == "JPEG" else (
         {"compression": "tiff_lzw"} if fmt == "TIFF" else {})
+    if fmt == "JPEG2000":  # a 9/7 texture, as a JP2 file or a codestream
+        kw, mode = {"irreversible": True, "no_jp2": mode == "j2k"}, ""
+    elif mode == "animated":
+        kw, mode = {"save_all": True, "append_images": [
+            Image.fromarray(tex[::-1])], "quality": 80}, ""
     if mode:
         Image.fromarray(tex).convert(mode).save(other, fmt)
     else:
@@ -293,17 +305,13 @@ def test_a_raster_that_is_not_a_png_is_decoded(tmp_path, rng, name, fmt):
     np.testing.assert_array_equal(got_tex, want)
 
 
-def _webp_animated():
-    """Two frames, as Pillow writes an animated WebP (VP8X, ANIM, ANMF)."""
-    import io
+def _jp2_with_poc(path):
+    """A codestream with a POC marker, a JPEG 2000 feature no fixture
+    holds (tests/data/jp2/refused_poc.j2k)."""
+    from raster_cases import DATA
 
-    from PIL import Image
-
-    frames = [Image.fromarray(np.full((8, 8, 3), v, np.uint8))
-              for v in (0, 255)]
-    buf = io.BytesIO()
-    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:])
-    return buf.getvalue()
+    with open(os.path.join(DATA, "jp2", "refused_poc.j2k"), "rb") as f:
+        path.write_bytes(f.read())
 
 
 def _subsampled_ycbcr(path):
@@ -328,16 +336,8 @@ def _cmyk4(path):
     ("b.raster", lambda p: p.write_bytes(b"GIF89a" + bytes(64)),
      "is GIF; imageio gives a GIF a frame axis"),
     ("b.gif", None, "is GIF; imageio gives a GIF a frame axis"),
-    ("b.jp2", None, "is JPEG 2000; a JPEG 2000 decoder"),
-    ("b.j2k", None, "is JPEG 2000; a JPEG 2000 decoder"),
-    ("b.raster", lambda p: p.write_bytes(
-        b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(32)),
-     "is JPEG 2000; a JPEG 2000 decoder"),
-    ("b.png", lambda p: p.write_bytes(b"\xffO\xffQ" + bytes(32)),
-     "is JPEG 2000; a JPEG 2000 decoder"),
+    ("b.j2k", _jp2_with_poc, "JPEG 2000: POC progression changes"),
     ("b.pfm", None, "is PFM; imageio reads a \\*.pfm path through OpenCV"),
-    ("b.webp", lambda p: p.write_bytes(_webp_animated()),
-     "WebP: an animated file"),
     ("b.pgm", lambda p: p.write_bytes(b"P7\nWIDTH 1\nHEIGHT 1\nENDHDR\n"),
      r"PNM: P7 \(PAM\)"),
     ("b.pbm", lambda p: p.write_bytes(b"P5\n1 1\n255\n\x00"),
@@ -351,11 +351,11 @@ def _cmyk4(path):
 def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
                                                match, monkeypatch):
     """What the port does not decode (the test above shows what it does):
-    GIF and JPEG 2000 by name and by magic, a *.pfm by name, JPEG-in-TIFF,
-    subsampled YCbCr at a *.tif path and 4-bit CMYK by their TIFF headers,
-    an animated WebP by its chunks, PAM and a *.pbm holding gray by their
-    magic -- NotImplementedError naming them, before either file is
-    decoded."""
+    GIF by name and by magic, a *.pfm by name, JPEG-in-TIFF, subsampled
+    YCbCr at a *.tif path and 4-bit CMYK by their TIFF headers, a JPEG 2000
+    POC marker by the codestream's main header, PAM and a *.pbm holding
+    gray by their magic -- NotImplementedError naming them, before either
+    file is decoded."""
     value, hm, _ = _write_pair(tmp_path, rng)
     other = tmp_path / name
     if make is not None:

@@ -6,9 +6,9 @@ quality and method, palettes, alpha, odd sizes, and the VP8 headers, token
 partitions, ALPH chunks and VP8X layouts Pillow cannot write) to
 imageio's shape, dtype and SHA-256; images Pillow writes here, files cut
 or damaged anywhere (ValueError where imageio fails, else imageio's very
-bytes, garbage included), the kinds refused by name, and a WebP pair's
-crops against terrain_tpu's `_get_data`.  Images are a few dozen pixels a
-side."""
+bytes, garbage included), an animation's first frame on its canvas, and a
+WebP pair's crops against terrain_tpu's `_get_data`.  Images are a few
+dozen pixels a side."""
 
 import io
 import os
@@ -116,11 +116,51 @@ def test_damaged_bytes_decode_as_libwebp_does(kind):
 
 
 def test_an_animation_is_refused_by_name():
+    """The committed animations give imageio's first frame: the canvas and
+    channels from read_header, the bytes from decode_webp."""
+    want = digests("webp")
     for name in ("pillow_animated_2_frames.webp", "animated_1_frame.webp"):
-        for call in (webp.read_header, webp.decode_webp):
-            with pytest.raises(NotImplementedError,
-                               match="WebP: an animated file"):
-                call(_fixture(name))
+        data = _fixture(name)
+        assert list(webp.read_header(data)) == want[name]["shape"]
+        assert summary(webp.decode_webp(data)) == [
+            want[name]["shape"], want[name]["dtype"], want[name]["sha256"]]
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("kind", ["lossy", "lossless", "rgba_lossy",
+                                  "rgba_lossless"])
+def test_pillows_animations_give_imageios_first_frame(kind, seed):
+    rnd = np.random.RandomState(seed + 10)
+    h, w = rnd.randint(1, 50, 2)
+    ch = 4 if kind.startswith("rgba") else 3
+    frames = [Image.fromarray(mk.terrain(h, w, seed + k, ch))
+              for k in range(int(rnd.randint(1, 4)))]
+    kw = {"lossless": True} if kind.endswith("lossless") else {
+        "quality": int(rnd.randint(0, 101))}
+    data = _save_all(frames, **kw)
+    assert summary(webp.decode_webp(data)) == summary(iio.imread(data))
+
+
+def _save_all(frames, **kw):
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:],
+                   **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("name", ["animated_offset_lossy_alph.webp",
+                                  "pillow_animated_lossy_rgba.webp"])
+def test_an_animation_cut_anywhere_decodes_as_imageio_or_raises(name):
+    """Cut at 16 points: ValueError where imageio fails (libwebp's demuxer
+    takes no partial file), else imageio's bytes."""
+    data = _fixture(name)
+    for n in np.linspace(13, len(data) - 1, 16).astype(int):
+        want = _imageio(data[:n])
+        if isinstance(want, Exception):
+            with pytest.raises(ValueError):
+                webp.decode_webp(data[:n])
+        else:
+            assert summary(webp.decode_webp(data[:n])) == summary(want)
 
 
 @pytest.mark.parametrize("what,match", [
