@@ -11,8 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
   1a. coldstart: a fresh process to the end of one bf16 eager flagship
      step with the libraries already built (and a cold machine's figure:
      that plus phase 1's nvcc build and the six host g++ builds); a fresh
-     TERRAIN_AOT store filled (phase 1's libraries and records copied in,
-     then utils/aot.fill); a fresh process with no
+     TERRAIN_AOT store filled (phase 1's libraries and the host ones just
+     built, with their records, copied in, then utils/aot.fill checking
+     them); a fresh process with no
      compiler reachable (PATH an empty directory, CUDA_HOME and CUDA_PATH
      unset) taking the same step from the store, its launch counts the
      default path's; then, in that process, a copy of the store whose
@@ -112,7 +113,7 @@ Phases (any failure exits non-zero and prints no result line):
      rows cycle through the five filter types, decoded by the port's codec
      (seconds and MB/s; the pair must come back byte-equal, in under 60 s),
      the crop iterator's first batch against plain slicing of the decoded
-     pair, its crops/s and rejection share, then two epochs of
+     pair, its crops/s and rejection share, then one epoch of
      `TERRAIN_RASTER=hm.png,tex.png TERRAIN_EPOCH_CROPS=48 python -m
      terrain_tpu_torch test1_nobn_bilin_both train` at 512px: finite
      losses, the flagship kernels' launch counts, epoch time and the share
@@ -129,12 +130,13 @@ Phases (any failure exits non-zero and prints no result line):
      after their second and third scan, which libjpeg-turbo smooths) and
      the progressive strip's scans, their restart intervals repeated,
      as a 21600 x 10800 texture: its decode timed, its peak host memory
-     read in a fresh process, its bands held to the strip's, and one
-     epoch of `TERRAIN_RASTER=hm.png,<that texture>` (the PNG heightmap
-     above) with the first batch against plain slicing and the kernels
-     counted.  Then every committed PNG, TIFF, BMP, WebP, PNM and TGA
-     fixture to imageio's digests, from its bytes and its path, and the
-     TIFF strips as a 21600 x 10800 pair, decoded and trained from.  Then
+     read in the phase's decode process (one process for the phase's
+     memory runs, each file's peak above the resident set before it), its
+     bands held to the strip's, and the first batch of it and the PNG
+     heightmap above against plain slicing.  Then every committed PNG,
+     TIFF, BMP, WebP, PNM, TGA, JPEG 2000, PFM/PAM, Radiance, Sun raster
+     and DDS fixture to imageio's digests, from its bytes and its path,
+     and the TIFF strips as a 21600 x 10800 pair, decoded and trained from.  Then
      the committed 1024 x 640 WebP pair (lossless heights, q90 texture):
      each decoded (best of 3: s and MP/s), the first batch against plain
      slicing, and one epoch of `TERRAIN_RASTER=hm.webp,tex.webp
@@ -142,17 +144,29 @@ Phases (any failure exits non-zero and prints no result line):
      Then JPEG 2000 (every committed JP2/J2K fixture among the ones above):
      the two committed 1024 x 1024 tiles (16-bit lossless heights, 5/3
      with five levels; an RGB 9/7 texture with the ICT and three layers)
-     each repeated into a 20480 x 10240 codestream and, in a fresh
-     process, decoded three times (the best: s and MP/s) with its peak host
+     each repeated into a 20480 x 10240 codestream and, in the decode
+     process, decoded (JP2_RUNS times, the best: s and MP/s) with its peak host
      memory sampled, every tile equal to the lone tile's decode; and one
      epoch of
      `TERRAIN_RASTER=<heights>.jp2,<texture>.jp2 TERRAIN_EPOCH_CROPS=16`
      from the two tiles, with the first batch against plain slicing,
-     finite losses and the kernels counted;
+     finite losses and the kernels counted.  Then PFM, PAM, Radiance, Sun
+     raster and DDS (every committed fixture among the ones above, by the
+     plugin imageio takes: OpenCV for a *.pfm/*.hdr/*.sr path and PF/P7/
+     Radiance bytes): a 21600 x 10800 Pf heights file of seeded k / 2 m,
+     and the two committed 1024 x 1024 DDS tiles (DXT1, BC7) with their
+     block rows repeated to 21600 x 10800, each decoded three times in the
+     decode process (the best: s and MP/s; peak host memory), the heights
+     equal to plain numpy's rounding, every texture cell the lone tile's
+     decode; and one epoch of `TERRAIN_RASTER=<heights>.pfm,<texture>.dds
+     TERRAIN_EPOCH_CROPS=16` (1024 x 1024 heights, the DXT1 tile) with the
+     first batch against plain slicing, finite losses and the kernels
+     counted;
   7b. inputs: in a child process where h5py, imageio and PIL cannot be
      imported (the card's machine has none): the committed h5py files of
-     tests/data/h5 read by data/h5.py to their digests (the latest-libver
-     gzip file refused by name) and the gzip file's read rate; 48 + 4
+     tests/data/h5 read by data/h5.py to their digests (every layout-4
+     index, unfiltered edge chunks among them) and the gzip file's read
+     rate; 48 + 4
      synthetic pairs at 512px streamed into an h5 by the port's writer and
      read back equal; one epoch of `TERRAIN_DATA=<that h5>
      test1_nobn_bilin_both train` with TERRAIN_FAST=1 (the same launches
@@ -161,7 +175,10 @@ Phases (any failure exits non-zero and prints no result line):
      same shapes, so that every timed epoch is warm; each after np.random.seed(0), the priors'
      stream)
      and one through the host iterator (its first batch plain slicing,
-     the same launches); then the four port tools on small
+     the same launches); one epoch of `TERRAIN_DATA=<512px pairs whose
+     last rows lie in unfiltered partial edge chunks>` (the committed
+     tests/data/h5/edge_unfiltered_pairs_512.h5: its first batch plain
+     slicing, finite losses, the kernels counted); then the four port tools on small
      inputs, each timed: make_synthetic (its pairs), build_dataset from a
      PNG heightmap and the progressive texture (its arrays the plain
      crops, filter and RandomState(42) split; a --subset-from of the 10
@@ -197,7 +214,7 @@ Phases (any failure exits non-zero and prints no result line):
      TERRAIN_SCAN=16, by default, eager and graph in turns, and one such
      replay traced and summarized (every hand-written kernel in its family,
      16x one bare step's launches) (fp32 and the
-     profiled device time: the parallel phase); then the trainer on 120
+     profiled device time: the parallel phase); then the trainer on 40
      pairs on the card, two epochs
      at TERRAIN_SCAN=16 (fp32 through the CLI) and one eager from the same
      seed, fp32 and bf16: epoch times, and epoch 1's results.txt loss
@@ -209,7 +226,7 @@ Phases (any failure exits non-zero and prints no result line):
      eager steps; a NaN-poisoned weight of p2p_gen's first encoder conv
      raising eagerly and in the graph, naming p2p_gen, enc.0.conv and
      step 1, a NaN in step 3's prior raising naming step 3; bf16 at
-     TERRAIN_SCAN=16, the graph checked and unchecked, per step; every
+     TERRAIN_SCAN=8, the graph checked and unchecked, per step; every
      hand-written kernel's outputs checked at least once (the parallel
      phase plants the poisoned weight on the world-1 NCCL mesh's graph
      too: it raises after the replay, no rank hangs);
@@ -238,8 +255,10 @@ Phases (any failure exits non-zero and prints no result line):
      TERRAIN_SCAN=4 equal to the k = 1 epoch (a loop over gloo), and
      every kernel of the train path launched on each rank at its local
      batch;
- 10. accuracy: every distinct library conv of one fp32 step against the
-     CPU's fp64 gradients (relative to the largest entry): the DCGAN
+ 10. accuracy: every distinct library conv of one fp32 step against fp64
+     gradients (relative to the largest entry; the card's fp64 on cuDNN's
+     deterministic algorithms, held to the CPU's on the six smallest
+     calls): the DCGAN
      discriminator's 5x5 convs with cin >= 64, whose dW is
      ops/conv.Conv5x5's, within 1e-4 and the same bits twice, every other
      conv within 5e-5; the route's dW timed beside cuDNN's (default and
@@ -404,6 +423,9 @@ POOL_TIME_SHAPE = (8, 512, 512, 64)
 # 10800, SURVEY.md:76), one epoch of TERRAIN_EPOCH_CROPS crops from it
 RASTER_H, RASTER_W = 10800, 21600
 RASTER_CROPS = 48
+# the epochs from the JPEG, TIFF, WebP, JPEG 2000 and PFM + DDS pairs: 4 train
+# steps of 512px crops each
+EPOCH_CROPS = 16
 RASTER_DECODE_S = 60.0   # limit: seconds to decode the pair on the host
 # the JPEG fixtures (tests/make_jpeg_fixtures.py, with imageio's digests):
 # each decoded to its digest; the texture trained from; the strip (a
@@ -422,16 +444,20 @@ JPEG_PTEXTURE = "progressive_2048x1024_420.jpg"
 # a 21600 x 10800 pair, decoded and trained from; the 1024 x 640 WebP pair
 # (lossless heights, q90 texture) decoded, timed and trained from; the two
 # 1024 x 1024 JPEG 2000 tiles repeated into 20480 x 10240 codestreams,
-# decoded and timed, and trained from
-RASTER_FIXTURE_DIRS = ("tiff", "png", "bmp", "webp", "pnm", "tga", "jp2")
+# decoded and timed, and trained from; a RASTER_W x RASTER_H Pf heights
+# file and the two 1024 x 1024 DDS tiles' block rows repeated into
+# RASTER_W x RASTER_H textures, decoded and timed, and a PFM heights file
+# with the DXT1 tile trained from
+RASTER_FIXTURE_DIRS = ("tiff", "png", "bmp", "webp", "pnm", "tga", "jp2",
+                       "pfm_pam", "hdr", "sun", "dds")
 WEBP_PAIR = ("pillow_pair_hm_1024x640_lossless.webp",
              "pillow_pair_tex_1024x640_q90.webp")
-WEBP_CROPS = 16  # the WebP epoch: 4 train steps of 512px crops
 TIFF_TEXTURE_STRIP = "strip_21600x32_rgb_lzw.tif"
 TIFF_HEIGHT_STRIP = "strip_21600x32_gray16_deflate.tif"
 JP2_TILES = ("tile_1024_gray16_53_5levels.jp2", "tile_1024_rgb_97_3layers.jp2")
 JP2_H, JP2_W = 10240, 20480  # 10 x 20 tiles of 1024
-JP2_CROPS = 16  # the JPEG 2000 epoch: 4 train steps of 512px crops
+JP2_RUNS = 1  # timed decodes of each 20480 x 10240 codestream
+DDS_TILES = ("tile_1024_dxt1.dds", "tile_1024_bc7.dds")
 # the inputs phase: a child process in which these cannot be imported (the
 # card's machine has none of them; the port reads h5 files without h5py),
 # the committed h5py files (tests/make_h5_fixtures.py), and the pairs an
@@ -440,6 +466,7 @@ JP2_CROPS = 16  # the JPEG 2000 epoch: 4 train steps of 512px crops
 BLOCKED = ("h5py", "imageio", "PIL")
 H5_DIR = os.path.join("tests", "data", "h5")
 H5_GZIP = "pairs_earliest_gzip.h5"
+H5_EDGE = "edge_unfiltered_pairs_512.h5"  # unfiltered partial edge chunks
 # artifacts: the flagship's interp clip, (10 - 1) * 25 interpolants of which
 # whole batches of 4 are written (experiments._MODES), 512 x 1024 each
 CLIP_SAMPLES, CLIP_BATCH = 10, 4
@@ -461,13 +488,13 @@ INPUTS_LIMIT_S = 600
 # the scan phase: eager steps against one CUDA graph of SCAN_K steps from
 # one saved state, on SCAN_N pairs held on the card; timing at
 # TERRAIN_SCAN=16 (terrain_tpu's TPU launch script); the trainer on
-# SCAN_TRAINER_N pairs at TERRAIN_SCAN=16 (16 train steps an epoch, one
+# SCAN_TRAINER_N pairs at TERRAIN_SCAN=16 (10 train steps an epoch, one
 # chunk; the valid pass 1 step): the depth cut to keep the whole script's
-# time (240 pairs, then 120, now 64)
+# time (240 pairs, then 120, 64, now 40)
 SCAN_K = 4
 SCAN_TIME_K = 16
 SCAN_N = 16
-SCAN_TRAINER_N = 64
+SCAN_TRAINER_N = 40
 SCAN_BUSY_LIMIT = 1.25   # bf16: graph step ms / its profiled device ms
 # the parallel phase.  A data-parallel step computes one process's
 # function with its sums in another order: the BatchNorms' statistics and
@@ -521,6 +548,8 @@ PAR_FAULTS = ("BN statistics local", "gradients summed",
 # as cuDNN gives them: the largest, the dW of the (4,128²,64) -> 256 3x3
 # conv, read 4.06e-5 on an NVIDIA H100 80GB HBM3 at 700 W
 ACC_ROUTE_TOL = 1e-4
+ACC_ANCHORS = 6          # the calls whose card fp64 is held to the CPU's
+ACC_ANCHOR_TOL = 1e-10   # relative: fp64 sums in another order
 ACC_TOL = 5e-5
 PHASES = {"coldstart", "kernels", "ballast", "serve", "train", "trainer",
           "quality",
@@ -2020,8 +2049,18 @@ def trainer_slice(torch, card):
 
 
 # ------------------------------------------------------------------ phase 7
+class LostEvents(Exception):
+    """A graph replay's trace holds fewer events of a hand-written kernel
+    than its steps launched, and none more: the profiler dropped device
+    records (a run of kernels of every family missing at once, seen once in
+    a 16-step replay's 53,000 events).  A replay runs every kernel its
+    graph holds, so the caller traces it once more, and a second shortfall
+    fails."""
+
+
 def summarize_checked(path, card, what, eager=False, per_step=None,
-                      quiet=False, summary=None, bounded=None, csv=False):
+                      quiet=False, summary=None, bounded=None, csv=False,
+                      lost_ok=False):
     """tools/summarize_trace on one trace, its family table and its top
     ops by headroom printed, then checked: the family rows sum to the busy
     time; every hand-written kernel event lands in its kernel's family
@@ -2031,7 +2070,8 @@ def summarize_checked(path, card, what, eager=False, per_step=None,
     counter over the traced block (the trace's `terrain_launches`) and its
     `terrain::` annotations (`eager`); or, for a graph replay (`per_step`,
     (steps, {kernel: launches in one bare step})), equal the steps times
-    one step's launches, every one under the cudaGraphLaunch.  `bounded`
+    one step's launches, every one under the cudaGraphLaunch (with
+    `lost_ok`, a shortfall alone raises LostEvents).  `bounded`
     (default `eager`) checks the bounded shares alone.  `quiet` prints
     the header lines and the family table alone; `summary`, one made
     already, is checked in place of the trace at `path`, which the
@@ -2104,6 +2144,14 @@ def summarize_checked(path, card, what, eager=False, per_step=None,
               flush=True)
     if per_step is not None:
         steps, grid = per_step
+        off = {name: (h["events"], steps * grid.get(name, 0))
+               for name, h in hand.items()
+               if h["events"] != steps * grid.get(name, 0)}
+        if off and lost_ok and all(got < want for got, want in off.values()):
+            print(f"{what}: the trace lost device events (hand-written "
+                  f"kernels' events, expected: {off}); traced again",
+                  flush=True)
+            raise LostEvents(off)
         for name, h in hand.items():
             if h["events"] != steps * grid.get(name, 0):
                 fail(f"{what}: {name} ran {h['events']} times in the "
@@ -2405,10 +2453,12 @@ def raster_slice(torch, card):
     (_synthetic_raster) written as PNGs whose rows cycle through the five
     filter types, decoded by the port's codec (timed; the pair must come
     back byte-equal), the crop iterator's first batch against plain
-    slicing, its crops/s and rejection share, then two epochs of
+    slicing, its crops/s and rejection share, then one epoch of
     `TERRAIN_RASTER=hm.png,tex.png TERRAIN_EPOCH_CROPS=48 python -m
     terrain_tpu_torch test1_nobn_bilin_both train` through cli.main with the
-    counters set to 0 just before and read just after.  Returns them."""
+    counters set to 0 just before and read just after; then the other
+    formats (raster_jpeg ... raster_float_dds), their memory runs in one
+    decode process started here.  Returns the counts of every epoch."""
     import math
     import shutil
     import tempfile
@@ -2421,6 +2471,7 @@ def raster_slice(torch, card):
     from terrain_tpu_torch.train.losses import TRAIN_KEYS
 
     root = tempfile.mkdtemp(prefix="raster_")
+    dec = _DecodeProcess()
     saved = {k: os.environ.get(k) for k in (
         "TERRAIN_RASTER", "TERRAIN_EPOCH_CROPS", "TERRAIN_EPOCHS",
         "TERRAIN_OUT", "TERRAIN_MODELS", "TERRAIN_SYNTHETIC", "TERRAIN_FAST",
@@ -2492,7 +2543,7 @@ def raster_slice(torch, card):
         del dhm, dtex, tex, it  # hm stays: the progressive texture's first batch
         os.environ.update({
             "TERRAIN_RASTER": ",".join(paths),
-            "TERRAIN_EPOCH_CROPS": str(RASTER_CROPS), "TERRAIN_EPOCHS": "2",
+            "TERRAIN_EPOCH_CROPS": str(RASTER_CROPS), "TERRAIN_EPOCHS": "1",
             "TERRAIN_OUT": os.path.join(root, "out"),
             "TERRAIN_MODELS": os.path.join(root, "models"),
             "TERRAIN_SAVE_EVERY": "10", "TERRAIN_ARTIFACT_EVERY": "1000"})
@@ -2515,38 +2566,40 @@ def raster_slice(torch, card):
                     for k in TRAIN_KEYS]
             if not all(map(math.isfinite, vals)):
                 fail(f"raster: a loss is not finite: {row}")
-        if len(rows) != 2:
+        if len(rows) != 1:
             fail(f"raster: results.txt has {len(rows)} epochs")
         n_train = RASTER_CROPS // TRAIN_BATCH
         n_eval = max(RASTER_CROPS // 10, TRAIN_BATCH) // TRAIN_BATCH
         for k, v in TRAIN_LAUNCHES.items():
-            if got[k] < 2 * n_train * v:
-                fail(f"raster: {k} launched {got[k]} times in 2 x {n_train} "
+            if got[k] < n_train * v:
+                fail(f"raster: {k} launched {got[k]} times in {n_train} "
                      f"train steps")
-        epochs = [float(r["time"]) for r in rows]
-        row = rows[1]
-        step_ms = epochs[1] * 1e3 / (n_train + n_eval)
+        row = rows[0]
+        epoch = float(row["time"])
+        step_ms = epoch * 1e3 / (n_train + n_eval)
         print(f"raster [{card}]: `TERRAIN_RASTER=hm.png,tex.png "
               f"TERRAIN_EPOCH_CROPS={RASTER_CROPS} {EXPERIMENT} train`: "
               f"{wall:.1f} s in all (decoding the pair again included), "
-              f"epochs {epochs[0]:.3f} / {epochs[1]:.3f} s for {n_train} "
-              f"train + {n_eval} eval steps (epoch 2: {step_ms:.3f} ms a "
-              f"step); a host batch "
+              f"epoch {epoch:.3f} s for {n_train} train + {n_eval} eval "
+              f"steps ({step_ms:.3f} ms a step); a host batch "
               f"{t_batch * 1e3:.1f} ms = {t_batch * 1e3 / step_ms:.3f} of a "
               f"step (on the prefetcher's thread), the augmentation on the "
               f"card {aug_ms:.3f} ms = {aug_ms / step_ms:.4f}; losses "
               f"{ {k: float(row['train_' + k]) for k in TRAIN_KEYS} }; "
               f"launches {got}", flush=True)
-        jpeg = raster_jpeg(torch, card, root, hm)
+        jpeg = raster_jpeg(torch, card, root, hm, dec)
         got = {k: got[k] + jpeg[k] for k in got}
         del hm
-        tif = raster_tiff(torch, card, root)
+        tif = raster_tiff(torch, card, root, dec)
         got = {k: got[k] + tif[k] for k in got}
         wp = raster_webp(torch, card, root)
         got = {k: got[k] + wp[k] for k in got}
-        j2 = raster_jp2(torch, card, root)
+        j2 = raster_jp2(torch, card, root, dec)
         got = {k: got[k] + j2[k] for k in got}
+        fd = raster_float_dds(torch, card, root, dec)
+        got = {k: got[k] + fd[k] for k in got}
     finally:
+        dec.close()
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -2653,13 +2706,13 @@ def _raster_epoch(torch, np, what, hm, tex, paths, root, crops):
     return got, wall, row
 
 
-def raster_jpeg(torch, card, root, hm_big):
+def raster_jpeg(torch, card, root, hm_big, dec):
     """JPEG rasters through the port's decoder: each committed fixture
     decoded to imageio's digest (tests/make_jpeg_fixtures.py), the decode
     rate; the strip repeated into a 21600 x 10800 texture, its decode
     timed and every band that no vertical upsampling crosses equal to the
     strip's; then one epoch of `TERRAIN_RASTER=hm.png,<texture>.jpg
-    TERRAIN_EPOCH_CROPS=48 test1_nobn_bilin_both train` through cli.main
+    TERRAIN_EPOCH_CROPS=16 test1_nobn_bilin_both train` through cli.main
     (the heightmap a PNG made here at the texture's size, with ocean), the
     crop iterator's first batch equal to plain slicing, the default path's
     kernels launched.  Returns the epoch's launch counts."""
@@ -2714,14 +2767,15 @@ def raster_jpeg(torch, card, root, hm_big):
     with open(paths[0], "wb") as f:
         f.write(encode_png(hm, level=1))
     got, wall, row = _raster_epoch(torch, np, "JPEG texture", hm, texture,
-                                   paths, root, RASTER_CROPS)
+                                   paths, root, EPOCH_CROPS)
     print(f"raster [{card}]: `TERRAIN_RASTER=hm.png,{JPEG_TEXTURE} "
-          f"TERRAIN_EPOCH_CROPS={RASTER_CROPS} {EXPERIMENT} train`: {wall:.1f}"
+          f"TERRAIN_EPOCH_CROPS={EPOCH_CROPS} {EXPERIMENT} train`: {wall:.1f}"
           f" s in all, epoch {float(row['time']):.3f} s; the first batch "
           f"equals plain slicing; losses "
           f"{ {k: float(row['train_' + k]) for k in TRAIN_KEYS} }; launches "
           f"{got}", flush=True)
-    raster_progressive(torch, np, card, root, decoded[JPEG_PSTRIP], hm_big)
+    raster_progressive(torch, np, card, root, decoded[JPEG_PSTRIP], hm_big,
+                       dec)
     return got
 
 
@@ -2792,52 +2846,130 @@ def _repeat_progressive(data, height):
     return bytes(out), 8 * vmax, strip_h // (8 * vmax), counts
 
 
-def _decode_peak(path, module="terrain_tpu_torch.data.jpeg",
-                 decode="decode_jpeg"):
-    """(seconds, peak MB above the resident set before the call) of
-    `module`'s `decode` (its `read_header` first, so the library is loaded
-    before the count) on the file at `path` (bytes read for a JPEG, the
-    path itself for a TIFF, which the decoder maps), in a fresh process
-    whose VmRSS (/proc/self/status, read only) a thread samples every
-    millisecond while
-    the call runs (ctypes lets go of the GIL; getrusage's peak would carry
-    the parent's across the spawn)."""
-    code = (
-        "import json, sys, threading, time\n"
-        f"sys.path.insert(0, {HERE!r})\n"
-        f"from {module} import {decode} as decode, read_header\n"
-        "def rss():\n"
-        "    for ln in open('/proc/self/status'):\n"
-        "        if ln.startswith('VmRSS'):\n"
-        "            return int(ln.split()[1]) * 1024\n"
-        "data = open(sys.argv[1], 'rb').read()\n"
-        f"data = sys.argv[1] if {decode!r} == 'decode_tiff' else data\n"
-        "read_header(data)  # the library loaded before the count\n"
-        "before = rss()\n"
-        "seen, done = [before], threading.Event()\n"
-        "def watch():\n"
-        "    while not done.is_set():\n"
-        "        seen.append(rss())\n"
-        "        time.sleep(0.001)\n"
-        "t = threading.Thread(target=watch)\n"
-        "t.start()\n"
-        "t0 = time.perf_counter()\n"
-        "img = decode(data)\n"
-        "dt = time.perf_counter() - t0\n"
-        "done.set()\n"
-        "t.join()\n"
-        "print(json.dumps({'s': dt, 'peak': max(seen) - before, "
-        "'samples': len(seen), 'out': img.nbytes}))\n")
-    p = subprocess.run([sys.executable, "-c", code, path],
-                       capture_output=True, text=True, timeout=300)
-    if p.returncode != 0:
-        fail(f"raster: the decoder's memory run failed:\n{p.stderr[-2000:]}")
-    return json.loads(p.stdout.splitlines()[-1])
+# the raster phase's decode process (_DecodeProcess): one job a line on
+# its stdin, one JSON result a line on its stdout
+_DECODER_CODE = """\
+import ctypes, gc, importlib, json, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+for m in ("jpeg", "tiff", "jp2", "pnm", "dds"):
+    importlib.import_module("terrain_tpu_torch.data." + m)
+libc = ctypes.CDLL(None)
+def rss():
+    for ln in open("/proc/self/status"):
+        if ln.startswith("VmRSS"):
+            return int(ln.split()[1]) * 1024
+for line in sys.stdin:
+    job = json.loads(line)
+    decode = getattr(importlib.import_module(job["module"]), job["decode"])
+    data = open(job["path"], "rb").read()
+    arg = job["path"] if job["decode"] == "decode_tiff" else data
+    if job["lib"]:
+        importlib.import_module(job["lib"])._lib()
+    else:
+        importlib.import_module(job["module"]).read_header(arg)
+    gc.collect()
+    libc.malloc_trim(0)
+    before = rss()
+    seen, done = [before], threading.Event()
+    def watch():
+        while not done.is_set():
+            seen.append(rss())
+            time.sleep(0.001)
+    t = threading.Thread(target=watch, daemon=True)  # not on a raise
+    t.start()
+    times, img = [], None
+    for _ in range(job["runs"]):
+        img = None
+        t0 = time.perf_counter()
+        img = decode(arg)
+        times.append(time.perf_counter() - t0)
+    done.set()
+    t.join()
+    cells, equal = 0, True
+    if job["tile"]:
+        tile = decode(open(job["tile"], "rb").read())
+        n = tile.shape[0]
+        for r in range(0, img.shape[0], n):
+            for c in range(0, img.shape[1], n):
+                cell = img[r:r + n, c:c + n]
+                equal &= np.array_equal(
+                    cell, tile[:cell.shape[0], :cell.shape[1]])
+                cells += 1
+        del tile
+    elif job["plain"]:
+        equal = np.array_equal(img, np.load(job["plain"]))
+        cells = 1
+    out = {"times": times, "peak": max(seen) - before,
+           "samples": len(seen), "out": img.nbytes, "cells": cells,
+           "equal": bool(equal)}
+    del img, data, arg
+    print(json.dumps(out), flush=True)
+"""
 
 
-def raster_progressive(torch, np, card, root, strip, hm):
+class _DecodeProcess:
+    """The raster phase's memory runs: one decode process for the phase
+    (its imports paid once, not once a file), fed one file at a time.
+    Before each file it frees the last one's arrays and hands the heap
+    back (malloc_trim), so a file's peak is taken above a resident set
+    that holds only the loaded libraries and the file's bytes.  Started
+    where the phase starts, so that its imports run while the phase writes
+    its first files; `close` ends it."""
+
+    def __init__(self):
+        import tempfile
+
+        self._err = tempfile.TemporaryFile(mode="w+")
+        self._p = subprocess.Popen(
+            [sys.executable, "-c", _DECODER_CODE, HERE],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._err,
+            text=True)
+
+    def close(self):
+        self._p.stdin.close()
+        try:
+            self._p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self._p.kill()
+            self._p.wait()
+        self._err.close()
+
+    def run(self, path, module, decode, lib="", tile_path=None, plain=None,
+            runs=1, limit_s=600):
+        """The file at `path` decoded `runs` times by `module`'s `decode`
+        (its bytes; the path itself for a TIFF, which the decoder maps),
+        the library loaded first (`lib`'s `_lib`, else the module's
+        `read_header` on the file), while a thread samples VmRSS
+        (/proc/self/status, read only) every millisecond (ctypes lets go
+        of the GIL; getrusage's peak would carry the process's earlier
+        files); then the last decode held to the decode of the tile at
+        `tile_path` cell by cell (cells of the tile's size, the edge ones
+        to the tile's corner), or to the .npy array at `plain`.  Returns
+        {times, peak (bytes above the resident set before the first
+        decode), samples, out, cells, equal}."""
+        import select
+
+        self._p.stdin.write(json.dumps({
+            "path": path, "module": module, "decode": decode, "lib": lib,
+            "tile": tile_path or "", "plain": plain or "",
+            "runs": runs}) + "\n")
+        self._p.stdin.flush()
+        ready, _, _ = select.select([self._p.stdout], [], [], limit_s)
+        line = self._p.stdout.readline() if ready else ""
+        if not line:
+            self._p.kill()
+            self._p.wait()
+            self._err.seek(0)
+            fail(f"raster: the decode runs of {path} failed (the decode "
+                 f"process {'ended' if ready else 'took too long'}):\n"
+                 f"{self._err.read()[-2000:]}")
+        return json.loads(line)
+
+
+def raster_progressive(torch, np, card, root, strip, hm, dec):
     """The progressive strip's scans repeated into a 21600 x 10800 texture:
-    its decode timed (and its peak host memory in a fresh process), every
+    its decode timed (and its peak host memory in the decode process), every
     band that no vertical upsampling crosses equal to the strip's, and the
     crop iterator's first batch from it and `hm` (the raster phase's
     heightmap, hm.png's bytes) against plain slicing.  (No epoch through
@@ -2868,9 +3000,10 @@ def raster_progressive(torch, np, card, root, strip, hm):
                               strip[k * band:(k + 1) * band][inner]):
             fail(f"raster: band {r} of the progressive JPEG is not the "
                  f"strip's band {k}")
-    peak = _decode_peak(path)
-    print(f"raster [{card}]: in a fresh process the decode took "
-          f"{peak['s']:.2f} s and its peak host memory was "
+    peak = dec.run(path, "terrain_tpu_torch.data.jpeg", "decode_jpeg",
+                   limit_s=300)
+    print(f"raster [{card}]: in the phase's decode process the decode took "
+          f"{peak['times'][0]:.2f} s and its peak host memory was "
           f"{peak['peak'] / 1e6:.1f} MB above the process's before it "
           f"({peak['samples']} samples of VmRSS; the output "
           f"{peak['out'] / 1e6:.1f} MB, the coefficients 699.8 MB)",
@@ -2886,19 +3019,23 @@ def raster_progressive(torch, np, card, root, strip, hm):
 
 
 def _raster_fixtures(card):
-    """Every committed TIFF, PNG, BMP, WebP, PNM and TGA fixture decoded to
-    imageio's digests (shape, dtype, SHA-256): its bytes by the format's
-    decoder (as imageio decodes bytes, through Pillow), and its path by
-    data/raster.py (as imageio reads a path: a *.tif through its tifffile
-    plugin, a *.pbm through OpenCV); where imageio raises on the bytes,
-    the exception the digests name.  Returns the decoded TIFF strips by
-    name."""
+    """Every committed TIFF, PNG, BMP, WebP, PNM, TGA, JPEG 2000, PFM/PAM,
+    Radiance, Sun raster and DDS fixture decoded to imageio's digests
+    (shape, dtype, SHA-256): its bytes by the format's decoder (as imageio
+    decodes bytes: through Pillow, or OpenCV where Pillow cannot open
+    them), and its path by data/raster.py (as imageio reads a path: a *.tif
+    through its tifffile plugin; a *.pbm, *.pfm, *.hdr or *.sr through
+    OpenCV); where imageio raises on the bytes or the path, the exception
+    the digests name.  Returns the decoded TIFF strips by name."""
     import builtins
     import hashlib
 
     from terrain_tpu_torch.data.bmp import decode_bmp
+    from terrain_tpu_torch.data.dds import decode_dds
+    from terrain_tpu_torch.data.hdr import decode_hdr
     from terrain_tpu_torch.data.jp2 import decode_jp2
     from terrain_tpu_torch.data.pnm import decode_pnm
+    from terrain_tpu_torch.data.sun import decode_sun
     from terrain_tpu_torch.data.raster import read_raster
     from terrain_tpu_torch.data.tga import decode_tga
     from terrain_tpu_torch.data.tiff import decode_tiff
@@ -2912,7 +3049,8 @@ def _raster_fixtures(card):
 
     decode = {"tiff": decode_tiff, "png": read_png, "bmp": decode_bmp,
               "webp": decode_webp, "pnm": decode_pnm, "tga": decode_tga,
-              "jp2": decode_jp2}
+              "jp2": decode_jp2, "pfm_pam": decode_pnm, "hdr": decode_hdr,
+              "sun": decode_sun, "dds": decode_dds}
     strips, counts, t_all = {}, {}, 0.0
     for kind in RASTER_FIXTURE_DIRS:
         d = os.path.join(HERE, "tests", "data", kind)
@@ -2955,17 +3093,26 @@ def _raster_fixtures(card):
                          f"{want['dtype']} (or other bytes)")
             t_all += time.perf_counter() - t0
             by_path = want.get("path", want)
-            if by_path is not None and "path_refused" not in want and \
-                    not same(read_raster(path), by_path):
+            if by_path is None or "path_refused" in want:
+                pass
+            elif "error" in by_path:  # imageio raises on the path
+                try:
+                    read_raster(path)
+                    fail(f"raster: {kind}/{name} read by its path where "
+                         f"imageio raises")
+                except getattr(builtins, by_path["error"]):
+                    pass
+            elif not same(read_raster(path), by_path):
                 fail(f"raster: {kind}/{name} read by its path is not "
                      f"imageio's {by_path['shape']} {by_path['dtype']}")
             if name.startswith("strip_"):
                 strips[name] = img
             counts[kind] = counts.get(kind, 0) + 1
     print(f"raster [{card}]: {counts} fixtures (every PNG, TIFF, BMP, WebP, "
-          f"PNM, TGA and JPEG 2000 variant the port takes, an animated "
-          f"WebP's first frame; where imageio raises on the "
-          f"bytes, the port too) decoded to imageio's shapes, dtypes and "
+          f"PNM, TGA, JPEG 2000, PFM, PAM, Radiance, Sun raster and DDS "
+          f"variant the port takes, an animated WebP's first frame; where "
+          f"imageio raises, the port too) decoded to imageio's shapes, "
+          f"dtypes and "
           f"SHA-256 in {t_all:.2f} s, from their bytes and from their "
           f"paths; the refused ones refused by name", flush=True)
     return strips
@@ -3020,14 +3167,14 @@ def _tiff_repeat(data, height):
     return bytes(out), rps, len(offs)
 
 
-def raster_tiff(torch, card, root):
+def raster_tiff(torch, card, root, dec):
     """TIFF rasters through the port's decoder: the committed TIFF, PNG and
     BMP fixtures decoded to imageio's digests; the two full-width strips
     (an LZW RGB texture with predictor 2, and 16-bit deflate heights)
     repeated into a 21600 x 10800 pair, each decoded within
     RASTER_DECODE_S (seconds, MB/s, and the texture's peak host memory in
-    a fresh process), every band equal to the strip's; then one epoch of
-    `TERRAIN_RASTER=hm.tif,tex.tif TERRAIN_EPOCH_CROPS=48
+    the decode process), every band equal to the strip's; then one epoch of
+    `TERRAIN_RASTER=hm.tif,tex.tif TERRAIN_EPOCH_CROPS=16
     test1_nobn_bilin_both train` through cli.main, its first batch against
     plain slicing of the decoded pair (the heights cast to uint8 as both
     packages cast them).  Returns the epoch's launch counts."""
@@ -3066,18 +3213,19 @@ def raster_tiff(torch, card, root):
                      f"not the strip's band {k}")
         decoded[label] = img
         del big
-    peak = _decode_peak(paths["tex"], "terrain_tpu_torch.data.tiff",
-                        "decode_tiff")
-    print(f"raster [{card}]: in a fresh process the TIFF texture's decode "
-          f"took {peak['s']:.2f} s and its peak host memory was "
+    peak = dec.run(paths["tex"], "terrain_tpu_torch.data.tiff",
+                   "decode_tiff", limit_s=300)
+    print(f"raster [{card}]: in the phase's decode process the TIFF "
+          f"texture's decode took {peak['times'][0]:.2f} s and its peak host "
+          f"memory was "
           f"{peak['peak'] / 1e6:.1f} MB above the process's before it "
           f"({peak['samples']} samples of VmRSS; the output "
           f"{peak['out'] / 1e6:.1f} MB)", flush=True)
     got, wall, row = _raster_epoch(
         torch, np, "TIFF pair", np.asarray(decoded["hm"], np.uint8),
-        decoded["tex"], [paths["hm"], paths["tex"]], root, RASTER_CROPS)
+        decoded["tex"], [paths["hm"], paths["tex"]], root, EPOCH_CROPS)
     print(f"raster [{card}]: `TERRAIN_RASTER=hm.tif,tex.tif "
-          f"TERRAIN_EPOCH_CROPS={RASTER_CROPS} {EXPERIMENT} train` "
+          f"TERRAIN_EPOCH_CROPS={EPOCH_CROPS} {EXPERIMENT} train` "
           f"(21600x10800 16-bit deflate heights + LZW texture): {wall:.1f} s "
           f"in all (both decoded again), epoch {float(row['time']):.3f} s; "
           f"the first batch equals plain slicing; launches "
@@ -3117,9 +3265,9 @@ def raster_webp(torch, card, root):
         decoded[label] = img
     got, wall, row = _raster_epoch(
         torch, np, "WebP pair", decoded["hm"][..., 0], decoded["tex"],
-        [paths["hm"], paths["tex"]], root, WEBP_CROPS)
+        [paths["hm"], paths["tex"]], root, EPOCH_CROPS)
     print(f"raster [{card}]: `TERRAIN_RASTER=hm.webp,tex.webp "
-          f"TERRAIN_EPOCH_CROPS={WEBP_CROPS} {EXPERIMENT} train` (1024x640 "
+          f"TERRAIN_EPOCH_CROPS={EPOCH_CROPS} {EXPERIMENT} train` (1024x640 "
           f"lossless heights + q90 texture): {wall:.1f} s in all (both "
           f"decoded again), epoch {float(row['time']):.3f} s; the first "
           f"batch equals plain slicing; launches "
@@ -3178,66 +3326,15 @@ def _jp2_repeat(data, height, width):
     return bytes(out), n_tiles
 
 
-def _jp2_runs(path, tile_path, runs=3):
-    """In a fresh process: the JPEG 2000 codestream at `path` decoded
-    `runs` times (each timed; the previous array dropped first) while a
-    thread samples VmRSS (/proc/self/status, read only) every millisecond,
-    the peak taken above the resident set after the bytes are read and
-    the library loaded; then every tile of the last decode held to the
-    decode of the one-tile file at `tile_path`.  Returns {times, peak,
-    samples, out, tiles, equal}."""
-    code = (
-        "import json, sys, threading, time\n"
-        f"sys.path.insert(0, {HERE!r})\n"
-        "import numpy as np\n"
-        "from terrain_tpu_torch.data.jp2 import decode_jp2, read_header\n"
-        "def rss():\n"
-        "    for ln in open('/proc/self/status'):\n"
-        "        if ln.startswith('VmRSS'):\n"
-        "            return int(ln.split()[1]) * 1024\n"
-        "data = open(sys.argv[1], 'rb').read()\n"
-        "read_header(data)  # the library loaded before the count\n"
-        "before = rss()\n"
-        "seen, done = [before], threading.Event()\n"
-        "def watch():\n"
-        "    while not done.is_set():\n"
-        "        seen.append(rss())\n"
-        "        time.sleep(0.001)\n"
-        "t = threading.Thread(target=watch)\n"
-        "t.start()\n"
-        "times, img = [], None\n"
-        f"for _ in range({runs}):\n"
-        "    img = None\n"
-        "    t0 = time.perf_counter()\n"
-        "    img = decode_jp2(data)\n"
-        "    times.append(time.perf_counter() - t0)\n"
-        "done.set()\n"
-        "t.join()\n"
-        "tile = decode_jp2(open(sys.argv[2], 'rb').read())\n"
-        "n = tile.shape[0]\n"
-        "grid = img.reshape(img.shape[0] // n, n, img.shape[1] // n, n,\n"
-        "                   *img.shape[2:])\n"
-        "equal = all(np.array_equal(grid[r, :, c], tile)\n"
-        "            for r in range(grid.shape[0]) for c in range(grid.shape[2]))\n"
-        "print(json.dumps({'times': times, 'peak': max(seen) - before,\n"
-        "                  'samples': len(seen), 'out': img.nbytes,\n"
-        "                  'tiles': grid.shape[0] * grid.shape[2],\n"
-        "                  'equal': equal}))\n")
-    p = subprocess.run([sys.executable, "-c", code, path, tile_path],
-                       capture_output=True, text=True, timeout=600)
-    if p.returncode != 0:
-        fail(f"raster: the JPEG 2000 decode runs failed:\n{p.stderr[-2000:]}")
-    return json.loads(p.stdout.splitlines()[-1])
-
-
-def raster_jp2(torch, card, root):
+def raster_jp2(torch, card, root, dec):
     """JPEG 2000 rasters through the port's decoder (the committed fixtures
     are held to imageio's digests with the others, _raster_fixtures): the
     two committed 1024 x 1024 tiles (JP2_TILES: 16-bit lossless heights,
     5/3 with five levels; an RGB 9/7 texture with the ICT and three quality
     layers) each repeated into a JP2_H x JP2_W codestream (_jp2_repeat)
-    and, in a fresh process (_jp2_runs), decoded from its bytes three
-    times (the best: s and MP/s) with its peak host memory sampled, every
+    and, in the decode process (_DecodeProcess), decoded from its bytes
+    JP2_RUNS times (the best: s and MP/s) with its peak host memory
+    sampled, every
     tile of the decode equal to the lone tile's; then one epoch of
     `TERRAIN_RASTER=<heights>.jp2,<texture>.jp2 TERRAIN_EPOCH_CROPS=16
     test1_nobn_bilin_both train` from the two tiles through cli.main: the
@@ -3259,16 +3356,18 @@ def raster_jp2(torch, card, root):
         path = os.path.join(root, f"{label}_{JP2_W}x{JP2_H}.j2k")
         with open(path, "wb") as f:
             f.write(big)
-        runs = _jp2_runs(path, paths[label])
-        if not runs["equal"] or runs["tiles"] != n_tiles:
+        runs = dec.run(path, "terrain_tpu_torch.data.jp2", "decode_jp2",
+                       lib="terrain_tpu_torch.data.jp2",
+                       tile_path=paths[label], runs=JP2_RUNS)
+        if not runs["equal"] or runs["cells"] != n_tiles:
             fail(f"raster: a tile of the {JP2_W}x{JP2_H} JPEG 2000 {label} "
                  f"is not the lone tile's decode")
         best = min(runs["times"])
         mp = JP2_H * JP2_W / 1e6
         print(f"raster [{card}]: a {JP2_W}x{JP2_H} JPEG 2000 {label} ({name}'s"
               f" tile-part repeated {n_tiles} times, {len(big) / 1e6:.1f} MB) "
-              f"decoded to {tiles[label].dtype} in a fresh process in "
-              f"{best:.3f} s (best of 3: "
+              f"decoded to {tiles[label].dtype} in the decode process in "
+              f"{best:.3f} s (best of {len(runs['times'])}: "
               f"{', '.join(f'{t:.3f}' for t in runs['times'])}): "
               f"{mp / best:.1f} MP/s on the host, every tile the lone tile's "
               f"decode; peak host memory {runs['peak'] / 1e6:.1f} MB above "
@@ -3278,12 +3377,142 @@ def raster_jp2(torch, card, root):
         del big
     got, wall, row = _raster_epoch(
         torch, np, "JPEG 2000 pair", np.asarray(tiles["hm"], np.uint8),
-        tiles["tex"], [paths["hm"], paths["tex"]], root, JP2_CROPS)
+        tiles["tex"], [paths["hm"], paths["tex"]], root, EPOCH_CROPS)
     print(f"raster [{card}]: `TERRAIN_RASTER=<heights>.jp2,<texture>.jp2 "
-          f"TERRAIN_EPOCH_CROPS={JP2_CROPS} {EXPERIMENT} train` (the two "
+          f"TERRAIN_EPOCH_CROPS={EPOCH_CROPS} {EXPERIMENT} train` (the two "
           f"1024x1024 tiles: 16-bit 5/3 heights + 9/7 texture): {wall:.1f} s "
           f"in all (both decoded again), epoch {float(row['time']):.3f} s; "
           f"the first batch equals plain slicing; launches "
+          f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
+    return got
+
+
+def _dds_repeat(data, height, width):
+    """A one-surface DDS of block-compressed 1024 x 1024 texels (a legacy
+    or DX10 header, then 256 x 256 blocks) as one of `height` x `width`
+    whose block rows and columns repeat the tile's (blocks decode alone,
+    so every 1024 x 1024 cell of the decode, and the edge cells' corners,
+    are the tile's decode).  Returns the bytes."""
+    import struct
+
+    import numpy as np
+
+    head = bytearray(data[:148 if data[84:88] == b"DX10" else 128])
+    size = (len(data) - len(head)) // (256 * 256)
+    if size not in (8, 16) or len(head) + 256 * 256 * size != len(data):
+        fail("raster: the DDS tile is not one 1024 x 1024 surface of "
+             "blocks")
+    tile = np.frombuffer(data, np.uint8, 256 * 256 * size,
+                         len(head)).reshape(256, 256, size)
+    by, bx = -(-height // 4), -(-width // 4)
+    rows = np.tile(tile, (1, -(-bx // 256), 1))[:, :bx]
+    struct.pack_into("<2I", head, 12, height, width)
+    return bytes(head) + np.tile(rows, (-(-by // 256), 1, 1))[:by].tobytes()
+
+
+def raster_float_dds(torch, card, root, dec):
+    """Float heights and block-compressed textures through the port's
+    decoders (the committed PFM, PAM, Radiance, Sun raster and DDS
+    fixtures are held to imageio's digests with the others,
+    _raster_fixtures): a RASTER_W x RASTER_H Pf file of seeded heights
+    k / 2 (k in 0..600, so 0-300 m with a .5 tie in every other value),
+    decoded as imageio reads a *.pfm path (OpenCV: rounded half to even,
+    saturated at 255) and held to plain numpy (np.rint, np.clip) of the
+    same values; the two committed DDS tiles (DDS_TILES: Pillow's DXT1 of
+    a terrain texture, random BC7 blocks of every mode) each repeated
+    block row by block row into a RASTER_W x RASTER_H texture
+    (_dds_repeat), every 1024 x 1024 cell of its decode the lone tile's;
+    each decoded three times in the decode process (_DecodeProcess: the
+    best s and MP/s, the peak host MB); then one epoch of
+    `TERRAIN_RASTER=<heights>.pfm,<texture>.dds TERRAIN_EPOCH_CROPS=16
+    test1_nobn_bilin_both train` from a 1024 x 1024 Pf of the same heights
+    and the DXT1 tile through cli.main: the first batch against plain
+    slicing, finite losses and the train steps' launches of every kernel.
+    Returns the epoch's counts."""
+    import numpy as np
+
+    from terrain_tpu_torch.data.dds import decode_dds
+    from terrain_tpu_torch.data.pnm import decode_pfm_cv
+
+    mp = RASTER_H * RASTER_W / 1e6
+
+    def report(label, what, size_mb, runs):
+        best = min(runs["times"])
+        print(f"raster [{card}]: a {RASTER_W}x{RASTER_H} {label} ({what}, "
+              f"{size_mb:.1f} MB) decoded in the decode process in "
+              f"{best:.3f} s "
+              f"(best of 3: {', '.join(f'{t:.3f}' for t in runs['times'])}): "
+              f"{mp / best:.1f} MP/s on the host; peak host memory "
+              f"{runs['peak'] / 1e6:.1f} MB above the process's after "
+              f"reading the file ({runs['samples']} samples of VmRSS; the "
+              f"output {runs['out'] / 1e6:.1f} MB)", flush=True)
+
+    t0 = time.perf_counter()
+    k = np.random.default_rng(0).integers(0, 601, (RASTER_H, RASTER_W),
+                                          dtype=np.uint16)
+    heights = k.astype(np.float32) * np.float32(0.5)
+    del k
+    hm_path = os.path.join(root, f"heights_{RASTER_W}x{RASTER_H}.pfm")
+    with open(hm_path, "wb") as f:  # rows bottom-up, little-endian
+        f.write(b"Pf\n%d %d\n-1.0\n" % (RASTER_W, RASTER_H))
+        for r in range(RASTER_H - 1, -1, -1024):
+            f.write(heights[max(r - 1023, 0):r + 1][::-1].astype(
+                "<f4").tobytes())
+    plain = np.clip(np.rint(heights), 0, 255).astype(np.uint8)
+    plain_path = os.path.join(root, "heights_plain.npy")
+    np.save(plain_path, plain)
+    small = heights[:1024, :1024].copy()
+    del heights, plain
+    print(f"raster: wrote the {RASTER_W}x{RASTER_H} Pf heights "
+          f"({os.path.getsize(hm_path) / 1e6:.1f} MB) and their plain "
+          f"reading in {time.perf_counter() - t0:.1f} s", flush=True)
+    runs = dec.run(hm_path, "terrain_tpu_torch.data.pnm", "decode_pfm_cv",
+                   lib="terrain_tpu_torch.data.tiff", plain=plain_path,
+                   runs=3)
+    if not runs["equal"]:
+        fail("raster: the PFM heights are not the plain reading of their "
+             "values (rint, clip to 0-255)")
+    report("PFM heights", "float32, rounded half to even and saturated as "
+           "OpenCV reads a *.pfm path, equal to plain numpy",
+           os.path.getsize(hm_path) / 1e6, runs)
+    os.remove(hm_path)
+    os.remove(plain_path)
+    d = os.path.join(HERE, "tests", "data", "dds")
+    tiles = {}
+    for name in DDS_TILES:
+        tile_path = os.path.join(d, name)
+        with open(tile_path, "rb") as f:
+            data = f.read()
+        tiles[name] = decode_dds(data)
+        big = _dds_repeat(data, RASTER_H, RASTER_W)
+        path = os.path.join(root, f"texture_{RASTER_W}x{RASTER_H}.dds")
+        with open(path, "wb") as f:
+            f.write(big)
+        runs = dec.run(path, "terrain_tpu_torch.data.dds", "decode_dds",
+                       lib="terrain_tpu_torch.data.tiff", tile_path=tile_path,
+                       runs=3)
+        if not runs["equal"]:
+            fail(f"raster: a cell of the {RASTER_W}x{RASTER_H} DDS from "
+                 f"{name} is not the lone tile's decode")
+        report(f"DDS texture from {name}", f"{runs['cells']} cells of 1024, "
+               f"each the lone tile's decode", len(big) / 1e6, runs)
+        os.remove(path)
+        del big
+    hp = os.path.join(root, "heights_1024.pfm")
+    with open(hp, "wb") as f:
+        f.write(b"Pf\n%d %d\n-1.0\n" % small.shape[::-1] + small[
+            ::-1].astype("<f4").tobytes())
+    with open(hp, "rb") as f:
+        hm = decode_pfm_cv(f.read())
+    tex = tiles[DDS_TILES[0]][..., :3]
+    tp = os.path.join(d, DDS_TILES[0])
+    got, wall, row = _raster_epoch(torch, np, "PFM and DDS pair", hm, tex,
+                                   [hp, tp], root, EPOCH_CROPS)
+    print(f"raster [{card}]: `TERRAIN_RASTER=<heights>.pfm,<texture>.dds "
+          f"TERRAIN_EPOCH_CROPS={EPOCH_CROPS} {EXPERIMENT} train` (1024x1024 "
+          f"Pf heights, the DXT1 tile): {wall:.1f} s in all (both decoded "
+          f"again), epoch {float(row['time']):.3f} s; the first batch "
+          f"equals plain slicing; launches "
           f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
     return got
 
@@ -3370,9 +3599,10 @@ def _h5_pairs(np, card, path):
     return arrays
 
 
-def _epoch(torch, card, label, env, root):
+def _epoch(torch, card, label, env, root, n=None):
     """One epoch of `EXPERIMENT train` through cli.main under `env`, the
-    default path (switches off): (launch counts, results row)."""
+    default path (switches off), of `n` train pairs (TERRAIN_N, else
+    INPUTS_N): (launch counts, losses, epoch s)."""
     import math
 
     import numpy as np
@@ -3408,7 +3638,7 @@ def _epoch(torch, card, label, env, root):
               for k in TRAIN_KEYS}
     if not all(math.isfinite(float(v)) for v in losses.values()):
         fail(f"inputs: a loss of the {label} epoch is not finite: {row}")
-    n_train = int(env.get("TERRAIN_N", INPUTS_N)) // TRAIN_BATCH
+    n_train = (n or int(env.get("TERRAIN_N", INPUTS_N))) // TRAIN_BATCH
     for k, v in TRAIN_LAUNCHES.items():
         if got[k] < n_train * v:
             fail(f"inputs: {k} launched {got[k]} times in the {label} "
@@ -3465,6 +3695,37 @@ def _h5_epochs(torch, np, card, path, arrays, root):
           f"(its losses the same bits), the h5 through the host iterator "
           f"{host_s:.3f} s (its first batch plain slicing)", flush=True)
     return {k: fast[k] + host[k] for k in fast}
+
+
+def _h5_edge_epoch(torch, np, card, root):
+    """The committed 512px pairs whose last rows lie in partial edge chunks
+    stored unfiltered (H5_EDGE, held to h5py's digests by _h5_fixtures):
+    the host iterator's first batch against plain slicing of the port's
+    reading, then one epoch of `TERRAIN_DATA=<it> EXPERIMENT train`: finite
+    losses and every kernel's launches in its train steps.  Returns the
+    counts."""
+    from terrain_tpu_torch.data import h5
+    from terrain_tpu_torch.experiments import get_iterators
+
+    path = os.path.join(HERE, H5_DIR, H5_EDGE)
+    with h5.File(path) as f:
+        xt, yt = np.array(f["xt"]), np.array(f["yt"])
+    n = len(xt)
+    tr, _ = get_iterators(path, TRAIN_BATCH, True, False)
+    slices = [slice(i, i + TRAIN_BATCH) for i in range(0, n, TRAIN_BATCH)]
+    np.random.RandomState(0).shuffle(slices)
+    x, y = next(tr)
+    if not (np.array_equal(x, xt[slices[0]].astype(np.float32) / 255.0)
+            and np.array_equal(y, (yt[slices[0]].astype(np.float32) - 127.5)
+                               / 127.5)):
+        fail("inputs: the edge-chunk h5's first batch is not plain slicing "
+             "of its pairs")
+    got, _, epoch_s = _epoch(torch, card, "h5_edge", {"TERRAIN_DATA": path},
+                             root, n=n)
+    print(f"inputs [{card}]: {H5_EDGE} ({n} + {n // 2} pairs at 512px, the "
+          f"last rows of each in an unfiltered partial edge chunk): the "
+          f"first batch plain slicing, epoch {epoch_s:.3f} s", flush=True)
+    return got
 
 
 def _timed(card, name, fn, phase="inputs"):
@@ -3698,6 +3959,8 @@ def inputs_child(torch, root):
     path = os.path.join(root, "pairs.h5")
     arrays = _h5_pairs(np, card, path)
     launches = _h5_epochs(torch, np, card, path, arrays, root)
+    edge = _h5_edge_epoch(torch, np, card, root)
+    launches = {k: launches[k] + edge[k] for k in launches}
     _tools(torch, np, card, root)
     _importer(torch, np, card, root)
     with open(os.path.join(root, "inputs.json"), "w") as f:
@@ -4110,16 +4373,21 @@ def traced_replay(card, what, replay, per_step):
 
     from terrain_tpu_torch.utils.profiling import trace
 
-    root = tempfile.mkdtemp(prefix="replay_trace_")
-    try:
-        t0 = time.perf_counter()
-        with trace(root, "cuda"):
-            replay()
-        TRACE_WORK_S.append(time.perf_counter() - t0)
-        summarize_checked(os.path.join(root, os.listdir(root)[0]), card,
-                          what, per_step=(SCAN_K, per_step), quiet=True)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    for first in (True, False):
+        root = tempfile.mkdtemp(prefix="replay_trace_")
+        try:
+            t0 = time.perf_counter()
+            with trace(root, "cuda"):
+                replay()
+            TRACE_WORK_S.append(time.perf_counter() - t0)
+            summarize_checked(os.path.join(root, os.listdir(root)[0]), card,
+                              what, per_step=(SCAN_K, per_step), quiet=True,
+                              lost_ok=first)
+            return
+        except LostEvents:
+            pass
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def scan_equivalence(torch, np, card):
@@ -4274,19 +4542,25 @@ def scan_timing(torch, np, card, kept):
         with trace(os.path.join(root, "eager"), "cuda"):
             tr(gan.opt_states, batches[0], rngs, gan.lr)
         one = {n: c for n, c in _read_counters().items() if n in _counters()}
-        t0 = time.perf_counter()
-        with trace(os.path.join(root, "replay"), "cuda"):
-            graph()
-        t_trace = time.perf_counter() - t0
-        paths = {p: os.path.join(root, p, os.listdir(os.path.join(root, p))[0])
-                 for p in ("eager", "replay")}
         eager_s, _ = summarize_checked(
-            paths["eager"], card, "scan bf16, one traced eager step",
-            eager=True, quiet=True)
-        replay_s, _ = summarize_checked(
-            paths["replay"], card, f"scan bf16 TERRAIN_SCAN={k}, one traced "
-            f"replay ({t_trace:.1f} s with the trace)", per_step=(k, one),
-            quiet=True)
+            os.path.join(root, "eager", os.listdir(
+                os.path.join(root, "eager"))[0]), card,
+            "scan bf16, one traced eager step", eager=True, quiet=True)
+        for first in (True, False):
+            d = os.path.join(root, f"replay{int(first)}")
+            t0 = time.perf_counter()
+            with trace(d, "cuda"):
+                graph()
+            t_trace = time.perf_counter() - t0
+            try:
+                replay_s, _ = summarize_checked(
+                    os.path.join(d, os.listdir(d)[0]), card,
+                    f"scan bf16 TERRAIN_SCAN={k}, one traced replay "
+                    f"({t_trace:.1f} s with the trace)", per_step=(k, one),
+                    quiet=True, lost_ok=first)
+                break
+            except LostEvents:
+                pass
         borrowed = borrow_bounds(replay_s, eager_s, k)
         summarize_checked(None, card, f"scan bf16 TERRAIN_SCAN={k}, the "
                           f"replay with the eager step's bounds",
@@ -6490,7 +6764,7 @@ def spatial_slice(torch, card, world=SP_WORLD, backend="gloo"):
 NAN_SETTINGS = (("default", {}), ("switches on, decoder unfused",
                                   {**SWITCHES, **UNFUSED}))
 NAN_EAGER = 2      # checked eager steps held against unchecked ones
-NAN_TIME_K = 16    # the bf16 graph's chunk when timed
+NAN_TIME_K = 8     # the bf16 graph's chunk when timed (16 before PR 24)
 
 
 def _checks_on(on):
@@ -6524,8 +6798,9 @@ def nans_slice(torch, card):
     checked and unchecked, bit-equal to eager steps); a NaN-poisoned weight
     of p2p_gen's first encoder conv raising eagerly and in the graph,
     naming p2p_gen, enc.0.conv and step 1; a NaN in step 3's prior
-    raising in the graph naming step 3.  Then bf16 at TERRAIN_SCAN=16,
-    the graph checked and unchecked, per step; every kernel's outputs
+    raising in the graph naming step 3.  Then bf16 at
+    TERRAIN_SCAN=NAN_TIME_K, the graph checked and unchecked, per step;
+    every kernel's outputs
     checked at least once.  Returns the kernels' checked launches."""
     import numpy as np
 
@@ -6887,6 +7162,7 @@ def coldstart_slice(torch, card, build_s):
     """ROADMAP A.7's cold-start cost, then the TERRAIN_AOT store: filled,
     loaded by a process with no compiler, and a mismatched entry never
     loaded.  `build_s`: phase 1's nvcc build of the six sources."""
+    import concurrent.futures
     import contextlib
     import ctypes
     import io
@@ -6905,29 +7181,43 @@ def coldstart_slice(torch, card, build_s):
     try:
         # as things stand: the libraries in _build/ (phase 1 built them)
         warm, warm_wall, _ = _cold_run(root, "built", dict(os.environ))
-        # the host libraries from nothing, as a cold machine builds them
+        # the host libraries from nothing, as a cold machine builds them:
+        # one g++ a source, all started together
         os.environ["TERRAIN_AOT"] = os.path.join(root, "host_only")
         t0 = time.perf_counter()
-        for s in _build.HOST_SOURCES:
-            _build.build_host(os.path.join(aot.PACKAGE, s))
+        with concurrent.futures.ThreadPoolExecutor(
+                len(_build.HOST_SOURCES)) as pool:
+            built = list(pool.map(
+                lambda s: _build.build_host(os.path.join(aot.PACKAGE, s)),
+                _build.HOST_SOURCES))
         host_s = time.perf_counter() - t0
         os.environ.pop("TERRAIN_AOT")
-        # a fresh store: phase 1's six libraries with their records, then
-        # the trainer's fill (every record checked, the host libraries
-        # built)
+        # the later phases load them from _build/ instead of building them
+        # again at first use
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        for path in built:
+            for f in (path, aot.record_path(path)):
+                if not os.path.exists(os.path.join(_build.BUILD_DIR,
+                                                   os.path.basename(f))):
+                    shutil.copy(f, _build.BUILD_DIR)
+        # a fresh store: phase 1's six libraries and the six host ones just
+        # built, with their records, then the trainer's fill (every record
+        # checked)
         os.makedirs(store)
         for path, _ in _build.build().values():
             for f in (path, aot.record_path(path)):
                 shutil.copy(f, store)
+        for f in os.listdir(os.path.join(root, "host_only")):
+            shutil.copy(os.path.join(root, "host_only", f), store)
         os.environ["TERRAIN_AOT"] = store
         t0 = time.perf_counter()
         paths = aot.fill()
         fill_s = time.perf_counter() - t0
         records = {os.path.basename(p): aot.read_record(p) for p in paths}
         print(f"coldstart [{card}]: the store {sorted(os.listdir(store))}; "
-              f"filled in {fill_s:.1f} s (phase 1's six CUDA libraries "
-              f"copied in, their records checked, the six host libraries "
-              f"built); a record {records[os.path.basename(paths[0])]}",
+              f"filled in {fill_s:.1f} s (phase 1's six CUDA libraries and "
+              f"the six host libraries built above copied in, their records "
+              f"checked); a record {records[os.path.basename(paths[0])]}",
               flush=True)
         if len(paths) != len(_build.SOURCES) + len(_build.HOST_SOURCES) or \
                 any(r is None for r in records.values()):
@@ -6958,7 +7248,8 @@ def coldstart_slice(torch, card, build_s):
               f"libraries built in _build/ {warm_wall:.1f} s (imports "
               f"{warm['main_s']:.1f}, model {warm['built_s']:.1f}, step "
               f"{warm['step_s']:.1f}); a cold machine adds phase 1's nvcc "
-              f"build {build_s:.1f} s and the six g++ builds {host_s:.1f} s: "
+              f"build {build_s:.1f} s and the six g++ builds (in parallel) "
+              f"{host_s:.1f} s: "
               f"{warm_wall + build_s + host_s:.1f} s; from a TERRAIN_AOT "
               f"store with no compiler reachable (PATH an empty directory, "
               f"CUDA_HOME unset; found {got['compilers']}) {got_wall:.1f} s "
@@ -7193,24 +7484,33 @@ def _conv_calls(torch, run):
 
 def _accuracy(torch, calls):
     """{key: {setting: [dX error, dW error]}}, each the largest error
-    against the CPU's fp64 gradients over their largest entry, on seeded
-    normal inputs; settings "default" and "deterministic" (the library's
-    fn in fp32 on cuDNN's default and deterministic algorithms), "fp64"
-    (cuDNN in fp64) and "port" (the port's fn in fp32 under the step's
-    deterministic algorithms, with "port_twice": whether it gave the same
-    bits twice)."""
+    against fp64 gradients over their largest entry, on seeded normal
+    inputs; settings "default" and "deterministic" (the library's fn in
+    fp32 on cuDNN's default and deterministic algorithms), "fp64" (cuDNN in
+    fp64 on its default algorithms) and "port" (the port's fn in fp32
+    under the step's deterministic algorithms, with "port_twice": whether
+    it gave the same bits twice).  The fp64 reference is cuDNN's on its
+    deterministic algorithms on the card (a CPU's fp64 took ~100 s of the
+    script on a slow host); on the ACC_ANCHORS calls of fewest operations
+    it is held to the CPU's fp64 within ACC_ANCHOR_TOL, else the phase
+    fails, and "anchor" holds that difference."""
     gen = torch.Generator().manual_seed(0)
     fmts = {"channels_last": torch.channels_last,
             "contiguous": torch.contiguous_format}
     out = {}
+    size = {k: (v[0][0] * v[1][0] * v[1][1] * v[1][2] * v[1][3]
+                * v[0][2] * v[0][3]) for k, v in calls.items()}
+    anchors = sorted(calls, key=size.get)[:ACC_ANCHORS]
     for key, (xs, ws, layouts, lib, port) in calls.items():
         fan_in = (ws[1] if "transpose" not in key else ws[0]) * ws[2] * ws[3]
         x, w = (torch.randn(shape, generator=gen, dtype=torch.float64)
                 .contiguous(memory_format=fmts[f])
                 for shape, f in zip((xs, ws), layouts))
         w = w * fan_in ** -0.5
-        cot = torch.randn(lib(x, w).shape, generator=gen,
-                          dtype=torch.float64)
+        # the output's shape from meta tensors: a CPU fp64 forward of the
+        # step's largest convs took seconds each
+        cot = torch.randn(lib(x.to("meta"), w.to("meta")).shape,
+                          generator=gen, dtype=torch.float64)
 
         def grads(fn, dtype, dev):
             xd = x.to(dev, dtype).requires_grad_()  # keeps the layout
@@ -7218,8 +7518,15 @@ def _accuracy(torch, calls):
             return torch.autograd.grad(fn(xd, wd), (xd, wd),
                                        cot.to(dev, dtype))
 
-        ref = grads(lib, torch.float64, "cpu")
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            ref = [r.cpu() for r in grads(lib, torch.float64, "cuda")]
         out[key] = {}
+        if key in anchors:
+            out[key]["anchor"] = max(
+                float((r - c).abs().max() / c.abs().max())
+                for r, c in zip(ref, grads(lib, torch.float64, "cpu")))
         for label, fn, dtype, det in (
                 ("default", lib, torch.float32, False),
                 ("deterministic", lib, torch.float32, True),
@@ -7241,7 +7548,8 @@ def _accuracy(torch, calls):
 
 def accuracy(torch, card):
     """Every distinct library conv of one fp32 flagship step (_conv_calls)
-    against the CPU's fp64 (_accuracy): the port's gradients within
+    against fp64 (_accuracy: the card's, held to the CPU's on the smallest
+    calls): the port's gradients within
     ACC_ROUTE_TOL where ops/conv.Conv5x5 computes dW (the same bits
     twice), within ACC_TOL elsewhere; the fp32 step (the port's settings)
     with Conv5x5's dW and with cuDNN's, in turns: CUDA-event and profiled
@@ -7275,13 +7583,21 @@ def accuracy(torch, card):
     del run
     torch.cuda.empty_cache()
     bad = []
-    for key, v in sorted(_accuracy(torch, calls).items(),
-                         key=lambda kv: -max(kv[1]["port"])):
+    acc = _accuracy(torch, calls)
+    anchored = {k: v["anchor"] for k, v in acc.items() if "anchor" in v}
+    print(f"accuracy: the card's fp64 reference (deterministic cuDNN) "
+          f"against the CPU's fp64 on the {len(anchored)} smallest calls: "
+          f"largest relative difference {max(anchored.values()):.2e} (limit "
+          f"{ACC_ANCHOR_TOL:.0e})", flush=True)
+    if len(anchored) < ACC_ANCHORS or \
+            max(anchored.values()) > ACC_ANCHOR_TOL:
+        bad.append(f"the card's fp64 reference is not the CPU's: {anchored}")
+    for key, v in sorted(acc.items(), key=lambda kv: -max(kv[1]["port"])):
         routed = "Conv5x5" in key
         tol = ACC_ROUTE_TOL if routed else ACC_TOL
         twice = (f", same bits twice {v['port_twice']}" if routed
                  else "")
-        print(f"accuracy [{card}] {key}: dX, dW relative to the CPU's fp64: "
+        print(f"accuracy [{card}] {key}: dX, dW relative to fp64: "
               f"port {v['port'][0]:.2e}, {v['port'][1]:.2e} (limit "
               f"{tol:.0e}{twice}); cuDNN fp32 default "
               f"{v['default'][0]:.2e}, {v['default'][1]:.2e}; "
@@ -7383,8 +7699,8 @@ def determinism(torch, card):
     acc = _accuracy(torch, calls)
     for key, v in sorted(acc.items(),
                          key=lambda kv: -max(kv[1]["deterministic"])):
-        print(f"determinism accuracy [{card}] {key}: dX, dW relative to the "
-              f"CPU's fp64: port {v['port'][0]:.2e}, {v['port'][1]:.2e}; "
+        print(f"determinism accuracy [{card}] {key}: dX, dW relative to "
+              f"fp64: port {v['port'][0]:.2e}, {v['port'][1]:.2e}; "
               f"cuDNN fp32 default {v['default'][0]:.2e}, "
               f"{v['default'][1]:.2e}; deterministic "
               f"{v['deterministic'][0]:.2e}, {v['deterministic'][1]:.2e}; "

@@ -16,7 +16,10 @@ Read:
   * data layout message versions 3 and 4: compact, contiguous, and
     chunked through the deflate, shuffle and fletcher32 filters (the
     checksum is checked), with version 3's v1 B-tree chunk index or any of
-    version 4's five (libver="latest"): single chunk (filtered or not),
+    version 4's five (libver="latest"), partial edge chunks stored
+    unfiltered where the layout says so (H5Pset_chunk_opts'
+    H5D_CHUNK_DONT_FILTER_PARTIAL_CHUNKS: a chunk crossing the dataset's
+    current edge skips the filters): single chunk (filtered or not),
     implicit, fixed array (FAHD/FADB, paged past 2^page bits entries),
     extensible array (EAHD/EAIB/EASB/EADB: super blocks, paged data
     blocks) and version 2 B-tree (BTHD/BTIN/BTLF, record types 10 and 11,
@@ -485,12 +488,9 @@ class File:
     def _layout4(self, data):
         """Version 4's chunked layout: ("chunked4", index type, address,
         chunk dims with the element size last, the single chunk's filtered
-        size and mask).  Each index's own parameters are in its header."""
+        size and mask, whether partial edge chunks are stored unfiltered).
+        Each index's own parameters are in its header."""
         flags, ndims, enc = data[2], data[3], data[4]
-        if flags & 1:
-            raise NotImplementedError(
-                "HDF5: partial edge chunks stored unfiltered "
-                "(H5D_CHUNK_DONT_FILTER_PARTIAL_CHUNKS)")
         dims = [_u(data, 5 + enc * i, enc) for i in range(ndims)]
         p = 5 + enc * ndims
         index = data[p]
@@ -506,14 +506,15 @@ class File:
         # version 2 B-tree's node size, split and merge percentages
         p += 1 + {1: self.L + 4 if flags & 2 else 0, 2: 0, 3: 1, 4: 5,
                   5: 6}[index]
-        return ("chunked4", index, _u(data, p, self.O), dims, single)
+        return ("chunked4", index, _u(data, p, self.O), dims, single,
+                bool(flags & 1))
 
     def _chunked(self, ds):
         if ds.layout[0] == "chunked4":
-            _, index, addr, dims, single = ds.layout
+            _, index, addr, dims, single, edge_raw = ds.layout
         else:
             _, addr, dims = ds.layout
-            index, single = 0, None
+            index, single, edge_raw = 0, None, False
         chunk = tuple(dims[:-1])
         out = np.full(ds.shape, ds.fill, ds.dtype)
         if addr == self.undef or not out.size:
@@ -525,8 +526,12 @@ class File:
             entries = self._index4(ds, index, addr, chunk, nbytes, single)
         for (size, mask, offs), a in entries:
             a = self._addr(a)
-            raw = _unfilter(bytes(self._buf[a:a + size]), ds.filters, mask,
-                            ds.dtype.itemsize)
+            raw = bytes(self._buf[a:a + size])
+            # H5D_CHUNK_DONT_FILTER_PARTIAL_CHUNKS: a chunk that crosses the
+            # dataset's edge is stored as it is, whatever its filter mask
+            if not (edge_raw and any(o + c > d for o, c, d in
+                                     zip(offs, chunk, ds.shape))):
+                raw = _unfilter(raw, ds.filters, mask, ds.dtype.itemsize)
             block = np.frombuffer(raw, ds.dtype,
                                   int(np.prod(chunk))).reshape(chunk)
             dst = tuple(slice(o, min(o + c, s))

@@ -1,7 +1,9 @@
 """Raster files for the trainer's crops (TERRAIN_RASTER) and the dataset
 tools: the format by name and by first bytes, and the decode by the port's
 own codecs, each giving the array `imageio.v3.imread` gives (the JAX
-package's reader):
+package's reader), through the plugin imageio takes for the file
+(data/cvread.py's `reader`: by the extension's plugin order, then Pillow,
+then OpenCV; bytes through Pillow where it opens them, else OpenCV):
   PNG   serve/png.py    every colour type and depth, Adam7, palettes
   JPEG  data/jpeg.py    baseline, extended and progressive Huffman
   TIFF  data/tiff.py    baseline and BigTIFF: strips or tiles, LZW,
@@ -14,22 +16,31 @@ package's reader):
                         the 5/3 and 9/7 wavelets, layers, precincts,
                         tiles, every progression order
   PNM   data/pnm.py     P1-P6 plain and binary, maxval 1-65535, Pf floats
+                        (Pillow); PF and a *.pfm path (OpenCV's PFM
+                        reader), P7 (OpenCV's PAM reader: BLACKANDWHITE,
+                        GRAYSCALE, RGB), a bitmap at a *.pbm path
   TGA   data/tga.py     types 1-3 and their run-length forms, by name only
                         (*.tga, *.icb, *.vda, *.vst: TGA has no magic)
+  HDR   data/hdr.py     Radiance RGBE (*.hdr, *.pic), flat and run-length
+                        scanlines, through OpenCV's reader
+  Sun   data/sun.py     Sun raster (*.ras, *.sr), depths 1-32, colour
+                        maps, byte-encoded runs (Pillow; OpenCV's reader at
+                        a *.sr path)
+  DDS   data/dds.py     uncompressed, luminance, palette, BC1-BC7 (DXT1/3/5,
+                        ATI1/2, BC5S, BC6H UF16 and SF16), the DX10 header
 GIF is refused by name: imageio gives it a frame axis that the JAX
 package's crop iterator does not take, so terrain_tpu cannot train from
 one either (serve/gif.py writes and reads the port's clips, not rasters).
-A *.pfm path is refused by name (imageio reads it through OpenCV, not
-Pillow); what a decoder does not take is refused by name there: a TIFF
-that imageio's tifffile plugin cannot read at a *.tif path (JPEG in TIFF,
-subsampled YCbCr), a PNM kind that imageio reads through OpenCV (PF, P7, a
-*.pbm path holding anything but a bitmap), a JPEG 2000 feature no fixture
-holds (POC, PPM/PPT, RGN, SOP/EPH, code-block styles, subsampling,
-palettes, sYCC)."""
+What a decoder does not take is refused by name there: a TIFF that
+imageio's tifffile plugin cannot read at a *.tif path (JPEG in TIFF,
+subsampled YCbCr), a PAM whose tuple type has alpha (OpenCV leaves its
+rows partly unwritten), a *.pbm or *.pfm path holding another PNM kind, a
+JPEG 2000 feature no fixture holds (POC, PPM/PPT, RGN, SOP/EPH, code-block
+styles, subsampling, palettes, sYCC)."""
 
 import os
 
-from terrain_tpu_torch.data import jp2, pnm, tga
+from terrain_tpu_torch.data import cvread, dds, hdr, jp2, pnm, sun, tga
 from terrain_tpu_torch.data.bmp import decode_bmp
 from terrain_tpu_torch.data.bmp import read_header as bmp_header
 from terrain_tpu_torch.data.jpeg import decode_jpeg
@@ -44,26 +55,31 @@ _PNM = dict.fromkeys(m[:2] for m in pnm.MAGICS)  # P1-P6, Pf, P0, Py, PF, P7
 _EXT = {".png": "PNG", ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
         ".tif": "TIFF", ".tiff": "TIFF", ".bmp": "BMP", ".dib": "BMP",
         ".gif": "GIF", ".webp": "WebP", ".pbm": "PNM", ".pgm": "PNM",
-        ".ppm": "PNM", ".pnm": "PNM", ".pfm": "PFM", ".jp2": "JPEG 2000",
+        ".ppm": "PNM", ".pnm": "PNM", ".pfm": "PNM", ".pam": "PNM",
+        ".jp2": "JPEG 2000",
         ".j2k": "JPEG 2000", ".jpx": "JPEG 2000", ".j2c": "JPEG 2000",
         ".jpc": "JPEG 2000", ".jpf": "JPEG 2000",
-        **{ext: "TGA" for ext in tga.EXTENSIONS}}
+        **{ext: "TGA" for ext in tga.EXTENSIONS},
+        **{ext: "HDR" for ext in hdr.EXTENSIONS},
+        **{ext: "Sun raster" for ext in sun.EXTENSIONS},
+        **{ext: "DDS" for ext in dds.EXTENSIONS}}
 _MAGIC = ((b"\x89PNG\r\n\x1a\n", "PNG"), (b"\xff\xd8\xff", "JPEG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
           (b"MM\x00+", "TIFF"), (b"GIF8", "GIF"), (b"BM", "BMP"),
           *((m, "JPEG 2000") for m in jp2.MAGICS),
-          *((m, "PNM") for m in _PNM))
+          *((m, "HDR") for m in hdr.MAGICS), (sun.MAGIC, "Sun raster"),
+          (dds.MAGIC, "DDS"), *((m, "PNM") for m in _PNM))
 _REFUSED = {
     "GIF": "imageio gives a GIF a frame axis, (1, H, W) or (1, H, W, 3), "
            "which terrain_tpu's crop iterator refuses, so neither package "
            "trains from one: convert it to PNG",
-    "PFM": "imageio reads a *.pfm path through OpenCV, not Pillow, and the "
-           "port does not reproduce OpenCV's reading: convert it to PNG",
 }
-_DECODED = ("PNG", "JPEG", "TIFF", "BMP", "WebP", "PNM", "TGA", "JPEG 2000")
+_DECODED = ("PNG", "JPEG", "TIFF", "BMP", "WebP", "PNM", "TGA", "JPEG 2000",
+            "HDR", "Sun raster", "DDS")
 _DECODERS = {"JPEG": decode_jpeg, "BMP": decode_bmp, "PNG": read_png,
              "WebP": decode_webp, "TGA": tga.decode_tga,
-             "JPEG 2000": jp2.decode_jp2}
+             "JPEG 2000": jp2.decode_jp2, "HDR": hdr.decode_hdr,
+             "DDS": dds.decode_dds}
 
 
 def _refuse_unless_decoded(path, fmt):
@@ -73,8 +89,8 @@ def _refuse_unless_decoded(path, fmt):
     if fmt not in _DECODED:
         raise NotImplementedError(
             f"TERRAIN_RASTER: {path} is {fmt}; the port decodes PNG, JPEG, "
-            f"TIFF, BMP, WebP, PNM, TGA and JPEG 2000 rasters, with its own "
-            f"codecs")
+            f"TIFF, BMP, WebP, PNM (PFM, PAM), TGA, JPEG 2000, Radiance "
+            f"HDR, Sun raster and DDS rasters, with its own codecs")
 
 
 def _sniff(head):
@@ -103,15 +119,23 @@ def format_of(path):
     fmt = _sniff(head) or ("TGA" if by_name == "TGA"
                            else "of an unknown format")
     _refuse_unless_decoded(path, fmt)
+    ext = os.path.splitext(path)[1].lower()
+    if fmt != by_name and \
+            cvread.READERS.get(ext, ("pillow",))[0] == "opencv":
+        raise NotImplementedError(
+            f"TERRAIN_RASTER: {path} holds {fmt}; imageio reads a *{ext} "
+            f"path through OpenCV, whose reading of {fmt} the port does not "
+            f"reproduce")
     return fmt
 
 
 def check_header(path, fmt):
     """Raise NotImplementedError where the header of `path` (a TIFF's first
-    IFD, a BMP's headers, a WebP's chunks, a PNM's magic, a JPEG 2000
-    file's boxes and main header) names a variant the port does not
-    decode, before any pixel is decoded; ValueError where it is
-    damaged."""
+    IFD, a BMP's headers, a WebP's chunks, a PNM's magic or PAM header, a
+    JPEG 2000 file's boxes and main header) names a variant the port does
+    not decode, before any pixel is decoded; ValueError where it is
+    damaged (a Radiance, Sun raster or DDS header that imageio's reader
+    fails on)."""
     if fmt == "TIFF":
         tiff_header(path)
         return
@@ -121,11 +145,19 @@ def check_header(path, fmt):
         elif fmt == "WebP":
             webp_header(f.read())
         elif fmt == "PNM":
-            pnm.check_kind(path, f.read(8))
+            head = f.read(8)
+            pnm.check_kind(path, head + f.read() if head[:2] == b"P7"
+                           else head)  # a PAM's header has no set length
         elif fmt == "TGA":
             tga.read_header(f.read(18))
         elif fmt == "JPEG 2000":
             jp2.read_header(f.read())
+        elif fmt == "HDR":
+            hdr.read_header(f.read())
+        elif fmt == "Sun raster":
+            sun.check_kind(path, f.read(32))
+        elif fmt == "DDS":
+            dds.read_header(f.read(148))
 
 
 def read_raster(path, fmt=None):
@@ -133,11 +165,14 @@ def read_raster(path, fmt=None):
     imageio.v3.imread(path) gives: its shape, dtype and bytes (a TIFF named
     *.tif through imageio's tifffile plugin, data/tiff.py, mapped, not
     read, so a large one is never held twice; a *.pbm through its OpenCV
-    plugin, data/pnm.py)."""
+    plugin, data/pnm.py; a *.pfm path, PF and P7 through OpenCV's readers;
+    a Sun raster named *.sr through OpenCV's, data/sun.py)."""
     fmt = fmt or format_of(path)
     if fmt == "TIFF":
         return read_tiff(path)
     if fmt == "PNM":
         return pnm.read_pnm(path)
+    if fmt == "Sun raster":
+        return sun.read_sun(path)
     with open(path, "rb") as f:
         return _DECODERS[fmt](f.read())

@@ -114,6 +114,19 @@ def _lib():
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
     lib.tga_rle.restype = ctypes.c_int
+    lib.sun_rle.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int64]
+    lib.sun_rle.restype = ctypes.c_int
+    lib.hdr_pixels.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+    lib.hdr_pixels.restype = ctypes.c_int
+    lib.bcn_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_char_p, ctypes.c_int64]
+    lib.bcn_decode.restype = ctypes.c_int
     return lib
 
 

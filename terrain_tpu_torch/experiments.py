@@ -20,8 +20,9 @@ Environment, as in terrain_tpu:
   TERRAIN_RASTER     "heightmap.png,texture.jpg" -> random crops cut on the
                      fly from one raster pair (data/crops.py); before the
                      synthetic and h5 sources, TERRAIN_FAST ignored.  PNG,
-                     JPEG, TIFF, BMP, WebP, PNM, TGA or JPEG 2000, decoded
-                     by the port's own codecs (data/raster.py); GIF and
+                     JPEG, TIFF, BMP, WebP, PNM (PFM, PAM), TGA, JPEG
+                     2000, Radiance HDR, Sun raster or DDS, decoded by the
+                     port's own codecs (data/raster.py); GIF and
                      the kinds a codec does not take (lossless or
                      arithmetic-coded JPEG, a JPEG 2000 POC, ...) raise
   TERRAIN_EPOCH_CROPS  crops per train epoch of TERRAIN_RASTER (default
@@ -336,8 +337,9 @@ def get_device_datasets(dataset, is_a_grayscale, is_b_grayscale, device=None):
 
 def read_raster_pair(value):
     """TERRAIN_RASTER="heightmap.png,texture.jpg" -> (heightmap, texture),
-    each a PNG, JPEG, TIFF, BMP, WebP, PNM, TGA or JPEG 2000 decoded by
-    the port's codecs (data/raster.py) to imageio's array, then taken as
+    each a PNG, JPEG, TIFF, BMP, WebP, PNM (PFM, PAM), TGA, JPEG 2000,
+    Radiance HDR, Sun raster or DDS decoded by the port's codecs
+    (data/raster.py) to imageio's array, then taken as
     terrain_tpu/experiments.py:111-114 takes it: the heightmap's first
     channel where it has channels (a WebP always has three), the
     texture's first three; the crop iterator then casts both to uint8 as
@@ -345,9 +347,9 @@ def read_raster_pair(value):
     float truncates).  A file named or starting as another format (GIF)
     raises NotImplementedError, by name before any file is opened, by its
     first bytes before either is decoded; so does a file whose header
-    names a variant its codec does not take (a JPEG-compressed TIFF, a
-    PAM, a JPEG 2000 POC or palette), and a JPEG of another kind as it is
-    decoded (data/jpeg.py)."""
+    names a variant its codec does not take (a JPEG-compressed TIFF, a PAM
+    with alpha, a JPEG 2000 POC or palette), and a JPEG of another kind as
+    it is decoded (data/jpeg.py)."""
     paths = value.split(",")
     if len(paths) != 2:
         raise ValueError(f"TERRAIN_RASTER={value!r}: expected "

@@ -51,8 +51,8 @@ _lock = threading.Lock()
 
 HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # the host C++ sources, relative to the package (serve/png.py, data/jpeg.py,
-# data/tiff.py with data/bmp.py and data/tga.py, serve/gif.py, data/webp.py,
-# data/jp2.py)
+# data/tiff.py with data/bmp.py, tga.py, sun.py, hdr.py and dds.py,
+# serve/gif.py, data/webp.py, data/jp2.py)
 HOST_SOURCES = ("serve/csrc/png_unfilter.cpp", "data/csrc/jpeg_decode.cpp",
                 "data/csrc/raster_decode.cpp", "serve/csrc/gif_encode.cpp",
                 "data/csrc/webp_decode.cpp", "data/csrc/jp2_decode.cpp")

@@ -4,9 +4,10 @@ terrain_tpu/utils/aot.py, whose store holds XLA executables).
 
 The port's compiled programs are its libraries: the six CUDA sources of
 ops/kernels/csrc/ (nvcc, sm_90a) and the six host C++ sources
-(`_build.HOST_SOURCES`, the PNG unfilter, the JPEG decoder, the TIFF and
-BMP run decoders, the GIF writer's quantizer and LZW coder, the WebP
-decoder and the JPEG 2000 decoder; g++), built
+(`_build.HOST_SOURCES`, the PNG unfilter, the JPEG decoder, the TIFF,
+BMP, TGA, Sun and Radiance run decoders with the DDS block decoders, the
+GIF writer's quantizer and LZW coder, the WebP decoder and the JPEG 2000
+decoder; g++), built
 by ops/kernels/_build.py at first use.  `TERRAIN_AOT=dir`, read at each
 build, puts them into `dir` instead of terrain_tpu_torch/_build/.  Each
 library `<name>-<key>.so` has its record `<name>-<key>.json` beside it

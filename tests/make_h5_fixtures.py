@@ -29,6 +29,16 @@ indices (seeded random data, a few datasets each):
   layout4_single_chunk.h5       one chunk, unfiltered and gzip'd
   layout4_implicit.h5           early allocation, no filter: the implicit
                                 index (h5py's low-level creation list)
+and, through the bundled HDF5 library's H5Pset_chunk_opts (ctypes: h5py
+does not expose it), files whose partial edge chunks are stored
+unfiltered (H5D_CHUNK_DONT_FILTER_PARTIAL_CHUNKS):
+  edge_unfiltered_{fixed_array,extensible_array,btree2}.h5
+                                each index, 2-D (37, 41) and 4-D
+                                (5, 37, 41, 3) uint8 in 16x16 chunks,
+                                through gzip and shuffle + gzip + fletcher32
+  edge_unfiltered_pairs_512.h5  the reference layout at 512px (8 + 4
+                                pairs) in 20-row chunks: what chip_smoke.py
+                                trains an epoch from
 digests.json holds, for each file, each dataset's shape, dtype and the
 SHA-256 of h5py's array, and under "reference" the h5py and HDF5 versions
 that wrote them.  h5py is needed here, not on the card: chip_smoke.py reads the
@@ -128,6 +138,115 @@ def _layout4(path, kind):
 
 LAYOUT4 = ("fixed_array", "extensible_array", "btree2", "single_chunk",
            "implicit")
+# H5Pset_chunk_opts' flag: partial edge chunks stored unfiltered
+DONT_FILTER_PARTIAL_CHUNKS = 0x0002
+EDGE = ("fixed_array", "extensible_array", "btree2")
+
+
+def _libhdf5():
+    """The HDF5 library h5py runs on (the one it bundles), through ctypes:
+    h5py exposes no H5Pset_chunk_opts, the library does."""
+    import ctypes
+
+    import h5py  # noqa: F401 -- loads the library into the process
+
+    with open("/proc/self/maps") as f:  # the libraries this process maps
+        paths = sorted({ln.split()[-1] for ln in f if "libhdf5" in ln
+                        and "libhdf5_hl" not in ln})
+    for path in paths:
+        lib = ctypes.CDLL(path)
+        if hasattr(lib, "H5Pset_chunk_opts"):
+            lib.H5Pset_chunk_opts.argtypes = [ctypes.c_int64, ctypes.c_uint]
+            lib.H5Pset_chunk_opts.restype = ctypes.c_int
+            return lib
+    raise RuntimeError(f"no libhdf5 with H5Pset_chunk_opts among {paths}")
+
+
+EDGE_PAIRS = "edge_unfiltered_pairs_512.h5"
+EDGE_TRAIN, EDGE_VALID = 8, 4
+
+
+def edge_pairs():
+    """The reference layout at the flagship's 512px, seeded waves in 15
+    levels (which gzip to little): xt (8, 512, 512, 1), yt (8, 512, 512, 3), xv
+    and yv with 4 pairs."""
+    out = {}
+    y = np.arange(512, dtype=np.float32)[:, None]
+    x = np.arange(512, dtype=np.float32)[None, :]
+    for split, n, seed in (("t", EDGE_TRAIN, 0), ("v", EDGE_VALID, 1)):
+        rnd = np.random.RandomState(seed)
+        hm, tex = [], []
+        for _ in range(n):
+            fy, fx, py, px = rnd.uniform(0.005, 0.03, 4) * [1, 1, 600, 600]
+            f = np.sin(fy * y + py) * np.cos(fx * x + px)
+            h = (np.round(f * 7) * 17 + 128).astype(np.uint8)  # 15 levels
+            hm.append(h[..., None])
+            tex.append(np.stack([h, 255 - h, h // 2], -1))
+        out["x" + split], out["y" + split] = np.stack(hm), np.stack(tex)
+    return out
+
+
+def _edge_pairs(path):
+    """edge_pairs() in 20-row chunks, so each image's last 12 rows lie in a
+    partial edge chunk, stored unfiltered (all 20 rows of it); gzip,
+    shuffle and (yt) fletcher32 on the whole chunks; libver="latest", the
+    fixed array index."""
+    import h5py
+
+    lib = _libhdf5()
+    with h5py.File(path, "w", libver="latest") as f:
+        for name, a in edge_pairs().items():
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            dcpl.set_chunk((1, 20, 512, a.shape[-1]))
+            dcpl.set_shuffle()
+            dcpl.set_deflate(4)
+            if name == "yt":
+                dcpl.set_fletcher32()
+            if lib.H5Pset_chunk_opts(dcpl.id, DONT_FILTER_PARTIAL_CHUNKS) < 0:
+                raise RuntimeError("H5Pset_chunk_opts failed")
+            h5py.h5d.create(f.id, name.encode(), h5py.h5t.STD_U8LE,
+                            h5py.h5s.create_simple(a.shape), dcpl=dcpl)
+            f[name][...] = a
+
+
+def _edge(path, kind):
+    """Datasets whose partial edge chunks HDF5 stores unfiltered, under the
+    chunk index `kind` (fixed array: fixed dims; extensible array: one
+    unlimited; version 2 B-tree: two), each 2-D and 4-D (the reference's
+    (N, H, W, C) at a tiny size), through gzip and through shuffle + gzip +
+    fletcher32."""
+    import h5py
+
+    lib = _libhdf5()
+    rnd = np.random.RandomState(7 + len(kind))
+    shapes = {"2d": ((37, 41), (16, 16)), "4d": ((5, 37, 41, 3),
+                                                  (2, 16, 16, 3))}
+    with h5py.File(path, "w", libver="latest") as f:
+        for dims, (shape, chunk) in shapes.items():
+            unlimited = {"fixed_array": 0, "extensible_array": 1,
+                         "btree2": 2}[kind]
+            maxshape = tuple(h5py.h5s.UNLIMITED if i < unlimited else s
+                             for i, s in enumerate(shape))
+            for filters in ("gzip", "shuffle_gzip_fletcher32"):
+                dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+                dcpl.set_chunk(chunk)
+                if filters != "gzip":
+                    dcpl.set_shuffle()
+                dcpl.set_deflate(4)
+                if filters != "gzip":
+                    dcpl.set_fletcher32()
+                if lib.H5Pset_chunk_opts(dcpl.id,
+                                         DONT_FILTER_PARTIAL_CHUNKS) < 0:
+                    raise RuntimeError("H5Pset_chunk_opts failed")
+                name = f"{filters}_{dims}".encode()
+                space = h5py.h5s.create_simple(shape, maxshape)
+                h5py.h5d.create(f.id, name, h5py.h5t.STD_U8LE, space,
+                                dcpl=dcpl)
+                # smooth rows compress, so a whole chunk's stored size
+                # differs from its unfiltered size
+                a = (np.arange(int(np.prod(shape))).reshape(shape) // 7
+                     + rnd.randint(0, 3, shape)).astype("u1")
+                f[name][...] = a
 
 
 def digest(a):
@@ -144,7 +263,11 @@ def main(out_dir=DEFAULT_DIR):
         write(os.path.join(out_dir, name), libver, chunked)
     for kind in LAYOUT4:
         _layout4(os.path.join(out_dir, f"layout4_{kind}.h5"), kind)
-    for name in list(FILES) + [f"layout4_{k}.h5" for k in LAYOUT4]:
+    for kind in EDGE:
+        _edge(os.path.join(out_dir, f"edge_unfiltered_{kind}.h5"), kind)
+    _edge_pairs(os.path.join(out_dir, EDGE_PAIRS))
+    for name in list(FILES) + [f"layout4_{k}.h5" for k in LAYOUT4] + [
+            f"edge_unfiltered_{k}.h5" for k in EDGE] + [EDGE_PAIRS]:
         path = os.path.join(out_dir, name)
         entry = {}
         with h5py.File(path, "r") as f:

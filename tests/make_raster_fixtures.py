@@ -1,5 +1,7 @@
-"""Write the PNG, TIFF, BMP, WebP, PNM and TGA fixtures of
-tests/data/{png,tiff,bmp,webp,pnm,tga}/ and their digests.
+"""Write the PNG, TIFF, BMP, WebP, PNM, TGA, JPEG 2000, PFM/PAM, Radiance
+HDR, Sun raster and DDS fixtures of
+tests/data/{png,tiff,bmp,webp,pnm,tga,jp2,pfm_pam,hdr,sun,dds}/ and their
+digests.
 
     python tests/make_raster_fixtures.py [directory]   # default tests/data
 
@@ -40,6 +42,11 @@ predictor, no RLE BMP) and, where Pillow writes the kind, by Pillow:
   tga/   types 1-3 and 9-11 at every depth Pillow reads, 16- and 24-bit
          colour maps, the four origins, ID fields, literals running on
          across rows, Pillow's files, and what Pillow cannot read
+  pfm_pam/  OpenCV's PFM and PAM files and the script's (pfm_pam_fixtures)
+  hdr/   OpenCV's Radiance files and the script's (hdr_fixtures)
+  sun/   Sun rasters at *.ras and *.sr names (sun_fixtures)
+  dds/   Pillow's DDS files, random BC1-BC7 blocks, masks, palettes, and
+         two 1024x1024 tiles for chip_smoke.py (dds_fixtures)
 Each directory's digests.json holds, for each file, its size, the shape,
 dtype and SHA-256 of the array imageio.v3.imread decodes from its bytes
 (through Pillow; where Pillow raises OSError -- a truncated read, or a
@@ -50,7 +57,11 @@ decode of the file by its name (a *.tif through imageio's tifffile
 plugin, a *.pbm through OpenCV, as the JAX package reads TERRAIN_RASTER;
 null where no plugin reads it), under "refused" (or "path_refused", at
 its path only) the words the port's refusal names a file by, and under
-"reference" the Pillow, imageio, libtiff (and libwebp) versions.  The committed PNG that
+"reference" the Pillow, imageio, libtiff (and libwebp, openjpeg, OpenCV)
+versions.  For a PNM, PFM/PAM, HDR, Sun or DDS file (CHOICE_KINDS) the
+bytes and the path are both read by imageio's own choice of plugin, and
+"reader" names it ("pillow" or "opencv"); "error" there is ValueError
+wherever imageio raises.  The committed PNG that
 no script writes (terrain_48x40_rgb_5filters.png) keeps its entry.
 Pillow and imageio are needed here, not on the card: chip_smoke.py holds
 the port's decoders to the committed digests, and the port's tests re-run
@@ -621,9 +632,11 @@ def tiff_kinds(tex):
 
 # the fixtures the port refuses by name, with the words it names them by
 REFUSED = {"pillow_jpeg_refused.tif": "compression 7 (JPEG)",
-           "pam_refused.pgm": "P7 (PAM)",
-           "pf_colour_refused.ppm": "PF (colour PFM)",
            "pyp_refused.pgm": "PyP",
+           "pam_gray_alpha_refused.pam": "tuple type GRAYSCALE_ALPHA",
+           "cv_pam_rgb_alpha_8.pam": "tuple type RGB_ALPHA",
+           "cv_pam_rgb_alpha_16.pam": "tuple type RGB_ALPHA",
+           "gimp_brush_header_refused.ras": "as a GIMP brush",
            "refused_poc.j2k": "POC progression changes",
            "refused_ppm.j2k": "PPM packed packet headers",
            "refused_rgn.j2k": "RGN regions of interest",
@@ -634,9 +647,13 @@ REFUSED = {"pillow_jpeg_refused.tif": "compression 7 (JPEG)",
            "refused_pclr.jp2": "a palette (pclr/cmap)",
            "refused_sycc.jp2": "sYCC colour"}
 # refused at their path only (the bytes decode through Pillow)
-PATH_REFUSED = {"gray_at_pbm_path_refused.pbm": "a *.pbm path holding P5"}
+PATH_REFUSED = {"gray_at_pbm_path_refused.pbm": "a *.pbm path holding P5",
+                "p5_at_pfm_path_refused.pfm": "a *.pfm path holding P5"}
 # the kinds whose decoders raise ValueError wherever imageio fails
 VALUE_ERROR_KINDS = ("webp", "pnm", "tga", "jp2")
+# kinds whose bytes and paths are digested through imageio's own choice of
+# plugin (Pillow, or OpenCV where Pillow cannot open them), recorded
+CHOICE_KINDS = ("pnm", "pfm_pam", "hdr", "sun", "dds")
 
 
 def strip_heights(h, w, seed=5):
@@ -1389,7 +1406,9 @@ def pnm_fixtures():
     """P1-P6 plain and binary at maxval 1, 15, 255, 1000 and 65535,
     comments (one inside a token), Pf both ways round, Pillow's CMYK and
     RGBA kinds, Pillow's own files, a bitmap at a *.pbm path (imageio reads
-    it through OpenCV), and the kinds refused by name."""
+    it through OpenCV), P7 and PF at *.pgm / *.ppm paths (imageio falls
+    back to OpenCV where Pillow cannot open them), and the kinds refused by
+    name."""
     from PIL import Image
 
     rnd = np.random.RandomState(51)
@@ -1435,9 +1454,10 @@ def pnm_fixtures():
         rnd.randint(0, 65536, (9, 11)).astype(np.uint16)), "PPM")
     out["pillow_float.pgm"] = _pillow(Image.fromarray(
         rnd.uniform(0, 300, (9, 11)).astype(np.float32)), "PPM")
-    out["pam_refused.pgm"] = (b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\n"
-                              b"TUPLTYPE GRAYSCALE\nENDHDR\n\x05")
-    out["pf_colour_refused.ppm"] = b"PF\n1 1\n-1.0\n" + bytes(12)
+    out["pam_gray_at_pgm_path.pgm"] = (
+        b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\n"
+        b"TUPLTYPE GRAYSCALE\nENDHDR\n\x05")
+    out["pf_colour_at_ppm_path.ppm"] = b"PF\n1 1\n-1.0\n" + bytes(12)
     out["pyp_refused.pgm"] = _pnm(b"PyP", 1, 1, 255, b"\x07")
     out["gray_at_pbm_path_refused.pbm"] = out["p5_max255.pgm"]
     out["truncated.ppm"] = out["p6_max255.ppm"][:-7]
@@ -1534,6 +1554,365 @@ def tga_fixtures():
     return out
 
 
+# ------------------------------------------------------------ PFM and PAM
+def _cv(img, ext, params=()):
+    import cv2
+
+    ok, buf = cv2.imencode(ext, img, list(params))
+    if not ok:
+        raise RuntimeError(f"OpenCV wrote no {ext}")
+    return buf.tobytes()
+
+
+def _pfm(magic, v, scale):
+    """PFM bytes of v (H, W) or (H, W, 3), rows bottom-up, little-endian for
+    a negative scale."""
+    h, w = v.shape[:2]
+    order = "<f4" if scale < 0 else ">f4"
+    return (b"%s\n%d %d\n%r\n" % (magic, w, h, scale)
+            + v[::-1].astype(order).tobytes())
+
+
+def _pam(w, h, depth, maxval, tupltype, body, extra=b""):
+    head = b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL %d\n" % (
+        w, h, depth, maxval)
+    if tupltype is not None:
+        head += b"TUPLTYPE " + tupltype + b"\n"
+    return head + extra + b"ENDHDR\n" + body
+
+
+def pfm_pam_fixtures():
+    """PFM (Pf, PF) and PAM (P7) files, which imageio reads through OpenCV
+    at a *.pfm or *.pam path and as PF or P7 bytes: OpenCV's own files (Pf
+    and PF; PAM of every tuple type it writes, 8 and 16 bits), and the
+    script's: both byte orders and other scales, values at .5 and at the
+    saturation edges, NaN and infinities, PAM headers with comments, blank
+    and CR-ended lines, maxval 1 (packed bits) and unscaled maxvals, PF and
+    P7 at *.ppm / *.pgm / *.pnm paths, and what OpenCV fails on or leaves
+    undefined."""
+    import cv2
+
+    rnd = np.random.RandomState(61)
+    heights = (rnd.randint(0, 601, (13, 17)) / 2).astype(np.float32)
+    colour = rnd.uniform(-20, 300, (9, 11, 3)).astype(np.float32)
+    colour[0, :4] = [[0.5, 1.5, 2.5], [254.5, 255.5, 256.0],
+                     [-0.5, -0.6, 127.5], [0.49999997, 1e10, -3e9]]
+    out = {"cv_pf_gray.pfm": _cv(heights, ".pfm"),
+           "cv_pf_colour.pfm": _cv(colour, ".pfm")}
+    edge = np.array([[0.5, 1.5, 2.5, 254.5, 255.5, 256, -0.4, -0.5],
+                     [np.nan, np.inf, -np.inf, 3e9, 2147483648.0, -3e9,
+                      127.49999, 1.4999999]], np.float32)
+    out["pf_gray_edges_big_endian.pfm"] = _pfm(b"Pf", edge, 1.0)
+    out["pf_gray_scale_2_5.pfm"] = _pfm(b"Pf", heights * 2.5, 2.5)
+    out["pf_colour_scale_0_3.pfm"] = _pfm(b"PF", colour * 0.3, -0.3)
+    out["pf_colour_big_endian.pfm"] = _pfm(b"PF", colour, 7.0)
+    out["pf_colour_scaled_at_ppm_path.ppm"] = _pfm(b"PF", colour, -1.0)
+    out["pf_colour_at_pnm_path.pnm"] = _pfm(b"PF", colour, -2.0)
+    out["pf_header_tokens.pfm"] = (b"Pf\n17\n13\t-1.0e0\n"
+                                   + heights[::-1].astype("<f4").tobytes())
+    out["pf_scale_zero.pfm"] = b"Pf\n2 1\n0\n" + bytes(8)
+    out["pf_cut_short.pfm"] = _pfm(b"PF", colour, -1.0)[:-5]
+    u8 = terrain(11, 13, 62)
+    for tt in ("NULL", "BLACKANDWHITE", "GRAYSCALE", "RGB", "RGB_ALPHA"):
+        code = getattr(cv2, "IMWRITE_PAM_FORMAT_" + tt)
+        img = {"RGB": u8, "RGB_ALPHA": terrain(11, 13, 63, 4)}.get(
+            tt, u8[..., 1])
+        for bits in (8, 16):
+            px = img if bits == 8 else img.astype(np.uint16) * 257 + 3
+            out[f"cv_pam_{tt.lower()}_{bits}.pam"] = _cv(
+                px, ".pam", (cv2.IMWRITE_PAM_TUPLETYPE, code))
+    out["cv_pam_null_rgb_8.pam"] = _cv(u8, ".pam", (
+        cv2.IMWRITE_PAM_TUPLETYPE, cv2.IMWRITE_PAM_FORMAT_NULL))
+    g = u8[..., 2]
+    out["pam_comments_cr.pam"] = (
+        b"P7\r# written by hand\r\n  WIDTH   13  \n\n#x\rHEIGHT\t11\n"
+        b"DEPTH 1\nMAXVAL 255\nTUPLTYPE RGB\nTUPLTYPE GRAYSCALE   \n"
+        b"ENDHDR\n" + g.tobytes())
+    out["pam_maxval1_bits.pam"] = _pam(13, 11, 1, 1, b"BLACKANDWHITE",
+                                       rnd.randint(0, 256, 143).astype(
+                                           np.uint8).tobytes())
+    out["pam_maxval100_unscaled.pam"] = _pam(13, 11, 3, 100, b"RGB",
+                                             u8.tobytes())
+    out["pam_grayscale_at_pgm_path.pgm"] = _pam(13, 11, 1, 255,
+                                                b"GRAYSCALE", g.tobytes())
+    out["pam_rgb_at_pnm_path.pnm"] = _pam(13, 11, 3, 255, None,
+                                          u8.tobytes())
+    out["pam_lowercase_names.pam"] = (b"P7\nwidth 1\nheight 1\ndepth 1\n"
+                                      b"maxval 255\nendhdr\n\x05")
+    out["pam_depth_mismatch.pam"] = _pam(2, 1, 1, 255, b"RGB", b"\x01\x02")
+    out["pam_cut_short.pam"] = out["cv_pam_rgb_8.pam"][:-4]
+    out["pam_gray_alpha_refused.pam"] = _pam(
+        13, 11, 2, 255, b"GRAYSCALE_ALPHA",
+        rnd.randint(0, 256, 286).astype(np.uint8).tobytes())
+    out["pam_at_pfm_path.pfm"] = out["pam_grayscale_at_pgm_path.pgm"]
+    out["p5_at_pfm_path_refused.pfm"] = _pnm(b"P5", 2, 1, 255, b"\x01\x02")
+    return out
+
+
+# ------------------------------------------------------------ Radiance HDR
+def _rgbe_rle(px, rnd):
+    """One new-style scanline of px (W, 4): each channel as runs and
+    literals, chosen at random where both fit."""
+    w = len(px)
+    out = bytearray([2, 2, w >> 8, w & 255])
+    for c in range(4):
+        ch = px[:, c].tolist()
+        i = 0
+        while i < w:
+            j = i
+            while j < w and ch[j] == ch[i] and j - i < 127:
+                j += 1
+            if j - i >= 2 and rnd.rand() < 0.8:
+                out += bytes([128 + j - i, ch[i]])
+                i = j
+            else:
+                k = min(int(rnd.randint(1, 10)), w - i)
+                out += bytes([k] + ch[i:i + k])
+                i += k
+    return bytes(out)
+
+
+def _rgbe_pixels(h, w, rnd):
+    px = rnd.choice([0, 1, 2, 3, 100, 128, 129, 255], (h, w, 4)).astype(
+        np.uint8)
+    px[..., 3] = rnd.choice([0, 1, 100, 120, 127, 128, 129, 134, 135, 136,
+                             140, 160, 255], (h, w))
+    return px
+
+
+def hdr_fixtures():
+    """Radiance files, which imageio reads through OpenCV by path and by
+    bytes: OpenCV's own (run-length and flat), and the script's: old-style
+    runs read flat, new-style scanlines then flat ones, widths under 8,
+    the #?RGBE magic, comments and EXPOSURE before and after the FORMAT
+    line, a header line longer than fgets' 127 bytes, exponents from 0 to
+    255 (products at .5 and past 255), a *.pic path, and what OpenCV fails
+    on."""
+    rnd = np.random.RandomState(71)
+    img = rnd.uniform(0, 1.2, (9, 23, 3)).astype(np.float32)
+    img[0, :4] = [[0.5 / 255, 1.5 / 255, 2.5 / 255]] * 4
+    import cv2
+
+    out = {"cv_rle.hdr": _cv(img, ".hdr", (
+        cv2.IMWRITE_HDR_COMPRESSION, cv2.IMWRITE_HDR_COMPRESSION_RLE)),
+        "cv_flat.hdr": _cv(img, ".hdr", (
+            cv2.IMWRITE_HDR_COMPRESSION, cv2.IMWRITE_HDR_COMPRESSION_NONE))}
+    head = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+    px = _rgbe_pixels(6, 19, rnd)
+    size = b"-Y 6 +X 19\n"
+    out["exponents_flat.hdr"] = head + size + px.tobytes()
+    old = px.copy()
+    old[1, 3:6] = [1, 1, 1, 2]  # an old-style run: read flat by OpenCV
+    out["old_style_run_flat.hdr"] = head + size + old.tobytes()
+    out["rle_then_flat.hdr"] = head + size + b"".join(
+        _rgbe_rle(px[y], rnd) for y in range(3)) + px[3:].tobytes()
+    out["all_rle.hdr"] = head + size + b"".join(
+        _rgbe_rle(px[y], rnd) for y in range(6))
+    narrow = _rgbe_pixels(5, 7, rnd)
+    out["narrow_flat.hdr"] = head + b"-Y 5 +X 7\n" + narrow.tobytes()
+    out["rgbe_magic_comments.hdr"] = (
+        b"#?RGBE\n# made by hand\nEXPOSURE=2.0\nFORMAT=32-bit_rle_rgbe\n"
+        b"GAMMA=2.2\n\n-Y  6   +X 19\n" + px.tobytes())
+    out["long_header_line.hdr"] = (
+        b"#?RADIANCE\n#" + b"x" * 200 + b"\nFORMAT=32-bit_rle_rgbe\n#"
+        + b"y" * 125 + b"\n\n" + size + px.tobytes())
+    out["at_pic_path.pic"] = out["all_rle.hdr"]
+    out["plus_y_orientation.hdr"] = head + b"+Y 6 +X 19\n" + px.tobytes()
+    out["no_format_line.hdr"] = b"#?RADIANCE\n\n" + size + px.tobytes()
+    out["crlf_header.hdr"] = (b"#?RADIANCE\r\nFORMAT=32-bit_rle_rgbe\r\n\r\n"
+                              + size + px.tobytes())
+    out["rle_cut_short.hdr"] = out["all_rle.hdr"][:-9]
+    out["flat_cut_short.hdr"] = out["exponents_flat.hdr"][:-1]
+    return out
+
+
+# -------------------------------------------------------------- Sun raster
+def _sun(w, h, depth, body, ftype=1, maptype=0, cmap=b"", length=None):
+    return struct.pack(">8I", 0x59A66A95, w, h, depth,
+                       len(body) if length is None else length, ftype,
+                       maptype, len(cmap)) + cmap + body
+
+
+def _sun_rle(raw):
+    """Byte-encoded (type 2) data: runs of 3 or more, a lone 0x80 escaped,
+    runs of up to 256 crossing row ends."""
+    out, i = bytearray(), 0
+    while i < len(raw):
+        j = i
+        while j < len(raw) and raw[j] == raw[i] and j - i < 256:
+            j += 1
+        if j - i >= 3 or raw[i] == 0x80:
+            out += (b"\x80\x00" if j - i == 1 else
+                    bytes([0x80, j - i - 1, raw[i]]))
+            i = j
+        else:
+            out.append(raw[i])
+            i += 1
+    return bytes(out)
+
+
+def sun_fixtures():
+    """Sun rasters, which imageio reads through Pillow by bytes and at a
+    *.ras path and through OpenCV at a *.sr path: each kind at both names.
+    OpenCV's own files; depths 1, 4, 8, 24 and 32, odd widths (rows padded
+    to 16 bits), colour maps of 1, 2, 16 and 256 entries (planar), file
+    types 0, 1, 3 (RGB order) and 2 (byte-encoded runs that carry across
+    rows, escaped 0x80s), and what Pillow or OpenCV fails on (depth 16,
+    type 6, a raw colour map, a depth-1 image with a map, cut files), and
+    the GIMP-brush header refused by name."""
+    rnd = np.random.RandomState(81)
+    tex = terrain(9, 14, 82)  # even rows: OpenCV writes no padding byte,
+    out = {}                  # which it would leave unset
+
+    def both(name, data):
+        out[f"{name}.ras"] = data
+        out[f"{name}.sr"] = data
+
+    both("cv_rgb", _cv(tex, ".sr"))
+    both("cv_gray", _cv(tex[..., 1], ".sr"))
+
+    def raw(w, h, depth):
+        stride = ((w * depth + 15) // 16) * 2
+        return rnd.randint(0, 256, stride * h).astype(np.uint8).tobytes()
+
+    both("depth1", _sun(13, 9, 1, raw(13, 9, 1)))
+    out["depth4.ras"] = _sun(13, 9, 4, raw(13, 9, 4))
+    out["depth4_map16.ras"] = _sun(13, 9, 4, raw(13, 9, 4), 1, 1, bytes(
+        rnd.randint(0, 256, 48).astype(np.uint8)))
+    both("depth8", _sun(13, 9, 8, raw(13, 9, 8), 0))
+    both("depth8_map256", _sun(13, 9, 8, raw(13, 9, 8), 1, 1, bytes(
+        rnd.randint(0, 256, 768).astype(np.uint8))))
+    both("depth8_map2", _sun(13, 9, 8, bytes(rnd.randint(0, 3, 126).astype(
+        np.uint8)), 1, 1, bytes([0, 255, 10, 20, 30, 40])))
+    both("depth1_map2", _sun(13, 9, 1, raw(13, 9, 1), 1, 1,
+                             bytes([0, 255, 10, 20, 30, 40])))
+    both("depth24", _sun(13, 9, 24, raw(13, 9, 24)))
+    both("depth24_rgb_type3", _sun(13, 9, 24, raw(13, 9, 24), 3))
+    both("depth32", _sun(13, 9, 32, raw(13, 9, 32)))
+    out["depth32_rgb_type3.ras"] = _sun(13, 9, 32, raw(13, 9, 32), 3)
+    for depth in (1, 8, 24):
+        row = (13 * depth + 7) // 8
+        data = rnd.choice([0, 7, 0x80, 200], row * 9).astype(np.uint8)
+        data[5:70] = 9  # a run crossing rows
+        both(f"rle_depth{depth}", _sun(13, 9, depth,
+                                       _sun_rle(data.tobytes()), 2))
+    both("depth16", _sun(13, 9, 16, raw(13, 9, 16)))
+    both("type6", _sun(13, 9, 8, raw(13, 9, 8), 6))
+    both("map_type2", _sun(13, 9, 8, raw(13, 9, 8), 1, 2, bytes(6)))
+    both("cut_short", _sun(13, 9, 24, raw(13, 9, 24))[:-30])
+    both("rle_cut_short", out["rle_depth8.ras"][:-6])
+    out["gimp_brush_header_refused.ras"] = _sun(2, 3, 8, bytes(12),
+                                                length=4)
+    return out
+
+
+# --------------------------------------------------------------------- DDS
+DDS_TILES = ("tile_1024_dxt1.dds", "tile_1024_bc7.dds")
+_DXGI = {"BC1": 71, "BC2": 74, "BC3": 77, "BC4": 80, "BC5": 83,
+         "BC5_SNORM": 84, "BC6H_UF16": 95, "BC6H_SF16": 96, "BC7": 98,
+         "BC7_SRGB": 99, "R8G8B8A8": 28}
+
+
+def _dds(w, h, body, fourcc=None, dxgi=None, pfflags=0x4, bitcount=0,
+         masks=(0, 0, 0, 0), mipmaps=0):
+    """A DDS header (and DX10 extension where `dxgi` is given) over body."""
+    if dxgi is not None:
+        fourcc = b"DX10"
+    pf = struct.pack("<2I4sI4I", 32, pfflags, fourcc or bytes(4), bitcount,
+                     *masks)
+    head = (struct.pack("<7I", 124, 0x1007, h, w, 0, 0, mipmaps) + bytes(44)
+            + pf + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    ext = struct.pack("<5I", dxgi, 3, 0, 1, 0) if dxgi is not None else b""
+    return b"DDS " + head + ext + body
+
+
+def _bc_blocks(rnd, n, kind):
+    """n random 16-byte blocks reaching every BC7 or BC6H mode (reserved
+    ones too), or random 8- or 16-byte blocks."""
+    size = 8 if kind in ("BC1", "BC4") else 16
+    b = rnd.randint(0, 256, (n, size)).astype(np.uint8)
+    if kind == "BC7":
+        for i in range(n):
+            m = i % 9  # modes 0-7, and 8: a first byte of 0
+            b[i, 0] = 0 if m == 8 else (int(b[i, 0]) >> (m + 1) << (m + 1)
+                                        | 1 << m)
+    elif kind.startswith("BC6H"):
+        modes = [0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15, 19, 23]
+        for i in range(n):
+            b[i, 0] = (int(b[i, 0]) & 0xE0) | modes[i % len(modes)]
+    return b.tobytes()
+
+
+def dds_fixtures():
+    """DDS files, which imageio reads through Pillow by bytes and path:
+    Pillow's own (RGB, RGBA, L, LA, DXT1/3/5, BC2, BC3, BC5) at sizes that
+    are and are not multiples of 4; the script's: DX10 over seeded random
+    BC1-BC7 blocks (BC6H UF16 and SF16 and BC7 reaching every mode),
+    fourCCs ATI1, ATI2, BC4U, BC5U, BC5S, uncompressed masks (5-6-5,
+    1-5-5-5, 10-10-10-2, sparse ones), a palette, R8G8B8A8, mipmaps after
+    the first surface, a short uncompressed surface (zeros); what Pillow
+    fails on; and the two 1024x1024 tiles chip_smoke.py repeats into a
+    21600x10800 texture (Pillow's DXT1 of a terrain texture, random BC7
+    blocks)."""
+    from PIL import Image
+
+    rnd = np.random.RandomState(91)
+    out = {}
+    for w, h in ((16, 12), (13, 9)):
+        im = Image.fromarray(terrain(h, w, 92, 4))
+        out[f"pillow_rgba_{w}x{h}.dds"] = _pillow(im, "DDS")
+        out[f"pillow_rgb_{w}x{h}.dds"] = _pillow(im.convert("RGB"), "DDS")
+        out[f"pillow_l_{w}x{h}.dds"] = _pillow(im.convert("L"), "DDS")
+        out[f"pillow_la_{w}x{h}.dds"] = _pillow(im.convert("LA"), "DDS")
+        for pf in ("DXT1", "DXT3", "DXT5", "BC2", "BC3"):
+            out[f"pillow_{pf.lower()}_{w}x{h}.dds"] = _pillow(
+                im, "DDS", pixel_format=pf)
+        out[f"pillow_bc5_{w}x{h}.dds"] = _pillow(im.convert("RGB"), "DDS",
+                                                 pixel_format="BC5")
+    w, h = 19, 13
+    nb = ((w + 3) // 4) * ((h + 3) // 4)
+    for kind, dxgi in _DXGI.items():
+        if kind == "R8G8B8A8":
+            body = rnd.randint(0, 256, w * h * 4).astype(np.uint8).tobytes()
+        else:
+            body = _bc_blocks(rnd, nb, kind.split("_")[0] if not
+                              kind.startswith("BC6H") else "BC6H")
+        out[f"dx10_{kind.lower()}.dds"] = _dds(w, h, body, dxgi=dxgi)
+    for cc in (b"ATI1", b"BC4U", b"ATI2", b"BC5U", b"BC5S"):
+        size = 8 if cc in (b"ATI1", b"BC4U") else 16
+        out[f"fourcc_{cc.decode().lower()}.dds"] = _dds(
+            w, h, rnd.randint(0, 256, nb * size).astype(np.uint8).tobytes(),
+            fourcc=cc)
+    px = rnd.randint(0, 256, w * h * 4).astype(np.uint8).tobytes()
+    for name, bits, masks, flags in (
+            ("rgb565", 16, (0xF800, 0x7E0, 0x1F, 0), 0x40),
+            ("argb1555", 16, (0x7C00, 0x3E0, 0x1F, 0x8000), 0x41),
+            ("a2rgb10", 32, (0x3FF00000, 0xFFC00, 0x3FF, 0xC0000000), 0x41),
+            ("bgr24", 24, (0xFF, 0xFF00, 0xFF0000, 0), 0x40),
+            ("sparse_masks", 16, (0xA5, 0x5A00, 0, 0), 0x40)):
+        out[f"masks_{name}.dds"] = _dds(w, h, px[:w * h * bits // 8],
+                                        pfflags=flags, bitcount=bits,
+                                        masks=masks)
+    out["masks_short_surface.dds"] = out["masks_rgb565.dds"][:-40]
+    out["palette8.dds"] = _dds(w, h, rnd.randint(0, 256, 1024).astype(
+        np.uint8).tobytes() + px[:w * h], pfflags=0x20, bitcount=8)
+    out["mipmaps_bc7.dds"] = _dds(8, 8, _bc_blocks(rnd, 4 + 1, "BC7"),
+                                  dxgi=98, mipmaps=2)
+    out["dxgi_unknown.dds"] = _dds(w, h, px, dxgi=87)
+    out["fourcc_unknown.dds"] = _dds(w, h, px, fourcc=b"RXGB")
+    out["luminance16.dds"] = _dds(w, h, px[:2 * w * h], pfflags=0x20000,
+                                  bitcount=16)
+    out["bc7_cut_short.dds"] = out["dx10_bc7.dds"][:-3]
+    out["header_size_100.dds"] = (out["dx10_bc1.dds"][:4]
+                                  + struct.pack("<I", 100)
+                                  + out["dx10_bc1.dds"][8:])
+    tex = Image.fromarray(terrain(1024, 1024, 93, 3))
+    out[DDS_TILES[0]] = _pillow(tex, "DDS", pixel_format="DXT1")
+    out[DDS_TILES[1]] = _dds(1024, 1024, _bc_blocks(rnd, 256 * 256, "BC7"),
+                             dxgi=98)
+    return out
+
+
 # ---------------------------------------------------------------- digests
 def _summary(a):
     a = np.asarray(a)
@@ -1555,6 +1934,9 @@ def digest(data, path=None, kind=None):
 
     import imageio.v3 as iio
 
+    if kind in CHOICE_KINDS:
+        return {"bytes": len(data), **imageio_choice(data),
+                "path": imageio_choice(path)}
     caught = Exception if kind in VALUE_ERROR_KINDS else OSError
     try:  # Pillow, imageio's first choice for bytes, and no fall-back
         out = {"bytes": len(data),
@@ -1577,6 +1959,27 @@ def digest(data, path=None, kind=None):
     return out
 
 
+def imageio_choice(src):
+    """imageio.v3.imread(src) (bytes or a path) by imageio's own choice of
+    plugin: {reader: "pillow" or "opencv", shape, dtype, sha256}, or
+    {error: "ValueError", imageio: the class it raised} (what the port
+    raises wherever imageio fails)."""
+    import warnings
+
+    import imageio.v3 as iio
+
+    names = {"PillowPlugin": "pillow", "OpenCVPlugin": "opencv"}
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with iio.imopen(src, "r") as f:
+                reader = names.get(type(f).__name__, type(f).__name__)
+                a = np.asarray(f.read())
+    except Exception as e:  # noqa: BLE001 -- imageio raises many kinds
+        return {"error": "ValueError", "imageio": type(e).__name__}
+    return {"reader": reader, **_summary(a)}
+
+
 def reference(kind):
     import imageio
     import PIL
@@ -1587,16 +1990,18 @@ def reference(kind):
     if kind == "webp":
         out["libwebp"] = features.version("webp")
     if kind == "jp2":
+        out["openjpeg"] = features.version("jpg_2000")
+    if kind in ("jp2",) + CHOICE_KINDS:
         import cv2
 
-        out["openjpeg"] = features.version("jpg_2000")
         out["opencv"] = cv2.__version__
     return out
 
 
 KINDS = {"png": png_fixtures, "tiff": tiff_fixtures, "bmp": bmp_fixtures,
          "webp": webp_fixtures, "pnm": pnm_fixtures, "tga": tga_fixtures,
-         "jp2": jp2_fixtures}
+         "jp2": jp2_fixtures, "pfm_pam": pfm_pam_fixtures,
+         "hdr": hdr_fixtures, "sun": sun_fixtures, "dds": dds_fixtures}
 # committed files no script here writes, kept with their entries
 KEPT = {"png": ("terrain_48x40_rgb_5filters.png",)}
 
@@ -1623,8 +2028,11 @@ def main(out_dir=DEFAULT_DIR, kinds=tuple(KINDS)):
                 f.write(data)
             digests[name] = digest(
                 data, path if kind == "tiff" or kind in VALUE_ERROR_KINDS
-                else None, kind)
+                + CHOICE_KINDS else None, kind)
             if name in REFUSED:
+                if kind in CHOICE_KINDS:  # imageio's array, if any, unkept:
+                    # a PAM with alpha comes back with unwritten bytes
+                    digests[name] = {"bytes": len(data)}
                 digests[name]["refused"] = REFUSED[name]
             if name in PATH_REFUSED:
                 digests[name]["path_refused"] = PATH_REFUSED[name]

@@ -1,10 +1,10 @@
 """Shared by the port's raster tests (test_torch_png_formats.py,
 test_torch_tiff.py, test_torch_bmp.py, test_torch_webp.py,
-test_torch_pnm_tga.py): the committed fixtures of
-tests/data/{png,tiff,bmp,webp,pnm,tga}/ (tests/make_raster_fixtures.py)
-against their
-digests, the script re-run, and a raster pair's first batches against
-terrain_tpu's `_get_data`."""
+test_torch_pnm_tga.py, test_torch_jp2.py, test_torch_opencv_rasters.py,
+test_torch_dds_sun.py): the committed fixtures of
+tests/data/{png,tiff,bmp,webp,pnm,tga,jp2,pfm_pam,hdr,sun,dds}/
+(tests/make_raster_fixtures.py) against their digests, the script re-run,
+and a raster pair's first batches against terrain_tpu's `_get_data`."""
 
 import hashlib
 import importlib.util
@@ -33,7 +33,8 @@ def check_fixture(kind, name, decode):
     bytes, and data/raster.read_raster(path) imageio's of its path (the
     same but for TIFFs and a *.pbm), as the digests hold them; where
     imageio raises on the bytes ("error"), decode raises the exception
-    named there; a fixture the port refuses ("refused") is refused by name
+    named there, and where it raises on the path (an "error" under
+    "path"), read_raster does; a fixture the port refuses ("refused") is refused by name
     both ways, one it refuses at its path ("path_refused") by path."""
     import builtins
     import re
@@ -64,7 +65,10 @@ def check_fixture(kind, name, decode):
             read_raster(path)
         return
     by_path = want.get("path", want)
-    if by_path is not None:
+    if by_path is not None and "error" in by_path:
+        with pytest.raises(getattr(builtins, by_path["error"])):
+            read_raster(path)
+    elif by_path is not None:
         assert summary(read_raster(path)) == [
             by_path["shape"], by_path["dtype"], by_path["sha256"]]
 

@@ -32,7 +32,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data"
 HOSTS = [os.path.join(aot.PACKAGE, s) for s in _build.HOST_SOURCES]
 
-KINDS = ("png", "jpeg", "tiff", "bmp", "webp", "pnm", "tga", "jp2")
+KINDS = ("png", "jpeg", "tiff", "bmp", "webp", "pnm", "tga", "jp2", "pfm_pam",
+         "hdr", "sun", "dds")
 DECODE = """
 import hashlib, json, os, sys
 from terrain_tpu_torch.data.raster import read_raster
@@ -43,7 +44,8 @@ for kind in %r:
     for name, want in digests.items():
         if name.startswith("strip_") or name == "reference" or \
                 "refused" in want or "path_refused" in want or \
-                want.get("path", want) is None:
+                want.get("path", want) is None or \
+                "error" in want.get("path", want):
             continue
         a = read_raster(os.path.join(d, name))
         out[name] = hashlib.sha256(a.tobytes()).hexdigest()
@@ -79,8 +81,9 @@ def _no_compiler(monkeypatch):
 
 
 def test_the_host_sources_are_the_decoders():
-    """The PNG unfilter, the JPEG decoder, the TIFF, BMP and TGA runs (one
-    library: data/bmp.py and data/tga.py bind data/tiff.py's), the GIF
+    """The PNG unfilter, the JPEG decoder, the TIFF, BMP, TGA, Sun and
+    Radiance runs and the DDS blocks (one library: data/bmp.py, tga.py,
+    sun.py, hdr.py and dds.py bind data/tiff.py's), the GIF
     writer's quantizer and LZW coder, the WebP decoder and the JPEG 2000
     decoder: six host libraries."""
     assert sorted(HOSTS) == sorted([png._UNFILTER_SRC, jpeg._SRC, tiff._SRC,
@@ -127,6 +130,7 @@ def test_a_process_without_compilers_loads_the_store_and_decodes(
                      for n, v in digests.items()
                      if not n.startswith("strip_") and n != "reference"
                      and v.get("path", v) is not None
+                     and "error" not in v.get("path", v)
                      and "refused" not in v and "path_refused" not in v})
     assert len(want) >= 100 and set(want) <= set(got)
     assert {n: got[n] for n in want} == want

@@ -10,8 +10,11 @@ headers long enough to need continuation blocks, and the reference
 layout; under libver="latest" each of layout version 4's five chunk
 indices (a paged fixed array, an extensible array's super blocks and
 paged data blocks, a version 2 B-tree of depth 1 and more, single chunk,
-implicit), whose lookup3 checksums are checked.  The reader gives h5py's
-arrays bit for bit and refuses every other kind by name.  The writer's files are read by h5py and by
+implicit), whose lookup3 checksums are checked, and, written through the
+bundled HDF5 library's H5Pset_chunk_opts, partial edge chunks stored
+unfiltered under the fixed-array, extensible-array and v2 B-tree indices.
+The reader gives h5py's arrays bit for bit and refuses every other kind by
+name.  The writer's files are read by h5py and by
 terrain_tpu's get_iterators with the port's batches.  The committed
 fixtures of tests/data/h5 (tests/make_h5_fixtures.py, read by
 chip_smoke.py on the card) still match h5py and the reader.
@@ -436,6 +439,86 @@ def test_write_h5_is_terrain_tpus(tmp_path):
             _same(f[k][()], g[k][()])
 
 
+# ------------------------------------------------ unfiltered edge chunks
+def _h5_fixture_script():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_h5_fixtures", os.path.join(HERE, "make_h5_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("index", ["fixed_array", "extensible_array",
+                                   "btree2"])
+@pytest.mark.parametrize("name", ["gzip_2d", "gzip_4d",
+                                  "shuffle_gzip_fletcher32_2d",
+                                  "shuffle_gzip_fletcher32_4d"])
+def test_partial_edge_chunks_stored_unfiltered_read_as_h5py(index, name):
+    """H5Pset_chunk_opts' H5D_CHUNK_DONT_FILTER_PARTIAL_CHUNKS (layout
+    version 4's flag bit 0) under each chunk index that stores filter
+    masks: a chunk crossing the dataset's edge is stored as it is, whole
+    chunks through their filters (the committed fixtures)."""
+    path = os.path.join(FIXTURES, f"edge_unfiltered_{index}.h5")
+    with h5.File(path) as f, h5py.File(path, "r") as g:
+        ds = f._dataset(f._messages(f._find(name)), name)
+        assert ds.layout[0] == "chunked4" and ds.layout[-1] is True
+        assert ds.layout[1] == {"fixed_array": 3, "extensible_array": 4,
+                                "btree2": 5}[index]
+        _same(np.asarray(f[name]), g[name][()])
+
+
+@pytest.mark.parametrize("index", ["fixed_array", "extensible_array",
+                                   "btree2"])
+@pytest.mark.parametrize("shape,chunk", [((9, 7), (4, 4)),
+                                         ((3, 10, 6, 2), (2, 4, 4, 2)),
+                                         ((16, 5), (4, 5))])
+def test_written_edge_chunk_files_read_as_h5py(index, shape, chunk,
+                                               tmp_path):
+    """Files the bundled HDF5 library writes here with the flag set: edges
+    in one dimension, in several, or in none (every chunk whole)."""
+    mod = _h5_fixture_script()
+    lib = mod._libhdf5()
+    rnd = np.random.RandomState(len(index) + len(shape))
+    a = rnd.randint(0, 4, shape).astype("<i2") * 1000
+    path = str(tmp_path / "edge.h5")
+    unlimited = {"fixed_array": 0, "extensible_array": 1, "btree2": 2}[index]
+    with h5py.File(path, "w", libver="latest") as f:
+        dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+        dcpl.set_chunk(chunk)
+        dcpl.set_shuffle()
+        dcpl.set_deflate(6)
+        dcpl.set_fletcher32()
+        assert lib.H5Pset_chunk_opts(dcpl.id,
+                                     mod.DONT_FILTER_PARTIAL_CHUNKS) >= 0
+        space = h5py.h5s.create_simple(shape, tuple(
+            h5py.h5s.UNLIMITED if i < unlimited else s
+            for i, s in enumerate(shape)))
+        h5py.h5d.create(f.id, b"d", h5py.h5t.STD_I16LE, space, dcpl=dcpl)
+        f["d"][...] = a
+    with h5.File(path) as f, h5py.File(path, "r") as g:
+        _same(np.asarray(f["d"]), g["d"][()])
+        np.testing.assert_array_equal(np.asarray(f["d"]), a)
+
+
+def test_an_edge_chunk_fixture_trains_the_reference_layout(monkeypatch):
+    """TERRAIN_DATA on the 512px pairs whose last rows lie in unfiltered
+    edge chunks: the host iterator's first batch is h5py's rows."""
+    path = os.path.join(FIXTURES, "edge_unfiltered_pairs_512.h5")
+    monkeypatch.setenv("TERRAIN_DATA", path)
+    for k in ("TERRAIN_SYNTHETIC", "TERRAIN_RASTER"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("TERRAIN_FAST", "0")
+    with h5py.File(path, "r") as g:
+        xt, yt = g["xt"][()], g["yt"][()]
+    tr, va = experiments._get_data(512, device="cpu")
+    want = hdf5.Hdf5Iterator(xt, yt, 4)
+    for a, b in zip(next(tr), next(want)):
+        np.testing.assert_array_equal(a, b)
+    assert (tr.N, va.N) == (8, 4)
+
+
 # ---------------------------------------------------------------- fixtures
 def test_committed_fixtures_match_h5py_and_the_reader(tmp_path):
     """The script writes files whose h5py arrays have the committed digests
@@ -452,6 +535,8 @@ def test_committed_fixtures_match_h5py_and_the_reader(tmp_path):
         committed = json.load(f)
     assert mod.main(str(tmp_path)) == committed
     assert {f"layout4_{k}.h5" for k in mod.LAYOUT4} <= set(committed)
+    assert {f"edge_unfiltered_{k}.h5" for k in mod.EDGE} | {
+        mod.EDGE_PAIRS} <= set(committed)
     for name, want in committed.items():
         if name == "reference":
             continue

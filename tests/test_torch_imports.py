@@ -97,6 +97,10 @@ def test_the_file_list_covers_the_package():
                  "terrain_tpu_torch/data/webp.py",
                  "terrain_tpu_torch/data/pnm.py",
                  "terrain_tpu_torch/data/tga.py",
+                 "terrain_tpu_torch/data/cvread.py",
+                 "terrain_tpu_torch/data/hdr.py",
+                 "terrain_tpu_torch/data/sun.py",
+                 "terrain_tpu_torch/data/dds.py",
                  "terrain_tpu_torch/tools/import_reference_weights.py",
                  "terrain_tpu_torch/eval/resize.py",
                  "terrain_tpu_torch/tools/make_synthetic.py",
@@ -160,26 +164,32 @@ from terrain_tpu_torch.tools import import_reference_weights
 for kind, name in (("tiff", "rgb8_lzw_pred2_tiles_be.tif"),
                    ("bmp", "rle4.bmp"), ("png", "palette4_adam7.png"),
                    ("webp", "alph_filter3_vp8l.webp"), ("pnm", "p4.pbm"),
-                   ("tga", "map16_rle.tga")):
+                   ("tga", "map16_rle.tga"), ("pfm_pam", "cv_pf_gray.pfm"),
+                   ("pfm_pam", "pam_comments_cr.pam"), ("hdr", "all_rle.hdr"),
+                   ("sun", "rle_depth8.ras"), ("sun", "depth8_map2.sr"),
+                   ("dds", "dx10_bc7.dds"), ("dds", "dx10_bc6h_sf16.dds")):
     d = json.load(open(os.path.join(data, kind, "digests.json")))[name]
     a = read_raster(os.path.join(data, kind, name))
     assert hashlib.sha256(a.tobytes()).hexdigest() == \
         d.get("path", d)["sha256"], name
-with h5.File(os.path.join(data, "h5", "layout4_btree2.h5")) as f:
-    a = np.ascontiguousarray(f["plain"])
-assert hashlib.sha256(a.tobytes()).hexdigest() == json.load(open(
-    os.path.join(data, "h5", "digests.json")))["layout4_btree2.h5"][
-    "plain"]["sha256"]
+for name, key in (("layout4_btree2.h5", "plain"),
+                  ("edge_unfiltered_btree2.h5", "shuffle_gzip_fletcher32_4d")):
+    with h5.File(os.path.join(data, "h5", name)) as f:
+        a = np.ascontiguousarray(f[key])
+    assert hashlib.sha256(a.tobytes()).hexdigest() == json.load(open(
+        os.path.join(data, "h5", "digests.json")))[name][key]["sha256"]
 print("ok")
 """
 
 
 def test_the_data_path_runs_without_h5py_imageio_or_pil():
     """A process in which h5py, imageio and PIL cannot be imported reads
-    the committed h5py files (a layout-4 B-tree too), a progressive JPEG, a
-    TIFF, a BMP, an interlaced palette PNG, a WebP with a filtered VP8L
-    ALPH chunk, a PBM at its path and a run-length TGA to their digests
-    and imports
+    the committed h5py files (a layout-4 B-tree too, and one with partial
+    edge chunks stored unfiltered), a progressive JPEG, a TIFF, a BMP, an
+    interlaced palette PNG, a WebP with a filtered VP8L ALPH chunk, a PBM
+    at its path, a run-length TGA, a PFM at its path (OpenCV's reading), a
+    PAM, a run-length Radiance file, Sun rasters at *.ras and *.sr paths
+    and BC7 and BC6H DDS files to their digests and imports
     the port's data tools and the weights importer."""
     import subprocess
 

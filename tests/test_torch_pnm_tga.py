@@ -1,7 +1,7 @@
 """The port's PNM and TGA decoders (terrain_tpu_torch/data/pnm.py,
 data/tga.py and the run-length packets of data/csrc/raster_decode.cpp)
-against imageio, which decodes them through Pillow (a *.pbm path through
-OpenCV; the JAX package's reader): every committed fixture of
+against imageio, which decodes them through Pillow (a *.pbm path, and PF
+and P7 bytes, through OpenCV; the JAX package's reader): every committed fixture of
 tests/data/pnm and tests/data/tga (tests/make_raster_fixtures.py) to
 imageio's shape, dtype and SHA-256, files Pillow writes here, random
 samples at every maxval, random run-length streams, the kinds refused by
@@ -75,9 +75,25 @@ def test_pillows_pnm_files_decode_as_imageio(mode, tmp_path):
     assert summary(read_raster(str(path))) == summary(iio.imread(path))
 
 
+@pytest.mark.parametrize("data", [
+    b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 1\nMAXVAL 255\nENDHDR\n\x07",
+    b"PF\n1 1\n-1.0\n" + bytes(12),
+    b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 3\nMAXVAL 255\nTUPLTYPE RGB\nENDHDR\n"
+    + bytes(range(6)),
+    b"PF\n2 1\n1.0\n" + np.arange(6, dtype=">f4").tobytes()])
+def test_pf_and_p7_bytes_decode_as_imageio_through_opencv(data):
+    """PF and P7, which Pillow cannot open: imageio falls back to OpenCV
+    for their bytes (data/pnm.py's OpenCV readers)."""
+    assert summary(pnm.decode_pnm(data)) == summary(iio.imread(data))
+
+
 @pytest.mark.parametrize("data,match", [
-    (b"P7\nWIDTH 1\nHEIGHT 1\nENDHDR\n\x00", r"P7 \(PAM\)"),
-    (b"PF\n1 1\n-1.0\n" + bytes(12), r"PF \(colour PFM\)"),
+    (b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 2\nMAXVAL 255\n"
+     b"TUPLTYPE GRAYSCALE_ALPHA\nENDHDR\n\x00\x01",
+     r"tuple type GRAYSCALE_ALPHA"),
+    (b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 4\nMAXVAL 255\n"
+     b"TUPLTYPE RGB_ALPHA\nENDHDR\n\x00\x01\x02\x03",
+     r"tuple type RGB_ALPHA"),
     (b"PyP\n1 1\n255\n\x00", "PyP")])
 def test_other_pnm_kinds_are_refused_by_name(data, match):
     with pytest.raises(NotImplementedError, match=match):

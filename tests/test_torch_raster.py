@@ -6,12 +6,13 @@ native library's bytes; the port's PNG decoder undoes every filter type as
 its per-byte plain version does and reads other encoders' files;
 `_get_data` gives terrain_tpu's first batches from the same PNG pair, a
 lossy WebP texture with 16-bit PGM heights and a TGA pair; a JPEG, TIFF,
-BMP, WebP (an animation's first frame too), PNM, TGA or JPEG 2000 is
-decoded (tests/test_torch_jpeg.py, test_torch_tiff.py, test_torch_bmp.py,
-test_torch_webp.py, test_torch_pnm_tga.py and test_torch_jp2.py hold the
-decoders), a GIF and the variants the port does not take refused by name
-before either file is decoded; and smoke_synthetic trains from a raster
-through the CLI.
+BMP, WebP (an animation's first frame too), PNM (PFM and PAM too), TGA,
+JPEG 2000, Radiance, Sun raster or DDS is decoded (tests/test_torch_jpeg.py,
+test_torch_tiff.py, test_torch_bmp.py, test_torch_webp.py,
+test_torch_pnm_tga.py, test_torch_jp2.py, test_torch_opencv_rasters.py and
+test_torch_dds_sun.py hold the decoders), a GIF and the variants the port
+does not take refused by name before either file is decoded; and
+smoke_synthetic trains from a raster through the CLI.
 Rasters are a few hundred pixels a side.
 """
 
@@ -270,12 +271,21 @@ def _pil_save(path, img, fmt, **kw):
     ("b.raster", "JPEG2000-jp2"),      # by the JP2 signature box
     ("b.png", "JPEG2000-j2k"),         # by the codestream's SOC and SIZ
     ("b.webp", "WEBP-animated"),       # an animation's first frame
+    ("b.pfm", "CV-pfm"),               # colour floats through OpenCV
+    ("b.pgm", "CV-pam"),               # P7 at a *.pgm path: OpenCV
+    ("b.hdr", "CV-hdr"),               # Radiance through OpenCV
+    ("b.sr", "CV-sr"),                 # a Sun raster's *.sr path: OpenCV
+    ("b.ras", "CV-sr"),                # the same bytes at *.ras: Pillow
+    ("b.dds", "DDS-DXT1"),             # a DDS through Pillow's BCn
+    ("b.raster", "DDS-DXT5"),          # by the DDS magic
 ])
 def test_a_raster_that_is_not_a_png_is_decoded(tmp_path, rng, name, fmt):
-    """A JPEG, TIFF, BMP, WebP, PNM, TGA or JPEG 2000 texture, named so or
-    starting so, is decoded by the port's codec to imageio's bytes (for a
-    WebP, PNM, TGA or JPEG 2000, imageio's decode of the path, as the JAX
-    package reads it; for an animated WebP, its first frame)."""
+    """A JPEG, TIFF, BMP, WebP, PNM (PFM and PAM among them), TGA, JPEG
+    2000, Radiance, Sun raster or DDS texture, named so or starting so, is
+    decoded by the port's codec to imageio's bytes (for all but a JPEG,
+    TIFF or BMP, imageio's decode of the path, as the JAX package reads it,
+    through the plugin imageio takes for that name; for an animated WebP,
+    its first frame)."""
     iio = pytest.importorskip("imageio.v3")
     from PIL import Image
 
@@ -283,6 +293,14 @@ def test_a_raster_that_is_not_a_png_is_decoded(tmp_path, rng, name, fmt):
     other = tmp_path / name
     tex = rng.randint(0, 256, size=(48, 40, 3)).astype(np.uint8)
     fmt, _, mode = fmt.partition("-")
+    if fmt == "CV":  # what OpenCV writes, the texture as floats for PFM
+        cv2 = pytest.importorskip("cv2")
+        img = {"pfm": tex.astype(np.float32) * 1.25 - 20.0,
+               "hdr": tex.astype(np.float32) / 200.0}.get(mode, tex)
+        ok, buf = cv2.imencode(".pam" if mode == "pam" else f".{mode}", img)
+        assert ok
+        other.write_bytes(buf.tobytes())
+        fmt = mode = ""
     kw = {"quality": 85} if fmt == "JPEG" else (
         {"compression": "tiff_lzw"} if fmt == "TIFF" else {})
     if fmt == "JPEG2000":  # a 9/7 texture, as a JP2 file or a codestream
@@ -290,9 +308,11 @@ def test_a_raster_that_is_not_a_png_is_decoded(tmp_path, rng, name, fmt):
     elif mode == "animated":
         kw, mode = {"save_all": True, "append_images": [
             Image.fromarray(tex[::-1])], "quality": 80}, ""
-    if mode:
+    if fmt == "DDS":
+        Image.fromarray(tex).save(other, "DDS", pixel_format=mode)
+    elif mode:
         Image.fromarray(tex).convert(mode).save(other, fmt)
-    else:
+    elif fmt:
         _pil_save(other, tex, fmt, **kw)
     got_hm, got_tex = experiments.read_raster_pair(
         f"{value.split(',')[0]},{other}")
@@ -337,9 +357,14 @@ def _cmyk4(path):
      "is GIF; imageio gives a GIF a frame axis"),
     ("b.gif", None, "is GIF; imageio gives a GIF a frame axis"),
     ("b.j2k", _jp2_with_poc, "JPEG 2000: POC progression changes"),
-    ("b.pfm", None, "is PFM; imageio reads a \\*.pfm path through OpenCV"),
-    ("b.pgm", lambda p: p.write_bytes(b"P7\nWIDTH 1\nHEIGHT 1\nENDHDR\n"),
-     r"PNM: P7 \(PAM\)"),
+    ("b.pam", lambda p: p.write_bytes(
+        b"P7\nWIDTH 1\nHEIGHT 1\nDEPTH 2\nMAXVAL 255\n"
+        b"TUPLTYPE GRAYSCALE_ALPHA\nENDHDR\n\x01\x02"),
+     r"PNM: a PAM of tuple type GRAYSCALE_ALPHA"),
+    ("b.pfm", lambda p: p.write_bytes(b"P5\n1 1\n255\n\x00"),
+     r"PNM: a \*.pfm path holding P5"),
+    ("b.hdr", lambda p: _pil_save(p, np.zeros((4, 4, 3), np.uint8), "PNG"),
+     r"holds PNG; imageio reads a \*.hdr path through OpenCV"),
     ("b.pbm", lambda p: p.write_bytes(b"P5\n1 1\n255\n\x00"),
      r"PNM: a \*.pbm path holding P5"),
     ("b.tif", lambda p: _pil_save(p, np.zeros((16, 16, 3), np.uint8),
@@ -351,11 +376,12 @@ def _cmyk4(path):
 def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
                                                match, monkeypatch):
     """What the port does not decode (the test above shows what it does):
-    GIF by name and by magic, a *.pfm by name, JPEG-in-TIFF, subsampled
-    YCbCr at a *.tif path and 4-bit CMYK by their TIFF headers, a JPEG 2000
-    POC marker by the codestream's main header, PAM and a *.pbm holding
-    gray by their magic -- NotImplementedError naming them, before either
-    file is decoded."""
+    GIF by name and by magic, JPEG-in-TIFF, subsampled YCbCr at a *.tif
+    path and 4-bit CMYK by their TIFF headers, a JPEG 2000 POC marker by
+    the codestream's main header, a PAM with alpha by its header, a *.pbm
+    holding gray and a *.pfm holding P5 by their magic, and a PNG at a
+    *.hdr path (which imageio reads through OpenCV) by its magic --
+    NotImplementedError naming them, before either file is decoded."""
     value, hm, _ = _write_pair(tmp_path, rng)
     other = tmp_path / name
     if make is not None:
@@ -367,6 +393,8 @@ def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
                "decode_webp"):
         monkeypatch.setattr(raster, fn, lambda *a: decoded.append(1))
     monkeypatch.setattr(raster.pnm, "read_pnm",
+                        lambda *a: decoded.append(1))
+    monkeypatch.setattr(raster.sun, "read_sun",
                         lambda *a: decoded.append(1))
     monkeypatch.setattr(raster, "_DECODERS", {
         k: (lambda *a: decoded.append(1)) for k in raster._DECODERS})

@@ -474,6 +474,31 @@ def test_chip_smokes_device_rows_leave_the_labels_out():
     assert [r.key for r in cs.device_rows(Prof())] == ["thin_fwd_kernel"]
 
 
+@pytest.mark.parametrize("extra, lost_ok, raised", [
+    (1, True, "LostEvents"), (1, False, "ran 1 times"),
+    (-1, True, "ran 1 times")])
+def test_chip_smokes_replay_check_traces_again_only_on_a_shortfall(
+        summary, capsys, extra, lost_ok, raised):
+    """A traced replay whose hand-written kernels hold fewer events than
+    its steps launched, and none more, raises LostEvents where the caller
+    may trace it again (the profiler dropped device records); without
+    that leave, or with more events than launched, the check fails."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    grid = {n: h["events"] for n, h in summary.hand.items() if h["events"]}
+    assert grid["bilinear_conv"] == 1
+    grid["bilinear_conv"] += extra
+    with pytest.raises((cs.LostEvents, SystemExit)) as e:
+        cs.summarize_checked(None, "cpu", "replay", per_step=(1, grid),
+                             summary=summary, bounded=False,
+                             lost_ok=lost_ok)
+    got = (type(e.value).__name__ if isinstance(e.value, cs.LostEvents)
+           else capsys.readouterr().out)
+    assert raised in got
+
+
 def _eager_of_the_graph():
     """An eager run of the fixture's replayed step: the same kernels, each
     launched in its label or op."""
