@@ -134,8 +134,9 @@ Phases (any failure exits non-zero and prints no result line):
      memory runs, each file's peak above the resident set before it), its
      bands held to the strip's, and the first batch of it and the PNG
      heightmap above against plain slicing.  Then every committed PNG,
-     TIFF, BMP, WebP, PNM, TGA, JPEG 2000, PFM/PAM, Radiance, Sun raster
-     and DDS fixture to imageio's digests, from its bytes and its path,
+     TIFF, BMP, WebP, PNM, TGA, JPEG 2000, PFM/PAM, Radiance, Sun raster,
+     DDS, SGI, PCX, QOI, IM, ICO, ICNS and MPO fixture to imageio's
+     digests (or the exception imageio raises), from its bytes and its path,
      and the TIFF strips as a 21600 x 10800 pair, decoded and trained from.  Then
      the committed 1024 x 640 WebP pair (lossless heights, q90 texture):
      each decoded (best of 3: s and MP/s), the first batch against plain
@@ -161,7 +162,14 @@ Phases (any failure exits non-zero and prints no result line):
      decode; and one epoch of `TERRAIN_RASTER=<heights>.pfm,<texture>.dds
      TERRAIN_EPOCH_CROPS=16` (1024 x 1024 heights, the DXT1 tile) with the
      first batch against plain slicing, finite losses and the kernels
-     counted;
+     counted.  Then SGI, PCX, QOI, IM, ICO, ICNS and MPO (every committed
+     fixture among the ones above, through Pillow's rules): a 21600 x
+     10800 run-length SGI heights file and a QOI texture of QOI_OP_RGB and
+     QOI_OP_RUN ops, made here from seeded arrays, each decoded once in
+     the decode process (s, MP/s, peak host memory) and held to its
+     array; and one epoch of `TERRAIN_RASTER=<heights>.sgi,<texture>.qoi
+     TERRAIN_EPOCH_CROPS=8` from 2048 x 1024 versions, with the first
+     batch against plain slicing, finite losses and the kernels counted;
   7b. inputs: in a child process where h5py, imageio and PIL cannot be
      imported (the card's machine has none): the committed h5py files of
      tests/data/h5 read by data/h5.py to their digests (every layout-4
@@ -447,9 +455,15 @@ JPEG_PTEXTURE = "progressive_2048x1024_420.jpg"
 # decoded and timed, and trained from; a RASTER_W x RASTER_H Pf heights
 # file and the two 1024 x 1024 DDS tiles' block rows repeated into
 # RASTER_W x RASTER_H textures, decoded and timed, and a PFM heights file
-# with the DXT1 tile trained from
+# with the DXT1 tile trained from; the SGI, PCX, QOI, IM, ICO, ICNS and
+# MPO fixtures each decoded to its digest (or imageio's exception)
 RASTER_FIXTURE_DIRS = ("tiff", "png", "bmp", "webp", "pnm", "tga", "jp2",
-                       "pfm_pam", "hdr", "sun", "dds")
+                       "pfm_pam", "hdr", "sun", "dds", "sgi", "pcx", "qoi",
+                       "im", "ico", "icns", "mpo")
+# the SGI + QOI pair: RASTER_W x RASTER_H files decoded once each, and an
+# epoch of SQ_EPOCH_CROPS crops from SQ_H x SQ_W versions
+SQ_H, SQ_W = 1024, 2048
+SQ_EPOCH_CROPS = 8
 WEBP_PAIR = ("pillow_pair_hm_1024x640_lossless.webp",
              "pillow_pair_tex_1024x640_q90.webp")
 TIFF_TEXTURE_STRIP = "strip_21600x32_rgb_lzw.tif"
@@ -2457,7 +2471,7 @@ def raster_slice(torch, card):
     `TERRAIN_RASTER=hm.png,tex.png TERRAIN_EPOCH_CROPS=48 python -m
     terrain_tpu_torch test1_nobn_bilin_both train` through cli.main with the
     counters set to 0 just before and read just after; then the other
-    formats (raster_jpeg ... raster_float_dds), their memory runs in one
+    formats (raster_jpeg ... raster_sgi_qoi), their memory runs in one
     decode process started here.  Returns the counts of every epoch."""
     import math
     import shutil
@@ -2598,6 +2612,8 @@ def raster_slice(torch, card):
         got = {k: got[k] + j2[k] for k in got}
         fd = raster_float_dds(torch, card, root, dec)
         got = {k: got[k] + fd[k] for k in got}
+        sq = raster_sgi_qoi(torch, card, root, dec)
+        got = {k: got[k] + sq[k] for k in got}
     finally:
         dec.close()
         for k, v in saved.items():
@@ -2898,7 +2914,12 @@ for line in sys.stdin:
                 cells += 1
         del tile
     elif job["plain"]:
-        equal = np.array_equal(img, np.load(job["plain"]))
+        plain, r = np.load(job["plain"]), job["repeat"]
+        equal = img.shape[1] == plain.shape[1] * r and np.array_equal(
+            img.reshape(img.shape[0], -1, r, *img.shape[2:]),
+            np.broadcast_to(plain[:, :, None], plain.shape[:2] + (r,)
+                            + plain.shape[2:]))
+        del plain
         cells = 1
     out = {"times": times, "peak": max(seen) - before,
            "samples": len(seen), "out": img.nbytes, "cells": cells,
@@ -2936,7 +2957,7 @@ class _DecodeProcess:
         self._err.close()
 
     def run(self, path, module, decode, lib="", tile_path=None, plain=None,
-            runs=1, limit_s=600):
+            runs=1, limit_s=600, repeat=1):
         """The file at `path` decoded `runs` times by `module`'s `decode`
         (its bytes; the path itself for a TIFF, which the decoder maps),
         the library loaded first (`lib`'s `_lib`, else the module's
@@ -2945,7 +2966,8 @@ class _DecodeProcess:
         of the GIL; getrusage's peak would carry the process's earlier
         files); then the last decode held to the decode of the tile at
         `tile_path` cell by cell (cells of the tile's size, the edge ones
-        to the tile's corner), or to the .npy array at `plain`.  Returns
+        to the tile's corner), or to the .npy array at `plain` (each of its
+        columns `repeat` times).  Returns
         {times, peak (bytes above the resident set before the first
         decode), samples, out, cells, equal}."""
         import select
@@ -2953,7 +2975,7 @@ class _DecodeProcess:
         self._p.stdin.write(json.dumps({
             "path": path, "module": module, "decode": decode, "lib": lib,
             "tile": tile_path or "", "plain": plain or "",
-            "runs": runs}) + "\n")
+            "runs": runs, "repeat": repeat}) + "\n")
         self._p.stdin.flush()
         ready, _, _ = select.select([self._p.stdout], [], [], limit_s)
         line = self._p.stdout.readline() if ready else ""
@@ -3020,20 +3042,24 @@ def raster_progressive(torch, np, card, root, strip, hm, dec):
 
 def _raster_fixtures(card):
     """Every committed TIFF, PNG, BMP, WebP, PNM, TGA, JPEG 2000, PFM/PAM,
-    Radiance, Sun raster and DDS fixture decoded to imageio's digests
-    (shape, dtype, SHA-256): its bytes by the format's decoder (as imageio
-    decodes bytes: through Pillow, or OpenCV where Pillow cannot open
-    them), and its path by data/raster.py (as imageio reads a path: a *.tif
-    through its tifffile plugin; a *.pbm, *.pfm, *.hdr or *.sr through
-    OpenCV); where imageio raises on the bytes or the path, the exception
-    the digests name.  Returns the decoded TIFF strips by name."""
+    Radiance, Sun raster, DDS, SGI, PCX, QOI, IM, ICO, ICNS and MPO fixture
+    decoded to imageio's digests (shape, dtype, SHA-256): its bytes by the
+    format's decoder (as imageio decodes bytes: through Pillow, or OpenCV
+    where Pillow cannot open them), and its path by data/raster.py (as
+    imageio reads a path: a *.tif through its tifffile plugin; a *.pbm,
+    *.pfm, *.hdr or *.sr through OpenCV); where imageio raises on the bytes
+    or the path, the exception the digests name.  Returns the decoded TIFF
+    strips by name."""
     import builtins
     import hashlib
+    import struct
 
+    from terrain_tpu_torch.data import icns, ico, im, pcx, qoi, sgi
     from terrain_tpu_torch.data.bmp import decode_bmp
     from terrain_tpu_torch.data.dds import decode_dds
     from terrain_tpu_torch.data.hdr import decode_hdr
     from terrain_tpu_torch.data.jp2 import decode_jp2
+    from terrain_tpu_torch.data.jpeg import decode_jpeg
     from terrain_tpu_torch.data.pnm import decode_pnm
     from terrain_tpu_torch.data.sun import decode_sun
     from terrain_tpu_torch.data.raster import read_raster
@@ -3047,10 +3073,17 @@ def _raster_fixtures(card):
                 hashlib.sha256(img.tobytes()).hexdigest()] == [
                     want["shape"], want["dtype"], want["sha256"]]
 
+    def exc(name):  # the digests name struct.error or a built-in class
+        return struct.error if name == "struct.error" else getattr(
+            builtins, name)
+
     decode = {"tiff": decode_tiff, "png": read_png, "bmp": decode_bmp,
               "webp": decode_webp, "pnm": decode_pnm, "tga": decode_tga,
               "jp2": decode_jp2, "pfm_pam": decode_pnm, "hdr": decode_hdr,
-              "sun": decode_sun, "dds": decode_dds}
+              "sun": decode_sun, "dds": decode_dds, "sgi": sgi.decode_sgi,
+              "pcx": pcx.decode_pcx, "qoi": qoi.decode_qoi,
+              "im": im.decode_im, "ico": ico.decode_ico,
+              "icns": icns.decode_icns, "mpo": decode_jpeg}
     strips, counts, t_all = {}, {}, 0.0
     for kind in RASTER_FIXTURE_DIRS:
         d = os.path.join(HERE, "tests", "data", kind)
@@ -3083,7 +3116,7 @@ def _raster_fixtures(card):
                     decode[kind](data)
                     fail(f"raster: {kind}/{name} decoded where imageio "
                          f"raises")
-                except getattr(builtins, want["error"]):
+                except exc(want["error"]):
                     pass
             else:
                 img = decode[kind](data)
@@ -3100,7 +3133,7 @@ def _raster_fixtures(card):
                     read_raster(path)
                     fail(f"raster: {kind}/{name} read by its path where "
                          f"imageio raises")
-                except getattr(builtins, by_path["error"]):
+                except exc(by_path["error"]):
                     pass
             elif not same(read_raster(path), by_path):
                 fail(f"raster: {kind}/{name} read by its path is not "
@@ -3109,9 +3142,11 @@ def _raster_fixtures(card):
                 strips[name] = img
             counts[kind] = counts.get(kind, 0) + 1
     print(f"raster [{card}]: {counts} fixtures (every PNG, TIFF, BMP, WebP, "
-          f"PNM, TGA, JPEG 2000, PFM, PAM, Radiance, Sun raster and DDS "
-          f"variant the port takes, an animated WebP's first frame; where "
-          f"imageio raises, the port too) decoded to imageio's shapes, "
+          f"PNM, TGA, JPEG 2000, PFM, PAM, Radiance, Sun raster, DDS, SGI, "
+          f"PCX, QOI, IM, ICO, ICNS and MPO variant the port takes, an "
+          f"animated WebP's first frame; where imageio raises, the port "
+          f"too, with imageio's exception for the last seven) decoded to "
+          f"imageio's shapes, "
           f"dtypes and "
           f"SHA-256 in {t_all:.2f} s, from their bytes and from their "
           f"paths; the refused ones refused by name", flush=True)
@@ -3513,6 +3548,134 @@ def raster_float_dds(torch, card, root, dec):
           f"Pf heights, the DXT1 tile): {wall:.1f} s in all (both decoded "
           f"again), epoch {float(row['time']):.3f} s; the first batch "
           f"equals plain slicing; launches "
+          f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
+    return got
+
+
+def _sgi_heights(np, h, w, seed):
+    """Seeded heights (h, w) uint8, each row ocean (0) for its first z_r
+    columns, then a window of a seeded run of values 1-255, and the same
+    as a run-length SGI file (bpc 1, one channel): the ocean in run
+    packets of up to 127, the land in copy packets of up to 127, rows
+    bottom-up.  Returns (bytes, heights)."""
+    import struct
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(1, 256, h + w, dtype=np.uint8)
+    zs = rng.integers(0, w // 3, h)
+    hm = np.lib.stride_tricks.sliding_window_view(base, w)[:h].copy()
+    hm[np.arange(w)[None, :] < zs[:, None]] = 0
+    land = w - zs
+    lengths = (2 * -(-zs // 127) + land // 127 * 128
+               + np.where(land % 127, land % 127 + 1, 0) + 1)[::-1]
+    starts = 512 + 8 * h + np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    head = struct.pack(">hBBHHHHll", 474, 1, 1, 2, w, h, 1, 0, 255).ljust(
+        512, b"\0")
+    out = [head, starts.astype(">u4").tobytes(),
+           lengths.astype(">u4").tobytes()]
+    for r in range(h - 1, -1, -1):  # bottom row first
+        z = int(zs[r])
+        ocean = np.zeros((-(-z // 127), 2), np.uint8)
+        ocean[:, 0] = 127
+        if z % 127:
+            ocean[-1, 0] = z % 127
+        row = hm[r, z:]
+        full, rem = divmod(w - z, 127)
+        body = np.empty(full * 128 + (rem + 1 if rem else 0) + 1, np.uint8)
+        blocks = body[:full * 128].reshape(full, 128)
+        blocks[:, 0] = 0xFF
+        blocks[:, 1:] = row[:full * 127].reshape(full, 127)
+        if rem:
+            body[full * 128] = 0x80 | rem
+            body[full * 128 + 1:-1] = row[full * 127:]
+        body[-1] = 0
+        out += [ocean.tobytes(), body.tobytes()]
+    return b"".join(out), hm
+
+
+def _qoi_texture(np, h, w, seed, group=8):
+    """A seeded RGB texture (h, w, 3) of runs of `group` pixels, and the
+    same as a QOI file of QOI_OP_RGB and QOI_OP_RUN ops (3 channels, the
+    end marker; w a multiple of `group`).  Returns (bytes, the runs'
+    colours (h, w // group, 3))."""
+    import struct
+
+    colours = np.random.default_rng(seed).integers(
+        0, 256, (h, w // group, 3), dtype=np.uint8)
+    ops = np.empty((h * w // group, 5), np.uint8)
+    ops[:, 0] = 0xFE
+    ops[:, 1:4] = colours.reshape(-1, 3)
+    ops[:, 4] = 0xC0 | (group - 2)  # the run repeats group - 1 pixels
+    return (b"qoif" + struct.pack(">II", w, h) + b"\x03\x00" + ops.tobytes()
+            + b"\0" * 7 + b"\1", colours)
+
+
+def raster_sgi_qoi(torch, card, root, dec):
+    """SGI heights and a QOI texture through the port's decoders (the
+    committed SGI, PCX, QOI, IM, ICO, ICNS and MPO fixtures are held to
+    imageio's digests with the others, _raster_fixtures): a RASTER_W x
+    RASTER_H run-length SGI of seeded heights (_sgi_heights) and a QOI
+    texture of seeded 8-pixel runs (_qoi_texture), each decoded once in
+    the decode process (s, MP/s, peak host MB) and held to its seeded
+    array; then one epoch of `TERRAIN_RASTER=<heights>.sgi,<texture>.qoi
+    TERRAIN_EPOCH_CROPS=SQ_EPOCH_CROPS test1_nobn_bilin_both train` from
+    SQ_W x SQ_H versions through cli.main: the first batch against plain
+    slicing, finite losses and the train steps' launches of every kernel.
+    Returns the epoch's counts."""
+    import numpy as np
+
+    from terrain_tpu_torch.data.qoi import decode_qoi
+    from terrain_tpu_torch.data.sgi import decode_sgi
+
+    mp = RASTER_H * RASTER_W / 1e6
+    for label, make, module, decode, repeat in (
+            ("SGI heights", _sgi_heights, "terrain_tpu_torch.data.sgi",
+             "decode_sgi", 1),
+            ("QOI texture", _qoi_texture, "terrain_tpu_torch.data.qoi",
+             "decode_qoi", 8)):
+        t0 = time.perf_counter()
+        data, plain = make(np, RASTER_H, RASTER_W, 25)
+        ext = module.rsplit(".", 1)[1]
+        path = os.path.join(root, f"{RASTER_W}x{RASTER_H}.{ext}")
+        plain_path = os.path.join(root, f"{ext}_plain.npy")
+        with open(path, "wb") as f:
+            f.write(data)
+        np.save(plain_path, plain)
+        size_mb = len(data) / 1e6
+        del data, plain
+        t_make = time.perf_counter() - t0
+        runs = dec.run(path, module, decode, lib="terrain_tpu_torch.data.tiff",
+                       plain=plain_path, repeat=repeat)
+        if not runs["equal"]:
+            fail(f"raster: the {RASTER_W}x{RASTER_H} {label} did not decode "
+                 f"to its seeded array")
+        dt = runs["times"][0]
+        print(f"raster [{card}]: a {RASTER_W}x{RASTER_H} {label} ({size_mb:.1f} "
+              f"MB, made and written in {t_make:.1f} s) decoded once in the "
+              f"decode process in {dt:.3f} s: {mp / dt:.1f} MP/s on the "
+              f"host, equal to its seeded array; peak host memory "
+              f"{runs['peak'] / 1e6:.1f} MB above the process's after "
+              f"reading the file ({runs['samples']} samples of VmRSS; the "
+              f"output {runs['out'] / 1e6:.1f} MB)", flush=True)
+        os.remove(path)
+        os.remove(plain_path)
+    data, _ = _sgi_heights(np, SQ_H, SQ_W, 26)
+    hp = os.path.join(root, "heights.sgi")
+    with open(hp, "wb") as f:
+        f.write(data)
+    hm = decode_sgi(data)
+    data, _ = _qoi_texture(np, SQ_H, SQ_W, 27)
+    tp = os.path.join(root, "texture.qoi")
+    with open(tp, "wb") as f:
+        f.write(data)
+    tex = decode_qoi(data)
+    got, wall, row = _raster_epoch(torch, np, "SGI and QOI pair", hm, tex,
+                                   [hp, tp], root, SQ_EPOCH_CROPS)
+    print(f"raster [{card}]: `TERRAIN_RASTER=<heights>.sgi,<texture>.qoi "
+          f"TERRAIN_EPOCH_CROPS={SQ_EPOCH_CROPS} {EXPERIMENT} train` "
+          f"({SQ_W}x{SQ_H} run-length SGI heights, a QOI texture): {wall:.1f} "
+          f"s in all (both decoded again), epoch {float(row['time']):.3f} s; "
+          f"the first batch equals plain slicing; launches "
           f"{ {k: got[k] for k in TRAIN_LAUNCHES} }", flush=True)
     return got
 

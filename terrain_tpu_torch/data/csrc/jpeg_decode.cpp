@@ -48,7 +48,8 @@
 
 namespace {
 
-enum Status { kOk = 0, kUnsupported = 1, kMalformed = 2 };
+// kTruncated: the file ends where libjpeg needs more (Pillow's OSError)
+enum Status { kOk = 0, kUnsupported = 1, kMalformed = 2, kTruncated = 3 };
 
 const int kNatural[64 + 16] = {  // zigzag index -> natural index
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
@@ -527,7 +528,7 @@ Error parse_from(const uint8_t* d, size_t n, size_t pos, Frame* f) {
       if (first) return make_error(kMalformed, "no SOS marker");
       std::snprintf(msg, sizeof(msg), "the file ends after scan %d without "
                     "an EOI marker", f->scans);
-      return make_error(kMalformed, msg);
+      return make_error(kTruncated, msg);
     }
     const int m = d[pos++];
     if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
@@ -536,10 +537,14 @@ Error parse_from(const uint8_t* d, size_t n, size_t pos, Frame* f) {
       f->eoi = true;
       return make_error(kOk, "");
     }
-    if (pos + 2 > n) return make_error(kMalformed, "truncated segment");
+    // Pillow reads the markers before the first scan: a cut marker length
+    // is its ValueError there, cut segment data its OSError; libjpeg reads
+    // those after it, where every cut is the OSError
+    if (pos + 2 > n)
+      return make_error(first ? kMalformed : kTruncated, "truncated segment");
     const int len = be16(d + pos);
-    if (len < 2 || pos + len > n)
-      return make_error(kMalformed, "truncated segment");
+    if (len < 2) return make_error(kMalformed, "bad segment length");
+    if (pos + len > n) return make_error(kTruncated, "truncated segment");
     const uint8_t* s = d + pos + 2;
     const int sl = len - 2;
     pos += len;
@@ -860,7 +865,17 @@ Error decode_baseline(const uint8_t* d, size_t n, Frame& f, uint8_t* out) {
     }
     return make_error(kOk, "");
   };
-  return run_rows(f, out, fill);
+  const Error e = run_rows(f, out, fill);
+  if (e.status != kOk) return e;
+  // libjpeg reads on to the EOI marker (jpeg_finish_decompress) and Pillow
+  // feeds it until then, so a file that ends first is truncated there:
+  // the rest of the scan's bytes skipped, up to a marker that is neither
+  // stuffing nor a restart
+  size_t p = br.pos;
+  while (p < n && !(d[p] == 0xFF && p + 1 < n && d[p + 1] != 0x00 &&
+                    d[p + 1] != 0xFF && (d[p + 1] < 0xD0 || d[p + 1] > 0xD7)))
+    ++p;
+  return parse_from(d, n, p, &f);
 }
 
 // ----------------------------------------------------------- progressive
@@ -1219,8 +1234,8 @@ void put_msg(const Error& e, char* msg, int64_t msg_len) {
 }  // namespace
 
 // hwc: the image's height, width and components (1 or 3).  Returns 0, 1
-// (a JPEG this decoder does not take; `msg` names its kind) or 2 (not a
-// valid JPEG; `msg` says why).
+// (a JPEG this decoder does not take; `msg` names its kind), 2 (not a
+// valid JPEG; `msg` says why) or 3 (a JPEG cut short; `msg` says where).
 extern "C" int jpeg_header(const uint8_t* data, int64_t n, int64_t* hwc,
                            char* msg, int64_t msg_len) {
   Frame* f = new Frame();

@@ -1,5 +1,6 @@
 // The byte-level decoders of terrain_tpu_torch/data/tiff.py, data/bmp.py,
-// data/tga.py, data/sun.py, data/hdr.py and data/dds.py, in host C++.
+// data/tga.py, data/sun.py, data/hdr.py, data/dds.py, data/sgi.py,
+// data/pcx.py and data/qoi.py, in host C++.
 //
 // The JAX package reads its rasters with imageio, through Pillow, which
 // decodes a compressed TIFF with libtiff and a run-length BMP with its own
@@ -27,6 +28,12 @@
 //   * bcn_decode: Pillow's BcnDecode.c for DDS blocks, BC1-BC7 (BC6H
 //     signed and unsigned), block rows at a time so data/dds.py can run
 //     them on several threads.
+//   * sgi_rle: Pillow's SgiRleDecode.c for run-length SGI rows (8- and
+//     16-bit samples, the high byte of a 16-bit one kept), a band of
+//     rows at a time so data/sgi.py can run them on several threads;
+//   * pcx_rle: Pillow's PcxDecode.c for PCX scan lines, its move of
+//     padded planes included;
+//   * qoi_decode: Pillow's QoiDecoder (QoiImagePlugin.py), op by op.
 // A 21600x10800 RGB TIFF is ~700 MB of pixels: a Python loop over it would
 // take hours, these take seconds, and tiff.py runs its strips or tiles on
 // several threads (ctypes lets go of the GIL during each call).
@@ -916,5 +923,196 @@ extern "C" int bcn_decode(const uint8_t* src, int64_t n, int fmt,
         }
       }
     }
+  return kOk;
+}
+
+// ------------------------------------------------------------------ SGI
+
+// Pillow's SgiRleDecode.c, expandrow / expandrow2 for one row of one
+// channel: `src` at the row's offset in the data after the 512-byte header
+// (`end`: its last byte), `n` the row's length field, which counts
+// packets, not bytes.  Writes every `z`-th byte of `dest` (the high byte
+// of a 16-bit sample) and sets *x to the samples written.  Returns -1
+// (Pillow: buffer overrun), 0, or 1 (the last packet the length allows
+// is not the terminator: Pillow stops decoding the image there).
+namespace {
+
+int sgi_row(uint8_t* dest, const uint8_t* src, int64_t n, int z, int bpc,
+            int64_t xsize, const uint8_t* end, int64_t* x) {
+  *x = 0;
+  for (; n > 0; n--) {
+    uint8_t pixel;
+    if (bpc == 1) {
+      if (src > end) return -1;
+      pixel = *src++;
+    } else {
+      if (src + 1 > end) return -1;
+      pixel = src[1];
+      src += 2;
+    }
+    if (n == 1 && pixel != 0) return 1;
+    int count = pixel & 0x7f;
+    if (!count) return 0;
+    if (*x + count > xsize) return -1;
+    *x += count;
+    if (pixel & 0x80) {
+      if (src + bpc * count > end) return -1;
+      for (; count > 0; --count, dest += z) {
+        *dest = *src;
+        src += bpc;
+      }
+    } else {
+      if (src + (bpc - 1) > end) return -1;
+      for (; count > 0; --count, dest += z) *dest = *src;
+      src += bpc;
+    }
+  }
+  return 0;
+}
+
+}  // namespace
+
+// Rows row0..row1 of the tables (row 0 is the image's bottom row) of a
+// run-length SGI: `data` the bufsize bytes after the header, `starts` and
+// `lengths` its tables (ysize x z each, channel-major, as stored).  Writes
+// image row ysize - 1 - r of `out` (ysize x xsize x z, top-down) and, for
+// each row and channel, the samples written (`ends`) and sgi_row's status
+// (`status`).  A row that stops short keeps, in Pillow, the samples the
+// row before left in its buffer: data/sgi.py fills those in afterwards,
+// row by row.
+extern "C" int sgi_rle(const uint8_t* data, int64_t bufsize,
+                       const int64_t* starts, const int64_t* lengths,
+                       int64_t xsize, int64_t ysize, int z, int bpc,
+                       int64_t row0, int64_t row1, uint8_t* out,
+                       int64_t* ends, int8_t* status) {
+  const uint8_t* end = data + bufsize - 1;
+  for (int64_t r = row0; r < row1; ++r) {
+    uint8_t* row = out + (ysize - 1 - r) * xsize * z;
+    for (int c = 0; c < z; ++c) {
+      const int64_t off = starts[r + c * ysize], len = lengths[r + c * ysize];
+      int8_t& st = status[r * z + c];
+      ends[r * z + c] = 0;
+      if (off < 512) {
+        st = -1;
+        continue;
+      }
+      st = static_cast<int8_t>(sgi_row(row + c, data + off - 512, len, z,
+                                       bpc, xsize, end, &ends[r * z + c]));
+    }
+  }
+  return kOk;
+}
+
+// ------------------------------------------------------------------ PCX
+
+// Pillow's PcxDecode.c: `src` (n bytes after the 128-byte header) ->
+// `out`, height scan lines of `bytes` bytes (planes x stride), each as
+// Pillow hands it to its unpacker, whose sample size is `bits` (1, 8 or
+// 24; 2 or 4 for 1-bit planes): where a plane's stride exceeds what the
+// unpacker reads of it, the planes after the first are moved to follow
+// one another.  A run (0xC0 | count, value) may not cross the end of a
+// line.  Returns kMalformed where the data ends first ("truncated") or a
+// run crosses a line ("overrun").
+extern "C" int pcx_rle(const uint8_t* src, int64_t n, int64_t bytes,
+                       int64_t width, int bits, int64_t height, uint8_t* out,
+                       char* msg, int64_t msg_len) {
+  int64_t xsize, bands, stride = 0;
+  if (bits == 2 || bits == 4) {
+    xsize = (width + 7) / 8;
+    bands = bits;
+    stride = bytes / bits;
+  } else {
+    xsize = width;
+    bands = bytes / width;
+    if (bands) stride = bytes / bands;
+  }
+  std::vector<uint8_t> line(bytes);
+  int64_t p = 0, x = 0;
+  bool overrun = false;
+  for (int64_t y = 0; y < height;) {
+    if (p >= n)
+      return fail(kMalformed, msg, msg_len, "the image data is truncated");
+    if ((src[p] & 0xC0) == 0xC0) {
+      if (p + 2 > n)
+        return fail(kMalformed, msg, msg_len, "the image data is truncated");
+      for (int k = src[p] & 0x3F; k > 0; --k) {
+        if (x >= bytes) {
+          overrun = true;
+          break;
+        }
+        line[x++] = src[p + 1];
+      }
+      p += 2;
+    } else {
+      line[x++] = src[p++];
+    }
+    if (x >= bytes) {
+      if (stride > xsize)
+        for (int64_t i = 1; i < bands; ++i)
+          std::memmove(&line[i * xsize], &line[i * stride], xsize);
+      std::memcpy(out + y * bytes, line.data(), bytes);
+      x = 0;
+      ++y;
+    }
+  }
+  if (overrun)
+    return fail(kMalformed, msg, msg_len, "a run crosses a scan line");
+  return kOk;
+}
+
+// ------------------------------------------------------------------ QOI
+
+// Pillow's QoiDecoder: the ops after the 14-byte header -> `out`, w x h
+// pixels of `bands` (3 or 4) bytes.  The previous pixel starts at
+// (0, 0, 0, 255); a run repeats it and enters nothing in the index; an
+// index entry never set is (0, 0, 0, 0); a run may overshoot the last
+// pixel (the rest is dropped) and whatever follows is ignored.  Returns
+// 3 where the data ends at an op or inside QOI_OP_LUMA (Pillow:
+// IndexError), kMalformed where it ends inside QOI_OP_RGB or QOI_OP_RGBA
+// (ValueError).
+extern "C" int qoi_decode(const uint8_t* src, int64_t n, int64_t pixels,
+                          int bands, uint8_t* out, char* msg,
+                          int64_t msg_len) {
+  uint8_t index[64][4] = {};
+  uint8_t prev[4] = {0, 0, 0, 255};
+  const int64_t total = pixels * bands;
+  int64_t p = 0, o = 0;
+  while (o < total) {
+    if (p >= n) return fail(3, msg, msg_len, "the ops end early");
+    const uint8_t b = src[p++];
+    uint8_t v[4];
+    if (b == 0xFE || b == 0xFF) {
+      const int k = b == 0xFE ? 3 : 4;
+      if (p + k > n)
+        return fail(kMalformed, msg, msg_len, "a pixel op is cut short");
+      std::memcpy(v, src + p, k);
+      if (k == 3) v[3] = prev[3];
+      p += k;
+    } else if ((b >> 6) == 0) {
+      std::memcpy(v, index[b & 63], 4);
+    } else if ((b >> 6) == 1) {
+      v[0] = static_cast<uint8_t>(prev[0] + ((b >> 4) & 3) - 2);
+      v[1] = static_cast<uint8_t>(prev[1] + ((b >> 2) & 3) - 2);
+      v[2] = static_cast<uint8_t>(prev[2] + (b & 3) - 2);
+      v[3] = prev[3];
+    } else if ((b >> 6) == 2) {
+      if (p >= n) return fail(3, msg, msg_len, "a luma op is cut short");
+      const uint8_t b2 = src[p++];
+      const int dg = (b & 63) - 32;
+      v[0] = static_cast<uint8_t>(prev[0] + dg + ((b2 >> 4) - 8));
+      v[1] = static_cast<uint8_t>(prev[1] + dg);
+      v[2] = static_cast<uint8_t>(prev[2] + dg + ((b2 & 15) - 8));
+      v[3] = prev[3];
+    } else {
+      for (int k = (b & 63) + 1; k > 0 && o < total; --k, o += bands)
+        std::memcpy(out + o, prev, bands);
+      continue;
+    }
+    std::memcpy(prev, v, 4);
+    std::memcpy(index[(v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64], v,
+                4);
+    std::memcpy(out + o, v, bands);
+    o += bands;
+  }
   return kOk;
 }

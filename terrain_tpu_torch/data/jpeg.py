@@ -18,7 +18,10 @@ progressive image holds all its coefficients while it decodes (128 bytes a
 block: ~700 MB for a 21600x10800 4:2:0 texture, beside the output).  Any
 other kind (lossless, arithmetic-coded, 12-bit, CMYK or RGB-coded, or
 sequential of several scans) raises NotImplementedError naming it; a
-damaged file raises ValueError.
+damaged file raises ValueError, and one cut short where imageio raises
+OSError (in a segment's data, or anywhere after the first scan begins)
+raises `Truncated`, both an OSError and a ValueError.  A file of fewer
+than 3 bytes fails as imageio fails on it (data/pillow_open.py).
 """
 
 import ctypes
@@ -26,6 +29,8 @@ import functools
 import os
 
 import numpy as np
+
+from terrain_tpu_torch.data import pillow_open
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                     "jpeg_decode.cpp")
@@ -45,17 +50,22 @@ def _lib():
     return lib
 
 
+class Truncated(OSError, ValueError):
+    """A JPEG cut short: Pillow's OSError there, and a damaged file."""
+
+
 def _raise(rc, msg):
     text = msg.value.decode(errors="replace")
     if rc == 1:
         raise NotImplementedError(f"JPEG: {text}")
-    raise ValueError(f"JPEG: {text}")
+    raise (Truncated if rc == 3 else ValueError)(f"JPEG: {text}")
 
 
 def read_header(buf):
     """(height, width, components) of a JPEG the decoder takes; raises
     as `decode_jpeg` does for any other."""
     buf = bytes(buf)
+    pillow_open.check_tiny(buf, 3)
     hwc = np.zeros(3, np.int64)
     msg = ctypes.create_string_buffer(_MSG)
     rc = _lib().jpeg_header(buf, len(buf), hwc.ctypes.data, msg, _MSG)

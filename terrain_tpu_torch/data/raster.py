@@ -28,6 +28,17 @@ then OpenCV; bytes through Pillow where it opens them, else OpenCV):
                         a *.sr path)
   DDS   data/dds.py     uncompressed, luminance, palette, BC1-BC7 (DXT1/3/5,
                         ATI1/2, BC5S, BC6H UF16 and SF16), the DX10 header
+  SGI   data/sgi.py     *.sgi, *.rgb, *.rgba, *.bw: raw and run-length, 8-
+                        and 16-bit samples (the high byte), 1, 3, 4 channels
+  PCX   data/pcx.py     1-bit in 1, 2 or 4 planes, 8-bit gray or palette, RGB
+  QOI   data/qoi.py     3 and 4 channels, every op (Pillow's decoder)
+  IM    data/im.py      IFUNC Image Memory: Pillow's table of image types, Lut
+                        palettes, the first frame; no magic (sniffed last)
+  ICO   data/ico.py     the entry Pillow picks: PNG, or a DIB with its alpha
+                        or AND mask
+  ICNS  data/icns.py    the largest entry: PNG, JPEG 2000, it32/ih32/il32/
+                        is32 runs with their 8-bit masks
+  MPO   data/jpeg.py    its first frame, a JPEG
 GIF is refused by name: imageio gives it a frame axis that the JAX
 package's crop iterator does not take, so terrain_tpu cannot train from
 one either (serve/gif.py writes and reads the port's clips, not rasters).
@@ -40,7 +51,8 @@ styles, subsampling, palettes, sYCC)."""
 
 import os
 
-from terrain_tpu_torch.data import cvread, dds, hdr, jp2, pnm, sun, tga
+from terrain_tpu_torch.data import (cvread, dds, hdr, icns, ico, im, jp2,
+                                    pcx, pnm, qoi, sgi, sun, tga)
 from terrain_tpu_torch.data.bmp import decode_bmp
 from terrain_tpu_torch.data.bmp import read_header as bmp_header
 from terrain_tpu_torch.data.jpeg import decode_jpeg
@@ -62,24 +74,41 @@ _EXT = {".png": "PNG", ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG",
         **{ext: "TGA" for ext in tga.EXTENSIONS},
         **{ext: "HDR" for ext in hdr.EXTENSIONS},
         **{ext: "Sun raster" for ext in sun.EXTENSIONS},
-        **{ext: "DDS" for ext in dds.EXTENSIONS}}
+        **{ext: "DDS" for ext in dds.EXTENSIONS},
+        **{ext: "SGI" for ext in sgi.EXTENSIONS},
+        **{ext: "PCX" for ext in pcx.EXTENSIONS},
+        **{ext: "QOI" for ext in qoi.EXTENSIONS},
+        **{ext: "IM" for ext in im.EXTENSIONS},
+        **{ext: "ICO" for ext in ico.EXTENSIONS},
+        **{ext: "ICNS" for ext in icns.EXTENSIONS},
+        ".mpo": "JPEG"}  # an MPO's first frame is a JPEG
 _MAGIC = ((b"\x89PNG\r\n\x1a\n", "PNG"), (b"\xff\xd8\xff", "JPEG"),
           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"),
           (b"MM\x00+", "TIFF"), (b"GIF8", "GIF"), (b"BM", "BMP"),
           *((m, "JPEG 2000") for m in jp2.MAGICS),
           *((m, "HDR") for m in hdr.MAGICS), (sun.MAGIC, "Sun raster"),
-          (dds.MAGIC, "DDS"), *((m, "PNM") for m in _PNM))
+          (dds.MAGIC, "DDS"), *((m, "PNM") for m in _PNM),
+          (qoi.MAGIC, "QOI"), (ico.MAGIC, "ICO"), (icns.MAGIC, "ICNS"),
+          *((b"\x0a" + bytes([v]), "PCX") for v in (0, 2, 3, 5)),
+          (sgi.MAGIC, "SGI"))
 _REFUSED = {
     "GIF": "imageio gives a GIF a frame axis, (1, H, W) or (1, H, W, 3), "
            "which terrain_tpu's crop iterator refuses, so neither package "
            "trains from one: convert it to PNG",
 }
 _DECODED = ("PNG", "JPEG", "TIFF", "BMP", "WebP", "PNM", "TGA", "JPEG 2000",
-            "HDR", "Sun raster", "DDS")
+            "HDR", "Sun raster", "DDS", "SGI", "PCX", "QOI", "IM", "ICO",
+            "ICNS")
 _DECODERS = {"JPEG": decode_jpeg, "BMP": decode_bmp, "PNG": read_png,
              "WebP": decode_webp, "TGA": tga.decode_tga,
              "JPEG 2000": jp2.decode_jp2, "HDR": hdr.decode_hdr,
-             "DDS": dds.decode_dds}
+             "DDS": dds.decode_dds, "SGI": sgi.decode_sgi,
+             "QOI": qoi.decode_qoi, "ICNS": icns.decode_icns}
+# decoders that read a path otherwise than bytes (a file's seek before its
+# start fails; imageio offers an IM Pillow does not identify to every
+# plugin)
+_PATH_DECODERS = {"PCX": pcx.decode_pcx, "ICO": ico.decode_ico,
+                  "IM": im.decode_im}
 
 
 def _refuse_unless_decoded(path, fmt):
@@ -88,9 +117,10 @@ def _refuse_unless_decoded(path, fmt):
             f"TERRAIN_RASTER: {path} is {fmt}; {_REFUSED[fmt]}")
     if fmt not in _DECODED:
         raise NotImplementedError(
-            f"TERRAIN_RASTER: {path} is {fmt}; the port decodes PNG, JPEG, "
-            f"TIFF, BMP, WebP, PNM (PFM, PAM), TGA, JPEG 2000, Radiance "
-            f"HDR, Sun raster and DDS rasters, with its own codecs")
+            f"TERRAIN_RASTER: {path} is {fmt}; the port decodes PNG, JPEG "
+            f"(MPO), TIFF, BMP, WebP, PNM (PFM, PAM), TGA, JPEG 2000, "
+            f"Radiance HDR, Sun raster, DDS, SGI, PCX, QOI, IM, ICO and "
+            f"ICNS rasters, with its own codecs")
 
 
 def _sniff(head):
@@ -98,7 +128,7 @@ def _sniff(head):
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return "WebP"
     return next((name for magic, name in _MAGIC if head.startswith(magic)),
-                None)
+                "IM" if im.sniff(head) else None)
 
 
 def format_by_name(path):
@@ -111,11 +141,12 @@ def format_by_name(path):
 
 def format_of(path):
     """The raster format of `path` by its name, then by its first bytes (a
-    TGA, which has no magic, by its name alone); NotImplementedError unless
-    the port decodes it."""
+    TGA, which has no magic, by its name alone; IM, which has none either,
+    by a first header line of Pillow's, after every format with a magic);
+    NotImplementedError unless the port decodes it."""
     by_name = format_by_name(path)
     with open(path, "rb") as f:
-        head = f.read(16)
+        head = f.read(100)
     fmt = _sniff(head) or ("TGA" if by_name == "TGA"
                            else "of an unknown format")
     _refuse_unless_decoded(path, fmt)
@@ -132,10 +163,11 @@ def format_of(path):
 def check_header(path, fmt):
     """Raise NotImplementedError where the header of `path` (a TIFF's first
     IFD, a BMP's headers, a WebP's chunks, a PNM's magic or PAM header, a
-    JPEG 2000 file's boxes and main header) names a variant the port does
-    not decode, before any pixel is decoded; ValueError where it is
-    damaged (a Radiance, Sun raster or DDS header that imageio's reader
-    fails on)."""
+    JPEG 2000 file's boxes and main header, an IM's text header, an ICO's
+    directory and chosen entry's header, an ICNS's blocks) names a variant
+    the port does not decode, before any pixel is decoded; where it is
+    damaged, what imageio raises there (ValueError for a Radiance, Sun
+    raster or DDS header)."""
     if fmt == "TIFF":
         tiff_header(path)
         return
@@ -158,6 +190,18 @@ def check_header(path, fmt):
             sun.check_kind(path, f.read(32))
         elif fmt == "DDS":
             dds.read_header(f.read(148))
+        elif fmt == "SGI":
+            sgi.read_header(f.read(512))
+        elif fmt == "PCX":
+            pcx.read_header(f.read(128))
+        elif fmt == "QOI":
+            qoi.read_header(f.read(14))
+        elif fmt == "IM":
+            im.read_header(f.read(1 << 20), True)  # the header, its Lut
+        elif fmt == "ICO":
+            ico.check_header(f.read())
+        elif fmt == "ICNS":
+            icns.check_header(f.read())
 
 
 def read_raster(path, fmt=None):
@@ -175,4 +219,7 @@ def read_raster(path, fmt=None):
     if fmt == "Sun raster":
         return sun.read_sun(path)
     with open(path, "rb") as f:
-        return _DECODERS[fmt](f.read())
+        buf = f.read()
+    if fmt in _PATH_DECODERS:
+        return _PATH_DECODERS[fmt](buf, from_path=True)
+    return _DECODERS[fmt](buf)

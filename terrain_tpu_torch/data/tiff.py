@@ -127,6 +127,21 @@ def _lib():
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_char_p, ctypes.c_int64]
     lib.bcn_decode.restype = ctypes.c_int
+    lib.sgi_rle.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.sgi_rle.restype = ctypes.c_int
+    lib.pcx_rle.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p,
+        ctypes.c_int64]
+    lib.pcx_rle.restype = ctypes.c_int
+    lib.qoi_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+    lib.qoi_decode.restype = ctypes.c_int
     return lib
 
 

@@ -20,9 +20,10 @@ Environment, as in terrain_tpu:
   TERRAIN_RASTER     "heightmap.png,texture.jpg" -> random crops cut on the
                      fly from one raster pair (data/crops.py); before the
                      synthetic and h5 sources, TERRAIN_FAST ignored.  PNG,
-                     JPEG, TIFF, BMP, WebP, PNM (PFM, PAM), TGA, JPEG
-                     2000, Radiance HDR, Sun raster or DDS, decoded by the
-                     port's own codecs (data/raster.py); GIF and
+                     JPEG (MPO), TIFF, BMP, WebP, PNM (PFM, PAM), TGA,
+                     JPEG 2000, Radiance HDR, Sun raster, DDS, SGI, PCX,
+                     QOI, IM, ICO or ICNS, decoded by the port's own
+                     codecs (data/raster.py); GIF and
                      the kinds a codec does not take (lossless or
                      arithmetic-coded JPEG, a JPEG 2000 POC, ...) raise
   TERRAIN_EPOCH_CROPS  crops per train epoch of TERRAIN_RASTER (default
@@ -337,8 +338,9 @@ def get_device_datasets(dataset, is_a_grayscale, is_b_grayscale, device=None):
 
 def read_raster_pair(value):
     """TERRAIN_RASTER="heightmap.png,texture.jpg" -> (heightmap, texture),
-    each a PNG, JPEG, TIFF, BMP, WebP, PNM (PFM, PAM), TGA, JPEG 2000,
-    Radiance HDR, Sun raster or DDS decoded by the port's codecs
+    each a PNG, JPEG (MPO), TIFF, BMP, WebP, PNM (PFM, PAM), TGA, JPEG
+    2000, Radiance HDR, Sun raster, DDS, SGI, PCX, QOI, IM, ICO or ICNS
+    decoded by the port's codecs
     (data/raster.py) to imageio's array, then taken as
     terrain_tpu/experiments.py:111-114 takes it: the heightmap's first
     channel where it has channels (a WebP always has three), the

@@ -7,7 +7,10 @@ default (smooth terrain compresses well under it) or any per-row choice of
 the five filter types; filtering reads only the unfiltered image, so numpy
 vectorizes it.  `decode_png` reads any PNG: every colour type and
 bit depth, Adam7 interlaced or not, palettes through PLTE; `read_png` gives
-what `imageio.v3.imread` gives for it (Pillow's modes).  Undoing the Average and Paeth filters is sequential
+what `imageio.v3.imread` gives for it (Pillow's modes), and a file cut or
+damaged in its image data decodes or raises as Pillow's does (`_inflate`;
+`check_open` holds Pillow's errors before the data, which icons raise).
+Undoing the Average and Paeth filters is sequential
 along a row, so it runs in host C++ (csrc/png_unfilter.cpp, built at
 first use with the host compiler; without one decoding raises).
 `unfilter_reference` is the same work one byte at a time in Python, the
@@ -17,6 +20,7 @@ plain version the tests hold the C++ against.
 import ctypes
 import functools
 import os
+import re
 import struct
 import zlib
 
@@ -210,19 +214,96 @@ def _samples(raw, w, h, depth, c):
 
 
 def _chunks(buf):
-    """(IDAT bytes joined, PLTE bytes or None) of a PNG."""
-    pos, idat, plte = 8, [], None
+    """(IDAT bytes joined, PLTE bytes or None, [(end of each IDAT's data in
+    the joined bytes, its end in `buf` as its length field says)])."""
+    pos, idat, plte, ends, joined = 8, [], None, [], 0
     while pos + 8 <= len(buf):
         (n,) = struct.unpack(">I", buf[pos:pos + 4])
         tag = buf[pos + 4:pos + 8]
         if tag == b"IDAT":
             idat.append(buf[pos + 8:pos + 8 + n])
+            joined += len(idat[-1])
+            ends.append((joined, pos + 8 + n))
         elif tag == b"PLTE":
             plte = bytes(buf[pos + 8:pos + 8 + n])
         elif tag == b"IEND":
             break
         pos += 12 + n
-    return b"".join(idat), plte
+    return b"".join(idat), plte, ends
+
+
+def _is_chunk_type(tag):
+    return re.fullmatch(rb"\w{4}", tag) is not None
+
+
+def _truncated(buf, ends):
+    """What Pillow raises where the IDATs end before the rows: SyntaxError
+    where 4 to 7 bytes of the next chunk's header, or one naming no chunk
+    type, follow the last IDAT and its CRC, OSError otherwise."""
+    head = buf[ends[-1][1] + 4:ends[-1][1] + 12] if ends else b""
+    if len(head) >= 4 and not _is_chunk_type(head[4:]):
+        return SyntaxError("PNG: a chunk header after the image data is cut "
+                           "short or broken")
+    return OSError("PNG: image file is truncated")
+
+
+def _rows_chunk(data, ends, rows):
+    """The IDAT (its index in `ends`) in which Pillow's decoder fills the
+    rows [(bytes of a row, filter included, count)], or None.  Pillow feeds
+    it each IDAT's data in blocks of up to 64 KiB, and it inflates one row
+    at a time while its block lasts, even where zlib holds the next row
+    already."""
+    d, start = zlib.decompressobj(), 0
+    sizes = (size for size, count in rows for _ in range(count))
+    left = next(sizes)
+    for j, (end, _) in enumerate(ends):
+        for b in range(start, end, 1 << 16):
+            tail = data[b:min(b + (1 << 16), end)]
+            while tail:
+                left -= len(d.decompress(tail, left))
+                tail = d.unconsumed_tail
+                if not left:
+                    left = next(sizes, 0)
+                    if not left:
+                        return j
+        start = end
+    return None
+
+
+def _inflate(buf, rows):
+    """(the bytes the IDATs of PNG bytes `buf` inflate to for the rows
+    [(bytes of a row, filter included, count)], its PLTE bytes or None), as
+    Pillow's PngImageFile.load takes them.  Its decoder stops once the rows
+    are filled: a stream cut or damaged after them still gives the image,
+    but every later chunk up to IEND whose header is whole must hold its
+    data (OSError).  Data that ends or breaks before the rows raises as
+    `_truncated` says, or OSError."""
+    data, plte, ends = _chunks(buf)
+    need = sum(size * count for size, count in rows)
+    try:
+        raw = zlib.decompressobj().decompress(data, need)
+    except zlib.error as e:
+        raise OSError(f"PNG: broken data stream ({e})") from e
+    if len(raw) < need:
+        raise _truncated(buf, ends)
+    # the walk below may start at any IDAT from the one that fills the rows
+    # on while the IDATs are whole; where the last is cut, at that one
+    j = len(ends) - 1
+    if ends[j][1] > len(buf):
+        j = _rows_chunk(data, ends, rows)
+        if j is None:
+            raise _truncated(buf, ends)
+    pos = ends[j][1] + 4  # past its CRC
+    while True:  # Pillow's load_end
+        head = buf[pos:pos + 8]
+        if len(head) < 8 or not _is_chunk_type(head[4:]) or \
+                head[4:] == b"IEND":
+            return raw, plte
+        (n,) = struct.unpack(">I", head[:4])
+        if len(buf) < pos + 8 + n:
+            raise OSError("PNG: a chunk after the image data is cut short "
+                          "(Truncated File Read)")
+        pos += 12 + n
 
 
 def decode_samples(buf):
@@ -235,21 +316,25 @@ def decode_samples(buf):
             interlace not in (0, 1):
         raise ValueError(f"unsupported PNG: depth {depth}, colour type "
                          f"{ctype}, interlace {interlace}")
-    data, plte = _chunks(buf)
     c = 1 if ctype == 3 else _CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(data), np.uint8)
+    # (x0, y0, dx, dy, width, height) of each pass that holds pixels (an
+    # empty pass has no bytes, not even filters)
+    passes = [(x0, y0, dx, dy, -(-(w - x0) // dx), -(-(h - y0) // dy))
+              for x0, y0, dx, dy in (_ADAM7 if interlace else
+                                     ((0, 0, 1, 1),))]
+    passes = [p for p in passes if p[4] > 0 and p[5] > 0]
+    rows = [(1 + -(-pw * c * depth // 8), ph) for *_, pw, ph in passes]
+    raw, plte = _inflate(buf, rows)
+    raw = np.frombuffer(raw, np.uint8)
     if not interlace:
         img = _samples(raw, w, h, depth, c)
     else:
         img = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
         at = 0
-        for x0, y0, dx, dy in _ADAM7:
-            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
-            if pw <= 0 or ph <= 0:
-                continue  # an empty pass has no bytes, not even filters
-            n = ph * (1 + -(-pw * c * depth // 8))
-            img[y0::dy, x0::dx] = _samples(raw[at:at + n], pw, ph, depth, c)
-            at += n
+        for (x0, y0, dx, dy, pw, ph), (size, _) in zip(passes, rows):
+            img[y0::dy, x0::dx] = _samples(raw[at:at + size * ph], pw, ph,
+                                           depth, c)
+            at += size * ph
     palette = None
     if ctype == 3:
         if plte is None or len(plte) % 3:
@@ -278,6 +363,24 @@ def pillow_bool(v):
     comparisons and casts see True either way)."""
     return np.where(np.asarray(v) != 0, np.uint8(255), np.uint8(0)).view(
         bool)
+
+
+def check_open(buf):
+    """Raise what Pillow's PngImageFile raises while it opens PNG bytes (the
+    chunks up to the first IDAT): SyntaxError where a chunk header or
+    checksum is cut short, OSError where a chunk's data is."""
+    p = 8
+    while True:
+        if len(buf) < p + 8:
+            raise SyntaxError("PNG: a chunk header is cut short")
+        (n,) = struct.unpack(">I", buf[p:p + 4])
+        if buf[p + 4:p + 8] == b"IDAT":
+            return
+        if len(buf) < p + 8 + n:
+            raise OSError("PNG: a chunk is cut short (Truncated File Read)")
+        if len(buf) < p + 12 + n:
+            raise SyntaxError("PNG: a checksum is cut short")
+        p += 12 + n
 
 
 def read_png(buf):

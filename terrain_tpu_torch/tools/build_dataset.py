@@ -1,9 +1,10 @@
 """Builds the paired dataset offline (tools/build_dataset.py's port, the
 script form of the reference's notebooks/prototype_cropping_code.ipynb):
 the same arguments, filter, split and subsets, and the same arrays, with
-the port's own raster decoders (data/raster.py: PNG, JPEG, TIFF, BMP,
-WebP, PNM with PFM and PAM, TGA, JPEG 2000, Radiance HDR, Sun raster, DDS)
-and h5 writer (data/h5.py), so it needs neither imageio nor h5py.
+the port's own raster decoders (data/raster.py: PNG, JPEG with MPO, TIFF,
+BMP, WebP, PNM with PFM and PAM, TGA, JPEG 2000, Radiance HDR, Sun raster,
+DDS, SGI, PCX, QOI, IM, ICO, ICNS) and h5 writer (data/h5.py), so it
+needs neither imageio nor h5py.
 
 Pipeline (notebook cells 11-19, 27-48):
   1. load the NASA Visible Earth raster pair -- gebco_08_rev_elev heightmap

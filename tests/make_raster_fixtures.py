@@ -1,7 +1,7 @@
 """Write the PNG, TIFF, BMP, WebP, PNM, TGA, JPEG 2000, PFM/PAM, Radiance
-HDR, Sun raster and DDS fixtures of
-tests/data/{png,tiff,bmp,webp,pnm,tga,jp2,pfm_pam,hdr,sun,dds}/ and their
-digests.
+HDR, Sun raster, DDS, SGI, PCX, QOI, IM, ICO, ICNS and MPO fixtures of
+tests/data/{png,tiff,bmp,webp,pnm,tga,jp2,pfm_pam,hdr,sun,dds,sgi,pcx,qoi,
+im,ico,icns,mpo}/ and their digests.
 
     python tests/make_raster_fixtures.py [directory]   # default tests/data
 
@@ -47,6 +47,11 @@ predictor, no RLE BMP) and, where Pillow writes the kind, by Pillow:
   sun/   Sun rasters at *.ras and *.sr names (sun_fixtures)
   dds/   Pillow's DDS files, random BC1-BC7 blocks, masks, palettes, and
          two 1024x1024 tiles for chip_smoke.py (dds_fixtures)
+  sgi/ pcx/ qoi/ im/ ico/ icns/ mpo/   Pillow's files of each and the
+         script's for what Pillow does not write (sgi_fixtures ...
+         mpo_fixtures: run-length SGI, PCX bit planes, every QOI op, the
+         rest of Pillow's IM table, DIB icons, icns runs and JPEG 2000
+         entries), damaged ones included
 Each directory's digests.json holds, for each file, its size, the shape,
 dtype and SHA-256 of the array imageio.v3.imread decodes from its bytes
 (through Pillow; where Pillow raises OSError -- a truncated read, or a
@@ -61,7 +66,9 @@ its path only) the words the port's refusal names a file by, and under
 versions.  For a PNM, PFM/PAM, HDR, Sun or DDS file (CHOICE_KINDS) the
 bytes and the path are both read by imageio's own choice of plugin, and
 "reader" names it ("pillow" or "opencv"); "error" there is ValueError
-wherever imageio raises.  The committed PNG that
+wherever imageio raises; for the kinds of NATIVE_KINDS "error" is the
+exception imageio raises there (its nearest built-in class, or
+struct.error), which the port raises too.  The committed PNG that
 no script writes (terrain_48x40_rgb_5filters.png) keeps its entry.
 Pillow and imageio are needed here, not on the card: chip_smoke.py holds
 the port's decoders to the committed digests, and the port's tests re-run
@@ -632,6 +639,11 @@ def tiff_kinds(tex):
 
 # the fixtures the port refuses by name, with the words it names them by
 REFUSED = {"pillow_jpeg_refused.tif": "compression 7 (JPEG)",
+           "width2_refused.qoi": "a width of 1 or 2",
+           "lstar12_refused.im": "the 12-bit samples",
+           "dib_top_down_refused.ico": "top-down",
+           "rle_stops_at_a_row_refused.sgi": "stops the decode there",
+           "ih32_runs_no_mask_refused.icns": "in runs with no mask",
            "pyp_refused.pgm": "PyP",
            "pam_gray_alpha_refused.pam": "tuple type GRAYSCALE_ALPHA",
            "cv_pam_rgb_alpha_8.pam": "tuple type RGB_ALPHA",
@@ -648,12 +660,18 @@ REFUSED = {"pillow_jpeg_refused.tif": "compression 7 (JPEG)",
            "refused_sycc.jp2": "sYCC colour"}
 # refused at their path only (the bytes decode through Pillow)
 PATH_REFUSED = {"gray_at_pbm_path_refused.pbm": "a *.pbm path holding P5",
-                "p5_at_pfm_path_refused.pfm": "a *.pfm path holding P5"}
+                "p5_at_pfm_path_refused.pfm": "a *.pfm path holding P5",
+                "cut_lut.im": "SPE's among them",
+                "no_known_key.im": "of an unknown format"}
 # the kinds whose decoders raise ValueError wherever imageio fails
 VALUE_ERROR_KINDS = ("webp", "pnm", "tga", "jp2")
 # kinds whose bytes and paths are digested through imageio's own choice of
 # plugin (Pillow, or OpenCV where Pillow cannot open them), recorded
 CHOICE_KINDS = ("pnm", "pfm_pam", "hdr", "sun", "dds")
+# kinds digested the same way, where "error" names the exception imageio
+# raises (the nearest built-in class, or struct.error), which the port's
+# decoders raise too
+NATIVE_KINDS = ("sgi", "pcx", "qoi", "im", "ico", "icns", "mpo")
 
 
 def strip_heights(h, w, seed=5):
@@ -1913,6 +1931,636 @@ def dds_fixtures():
     return out
 
 
+# -------------------------------------------------------------------- SGI
+def _sgi_rle_row(v, bpc, rnd=None):
+    """One row of SGI run-length packets (runs of 3 or more repeated,
+    literal runs otherwise, at most 127 samples a packet) and the
+    terminator; 16-bit samples as big-endian words."""
+    out, i, n = bytearray(), 0, len(v)
+    word = (lambda x: bytes([int(x)])) if bpc == 1 else \
+        (lambda x: struct.pack(">H", int(x)))
+    while i < n:
+        j = i
+        while j < n and v[j] == v[i] and j - i < 127:
+            j += 1
+        if j - i >= 3:
+            out += word(j - i) + word(v[i])
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 127 and not (j + 2 < n and v[j] == v[j + 1]
+                                             == v[j + 2]):
+            j += 1
+        out += word(0x80 | (j - i)) + b"".join(word(x) for x in v[i:j])
+        i = j
+    return bytes(out + word(0))
+
+
+def _packets(row):
+    """The 8-bit SGI packets of a row, the terminator included."""
+    i = 0
+    while i < len(row):
+        n = row[i] & 0x7F
+        yield row[i:i + 1 + (n if row[i] & 0x80 else min(n, 1))]
+        if not n:
+            return
+        i += 1 + (n if row[i] & 0x80 else 1)
+
+
+def sgi_bytes(planes, bpc=1, storage=0, rows=None, dim=None, tail=b""):
+    """An SGI file of planes (z, h, w) (uint8, or uint16 for bpc 2): storage
+    0 planes bottom-up, or 1 with `rows` (z * h, channel-major, bottom row
+    first; default _sgi_rle_row of each) behind the offset and length
+    tables: a row's packets, (packets, length field), or (offset, length
+    field) of data elsewhere."""
+    z, h, w = planes.shape
+    dim = dim or (3 if z > 1 else (1 if h == 1 else 2))
+    head = struct.pack(">hBBHHHHll", 474, storage, bpc, dim, w, h, z, 0,
+                       255 if bpc == 1 else 65535).ljust(512, b"\0")
+    flip = planes[:, ::-1]
+    if storage != 1:
+        dt = ">u2" if bpc == 2 else "u1"
+        return head + flip.astype(dt).tobytes() + tail
+    rows = rows or [_sgi_rle_row(flip[c, r].tolist(), bpc)
+                    for c in range(z) for r in range(h)]
+    at, body, starts, lengths = 512 + 8 * z * h, b"", [], []
+    for row in rows:
+        row, length = row if isinstance(row, tuple) else (row, len(row))
+        if isinstance(row, int):
+            starts.append(row)
+        else:
+            starts.append(at + len(body))
+            body += row
+        lengths.append(length)
+    return (head + struct.pack(f">{z * h}I", *starts)
+            + struct.pack(f">{z * h}I", *lengths) + body + tail)
+
+
+def sgi_fixtures():
+    """SGI files, by Pillow (uncompressed, 8 and 16 bits, at each of the
+    four names) and by the script (run-length rows: 8 and 16 bits, 1, 3
+    and 4 channels, rows that share data, rows that end early, a length
+    field that counts packets, one that stops Pillow's decode (refused:
+    the rows it leaves unwritten are not defined), overruns, cuts)."""
+    from PIL import Image
+
+    tex = terrain(11, 13, 101, 4)
+    out = {"pillow_gray.sgi": _pillow(Image.fromarray(tex[..., 0]), "SGI"),
+           "pillow_rgb.rgb": _pillow(Image.fromarray(tex[..., :3]), "SGI"),
+           "pillow_rgba.rgba": _pillow(Image.fromarray(tex), "SGI"),
+           "pillow_gray16.bw": _pillow(Image.fromarray(tex[..., 1]), "SGI",
+                                       bpc=2),
+           "pillow_rgb16.sgi": _pillow(Image.fromarray(tex[..., :3]), "SGI",
+                                       bpc=2),
+           "pillow_one_row.sgi": _pillow(Image.fromarray(tex[:1, :, 2]),
+                                         "SGI")}
+    planes = np.ascontiguousarray(tex.transpose(2, 0, 1))
+    wide = (planes.astype(np.uint16) * 257 + np.arange(13, dtype=np.uint16))
+    out["rle_gray.sgi"] = sgi_bytes(planes[:1], storage=1)
+    out["rle_rgb.rgb"] = sgi_bytes(planes[:3], storage=1)
+    out["rle_rgba.rgba"] = sgi_bytes(planes, storage=1)
+    out["rle_gray16.bw"] = sgi_bytes(wide[:1], 2, 1)
+    out["rle_rgb16.sgi"] = sgi_bytes(wide[:3], 2, 1)
+    out["rle_rgba16.sgi"] = sgi_bytes(wide, 2, 1)
+    out["rle_dimension1.sgi"] = sgi_bytes(planes[:1, :1], storage=1)
+    rows = [_sgi_rle_row(planes[0, ::-1][r].tolist(), 1) for r in range(11)]
+    first = 512 + 8 * 11
+    out["rle_shared_rows.sgi"] = sgi_bytes(
+        planes[:1], storage=1,
+        rows=[rows[0]] + [(first, len(rows[0]))] * 4 + rows[5:])
+    short = [r[:3] + b"\0" if k % 3 == 1 else r for k, r in enumerate(rows)]
+    out["rle_rows_end_early.sgi"] = sgi_bytes(planes[:1], storage=1,
+                                              rows=short)
+    packets = [(r, r.count(0) and sum(1 for _ in _packets(r))) for r in rows]
+    out["rle_length_counts_packets.sgi"] = sgi_bytes(planes[:1], storage=1,
+                                                     rows=packets)
+    out["rle_stops_at_a_row_refused.sgi"] = sgi_bytes(
+        planes[:1], storage=1, rows=rows[:6] + [(rows[6], 1)] + rows[7:])
+    out["rle_overrun.sgi"] = sgi_bytes(
+        planes[:1], storage=1, rows=rows[:4] + [bytes([0x7f, 9, 0])]
+        + rows[5:])
+    out["rle_offset_in_header.sgi"] = sgi_bytes(
+        planes[:1], storage=1, rows=rows[:2] + [(100, 5)] + rows[3:])
+    out["rle_cut_short.sgi"] = out["rle_rgb.rgb"][:-40]
+    out["rle_tables_cut.sgi"] = out["rle_rgb.rgb"][:512 + 100]
+    out["raw_cut_short.sgi"] = out["pillow_rgb.rgb"][:-7]
+    out["raw16_cut_short.sgi"] = out["pillow_gray16.bw"][:-7]
+    out["storage_2.sgi"] = sgi_bytes(planes[:1], storage=2)
+    out["dimension3_one_channel.sgi"] = sgi_bytes(planes[:1], dim=3)
+    out["header_cut.sgi"] = out["pillow_gray.sgi"][:9]
+    out["zero_width.sgi"] = sgi_bytes(planes[:1, :, :0])
+    return out
+
+
+# -------------------------------------------------------------------- PCX
+def _pcx_rle_line(line, escape_all=False):
+    """PCX runs of one scan line: a repeated byte or one of 0xC0 and above
+    as (0xC0 | count, value), at most 63 a run; never across lines."""
+    out, i = bytearray(), 0
+    while i < len(line):
+        j = i
+        while j < len(line) and line[j] == line[i] and j - i < 63:
+            j += 1
+        if j - i > 1 or line[i] >= 0xC0 or escape_all:
+            out += bytes([0xC0 | (j - i), line[i]])
+            i = j
+        else:
+            out.append(line[i])
+            i += 1
+    return bytes(out)
+
+
+def pcx_bytes(lines, w, h, bits, planes, stride, version=5, palette=b"",
+              trailer=b"", body=None):
+    """A PCX file: the 128-byte header (the stride field `stride`), the
+    scan lines (h, planes x Pillow's stride) in runs, then `trailer`."""
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, 0, 0, w - 1,
+                       h - 1, 72, 72) + palette.ljust(48, b"\0")[:48]
+    head = (head + b"\0" + bytes([planes]) + struct.pack("<HH", stride, 1)
+            ).ljust(128, b"\0")
+    if body is None:
+        body = b"".join(_pcx_rle_line(bytes(line)) for line in lines)
+    return head + body + trailer
+
+
+def pcx_fixtures():
+    """PCX files: Pillow's (1 bit, gray, palette, RGB; odd widths) and the
+    script's: 1 bit in 2 and 4 planes (even and padded strides, a width of
+    3, whose padded planes Pillow moves together), a 3-pixel RGB line
+    Pillow does not move, a short 8-bit file (gray from bytes, refused by
+    imageio's file seek at its path), a trailer that is the gray ramp, a
+    run across a line, cuts, other kinds."""
+    from PIL import Image
+
+    rnd = np.random.RandomState(111)
+    tex = terrain(9, 17, 112, 3)
+    img = Image.fromarray(tex)
+    out = {"pillow_bitmap.pcx": _pillow(img.convert("1"), "PCX"),
+           "pillow_gray.pcx": _pillow(img.convert("L"), "PCX"),
+           "pillow_palette.pcx": _pillow(img.quantize(40), "PCX"),
+           "pillow_rgb.pcx": _pillow(img, "PCX"),
+           "pillow_rgb_w3.pcx": _pillow(Image.fromarray(tex[:, :3]), "PCX"),
+           "pillow_gray_w1.pcx": _pillow(img.convert("L").crop((0, 0, 1, 9)),
+                                         "PCX")}
+    pal = bytes(rnd.randint(0, 256, 48).astype(np.uint8))
+    for planes in (2, 4):
+        for w, pad in ((16, 0), (17, 1), (3, 1)):
+            st = (w + 7) // 8
+            stride = st + (st % 2 if pad else 0)
+            lines = rnd.randint(0, 256, (5, planes * stride)).astype(np.uint8)
+            out[f"planes{planes}_w{w}.pcx"] = pcx_bytes(
+                lines, w, 5, 1, planes, st + pad, 2, pal)
+    gray = tex[..., 1]
+    out["gray_ramp_trailer.pcx"] = pcx_bytes(
+        gray, 17, 9, 8, 1, 18, trailer=b"\x0c" + bytes(
+            np.repeat(np.arange(256, dtype=np.uint8), 3)))
+    out["gray_short_file.pcx"] = pcx_bytes(
+        np.pad(gray[:2, :5], ((0, 0), (0, 1))), 5, 2, 8, 1, 6)
+    padded = np.zeros((9, 3, 6), np.uint8)  # planes of 5 pixels + 1
+    padded[:, :, :5] = tex[:, :5].transpose(0, 2, 1)
+    out["rgb_w5_padded.pcx"] = pcx_bytes(padded.reshape(9, -1), 5, 9, 8, 3,
+                                         6)
+    out["run_crosses_lines.pcx"] = pcx_bytes(None, 17, 9, 8, 1, 18,
+                                             body=bytes([0xC0 | 30, 7]) * 6)
+    out["cut_short.pcx"] = out["pillow_rgb.pcx"][:200]
+    out["header_cut.pcx"] = out["pillow_rgb.pcx"][:66]
+    out["version3_8bit.pcx"] = pcx_bytes(gray, 17, 9, 8, 1, 18, version=3)
+    out["bits4.pcx"] = pcx_bytes(gray, 17, 9, 4, 1, 18)
+    out["empty_box.pcx"] = out["pillow_gray.pcx"][:8] + struct.pack(
+        "<H", 0xFFFF) + out["pillow_gray.pcx"][10:]
+    return out
+
+
+# -------------------------------------------------------------------- QOI
+def _qoi_hash(p):
+    return (p[0] * 3 + p[1] * 5 + p[2] * 7 + p[3] * 11) % 64
+
+
+def qoi_bytes(px, channels=None, end=True, ops=None):
+    """A QOI file of px (h, w, 4) by the format's encoder (index, diff,
+    luma, run, RGB and RGBA ops), or of the raw op bytes `ops`."""
+    h, w = px.shape[:2]
+    head = b"qoif" + struct.pack(">II", w, h) + bytes(
+        [channels or px.shape[-1], 0])
+    if ops is None:
+        ops, index = bytearray(), [None] * 64
+        prev, run = (0, 0, 0, 255), 0
+        flat = [tuple(int(v) for v in p) for p in px.reshape(-1, 4)]
+        for k, p in enumerate(flat):
+            if p == prev:
+                run += 1
+                if run == 62 or k == len(flat) - 1:
+                    ops.append(0xC0 | (run - 1))
+                    run = 0
+                continue
+            if run:
+                ops.append(0xC0 | (run - 1))
+                run = 0
+            hsh = _qoi_hash(p)
+            if index[hsh] == p:
+                ops.append(hsh)
+            elif p[3] != prev[3]:
+                ops += bytes([0xFF, *p])
+            else:
+                d = [(p[i] - prev[i] + 128) % 256 - 128 for i in range(3)]
+                dg = d[1]
+                if all(-2 <= x <= 1 for x in d):
+                    ops.append(0x40 | (d[0] + 2) << 4 | (d[1] + 2) << 2
+                               | (d[2] + 2))
+                elif -32 <= dg <= 31 and all(-8 <= d[i] - dg <= 7
+                                             for i in (0, 2)):
+                    ops += bytes([0x80 | (dg + 32),
+                                  (d[0] - dg + 8) << 4 | (d[2] - dg + 8)])
+                else:
+                    ops += bytes([0xFE, *p[:3]])
+            index[hsh] = p
+            prev = p
+    return head + bytes(ops) + (b"\0" * 7 + b"\1" if end else b"")
+
+
+def qoi_fixtures():
+    """QOI files: Pillow's RGB and RGBA, the format's encoder over every op,
+    ops streams Pillow reads its own way (an index never set, a run first,
+    a run past the end, no end marker), another channel count, cuts inside
+    each op, a header cut short, and a width Pillow's GIMP brush reader
+    takes first (refused)."""
+    from PIL import Image
+
+    tex = terrain(10, 14, 121, 4)
+    tex[..., 3] = np.where(tex[..., 0] > 100, 255, 90)
+    tex[3:5] = tex[2]  # runs
+    tex[7, 3:9] = tex[7, 3]
+    out = {"pillow_rgb.qoi": _pillow(Image.fromarray(tex[..., :3]), "QOI"),
+           "pillow_rgba.qoi": _pillow(Image.fromarray(tex), "QOI")}
+    out["ops_rgba.qoi"] = qoi_bytes(tex)
+    smooth = np.cumsum(np.random.RandomState(122).randint(
+        -3, 4, (10, 14, 4)), 1).astype(np.uint8) + 100
+    smooth[..., 3] = 255
+    out["ops_rgb_diff_luma.qoi"] = qoi_bytes(smooth, 3)
+    out["channels_0.qoi"] = qoi_bytes(smooth, 0)
+    out["no_end_marker.qoi"] = qoi_bytes(smooth, 3, end=False)
+    small = np.zeros((3, 4, 4), np.uint8)
+    out["index_never_set.qoi"] = qoi_bytes(small, 4, ops=bytes(
+        [0x05, 0xC2, 0x3F, 0xFE, 9, 8, 7, 0x2B, 0xC3, 0x00, 0x40, 0xFF,
+         1, 2, 3, 4, 0x1D, 0xC5]))
+    out["run_past_the_end.qoi"] = qoi_bytes(small, 3, ops=bytes(
+        [0xFE, 50, 60, 70, 0xFD]))
+    full = out["ops_rgba.qoi"]
+    k = 14
+    cuts = {}
+    while k < len(full) - 8:
+        op = full[k]
+        n = 5 if op == 0xFF else 4 if op == 0xFE else 2 if op >> 6 == 2 \
+            else 1
+        for kind, at in (("rgba", 0xFF), ("rgb", 0xFE)):
+            if op == at and kind not in cuts:
+                cuts[kind] = full[:k + 2]
+        if op >> 6 == 2 and op not in (0xFE, 0xFF) and "luma" not in cuts:
+            cuts["luma"] = full[:k + 1]
+        k += n
+    cuts["op"] = full[:len(full) - 8 - 1]
+    for kind, data in sorted(cuts.items()):
+        out[f"cut_in_{kind}.qoi"] = data
+    out["header_cut.qoi"] = full[:11]
+    out["zero_height.qoi"] = qoi_bytes(small[:0], 4, ops=b"")
+    out["width2_refused.qoi"] = qoi_bytes(small[:, :2], 4)
+    return out
+
+
+# --------------------------------------------------------------------- IM
+def im_bytes(kind, w, h, body, lut=None, frames=1, extra=b"", pad=True):
+    """An IM file: Pillow's header lines for image type `kind`, its NUL
+    padding to 511 bytes and 0x1a, a Lut (768 bytes) where given, body."""
+    head = (f"Image type: {kind} image\r\nName: fixture\r\nImage size "
+            f"(x*y): {w}*{h}\r\nFile size (no of images): {frames}\r\n"
+            ).encode() + extra
+    if lut is not None:
+        head += b"Lut: 1\r\n"
+    head = head.ljust(511, b"\0") if pad else head
+    return head + b"\x1a" + (bytes(lut) if lut is not None else b"") + body
+
+
+def im_fixtures():
+    """IM files: Pillow's for every mode it writes, and the script's for
+    the rest of Pillow's table (2- and 4-bit palettes, whole planes, 24-bit
+    interleaved, float samples of 8, 16 and 32 bits, "L 32 S"), Lut rules
+    (gray and linear, gray and not, colour on L, LA and B2), two frames,
+    CRs and a NUL in the header, and what Pillow fails on (RLB, a palette
+    without a colour Lut, a cut frame, a header with none of its keys) or
+    the port refuses (a bit-packed float type)."""
+    from PIL import Image
+
+    rnd = np.random.RandomState(131)
+    tex = terrain(7, 9, 132, 4)
+    img = Image.fromarray(tex)
+    out = {}
+    for mode in ("1", "L", "LA", "P", "PA", "RGB", "RGBA", "RGBX", "CMYK",
+                 "YCbCr", "I", "I;16", "I;16L", "I;16B", "F"):
+        if mode == "P":
+            src = img.convert("RGB").quantize(30)
+        elif mode == "PA":
+            src = img.convert("RGB").quantize(30).convert("PA")
+        elif mode.startswith("I;16"):
+            src = Image.fromarray((tex[..., 0].astype(np.uint16) * 251)
+                                  ).convert(mode)
+        elif mode in ("I", "F"):
+            src = Image.fromarray(tex[..., 0].astype(np.int32) * 99991 - 7
+                                  ).convert(mode)
+        else:
+            src = img.convert(mode)
+        out[f"pillow_{mode.replace(';', '_').lower()}.im"] = _pillow(src,
+                                                                      "IM")
+    flip = lambda a: np.ascontiguousarray(a[::-1])  # noqa: E731
+    pal = rnd.randint(0, 256, 768).astype(np.uint8)
+    grey = np.tile(rnd.randint(0, 256, 256).astype(np.uint8), 3)
+    ramp = np.tile(np.arange(256, dtype=np.uint8), 3)
+    idx2 = rnd.randint(0, 4, (7, 9)).astype(np.uint8)
+    idx4 = rnd.randint(0, 16, (7, 9)).astype(np.uint8)
+    pack = lambda v, b: _pack_bits(flip(v), b).tobytes()  # noqa: E731
+    out["b2_colour_lut.im"] = im_bytes("B2", 9, 7, flip(idx2 * 60).tobytes(),
+                                       pal)
+    out["b4_colour_lut.im"] = im_bytes("B4", 9, 7, flip(idx4 * 15).tobytes(),
+                                       pal)
+    out["b2_without_lut.im"] = im_bytes("B2", 9, 7, pack(idx2, 2))
+    out["b4_grey_lut.im"] = im_bytes("B4", 9, 7, pack(idx4, 4), grey)
+    out["l_grey_lut.im"] = im_bytes("Greyscale", 9, 7,
+                                    flip(tex[..., 0]).tobytes(), grey)
+    out["l_ramp_lut.im"] = im_bytes("Greyscale", 9, 7,
+                                    flip(tex[..., 0]).tobytes(), ramp)
+    out["la_colour_lut.im"] = im_bytes(
+        "LA", 9, 7, flip(tex[..., :2].transpose(0, 2, 1)).tobytes(), pal)
+    out["rgb_lut.im"] = im_bytes(
+        "RGB", 9, 7, flip(tex[..., :3].transpose(0, 2, 1)).tobytes(), pal)
+    planes = flip(tex[..., :3]).transpose(2, 0, 1)
+    out["rgb3_planes.im"] = im_bytes("RGB3", 9, 7, planes[[1, 0, 2]].tobytes())
+    out["ryb3_planes.im"] = im_bytes("RYB3", 9, 7, planes[[1, 0, 2]].tobytes())
+    out["x24_interleaved.im"] = im_bytes("X 24", 9, 7,
+                                         flip(tex[..., :3]).tobytes())
+    out["l1_bitmap.im"] = im_bytes("L 1", 9, 7, pack(tex[..., 0] > 120, 1))
+    out["grayscale_spelling.im"] = im_bytes("Grayscale", 9, 7,
+                                            flip(tex[..., 1]).tobytes())
+    vals = rnd.randint(0, 1 << 16, (7, 9))
+    for kind, dt in (("L 8", "u1"), ("L 8S", "i1"), ("L 16", "<u2"),
+                     ("L 16S", "<i2"), ("L 32", "<u4"), ("L*8", "u1"),
+                     ("L*16", "<u2"), ("L*32", "<u4"), ("L 32 S", "<u4"),
+                     ("L 32S", "<i4")):
+        name = kind.replace(" ", "_").replace("*", "star")
+        out[f"{name.lower()}.im"] = im_bytes(kind, 9, 7, flip(
+            (vals * 40503 + 12345) % (1 << 8 * np.dtype(dt).itemsize)
+            ).astype(np.uint64).astype(dt).tobytes())
+    f32 = (rnd.randn(7, 9) * 1000).astype("<f4")
+    f32[0, 0], f32[1, 1] = np.inf, -0.0
+    out["l_32f.im"] = im_bytes("L 32F", 9, 7, flip(f32).tobytes())
+    out["l_32_f_space.im"] = im_bytes("L 32 F", 9, 7, flip(
+        vals.astype("<u4") * 65537).tobytes())
+    out["two_frames.im"] = im_bytes("Greyscale", 9, 7, flip(
+        tex[..., 0]).tobytes() + flip(tex[..., 1]).tobytes(), frames=2)
+    out["crlf_and_nul.im"] = b"\r\r" + im_bytes(
+        "Greyscale", 9, 7, flip(tex[..., 2]).tobytes(), extra=b"Comment: a\n"
+        b"Comment: b\r\n\0junk")
+    out["no_padding.im"] = im_bytes("Greyscale", 9, 7, flip(
+        tex[..., 2]).tobytes(), pad=False)
+    out["rlb_unknown_raw_mode.im"] = im_bytes("RLB", 9, 7, bytes(3 * 63))
+    out["pa_without_lut.im"] = im_bytes("PA", 9, 7, bytes(2 * 63))
+    out["cut_frame.im"] = out["pillow_rgb.im"][:-20]
+    out["cut_lut.im"] = out["b2_colour_lut.im"][:700]
+    out["no_known_key.im"] = b"Foo: bar\r\n".ljust(511, b"\0") + b"\x1a" + \
+        bytes(63)
+    out["lstar12_refused.im"] = im_bytes("L*12", 9, 7, bytes(12 * 63))
+    return out
+
+
+# --------------------------------------------------------------------- ICO
+def _dib(img_rows, bits, w, h, palette=b"", mask=None, header=40):
+    """A DIB as an icon holds it: the info (or core) header with twice the
+    height, a palette, the rows (bottom-up, padded to 32 bits), then the
+    AND mask where given ((h, w) bool, set = transparent)."""
+    stride = ((w * bits + 31) >> 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    raw = np.asarray(img_rows, np.uint8).reshape(h, -1)
+    rows[:, :raw.shape[1]] = raw
+    if header == 12:
+        head = struct.pack("<IHHHH", 12, w, 2 * h, 1, bits)
+    else:
+        head = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0, 0, 0,
+                           0, 0, 0)
+    out = head + palette + rows[::-1].tobytes()
+    if mask is not None:
+        ms = ((w + 31) // 32) * 4
+        m = np.zeros((h, ms * 8), np.uint8)
+        m[:, :w] = mask
+        out += np.packbits(m, axis=1)[::-1].tobytes()
+    return out
+
+
+def ico_bytes(entries):
+    """An ICO of [(width byte, height byte, colour count, bpp, data)]."""
+    head = struct.pack("<HHH", 0, 1, len(entries))
+    at, dirs, blobs = 6 + 16 * len(entries), b"", b""
+    for w, h, ncolor, bpp, data in entries:
+        dirs += struct.pack("<BBBBHHII", w, h, ncolor, 0, 1, bpp, len(data),
+                            at + len(blobs))
+        blobs += data
+    return head + dirs + blobs
+
+
+def ico_fixtures():
+    """ICO files: Pillow's (PNG entries of each mode, several sizes; DIB
+    entries at 1, 8, 24 and 32 bits) and the script's: Pillow's choice of
+    entry (by colour depth, then area: of a 256x256 icon with 8- and
+    32-bit DIBs the 8-bit one; the colour count where the bit count is 0),
+    a PNG whose size is not the directory's (by png_bytes), a core-header
+    DIB, 4-bit and
+    palette DIBs with masks, a 32-bit entry over a 24-bit DIB, cuts in the
+    directory, PNG, pixels and mask, a 5x7 image Pillow writes without
+    entries, what Pillow does not read and a top-down DIB (refused)."""
+    from PIL import Image
+
+    rnd = np.random.RandomState(141)
+    tex = terrain(24, 24, 142, 4)
+    tex[..., 3] = np.where(tex[..., 0] > 100, 255, 40)
+    img = Image.fromarray(tex)
+    out = {}
+    for mode in ("RGBA", "RGB", "L", "LA", "P", "1"):
+        src = img.convert(mode) if mode != "P" else img.convert(
+            "RGB").quantize(20)
+        out[f"pillow_png_{mode.lower()}.ico"] = _pillow(
+            src, "ICO", sizes=[(24, 24), (16, 16)])
+        if mode in ("RGBA", "RGB", "L", "P", "1"):
+            out[f"pillow_bmp_{mode.lower()}.ico"] = _pillow(
+                src, "ICO", sizes=[(24, 24), (16, 16)], bitmap_format="bmp")
+    out["pillow_png_i16.ico"] = _pillow(Image.fromarray(
+        tex[..., 0].astype(np.uint16) * 257), "ICO", sizes=[(24, 24)])
+    out["pillow_nonsquare_no_entries.ico"] = _pillow(
+        Image.fromarray(tex[:7, :5]), "ICO")
+    big = terrain(256, 256, 143, 4)
+    pal8 = bytes(rnd.randint(0, 256, 1024).astype(np.uint8))
+    idx = (big[..., 0] // 4).astype(np.uint8)
+    dib8 = _dib(idx, 8, 256, 256, pal8, mask=big[..., 1] < 80)
+    dib32 = _dib(big[..., [2, 1, 0, 3]].reshape(256, -1), 32, 256, 256)
+    out["depth_choice_256.ico"] = ico_bytes([(0, 0, 0, 32, dib32),
+                                             (0, 0, 0, 8, dib8)])
+    pal4 = bytes(rnd.randint(0, 256, 64).astype(np.uint8))
+    v4 = rnd.randint(0, 16, (12, 10)).astype(np.uint8)
+    dib4 = _dib(_pack_bits(v4, 4), 4, 10, 12, pal4,
+                mask=rnd.rand(12, 10) < 0.3)
+    out["colour_count_depth.ico"] = ico_bytes([
+        (10, 12, 16, 0, dib4),
+        (10, 12, 0, 24, _dib(tex[:12, :10, 2::-1].reshape(12, -1), 24, 10,
+                             12, mask=np.zeros((12, 10))))])
+    out["dib4_mask.ico"] = ico_bytes([(10, 12, 16, 4, dib4)])
+    core = _dib(idx[:9, :11], 8, 11, 9, pal8[:768], mask=idx[:9, :11] > 40,
+                header=12)
+    out["dib8_core_header.ico"] = ico_bytes([(11, 9, 0, 8, core)])
+    dib24 = _dib(tex[:, :, 2::-1].reshape(24, -1), 24, 24, 24,
+                 mask=tex[..., 1] > 150)
+    out["bpp32_over_dib24.ico"] = ico_bytes([(24, 24, 0, 32, dib24)])
+    png40 = png_bytes(terrain(40, 40, 144, 3), 8, 2)
+    out["png_size_differs.ico"] = ico_bytes([(32, 32, 0, 32, png40)])
+    out["dir_cut.ico"] = out["pillow_png_rgba.ico"][:20]
+    out["no_entries.ico"] = struct.pack("<HHH", 0, 1, 0)
+    out["png_entry_cut.ico"] = ico_bytes([(24, 24, 0, 32, png_bytes(
+        tex, 8, 6))])[:-40]
+    out["png_chunk_header_cut.ico"] = ico_bytes([(40, 40, 0, 32,
+                                                  png40[:35])])
+    out["dib_mask_cut.ico"] = ico_bytes([(24, 24, 0, 24, dib24)])[:-80]
+    out["dib_last_mask_row_short.ico"] = ico_bytes([(24, 24, 0, 24,
+                                                     dib24)])[:-1]
+    cut = bytearray(ico_bytes([(24, 24, 0, 24, dib24)])[:-1200])
+    cut[14:18] = struct.pack("<I", 40 + 96)  # the mask over the header
+    out["dib_pixels_cut.ico"] = bytes(cut)
+    out["dib_header_64x.ico"] = ico_bytes([(4, 4, 0, 24, struct.pack(
+        "<I", 20) + bytes(60))])
+    td = bytearray(dib24)
+    td[8:12] = struct.pack("<i", -48)
+    out["dib_top_down_refused.ico"] = ico_bytes([(24, 24, 0, 24,
+                                                  bytes(td))])
+    return out
+
+
+# ------------------------------------------------------------------- ICNS
+def _icns_runs(plane):
+    """One plane in the icns run coding: runs of 3-130 as (n + 125, v),
+    literals of 1-128 as (n - 1, bytes)."""
+    out, i, v = bytearray(), 0, bytes(plane)
+    while i < len(v):
+        j = i
+        while j < len(v) and v[j] == v[i] and j - i < 130:
+            j += 1
+        if j - i >= 3:
+            out += bytes([j - i + 125, v[i]])
+            i = j
+            continue
+        j = i + 1
+        while j < len(v) and j - i < 128 and not (
+                j + 2 < len(v) and v[j] == v[j + 1] == v[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + v[i:j]
+        i = j
+    return bytes(out)
+
+
+def icns_bytes(blocks, size=None):
+    """An icns file of [(type, data)] blocks."""
+    body = b"".join(t + struct.pack(">I", 8 + len(d)) + d for t, d in blocks)
+    return b"icns" + struct.pack(">I", 8 + len(body) if size is None
+                                 else size) + body
+
+
+def icns_fixtures():
+    """ICNS files: Pillow's (PNG entries up to 1024x1024, from flat blocks;
+    RGBA, RGB and gray) and the script's (PNG entries by png_bytes: Pillow's
+    zlib output for one image differed between two test processes here):
+    it32 + t8mk and ih32,
+    il32, is32 with and without masks, in runs and raw (runs without a
+    mask refused: imageio's array of them is not defined), a JPEG 2000 entry
+    (gray and RGB), a size whose PNG is half the listed one, a block named
+    twice, and what Pillow fails on (a mask alone, a bad it32 signature,
+    uneven runs, an unknown subimage, a cut block, a PNG of another
+    size)."""
+    from PIL import Image
+
+    small = terrain(12, 12, 151, 4)
+    small[..., 3] = np.where(small[..., 0] > 100, 255, 0)
+    # Pillow writes every entry up to 1024x1024 as PNG: 8x8 flat blocks of
+    # 128 pixels keep them small (a smooth or noisy source takes MBs)
+    img = Image.fromarray(np.kron(small[:8, :8], np.ones((128, 128, 1),
+                                                          np.uint8)))
+    out = {"pillow_rgba.icns": _pillow(img, "ICNS"),
+           "pillow_rgb.icns": _pillow(img.convert("RGB"), "ICNS"),
+           "pillow_gray.icns": _pillow(img.convert("L"), "ICNS")}
+    planes = {}
+    for side in (128, 48, 32, 16):
+        t = np.asarray(Image.fromarray(small).resize((side, side),
+                                                     Image.NEAREST))
+        planes[side] = t
+    t = planes[128]
+    runs = b"".join(_icns_runs(t[..., c].tobytes()) for c in range(3))
+    out["it32_t8mk.icns"] = icns_bytes([(b"it32", bytes(4) + runs),
+                                        (b"t8mk", t[..., 3].tobytes())])
+    out["ih32_runs_no_mask_refused.icns"] = icns_bytes([(b"ih32", b"".join(
+        _icns_runs(planes[48][..., c].tobytes()) for c in range(3)))])
+    out["ih32_raw_no_mask.icns"] = icns_bytes([
+        (b"ih32", planes[48][..., :3].tobytes())])
+    out["il32_raw_l8mk.icns"] = icns_bytes([
+        (b"il32", planes[32][..., :3].tobytes()),
+        (b"l8mk", planes[32][..., 3].tobytes())])
+    out["is32_s8mk.icns"] = icns_bytes([
+        (b"s8mk", planes[16][..., 3].tobytes()),
+        (b"is32", b"".join(_icns_runs(planes[16][..., c].tobytes())
+                           for c in range(3)))])
+    j2 = _pillow(Image.fromarray(planes[128][..., :3]), "JPEG2000",
+                 irreversible=False)
+    out["ic07_jp2_rgb.icns"] = icns_bytes([(b"ic07", j2)])
+    jg = _pillow(Image.fromarray(planes[32][..., 1]), "JPEG2000",
+                 no_jp2=True)
+    out["icp5_j2k_gray.icns"] = icns_bytes([(b"icp5", jg)])
+    p64 = png_bytes(planes[32], 8, 6)
+    out["ic09_half_size_png.icns"] = icns_bytes([(b"ic09", png_bytes(
+        np.asarray(Image.fromarray(small).resize((256, 256))), 8, 6))])
+    out["block_named_twice.icns"] = icns_bytes([(b"icp5", b"junk"),
+                                                (b"icp5", p64)])
+    out["mask_only.icns"] = icns_bytes([(b"h8mk", bytes(48 * 48))])
+    out["it32_bad_signature.icns"] = icns_bytes([(b"it32", b"\1\0\0\0"
+                                                  + runs)])
+    out["runs_uneven.icns"] = icns_bytes([(b"is32", bytes([0x83, 9]) * 3
+                                           + bytes([0xFF, 1]))])
+    out["unknown_subimage.icns"] = icns_bytes([(b"ic08", b"GIF89a" +
+                                                bytes(30))])
+    out["block_cut.icns"] = out["il32_raw_l8mk.icns"][:30]
+    out["png_odd_size.icns"] = icns_bytes([(b"ic07", png_bytes(
+        np.asarray(Image.fromarray(small).resize((100, 100))), 8, 6))])
+    return out
+
+
+# -------------------------------------------------------------------- MPO
+def mpo_fixtures():
+    """MPO files by Pillow: two and three frames, a progressive first
+    frame, and an EXIF Orientation of 6 (which imageio does not apply); the
+    two-frame file cut in a marker's length (ValueError), in a segment's
+    data and in the first frame's scan (OSError)."""
+    from PIL import Image
+
+    frames = [Image.fromarray(terrain(16, 24, 161 + k, 3)) for k in range(3)]
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    two = _pillow(frames[0], "MPO", save_all=True, append_images=frames[1:2])
+    dqt, sos = two.index(b"\xff\xdb"), two.index(b"\xff\xda")
+    return {
+        "pillow_two_frames.mpo": two,
+        "pillow_cut_in_marker_length.mpo": two[:dqt + 3],
+        "pillow_cut_in_segment.mpo": two[:dqt + 10],
+        "pillow_cut_in_scan.mpo": two[:sos + 60],
+        "pillow_three_frames.mpo": _pillow(frames[0], "MPO", save_all=True,
+                                           append_images=frames[1:]),
+        "pillow_progressive.mpo": _pillow(frames[0], "MPO", save_all=True,
+                                          append_images=frames[1:2],
+                                          progressive=True),
+        "pillow_orientation6.mpo": _pillow(frames[1], "MPO", save_all=True,
+                                           append_images=frames[2:],
+                                           exif=exif)}
+
+
 # ---------------------------------------------------------------- digests
 def _summary(a):
     a = np.asarray(a)
@@ -1934,9 +2582,10 @@ def digest(data, path=None, kind=None):
 
     import imageio.v3 as iio
 
-    if kind in CHOICE_KINDS:
-        return {"bytes": len(data), **imageio_choice(data),
-                "path": imageio_choice(path)}
+    if kind in CHOICE_KINDS + NATIVE_KINDS:
+        native = kind in NATIVE_KINDS
+        return {"bytes": len(data), **imageio_choice(data, native),
+                "path": imageio_choice(path, native)}
     caught = Exception if kind in VALUE_ERROR_KINDS else OSError
     try:  # Pillow, imageio's first choice for bytes, and no fall-back
         out = {"bytes": len(data),
@@ -1959,11 +2608,24 @@ def digest(data, path=None, kind=None):
     return out
 
 
-def imageio_choice(src):
+def error_name(e):
+    """The nearest built-in class of an exception (struct.error named so)."""
+    import builtins
+
+    for c in type(e).__mro__:
+        if c is struct.error:
+            return "struct.error"
+        if getattr(builtins, c.__name__, None) is c:
+            return c.__name__
+    return "Exception"
+
+
+def imageio_choice(src, native=False):
     """imageio.v3.imread(src) (bytes or a path) by imageio's own choice of
     plugin: {reader: "pillow" or "opencv", shape, dtype, sha256}, or
     {error: "ValueError", imageio: the class it raised} (what the port
-    raises wherever imageio fails)."""
+    raises wherever imageio fails; with `native`, error_name of what
+    imageio raised)."""
     import warnings
 
     import imageio.v3 as iio
@@ -1976,7 +2638,8 @@ def imageio_choice(src):
                 reader = names.get(type(f).__name__, type(f).__name__)
                 a = np.asarray(f.read())
     except Exception as e:  # noqa: BLE001 -- imageio raises many kinds
-        return {"error": "ValueError", "imageio": type(e).__name__}
+        return {"error": error_name(e) if native else "ValueError",
+                "imageio": type(e).__name__}
     return {"reader": reader, **_summary(a)}
 
 
@@ -2001,7 +2664,10 @@ def reference(kind):
 KINDS = {"png": png_fixtures, "tiff": tiff_fixtures, "bmp": bmp_fixtures,
          "webp": webp_fixtures, "pnm": pnm_fixtures, "tga": tga_fixtures,
          "jp2": jp2_fixtures, "pfm_pam": pfm_pam_fixtures,
-         "hdr": hdr_fixtures, "sun": sun_fixtures, "dds": dds_fixtures}
+         "hdr": hdr_fixtures, "sun": sun_fixtures, "dds": dds_fixtures,
+         "sgi": sgi_fixtures, "pcx": pcx_fixtures, "qoi": qoi_fixtures,
+         "im": im_fixtures, "ico": ico_fixtures, "icns": icns_fixtures,
+         "mpo": mpo_fixtures}
 # committed files no script here writes, kept with their entries
 KEPT = {"png": ("terrain_48x40_rgb_5filters.png",)}
 
@@ -2028,9 +2694,10 @@ def main(out_dir=DEFAULT_DIR, kinds=tuple(KINDS)):
                 f.write(data)
             digests[name] = digest(
                 data, path if kind == "tiff" or kind in VALUE_ERROR_KINDS
-                + CHOICE_KINDS else None, kind)
+                + CHOICE_KINDS + NATIVE_KINDS else None, kind)
             if name in REFUSED:
-                if kind in CHOICE_KINDS:  # imageio's array, if any, unkept:
+                if kind in CHOICE_KINDS + NATIVE_KINDS:  # imageio's array,
+                    # if any, unkept:
                     # a PAM with alpha comes back with unwritten bytes
                     digests[name] = {"bytes": len(data)}
                 digests[name]["refused"] = REFUSED[name]

@@ -1,8 +1,9 @@
 """Shared by the port's raster tests (test_torch_png_formats.py,
 test_torch_tiff.py, test_torch_bmp.py, test_torch_webp.py,
 test_torch_pnm_tga.py, test_torch_jp2.py, test_torch_opencv_rasters.py,
-test_torch_dds_sun.py): the committed fixtures of
-tests/data/{png,tiff,bmp,webp,pnm,tga,jp2,pfm_pam,hdr,sun,dds}/
+test_torch_dds_sun.py, test_torch_sgi_pcx_qoi.py, test_torch_icons_im.py):
+the committed fixtures of tests/data/{png,tiff,bmp,webp,pnm,tga,jp2,
+pfm_pam,hdr,sun,dds,sgi,pcx,qoi,im,ico,icns,mpo}/
 (tests/make_raster_fixtures.py) against their digests, the script re-run,
 and a raster pair's first batches against terrain_tpu's `_get_data`."""
 
@@ -28,6 +29,15 @@ def summary(a):
             hashlib.sha256(a.tobytes()).hexdigest()]
 
 
+def exception(name):
+    """The exception class a digest names ("struct.error" or a built-in)."""
+    import builtins
+    import struct
+
+    return struct.error if name == "struct.error" else getattr(builtins,
+                                                               name)
+
+
 def check_fixture(kind, name, decode):
     """decode(bytes) of a committed fixture gives imageio's decode of its
     bytes, and data/raster.read_raster(path) imageio's of its path (the
@@ -36,7 +46,6 @@ def check_fixture(kind, name, decode):
     named there, and where it raises on the path (an "error" under
     "path"), read_raster does; a fixture the port refuses ("refused") is refused by name
     both ways, one it refuses at its path ("path_refused") by path."""
-    import builtins
     import re
 
     import pytest
@@ -54,7 +63,7 @@ def check_fixture(kind, name, decode):
                 read()
         return
     if "error" in want:
-        with pytest.raises(getattr(builtins, want["error"])):
+        with pytest.raises(exception(want["error"])):
             decode(data)
     else:
         assert summary(decode(data)) == [
@@ -66,7 +75,7 @@ def check_fixture(kind, name, decode):
         return
     by_path = want.get("path", want)
     if by_path is not None and "error" in by_path:
-        with pytest.raises(getattr(builtins, by_path["error"])):
+        with pytest.raises(exception(by_path["error"])):
             read_raster(path)
     elif by_path is not None:
         assert summary(read_raster(path)) == [

@@ -33,7 +33,7 @@ DATA = ROOT / "tests" / "data"
 HOSTS = [os.path.join(aot.PACKAGE, s) for s in _build.HOST_SOURCES]
 
 KINDS = ("png", "jpeg", "tiff", "bmp", "webp", "pnm", "tga", "jp2", "pfm_pam",
-         "hdr", "sun", "dds")
+         "hdr", "sun", "dds", "sgi", "pcx", "qoi", "im", "ico", "icns", "mpo")
 DECODE = """
 import hashlib, json, os, sys
 from terrain_tpu_torch.data.raster import read_raster
@@ -81,9 +81,10 @@ def _no_compiler(monkeypatch):
 
 
 def test_the_host_sources_are_the_decoders():
-    """The PNG unfilter, the JPEG decoder, the TIFF, BMP, TGA, Sun and
-    Radiance runs and the DDS blocks (one library: data/bmp.py, tga.py,
-    sun.py, hdr.py and dds.py bind data/tiff.py's), the GIF
+    """The PNG unfilter, the JPEG decoder, the TIFF, BMP, TGA, Sun,
+    Radiance, SGI and PCX runs, the DDS blocks and the QOI ops (one
+    library: data/bmp.py, tga.py, sun.py, hdr.py, dds.py, sgi.py, pcx.py
+    and qoi.py bind data/tiff.py's), the GIF
     writer's quantizer and LZW coder, the WebP decoder and the JPEG 2000
     decoder: six host libraries."""
     assert sorted(HOSTS) == sorted([png._UNFILTER_SRC, jpeg._SRC, tiff._SRC,

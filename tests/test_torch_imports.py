@@ -101,6 +101,13 @@ def test_the_file_list_covers_the_package():
                  "terrain_tpu_torch/data/hdr.py",
                  "terrain_tpu_torch/data/sun.py",
                  "terrain_tpu_torch/data/dds.py",
+                 "terrain_tpu_torch/data/sgi.py",
+                 "terrain_tpu_torch/data/pcx.py",
+                 "terrain_tpu_torch/data/qoi.py",
+                 "terrain_tpu_torch/data/im.py",
+                 "terrain_tpu_torch/data/ico.py",
+                 "terrain_tpu_torch/data/icns.py",
+                 "terrain_tpu_torch/data/pillow_open.py",
                  "terrain_tpu_torch/tools/import_reference_weights.py",
                  "terrain_tpu_torch/eval/resize.py",
                  "terrain_tpu_torch/tools/make_synthetic.py",
@@ -167,7 +174,12 @@ for kind, name in (("tiff", "rgb8_lzw_pred2_tiles_be.tif"),
                    ("tga", "map16_rle.tga"), ("pfm_pam", "cv_pf_gray.pfm"),
                    ("pfm_pam", "pam_comments_cr.pam"), ("hdr", "all_rle.hdr"),
                    ("sun", "rle_depth8.ras"), ("sun", "depth8_map2.sr"),
-                   ("dds", "dx10_bc7.dds"), ("dds", "dx10_bc6h_sf16.dds")):
+                   ("dds", "dx10_bc7.dds"), ("dds", "dx10_bc6h_sf16.dds"),
+                   ("sgi", "rle_rgba16.sgi"), ("pcx", "planes4_w3.pcx"),
+                   ("qoi", "ops_rgba.qoi"), ("im", "b4_colour_lut.im"),
+                   ("ico", "dib4_mask.ico"), ("ico", "pillow_png_p.ico"),
+                   ("icns", "it32_t8mk.icns"), ("icns", "ic07_jp2_rgb.icns"),
+                   ("mpo", "pillow_progressive.mpo")):
     d = json.load(open(os.path.join(data, kind, "digests.json")))[name]
     a = read_raster(os.path.join(data, kind, name))
     assert hashlib.sha256(a.tobytes()).hexdigest() == \
@@ -188,9 +200,12 @@ def test_the_data_path_runs_without_h5py_imageio_or_pil():
     edge chunks stored unfiltered), a progressive JPEG, a TIFF, a BMP, an
     interlaced palette PNG, a WebP with a filtered VP8L ALPH chunk, a PBM
     at its path, a run-length TGA, a PFM at its path (OpenCV's reading), a
-    PAM, a run-length Radiance file, Sun rasters at *.ras and *.sr paths
-    and BC7 and BC6H DDS files to their digests and imports
-    the port's data tools and the weights importer."""
+    PAM, a run-length Radiance file, Sun rasters at *.ras and *.sr paths,
+    BC7 and BC6H DDS files, a run-length 16-bit SGI, a 4-plane PCX, a QOI
+    of every op, a 4-bit IM with a colour Lut, DIB and PNG icons, an icns
+    of it32 runs and one of a JPEG 2000 entry and a progressive MPO to
+    their digests and imports the port's data tools and the weights
+    importer."""
     import subprocess
 
     r = subprocess.run([sys.executable, "-c", BLOCKED,

@@ -5,8 +5,8 @@ reader): every committed fixture of tests/data/png
 gray+alpha and colour at 8 and 16 bits, tRNS, Adam7) to imageio's shape,
 dtype and SHA-256 through `read_png`; `decode_png`'s (H, W, C) contract for
 the serving codec; Adam7 at every small size against the image it was
-made from; and interlaced and palette pairs' crops against terrain_tpu's
-`_get_data`.  Images are a few dozen pixels a side."""
+made from; files cut in their image data against imageio; and
+interlaced and palette pairs' crops against terrain_tpu's `_get_data`.  Images are a few dozen pixels a side."""
 
 import numpy as np
 import pytest
@@ -68,6 +68,35 @@ def test_adam7_at_every_small_size(depth, ctype):
             got, d, t, _ = png.decode_samples(data)
             assert (d, t) == (depth, ctype)
             np.testing.assert_array_equal(got, img)
+
+
+@pytest.mark.parametrize("name", ["gray1_1x1_adam7.png",
+                                  "gray1_2x3_adam7.png",
+                                  "rgb8_2x3_adam7.png", "palette4_adam7.png",
+                                  "gray8.png"])
+def test_a_png_cut_in_its_image_data_reads_as_imageio_reads_it(name):
+    """Cut anywhere from its first IDAT's data on, a PNG decodes where
+    imageio decodes it, to its array, and raises its class where it
+    raises: Pillow's decoder stops once the rows are filled, inflating a
+    row at a time while an IDAT's block lasts, then walks the chunks to
+    IEND (these small files split their zlib stream over several IDATs)."""
+    import os
+
+    from raster_cases import DATA, exception
+
+    with open(os.path.join(DATA, "png", name), "rb") as f:
+        data = f.read()
+    decoded = 0
+    for k in range(data.index(b"IDAT") + 4, len(data) + 1):
+        try:
+            want = iio.imread(data[:k])
+        except Exception as e:  # noqa: BLE001 -- imageio raises many kinds
+            with pytest.raises(exception(mk.error_name(e))):
+                png.read_png(data[:k])
+            continue
+        assert summary(png.read_png(data[:k])) == summary(want)
+        decoded += 1
+    assert decoded >= 1
 
 
 def test_bad_files_raise_value_error():

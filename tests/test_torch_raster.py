@@ -344,6 +344,13 @@ def _subsampled_ycbcr(path):
         more_tags={530: (3, [2, 2])}))
 
 
+def _fixture(name):
+    from raster_cases import DATA
+
+    with open(os.path.join(DATA, name), "rb") as f:
+        return f.read()
+
+
 def _cmyk4(path):
     """CMYK of 4-bit samples, outside Pillow's table of modes."""
     from raster_cases import script
@@ -372,6 +379,12 @@ def _cmyk4(path):
      r"TIFF: compression 7 \(JPEG\)"),
     ("b.tif", _subsampled_ycbcr, r"TIFF: YCbCr subsampled \(2, 2\)"),
     ("b.tiff", _cmyk4, r"TIFF: CMYK samples \(4, 4, 4, 4\)"),
+    ("b.qoi", lambda p: p.write_bytes(_fixture("qoi/width2_refused.qoi")),
+     "QOI: a width of 1 or 2 makes Pillow try the file as a GIMP brush"),
+    ("b.im", lambda p: p.write_bytes(_fixture("im/lstar12_refused.im")),
+     "IM: the 12-bit samples"),
+    ("b.ico", lambda p: p.write_bytes(_fixture(
+        "ico/dib_top_down_refused.ico")), "ICO: a DIB entry .* top-down"),
 ])
 def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
                                                match, monkeypatch):
@@ -380,8 +393,11 @@ def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
     path and 4-bit CMYK by their TIFF headers, a JPEG 2000 POC marker by
     the codestream's main header, a PAM with alpha by its header, a *.pbm
     holding gray and a *.pfm holding P5 by their magic, and a PNG at a
-    *.hdr path (which imageio reads through OpenCV) by its magic --
-    NotImplementedError naming them, before either file is decoded."""
+    *.hdr path (which imageio reads through OpenCV) by its magic, a QOI
+    of width 2 (which Pillow tries as a GIMP brush first) by its header,
+    an IM of Pillow's bit-packed floats by its image type and a top-down
+    DIB icon by its entry's header -- NotImplementedError naming them,
+    before either file is decoded."""
     value, hm, _ = _write_pair(tmp_path, rng)
     other = tmp_path / name
     if make is not None:
@@ -396,8 +412,10 @@ def test_a_raster_that_is_not_a_png_is_refused(tmp_path, rng, name, make,
                         lambda *a: decoded.append(1))
     monkeypatch.setattr(raster.sun, "read_sun",
                         lambda *a: decoded.append(1))
-    monkeypatch.setattr(raster, "_DECODERS", {
-        k: (lambda *a: decoded.append(1)) for k in raster._DECODERS})
+    for table in ("_DECODERS", "_PATH_DECODERS"):
+        monkeypatch.setattr(raster, table, {
+            k: (lambda *a, **kw: decoded.append(1))
+            for k in getattr(raster, table)})
     with pytest.raises(NotImplementedError, match=match):
         experiments.read_raster_pair(f"{value.split(',')[0]},{other}")
     assert decoded == []  # neither file was decoded
